@@ -1,0 +1,89 @@
+"""Weights for the port's ``Llama``: carried across from the JAX package's
+flax tree, or drawn at random with the JAX package's distributions.
+
+``state_dict_from_jax`` is the inverse of the layout mapping in
+``skypilot_tpu/models/hf_import.py`` (``_linear``, ``_qkv_kernel``,
+``_oproj_kernel``): flax ``[in, out]`` kernels become ``nn.Linear``
+``[out, in]`` weights, the per-head q/k/v kernels ``[H, heads, D]``
+become ``[heads*D, H]`` and o_proj ``[heads, D, H]`` becomes
+``[H, heads*D]``.  RMSNorm scales keep their stored ``w - 1`` form.
+"""
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from skypilot_tpu_torch.models.llama import LlamaConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        config: LlamaConfig) -> StateDict:
+    """flax ``params['params']`` (nested dicts of numpy arrays) -> the
+    port's ``Llama`` state_dict (f32 CPU tensors; ``load_state_dict``
+    casts each to its parameter's dtype)."""
+    h = config.hidden_size
+    sd: StateDict = {'embedding': _t(params['embedding']),
+                     'final_norm.scale': _t(params['final_norm']['scale'])}
+    if not config.tie_embeddings:
+        sd['lm_head.weight'] = _t(params['lm_head']['kernel']).T
+    for i in range(config.num_layers):
+        src, dst = params[f'layer_{i}'], f'layers.{i}.'
+        for norm in ('input_norm', 'post_attn_norm'):
+            sd[f'{dst}{norm}.scale'] = _t(src[norm]['scale'])
+        attn = src['attn']
+        for name in ('q_proj', 'k_proj', 'v_proj'):
+            sd[f'{dst}attn.{name}.weight'] = \
+                _t(attn[name]['kernel']).reshape(h, -1).T
+            if config.attention_bias:
+                sd[f'{dst}attn.{name}.bias'] = \
+                    _t(attn[name]['bias']).reshape(-1)
+        sd[f'{dst}attn.o_proj.weight'] = \
+            _t(attn['o_proj']['kernel']).reshape(-1, h).T
+        for name in ('gate_proj', 'up_proj', 'down_proj'):
+            sd[f'{dst}mlp.{name}.weight'] = _t(src['mlp'][name]['kernel']).T
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def init_params(config: LlamaConfig,
+                generator: torch.Generator) -> StateDict:
+    """A random state_dict with the JAX module's init distributions:
+    normal(0.02) for the embedding, every projection and lm_head;
+    normal(0.02/sqrt(2L)) for o_proj (depth-scaled residual branch);
+    zeros for norm scales and biases.  Tensors are f32 on the
+    generator's device.  Does not reproduce JAX's random bits."""
+    dev = generator.device
+    h, d, n_layers = config.hidden_size, config.head_dim_, config.num_layers
+
+    def normal(std, *shape):
+        return torch.randn(shape, generator=generator, device=dev) * std
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    sd: StateDict = {'embedding': normal(0.02, config.vocab_size, h),
+                     'final_norm.scale': zeros(h)}
+    if not config.tie_embeddings:
+        sd['lm_head.weight'] = normal(0.02, config.vocab_size, h)
+    heads = {'q_proj': config.num_heads, 'k_proj': config.num_kv_heads,
+             'v_proj': config.num_kv_heads}
+    o_std = 0.02 / (2 * n_layers) ** 0.5
+    for i in range(n_layers):
+        p = f'layers.{i}.'
+        sd[p + 'input_norm.scale'] = zeros(h)
+        sd[p + 'post_attn_norm.scale'] = zeros(h)
+        for name, n in heads.items():
+            sd[f'{p}attn.{name}.weight'] = normal(0.02, n * d, h)
+            if config.attention_bias:
+                sd[f'{p}attn.{name}.bias'] = zeros(n * d)
+        sd[p + 'attn.o_proj.weight'] = normal(o_std, h, config.num_heads * d)
+        inter = config.intermediate_size
+        sd[p + 'mlp.gate_proj.weight'] = normal(0.02, inter, h)
+        sd[p + 'mlp.up_proj.weight'] = normal(0.02, inter, h)
+        sd[p + 'mlp.down_proj.weight'] = normal(0.02, h, inter)
+    return sd

@@ -1,0 +1,359 @@
+"""Llama-family decoder (Llama 2/3, Qwen2, Mistral, Gemma geometry):
+RMSNorm, RoPE, GQA, gated MLP -- the PyTorch twin of
+``skypilot_tpu/models/llama.py``.
+
+Numerics follow the JAX module: compute in ``config.dtype`` with f32
+RMSNorm statistics, f32 RoPE angles and f32 logits.  Parameters are
+stored as the JAX module uses them: projection weights in
+``config.dtype`` (the JAX module casts its f32 params to that dtype at
+every use), norm scales, the embedding table and ``lm_head`` in f32.
+
+The no-cache forward attends through ``ops.flash_attention`` (the Hopper
+kernel on a CUDA tensor); the cached forward writes K/V in place into a
+per-layer ``[B, Hkv, M, D]`` cache and attends with ``decode_attention``,
+as the JAX serving path does.
+"""
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from skypilot_tpu_torch.ops.flash_attention import flash_attention
+
+KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    name: str
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: Optional[int] = None
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    # Llama-3.1 RoPE frequency scaling (HF rope_type='llama3'); enabled
+    # when factor and original_max_len are both set.
+    rope_scaling_factor: Optional[float] = None
+    rope_scaling_low_freq: float = 1.0
+    rope_scaling_high_freq: float = 4.0
+    rope_scaling_original_max_len: Optional[int] = None
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    attention_bias: bool = False
+    # Banded causal attention: query i attends keys j with
+    # 0 <= i-j < sliding_window.  None = full causal.
+    sliding_window: Optional[int] = None
+    hidden_act: str = 'silu'         # 'silu' | 'gelu' | 'gelu_tanh'
+    # Gemma: embeddings scaled by sqrt(hidden_size), cast to dtype first.
+    scale_embeddings: bool = False
+    # HF-checkpoint norm convention (consumed by weight importers only).
+    hf_norm_zero_centered: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ('q_proj', 'k_proj', 'v_proj',
+                                     'o_proj')
+    lora_num_adapters: int = 0
+    # A training concern (activation checkpointing); ignored by the
+    # inference forward here.
+    remat_policy: str = 'full'
+    weight_dtype: str = 'bf16'
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def rope_scaling_(self) -> Optional[Tuple[float, float, float, int]]:
+        """(factor, low_freq, high_freq, original_max_len) or None."""
+        if (self.rope_scaling_factor is None or
+                self.rope_scaling_original_max_len is None):
+            return None
+        return (self.rope_scaling_factor, self.rope_scaling_low_freq,
+                self.rope_scaling_high_freq,
+                self.rope_scaling_original_max_len)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    return (normed * (1.0 + weight.float())).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """Weight stored as (w - 1), f32, so zero-init is the identity."""
+
+    def __init__(self, size: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(
+            torch.zeros(size, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.scale, self.eps)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     scaling: Optional[Tuple[float, float, float, int]] = None,
+                     device=None) -> torch.Tensor:
+    """Inverse RoPE frequencies [head_dim//2] in f32, with optional
+    Llama-3.1 scaling (low frequencies slowed by `factor`, high ones
+    kept, a smooth ramp between)."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=device) / half))
+    if scaling is None:
+        return freqs
+    factor, low_f, high_f, orig_len = scaling
+    wavelen = 2.0 * math.pi / freqs
+    low_wavelen = orig_len / low_f
+    high_wavelen = orig_len / high_f
+    smooth = (orig_len / wavelen - low_f) / (high_f - low_f)
+    smoothed = (1.0 - smooth) * freqs / factor + smooth * freqs
+    scaled = torch.where(wavelen > low_wavelen, freqs / factor, freqs)
+    is_medium = (wavelen >= high_wavelen) & (wavelen <= low_wavelen)
+    return torch.where(is_medium, smoothed, scaled)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         scaling: Optional[Tuple[float, float, float, int]] = None
+         ) -> torch.Tensor:
+    """Rotary embeddings, half-split.  x: [B, H, S, D]; positions: [B, S].
+    The rotation runs in f32 (bf16 x promotes against f32 cos/sin)."""
+    half = x.shape[-1] // 2
+    freqs = rope_frequencies(x.shape[-1], theta, scaling, x.device)
+    angles = positions[:, None, :, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def write_kv_and_attend(kv_cache: Tuple[torch.Tensor, torch.Tensor],
+                        k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
+                        positions: torch.Tensor,
+                        window: Optional[int] = None):
+    """Incremental-decode cache step: write the T new K/V rows of each
+    sequence at its absolute positions -- in place, where the JAX package
+    donates the buffers -- then attend over the whole cache.
+
+    Positions within one call are contiguous.  Like JAX's
+    dynamic_update_slice, the start row is clamped to [0, M - T], so a
+    dead speculative step past the cache end rewrites the last rows
+    instead of indexing out of bounds."""
+    k_cache, v_cache = kv_cache
+    t, m = k.shape[2], k_cache.shape[2]
+    start = positions[:, 0].clamp(0, m - t)
+    rows = start[:, None] + torch.arange(t, device=k.device)     # [B, T]
+    batch = torch.arange(k.shape[0], device=k.device)[:, None]   # [B, 1]
+    # Advanced indices around the head slice: value shape [B, T, Hkv, D].
+    k_cache[batch, :, rows] = k.transpose(1, 2).to(k_cache.dtype)
+    v_cache[batch, :, rows] = v.transpose(1, 2).to(v_cache.dtype)
+    out = decode_attention(q, k_cache, v_cache, positions, window=window)
+    return out, (k_cache, v_cache)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, q_positions: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Attention of T new queries over a [B, Hkv, M, D] KV cache, in f32.
+
+    q: [B, Hq, T, D]; q_positions: [B, T] absolute positions (== cache
+    indices).  Cache entry j is visible to query i iff j <= position_i,
+    and position_i - j < window for sliding-window models."""
+    b, hq, t, d = q.shape
+    hkv, m = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5
+    qr = q.reshape(b, hkv, group, t, d).float()
+    scores = torch.einsum('bhgtd,bhmd->bhgtm', qr * scale, k_cache.float())
+    cache_idx = torch.arange(m, device=q.device)
+    mask = cache_idx[None, None, :] <= q_positions[:, :, None]   # [B, T, M]
+    if window is not None:
+        mask &= (q_positions[:, :, None] - cache_idx[None, None]) < window
+    scores = scores.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum('bhgtm,bhmd->bhgtd', probs, v_cache.float())
+    return out.reshape(b, hq, t, d).to(q.dtype)
+
+
+def _linear(cfg: LlamaConfig, n_in: int, n_out: int, bias: bool = False,
+            device=None) -> nn.Linear:
+    return nn.Linear(n_in, n_out, bias=bias, dtype=cfg.dtype, device=device)
+
+
+class Attention(nn.Module):
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        d, h = cfg.head_dim_, cfg.hidden_size
+        bias = cfg.attention_bias
+        self.q_proj = _linear(cfg, h, cfg.num_heads * d, bias, device)
+        self.k_proj = _linear(cfg, h, cfg.num_kv_heads * d, bias, device)
+        self.v_proj = _linear(cfg, h, cfg.num_kv_heads * d, bias, device)
+        self.o_proj = _linear(cfg, cfg.num_heads * d, h, device=device)
+
+    def forward(self, x, positions, kv_cache=None):
+        cfg = self.config
+        b, s, _ = x.shape
+        d = cfg.head_dim_
+        # [B, S, H*D] -> [B, H, S, D]
+        q = self.q_proj(x).view(b, s, cfg.num_heads, d).transpose(1, 2)
+        k = self.k_proj(x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
+        v = self.v_proj(x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling_)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling_)
+        new_cache = None
+        if kv_cache is not None:
+            out, new_cache = write_kv_and_attend(kv_cache, k, v, q, positions,
+                                                 window=cfg.sliding_window)
+        else:
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True,
+                                  window=cfg.sliding_window)
+        out = self.o_proj(out.transpose(1, 2).reshape(b, s, -1))
+        if kv_cache is not None:
+            return out, new_cache
+        return out
+
+
+class MLP(nn.Module):
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        if cfg.hidden_act not in ('silu', 'gelu', 'gelu_tanh'):
+            raise ValueError(
+                f'Unknown hidden_act {cfg.hidden_act!r}; '
+                "expected 'silu', 'gelu' or 'gelu_tanh'.")
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = _linear(cfg, h, i, device=device)
+        self.up_proj = _linear(cfg, h, i, device=device)
+        self.down_proj = _linear(cfg, i, h, device=device)
+
+    def forward(self, x):
+        gate, up = self.gate_proj(x), self.up_proj(x)
+        act = self.config.hidden_act
+        if act == 'gelu_tanh':          # Gemma GeGLU
+            h = F.gelu(gate, approximate='tanh') * up
+        elif act == 'gelu':             # exact (erf) GELU
+            h = F.gelu(gate) * up
+        else:
+            h = F.silu(gate) * up
+        return self.down_proj(h)
+
+
+class DecoderLayer(nn.Module):
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.input_norm = RMSNorm(config.hidden_size, config.norm_eps, device)
+        self.attn = Attention(config, device)
+        self.post_attn_norm = RMSNorm(config.hidden_size, config.norm_eps,
+                                      device)
+        self.mlp = MLP(config, device)
+
+    def forward(self, x, positions, kv_cache=None):
+        attn_in = self.input_norm(x)
+        if kv_cache is not None:
+            attn_out, new_cache = self.attn(attn_in, positions, kv_cache)
+        else:
+            attn_out, new_cache = self.attn(attn_in, positions), None
+        h = x + attn_out
+        out = h + self.mlp(self.post_attn_norm(h))
+        if kv_cache is not None:
+            return out, new_cache
+        return out
+
+
+class Llama(nn.Module):
+    """Decoder-only LM.  forward(tokens [B, S]) -> logits [B, S, V] f32.
+
+    Parameter names mirror the flax tree (``layers.{i}`` for
+    ``layer_{i}``); ``models.convert`` maps one onto the other."""
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        if config.lora_rank > 0:
+            raise NotImplementedError(
+                'LoRA adapters are not ported yet (ROADMAP.md A8, other '
+                'families and weight paths)')
+        if config.weight_dtype == 'int8':
+            raise NotImplementedError(
+                'int8 weight storage is not ported yet (ROADMAP.md A8, '
+                'other families and weight paths)')
+        if config.weight_dtype != 'bf16':
+            raise ValueError(f"weight_dtype must be 'bf16' or 'int8'; got "
+                             f'{config.weight_dtype!r}')
+        self.config = config
+        h = config.hidden_size
+        self.embedding = nn.Parameter(torch.empty(
+            config.vocab_size, h, dtype=torch.float32, device=device))
+        self.layers = nn.ModuleList(
+            DecoderLayer(config, device) for _ in range(config.num_layers))
+        self.final_norm = RMSNorm(h, config.norm_eps, device)
+        self.lm_head = (None if config.tie_embeddings else nn.Linear(
+            h, config.vocab_size, bias=False, dtype=torch.float32,
+            device=device))
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None, hidden_only: bool = False,
+                paged_tables: Optional[torch.Tensor] = None):
+        """Scoring: forward(tokens) -> logits.  hidden_only=True returns the
+        final-norm hidden states [B, S, H] instead.
+
+        Incremental inference: forward(tokens, positions, cache) ->
+        (logits, cache), where `cache` is the per-layer list of (k, v)
+        [B, Hkv, M, D] pairs from init_cache, updated in place, and
+        `positions` [B, T] are the absolute cache positions of `tokens`.
+        """
+        cfg = self.config
+        if paged_tables is not None:
+            raise NotImplementedError(
+                'the block-paged KV cache is not ported yet (ROADMAP.md '
+                'A6, paged KV + radix + host tier)')
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device
+                                     ).expand(tokens.shape)
+        x = self.embedding[tokens].to(cfg.dtype)
+        if cfg.scale_embeddings:
+            # Normalizer cast to dtype BEFORE the multiply, as HF Gemma.
+            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype,
+                                 device=x.device)
+        new_cache = []
+        for i, layer in enumerate(self.layers):
+            if cache is not None:
+                x, layer_cache = layer(x, positions, cache[i])
+                new_cache.append(layer_cache)
+            else:
+                x = layer(x, positions)
+        x = self.final_norm(x)
+        if hidden_only:
+            return x
+        if cfg.tie_embeddings:
+            logits = x.float() @ self.embedding.float().T
+        else:
+            logits = self.lm_head(x.float())
+        if cache is not None:
+            return logits, new_cache
+        return logits
+
+
+def init_cache(config: LlamaConfig, batch_size: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> KVCache:
+    """Per-layer [(k, v)] KV cache, each [B, Hkv, max_len, head_dim]."""
+    shape = (batch_size, config.num_kv_heads, max_len, config.head_dim_)
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(config.num_layers)]

@@ -1,0 +1,105 @@
+"""The port (skypilot_tpu_torch) stands alone: it imports neither JAX nor
+anything of the JAX package, and its entry points need a card unless
+the caller asks for the CPU."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / 'skypilot_tpu_torch'
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
+
+
+def _port_modules():
+    return sorted(
+        '.'.join(p.relative_to(ROOT).with_suffix('').parts).removesuffix(
+            '.__init__')
+        for p in PACKAGE.rglob('*.py'))
+
+
+def _forbidden(name: str) -> bool:
+    """True for a forbidden top-level package or any of its submodules;
+    skypilot_tpu_torch shares a prefix with skypilot_tpu and is allowed."""
+    return any(name == f or name.startswith(f + '.') for f in FORBIDDEN)
+
+
+def test_forbidden_matcher_spares_the_port():
+    assert _forbidden('skypilot_tpu') and _forbidden('skypilot_tpu.ops')
+    assert _forbidden('jax.numpy') and _forbidden('flax')
+    assert not _forbidden('skypilot_tpu_torch')
+    assert not _forbidden('skypilot_tpu_torch.ops.flash_attention')
+    assert not _forbidden('jaxtyping')
+
+
+def test_importing_every_module_loads_no_jax():
+    """In a fresh interpreter: import every module of the port, then no
+    jax/flax/optax and no skypilot_tpu(.*) may be in sys.modules."""
+    modules = _port_modules()
+    assert 'skypilot_tpu_torch.ops.flash_attention' in modules
+    assert 'skypilot_tpu_torch.infer.engine' in modules
+    code = (
+        'import importlib, json, sys\n'
+        f'for m in {modules!r}:\n'
+        '    importlib.import_module(m)\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    loaded = set(__import__('json').loads(out.stdout.splitlines()[-1]))
+    assert set(modules) <= loaded
+    assert not sorted(m for m in loaded if _forbidden(m))
+
+
+@pytest.mark.parametrize('path', sorted(
+    [str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')] +
+    ['chip_smoke.py']))
+def test_sources_import_no_jax(path):
+    """No import statement anywhere in the file -- including ones inside
+    functions -- names a forbidden package."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert not [n for n in names if _forbidden(n)]
+
+
+def test_entry_points_need_a_card():
+    """device=None means the card; without one every entry point raises
+    RuntimeError instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is visible')
+    from skypilot_tpu_torch.device import resolve_device
+    from skypilot_tpu_torch.entry import entry
+    from skypilot_tpu_torch.infer.engine import (InferConfig,
+                                                 InferenceEngine,
+                                                 engine_from_name)
+    from skypilot_tpu_torch.models import get_model_config
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        resolve_device()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        resolve_device('cuda')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        entry()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        engine_from_name('llama-debug', InferConfig(max_cache_len=64))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        InferenceEngine(get_model_config('llama-debug'),
+                        InferConfig(max_cache_len=64))
+    assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is visible')
+    out = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
