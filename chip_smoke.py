@@ -1,21 +1,32 @@
 """Smoke run of the PyTorch/CUDA port (skypilot_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the smoke run
+    python3 chip_smoke.py --planted-faults # the backward bounds' fault check
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-main path -- the llama-1b no-cache forward (tokens [1, 1024]) and
-offline serving through the dense-cache engine -- at full width with
-random weights from a seed, and checks what comes out.  Every phase
-prints one JSON line; any failed check raises, so the script exits
-non-zero and the closing line is never printed.  The last two lines are
-the kernels line and {"ok": true, "device": {...}}.
+main paths -- the llama-1b no-cache forward (tokens [1, 1024]), offline
+serving through the dense-cache engine, and training of llama-1b at
+batch 8 x 2048 through the Trainer -- at full width with random weights
+from a seed, and checks what comes out.  Every phase prints one JSON
+line; any failed check raises, so the script exits non-zero and the
+closing line is never printed.  The last two lines are the kernels line
+and {"ok": true, "device": {...}}.
+
+--planted-faults builds copies of the two backward kernels, each with one
+deliberate fault (delta dropped, one K tile shifted by a row, the diagonal
+tile's mask skipped), in a temporary directory, and shows that each copy
+fails the bound the smoke run holds the sound kernels to.
 
 Needs a CUDA card (exits non-zero without one) and imports nothing of
 JAX or of the JAX package.
 """
+import ctypes
 import dataclasses
+import itertools
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -29,8 +40,10 @@ from skypilot_tpu_torch.entry import entry
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request)
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models.convert import init_params
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import flash_attention as fa
+from skypilot_tpu_torch.train import trainer as train_lib
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its operations over the peak rate of their type and
@@ -62,21 +75,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, hq, hkv, s, d, dtype, causal, window):
-    """Least time (ms) for the attention forward on these inputs, and what
-    sets it: visible (query, key) pairs x 4*D FLOPs (QK^T and PV) at the
-    peak rate of the dtype, against Q, K, V read once and O, LSE written
-    once at the HBM rate."""
+def attention_bound(b, hq, hkv, s, d, dtype, causal, window,
+                    ops_per_pair_d=4, n_q=2, n_kv=2, n_rows=1):
+    """Least time (ms) for one attention kernel on these inputs, and what
+    sets it: visible (query, key) pairs x ops_per_pair_d * D FLOPs at the
+    peak rate of the dtype, against the bytes it must move at the HBM
+    rate -- n_q tensors shaped like q, n_kv like k and n_rows f32 [B, Hq,
+    S] rows, each read or written once.  The forward: 4*D (Q K^T, P V),
+    Q and O, K and V, LSE."""
     i = np.arange(s)
     if causal:
         lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
         pairs = int(np.sum(i - lo + 1))
     else:
         pairs = s * s
-    ops_ms = 1e3 * 4.0 * b * hq * d * pairs / PEAK_FLOPS[dtype]
+    ops_ms = 1e3 * ops_per_pair_d * b * hq * d * pairs / PEAK_FLOPS[dtype]
     esize = torch.finfo(dtype).bits // 8
-    nbytes = (esize * (2 * b * hq * s * d + 2 * b * hkv * s * d)
-              + 4 * b * hq * s)
+    nbytes = (esize * (n_q * b * hq * s * d + n_kv * b * hkv * s * d)
+              + 4 * n_rows * b * hq * s)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms
                                    else 'bytes')
@@ -96,19 +112,30 @@ def phase_env() -> dict:
     return env
 
 
+KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+           'flash_attention_bwd_dkv')
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    secs = _build.build(['flash_attention_fwd'])
-    log = _build.library_path('flash_attention_fwd').with_suffix('.log')
-    print(log.read_text(), file=sys.stderr, flush=True)   # ptxas report
+    secs = _build.build(KERNELS)   # one nvcc per source, all at once
+    for name in KERNELS:            # ptxas register / spill reports
+        log = _build.library_path(name).with_suffix('.log')
+        print(log.read_text(), file=sys.stderr, flush=True)
     emit({'phase': 'build', 'nvcc_s': secs,
           'wall_s': time.perf_counter() - t0})
 
 
+# The training shape: llama-1b at TrainConfig() (batch 8, seq 2048), what
+# the train step gives all three kernels; the backward kernels are timed
+# there, and the forward a second time.
+TRAIN_CASE = ('llama-1b-train', 8, 16, 8, 2048, 128, torch.bfloat16, True,
+              None)
 # (name, b, hq, hkv, s, d, dtype, causal, window); the first is the shape
 # the llama-1b forward gives the kernel, and the one timed.
 KERNEL_CASES = [
     ('llama-1b', 1, 16, 8, 1024, 128, torch.bfloat16, True, None),
+    TRAIN_CASE,
     ('non_causal', 1, 16, 8, 1024, 128, torch.bfloat16, False, None),
     ('window_48', 2, 8, 2, 256, 128, torch.bfloat16, True, 48),
     ('head_dim_64', 2, 8, 2, 256, 64, torch.bfloat16, True, None),
@@ -140,9 +167,12 @@ def o_bound(q, k, v, causal, scale, window, ref_out) -> torch.Tensor:
     return 2.0 ** -7 * ref_out.float().abs() + 2.0 ** -8 * p_abs_v
 
 
-def phase_kernel() -> dict:
+def phase_kernel() -> tuple:
+    """The forward kernel against its plain version at every KERNEL_CASES
+    shape.  Returns the entry shape's errors and times, and the training
+    shape's errors."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    failures, main = [], None
+    failures, main, train = [], None, None
     for name, b, hq, hkv, s, d, dtype, causal, window in KERNEL_CASES:
         q, k, v = (torch.randn((b, h, s, d), generator=gen,
                                device='cuda').to(dtype)
@@ -166,6 +196,10 @@ def phase_kernel() -> dict:
                'max_abs_err_lse': err_lse, 'bound_lse': BOUND_LSE}
         if not (err_over_bound <= 1.0 and err_lse <= BOUND_LSE):
             failures.append(name)
+        if name == TRAIN_CASE[0]:
+            train = {'max_abs_err': err_o,
+                     'max_err_over_bound': err_over_bound,
+                     'max_abs_err_lse': err_lse}
         if main is None:
             bound_ms, bound_by = attention_bound(b, hq, hkv, s, d, dtype,
                                                  causal, window)
@@ -181,8 +215,182 @@ def phase_kernel() -> dict:
                     'bound_ms': bound_ms, 'bound_by': bound_by}
             row.update(main)
         emit(row)
+        del q, k, v, out, lse, ref_out, ref_lse, diff
+        torch.cuda.empty_cache()
     check(not failures, f'kernel disagrees with its plain version: {failures}')
-    return main
+    return main, train
+
+
+# The training shape, then the forward's other KERNEL_CASES.
+BWD_CASES = [TRAIN_CASE] + KERNEL_CASES[2:]
+
+# Agreement of the backward kernels with their plain versions (same q, k,
+# v, dO, LSE and delta; the plain versions compute in f32).  f32: the same
+# math in another order, 1e-4.  bf16, element by element, three terms:
+# (1) both sides round the output to bf16, which may part them by one ulp
+# of the element, at most 2**-7 * |x|;
+# (2) the kernels round the A operand of each second product to bf16
+# (relative error <= 2**-9 per entry): dS before dQ = dS K and dK = dS^T Q,
+# P before dV = P^T dO.  That moves an element by at most 2**-9 times
+# |dS| |K|, |dS|^T |Q| or P^T |dO|, and the bound allows twice that;
+# (3) dS = P (dP - delta) * scale can cancel (a query that sees one key
+# has dP = delta up to round-off), so the f32 round-off of dP and delta
+# is not relative to dS: each sums D products on each side, with an
+# error of at most D * 2**-23 of its sum of magnitudes M = |dO| |V|^T
+# (plus P M for delta) per side, 2**-22 * D for both.  dQ and dK carry it
+# through |K| and |Q| as they carry dS.
+# S and P differ by f32 round-off relative to themselves, far inside (2).
+BOUND_BWD_F32 = 1e-4
+
+
+def bwd_inputs(gen, b, hq, hkv, s, d, dtype, causal, window) -> tuple:
+    """The arguments of both backward kernels and their plain versions:
+    random q, k, v, dO; O and LSE from the plain forward; delta =
+    rowsum(dO * O) in f32, as the autograd Function forms it."""
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
+                               device='cuda').to(dtype)
+                   for h in (hq, hkv, hkv, hq))
+    scale = d ** -0.5
+    out, lse = fa.attention_fwd_reference(q, k, v, causal, scale, window)
+    delta = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, lse, delta, causal, scale, window
+
+
+def run_bwd(args) -> tuple:
+    """(dQ, dK, dV) from the two kernels."""
+    return (fa.flash_attention_bwd_dq(*args),
+            *fa.flash_attention_bwd_dkv(*args))
+
+
+def plain_bwd(args) -> tuple:
+    return (fa.attention_bwd_dq_reference(*args),
+            *fa.attention_bwd_dkv_reference(*args))
+
+
+def bwd_bounds(args, ref) -> tuple:
+    """Per-element bounds on |kernel - plain| for (dQ, dK, dV) (see
+    above); ref is the plain (dQ, dK, dV)."""
+    q, k, v, do, lse, delta, causal, scale, window = args
+    if q.dtype == torch.float32:
+        return tuple(torch.full(r.shape, BOUND_BWD_F32, device=r.device)
+                     for r in ref)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    grouped = (b, hkv, hq // hkv, s, d)
+    qa = q.reshape(grouped).float().abs()
+    doa = do.reshape(grouped).float().abs()
+    ka, va = k.float().abs(), v.float().abs()
+    p, ds = fa.attention_bwd_probs(*args)
+    ds.abs_()
+    m = torch.einsum('bhgqd,bhkd->bhgqk', doa, va)        # |dO| |V|^T
+    m += (p * m).sum(-1, keepdim=True)                    # + delta's
+    m.mul_(p).mul_(scale * d * 2.0 ** -22)                # (3) in dS
+    ds.mul_(2.0 ** -8).add_(m)                            # (2) + (3)
+    terms = (torch.einsum('bhgqk,bhkd->bhgqd', ds, ka).reshape(q.shape),
+             torch.einsum('bhgqk,bhgqd->bhkd', ds, qa),
+             2.0 ** -8 * torch.einsum('bhgqk,bhgqd->bhkd', p, doa))
+    return tuple(2.0 ** -7 * r.float().abs() + t
+                 for r, t in zip(ref, terms))
+
+
+def bwd_errors(got, ref, bounds) -> dict:
+    """Max abs error and max error over the bound, for dq, dk and dv."""
+    out = {}
+    for name, g, r, bd in zip(('dq', 'dk', 'dv'), got, ref, bounds):
+        diff = (g.float() - r.float()).abs()
+        out[name] = {'max_abs_err': diff.max().item(),
+                     'max_abs': r.float().abs().max().item(),
+                     'max_err_over_bound':
+                         (diff / bd.clamp_min(1e-30)).max().item()}
+    return out
+
+
+def time_bwd(args) -> dict:
+    """Times at the training shape (CUDA events): both backward kernels
+    and their plain versions, the forward kernel, its plain version, and
+    the yardsticks -- scaled_dot_product_attention's forward, and its
+    backward alone (one call computes dQ, dK and dV: the yardstick of the
+    two backward kernels together)."""
+    q, k, v, do, lse, delta, causal, scale, window = args
+    b, hq, s, d = q.shape
+    shape = (b, hq, k.shape[1], s, d, q.dtype, causal, window)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, is_causal=causal, enable_gqa=True)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, (qr, kr, vr), do, retain_graph=True), iters=10)
+    del out
+    timing = {}
+    for name, kernel, plain, bound_args in (
+            ('dq', fa.flash_attention_bwd_dq, fa.attention_bwd_dq_reference,
+             (6, 3, 2, 2)),
+            ('dkv', fa.flash_attention_bwd_dkv,
+             fa.attention_bwd_dkv_reference, (8, 2, 4, 2))):
+        bound_ms, bound_by = attention_bound(*shape, *bound_args)
+        timing[name] = {'ms': cuda_ms(lambda: kernel(*args), iters=10),
+                        'plain_ms': cuda_ms(lambda: plain(*args), iters=3,
+                                            warmup=1),
+                        'bound_ms': bound_ms, 'bound_by': bound_by,
+                        'library_ms': sdpa_bwd}
+    bound_ms, bound_by = attention_bound(*shape)
+    fwd_args = (q, k, v, causal, scale, window)
+    with torch.no_grad():
+        sdpa_fwd = cuda_ms(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(
+                               q, k, v, is_causal=causal, enable_gqa=True))
+    timing['fwd'] = {'ms': cuda_ms(lambda: fa.flash_attention_fwd(*fwd_args),
+                                   iters=10),
+                     'plain_ms': cuda_ms(lambda: fa.attention_fwd_reference(
+                         *fwd_args), iters=3, warmup=1),
+                     'bound_ms': bound_ms, 'bound_by': bound_by,
+                     'library_ms': sdpa_fwd}
+    return timing
+
+
+def phase_kernel_bwd() -> dict:
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    failures, timing = [], None
+    for name, b, hq, hkv, s, d, dtype, causal, window in BWD_CASES:
+        args = bwd_inputs(gen, b, hq, hkv, s, d, dtype, causal, window)
+        got = run_bwd(args)
+        torch.cuda.synchronize()
+        deterministic = all(torch.equal(x, y)
+                            for x, y in zip(got, run_bwd(args)))
+        ref = plain_bwd(args)
+        errs = bwd_errors(got, ref, bwd_bounds(args, ref))
+        row = {'phase': 'kernel_bwd', 'case': name,
+               'shape': [b, hq, hkv, s, d], 'dtype': str(dtype),
+               'causal': causal, 'window': window,
+               'deterministic': deterministic, **errs,
+               'bound_f32': BOUND_BWD_F32}
+        if not deterministic or any(e['max_err_over_bound'] > 1.0
+                                    for e in errs.values()):
+            failures.append(name)
+        del got, ref
+        if timing is None:
+            timing = time_bwd(args)
+            timing['dq']['max_abs_err'] = errs['dq']['max_abs_err']
+            timing['dkv']['max_abs_err'] = max(errs['dk']['max_abs_err'],
+                                               errs['dv']['max_abs_err'])
+            row['timing'] = timing
+        emit(row)
+        del args
+        torch.cuda.empty_cache()
+    check(not failures,
+          f'backward kernels disagree with their plain versions or are not '
+          f'deterministic: {failures}')
+    return timing
+
+
+def launch_counts() -> tuple:
+    return (fa.flash_fwd_launches, fa.flash_bwd_dq_launches,
+            fa.flash_bwd_dkv_launches)
+
+
+def reset_launch_counts() -> None:
+    fa.flash_fwd_launches = 0
+    fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = 0
 
 
 def profile_device(fn, top: int = 8) -> dict:
@@ -199,9 +407,12 @@ def profile_device(fn, top: int = 8) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # Device-side kernels only: a user annotation (Optimizer.step) also
+    # shows a device-side range, which would count its kernels twice.
     rows = [(e.key, e.device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows) if rows else None  # not traced
     return {'wall_ms': wall_ms, 'device_ms': device_ms,
@@ -214,13 +425,14 @@ def profile_device(fn, top: int = 8) -> dict:
 def phase_forward():
     forward, (model, tokens) = entry()
     torch.cuda.synchronize()
-    fa.flash_fwd_launches = 0
+    reset_launch_counts()
     logits = forward(model, tokens)
     torch.cuda.synchronize()
-    launches = fa.flash_fwd_launches
-    check(launches == model.config.num_layers,
-          f'forward launched the kernel {launches} times, expected '
-          f'{model.config.num_layers}')
+    counts = launch_counts()
+    launches = counts[0]
+    check(counts == (model.config.num_layers, 0, 0),
+          f'forward launched the kernels {counts} times, expected '
+          f'{(model.config.num_layers, 0, 0)}')
     check(tuple(logits.shape) == (1, 1024, model.config.vocab_size),
           f'logits shape {tuple(logits.shape)}')
     check(bool(torch.isfinite(logits).all()), 'non-finite logits')
@@ -305,10 +517,10 @@ def phase_serve(model, card: str) -> None:
         res = engine.generate(reqs)
         return res, time.perf_counter() - t0
 
-    fa.flash_fwd_launches = 0
+    reset_launch_counts()
     first, first_wall = run()
     second, wall = run()
-    serve_launches = fa.flash_fwd_launches
+    serve_launches = launch_counts()[0]
     for r in first + second:
         check(r.finish_reason == 'length' and len(r.output_tokens) == 32,
               f'request {r.request_id}: {r.finish_reason} after '
@@ -373,6 +585,183 @@ def phase_serve(model, card: str) -> None:
           'decode_window_profile': window_profile})
 
 
+# Step-1 loss of the random init: ln V plus about sigma^2 / 2, where the
+# tied logits' std is sigma ~ sqrt(2048) * 0.02 ~ 0.9 (a unit-RMS hidden
+# state against N(0, 0.02^2) embedding rows): ~0.4 nats above ln 32000.
+LOSS_STEP1 = (math.log(32000), 11.5)
+# Depth 2, f32, the card (the kernels' f32 paths, cuBLAS f32) against the
+# CPU (autograd through the plain attention): f32 sums in another order
+# over a 2048-wide residual stream and a 32000-way logsumexp.  Loss
+# relative; each gradient tensor against its own max |g|.
+BOUND_DEPTH2_LOSS = 1e-5
+BOUND_DEPTH2_GRAD = 5e-4
+
+
+def phase_train(card: str) -> tuple:
+    cfg = train_lib.TrainConfig(model='llama-1b', batch_size=8,
+                                seq_len=2048, warmup_steps=2,
+                                total_steps=100)
+    trainer = train_lib.Trainer(cfg)
+    trainer.setup(seed=0)
+    mc = trainer.model_config
+    # remat 'full': each layer's forward kernel runs again in backward.
+    expected = (2 * mc.num_layers, mc.num_layers, mc.num_layers)
+    counts = []
+
+    def counted(batches):   # launch counts as each step takes its batch
+        for batch in batches:
+            counts.append(launch_counts())
+            yield batch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = trainer.train(data=counted(train_lib.synthetic_data(
+        cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0)), num_steps=6,
+        log_every=1)
+    launches = launch_counts()
+    counts.append(launches)
+    per_step = [[b - a for a, b in zip(c0, c1)]
+                for c0, c1 in zip(counts, counts[1:])]
+    check(per_step == [list(expected)] * 6,
+          f'launches per step {per_step}, expected {expected}')
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [loss for _, loss in trainer.history]
+    check(len(losses) == 6 and all(math.isfinite(x) for x in losses),
+          f'losses {losses}')
+    check(LOSS_STEP1[0] <= losses[0] <= LOSS_STEP1[1],
+          f'step-1 loss {losses[0]} outside {LOSS_STEP1}')
+    step_fn = train_lib.make_train_step(cfg.loss_chunk)
+    batch = next(train_lib.synthetic_data(cfg.batch_size, cfg.seq_len,
+                                          mc.vocab_size, seed=2))
+    step_profile = profile_device(
+        lambda: float(step_fn(trainer.state, batch)['loss']), top=12)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # One repeated batch: six steps (lr 0, half of peak, then peak) must
+    # lower its loss.
+    trainer = train_lib.Trainer(cfg)
+    trainer.setup(seed=0)
+    batch = next(train_lib.synthetic_data(cfg.batch_size, cfg.seq_len,
+                                          mc.vocab_size, seed=1))
+    trainer.train(data=itertools.repeat(batch), num_steps=6, log_every=1)
+    repeat = [loss for _, loss in trainer.history]
+    after = trainer.evaluate(iter([batch]), num_batches=1)['eval_loss']
+    check(after < repeat[1],
+          f'repeated batch: loss {after} after 6 steps, {repeat[1]} at 2')
+    del trainer
+    torch.cuda.empty_cache()
+
+    # Depth 2 in f32: the same weights and batch on the card and the CPU.
+    cfg2 = dataclasses.replace(mc, num_layers=2, dtype=torch.float32)
+    sd = init_params(cfg2, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg2.vocab_size, (2, 257)))
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        model = llama.Llama(cfg2, device=dev, param_dtype=torch.float32)
+        model.load_state_dict(sd)
+        t = toks.to(dev)
+        loss = train_lib.loss_fn(model, t[:, :-1], t[:, 1:],
+                                 loss_chunk=cfg.loss_chunk)
+        loss.backward()
+        res[dev] = (loss.item(), {n: p.grad.cpu()
+                                  for n, p in model.named_parameters()})
+        del model, loss
+    loss_err = abs(res['cuda'][0] - res['cpu'][0]) / abs(res['cpu'][0])
+    grad_err = max((g - res['cpu'][1][n]).abs().max().item() /
+                   max(res['cpu'][1][n].abs().max().item(), 1e-30)
+                   for n, g in res['cuda'][1].items())
+    check(loss_err <= BOUND_DEPTH2_LOSS and grad_err <= BOUND_DEPTH2_GRAD,
+          f'depth-2 f32 card vs CPU: loss {loss_err}, grads {grad_err}')
+    tokens_per_step = cfg.batch_size * cfg.seq_len
+    emit({'phase': 'train', 'model': 'llama-1b', 'device': card,
+          'batch': [cfg.batch_size, cfg.seq_len], 'remat': mc.remat_policy,
+          'dtype': str(mc.dtype), 'param_dtype': 'torch.float32',
+          'launches_per_step': per_step, 'losses': losses,
+          'step_ms': 1e3 * tokens_per_step / out['tokens_per_second'],
+          'tokens_per_s': out['tokens_per_second'],
+          'max_memory_allocated_gib': peak_gib,
+          'repeat_batch_losses': repeat, 'repeat_batch_loss_after': after,
+          'depth2_f32_loss_rel_err': loss_err,
+          'depth2_f32_grad_max_rel_err': grad_err,
+          'depth2_bounds': [BOUND_DEPTH2_LOSS, BOUND_DEPTH2_GRAD],
+          'step_profile': step_profile})
+    return launches
+
+
+# Planted faults: (fault, library, line of the sound source, the line
+# with the fault).  Each must fail the bf16 bound at the training shape.
+FAULTS = (
+    ('delta_dropped', 'flash_attention_bwd_dq',
+     'sc[jj][e] = pv * (dp[jj][e] - dlt[r]) * p.scale;',
+     'sc[jj][e] = pv * dp[jj][e] * p.scale;'),
+    ('delta_dropped', 'flash_attention_bwd_dkv',
+     'dpt[jj][e] = pv * (dpt[jj][e] - sDelta[qi]) * p.scale;',
+     'dpt[jj][e] = pv * dpt[jj][e] * p.scale;'),
+    ('k_tile_shifted_by_a_row', 'flash_attention_bwd_dq',
+     'stage_rows<D>(sK, kg, kv0, kBlockN, p.s);',
+     'stage_rows<D>(sK, kg, kv0 + (kt == kv_first + 1), kBlockN, p.s);'),
+    ('k_tile_shifted_by_a_row', 'flash_attention_bwd_dkv',
+     'stage_rows<D>(sK, kg, kv0, kBlockN, p.s);',
+     'stage_rows<D>(sK, kg, kv0 + (kv_tile == 1), kBlockN, p.s);'),
+    ('diagonal_tile_mask_skipped', 'flash_attention_bwd_dq',
+     'if (need_mask && !visible(',
+     'if (need_mask && kv0 != q0 && !visible('),
+    ('diagonal_tile_mask_skipped', 'flash_attention_bwd_dkv',
+     'if (need_mask && (q0 + qi >= p.s ||',
+     'if (need_mask && kv0 != q0 && (q0 + qi >= p.s ||'),
+)
+
+
+def phase_planted_faults() -> None:
+    """Build a copy of a backward kernel per planted fault (under
+    build/planted_faults/), run it in place of the sound library at the
+    training shape, and hold its output to the smoke run's bound."""
+    root = _build.BUILD_DIR.parent / 'planted_faults'
+    shutil.rmtree(root, ignore_errors=True)
+    builds = []
+    for i, (fault, lib, sound, planted) in enumerate(FAULTS):
+        src = (_build.CSRC / f'{lib}.cu').read_text()
+        check(src.count(sound) == 1,
+              f'{fault}: the line to plant is not in {lib}.cu exactly once')
+        d = root / str(i)
+        d.mkdir(parents=True)
+        shutil.copy(_build.CSRC / 'flash_common.cuh', d)
+        (d / f'{lib}.cu').write_text(src.replace(sound, planted))
+        so = d / f'lib{lib}.so'
+        builds.append((fault, lib, so, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, '-o', str(so),
+             str(d / f'{lib}.cu')], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    for fault, lib, _, proc in builds:
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f'{fault} in {lib}: nvcc failed\n{log}')
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    args = bwd_inputs(gen, *TRAIN_CASE[1:])
+    ref = plain_bwd(args)
+    bounds = bwd_bounds(args, ref)
+    missed = []
+    for fault, lib, so, _ in builds:
+        sound = _build.load(lib)
+        _build.swap(lib, ctypes.CDLL(str(so)))
+        try:
+            got = run_bwd(args)
+            torch.cuda.synchronize()
+        finally:
+            _build.swap(lib, sound)
+        errs = bwd_errors(got, ref, bounds)
+        worst = max(e['max_err_over_bound'] for e in errs.values())
+        emit({'phase': 'planted_fault', 'fault': fault, 'kernel': lib,
+              'shape': list(TRAIN_CASE[1:6]), **errs,
+              'caught': worst > 1.0})
+        if worst <= 1.0:
+            missed.append(f'{fault} in {lib}')
+    shutil.rmtree(root, ignore_errors=True)
+    check(not missed, f'planted faults within the bound: {missed}')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is visible', file=sys.stderr)
@@ -381,14 +770,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     env = phase_env()
     phase_build()
-    main_kernel = phase_kernel()
-    model, launches = phase_forward()
+    if '--planted-faults' in sys.argv[1:]:
+        phase_planted_faults()
+        print(json.dumps({'planted_faults': 'all caught',
+                          'device': env['device']}), flush=True)
+        return 0
+    main_kernel, train_fwd_errs = phase_kernel()
+    bwd = phase_kernel_bwd()
+    model, forward_launches = phase_forward()
     phase_serve(model, env['device'])
-    print(json.dumps({'kernels': [dict(
-        name='flash_attention_fwd', route='cuda',
-        source='skypilot_tpu_torch/ops/csrc/flash_attention_fwd.cu',
-        replaces='skypilot_tpu/ops/flash_attention.py:146',
-        launches=launches, **main_kernel)]}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    train_fwd, train_dq, train_dkv = phase_train(env['device'])
+    csrc = 'skypilot_tpu_torch/ops/csrc/'
+    tpu = 'skypilot_tpu/ops/flash_attention.py:'
+    print(json.dumps({'kernels': [
+        dict(name='flash_attention_fwd', route='cuda',
+             source=csrc + 'flash_attention_fwd.cu', replaces=tpu + '146',
+             launches=forward_launches + train_fwd,
+             launches_by_path={'forward': forward_launches,
+                               'train': train_fwd},
+             **main_kernel, train_shape={**bwd['fwd'], **train_fwd_errs}),
+        dict(name='flash_attention_bwd_dq', route='cuda',
+             source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
+             launches=train_dq, **bwd['dq']),
+        dict(name='flash_attention_bwd_dkv', route='cuda',
+             source=csrc + 'flash_attention_bwd_dkv.cu',
+             replaces=tpu + '227', launches=train_dkv, **bwd['dkv']),
+    ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -3,23 +3,29 @@ RMSNorm, RoPE, GQA, gated MLP -- the PyTorch twin of
 ``skypilot_tpu/models/llama.py``.
 
 Numerics follow the JAX module: compute in ``config.dtype`` with f32
-RMSNorm statistics, f32 RoPE angles and f32 logits.  Parameters are
-stored as the JAX module uses them: projection weights in
-``config.dtype`` (the JAX module casts its f32 params to that dtype at
-every use), norm scales, the embedding table and ``lm_head`` in f32.
+RMSNorm statistics, f32 RoPE angles and f32 logits.  Norm scales, the
+embedding table and ``lm_head`` are stored in f32.  Projection weights
+and biases are stored in ``param_dtype`` (the counterpart of flax's
+``param_dtype``) and cast to ``config.dtype`` at every use, as the flax
+``DenseGeneral(dtype=cfg.dtype)`` does; ``param_dtype`` defaults to
+``config.dtype``, which stores them as serving uses them, and the trainer
+passes ``torch.float32`` for f32 master weights.
 
 The no-cache forward attends through ``ops.flash_attention`` (the Hopper
-kernel on a CUDA tensor); the cached forward writes K/V in place into a
-per-layer ``[B, Hkv, M, D]`` cache and attends with ``decode_attention``,
-as the JAX serving path does.
+kernels on a CUDA tensor) and, with grad enabled, checkpoints each
+decoder layer by ``config.remat_policy``; the cached forward writes K/V
+in place into a per-layer ``[B, Hkv, M, D]`` cache and attends with
+``decode_attention``, as the JAX serving path does.
 """
 import dataclasses
+import functools
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
 
@@ -61,8 +67,8 @@ class LlamaConfig:
     lora_targets: Tuple[str, ...] = ('q_proj', 'k_proj', 'v_proj',
                                      'o_proj')
     lora_num_adapters: int = 0
-    # A training concern (activation checkpointing); ignored by the
-    # inference forward here.
+    # Activation checkpointing of each decoder layer in the no-cache
+    # forward with grad enabled: 'full' | 'dots' | 'none'.
     remat_policy: str = 'full'
     weight_dtype: str = 'bf16'
 
@@ -186,22 +192,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, hq, t, d).to(q.dtype)
 
 
-def _linear(cfg: LlamaConfig, n_in: int, n_out: int, bias: bool = False,
-            device=None) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=bias, dtype=cfg.dtype, device=device)
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are stored in ``param_dtype`` and
+    cast to ``compute_dtype`` at every use (a no-op when the two match)."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool,
+                 compute_dtype: torch.dtype, param_dtype: torch.dtype,
+                 device=None):
+        super().__init__(n_in, n_out, bias=bias, dtype=param_dtype,
+                         device=device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+        return F.linear(x, self.weight.to(self.compute_dtype), bias)
 
 
 class Attention(nn.Module):
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         cfg = self.config = config
         d, h = cfg.head_dim_, cfg.hidden_size
         bias = cfg.attention_bias
-        self.q_proj = _linear(cfg, h, cfg.num_heads * d, bias, device)
-        self.k_proj = _linear(cfg, h, cfg.num_kv_heads * d, bias, device)
-        self.v_proj = _linear(cfg, h, cfg.num_kv_heads * d, bias, device)
-        self.o_proj = _linear(cfg, cfg.num_heads * d, h, device=device)
+        dt, pd = cfg.dtype, param_dtype or cfg.dtype
+        self.q_proj = Linear(h, cfg.num_heads * d, bias, dt, pd, device)
+        self.k_proj = Linear(h, cfg.num_kv_heads * d, bias, dt, pd, device)
+        self.v_proj = Linear(h, cfg.num_kv_heads * d, bias, dt, pd, device)
+        self.o_proj = Linear(cfg.num_heads * d, h, False, dt, pd, device)
 
     def forward(self, x, positions, kv_cache=None):
         cfg = self.config
@@ -229,7 +247,7 @@ class Attention(nn.Module):
 
 class MLP(nn.Module):
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         cfg = self.config = config
         if cfg.hidden_act not in ('silu', 'gelu', 'gelu_tanh'):
@@ -237,9 +255,10 @@ class MLP(nn.Module):
                 f'Unknown hidden_act {cfg.hidden_act!r}; '
                 "expected 'silu', 'gelu' or 'gelu_tanh'.")
         h, i = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _linear(cfg, h, i, device=device)
-        self.up_proj = _linear(cfg, h, i, device=device)
-        self.down_proj = _linear(cfg, i, h, device=device)
+        dt, pd = cfg.dtype, param_dtype or cfg.dtype
+        self.gate_proj = Linear(h, i, False, dt, pd, device)
+        self.up_proj = Linear(h, i, False, dt, pd, device)
+        self.down_proj = Linear(i, h, False, dt, pd, device)
 
     def forward(self, x):
         gate, up = self.gate_proj(x), self.up_proj(x)
@@ -255,13 +274,13 @@ class MLP(nn.Module):
 
 class DecoderLayer(nn.Module):
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         self.input_norm = RMSNorm(config.hidden_size, config.norm_eps, device)
-        self.attn = Attention(config, device)
+        self.attn = Attention(config, device, param_dtype)
         self.post_attn_norm = RMSNorm(config.hidden_size, config.norm_eps,
                                       device)
-        self.mlp = MLP(config, device)
+        self.mlp = MLP(config, device, param_dtype)
 
     def forward(self, x, positions, kv_cache=None):
         attn_in = self.input_norm(x)
@@ -276,13 +295,40 @@ class DecoderLayer(nn.Module):
         return out
 
 
+# The 'dots' remat policy, the counterpart of JAX's
+# dots_with_no_batch_dims_saveable: keep the outputs of the plain matrix
+# products of a layer, recompute everything else.
+_save_matmuls = functools.partial(
+    torch_checkpoint.create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _remat(policy: str) -> Optional[Callable]:
+    """How the no-cache forward calls each decoder layer under grad:
+    None for a plain call, else a checkpointing wrapper (the counterpart
+    of the JAX module's nn.remat).  Raises on an unknown policy."""
+    if policy == 'none':
+        return None
+    if policy not in ('full', 'dots'):
+        raise ValueError(f'Unknown remat_policy {policy!r}; '
+                         "expected 'full', 'dots', or 'none'.")
+    if not torch.is_grad_enabled():
+        return None
+    kwargs = {'context_fn': _save_matmuls} if policy == 'dots' else {}
+    return functools.partial(torch_checkpoint.checkpoint,
+                             use_reentrant=False, **kwargs)
+
+
 class Llama(nn.Module):
     """Decoder-only LM.  forward(tokens [B, S]) -> logits [B, S, V] f32.
 
     Parameter names mirror the flax tree (``layers.{i}`` for
-    ``layer_{i}``); ``models.convert`` maps one onto the other."""
+    ``layer_{i}``); ``models.convert`` maps one onto the other.
+    ``param_dtype`` stores the projection weights (default
+    ``config.dtype``; the trainer passes ``torch.float32``)."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if config.lora_rank > 0:
             raise NotImplementedError(
@@ -300,7 +346,8 @@ class Llama(nn.Module):
         self.embedding = nn.Parameter(torch.empty(
             config.vocab_size, h, dtype=torch.float32, device=device))
         self.layers = nn.ModuleList(
-            DecoderLayer(config, device) for _ in range(config.num_layers))
+            DecoderLayer(config, device, param_dtype)
+            for _ in range(config.num_layers))
         self.final_norm = RMSNorm(h, config.norm_eps, device)
         self.lm_head = (None if config.tie_embeddings else nn.Linear(
             h, config.vocab_size, bias=False, dtype=torch.float32,
@@ -332,10 +379,13 @@ class Llama(nn.Module):
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype,
                                  device=x.device)
         new_cache = []
+        remat = None if cache is not None else _remat(cfg.remat_policy)
         for i, layer in enumerate(self.layers):
             if cache is not None:
                 x, layer_cache = layer(x, positions, cache[i])
                 new_cache.append(layer_cache)
+            elif remat is not None:
+                x = remat(layer, x, positions)
             else:
                 x = layer(x, positions)
         x = self.final_norm(x)

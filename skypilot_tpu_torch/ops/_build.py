@@ -25,7 +25,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     for cand in (shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc'):
         if cand and os.path.exists(cand):
             return cand
@@ -48,7 +48,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     source, all started together.  Returns the seconds each build took
     (0.0 for a library already built).  Raises on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    compiler = nvcc()
     procs = {}
     seconds = {}
     for name in names:
@@ -57,7 +57,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        cmd = [compiler, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -81,3 +81,9 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def swap(name: str, lib: ctypes.CDLL) -> None:
+    """Make ``load(name)`` return `lib`, a build of a modified copy of the
+    source (a planted fault), so that the usual wrapper runs it."""
+    _loaded[name] = lib

@@ -29,22 +29,11 @@
 // float32 inputs take a SIMT path (one warp per q row at a time, lanes
 // split head_dim) with the same tiling rules; it exists for parity
 // checks, not speed.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = 64;              // q rows per CTA (bf16 path)
-constexpr int kBlockN = 64;              // kv rows per tile (bf16 path)
-constexpr int kRowsPerWarp = 4;          // f32 path
-constexpr int kSimtBlockM = kWarps * kRowsPerWarp;
-constexpr int kSimtBlockN = 32;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -55,53 +44,6 @@ struct Params {
   int hq, hkv, s, causal, window;  // window <= 0: no window
   float scale_log2;                // softmax scale * log2(e)
 };
-
-// [first, end) KV tiles that can hold a key some row of the q tile
-// [q0, q_last] attends to (the kv_first .. num_kv_needed range of the
-// TPU kernel).
-__device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
-                                              int q_last, int block_n,
-                                              int* first, int* end) {
-  const int n_tiles = (p.s + block_n - 1) / block_n;
-  *end = p.causal ? min(n_tiles, q_last / block_n + 1) : n_tiles;
-  *first = p.window > 0 ? max(0, q0 - p.window + 1) / block_n : 0;
-}
-
-__device__ __forceinline__ bool visible(const Params& p, int q, int kv) {
-  return kv < p.s && (!p.causal || kv <= q) &&
-         (p.window <= 0 || q - kv < p.window);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // ---------------------------------------------------------------- bf16
 
@@ -132,24 +74,13 @@ __global__ void __launch_bounds__(kThreads)
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   // Stage the Q tile through sK, then keep it in registers as A fragments.
-  for (int c = tid; c < kBlockM * CH; c += kThreads) {
-    const int r = c / CH, col = (c % CH) * 8;
-    *reinterpret_cast<uint4*>(&sK[r * LDK + col]) =
-        q0 + r < p.s ? *reinterpret_cast<const uint4*>(
-                           qg + (size_t)(q0 + r) * D + col)
-                     : zero;
-  }
+  stage_rows<D>(sK, qg, q0, kBlockM, p.s);
   __syncthreads();
   const int r0 = warp * 16 + g;
   uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const __nv_bfloat16* a = &sK[r0 * LDK + kc * 16 + t4 * 2];
-    qf[kc][0] = ld32(a);
-    qf[kc][1] = ld32(a + 8 * LDK);
-    qf[kc][2] = ld32(a + 8);
-    qf[kc][3] = ld32(a + 8 * LDK + 8);
-  }
+  for (int kc = 0; kc < D / 16; ++kc)
+    ld_a(qf[kc], &sK[warp * 16 * LDK + kc * 16], LDK, g, t4);
 
   const int qrow[2] = {q0 + r0, q0 + r0 + 8};  // rows of c0,c1 / c2,c3
   float o[D / 8][4];
@@ -161,18 +92,12 @@ __global__ void __launch_bounds__(kThreads)
   float l[2] = {0.f, 0.f};  // per-thread partial sums (same m per row)
 
   int kv_first, kv_end;
-  kv_tile_range(p, q0, min(q0 + kBlockM, p.s) - 1, kBlockN, &kv_first,
-                &kv_end);
+  kv_tile_range(p.s, p.causal, p.window, q0, min(q0 + kBlockM, p.s) - 1,
+                kBlockN, &kv_first, &kv_end);
   for (int kt = kv_first; kt < kv_end; ++kt) {
     const int kv0 = kt * kBlockN;
     __syncthreads();  // previous tile (or the Q staging) fully consumed
-    for (int c = tid; c < kBlockN * CH; c += kThreads) {
-      const int r = c / CH, col = (c % CH) * 8;
-      *reinterpret_cast<uint4*>(&sK[r * LDK + col]) =
-          kv0 + r < p.s ? *reinterpret_cast<const uint4*>(
-                              kg + (size_t)(kv0 + r) * D + col)
-                        : zero;
-    }
+    stage_rows<D>(sK, kg, kv0, kBlockN, p.s);
     for (int c = tid; c < kBlockN * CH; c += kThreads) {
       const int r = c % kBlockN, col = (c / kBlockN) * 8;
       uint4 val = kv0 + r < p.s ? *reinterpret_cast<const uint4*>(
@@ -209,7 +134,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = sc[j][e] * p.scale_log2;
-        if (need_mask && !visible(p, qrow[e >> 1], kv0 + j * 8 + t4 * 2 + (e & 1)))
+        if (need_mask && !visible(p.s, p.causal, p.window, qrow[e >> 1],
+                                     kv0 + j * 8 + t4 * 2 + (e & 1)))
           x = -INFINITY;
         sc[j][e] = x;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
@@ -243,10 +169,8 @@ __global__ void __launch_bounds__(kThreads)
     // O += P V, P re-packed from the S accumulators as bf16 A fragments.
 #pragma unroll
     for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      const uint32_t a[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
-                             pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
-                             pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
-                             pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+      uint32_t a[4];
+      c_to_a(a, sc[2 * kc], sc[2 * kc + 1]);
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {
         const __nv_bfloat16* bp = &sVt[(dn * 8 + g) * LDV + kc * 16 + t4 * 2];
@@ -310,8 +234,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int kv_first, kv_end;
-  kv_tile_range(p, q0, min(q0 + kSimtBlockM, p.s) - 1, kSimtBlockN,
-                &kv_first, &kv_end);
+  kv_tile_range(p.s, p.causal, p.window, q0,
+                min(q0 + kSimtBlockM, p.s) - 1, kSimtBlockN, &kv_first,
+                &kv_end);
   for (int kt = kv_first; kt < kv_end; ++kt) {
     const int kv0 = kt * kSimtBlockN;
     __syncthreads();
@@ -332,7 +257,9 @@ __global__ void __launch_bounds__(kThreads)
         part = warp_sum(part);
         if (lane == j) mine = part;
       }
-      const float x = visible(p, row0 + r, kv0 + lane) ? mine : -INFINITY;
+      const float x =
+          visible(p.s, p.causal, p.window, row0 + r, kv0 + lane) ? mine
+                                                                  : -INFINITY;
       const float mn = fmaxf(m[r], warp_max(x));
       const float mb = mn == -INFINITY ? 0.f : mn;
       const float corr = exp2f(m[r] - mb);
@@ -411,7 +338,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-const char* flash_attention_error_string(int code) {
+const char* flash_attention_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,15 +1,17 @@
-"""Flash attention: the dispatcher, its plain PyTorch versions and the
-wrapper of the hand-written Hopper kernel (``csrc/flash_attention_fwd.cu``).
+"""Flash attention: the dispatcher, its plain PyTorch versions, the
+wrappers of the hand-written Hopper kernels (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd_dq.cu``, ``csrc/flash_attention_bwd_dkv.cu``)
+and the autograd Function that joins them.
 
 Counterpart of ``skypilot_tpu/ops/flash_attention.py``.  The layout at
 every public function is the JAX package's: q ``[B, Hq, S, D]``, k/v
 ``[B, Hkv, S, D]`` with ``Hq`` a multiple of ``Hkv`` (GQA).
 
 ``flash_attention`` picks the path by the device of its inputs: a CPU
-tensor takes ``reference_attention``; a CUDA tensor launches the kernel
-(``flash_attention_fwd``) or raises -- nothing falls back.  The backward
-kernels come with the trainer; until then the CUDA path refuses inputs
-that require grad.
+tensor takes ``reference_attention`` (differentiated by autograd, as the
+JAX dispatcher does off the TPU); a CUDA tensor goes through
+``FlashAttentionFunction``, whose forward and backward launch the kernels
+or raise -- nothing falls back.
 """
 import ctypes
 from typing import Optional, Tuple
@@ -25,9 +27,11 @@ DEFAULT_BLOCK_KV = 512
 KERNEL_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
 
-# Launches of the forward kernel in this process (read and reset by
-# chip_smoke.py to show the main path went through the kernel).
+# Launches of each kernel in this process (read and reset by
+# chip_smoke.py to show the main path went through the kernels).
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -76,6 +80,68 @@ def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
             lse.reshape(b, hq, s))
 
 
+def attention_bwd_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, causal: bool, scale: float,
+                        window: Optional[int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P and dS of the backward, f32 ``[B, Hkv, Hq/Hkv, S_q, S_kv]``,
+    recomputed from the saved LSE as both backward kernels do:
+    P = exp(s - lse) over the visible pairs, dS = P * (dO V^T - delta) *
+    scale, with s = scale * Q K^T and delta = rowsum(dO * O)."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scores = torch.einsum('bhgqd,bhkd->bhgqk',
+                          q.reshape(b, hkv, group, s, d).float() * scale,
+                          k.float())
+    if causal or window is not None:
+        if not causal:
+            raise ValueError('window requires causal attention')
+        scores = scores.masked_fill(~_band_mask(s, window, q.device),
+                                    _NEG_INF)
+    p = torch.exp(scores - lse.reshape(b, hkv, group, s, 1))
+    dp = torch.einsum('bhgqd,bhkd->bhgqk',
+                      do.reshape(b, hkv, group, s, d).float(), v.float())
+    ds = p * (dp - delta.reshape(b, hkv, group, s, 1)) * scale
+    return p, ds
+
+
+def attention_bwd_dq_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, do: torch.Tensor,
+                               lse: torch.Tensor, delta: torch.Tensor,
+                               causal: bool, scale: float,
+                               window: Optional[int]) -> torch.Tensor:
+    """Plain version of the dQ kernel (the twin of ``_bwd_dq_kernel``):
+    dQ = dS K in f32, returned in q's dtype."""
+    _, ds = attention_bwd_probs(q, k, v, do, lse, delta, causal, scale,
+                                window)
+    dq = torch.einsum('bhgqk,bhkd->bhgqd', ds, k.float())
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def attention_bwd_dkv_reference(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, do: torch.Tensor,
+                                lse: torch.Tensor, delta: torch.Tensor,
+                                causal: bool, scale: float,
+                                window: Optional[int]
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dK/dV kernel (the twin of ``_bwd_dkv_kernel``
+    and the GQA fold after it): dV = P^T dO and dK = dS^T Q in f32 per q
+    head, summed over the q heads of each kv head, cast to k's and v's
+    dtype."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    p, ds = attention_bwd_probs(q, k, v, do, lse, delta, causal, scale,
+                                window)
+    dv = torch.einsum('bhgqk,bhgqd->bhgkd', p,
+                      do.reshape(b, hkv, group, s, d).float())
+    dk = torch.einsum('bhgqk,bhgqd->bhgkd', ds,
+                      q.reshape(b, hkv, group, s, d).float())
+    return dk.sum(2).to(k.dtype), dv.sum(2).to(v.dtype)
+
+
 def _band_mask(s: int, window: Optional[int],
                device: torch.device) -> torch.Tensor:
     """[S, S] bool: key j visible to query i (causal, optionally banded)."""
@@ -94,27 +160,72 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Hq, S]).  CUDA tensors only; raises on anything the kernel does
     not take."""
     global flash_fwd_launches
-    _check_kernel_inputs(q, k, v)
-    if window is not None and (not causal or window < 1):
-        raise ValueError('window requires causal attention and must be >= 1')
+    _check_kernel_inputs(q, k, v, causal, window)
     b, hq, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _kernel_lib()
+    lib = _kernel_lib('flash_attention_fwd', 5)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, hq, k.shape[1], s, d, int(causal),
-            window or 0, float(scale), int(q.dtype == torch.float32),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError('flash_attention_fwd launch failed: '
-                           + lib.flash_attention_error_string(rc).decode())
+            lse.data_ptr(), *_launch_args(q, k, causal, window, scale))
+    _raise_on(lib, 'flash_attention_fwd', rc)
     flash_fwd_launches += 1
     return out, lse
 
 
-def _check_kernel_inputs(q, k, v) -> None:
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           causal: bool, scale: float, window: Optional[int]
+                           ) -> torch.Tensor:
+    """Launch the Hopper dQ kernel: returns dQ in q's dtype.  lse and
+    delta are f32 [B, Hq, S].  CUDA tensors only."""
+    global flash_bwd_dq_launches
+    _check_bwd_inputs(q, k, v, do, lse, delta, causal, window)
+    dq = torch.empty_like(q)
+    lib = _kernel_lib('flash_attention_bwd_dq', 7)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_launch_args(q, k, causal, window, scale))
+    _raise_on(lib, 'flash_attention_bwd_dq', rc)
+    flash_bwd_dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool, scale: float, window: Optional[int]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper dK/dV kernel (GQA folded inside): returns
+    (dK, dV) in k's and v's dtype.  CUDA tensors only."""
+    global flash_bwd_dkv_launches
+    _check_bwd_inputs(q, k, v, do, lse, delta, causal, window)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _kernel_lib('flash_attention_bwd_dkv', 8)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_launch_args(q, k, causal, window, scale))
+    _raise_on(lib, 'flash_attention_bwd_dkv', rc)
+    flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _launch_args(q, k, causal, window, scale) -> tuple:
+    """The trailing arguments every kernel's C entry point takes."""
+    b, hq, s, d = q.shape
+    return (b, hq, k.shape[1], s, d, int(causal), window or 0, float(scale),
+            int(q.dtype == torch.float32),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _check_kernel_inputs(q, k, v, causal, window) -> None:
     for name, t in (('q', q), ('k', k), ('v', v)):
         if not t.is_cuda:
             raise ValueError(f'{name} must be a CUDA tensor (got {t.device})')
@@ -143,23 +254,89 @@ def _check_kernel_inputs(q, k, v) -> None:
                          f'(supported: {KERNEL_HEAD_DIMS})')
     if b * hq > 65535:
         raise ValueError(f'batch * q heads = {b * hq} exceeds the grid limit')
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
-                                    v.requires_grad):
-        raise NotImplementedError(
-            'the flash-attention backward kernels are not ported yet '
-            '(ROADMAP.md A4, training): the CUDA path is forward-only')
+    if window is not None and (not causal or window < 1):
+        raise ValueError('window requires causal attention and must be >= 1')
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load('flash_attention_fwd')
-    if lib.flash_attention_fwd.argtypes is None:
+def _check_bwd_inputs(q, k, v, do, lse, delta, causal, window) -> None:
+    _check_kernel_inputs(q, k, v, causal, window)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f'do must match q: {tuple(do.shape)} {do.dtype} vs '
+                         f'{tuple(q.shape)} {q.dtype}')
+    for name, t in (('do', do), ('lse', lse), ('delta', delta)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous on {q.device}')
+    for name, t in (('lse', lse), ('delta', delta)):
+        if t.dtype != torch.float32 or t.shape != q.shape[:3]:
+            raise ValueError(f'{name} must be float32 {tuple(q.shape[:3])} '
+                             f'(got {t.dtype} {tuple(t.shape)})')
+
+
+def _kernel_lib(name: str, n_ptrs: int) -> ctypes.CDLL:
+    """The kernel library `name`, built on first use, with the argument
+    types of its entry point (n_ptrs tensor pointers, then the
+    _launch_args) and of its error-string function set."""
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [
-            ctypes.c_float, i32, ptr]
-        lib.flash_attention_fwd.restype = i32
-        lib.flash_attention_error_string.argtypes = [i32]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        fn.argtypes = [ptr] * n_ptrs + [i32] * 7 + [ctypes.c_float, i32,
+                                                     ptr]
+        fn.restype = i32
+        err = getattr(lib, name + '_error_string')
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f'{name} launch failed: '
+                           + getattr(lib, name + '_error_string')(rc).decode())
+
+
+def _attention_fwd(q, k, v, causal, scale, window):
+    """The forward kernel on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    fn = flash_attention_fwd if q.is_cuda else attention_fwd_reference
+    return fn(q, k, v, causal, scale, window)
+
+
+def _attention_bwd(q, k, v, do, lse, delta, causal, scale, window):
+    """(dQ, dK, dV): the two backward kernels on CUDA tensors, their plain
+    versions on CPU tensors."""
+    if q.is_cuda:
+        dq_fn, dkv_fn = flash_attention_bwd_dq, flash_attention_bwd_dkv
+    else:
+        dq_fn, dkv_fn = attention_bwd_dq_reference, attention_bwd_dkv_reference
+    args = (q, k, v, do, lse, delta, causal, scale, window)
+    return (dq_fn(*args), *dkv_fn(*args))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its gradient, the counterpart of ``_flash`` and
+    its ``custom_vjp``: the forward saves q, k, v, O and the LSE; the
+    backward computes delta = rowsum(dO * O) in f32 (outside the kernels,
+    as the JAX package does) and runs the dQ and dK/dV kernels.  Each
+    piece runs the kernel for a CUDA tensor and its plain version for a
+    CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float,
+                window: Optional[int]):
+        out, lse = _attention_fwd(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, window)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * out.float()).sum(-1)
+        dq, dk, dv = _attention_bwd(q, k, v, do, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -175,7 +352,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       k, v: [batch, num_kv_heads, seq, head_dim] (GQA when fewer kv heads)
       block_q, block_kv: the TPU kernel's tile sizes; accepted for
         signature parity and not used (the Hopper tiles are fixed).
-      use_kernel: None picks by device (CUDA: kernel, CPU: reference);
+      use_kernel: None picks by device (CUDA: kernels, CPU: reference);
         True on a CPU tensor or False on a CUDA tensor raises.
       window: sliding-window (banded causal) attention -- query i attends
         keys j with 0 <= i-j < window.  Requires causal=True.
@@ -199,4 +376,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not use_kernel:
         return reference_attention(q, k, v, causal=causal, scale=scale,
                                    window=window)
-    return flash_attention_fwd(q, k, v, causal, scale, window)[0]
+    return FlashAttentionFunction.apply(q, k, v, causal, scale, window)

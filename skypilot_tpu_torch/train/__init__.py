@@ -1,0 +1,8 @@
+"""Training of the port: the single-device trainer (``train.trainer``)."""
+from skypilot_tpu_torch.train.trainer import (Trainer, TrainConfig,
+                                              TrainState, make_eval_step,
+                                              make_optimizer,
+                                              make_train_step)
+
+__all__ = ['Trainer', 'TrainConfig', 'TrainState', 'make_eval_step',
+           'make_optimizer', 'make_train_step']

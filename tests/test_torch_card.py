@@ -1,0 +1,81 @@
+"""Checks of the port that need a CUDA card; each skips without one.
+
+This file imports torch and numpy only, so that it runs on a machine with
+a card and no JAX, with the JAX-pinning conftest switched off:
+
+    python -m pytest --noconftest -q tests/test_torch_card.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from skypilot_tpu_torch.ops import flash_attention as fa
+
+# f32 kernels against their plain versions: summation order only.
+TOL = 1e-4
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _inputs(shapes, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                  ).to('cuda', dtype) for s in shapes)
+
+
+def _counts():
+    return (fa.flash_fwd_launches, fa.flash_bwd_dq_launches,
+            fa.flash_bwd_dkv_launches)
+
+
+def test_cuda_path_differentiates_through_the_kernels(card):
+    """The CUDA path differentiates through the autograd Function: one
+    forward launch, then one launch of each backward kernel."""
+    q, k, v = _inputs([(1, 2, 64, 64)] * 3, torch.bfloat16, seed=8)
+    q.requires_grad_(True)
+    before = _counts()
+    fa.flash_attention(q, k, v).float().sum().backward()
+    assert [a - b for a, b in zip(_counts(), before)] == [1, 1, 1]
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+
+
+@pytest.mark.parametrize('window', [None, 48])
+def test_backward_kernels_match_plain_versions(card, window):
+    """Each backward kernel against its plain version (f32, ragged S 200,
+    GQA 4/2), and two calls bit-identical."""
+    q, k, v, do = _inputs([(1, 4, 200, 64), (1, 2, 200, 64),
+                           (1, 2, 200, 64), (1, 4, 200, 64)],
+                          torch.float32, seed=11)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, 0.125, window)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, do, lse, delta, True, 0.125, window)
+    got = (fa.flash_attention_bwd_dq(*args),
+           *fa.flash_attention_bwd_dkv(*args))
+    want = (fa.attention_bwd_dq_reference(*args),
+            *fa.attention_bwd_dkv_reference(*args))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=TOL)
+    again = (fa.flash_attention_bwd_dq(*args),
+             *fa.flash_attention_bwd_dkv(*args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_function_gradients_match_plain_on_the_card(card):
+    """FlashAttentionFunction on CUDA tensors against the same Function on
+    CPU tensors (the plain versions), f32."""
+    q, k, v, do = _inputs([(2, 8, 130, 128), (2, 2, 130, 128),
+                           (2, 2, 130, 128), (2, 8, 130, 128)],
+                          torch.float32, seed=3)
+    grads = {}
+    for dev in ('cuda', 'cpu'):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = fa.FlashAttentionFunction.apply(*leaves, True, 128 ** -0.5,
+                                              None)
+        grads[dev] = torch.autograd.grad(out, leaves, do.to(dev))
+    for g, w in zip(grads['cuda'], grads['cpu']):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=TOL)

@@ -108,15 +108,3 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         fa.flash_attention_fwd(q, k, v, True, 0.125, None)
     assert fa.flash_fwd_launches == before
-
-
-def test_cuda_path_refuses_requires_grad():
-    """Until the backward kernels exist, the CUDA path is forward-only
-    and says so instead of differentiating through something else."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA card')
-    q, k, v = (torch.from_numpy(x).to('cuda', torch.bfloat16)
-               for x in _inputs(1, 2, 2, 64, 64, seed=8))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match='backward'):
-        fa.flash_attention(q, k, v)

@@ -1,0 +1,139 @@
+"""The port's flash-attention backward (skypilot_tpu_torch.ops.flash_attention)
+held against the JAX package's: the plain versions of the dQ and dK/dV
+kernels against ``_flash_bwd``, which runs both Pallas backward kernels in
+interpret mode, and the autograd Function on CPU tensors against autograd
+through ``reference_attention`` and against ``jax.grad`` of the JAX
+``flash_attention``.  Inputs are made with numpy from a seed and fed to
+both.  Everything here runs on the CPU, in f32; the Hopper kernels
+themselves are held against these plain versions on the card by
+chip_smoke.py and tests/test_torch_card.py."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skypilot_tpu.ops.flash_attention import _flash_bwd, _flash_fwd
+from skypilot_tpu.ops.flash_attention import \
+    flash_attention as jax_flash_attention
+from skypilot_tpu_torch.ops import flash_attention as fa
+
+# f32 on the CPU: the same math in another summation order.
+TOL = 1e-4
+
+
+def _inputs(b, hq, hkv, s, d, seed):
+    """q, k, v and the output cotangent dO, standard normal."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, hq, s, d), (b, hkv, s, d),
+                               (b, hkv, s, d), (b, hq, s, d)))
+
+
+# (b, hq, hkv, s, d, causal, window, block)
+CASES = {
+    'causal': (2, 4, 4, 128, 64, True, None, 64),
+    'non_causal': (1, 4, 4, 128, 64, False, None, 64),
+    'gqa_8_2': (1, 8, 2, 128, 64, True, None, 64),
+    'window_48': (1, 4, 2, 128, 64, True, 48, 64),
+    'head_dim_32': (1, 4, 2, 128, 32, True, None, 64),
+    'head_dim_64_gqa_non_causal': (1, 8, 2, 64, 64, False, None, 32),
+}
+
+
+def _jax_bwd(q, k, v, do, causal, window, block):
+    """(out, lse, dq, dk, dv) from the Pallas kernels in interpret mode."""
+    scale = q.shape[-1] ** -0.5
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    out, lse = _flash_fwd(jq, jk, jv, causal=causal, scale=scale,
+                          block_q=block, block_kv=block, window=window)
+    dq, dk, dv = _flash_bwd(jq, jk, jv, out, lse, jdo, causal=causal,
+                            scale=scale, block_q=block, block_kv=block,
+                            window=window)
+    return tuple(np.asarray(x) for x in (out, lse, dq, dk, dv))
+
+
+@pytest.mark.parametrize('case', list(CASES), ids=list(CASES))
+def test_plain_versions_match_pallas_kernels(case):
+    """attention_bwd_dq_reference and attention_bwd_dkv_reference (the
+    kernels' plain versions) against _flash_bwd, from the same O and LSE
+    and with delta = rowsum(dO * O) in f32 as the JAX package forms it."""
+    b, hq, hkv, s, d, causal, window, block = CASES[case]
+    q, k, v, do = _inputs(b, hq, hkv, s, d, seed=len(case))
+    out, lse, jdq, jdk, jdv = _jax_bwd(q, k, v, do, causal, window, block)
+    out, lse = np.array(out), np.array(lse)
+    tq, tk, tv, tdo, tout, tlse = map(torch.from_numpy,
+                                      (q, k, v, do, out, lse))
+    delta = (tdo * tout).sum(-1)
+    args = (tq, tk, tv, tdo, tlse, delta, causal, d ** -0.5, window)
+    dq = fa.attention_bwd_dq_reference(*args)
+    dk, dv = fa.attention_bwd_dkv_reference(*args)
+    assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize('case', ['causal', 'gqa_8_2', 'window_48',
+                                  'head_dim_64_gqa_non_causal'])
+def test_function_gradients_match_autograd_and_jax(case):
+    """FlashAttentionFunction on CPU tensors (the plain forward and both
+    plain backward versions) against autograd through
+    reference_attention, and against jax.grad of the JAX flash_attention
+    with the Pallas kernels (interpret mode) and their custom_vjp."""
+    b, hq, hkv, s, d, causal, window, block = CASES[case]
+    q, k, v, do = _inputs(b, hq, hkv, s, d, seed=len(case) + 50)
+    scale = d ** -0.5
+
+    def torch_grads(fn):
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                      for x in (q, k, v))
+        out = fn(tq, tk, tv)
+        return out.detach(), torch.autograd.grad(
+            out, (tq, tk, tv), torch.from_numpy(do))
+
+    out, grads = torch_grads(lambda a, b_, c: fa.FlashAttentionFunction.apply(
+        a, b_, c, causal, scale, window))
+    ref_out, ref_grads = torch_grads(lambda a, b_, c: fa.reference_attention(
+        a, b_, c, causal=causal, scale=scale, window=window))
+    np.testing.assert_allclose(out.numpy(), ref_out.numpy(), atol=TOL)
+
+    def jax_loss(jq, jk, jv):
+        o = jax_flash_attention(jq, jk, jv, causal=causal, scale=scale,
+                                block_q=block, block_kv=block,
+                                use_pallas=True, window=window)
+        return jnp.sum(o * jnp.asarray(do))
+
+    jgrads = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for got, ref, jref in zip(grads, ref_grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                   atol=TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=0,
+                                   atol=TOL)
+
+
+def test_dispatcher_differentiates_on_cpu():
+    """flash_attention on CPU tensors keeps the JAX dispatcher's CPU rule
+    (reference_attention, differentiated by autograd) and its gradient
+    equals the Function's."""
+    q, k, v, do = map(torch.from_numpy, _inputs(1, 4, 2, 64, 32, seed=9))
+    q.requires_grad_(True)
+    before = (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+    (dq,) = torch.autograd.grad(fa.flash_attention(q, k, v, window=16), q,
+                                do)
+    (dq_fn,) = torch.autograd.grad(fa.FlashAttentionFunction.apply(
+        q, k, v, True, 32 ** -0.5, 16), q, do)
+    np.testing.assert_allclose(dq.numpy(), dq_fn.numpy(), atol=TOL)
+    assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == before
+
+
+def test_backward_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers never compute on a CPU tensor: they raise
+    before any build or launch."""
+    q, k, v, do = map(torch.from_numpy, _inputs(1, 2, 2, 64, 64, seed=7))
+    lse = torch.zeros(q.shape[:3])
+    before = (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+    for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match='CUDA'):
+            fn(q, k, v, do, lse, lse, True, 0.125, None)
+    assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == before

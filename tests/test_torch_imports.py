@@ -41,6 +41,7 @@ def test_importing_every_module_loads_no_jax():
     modules = _port_modules()
     assert 'skypilot_tpu_torch.ops.flash_attention' in modules
     assert 'skypilot_tpu_torch.infer.engine' in modules
+    assert 'skypilot_tpu_torch.train.trainer' in modules
     code = (
         'import importlib, json, sys\n'
         f'for m in {modules!r}:\n'
@@ -56,7 +57,7 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize('path', sorted(
     [str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')] +
-    ['chip_smoke.py']))
+    ['chip_smoke.py', 'tests/test_torch_card.py']))
 def test_sources_import_no_jax(path):
     """No import statement anywhere in the file -- including ones inside
     functions -- names a forbidden package."""
@@ -81,6 +82,8 @@ def test_entry_points_need_a_card():
                                                  InferenceEngine,
                                                  engine_from_name)
     from skypilot_tpu_torch.models import get_model_config
+    from skypilot_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                  synthetic_data)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         resolve_device()
     with pytest.raises(RuntimeError, match='no CUDA device'):
@@ -92,6 +95,10 @@ def test_entry_points_need_a_card():
     with pytest.raises(RuntimeError, match='no CUDA device'):
         InferenceEngine(get_model_config('llama-debug'),
                         InferConfig(max_cache_len=64))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        Trainer(TrainConfig(model='llama-debug'))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        next(synthetic_data(1, 8, 16))
     assert resolve_device('cpu') == torch.device('cpu')
 
 
