@@ -1,39 +1,55 @@
 // Flash-attention forward for Hopper (sm_90a): causal, non-causal and
 // banded-causal (sliding-window) GQA attention with an online softmax in
 // f32.  Writes O in the input dtype and the per-row log-sum-exp
-// LSE = m + log(l) in f32, shaped [B, Hq, S].
+// LSE = m + log(l) in f32 (natural log), shaped [B, Hq, S]: what both
+// backward kernels read.
 //
 // Replaces the TPU kernel `_fwd_kernel`, launched by `_flash_fwd` in
 // skypilot_tpu/ops/flash_attention.py (pl.pallas_call at line 160).
 //
-// What bounds it on an H100: at the shapes the Llama forward gives it
-// (head_dim 128, S >= 1k) attention does ~2*S*D FLOPs per q row against
-// ~4*D bytes of Q/O per row, so it is bound by tensor-core throughput,
-// not by HBM (989 TFLOP/s bf16 vs 3.35 TB/s).  What the design does about
-// that: scores and P never leave registers (no [S, S] matrix in HBM), the
-// products run on the tensor cores (mma.sync m16n8k16 bf16 -> f32), K/V
-// tiles are read from global memory once per CTA and reused by all four
-// warps through shared memory, KV tiles past the diagonal (and, with a
-// window, below the band) are skipped, and causal CTAs are issued longest
-// first so the tail of the grid is short.  wgmma, TMA and warp
-// specialisation are later work.
-//
-// Structure (the TPU's sequential grid is not carried over):
-//   * one CTA per (batch*q_head, 64-row q tile), 4 warps of 16 q rows;
-//   * K/V tiles of 64 rows are staged through shared memory (V
-//     transposed, so the B fragments of P*V are 32-bit loads) and a KV
-//     loop runs inside the CTA;
+// What bounds it on an H100: at the shapes the Llama forward and train
+// step give it (head_dim 128, S >= 1k) attention does ~2*S*D FLOPs per q
+// row against ~4*D bytes of Q/O per row, so it is bound by tensor-core
+// throughput, not by HBM (989 TFLOP/s bf16 vs 3.35 TB/s).  What the bf16
+// design does about that:
+//   * both products run on wgmma, the only way to the full tensor-core
+//     rate: S = Q K^T (m64n128k16, Q and K read from 128B-swizzled shared
+//     memory, K-major as they lie in memory) and O += P V (P from
+//     registers -- the S accumulator re-packed as bf16 A fragments -- and
+//     V read MN-major with the transpose bit: nothing is transposed by
+//     hand);
+//   * one CTA per (batch*q_head, 128-row q tile): a producer warpgroup,
+//     one thread of which keeps a three-stage ring of 128-row K/V tiles
+//     full with TMA (3-D maps [bh, S, D], so a tile past S reads zeros,
+//     not the next head), and two consumer warpgroups of 64 q rows each;
+//     setmaxnreg moves registers from the producer (24) to the consumers
+//     (240); mbarriers carry the ring (full: TMA transaction bytes,
+//     empty: the 256 consumer threads);
+//   * the consumers take turns on the tensor cores (two named barriers):
+//     in its turn a warpgroup issues S of tile i and P V of tile i - 1,
+//     and then runs the softmax of tile i while the other warpgroup's
+//     products run;
+//   * scores and P never leave registers (no [S, S] matrix in HBM); only
+//     the ragged edge, the causal diagonal and the window's lower edge
+//     are masked; KV tiles past the diagonal (and, with a window, below
+//     the band) are skipped; causal CTAs are issued longest first;
 //   * q head h of batch b reads kv head b*Hkv + h/(Hq/Hkv): no K/V copies;
-//   * the ragged edge (S not a multiple of 64) is masked, rows past S are
-//     never stored.
+//     rows past S are never stored.
+// Registers and layouts are described where they are used; the Hopper
+// primitives live in hopper.cuh.
+//
 // float32 inputs take a SIMT path (one warp per q row at a time, lanes
-// split head_dim) with the same tiling rules; it exists for parity
+// split head_dim, 16-row q tiles of four warps); it exists for parity
 // checks, not speed.
 #include "flash_common.cuh"
+#include "hopper.cuh"
+
+#include <stdio.h>
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 struct Params {
   const void* q;
@@ -47,154 +63,280 @@ struct Params {
 
 // ---------------------------------------------------------------- bf16
 
+constexpr int kTileRows = 128;          // q rows of a CTA, kv rows of a tile
+constexpr int kWgRows = 64;             // q rows of a consumer warpgroup
+constexpr int kConsumerThreads = 256;   // two consumer warpgroups
+constexpr int kThreadsBf16 = 384;       // and the producer warpgroup
+constexpr int kProducerRegs = 24;       // setmaxnreg: 24 * 128 + 240 * 256
+constexpr int kConsumerRegs = 240;      //   registers fit the SM's 65536
+constexpr int kStages = 3;              // K/V tiles in flight
+constexpr int kTurnBar = 1;             // named barriers 1 and 2
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16_kernel(const Params p) {
-  constexpr int LDK = D + 8;        // padded rows: conflict-free fragments
-  constexpr int LDV = kBlockN + 8;
-  constexpr int CH = D / 8;         // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * LDK];  // also Q
-  __shared__ __align__(16) __nv_bfloat16 sVt[D * LDV];       // V^T
+struct Tiles {
+  static constexpr uint32_t kBytes = kTileRows * D * 2;  // one 128 x D tile
+  static constexpr uint32_t kBlockBytes = kTileRows * kRowBytes;  // 64 cols
+  // Q, the ring of K and V tiles, the barriers, and room to align.
+  static constexpr int kSmem =
+      (1 + 2 * kStages) * kBytes + 8 * (1 + 2 * kStages) + kAtomBytes;
+};
 
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest tiles first
-  const int bh = blockIdx.y;
-  const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
-  const int q0 = q_tile * kBlockM;
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * p.s * D;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + (size_t)kvh * p.s * D;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + (size_t)kvh * p.s * D;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + (size_t)bh * p.s * D;
-  float* lseg = p.lse + (size_t)bh * p.s;
+// Issue the TMA loads of the 128 x D tile at rows [row0, row0 + 128) of
+// head bh into the swizzled tile at `dst`; they complete on `bar`.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int row0, int bh) {
+#pragma unroll
+  for (int blk = 0; blk < D / kSwizzleCols; ++blk)
+    tma_load_3d(dst + blk * Tiles<D>::kBlockBytes, map, bar,
+                blk * kSwizzleCols, row0, bh);
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  // Stage the Q tile through sK, then keep it in registers as A fragments.
-  stage_rows<D>(sK, qg, q0, kBlockM, p.s);
-  __syncthreads();
-  const int r0 = warp * 16 + g;
-  uint32_t qf[D / 16][4];
+// S = Q K^T for one consumer warpgroup (wgmma, both from shared memory,
+// K-major): sq holds the warpgroup's 64 Q rows, sk the tile's K.
+// Accumulator element 4j + e of a thread holds row qrow[e >> 1] and
+// column 8j + 2 t4 + (e & 1).
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kTileRows / 2],
+                                         uint32_t sq, uint32_t sk) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    ld_a(qf[kc], &sK[warp * 16 * LDK + kc * 16], LDK, g, t4);
-
-  const int qrow[2] = {q0 + r0, q0 + r0 + 8};  // rows of c0,c1 / c2,c3
-  float o[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // per-thread partial sums (same m per row)
-
-  int kv_first, kv_end;
-  kv_tile_range(p.s, p.causal, p.window, q0, min(q0 + kBlockM, p.s) - 1,
-                kBlockN, &kv_first, &kv_end);
-  for (int kt = kv_first; kt < kv_end; ++kt) {
-    const int kv0 = kt * kBlockN;
-    __syncthreads();  // previous tile (or the Q staging) fully consumed
-    stage_rows<D>(sK, kg, kv0, kBlockN, p.s);
-    for (int c = tid; c < kBlockN * CH; c += kThreads) {
-      const int r = c % kBlockN, col = (c / kBlockN) * 8;
-      uint4 val = kv0 + r < p.s ? *reinterpret_cast<const uint4*>(
-                                      vg + (size_t)(kv0 + r) * D + col)
-                                : zero;
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) sVt[(col + i) * LDV + r] = e[i];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float sc[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const __nv_bfloat16* bp = &sK[(j * 8 + g) * LDK + kc * 16 + t4 * 2];
-        const uint32_t b[2] = {ld32(bp), ld32(bp + 8)};
-        mma_16816(sc[j], qf[kc], b);
-      }
-    }
-
-    // Scale into log2 units, mask, online softmax.
-    const bool need_mask = kv0 + kBlockN > p.s ||
-                           (p.causal && kv0 + kBlockN - 1 > q0) ||
-                           (p.window > 0 &&
-                            q0 + kBlockM - 1 - kv0 >= p.window);
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[j][e] * p.scale_log2;
-        if (need_mask && !visible(p.s, p.causal, p.window, qrow[e >> 1],
-                                     kv0 + j * 8 + t4 * 2 + (e & 1)))
-          x = -INFINITY;
-        sc[j][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
-      }
-    float mb[2], corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      const float mn = fmaxf(m[r], tmax[r]);
-      mb[r] = mn == -INFINITY ? 0.f : mn;  // fully masked so far
-      corr[r] = exp2f(m[r] - mb[r]);
-      m[r] = mn;
-    }
-    float lsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f(sc[j][e] - mb[e >> 1]);
-        sc[j][e] = pv;
-        lsum[e >> 1] += pv;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + lsum[r];
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[dn][e] *= corr[e >> 1];
-
-    // O += P V, P re-packed from the S accumulators as bf16 A fragments.
-#pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      uint32_t a[4];
-      c_to_a(a, sc[2 * kc], sc[2 * kc + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* bp = &sVt[(dn * 8 + g) * LDV + kc * 16 + t4 * 2];
-        const uint32_t b[2] = {ld32(bp), ld32(bp + 8)};
-        mma_16816(o[dn], a, b);
-      }
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t at = (kk / 4) * Tiles<D>::kBlockBytes + (kk % 4) * 32;
+    wgmma_ss_n128(s, sw128_desc(sq + at, 16, kAtomBytes),
+                  sw128_desc(sk + at, 16, kAtomBytes), kk);
   }
+}
 
+// O += P V: P as bf16 A fragments in registers, 16 keys per product; V
+// read as it lies (MN-major, the transpose bit).
+template <int D>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], const uint32_t (&pa)[kTileRows / 16][4], uint32_t sv) {
+#pragma unroll
+  for (int kc = 0; kc < kTileRows / 16; ++kc)
+    wgmma_rs<D>(o, pa[kc], sw128_desc(sv + kc * 16 * kRowBytes,
+                                      Tiles<D>::kBlockBytes, kAtomBytes));
+}
+
+// The online softmax of one tile, in log2 units: mask S where kMask (the
+// tiles that hold a key hidden from some row), raise the running max m
+// (of S * scale_log2), turn S into P = exp2(S * scale_log2 - m) in place,
+// and return the factor corr = exp2(m_old - m) by which l (here) and O (by
+// the caller) are rescaled.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[kTileRows / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int kv0,
+                                             const int (&qrow)[2], int t4,
+                                             const Params& p) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kTileRows / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMask && !visible(p.s, p.causal, p.window, qrow[e >> 1],
+                            kv0 + j * 8 + t4 * 2 + (e & 1)))
+        s[4 * j + e] = -INFINITY;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], s[4 * j + e]);
+    }
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float mn = fmaxf(m[r], tmax[r] * p.scale_log2);
+    mb[r] = mn == -INFINITY ? 0.f : mn;  // fully masked so far
+    corr[r] = exp2_approx(m[r] - mb[r]);
+    m[r] = mn;
+  }
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kTileRows / 2; ++i) {
+    const float pv = exp2_approx(fmaf(s[i], p.scale_log2, -mb[(i >> 1) & 1]));
+    s[i] = pv;
+    lsum[(i >> 1) & 1] += pv;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + lsum[r];
+}
+
+// Normalise O, store it as bf16 and write the LSE (rows past s are
+// dropped).
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&o)[D / 2],
+                                           const float (&m)[2], float (&l)[2],
+                                           const int (&qrow)[2], int t4,
+                                           __nv_bfloat16* og, float* lseg,
+                                           int s) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (qrow[r] >= p.s) continue;
+    if (qrow[r] >= s) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
       *reinterpret_cast<uint32_t*>(og + (size_t)qrow[r] * D + dn * 8 +
                                    t4 * 2) =
-          pack_bf16(o[dn][2 * r] * inv, o[dn][2 * r + 1] * inv);
+          pack_bf16(o[4 * dn + 2 * r] * inv, o[4 * dn + 2 * r + 1] * inv);
     if (t4 == 0)
       lseg[qrow[r]] = m[r] == -INFINITY ? -INFINITY
                                         : (m[r] + log2f(l[r])) * kLn2;
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const Params p) {
+  constexpr uint32_t kBytes = Tiles<D>::kBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + kAtomBytes - 1) &
+                      ~uint32_t(kAtomBytes - 1);
+  const uint32_t sK = sQ + kBytes;                 // stage i at + i * kBytes
+  const uint32_t sV = sK + kStages * kBytes;
+  const uint32_t q_bar = sV + kStages * kBytes;    // Q landed
+  const uint32_t full_bar = q_bar + 8;             // stage i: + 8 * i
+  const uint32_t empty_bar = full_bar + 8 * kStages;
+
+  const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int bh = blockIdx.y;
+  const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
+  const int q0 = q_tile * kTileRows;
+  int kv_first, kv_end;
+  kv_tile_range(p.s, p.causal, p.window, q0, min(q0 + kTileRows, p.s) - 1,
+                kTileRows, &kv_first, &kv_end);
+  const int n_kv = kv_end - kv_first;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar + 8 * st, 1);
+      mbar_init(empty_bar + 8 * st, kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // Producer warpgroup: one thread keeps the K/V ring full.
+    regs_dec<kProducerRegs>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(q_bar, kBytes);
+      load_tile<D>(sQ, &tm_q, q_bar, q0, bh);
+      for (int i = 0; i < n_kv; ++i) {
+        const int st = i % kStages, kv0 = (kv_first + i) * kTileRows;
+        mbar_wait(empty_bar + 8 * st, ((i / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_bar + 8 * st, 2 * kBytes);
+        load_tile<D>(sK + st * kBytes, &tm_k, full_bar + 8 * st, kv0, kvh);
+        load_tile<D>(sV + st * kBytes, &tm_v, full_bar + 8 * st, kv0, kvh);
+      }
+    }
+  } else {
+    // Two consumer warpgroups of 64 q rows each.  They take turns on the
+    // tensor cores (named barriers kTurnBar + wg): in its turn a warpgroup
+    // issues S = Q K^T of tile i and O += P V of tile i - 1, then runs the
+    // softmax of tile i while the other warpgroup's products run.
+    regs_inc<kConsumerRegs>();
+    const int wg = tid / 128 - 1, warp = (tid % 128) / 32;
+    const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+    const int wq0 = q0 + wg * kWgRows;  // this warpgroup's first q row
+    const int qrow[2] = {wq0 + warp * 16 + g, wq0 + warp * 16 + g + 8};
+    const uint32_t sq = sQ + wg * kWgRows * kRowBytes;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // per-thread partial sums (same m per row)
+    float s[kTileRows / 2], corr[2];
+    uint32_t pa[kTileRows / 16][4];  // P of the previous tile, bf16
+    // Mask only the tiles that hold a key hidden from some row: the
+    // ragged edge, the causal diagonal, the window's lower edge.
+    auto softmax = [&](int kv0) {
+      if (kv0 + kTileRows > p.s ||
+          (p.causal && kv0 + kTileRows - 1 > wq0) ||
+          (p.window > 0 && wq0 + kWgRows - 1 - kv0 >= p.window))
+        softmax_tile<true>(s, m, l, corr, kv0, qrow, t4, p);
+      else
+        softmax_tile<false>(s, m, l, corr, kv0, qrow, t4, p);
+    };
+    named_bar_arrive(kTurnBar, kConsumerThreads, wg == 0);  // goes first
+    mbar_wait(q_bar, 0);
+
+    // Tile 0: S and its softmax; its P V joins the next turn.
+    mbar_wait(full_bar, 0);
+    named_bar_sync(kTurnBar + wg, kConsumerThreads);
+    wgmma_fence();
+    issue_qk<D>(s, sq, sK);
+    wgmma_commit();
+    named_bar_arrive(kTurnBar + 1 - wg, kConsumerThreads);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(kv_first * kTileRows);
+#pragma unroll
+    for (int kc = 0; kc < kTileRows / 16; ++kc)
+      c_to_a(pa[kc], &s[8 * kc], &s[8 * kc + 4]);
+
+    for (int i = 1; i < n_kv; ++i) {
+      const int st = i % kStages, prev = (i - 1) % kStages;
+      const int kv0 = (kv_first + i) * kTileRows;
+      mbar_wait(full_bar + 8 * st, (i / kStages) & 1);
+      named_bar_sync(kTurnBar + wg, kConsumerThreads);
+      wgmma_fence();
+      issue_qk<D>(s, sq, sK + st * kBytes);
+      wgmma_commit();
+      issue_pv<D>(o, pa, sV + prev * kBytes);
+      wgmma_commit();
+      named_bar_arrive(kTurnBar + 1 - wg, kConsumerThreads);
+      wgmma_wait<1>();  // S is in; P V of tile i - 1 may still run
+      fence_regs(s);
+      softmax(kv0);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(empty_bar + 8 * prev);  // stage prev may be refilled
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+#pragma unroll
+      for (int kc = 0; kc < kTileRows / 16; ++kc)
+        c_to_a(pa[kc], &s[8 * kc], &s[8 * kc + 4]);
+    }
+
+    // The last tile's P V; the second warpgroup's turn is the last.
+    named_bar_sync(kTurnBar + wg, kConsumerThreads);
+    wgmma_fence();
+    issue_pv<D>(o, pa, sV + ((n_kv - 1) % kStages) * kBytes);
+    wgmma_commit();
+    named_bar_arrive(kTurnBar + 1 - wg, kConsumerThreads, wg == 0);
+    wgmma_wait<0>();
+    fence_regs(o);
+    store_rows<D>(o, m, l, qrow, t4,
+                  static_cast<__nv_bfloat16*>(p.o) + (size_t)bh * p.s * D,
+                  p.lse + (size_t)bh * p.s, p.s);
+  }
+}
+
+// Encode the tensor maps of q, k and v (they hold the data pointers, so
+// every launch encodes its own) and launch the bf16 kernel.
+template <int D>
+int launch_bf16(const Params& p, int b, cudaStream_t st) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kTileRows);
+  if (err == 0) err = encode_rows_map(&tm_k, p.k, D, p.s, b * p.hkv, kTileRows);
+  if (err == 0) err = encode_rows_map(&tm_v, p.v, D, p.s, b * p.hkv, kTileRows);
+  if (err != 0) return err;
+  constexpr int bytes = Tiles<D>::kSmem;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid((p.s + kTileRows - 1) / kTileRows, b * p.hq);
+  flash_fwd_bf16_kernel<D><<<grid, kThreadsBf16, bytes, st>>>(tm_q, tm_k,
+                                                            tm_v, p);
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32
@@ -326,19 +468,26 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       flash_fwd_f32_kernel<128><<<grid, block, 0, st>>>(p);
     else
       return (int)cudaErrorInvalidValue;
+  } else if (d == 64) {
+    return launch_bf16<64>(p, b, st);
+  } else if (d == 128) {
+    return launch_bf16<128>(p, b, st);
   } else {
-    const dim3 grid((s + kBlockM - 1) / kBlockM, b * hq);
-    if (d == 64)
-      flash_fwd_bf16_kernel<64><<<grid, block, 0, st>>>(p);
-    else if (d == 128)
-      flash_fwd_bf16_kernel<128><<<grid, block, 0, st>>>(p);
-    else
-      return (int)cudaErrorInvalidValue;
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
 const char* flash_attention_fwd_error_string(int code) {
+  static thread_local char msg[96];
+  if (code == kErrNoEncoder)
+    return "the driver has no cuTensorMapEncodeTiled (CUDA 12.0 or newer "
+           "is needed for TMA)";
+  if (code > kErrTensorMap && code < kErrNoEncoder) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             code - kErrTensorMap);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

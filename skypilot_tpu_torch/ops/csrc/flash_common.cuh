@@ -19,8 +19,8 @@ namespace flash {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = 64;              // q rows per tile (bf16 paths)
-constexpr int kBlockN = 64;              // kv rows per tile (bf16 paths)
+constexpr int kBlockM = 64;              // q rows per tile (bf16 backward)
+constexpr int kBlockN = 64;              // kv rows per tile (bf16 backward)
 constexpr int kRowsPerWarp = 4;          // f32 paths
 constexpr int kSimtBlockM = kWarps * kRowsPerWarp;
 constexpr int kSimtBlockN = 32;

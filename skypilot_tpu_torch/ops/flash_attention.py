@@ -21,7 +21,8 @@ import torch
 from skypilot_tpu_torch.ops import _build
 
 # TPU tile sizes of the JAX kernel, kept for signature parity: the Hopper
-# kernel's tiles are fixed in its source (64 q rows x 64 kv rows).
+# kernels' tiles are fixed in their sources (the bf16 forward: 128 q rows
+# x 128 kv rows; the backward kernels: 64 x 64).
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 512
 KERNEL_HEAD_DIMS = (64, 128)
@@ -78,6 +79,25 @@ def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     out = torch.einsum('bhgqk,bhkd->bhgqd', probs, v.float())
     return (out.reshape(b, hq, s, d).to(q.dtype),
             lse.reshape(b, hq, s))
+
+
+def attention_fwd_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, scale: float, window: Optional[int],
+                        ref_out: torch.Tensor) -> torch.Tensor:
+    """Per-element bound on |O_kernel - O_plain| for the forward kernel on
+    the same inputs, ref_out being the plain version's O.  f32: the same
+    math in another order, 1e-4.  bf16: both round O to bf16, which may
+    part them by one ulp of the element, at most 2**-7 * |O|; the kernel
+    also rounds P to bf16 (relative error <= 2**-9 per key) before P*V,
+    which moves an element by at most 2**-9 * sum_j p_j |v_j| -- the
+    attention of |V|, computed here by the plain version -- and the bound
+    allows twice that."""
+    if q.dtype == torch.float32:
+        return torch.full_like(ref_out, 1e-4, dtype=torch.float32)
+    p_abs_v, _ = attention_fwd_reference(q.float(), k.float(),
+                                         v.float().abs(), causal, scale,
+                                         window)
+    return 2.0 ** -7 * ref_out.float().abs() + 2.0 ** -8 * p_abs_v
 
 
 def attention_bwd_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -160,6 +180,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Hq, S]).  CUDA tensors only; raises on anything the kernel does
     not take."""
     global flash_fwd_launches
+    if not scale > 0:   # the kernel takes the row max before scaling
+        raise ValueError(f'the kernel needs a positive scale (got {scale})')
     _check_kernel_inputs(q, k, v, causal, window)
     b, hq, s, d = q.shape
     out = torch.empty_like(q)
@@ -226,9 +248,9 @@ def _launch_args(q, k, causal, window, scale) -> tuple:
 
 
 def _check_kernel_inputs(q, k, v, causal, window) -> None:
+    """Raise on anything the kernels do not take; the device comes last,
+    so that the CPU tests reach every other rule."""
     for name, t in (('q', q), ('k', k), ('v', v)):
-        if not t.is_cuda:
-            raise ValueError(f'{name} must be a CUDA tensor (got {t.device})')
         if t.dim() != 4:
             raise ValueError(
                 f'{name} must be [B, H, S, D] (got {tuple(t.shape)})')
@@ -256,6 +278,9 @@ def _check_kernel_inputs(q, k, v, causal, window) -> None:
         raise ValueError(f'batch * q heads = {b * hq} exceeds the grid limit')
     if window is not None and (not causal or window < 1):
         raise ValueError('window requires causal attention and must be >= 1')
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        if not t.is_cuda:
+            raise ValueError(f'{name} must be a CUDA tensor (got {t.device})')
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta, causal, window) -> None:

@@ -79,3 +79,31 @@ def test_function_gradients_match_plain_on_the_card(card):
         grads[dev] = torch.autograd.grad(out, leaves, do.to(dev))
     for g, w in zip(grads['cuda'], grads['cpu']):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=TOL)
+
+
+# (b, hq, hkv, s, d, causal, window): the bf16 forward works in 128-row
+# tiles, so these leave the last q and kv tiles part full (S 200, 1088)
+# and start the kv loop past tile 0 (window 300).
+FWD_CASES = {
+    'ragged_200': (1, 4, 2, 200, 128, True, None),
+    'ragged_1088': (1, 16, 8, 1088, 128, True, None),
+    'non_causal_ragged_200': (1, 4, 2, 200, 128, False, None),
+    'window_48': (2, 8, 2, 256, 128, True, 48),
+    'window_300_d64': (1, 8, 2, 1088, 64, True, 300),
+}
+
+
+@pytest.mark.parametrize('case', list(FWD_CASES), ids=list(FWD_CASES))
+def test_forward_kernel_within_its_bound(card, case):
+    """The bf16 forward against its plain version: O element by element
+    within attention_fwd_bound, the LSE (f32 both sides) within 1e-4."""
+    b, hq, hkv, s, d, causal, window = FWD_CASES[case]
+    q, k, v = _inputs([(b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)],
+                      torch.bfloat16, seed=5)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, window)
+    ref_out, ref_lse = fa.attention_fwd_reference(q, k, v, causal, scale,
+                                                  window)
+    bound = fa.attention_fwd_bound(q, k, v, causal, scale, window, ref_out)
+    assert ((out.float() - ref_out.float()).abs() <= bound).all()
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=TOL)

@@ -108,3 +108,40 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         fa.flash_attention_fwd(q, k, v, True, 0.125, None)
     assert fa.flash_fwd_launches == before
+
+
+# (what is wrong, the arguments' edit, the message the wrapper raises)
+BAD_KERNEL_INPUTS = {
+    'scale_zero': (dict(scale=0.0), 'positive scale'),
+    'scale_negative': (dict(scale=-0.125), 'positive scale'),
+    'head_dim_96': (dict(d=96), 'head_dim 96'),
+    'float16': (dict(dtype=torch.float16), 'bfloat16 or float32'),
+    'gqa_3_over_2': (dict(hq=3), 'multiple'),
+    'window_not_causal': (dict(causal=False, window=16), 'window'),
+    'window_zero': (dict(window=0), 'window'),
+    'not_contiguous': (dict(transpose=True), 'contiguous'),
+    'k_v_shapes_differ': (dict(s_v=32), 'does not match'),
+}
+
+
+@pytest.mark.parametrize('case', list(BAD_KERNEL_INPUTS),
+                         ids=list(BAD_KERNEL_INPUTS))
+def test_kernel_wrapper_raises_before_launch(case):
+    """Every rule of the forward kernel's wrapper raises before any build
+    or launch; the CPU tensors here reach every rule but the device's,
+    which is checked last."""
+    edit, message = BAD_KERNEL_INPUTS[case]
+    args = {**dict(hq=4, d=64, s_v=64, dtype=torch.bfloat16, causal=True,
+                   window=None, scale=0.125, transpose=False), **edit}
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(args['dtype'])
+        for shape in ((1, args['hq'], 64, args['d']), (1, 2, 64, args['d']),
+                      (1, 2, args['s_v'], args['d'])))
+    if args['transpose']:
+        q = q.transpose(2, 3)
+    before = fa.flash_fwd_launches
+    with pytest.raises((ValueError, TypeError), match=message):
+        fa.flash_attention_fwd(q, k, v, args['causal'], args['scale'],
+                               args['window'])
+    assert fa.flash_fwd_launches == before
