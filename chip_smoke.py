@@ -18,9 +18,10 @@ and {"ok": true, "device": {...}}.
 --planted-faults builds copies of the three kernels, each with one
 deliberate fault (forward: O's rescale skipped, V read from the wrong ring
 stage, the diagonal tile's mask skipped, one 16-key slice of P dropped
-from P V; backward: delta dropped, one K tile shifted by a row, the
-diagonal tile's mask skipped), under build/planted_faults/, and shows
-that each copy fails the bound the smoke run holds the sound kernels to.
+from P V; each backward kernel: delta dropped, one K tile shifted by a
+row, the diagonal tile's mask skipped, and K (dQ) or dO (dK/dV) read from
+the wrong ring stage), under build/planted_faults/, and shows that each
+copy fails the bound the smoke run holds the sound kernels to.
 
 Needs a CUDA card (exits non-zero without one) and imports nothing of
 JAX or of the JAX package.
@@ -79,13 +80,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(kernel, library, iters: int = 20) -> tuple:
-    """Mean device times of kernel() and library(), timed in turns --
-    kernel, library, library, kernel -- so that a drift of the card's
-    clocks falls on both.  Returns (kernel ms, library ms, the four
-    readings in that order)."""
-    turns = [cuda_ms(fn, iters) for fn in (kernel, library, library, kernel)]
-    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+def in_turns(fns, timer=cuda_ms) -> tuple:
+    """Times of each fn by `timer`, taken in turns -- the fns in order,
+    then in reverse (kernel, library, library, kernel for two) -- so that
+    a drift of the card's clocks falls on all.  Returns (the mean of each
+    fn's two readings, every reading in the order taken)."""
+    order = [*range(len(fns)), *reversed(range(len(fns)))]
+    turns = [timer(fns[i]) for i in order]
+    return ([(turns[i] + turns[len(order) - 1 - i]) / 2
+             for i in range(len(fns))], turns)
 
 
 def visible_pairs(s, causal, window) -> int:
@@ -217,15 +220,15 @@ def time_fwd(q, k, v, causal, scale, window) -> dict:
             q, k, v, is_causal=causal, enable_gqa=True)
 
     with torch.no_grad():
-        ms, library_ms, turns = in_turns(kernel, library)
-        dev = [device_ms(fn) for fn in (kernel, library, library, kernel)]
+        (ms, library_ms), turns = in_turns((kernel, library))
+        (dev_ms, library_dev_ms), dev = in_turns((kernel, library),
+                                                 device_ms)
     bound_ms, bound_by = attention_bound(b, hq, k.shape[1], s, d, q.dtype,
                                          causal, window)
     flops = 4 * b * hq * d * visible_pairs(s, causal, window)
     return {'ms': ms, 'library_ms': library_ms,
             'turns_kernel_library_library_kernel': turns,
-            'device_ms': (dev[0] + dev[3]) / 2,
-            'library_device_ms': (dev[1] + dev[2]) / 2,
+            'device_ms': dev_ms, 'library_device_ms': library_dev_ms,
             'device_turns': dev,
             'plain_ms': cuda_ms(lambda: fa.attention_fwd_reference(*args),
                                 iters=3, warmup=1),
@@ -266,29 +269,15 @@ def phase_kernel() -> tuple:
     return timed[KERNEL_CASES[0][0]], timed[TRAIN_CASE[0]]
 
 
-# The training shape, then the forward's other KERNEL_CASES but the three
-# that only the forward's 128-row tiles need.
-BWD_CASES = [TRAIN_CASE] + [c for c in KERNEL_CASES[2:] if c[0] not in
-                            ('ragged_1088', 'window_300_d64',
-                             'non_causal_1088')]
+# The training shape, then the forward's other KERNEL_CASES: the bf16
+# backward kernels work in 128-row tiles too (dK/dV: KV tiles, dQ: q
+# tiles), which the 1088 cases leave half full.
+BWD_CASES = [TRAIN_CASE] + KERNEL_CASES[2:]
 
 # Agreement of the backward kernels with their plain versions (same q, k,
-# v, dO, LSE and delta; the plain versions compute in f32).  f32: the same
-# math in another order, 1e-4.  bf16, element by element, three terms:
-# (1) both sides round the output to bf16, which may part them by one ulp
-# of the element, at most 2**-7 * |x|;
-# (2) the kernels round the A operand of each second product to bf16
-# (relative error <= 2**-9 per entry): dS before dQ = dS K and dK = dS^T Q,
-# P before dV = P^T dO.  That moves an element by at most 2**-9 times
-# |dS| |K|, |dS|^T |Q| or P^T |dO|, and the bound allows twice that;
-# (3) dS = P (dP - delta) * scale can cancel (a query that sees one key
-# has dP = delta up to round-off), so the f32 round-off of dP and delta
-# is not relative to dS: each sums D products on each side, with an
-# error of at most D * 2**-23 of its sum of magnitudes M = |dO| |V|^T
-# (plus P M for delta) per side, 2**-22 * D for both.  dQ and dK carry it
-# through |K| and |Q| as they carry dS.
-# S and P differ by f32 round-off relative to themselves, far inside (2).
-BOUND_BWD_F32 = 1e-4
+# v, dO, LSE and delta; the plain versions compute in f32): dQ, dK and dV
+# element by element within fa.attention_bwd_bound (its docstring has the
+# reasons).
 
 
 def bwd_inputs(gen, b, hq, hkv, s, d, dtype, causal, window) -> tuple:
@@ -315,32 +304,6 @@ def plain_bwd(args) -> tuple:
             *fa.attention_bwd_dkv_reference(*args))
 
 
-def bwd_bounds(args, ref) -> tuple:
-    """Per-element bounds on |kernel - plain| for (dQ, dK, dV) (see
-    above); ref is the plain (dQ, dK, dV)."""
-    q, k, v, do, lse, delta, causal, scale, window = args
-    if q.dtype == torch.float32:
-        return tuple(torch.full(r.shape, BOUND_BWD_F32, device=r.device)
-                     for r in ref)
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    grouped = (b, hkv, hq // hkv, s, d)
-    qa = q.reshape(grouped).float().abs()
-    doa = do.reshape(grouped).float().abs()
-    ka, va = k.float().abs(), v.float().abs()
-    p, ds = fa.attention_bwd_probs(*args)
-    ds.abs_()
-    m = torch.einsum('bhgqd,bhkd->bhgqk', doa, va)        # |dO| |V|^T
-    m += (p * m).sum(-1, keepdim=True)                    # + delta's
-    m.mul_(p).mul_(scale * d * 2.0 ** -22)                # (3) in dS
-    ds.mul_(2.0 ** -8).add_(m)                            # (2) + (3)
-    terms = (torch.einsum('bhgqk,bhkd->bhgqd', ds, ka).reshape(q.shape),
-             torch.einsum('bhgqk,bhgqd->bhkd', ds, qa),
-             2.0 ** -8 * torch.einsum('bhgqk,bhgqd->bhkd', p, doa))
-    return tuple(2.0 ** -7 * r.float().abs() + t
-                 for r, t in zip(ref, terms))
-
-
 def bwd_errors(got, ref, bounds) -> dict:
     """Max abs error and max error over the bound, for dq, dk and dv."""
     out = {}
@@ -354,31 +317,43 @@ def bwd_errors(got, ref, bounds) -> dict:
 
 
 def time_bwd(args) -> dict:
-    """Times at the training shape (CUDA events): both backward kernels,
-    their plain versions and the yardstick, scaled_dot_product_attention's
-    backward alone (one call computes dQ, dK and dV: the yardstick of the
-    two backward kernels together)."""
+    """Times at the training shape: the dQ kernel, the dK/dV kernel and
+    their yardstick, scaled_dot_product_attention's backward alone (one
+    call computes dQ, dK and dV), in turns (dQ, dK/dV, SDPA, SDPA, dK/dV,
+    dQ) by CUDA events and by the profiler's device time; the plain
+    versions; each kernel's bound, rate and share of its bound (from the
+    CUDA-event time); and the pair's sums."""
     q, k, v, do, lse, delta, causal, scale, window = args
     b, hq, s, d = q.shape
     shape = (b, hq, k.shape[1], s, d, q.dtype, causal, window)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(
         qr, kr, vr, is_causal=causal, enable_gqa=True)
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        out, (qr, kr, vr), do, retain_graph=True), iters=10)
+    fns = (lambda: fa.flash_attention_bwd_dq(*args),
+           lambda: fa.flash_attention_bwd_dkv(*args),
+           lambda: torch.autograd.grad(out, (qr, kr, vr), do,
+                                       retain_graph=True))
+    ms, turns = in_turns(fns)
+    dev, dev_turns = in_turns(fns, device_ms)
     del out
-    timing = {}
-    for name, kernel, plain, bound_args in (
-            ('dq', fa.flash_attention_bwd_dq, fa.attention_bwd_dq_reference,
-             (6, 3, 2, 2)),
-            ('dkv', fa.flash_attention_bwd_dkv,
-             fa.attention_bwd_dkv_reference, (8, 2, 4, 2))):
+    pairs = visible_pairs(s, causal, window)
+    timing = {'pair': {
+        'ms': ms[0] + ms[1], 'device_ms': dev[0] + dev[1],
+        'library_ms': ms[2], 'library_device_ms': dev[2],
+        'turns_dq_dkv_library_library_dkv_dq': turns,
+        'device_turns': dev_turns}}
+    for i, (name, plain, bound_args) in enumerate((
+            ('dq', fa.attention_bwd_dq_reference, (6, 3, 2, 2)),
+            ('dkv', fa.attention_bwd_dkv_reference, (8, 2, 4, 2)))):
         bound_ms, bound_by = attention_bound(*shape, *bound_args)
-        timing[name] = {'ms': cuda_ms(lambda: kernel(*args), iters=10),
+        flops = bound_args[0] * b * hq * d * pairs
+        timing[name] = {'ms': ms[i], 'device_ms': dev[i],
                         'plain_ms': cuda_ms(lambda: plain(*args), iters=3,
                                             warmup=1),
                         'bound_ms': bound_ms, 'bound_by': bound_by,
-                        'library_ms': sdpa_bwd}
+                        'library_ms': ms[2], 'library_device_ms': dev[2],
+                        'tflop_per_s': flops / (ms[i] * 1e9),
+                        'share_of_bound': bound_ms / ms[i]}
     return timing
 
 
@@ -392,12 +367,11 @@ def phase_kernel_bwd() -> dict:
         deterministic = all(torch.equal(x, y)
                             for x, y in zip(got, run_bwd(args)))
         ref = plain_bwd(args)
-        errs = bwd_errors(got, ref, bwd_bounds(args, ref))
+        errs = bwd_errors(got, ref, fa.attention_bwd_bound(*args, ref))
         row = {'phase': 'kernel_bwd', 'case': name,
                'shape': [b, hq, hkv, s, d], 'dtype': str(dtype),
                'causal': causal, 'window': window,
-               'deterministic': deterministic, **errs,
-               'bound_f32': BOUND_BWD_F32}
+               'deterministic': deterministic, **errs}
         if not deterministic or any(e['max_err_over_bound'] > 1.0
                                     for e in errs.values()):
             failures.append(name)
@@ -745,23 +719,31 @@ FAULTS = (
      'if (kc != 3) wgmma_rs<D>(o, pa[kc], sw128_desc(sv + kc * 16 * '
      'kRowBytes,'),
     ('delta_dropped', 'flash_attention_bwd_dq',
-     'sc[jj][e] = pv * (dp[jj][e] - dlt[r]) * p.scale;',
-     'sc[jj][e] = pv * dp[jj][e] * p.scale;'),
+     'sc[j] = sc[j] * (dp[j] - dlt[(j >> 1) & 1]) * p.scale;  // dS',
+     'sc[j] = sc[j] * dp[j] * p.scale;  // dS'),
     ('delta_dropped', 'flash_attention_bwd_dkv',
-     'dpt[jj][e] = pv * (dpt[jj][e] - sDelta[qi]) * p.scale;',
-     'dpt[jj][e] = pv * dpt[jj][e] * p.scale;'),
+     'pt[4 * j + e] * (dst[4 * j + e] - (e & 1 ? dl.y : dl.x)) * scale;',
+     'pt[4 * j + e] * dst[4 * j + e] * scale;'),
     ('k_tile_shifted_by_a_row', 'flash_attention_bwd_dq',
-     'stage_rows<D>(sK, kg, kv0, kBlockN, p.s);',
-     'stage_rows<D>(sK, kg, kv0 + (kt == kv_first + 1), kBlockN, p.s);'),
+     '&tm_k,\n                                  full_bar + 8 * st, kv0, kvh);',
+     '&tm_k,\n                                  full_bar + 8 * st, '
+     'kv0 + (kv0 == (kv_first + 1) * kKvRows), kvh);'),
     ('k_tile_shifted_by_a_row', 'flash_attention_bwd_dkv',
-     'stage_rows<D>(sK, kg, kv0, kBlockN, p.s);',
-     'stage_rows<D>(sK, kg, kv0 + (kv_tile == 1), kBlockN, p.s);'),
+     'tma_load_tile<D, kKvRows>(sK, &tm_k, kv_bar, kv0, bkv);',
+     'tma_load_tile<D, kKvRows>(sK, &tm_k, kv_bar, kv0 + (kv_tile == 1), '
+     'bkv);'),
     ('diagonal_tile_mask_skipped', 'flash_attention_bwd_dq',
-     'if (need_mask && !visible(',
-     'if (need_mask && kv0 != q0 && !visible('),
+     '(p.causal && kv0 + kKvRows - 1 > wq0) ||',
+     '(p.causal && kv0 > wq0) ||'),
     ('diagonal_tile_mask_skipped', 'flash_attention_bwd_dkv',
-     'if (need_mask && (q0 + qi >= p.s ||',
-     'if (need_mask && kv0 != q0 && (q0 + qi >= p.s ||'),
+     '(p.causal && wkv0 + kWgRows - 1 > q0) ||',
+     '(p.causal && wkv0 > q0) ||'),
+    ('k_read_from_the_wrong_stage', 'flash_attention_bwd_dq',
+     'issue_dsk<D>(dq, dsa, sk);',
+     'issue_dsk<D>(dq, dsa, sK + ((st + 1) % kStages) * T::kKvBytes);'),
+    ('do_read_from_the_wrong_stage', 'flash_attention_bwd_dkv',
+     'issue_acc<D>(dv, pa, sdo);',
+     'issue_acc<D>(dv, pa, sdO + ((st + 1) % kStages) * T::kQBytes);'),
 )
 
 
@@ -792,7 +774,7 @@ def phase_planted_faults() -> None:
     gen = torch.Generator(device='cuda').manual_seed(1)
     args = bwd_inputs(gen, *TRAIN_CASE[1:])
     ref = plain_bwd(args)
-    bounds = bwd_bounds(args, ref)
+    bounds = fa.attention_bwd_bound(*args, ref)
     q, k, v, _, _, _, causal, scale, window = args
     fwd_args = (q, k, v, causal, scale, window)
     fwd_ref = fa.attention_fwd_reference(*fwd_args)

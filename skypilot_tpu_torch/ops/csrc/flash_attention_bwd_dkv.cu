@@ -13,36 +13,50 @@
 // What bounds it on an H100: four products per visible (query, key) pair
 // -- K Q^T, V dO^T, P^T dO and dS^T Q, 8*D FLOPs -- against Q, dO, K, V,
 // dK and dV moved once, so at the training shape (head_dim 128, S 2048)
-// it is bound by tensor-core throughput, not by HBM.  What the design does
-// about that: P and dS never leave registers, the four products run on the
-// tensor cores (mma.sync m16n8k16 bf16 -> f32, P and dS rounded to bf16 as
-// A operands), each Q/dO tile is read from global memory once per CTA and
-// shared by its four warps, q tiles that see none of the KV tile (causal,
-// window) are skipped, and causal CTAs are issued longest first.  wgmma,
-// TMA and warp specialisation are later work.
-//
-// Structure (the TPU keeps dK/dV resident across an "arbitrary" q grid
-// axis; nothing carries between CTAs here):
-//   * one CTA per (batch*kv_head, 64-row KV tile), 4 warps of 16 KV rows,
-//     dK and dV accumulated in registers;
-//   * the CTA loops over the Hq/Hkv q heads of its kv head and, for each,
-//     over the q tiles that overlap the KV tile (the overlap test of the
-//     TPU kernel turned into a loop range) -- the GQA fold happens in the
-//     accumulators, so no f32 [B, Hq, S, D] partials exist;
-//   * K, V and each q tile's Q and dO are staged row-major in shared memory
-//     (dynamic, 70 KB at head_dim 128); the B fragments of P^T dO and
-//     dS^T Q read dO and Q down their columns (two 16-bit loads);
-//   * the ragged edge (S not a multiple of 64) is masked on both sides,
-//     KV rows past S are never stored.
+// it is bound by tensor-core throughput, not by HBM (989 TFLOP/s bf16 vs
+// 3.35 TB/s).  What the bf16 design does about that:
+//   * every product runs on wgmma, the only way to the full tensor-core
+//     rate: S^T = K Q^T and dP^T = V dO^T (m64n64k16) with both operands
+//     in 128B-swizzled shared memory, K-major as they lie in memory;
+//     dV += P^T dO and dK += dS^T Q (m64nDk16) with P^T and dS^T from
+//     registers (the accumulators re-packed as bf16 A fragments) and dO
+//     and Q read MN-major with the transpose bit: nothing is transposed
+//     by hand;
+//   * one CTA per (batch*kv_head, 128-row KV tile), KV tile 0 (the one
+//     that sees the most q tiles, causal) issued first; K and V stay
+//     resident in shared memory (TMA, 64 KB at head_dim 128);
+//   * a producer warpgroup: one thread streams the 64-row Q and dO tiles
+//     of every (q head of the group, overlapping q tile) through a
+//     three-stage TMA ring (3-D maps [bh, S, D], so a tile past S reads
+//     zeros, not the next head); warp 1 writes each stage's LSE (in log2
+//     units, +inf past S) and delta rows with plain loads; mbarriers
+//     carry the ring (full: the TMA bytes and the row warp, empty: the
+//     256 consumer threads); setmaxnreg moves registers from the producer
+//     (40) to the consumers (232);
+//   * two consumer warpgroups of 64 kv rows each keep dK and dV in f32
+//     registers; the GQA fold happens there, so no f32 [B, Hq, S, D]
+//     partials exist; the warpgroups' products and P/dS arithmetic
+//     interleave on the SM (taking turns, as the forward does, needs
+//     dV/dK of tile i - 1 in flight beside S^T of tile i, which spills);
+//   * P^T = exp2(S^T * scale * log2(e) - LSE2) by ex2.approx; only tiles
+//     that hold a pair hidden from some query (the ragged edge on either
+//     side, the causal diagonal, the window's lower edge) run the
+//     per-element mask, the rest a copy compiled without it; q tiles that
+//     see none of the KV tile are never loaded; KV rows past S are never
+//     stored.
 // No atomics: every dK/dV element is summed by one thread in a fixed
 // order, so two calls on the same inputs give bit-identical results.
+// The Hopper primitives live in hopper.cuh.
+//
 // float32 inputs take a SIMT path (one warp per KV row at a time, lanes
 // split head_dim) with the same rules; it exists for parity checks.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 constexpr int kSimtBlockQ = 32;  // q rows per staged tile, f32 path
 
@@ -59,140 +73,273 @@ struct Params {
   float scale;
 };
 
-template <int D>
-constexpr int bf16_smem_bytes() {
-  return (2 * kBlockN + 2 * kBlockM) * (D + 8) * 2 + 2 * kBlockM * 4;
-}
-
 // ---------------------------------------------------------------- bf16
 
+constexpr int kKvRows = 128;           // kv rows of a CTA
+constexpr int kWgRows = 64;            // kv rows of a consumer warpgroup
+constexpr int kQRows = 64;             // q rows of a streamed tile
+constexpr int kConsumerThreads = 256;  // two consumer warpgroups
+constexpr int kThreadsBf16 = 384;      // and the producer warpgroup
+constexpr int kProducerRegs = 40;      // setmaxnreg: 40 * 128 + 232 * 256
+constexpr int kConsumerRegs = 232;     //   = the 168 * 384 of the launch
+constexpr int kStages = 3;             // Q/dO tiles in flight
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;  // padded rows: conflict-free fragments
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kBlockN * LD;
-  __nv_bfloat16* sQ = sV + kBlockN * LD;
-  __nv_bfloat16* sdO = sQ + kBlockM * LD;
-  float* sLse = reinterpret_cast<float*>(sdO + kBlockM * LD);  // log2 units
-  float* sDelta = sLse + kBlockM;
+struct Tiles {
+  static constexpr uint32_t kKvBytes = kKvRows * D * 2;      // K or V
+  static constexpr uint32_t kKvBlock = kKvRows * kRowBytes;  // 64 columns
+  static constexpr uint32_t kQBytes = kQRows * D * 2;        // a Q or dO tile
+  static constexpr uint32_t kQBlock = kQRows * kRowBytes;
+  // K, V, the ring of Q and dO tiles, its LSE and delta rows, the
+  // barriers, and room to align.
+  static constexpr int kSmem = 2 * kKvBytes + kStages * 2 * kQBytes +
+                               kStages * 2 * kQRows * 4 +
+                               8 * (1 + 2 * kStages) + kAtomBytes;
+};
+
+// S^T = K Q^T (or dP^T = V dO^T) for one consumer warpgroup: its 64 rows
+// of the resident tile at sk against the 64 rows of the q tile at sq, both
+// K-major.  Accumulator element 4j + e of a thread holds kv row
+// kvrow[e >> 1] and q column 8j + 2 t4 + (e & 1).
+template <int D>
+__device__ __forceinline__ void issue_kq(float (&d)[kQRows / 2], uint32_t sk,
+                                         uint32_t sq) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n64(
+        d, sw128_desc(sk + (kk / 4) * Tiles<D>::kKvBlock + col, 16, kAtomBytes),
+        sw128_desc(sq + (kk / 4) * Tiles<D>::kQBlock + col, 16, kAtomBytes),
+        kk);
+  }
+}
+
+// acc += A X: A (64 kv rows x 64 q) as bf16 fragments, X the q tile at sq
+// (dO for dV, Q for dK) read as it lies (MN-major, the transpose bit).
+template <int D>
+__device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
+                                          const uint32_t (&a)[kQRows / 16][4],
+                                          uint32_t sq) {
+#pragma unroll
+  for (int kc = 0; kc < kQRows / 16; ++kc)
+    wgmma_rs<D>(acc, a[kc], sw128_desc(sq + kc * 16 * kRowBytes,
+                                       Tiles<D>::kQBlock, kAtomBytes));
+}
+
+// P^T = exp2(S^T * scale_log2 - LSE2[q]) in place (pt holds S^T), the
+// LSE2 of the tile's 64 queries at lse2; where kMask (the tiles that hold
+// a pair hidden from some query), zero where the key is hidden from the
+// query or the query lies past S.
+template <bool kMask>
+__device__ __forceinline__ void probs_t(float (&pt)[kQRows / 2],
+                                        const float* lse2, int q0,
+                                        const int (&kvrow)[2], int t4,
+                                        const Params& p, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < kQRows / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + j * 8 + t4 * 2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = q0 + j * 8 + t4 * 2 + (e & 1);
+      float pv = exp2_approx(fmaf(pt[4 * j + e], scale_log2,
+                                  -(e & 1 ? l2.y : l2.x)));
+      if (kMask && (q >= p.s || !visible(p.s, p.causal, p.window, q,
+                                         kvrow[e >> 1])))
+        pv = 0.f;
+      pt[4 * j + e] = pv;
+    }
+  }
+}
+
+// dS^T = P^T (dP^T - delta[q]) * scale in place (dst holds dP^T), the
+// delta of the tile's 64 queries at delta.
+__device__ __forceinline__ void grads_t(float (&dst)[kQRows / 2],
+                                        const float (&pt)[kQRows / 2],
+                                        const float* delta, int t4,
+                                        float scale) {
+#pragma unroll
+  for (int j = 0; j < kQRows / 8; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(delta + j * 8 + t4 * 2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dst[4 * j + e] =
+          pt[4 * j + e] * (dst[4 * j + e] - (e & 1 ? dl.y : dl.x)) * scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const Params p) {
+  using T = Tiles<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* base = smem_raw + (kAtomBytes - smem_u32(smem_raw) % kAtomBytes) %
+                                 kAtomBytes;
+  const uint32_t sK = smem_u32(base);
+  const uint32_t sV = sK + T::kKvBytes;
+  const uint32_t sQ = sV + T::kKvBytes;            // stage i at + i * kQBytes
+  const uint32_t sdO = sQ + kStages * T::kQBytes;
+  // Stage i's LSE (log2 units, +inf past S) at sRows + 2 i kQRows, its
+  // delta kQRows after.
+  float* sRows = reinterpret_cast<float*>(
+      base + 2 * T::kKvBytes + 2 * kStages * T::kQBytes);
+  const uint32_t kv_bar = smem_u32(sRows + kStages * 2 * kQRows);
+  const uint32_t full_bar = kv_bar + 8;            // stage i: + 8 * i
+  const uint32_t empty_bar = full_bar + 8 * kStages;
 
   const int kv_tile = blockIdx.y;  // causal: the first tiles see most q
   const int bkv = blockIdx.x;
   const int b = bkv / p.hkv, group = p.hq / p.hkv;
-  const int kv0 = kv_tile * kBlockN;
-  const size_t kv_off = (size_t)bkv * p.s * D;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + kv_off;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + kv_off;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  // KV rows of c0,c1 / c2,c3.
-  const int kvrow[2] = {kv0 + warp * 16 + g, kv0 + warp * 16 + g + 8};
-  const float scale_log2 = p.scale * kLog2e;
-
-  stage_rows<D>(sK, kg, kv0, kBlockN, p.s);
-  stage_rows<D>(sV, vg, kv0, kBlockN, p.s);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-
+  const int bh0 = b * p.hq + (bkv % p.hkv) * group;  // the group's first
+  const int kv0 = kv_tile * kKvRows;
+  // The q tiles that overlap the KV tile, for each q head of the group.
   int qt_first, qt_end;
-  q_tile_range(p.s, p.causal, p.window, kv0, min(kv0 + kBlockN, p.s) - 1,
-               kBlockM, &qt_first, &qt_end);
-  for (int gi = 0; gi < group; ++gi) {
-    const int bh = b * p.hq + (bkv % p.hkv) * group + gi;
-    const size_t q_off = (size_t)bh * p.s * D;
-    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + q_off;
-    const __nv_bfloat16* dog =
-        static_cast<const __nv_bfloat16*>(p.dout) + q_off;
-    for (int qt = qt_first; qt < qt_end; ++qt) {
-      const int q0 = qt * kBlockM;
-      __syncthreads();  // previous q tile fully consumed
-      stage_rows<D>(sQ, qg, q0, kBlockM, p.s);
-      stage_rows<D>(sdO, dog, q0, kBlockM, p.s);
-      for (int r = threadIdx.x; r < kBlockM; r += kThreads) {
-        const bool in = q0 + r < p.s;
-        sLse[r] = in ? p.lse[(size_t)bh * p.s + q0 + r] * kLog2e : 0.f;
-        sDelta[r] = in ? p.delta[(size_t)bh * p.s + q0 + r] : 0.f;
-      }
-      __syncthreads();
-      const bool need_mask = q0 + kBlockM > p.s || kv0 + kBlockN > p.s ||
-                             (p.causal && kv0 + kBlockN - 1 > q0) ||
-                             (p.window > 0 &&
-                              q0 + kBlockM - 1 - kv0 >= p.window);
+  q_tile_range(p.s, p.causal, p.window, kv0, min(kv0 + kKvRows, p.s) - 1,
+               kQRows, &qt_first, &qt_end);
+  const int q_first = qt_first * kQRows, q_end = qt_end * kQRows;
 
-      // 16 queries at a time: S^T and dP^T (two 16x8 n tiles each), then
-      // P^T and dS^T, then dV += P^T dO and dK += dS^T Q.
-#pragma unroll
-      for (int qc = 0; qc < kBlockM / 16; ++qc) {
-        float st[2][4], dpt[2][4];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int j = 2 * qc + jj;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[jj][e] = dpt[jj][e] = 0.f;
-#pragma unroll
-          for (int dk16 = 0; dk16 < D / 16; ++dk16) {
-            uint32_t a[4];
-            ld_a(a, &sK[warp * 16 * LD + dk16 * 16], LD, g, t4);
-            const __nv_bfloat16* qp =
-                &sQ[(j * 8 + g) * LD + dk16 * 16 + t4 * 2];
-            const uint32_t bq[2] = {ld32(qp), ld32(qp + 8)};
-            mma_16816(st[jj], a, bq);
-            ld_a(a, &sV[warp * 16 * LD + dk16 * 16], LD, g, t4);
-            const __nv_bfloat16* op =
-                &sdO[(j * 8 + g) * LD + dk16 * 16 + t4 * 2];
-            const uint32_t bo[2] = {ld32(op), ld32(op + 8)};
-            mma_16816(dpt[jj], a, bo);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = j * 8 + t4 * 2 + (e & 1);  // q row in the tile
-            float pv = exp2f(st[jj][e] * scale_log2 - sLse[qi]);
-            if (need_mask && (q0 + qi >= p.s ||
-                              !visible(p.s, p.causal, p.window, q0 + qi,
-                                       kvrow[e >> 1])))
-              pv = 0.f;
-            st[jj][e] = pv;                                         // P^T
-            dpt[jj][e] = pv * (dpt[jj][e] - sDelta[qi]) * p.scale;  // dS^T
-          }
-        }
-        uint32_t pa[4], dsa[4];
-        c_to_a(pa, st[0], st[1]);
-        c_to_a(dsa, dpt[0], dpt[1]);
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          const int at = (qc * 16 + t4 * 2) * LD + dn * 8 + g;
-          const uint32_t bo[2] = {ld_col2(&sdO[at], LD),
-                                  ld_col2(&sdO[at + 8 * LD], LD)};
-          mma_16816(dv[dn], pa, bo);
-          const uint32_t bq[2] = {ld_col2(&sQ[at], LD),
-                                  ld_col2(&sQ[at + 8 * LD], LD)};
-          mma_16816(dk[dn], dsa, bq);
-        }
-      }
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar + 8 * st, 1 + 32);  // TMA thread + the row warp
+      mbar_init(empty_bar + 8 * st, kConsumerThreads);
     }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + kv_off;
-  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + kv_off;
+  if (tid < 128) {
+    // Producer warpgroup: thread 0 loads K and V once and keeps the Q/dO
+    // ring full; warp 1 writes each stage's LSE and delta rows.
+    regs_dec<kProducerRegs>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(kv_bar, 2 * T::kKvBytes);
+      tma_load_tile<D, kKvRows>(sK, &tm_k, kv_bar, kv0, bkv);
+      tma_load_tile<D, kKvRows>(sV, &tm_v, kv_bar, kv0, bkv);
+      int st = 0, phase = 0;
+      for (int bh = bh0; bh < bh0 + group; ++bh)
+        for (int q0 = q_first; q0 < q_end; q0 += kQRows) {
+          mbar_wait(empty_bar + 8 * st, phase ^ 1);
+          mbar_arrive_expect_tx(full_bar + 8 * st, 2 * T::kQBytes);
+          tma_load_tile<D, kQRows>(sQ + st * T::kQBytes, &tm_q,
+                                   full_bar + 8 * st, q0, bh);
+          tma_load_tile<D, kQRows>(sdO + st * T::kQBytes, &tm_do,
+                                   full_bar + 8 * st, q0, bh);
+          if (++st == kStages) st = 0, phase ^= 1;
+        }
+    } else if (tid / 32 == 1) {
+      const int lane = tid % 32;
+      int st = 0, phase = 0;
+      for (int bh = bh0; bh < bh0 + group; ++bh)
+        for (int q0 = q_first; q0 < q_end; q0 += kQRows) {
+          const float* lse = p.lse + (size_t)bh * p.s + q0;
+          const float* delta = p.delta + (size_t)bh * p.s + q0;
+          mbar_wait(empty_bar + 8 * st, phase ^ 1);
+          float* rows = sRows + st * 2 * kQRows;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (kvrow[r] >= p.s) continue;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const size_t at = (size_t)kvrow[r] * D + dn * 8 + t4 * 2;
-      *reinterpret_cast<uint32_t*>(dkg + at) =
-          pack_bf16(dk[dn][2 * r], dk[dn][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvg + at) =
-          pack_bf16(dv[dn][2 * r], dv[dn][2 * r + 1]);
+          for (int r = lane; r < kQRows; r += 32) {
+            const bool in = q0 + r < p.s;
+            rows[r] = in ? lse[r] * kLog2e : INFINITY;
+            rows[kQRows + r] = in ? delta[r] : 0.f;
+          }
+          mbar_arrive(full_bar + 8 * st);
+          if (++st == kStages) st = 0, phase ^= 1;
+        }
     }
+  } else {
+    // Two consumer warpgroups of 64 kv rows each.
+    regs_inc<kConsumerRegs>();
+    const int wg = tid / 128 - 1, warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int wkv0 = kv0 + wg * kWgRows;  // this warpgroup's first kv row
+    const int kvrow[2] = {wkv0 + warp * 16 + g, wkv0 + warp * 16 + g + 8};
+    const uint32_t sk = sK + wg * kWgRows * kRowBytes;
+    const uint32_t sv = sV + wg * kWgRows * kRowBytes;
+    const float scale_log2 = p.scale * kLog2e;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kv_bar, 0);
+
+    int st = 0, phase = 0;
+    for (int gi = 0; gi < group; ++gi)
+      for (int q0 = q_first; q0 < q_end; q0 += kQRows) {
+        const uint32_t sq = sQ + st * T::kQBytes, sdo = sdO + st * T::kQBytes;
+        const float* rows = sRows + st * 2 * kQRows;
+        // Mask only the tiles that hold a pair hidden from some query: the
+        // ragged edge on either side, the causal diagonal, the window's
+        // lower edge.
+        const bool need_mask = q0 + kQRows > p.s || wkv0 + kWgRows > p.s ||
+                               (p.causal && wkv0 + kWgRows - 1 > q0) ||
+                               (p.window > 0 &&
+                                q0 + kQRows - 1 - wkv0 >= p.window);
+        mbar_wait(full_bar + 8 * st, phase);
+
+        float pt[kQRows / 2], dpt[kQRows / 2];
+        wgmma_fence();
+        issue_kq<D>(pt, sk, sq);
+        wgmma_commit();
+        issue_kq<D>(dpt, sv, sdo);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(pt);
+        if (need_mask)
+          probs_t<true>(pt, rows, q0, kvrow, t4, p, scale_log2);
+        else
+          probs_t<false>(pt, rows, q0, kvrow, t4, p, scale_log2);
+        wgmma_wait<0>();
+        fence_regs(dpt);
+        grads_t(dpt, pt, rows + kQRows, t4, p.scale);
+        uint32_t pa[kQRows / 16][4], dsa[kQRows / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < kQRows / 16; ++kc) {
+          c_to_a(pa[kc], &pt[8 * kc], &pt[8 * kc + 4]);
+          c_to_a(dsa[kc], &dpt[8 * kc], &dpt[8 * kc + 4]);
+        }
+        wgmma_fence();
+        issue_acc<D>(dv, pa, sdo);
+        issue_acc<D>(dk, dsa, sq);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(dsa);
+        mbar_arrive(empty_bar + 8 * st);  // the stage may be refilled
+        if (++st == kStages) st = 0, phase ^= 1;
+      }
+
+    const size_t kv_off = (size_t)bkv * p.s * D;
+    store_rows_bf16<D>(dk, kvrow, t4,
+                       static_cast<__nv_bfloat16*>(p.dk) + kv_off, p.s);
+    store_rows_bf16<D>(dv, kvrow, t4,
+                       static_cast<__nv_bfloat16*>(p.dv) + kv_off, p.s);
   }
+}
+
+// Encode the tensor maps of q, k, v and dout (they hold the data
+// pointers, so every launch encodes its own) and launch the bf16 kernel.
+template <int D>
+int launch_bf16(const Params& p, int b, cudaStream_t st) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kQRows);
+  if (err == 0) err = encode_rows_map(&tm_do, p.dout, D, p.s, b * p.hq, kQRows);
+  if (err == 0) err = encode_rows_map(&tm_k, p.k, D, p.s, b * p.hkv, kKvRows);
+  if (err == 0) err = encode_rows_map(&tm_v, p.v, D, p.s, b * p.hkv, kKvRows);
+  if (err != 0) return err;
+  constexpr int bytes = Tiles<D>::kSmem;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      flash_bwd_dkv_bf16_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid(b * p.hkv, (p.s + kKvRows - 1) / kKvRows);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kThreadsBf16, bytes, st>>>(
+      tm_q, tm_k, tm_v, tm_do, p);
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32
@@ -294,17 +441,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-cudaError_t launch_bf16(const Params& p, dim3 grid, cudaStream_t st) {
-  constexpr int bytes = bf16_smem_bytes<D>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_bf16_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, bytes, st>>>(p);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -348,14 +484,13 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
   }
-  const dim3 grid(b * hkv, (s + kBlockN - 1) / kBlockN);
-  if (d == 64) return (int)launch_bf16<64>(p, grid, st);
-  if (d == 128) return (int)launch_bf16<128>(p, grid, st);
+  if (d == 64) return launch_bf16<64>(p, b, st);
+  if (d == 128) return launch_bf16<128>(p, b, st);
   return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_attention_bwd_dkv_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
 }
 
 }  // extern "C"

@@ -11,34 +11,43 @@
 // What bounds it on an H100: three products per visible (query, key) pair
 // -- Q K^T, dO V^T and dS K, 6*D FLOPs -- against Q, dO, dQ, K and V moved
 // once, so at the training shape (head_dim 128, S 2048) it is bound by
-// tensor-core throughput, not by HBM.  What the design does about that:
-// P, dP and dS never leave registers (no [S, S] matrix in HBM), the three
-// products run on the tensor cores (mma.sync m16n8k16 bf16 -> f32, dS
-// rounded to bf16 as its A operand), each K/V tile is read from global
-// memory once per CTA and shared by its four warps, KV tiles past the
-// diagonal (and below a window's band) are skipped, and causal CTAs are
-// issued longest first.  wgmma, TMA and warp specialisation are later
-// work.
-//
-// Structure (the TPU's sequential grid is not carried over):
-//   * one CTA per (batch*q_head, 64-row q tile), 4 warps of 16 q rows; Q and
-//     dO stay in registers as A fragments;
-//   * K and V tiles of 64 rows are staged row-major through shared memory;
-//     the B fragments of dS K read K down its columns (two 16-bit loads);
-//   * the KV loop runs over the forward's range (kv_first ..
-//     num_kv_needed), and dS is formed 16 keys at a time, so only one
-//     16x16 block of P and dP is live;
-//   * the ragged edge (S not a multiple of 64) is masked, rows past S are
-//     never stored.
+// tensor-core throughput, not by HBM.  What the bf16 design does about
+// that:
+//   * every product runs on wgmma: S = Q K^T and dP = dO V^T (m64n64k16)
+//     with both operands in 128B-swizzled shared memory, K-major; dQ += dS
+//     K (m64nDk16) with dS from registers (the accumulator re-packed as
+//     bf16 A fragments) and K read MN-major with the transpose bit;
+//   * one CTA per (batch*q_head, 128-row q tile), longest first; Q and dO
+//     stay resident in shared memory (TMA, 64 KB at head_dim 128), each
+//     consumer thread's LSE and delta in registers;
+//   * a producer warpgroup, one thread of which streams 128-row K and V
+//     tiles through a two-stage TMA ring (a third 64 KB stage would not
+//     fit beside Q and dO); S and dP as m64n128 products read less shared
+//     memory per FLOP than with 64-row tiles (measured faster), at
+//     64 + 64 + 64 f32 registers for S, dP and dQ; setmaxnreg moves
+//     registers from the producer (24) to the two consumer warpgroups of
+//     64 q rows (240); their products and dS arithmetic interleave on the
+//     SM (taking turns, with dQ of tile i - 1 issued beside S and dP of
+//     tile i, measured slower);
+//   * P, dP and dS never leave registers (no [S, S] matrix in HBM);
+//     P = exp2(S * scale * log2(e) - LSE2) by ex2.approx; only the tiles
+//     that hold a key hidden from some row (the ragged edge, the causal
+//     diagonal, the window's lower edge) run the per-element mask; KV
+//     tiles past the diagonal (and below a window's band) are never
+//     loaded; rows past S are never stored.
 // No atomics: every dQ element is summed by one thread in a fixed order,
-// so two calls on the same inputs give bit-identical results.
+// so two calls on the same inputs give bit-identical results.  The Hopper
+// primitives live in hopper.cuh.
+//
 // float32 inputs take a SIMT path (one warp per q row at a time, lanes
 // split head_dim) with the same rules; it exists for parity checks.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 struct Params {
   const void* q;
@@ -54,119 +63,221 @@ struct Params {
 
 // ---------------------------------------------------------------- bf16
 
+constexpr int kQRows = 128;            // q rows of a CTA
+constexpr int kWgRows = 64;            // q rows of a consumer warpgroup
+constexpr int kKvRows = 128;           // kv rows of a streamed tile
+constexpr int kConsumerThreads = 256;  // two consumer warpgroups
+constexpr int kThreadsBf16 = 384;      // and the producer warpgroup
+constexpr int kProducerRegs = 24;      // setmaxnreg: 24 * 128 + 240 * 256
+constexpr int kConsumerRegs = 240;     //   registers fit the SM's 65536
+constexpr int kStages = 2;             // K/V tiles in flight
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;  // padded rows: conflict-free fragments
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * LD];  // also Q
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockN * LD];  // also dO
+struct Tiles {
+  static constexpr uint32_t kQBytes = kQRows * D * 2;        // Q or dO
+  static constexpr uint32_t kQBlock = kQRows * kRowBytes;    // 64 columns
+  static constexpr uint32_t kKvBytes = kKvRows * D * 2;      // a K or V tile
+  static constexpr uint32_t kKvBlock = kKvRows * kRowBytes;
+  // Q, dO, the ring of K and V tiles, the barriers, and room to align.
+  static constexpr int kSmem = 2 * kQBytes + kStages * 2 * kKvBytes +
+                               8 * (1 + 2 * kStages) + kAtomBytes;
+};
+
+// S = Q K^T (or dP = dO V^T) for one consumer warpgroup: its 64 rows of
+// the resident tile at sq against the 128 rows of the kv tile at sk, both
+// K-major.  Accumulator element 4j + e of a thread holds q row
+// qrow[e >> 1] and key 8j + 2 t4 + (e & 1) of the tile.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&d)[kKvRows / 2], uint32_t sq,
+                                         uint32_t sk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n128(
+        d, sw128_desc(sq + (kk / 4) * Tiles<D>::kQBlock + col, 16, kAtomBytes),
+        sw128_desc(sk + (kk / 4) * Tiles<D>::kKvBlock + col, 16, kAtomBytes),
+        kk);
+  }
+}
+
+// dQ += dS K: dS as bf16 A fragments, 16 keys per product; K read as it
+// lies (MN-major, the transpose bit).
+template <int D>
+__device__ __forceinline__ void issue_dsk(
+    float (&dq)[D / 2], const uint32_t (&dsa)[kKvRows / 16][4], uint32_t sk) {
+#pragma unroll
+  for (int kc = 0; kc < kKvRows / 16; ++kc)
+    wgmma_rs<D>(dq, dsa[kc], sw128_desc(sk + kc * 16 * kRowBytes,
+                                        Tiles<D>::kKvBlock, kAtomBytes));
+}
+
+// P = exp2(S * scale_log2 - LSE2[row]) in place (sc holds S); where
+// kMask (the tiles that hold a key hidden from some row), zero where the
+// key at kv0 + column is hidden from the row.
+template <bool kMask>
+__device__ __forceinline__ void probs(float (&sc)[kKvRows / 2],
+                                      const float (&lse2)[2], int kv0,
+                                      const int (&qrow)[2], int t4,
+                                      const Params& p, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < kKvRows / 2; ++j) {
+    float pv = exp2_approx(fmaf(sc[j], scale_log2, -lse2[(j >> 1) & 1]));
+    if (kMask && !visible(p.s, p.causal, p.window, qrow[(j >> 1) & 1],
+                          kv0 + (j >> 2) * 8 + t4 * 2 + (j & 1)))
+      pv = 0.f;
+    sc[j] = pv;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const Params p) {
+  using T = Tiles<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + kAtomBytes - 1) &
+                      ~uint32_t(kAtomBytes - 1);
+  const uint32_t sdO = sQ + T::kQBytes;
+  const uint32_t sK = sdO + T::kQBytes;            // stage i at + i * kKvBytes
+  const uint32_t sV = sK + kStages * T::kKvBytes;
+  const uint32_t q_bar = sV + kStages * T::kKvBytes;  // Q and dO landed
+  const uint32_t full_bar = q_bar + 8;             // stage i: + 8 * i
+  const uint32_t empty_bar = full_bar + 8 * kStages;
 
   const int q_tile = gridDim.y - 1 - blockIdx.y;  // longest tiles first
   const int bh = blockIdx.x;
   const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
-  const int q0 = q_tile * kBlockM;
-  const size_t q_off = (size_t)bh * p.s * D, kv_off = (size_t)kvh * p.s * D;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + q_off;
-  const __nv_bfloat16* dog =
-      static_cast<const __nv_bfloat16*>(p.dout) + q_off;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + kv_off;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + kv_off;
-  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + q_off;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  // Stage Q through sK and dO through sV; keep both as A fragments.
-  stage_rows<D>(sK, qg, q0, kBlockM, p.s);
-  stage_rows<D>(sV, dog, q0, kBlockM, p.s);
-  __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    ld_a(qf[kc], &sK[warp * 16 * LD + kc * 16], LD, g, t4);
-    ld_a(dof[kc], &sV[warp * 16 * LD + kc * 16], LD, g, t4);
-  }
-
-  // Rows of c0,c1 / c2,c3, their LSE in log2 units and their delta.
-  const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const float scale_log2 = p.scale * kLog2e;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = qrow[r] < p.s;
-    lse2[r] = in ? p.lse[(size_t)bh * p.s + qrow[r]] * kLog2e : 0.f;
-    dlt[r] = in ? p.delta[(size_t)bh * p.s + qrow[r]] : 0.f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[dn][e] = 0.f;
-
+  const int q0 = q_tile * kQRows;
   int kv_first, kv_end;
-  kv_tile_range(p.s, p.causal, p.window, q0, min(q0 + kBlockM, p.s) - 1,
-                kBlockN, &kv_first, &kv_end);
-  for (int kt = kv_first; kt < kv_end; ++kt) {
-    const int kv0 = kt * kBlockN;
-    __syncthreads();  // previous tile (or the Q/dO staging) fully consumed
-    stage_rows<D>(sK, kg, kv0, kBlockN, p.s);
-    stage_rows<D>(sV, vg, kv0, kBlockN, p.s);
-    __syncthreads();
-    const bool need_mask = kv0 + kBlockN > p.s ||
-                           (p.causal && kv0 + kBlockN - 1 > q0) ||
-                           (p.window > 0 &&
-                            q0 + kBlockM - 1 - kv0 >= p.window);
+  kv_tile_range(p.s, p.causal, p.window, q0, min(q0 + kQRows, p.s) - 1,
+                kKvRows, &kv_first, &kv_end);
 
-    // 16 keys at a time: S and dP (two 16x8 n tiles each), then dS, then
-    // dQ += dS K.
-#pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      float sc[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kc + jj;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[jj][e] = dp[jj][e] = 0.f;
-#pragma unroll
-        for (int dk = 0; dk < D / 16; ++dk) {
-          const __nv_bfloat16* kp = &sK[(j * 8 + g) * LD + dk * 16 + t4 * 2];
-          const uint32_t bk[2] = {ld32(kp), ld32(kp + 8)};
-          mma_16816(sc[jj], qf[dk], bk);
-          const __nv_bfloat16* vp = &sV[(j * 8 + g) * LD + dk * 16 + t4 * 2];
-          const uint32_t bv[2] = {ld32(vp), ld32(vp + 8)};
-          mma_16816(dp[jj], dof[dk], bv);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float pv = exp2f(sc[jj][e] * scale_log2 - lse2[r]);
-          if (need_mask && !visible(p.s, p.causal, p.window, qrow[r],
-                                    kv0 + j * 8 + t4 * 2 + (e & 1)))
-            pv = 0.f;
-          sc[jj][e] = pv * (dp[jj][e] - dlt[r]) * p.scale;  // dS
-        }
-      }
-      uint32_t a[4];
-      c_to_a(a, sc[0], sc[1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* kp = &sK[(kc * 16 + t4 * 2) * LD + dn * 8 + g];
-        const uint32_t b[2] = {ld_col2(kp, LD), ld_col2(kp + 8 * LD, LD)};
-        mma_16816(dq[dn], a, b);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar + 8 * st, 1);
+      mbar_init(empty_bar + 8 * st, kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // Producer warpgroup: one thread loads Q and dO once and keeps the K/V
+    // ring full.
+    regs_dec<kProducerRegs>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(q_bar, 2 * T::kQBytes);
+      tma_load_tile<D, kQRows>(sQ, &tm_q, q_bar, q0, bh);
+      tma_load_tile<D, kQRows>(sdO, &tm_do, q_bar, q0, bh);
+      int st = 0, phase = 0;
+      for (int kv0 = kv_first * kKvRows; kv0 < kv_end * kKvRows;
+           kv0 += kKvRows) {
+        mbar_wait(empty_bar + 8 * st, phase ^ 1);
+        mbar_arrive_expect_tx(full_bar + 8 * st, 2 * T::kKvBytes);
+        tma_load_tile<D, kKvRows>(sK + st * T::kKvBytes, &tm_k,
+                                  full_bar + 8 * st, kv0, kvh);
+        tma_load_tile<D, kKvRows>(sV + st * T::kKvBytes, &tm_v,
+                                  full_bar + 8 * st, kv0, kvh);
+        if (++st == kStages) st = 0, phase ^= 1;
       }
     }
-  }
+  } else {
+    // Two consumer warpgroups of 64 q rows each.
+    regs_inc<kConsumerRegs>();
+    const int wg = tid / 128 - 1, warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int wq0 = q0 + wg * kWgRows;  // this warpgroup's first q row
+    const int qrow[2] = {wq0 + warp * 16 + g, wq0 + warp * 16 + g + 8};
+    const uint32_t sq = sQ + wg * kWgRows * kRowBytes;
+    const uint32_t sdo = sdO + wg * kWgRows * kRowBytes;
+    const float scale_log2 = p.scale * kLog2e;
+    // This thread's rows: the LSE in log2 units (+inf past S: P = 0
+    // there) and delta.
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = qrow[r] < p.s;
+      lse2[r] = in ? p.lse[(size_t)bh * p.s + qrow[r]] * kLog2e : INFINITY;
+      dlt[r] = in ? p.delta[(size_t)bh * p.s + qrow[r]] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    mbar_wait(q_bar, 0);
 
+    int st = 0, phase = 0;
+    for (int kv0 = kv_first * kKvRows; kv0 < kv_end * kKvRows;
+         kv0 += kKvRows) {
+      const uint32_t sk = sK + st * T::kKvBytes, sv = sV + st * T::kKvBytes;
+      // Mask only the tiles that hold a key hidden from some row: the
+      // ragged edge, the causal diagonal, the window's lower edge.
+      const bool need_mask = kv0 + kKvRows > p.s ||
+                             (p.causal && kv0 + kKvRows - 1 > wq0) ||
+                             (p.window > 0 &&
+                              wq0 + kWgRows - 1 - kv0 >= p.window);
+      mbar_wait(full_bar + 8 * st, phase);
+
+      float sc[kKvRows / 2], dp[kKvRows / 2];
+      wgmma_fence();
+      issue_qk<D>(sc, sq, sk);
+      wgmma_commit();
+      issue_qk<D>(dp, sdo, sv);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      if (need_mask)
+        probs<true>(sc, lse2, kv0, qrow, t4, p, scale_log2);
+      else
+        probs<false>(sc, lse2, kv0, qrow, t4, p, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(dp);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qrow[r] >= p.s) continue;
+      for (int j = 0; j < kKvRows / 2; ++j)
+        sc[j] = sc[j] * (dp[j] - dlt[(j >> 1) & 1]) * p.scale;  // dS
+      uint32_t dsa[kKvRows / 16][4];
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dqg + (size_t)qrow[r] * D + dn * 8 +
-                                   t4 * 2) =
-          pack_bf16(dq[dn][2 * r], dq[dn][2 * r + 1]);
+      for (int kc = 0; kc < kKvRows / 16; ++kc)
+        c_to_a(dsa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
+      wgmma_fence();
+      issue_dsk<D>(dq, dsa, sk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);
+      mbar_arrive(empty_bar + 8 * st);  // the stage may be refilled
+      if (++st == kStages) st = 0, phase ^= 1;
+    }
+
+    store_rows_bf16<D>(dq, qrow, t4,
+                       static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * p.s * D,
+                       p.s);
   }
+}
+
+// Encode the tensor maps of q, k, v and dout (they hold the data
+// pointers, so every launch encodes its own) and launch the bf16 kernel.
+template <int D>
+int launch_bf16(const Params& p, int b, cudaStream_t st) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kQRows);
+  if (err == 0) err = encode_rows_map(&tm_do, p.dout, D, p.s, b * p.hq, kQRows);
+  if (err == 0) err = encode_rows_map(&tm_k, p.k, D, p.s, b * p.hkv, kKvRows);
+  if (err == 0) err = encode_rows_map(&tm_v, p.v, D, p.s, b * p.hkv, kKvRows);
+  if (err != 0) return err;
+  constexpr int bytes = Tiles<D>::kSmem;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      flash_bwd_dq_bf16_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid(b * p.hq, (p.s + kQRows - 1) / kQRows);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kThreadsBf16, bytes, st>>>(
+      tm_q, tm_k, tm_v, tm_do, p);
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32
@@ -295,20 +406,15 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
       flash_bwd_dq_f32_kernel<128><<<grid, block, 0, st>>>(p);
     else
       return (int)cudaErrorInvalidValue;
-  } else {
-    const dim3 grid(b * hq, (s + kBlockM - 1) / kBlockM);
-    if (d == 64)
-      flash_bwd_dq_bf16_kernel<64><<<grid, block, 0, st>>>(p);
-    else if (d == 128)
-      flash_bwd_dq_bf16_kernel<128><<<grid, block, 0, st>>>(p);
-    else
-      return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (d == 64) return launch_bf16<64>(p, b, st);
+  if (d == 128) return launch_bf16<128>(p, b, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_attention_bwd_dq_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
 }
 
 }  // extern "C"

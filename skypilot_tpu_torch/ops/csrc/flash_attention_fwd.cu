@@ -44,8 +44,6 @@
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
-#include <stdio.h>
-
 namespace {
 
 using namespace flash;
@@ -80,17 +78,6 @@ struct Tiles {
   static constexpr int kSmem =
       (1 + 2 * kStages) * kBytes + 8 * (1 + 2 * kStages) + kAtomBytes;
 };
-
-// Issue the TMA loads of the 128 x D tile at rows [row0, row0 + 128) of
-// head bh into the swizzled tile at `dst`; they complete on `bar`.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int row0, int bh) {
-#pragma unroll
-  for (int blk = 0; blk < D / kSwizzleCols; ++blk)
-    tma_load_3d(dst + blk * Tiles<D>::kBlockBytes, map, bar,
-                blk * kSwizzleCols, row0, bh);
-}
 
 // S = Q K^T for one consumer warpgroup (wgmma, both from shared memory,
 // K-major): sq holds the warpgroup's 64 Q rows, sk the tile's K.
@@ -226,13 +213,15 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     regs_dec<kProducerRegs>();
     if (tid == 0) {
       mbar_arrive_expect_tx(q_bar, kBytes);
-      load_tile<D>(sQ, &tm_q, q_bar, q0, bh);
+      tma_load_tile<D, kTileRows>(sQ, &tm_q, q_bar, q0, bh);
       for (int i = 0; i < n_kv; ++i) {
         const int st = i % kStages, kv0 = (kv_first + i) * kTileRows;
         mbar_wait(empty_bar + 8 * st, ((i / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(full_bar + 8 * st, 2 * kBytes);
-        load_tile<D>(sK + st * kBytes, &tm_k, full_bar + 8 * st, kv0, kvh);
-        load_tile<D>(sV + st * kBytes, &tm_v, full_bar + 8 * st, kv0, kvh);
+        tma_load_tile<D, kTileRows>(sK + st * kBytes, &tm_k,
+                                    full_bar + 8 * st, kv0, kvh);
+        tma_load_tile<D, kTileRows>(sV + st * kBytes, &tm_v,
+                                    full_bar + 8 * st, kv0, kvh);
       }
     }
   } else {
@@ -479,16 +468,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 const char* flash_attention_fwd_error_string(int code) {
-  static thread_local char msg[96];
-  if (code == kErrNoEncoder)
-    return "the driver has no cuTensorMapEncodeTiled (CUDA 12.0 or newer "
-           "is needed for TMA)";
-  if (code > kErrTensorMap && code < kErrNoEncoder) {
-    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
-             code - kErrTensorMap);
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
 }
 
 }  // extern "C"

@@ -1,14 +1,14 @@
 // Pieces shared by the flash-attention kernels for Hopper (sm_90a):
-// tile sizes, the visibility rule of causal / banded attention, the KV
-// tile range a q tile needs, warp reductions and the mma.sync m16n8k16
-// bf16 -> f32 product with its fragment helpers.
+// tile sizes of the f32 paths, the visibility rule of causal / banded
+// attention, the KV (q) tile range a q (KV) tile needs, warp reductions
+// and the re-packing of an f32 wgmma accumulator into bf16 A fragments.
 //
-// Fragment layout of mma.sync m16n8k16 (lane = 4 * g + t4):
-//   A (16x16, row-major): a0 (g, 2t4..2t4+1), a1 (g+8, 2t4..), a2 (g,
-//     2t4+8..), a3 (g+8, 2t4+8..);
-//   B (16x8, column-major): b0 (k 2t4..2t4+1, n g), b1 (k 2t4+8.., n g);
-//   C (16x8): c0,c1 (g, 2t4..2t4+1), c2,c3 (g+8, 2t4..2t4+1).
-// The lower 16 bits of a packed register hold the lower k (or column).
+// Layout of a wgmma m64nN f32 accumulator, warp w of the warpgroup, lane
+// = 4 * g + t4: element 4j + e holds row 16 w + g + 8 (e >> 1) and column
+// 8j + 2 t4 + (e & 1).  An A fragment (registers, m64k16) of warp w holds
+// rows 16 w + g (+ 8) and k columns 2 t4 (+ 1) and 2 t4 + 8 (+ 1): a0 (g,
+// 2t4..), a1 (g+8, 2t4..), a2 (g, 2t4+8..), a3 (g+8, 2t4+8..).  The lower
+// 16 bits of a packed register hold the lower column.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -19,8 +19,6 @@ namespace flash {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = 64;              // q rows per tile (bf16 backward)
-constexpr int kBlockN = 64;              // kv rows per tile (bf16 backward)
 constexpr int kRowsPerWarp = 4;          // f32 paths
 constexpr int kSimtBlockM = kWarps * kRowsPerWarp;
 constexpr int kSimtBlockN = 32;
@@ -70,44 +68,14 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Two neighbouring bf16 of one row: a fragment register.
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 of one column, `ld` elements apart: a fragment register of the
-// transposed matrix (p[0] in the lower half).
-__device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p, int ld) {
-  return (uint32_t)__bfloat16_as_ushort(p[0]) |
-         ((uint32_t)__bfloat16_as_ushort(p[ld]) << 16);
-}
-
-// The A fragment of the 16x16 block at `p` (row-major, row stride ld).
-__device__ __forceinline__ void ld_a(uint32_t a[4], const __nv_bfloat16* p,
-                                     int ld, int g, int t4) {
-  const __nv_bfloat16* q = p + g * ld + t4 * 2;
-  a[0] = ld32(q);
-  a[1] = ld32(q + 8 * ld);
-  a[2] = ld32(q + 8);
-  a[3] = ld32(q + 8 * ld + 8);
-}
-
-// The A fragment of a 16x16 block held as two 16x8 C accumulators (n
-// tiles lo and hi), rounded to bf16: how P and dS feed the next product.
+// The A fragment of k columns 16 kc .. 16 kc + 15 of an accumulator
+// (lo: elements 8 kc .. 8 kc + 3, hi: the next four), rounded to bf16: how
+// P and dS feed the next product.
 __device__ __forceinline__ void c_to_a(uint32_t a[4], const float lo[4],
                                        const float hi[4]) {
   a[0] = pack_bf16(lo[0], lo[1]);
@@ -116,21 +84,20 @@ __device__ __forceinline__ void c_to_a(uint32_t a[4], const float lo[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// Stage `rows` rows of D bf16 from global `src` (row stride D), starting
-// at row `row0`, into shared `dst` (row stride D + 8); rows at or past
-// `s` are zero.
+// Store a thread's part of an m64nD f32 accumulator as bf16: rows row[0]
+// and row[1] of `dst` (row stride D), those at or past `s` dropped.
 template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int row0,
-                                           int rows, int s) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = threadIdx.x; c < rows * CH; c += kThreads) {
-    const int r = c / CH, col = (c % CH) * 8;
-    *reinterpret_cast<uint4*>(&dst[r * (D + 8) + col]) =
-        row0 + r < s ? *reinterpret_cast<const uint4*>(
-                           src + (size_t)(row0 + r) * D + col)
-                     : zero;
+__device__ __forceinline__ void store_rows_bf16(const float (&acc)[D / 2],
+                                                const int (&row)[2], int t4,
+                                                __nv_bfloat16* dst, int s) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= s) continue;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)row[r] * D + dn * 8 +
+                                   t4 * 2) =
+          pack_bf16(acc[4 * dn + 2 * r], acc[4 * dn + 2 * r + 1]);
   }
 }
 

@@ -16,6 +16,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace hopper {
 
@@ -116,6 +117,33 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (m64n64, f32) = A * B + (scale_d ? d : 0), both operands in shared
+// memory, K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -256,6 +284,20 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// Issue the TMA loads of the R x D tile at rows [row0, row0 + R) of head
+// bh (3-D `map` [bh, s, D], box 64 columns x R rows) into the swizzled
+// tile at `dst`: D / 64 blocks of R rows x 128 bytes.  They complete on
+// `bar`.
+template <int D, int R>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int row0, int bh) {
+#pragma unroll
+  for (int blk = 0; blk < D / kSwizzleCols; ++blk)
+    tma_load_3d(dst + blk * R * kRowBytes, map, bar, blk * kSwizzleCols, row0,
+                bh);
+}
+
 // ------------------------------------------------------- named barriers
 
 // Barrier `id` (1..15; 0 is __syncthreads') of `n` threads: wait until
@@ -341,6 +383,21 @@ inline int encode_rows_map(CUtensorMap* map, const void* base, int d, int s,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)res;
+}
+
+// The message of a code a launch function returned: the CUDA runtime's,
+// or one of the two above.
+inline const char* error_string(int code) {
+  static thread_local char msg[96];
+  if (code == kErrNoEncoder)
+    return "the driver has no cuTensorMapEncodeTiled (CUDA 12.0 or newer "
+           "is needed for TMA)";
+  if (code > kErrTensorMap && code < kErrNoEncoder) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             code - kErrTensorMap);
+    return msg;
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace hopper

@@ -21,8 +21,8 @@ import torch
 from skypilot_tpu_torch.ops import _build
 
 # TPU tile sizes of the JAX kernel, kept for signature parity: the Hopper
-# kernels' tiles are fixed in their sources (the bf16 forward: 128 q rows
-# x 128 kv rows; the backward kernels: 64 x 64).
+# kernels' tiles are fixed in their sources (bf16: the forward and dQ 128
+# q rows x 128 kv rows, dK/dV 128 kv rows x 64 q rows).
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 512
 KERNEL_HEAD_DIMS = (64, 128)
@@ -162,6 +162,54 @@ def attention_bwd_dkv_reference(q: torch.Tensor, k: torch.Tensor,
     return dk.sum(2).to(k.dtype), dv.sum(2).to(v.dtype)
 
 
+def attention_bwd_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, causal: bool, scale: float,
+                        window: Optional[int],
+                        ref: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-element bounds on |kernel - plain| for (dQ, dK, dV) from the
+    two backward kernels on the same inputs, ref being the plain versions'
+    (dQ, dK, dV).  f32: the same math in another order, 1e-4.  bf16, three
+    terms:
+    (1) both sides round the output to bf16, which may part them by one
+    ulp of the element, at most 2**-7 * |x|;
+    (2) the kernels round the A operand of each second product to bf16
+    (relative error <= 2**-9 per entry): dS before dQ = dS K and
+    dK = dS^T Q, P before dV = P^T dO.  That moves an element by at most
+    2**-9 times |dS| |K|, |dS|^T |Q| or P^T |dO|, and the bound allows
+    twice that;
+    (3) dS = P (dP - delta) * scale can cancel (a query that sees one key
+    has dP = delta up to round-off), so the f32 round-off of dP and delta
+    is not relative to dS: each sums D products on each side, with an
+    error of at most D * 2**-23 of its sum of magnitudes M = |dO| |V|^T
+    (plus P M for delta) per side, 2**-22 * D for both.  dQ and dK carry
+    it through |K| and |Q| as they carry dS.
+    S and P differ by f32 round-off relative to themselves, far inside
+    (2)."""
+    if q.dtype == torch.float32:
+        return tuple(torch.full_like(r, 1e-4, dtype=torch.float32)
+                     for r in ref)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    grouped = (b, hkv, hq // hkv, s, d)
+    qa = q.reshape(grouped).float().abs()
+    doa = do.reshape(grouped).float().abs()
+    ka, va = k.float().abs(), v.float().abs()
+    p, ds = attention_bwd_probs(q, k, v, do, lse, delta, causal, scale,
+                                window)
+    ds.abs_()
+    m = torch.einsum('bhgqd,bhkd->bhgqk', doa, va)        # |dO| |V|^T
+    m += (p * m).sum(-1, keepdim=True)                    # + delta's
+    m.mul_(p).mul_(scale * d * 2.0 ** -22)                # (3) in dS
+    ds.mul_(2.0 ** -8).add_(m)                            # (2) + (3)
+    terms = (torch.einsum('bhgqk,bhkd->bhgqd', ds, ka).reshape(q.shape),
+             torch.einsum('bhgqk,bhgqd->bhkd', ds, qa),
+             2.0 ** -8 * torch.einsum('bhgqk,bhgqd->bhkd', p, doa))
+    return tuple(2.0 ** -7 * r.float().abs() + t
+                 for r, t in zip(ref, terms))
+
+
 def _band_mask(s: int, window: Optional[int],
                device: torch.device) -> torch.Tensor:
     """[S, S] bool: key j visible to query i (causal, optionally banded)."""
@@ -250,6 +298,32 @@ def _launch_args(q, k, causal, window, scale) -> tuple:
 def _check_kernel_inputs(q, k, v, causal, window) -> None:
     """Raise on anything the kernels do not take; the device comes last,
     so that the CPU tests reach every other rule."""
+    _check_qkv(q, k, v, causal, window)
+    _check_on_card(q=q, k=k, v=v)
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta, causal, window) -> None:
+    """_check_kernel_inputs for the backward kernels, with their rules for
+    dO (read by TMA, as q is), the LSE and delta; the device comes
+    last."""
+    _check_qkv(q, k, v, causal, window)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f'do must match q: {tuple(do.shape)} {do.dtype} vs '
+                         f'{tuple(q.shape)} {q.dtype}')
+    for name, t in (('lse', lse), ('delta', delta)):
+        if t.dtype != torch.float32 or t.shape != q.shape[:3]:
+            raise ValueError(f'{name} must be float32 {tuple(q.shape[:3])} '
+                             f'(got {t.dtype} {tuple(t.shape)})')
+    for name, t in (('do', do), ('lse', lse), ('delta', delta)):
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    if do.data_ptr() % 16:
+        raise ValueError('do must be 16-byte aligned')
+    _check_on_card(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+
+
+def _check_qkv(q, k, v, causal, window) -> None:
+    """Every rule of the kernels on q, k and v but the device's."""
     for name, t in (('q', q), ('k', k), ('v', v)):
         if t.dim() != 4:
             raise ValueError(
@@ -262,8 +336,6 @@ def _check_kernel_inputs(q, k, v, causal, window) -> None:
         raise TypeError(f'kernel takes bfloat16 or float32 (got {q.dtype})')
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError('q, k and v must share one dtype')
-    if not (q.device == k.device == v.device):
-        raise ValueError('q, k and v must be on one device')
     b, hq, s, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d):
         raise ValueError(f'k/v shape {tuple(k.shape)} does not match q '
@@ -278,23 +350,16 @@ def _check_kernel_inputs(q, k, v, causal, window) -> None:
         raise ValueError(f'batch * q heads = {b * hq} exceeds the grid limit')
     if window is not None and (not causal or window < 1):
         raise ValueError('window requires causal attention and must be >= 1')
-    for name, t in (('q', q), ('k', k), ('v', v)):
+
+
+def _check_on_card(**tensors) -> None:
+    """The device rule, checked last: every tensor a CUDA tensor, all on
+    one card."""
+    for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f'{name} must be a CUDA tensor (got {t.device})')
-
-
-def _check_bwd_inputs(q, k, v, do, lse, delta, causal, window) -> None:
-    _check_kernel_inputs(q, k, v, causal, window)
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f'do must match q: {tuple(do.shape)} {do.dtype} vs '
-                         f'{tuple(q.shape)} {q.dtype}')
-    for name, t in (('do', do), ('lse', lse), ('delta', delta)):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f'{name} must be contiguous on {q.device}')
-    for name, t in (('lse', lse), ('delta', delta)):
-        if t.dtype != torch.float32 or t.shape != q.shape[:3]:
-            raise ValueError(f'{name} must be float32 {tuple(q.shape[:3])} '
-                             f'(got {t.dtype} {tuple(t.shape)})')
+    if len({t.device for t in tensors.values()}) > 1:
+        raise ValueError(f'{", ".join(tensors)} must be on one device')
 
 
 def _kernel_lib(name: str, n_ptrs: int) -> ctypes.CDLL:

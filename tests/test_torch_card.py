@@ -107,3 +107,41 @@ def test_forward_kernel_within_its_bound(card, case):
     bound = fa.attention_fwd_bound(q, k, v, causal, scale, window, ref_out)
     assert ((out.float() - ref_out.float()).abs() <= bound).all()
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=TOL)
+
+
+# (b, hq, hkv, s, d, causal, window): the bf16 backward kernels work in
+# 128-row tiles (dK/dV: KV tiles, dQ: q tiles) of two 64-row warpgroups:
+# these leave tiles part full (S 200, 1088), start the q (KV) loop past
+# tile 0 (window 300) and run every tile unmasked but the edge
+# (non-causal).
+BWD_CASES = {
+    'ragged_200': (1, 4, 2, 200, 128, True, None),
+    'ragged_1088': (1, 16, 8, 1088, 128, True, None),
+    'window_48': (2, 8, 2, 256, 128, True, 48),
+    'window_300_d64': (1, 8, 2, 1088, 64, True, 300),
+    'non_causal_1088': (1, 16, 8, 1088, 128, False, None),
+}
+
+
+@pytest.mark.parametrize('case', list(BWD_CASES), ids=list(BWD_CASES))
+def test_backward_kernels_within_their_bounds(card, case):
+    """The bf16 dQ and dK/dV kernels against their plain versions: each
+    gradient element by element within attention_bwd_bound, and two calls
+    bit-identical."""
+    b, hq, hkv, s, d, causal, window = BWD_CASES[case]
+    q, k, v, do = _inputs([(b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                           (b, hq, s, d)], torch.bfloat16, seed=6)
+    scale = d ** -0.5
+    out, lse = fa.attention_fwd_reference(q, k, v, causal, scale, window)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, scale, window)
+    got = (fa.flash_attention_bwd_dq(*args),
+           *fa.flash_attention_bwd_dkv(*args))
+    again = (fa.flash_attention_bwd_dq(*args),
+             *fa.flash_attention_bwd_dkv(*args))
+    ref = (fa.attention_bwd_dq_reference(*args),
+           *fa.attention_bwd_dkv_reference(*args))
+    bounds = fa.attention_bwd_bound(*args, ref)
+    for g, r, bound in zip(got, ref, bounds):
+        assert ((g.float() - r.float()).abs() <= bound).all()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))

@@ -137,3 +137,79 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match='CUDA'):
             fn(q, k, v, do, lse, lse, True, 0.125, None)
     assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == before
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (what is wrong, the edit of the arguments, the message the wrapper
+# raises).  Every input is on the CPU, so each case reaches its rule only
+# because the device is checked last.
+BAD_BWD_INPUTS = {
+    'head_dim_96': (dict(d=96), 'head_dim 96'),
+    'window_not_causal': (dict(causal=False, window=16), 'window'),
+    'do_shape': (dict(do=lambda do: do[:, :, :32]), 'do must match q'),
+    'do_dtype': (dict(do=lambda do: do.float()), 'do must match q'),
+    'do_not_contiguous': (dict(do=lambda do: do.transpose(2, 3).contiguous()
+                               .transpose(2, 3)), 'do must be contiguous'),
+    'do_misaligned': (dict(do=_misaligned), 'do must be 16-byte aligned'),
+    'lse_dtype': (dict(lse=lambda x: x.bfloat16()), 'lse must be float32'),
+    'lse_shape': (dict(lse=lambda x: x[..., :32]), 'lse must be float32'),
+    'delta_not_contiguous': (dict(delta=lambda x: x.transpose(1, 2)
+                                  .contiguous().transpose(1, 2)),
+                             'delta must be contiguous'),
+}
+BWD_WRAPPERS = {'dq': 'flash_attention_bwd_dq',
+                'dkv': 'flash_attention_bwd_dkv'}
+
+
+@pytest.mark.parametrize('wrapper', list(BWD_WRAPPERS))
+@pytest.mark.parametrize('case', list(BAD_BWD_INPUTS),
+                         ids=list(BAD_BWD_INPUTS))
+def test_backward_kernel_wrappers_raise_before_launch(case, wrapper):
+    """Every rule of the backward kernels' wrappers raises before any
+    build or launch, and no launch counter moves; the CPU tensors here
+    reach every rule but the device's, which is checked last."""
+    edit, message = BAD_BWD_INPUTS[case]
+    d = edit.get('d', 64)
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _inputs(1, 4, 2, 64, d, seed=12))
+    lse = torch.zeros(q.shape[:3])
+    delta = torch.zeros(q.shape[:3])
+    if 'do' in edit:
+        do = edit['do'](do)
+    if 'lse' in edit:
+        lse = edit['lse'](lse)
+    if 'delta' in edit:
+        delta = edit['delta'](delta)
+    before = (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+    with pytest.raises((ValueError, TypeError), match=message):
+        getattr(fa, BWD_WRAPPERS[wrapper])(
+            q, k, v, do, lse, delta, edit.get('causal', True), 0.125,
+            edit.get('window'))
+    assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == before
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_backward_bound_is_positive_and_finite(dtype):
+    """attention_bwd_bound, the per-element bound chip_smoke.py and the
+    card tests hold the backward kernels to, on a small GQA window case:
+    positive and finite everywhere, shaped like dQ, dK and dV."""
+    q, k, v, do = (torch.from_numpy(x).to(dtype)
+                   for x in _inputs(1, 4, 2, 64, 32, seed=13))
+    scale = 32 ** -0.5
+    out, lse = fa.attention_fwd_reference(q, k, v, True, scale, 16)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale, 16)
+    ref = (fa.attention_bwd_dq_reference(*args),
+           *fa.attention_bwd_dkv_reference(*args))
+    bounds = fa.attention_bwd_bound(*args, ref)
+    for bound, r in zip(bounds, ref):
+        assert bound.shape == r.shape and bound.dtype == torch.float32
+        assert bool(torch.isfinite(bound).all() and (bound > 0).all())
