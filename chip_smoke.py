@@ -7,9 +7,11 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
 main paths -- the llama-1b no-cache forward (tokens [1, 1024]), offline
-serving through the dense-cache engine, and training of llama-1b at
-batch 8 x 2048 through the Trainer -- at full width with random weights
-from a seed, and checks what comes out.  Every phase prints one JSON
+serving through the dense-cache engine, the HTTP server (16 concurrent
+requests through /generate, its SSE stream and /v1/completions, again
+with decode lookahead and the adaptive window on, then a drain), and
+training of llama-1b at batch 8 x 2048 through the Trainer -- at full
+width with random weights from a seed, and checks what comes out.  Every phase prints one JSON
 line; any failed check raises, so the script exits non-zero and the
 closing line is never printed.  The last two lines are the kernels line
 and {"ok": true, "device": {...}}.
@@ -32,9 +34,13 @@ import itertools
 import json
 import math
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
+import types
+from http.client import HTTPConnection
 
 import numpy as np
 import torch
@@ -42,6 +48,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from skypilot_tpu_torch.entry import entry
+from skypilot_tpu_torch.infer import server
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request)
 from skypilot_tpu_torch.models import llama
@@ -558,7 +565,7 @@ def phase_serve(model, card: str) -> None:
     window_profile = profile_device(lambda: engine._decode(
         torch.zeros(n_slots, dtype=torch.long, device='cuda'),
         torch.full((n_slots,), 256, dtype=torch.long, device='cuda'),
-        torch.zeros(n_slots, device='cuda'), cfg.decode_steps))
+        torch.zeros(n_slots, device='cuda'), cfg.decode_steps)[0])
 
     # The same in f32 (engine, cache and forward): only summation order
     # differs, so the bound is tight.
@@ -592,6 +599,343 @@ def phase_serve(model, card: str) -> None:
           'f32_teacher_forced_max_abs_err': tf32_err,
           'f32_teacher_forced_bound': tf32_bound,
           'decode_window_profile': window_profile})
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def http(port: int, method: str, path: str, body=None,
+         timeout: float = 600.0) -> tuple:
+    """(status, headers, JSON body or the list of SSE `data:` payloads)."""
+    conn = HTTPConnection('127.0.0.1', port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body).encode(),
+                     headers={'Content-Type': 'application/json'})
+        resp = conn.getresponse()
+        data, headers = resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+    if headers.get('Content-Type') == 'text/event-stream':
+        return resp.status, headers, [
+            ev[6:].decode() if ev[6:] == b'[DONE]' else json.loads(ev[6:])
+            for ev in data.split(b'\n\n') if ev.startswith(b'data: ')]
+    return resp.status, headers, json.loads(data)
+
+
+def start_server(engine) -> tuple:
+    """The port's serve() on 127.0.0.1 in a daemon thread, warm-up on.
+    Polls /healthz from the moment the listener answers until it says
+    ok; returns (port, thread, warm-up seconds, statuses seen)."""
+    port = free_port()
+    thread = threading.Thread(target=server.serve, args=(engine,),
+                              kwargs=dict(host='127.0.0.1', port=port,
+                                          warmup=True), daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    statuses = []
+    while time.perf_counter() - t0 < 600:
+        try:
+            code, _, doc = http(port, 'GET', '/healthz', timeout=10)
+        except OSError:              # not listening yet
+            time.sleep(0.01)
+            continue
+        if not statuses or statuses[-1] != (code, doc['status']):
+            statuses.append((code, doc['status']))
+        if code == 200:
+            break
+        time.sleep(0.05)
+    warm_s = time.perf_counter() - t0
+    check(statuses[:1] == [(503, 'starting')] and
+          statuses[-1] == (200, 'ok'),
+          f'/healthz went {statuses}, expected 503 starting then 200 ok')
+    return port, thread, warm_s, statuses
+
+
+SERVER_NEW_TOKENS = 32
+
+
+def server_requests(vocab: int) -> list:
+    """The 16 requests of the server phase, from a seed: (kind, path,
+    body).  Prompts of 20-1000 tokens, 32 new tokens each: 8 plain greedy
+    /generate, 4 SSE /generate repeating the first 4 plain prompts, one
+    /v1/completions prompt (token array, temperature 0) plain and
+    streamed, 2 plain /generate at temperature 0.8."""
+    rng = np.random.default_rng(0)
+
+    def prompt():
+        return rng.integers(0, vocab, int(rng.integers(20, 1001))).tolist()
+
+    plain = [prompt() for _ in range(8)]
+    comp, sampled = prompt(), [prompt() for _ in range(2)]
+    n = SERVER_NEW_TOKENS
+    return ([('plain', '/generate',
+              {'tokens': p, 'max_new_tokens': n, 'logprobs': True})
+             for p in plain] +
+            [('sse', '/generate',
+              {'tokens': p, 'max_new_tokens': n, 'stream': True})
+             for p in plain[:4]] +
+            [('completion', '/v1/completions',
+              {'prompt': comp, 'max_tokens': n, 'temperature': 0,
+               'logprobs': 1}),
+             ('completion_sse', '/v1/completions',
+              {'prompt': comp, 'max_tokens': n, 'temperature': 0,
+               'stream': True})] +
+            [('sampled', '/generate',
+              {'tokens': p, 'max_new_tokens': n, 'temperature': 0.8})
+             for p in sampled])
+
+
+def post_all(port: int, requests: list) -> tuple:
+    """Post every request at once, one thread each; returns the replies
+    in request order and the wall seconds of the burst."""
+    replies = [None] * len(requests)
+    go = threading.Barrier(len(requests) + 1)
+
+    def one(i, path, body):
+        go.wait()
+        replies[i] = http(port, 'POST', path, body)
+
+    threads = [threading.Thread(target=one, args=(i, path, body))
+               for i, (_, path, body) in enumerate(requests)]
+    for t in threads:
+        t.start()
+    go.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    return replies, time.perf_counter() - t0
+
+
+def read_replies(requests: list, replies: list) -> dict:
+    """Check every reply and pull out what each request generated: every
+    reply 200 with 32 tokens, each stream's chunks concatenating to its
+    final tokens, each repeated greedy prompt giving the same tokens
+    plain and streamed.  Returns the greedy results (prompt, tokens,
+    logprobs where the reply carries them), the server TTFTs and the
+    number of new tokens."""
+    greedy, ttfts, n_tok = {}, [], 0
+    for i, ((kind, _, body), (code, _, doc)) in enumerate(
+            zip(requests, replies)):
+        check(code == 200, f'request {i} ({kind}) answered {code}: {doc}')
+        prompt = body.get('tokens') or body.get('prompt')
+        lps = None
+        if kind in ('plain', 'sampled'):
+            tokens, lps = doc['output_tokens'], doc.get('logprobs')
+            ttfts.append(doc['ttft_s'])
+        elif kind == 'sse':
+            done = doc[-1]
+            streamed = [t for ev in doc[:-1] for t in ev['tokens']]
+            check(done['done'] and streamed == done['output_tokens'],
+                  f'request {i}: SSE chunks {streamed} do not concatenate '
+                  f'to {done["output_tokens"]}')
+            tokens, lps = done['output_tokens'], done['logprobs']
+            ttfts.append(done['ttft_s'])
+        elif kind == 'completion':
+            choice = doc['choices'][0]
+            tokens, lps = choice['tokens'], \
+                choice['logprobs']['token_logprobs']
+        else:                                          # completion_sse
+            check(doc[-1] == '[DONE]', f'request {i}: no [DONE]')
+            tokens = [t for ev in doc[:-1]
+                      for t in ev['choices'][0].get('tokens', [])]
+        check(len(tokens) == SERVER_NEW_TOKENS,
+              f'request {i} ({kind}): {len(tokens)} tokens')
+        n_tok += len(tokens)
+        if kind != 'sampled':
+            greedy[i] = types.SimpleNamespace(
+                kind=kind, prompt_tokens=prompt, output_tokens=tokens,
+                logprobs=lps)
+    for i, r in greedy.items():
+        twin = next(j for j, q in greedy.items()
+                    if q.prompt_tokens == r.prompt_tokens)
+        check(r.output_tokens == greedy[twin].output_tokens,
+              f'requests {twin} and {i}: one prompt, two greedy outputs')
+    return {'greedy': greedy, 'ttfts': ttfts, 'new_tokens': n_tok}
+
+
+def drain_check(port: int, thread: threading.Thread, vocab: int) -> dict:
+    """POST /drain while 4 long requests are in flight: /healthz turns
+    503 with X-SkyTpu-Draining: 1, a new /generate gets 503 with
+    Retry-After, the in-flight requests finish with 200, and serve()
+    returns."""
+    rng = np.random.default_rng(1)
+    long = [('plain', '/generate',
+             {'tokens': rng.integers(0, vocab, 200).tolist(),
+              'max_new_tokens': 256}) for _ in range(4)]
+    replies = [None] * 4
+
+    def one(i):
+        replies[i] = http(port, 'POST', long[i][1], long[i][2])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    while http(port, 'GET', '/healthz')[2]['inflight'] < 4:
+        check(time.perf_counter() - t0 < 60, 'requests never in flight')
+        time.sleep(0.01)
+    code, _, doc = http(port, 'POST', '/drain', {'deadline_s': 300})
+    check(code == 200 and doc['status'] == 'draining',
+          f'/drain answered {code} {doc}')
+    code, headers, doc = http(port, 'GET', '/healthz')
+    check(code == 503 and headers.get('X-SkyTpu-Draining') == '1' and
+          doc['status'] == 'draining' and doc['inflight'] > 0,
+          f'/healthz while draining: {code} {headers} {doc}')
+    code, headers, doc = http(port, 'POST', '/generate',
+                              {'tokens': [1, 2, 3], 'max_new_tokens': 4})
+    check(code == 503 and 'Retry-After' in headers and
+          headers.get('X-SkyTpu-Draining') == '1',
+          f'/generate while draining: {code} {headers} {doc}')
+    for t in threads:
+        t.join()
+    for code, _, doc in replies:
+        check(code == 200 and len(doc['output_tokens']) == 256,
+              f'in-flight request during the drain: {code} {doc}')
+    thread.join(timeout=120)
+    check(not thread.is_alive(), 'serve() did not return after the drain')
+    return {'inflight_finished': 4, 'drain_s': time.perf_counter() - t0}
+
+
+def profile_windows(engine, vocab: int, windows: int = 4) -> dict:
+    """Decode windows over all 8 slots as the serving loop runs them
+    (lookahead engages only there), under profile_device: one call runs
+    `windows` windows.  Run with the serving loop stopped."""
+    rng = np.random.default_rng(2)
+    with engine._lock:
+        items = []
+        for slot in range(engine.cfg.num_slots):
+            req = Request(tokens=rng.integers(0, vocab, 256).tolist(),
+                          max_new_tokens=1024)
+            items.append((req, slot, time.time(),
+                          *engine._validate_request(req)))
+        engine._start_batch(items)
+        engine._serving = True
+
+        def run():
+            for _ in range(windows):
+                engine._decode_step()
+
+        try:
+            run()                                  # steady state
+            prof = profile_device(run)
+        finally:
+            engine._ahead = None
+            engine._serving = False
+            for i, s in enumerate(engine._slots):
+                if s is not None:
+                    engine._finish_slot(i, 'cancelled')
+    return {'windows': windows, **prof,
+            'wall_ms_per_window': prof['wall_ms'] / windows,
+            'device_ms_per_window': (None if prof['device_ms'] is None
+                                     else prof['device_ms'] / windows)}
+
+
+def burst(port: int, requests: list) -> tuple:
+    """The 16 requests at once; returns (report, greedy results)."""
+    replies, wall = post_all(port, requests)
+    got = read_replies(requests, replies)
+    ttfts = np.array(got['ttfts'])
+    return {'wall_s': wall, 'new_tokens': got['new_tokens'],
+            'tok_per_s': got['new_tokens'] / wall,
+            'ttft_s_mean': float(ttfts.mean()),
+            'ttft_s_p50': float(np.percentile(ttfts, 50)),
+            'ttft_s_p90': float(np.percentile(ttfts, 90))}, got['greedy']
+
+
+# The server phase's two engines, and the order their bursts run in:
+# in turns, so that a drift of the host or the card falls on both.
+SERVER_CONFIGS = {
+    'lookahead_off': {},
+    'lookahead_on': {'decode_lookahead': True,
+                     'adaptive_decode_window': True},
+}
+SERVER_TURNS = ('lookahead_off', 'lookahead_on', 'lookahead_on',
+                'lookahead_off', 'lookahead_off', 'lookahead_on')
+
+
+def phase_server(model, env: dict) -> None:
+    """The port's HTTP server at llama-1b full width and depth, bf16, its
+    defaults (8 slots, cache 2048, the default buckets, decode_steps 8),
+    twice over the forward phase's weights: as configured, and with
+    decode lookahead and the adaptive window on.  Readiness of each; the
+    16 concurrent requests three times on each, in turns, greedy tokens
+    identical across all six; the teacher-forced bound; a drain with
+    requests in flight; the decode window's device and wall time with
+    lookahead off and on."""
+    vocab = model.config.vocab_size
+    requests = server_requests(vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    servers = {}
+    for name, options in SERVER_CONFIGS.items():
+        engine = InferenceEngine(model.config,
+                                 InferConfig(model='llama-1b', **options),
+                                 params=model.state_dict(),
+                                 generator=torch.Generator(
+                                     device='cuda').manual_seed(1))
+        port, thread, warm_s, statuses = start_server(engine)
+        servers[name] = {'engine': engine, 'port': port, 'thread': thread,
+                         'report': {'warmup_s': warm_s,
+                                    'healthz': statuses, 'bursts': []}}
+    first = None
+    for name in SERVER_TURNS:
+        report, greedy = burst(servers[name]['port'], requests)
+        servers[name]['report']['bursts'].append(report)
+        tokens = {i: r.output_tokens for i, r in greedy.items()}
+        if first is None:
+            first, first_greedy = tokens, greedy
+        check(tokens == first, f'greedy tokens of a {name} burst differ '
+                               'from the first burst')
+    for name, srv in servers.items():
+        rep = srv['report']
+        for key in ('tok_per_s', 'ttft_s_mean', 'ttft_s_p50', 'ttft_s_p90'):
+            rep[key + '_median'] = float(np.median(
+                [b[key] for b in rep['bursts']]))
+    off, on = servers['lookahead_off'], servers['lookahead_on']
+    drain = drain_check(off['port'], off['thread'], vocab)
+    code, _, _ = http(on['port'], 'POST', '/drain', {'deadline_s': 60})
+    on['thread'].join(timeout=120)
+    check(code == 200 and not on['thread'].is_alive(),
+          'the second server did not drain')
+    windows = {name: profile_windows(srv['engine'], vocab)
+               for name, srv in servers.items()}
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # The bf16 bound of the serve phase: the engine's logprob of each
+    # generated token against the no-cache forward (flash kernel) over
+    # prompt + output.
+    tf_bound = 0.25
+    tf_err = teacher_forced_err(
+        off['engine'].model,
+        [r for r in first_greedy.values() if r.logprobs is not None])
+    check(tf_err <= tf_bound, f'teacher-forced logprobs differ by {tf_err}')
+    reports = {name: srv['report'] for name, srv in servers.items()}
+    del servers, off, on
+    torch.cuda.empty_cache()
+    emit({'phase': 'server', 'model': 'llama-1b',
+          'device': env['device'], 'nvidia_smi': env['nvidia_smi'],
+          'config': {'num_slots': 8, 'max_cache_len': 2048,
+                     'decode_steps': 8, 'dtype': 'bfloat16'},
+          'requests': len(requests),
+          'prompt_lens': [len(b.get('tokens') or b['prompt'])
+                          for _, _, b in requests],
+          'turns': list(SERVER_TURNS),
+          # The server's path attends through decode_attention, as the
+          # JAX engine does: no flash launches are expected here.
+          'flash_launches': list(launches),
+          **reports,
+          'greedy_identical_across_bursts': True,
+          'teacher_forced_max_abs_err': tf_err,
+          'teacher_forced_bound': tf_bound,
+          'drain': drain,
+          'decode_window_lookahead_off': windows['lookahead_off'],
+          'decode_window_lookahead_on': windows['lookahead_on'],
+          'max_memory_allocated_gib': peak_gib})
 
 
 # Step-1 loss of the random init: ln V plus about sigma^2 / 2, where the
@@ -822,6 +1166,7 @@ def main() -> int:
         return 0
     model, forward_launches = phase_forward()
     phase_serve(model, env['device'])
+    phase_server(model, env)
     del model
     torch.cuda.empty_cache()
     train_fwd, train_dq, train_dkv = phase_train(env['device'])

@@ -1,6 +1,5 @@
-"""Continuous-batching inference engine, dense slotted KV cache, offline
-``generate`` -- the PyTorch twin of the dense path of
-``skypilot_tpu/infer/engine.py``.
+"""Continuous-batching inference engine over a dense slotted KV cache --
+the PyTorch twin of the dense path of ``skypilot_tpu/infer/engine.py``.
 
 - **KV cache**: one ``[num_slots, Hkv, max_cache_len, D]`` pair per layer,
   allocated once and updated in place.  A request occupies a slot from
@@ -18,27 +17,60 @@
   packed into one f32 block (token ids bitcast).  A slot that stops
   mid-window wrote a few dead cache rows; the host discards those
   tokens and a later prefill overwrites the rows.
+- **Serving** (``generate_stream``): a supervised loop that drains a
+  request queue into the admission scheduler, prefills at most
+  ``prefills_per_gap`` requests between decode windows while slots are
+  busy, streams each window's tokens through ``Request.stream_cb``,
+  honours cancels and deadlines, and contains every dispatch failure
+  (``_contain_failure``): an attributed fault fails its slot, anything
+  else fails the active batch and zeroes the cache.  The queue-aware
+  window (``adaptive_decode_window``) and decode lookahead
+  (``decode_lookahead``, the next window queued on the device from the
+  current one's device-side tokens before the host waits for it) change
+  the dispatch schedule, never the greedy tokens.
 
 Prefill attends through ``write_kv_and_attend``/``decode_attention`` like
-the JAX engine (not through the flash kernel).  Not ported yet:
-``generate_stream`` and the HTTP server (ROADMAP.md A5), the paged cache,
-radix prefix cache, host tier and the other serving features (A6).
+the JAX engine (not through the flash kernel).  Not ported yet: the paged
+cache, radix prefix cache, host tier and the other serving features
+(ROADMAP.md A6).
 """
 import dataclasses
+import queue
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.infer.faults import InjectedFault
+from skypilot_tpu_torch.infer.scheduler import (DEFAULT_TENANT,
+                                                PRIORITY_CLASSES,
+                                                FifoScheduler)
 from skypilot_tpu_torch.models.convert import init_params
 from skypilot_tpu_torch.models.llama import Llama, LlamaConfig, init_cache
 from skypilot_tpu_torch.models.registry import get_model_config
 
 DEFAULT_PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
-PRIORITY_CLASSES = ('interactive', 'batch')
+
+_CACHE_DTYPES = {
+    'bfloat16': torch.bfloat16,
+    'fp8': torch.float8_e4m3fn,
+    'float8_e4m3fn': torch.float8_e4m3fn,
+    'float32': torch.float32,
+}
+
+
+def resolve_cache_dtype(name: str) -> torch.dtype:
+    """CLI string -> KV-cache dtype (the JAX engine's names; fp8 is not
+    ported yet and the engine refuses it)."""
+    try:
+        return _CACHE_DTYPES[name]
+    except KeyError:
+        raise ValueError(
+            f'unknown cache dtype {name!r}; one of '
+            f'{sorted(_CACHE_DTYPES)}') from None
 
 
 @dataclasses.dataclass
@@ -78,14 +110,15 @@ class InferConfig:
 # InferConfig features outside this slice: field -> ROADMAP.md item.
 _UNPORTED = {
     'kv_block_size': 'A6 (paged KV + radix + host tier)',
+    'kv_blocks': 'A6 (paged KV + radix + host tier)',
     'auto_prefix_cache': 'A6 (paged KV + radix + host tier)',
     'host_kv_bytes': 'A6 (paged KV + radix + host tier)',
+    'max_prefixes': 'A6 (the dense prefix cache)',
     'prefill_chunk': 'A6 (chunked prefill)',
     'draft_len': 'A6 (speculative decoding)',
     'lora_rank': 'A6 (multi-LoRA serving)',
     'qos': 'A6 (QoS scheduling)',
-    'decode_lookahead': 'A5 (streaming serving)',
-    'adaptive_decode_window': 'A5 (streaming serving)',
+    'qos_tenant_weights': 'A6 (QoS scheduling)',
 }
 
 
@@ -95,10 +128,17 @@ class Request:
     max_new_tokens: Optional[int] = None
     temperature: float = 0.0
     request_id: Optional[str] = None
+    # When the request entered the system (HTTP handler): TTFT and the
+    # deadline count from here, so time spent queued for a slot counts.
     arrival_time: Optional[float] = None
+    # Streaming: called on the engine thread, under the engine lock, with
+    # each batch of newly generated token ids -- keep it cheap (a queue
+    # put).  The RequestResult still arrives after the last chunk.
     stream_cb: Optional[Callable[[List[int]], None]] = None
     adapter: Optional[str] = None
     want_prompt_logprobs: bool = False
+    # Seconds from arrival (else from dequeue); enforced by the engine:
+    # an expired request is evicted with its partial output.
     deadline_s: Optional[float] = None
     priority: Optional[str] = None
     tenant_id: Optional[str] = None
@@ -109,9 +149,10 @@ class RequestResult:
     request_id: Optional[str]
     prompt_tokens: List[int]
     output_tokens: List[int]
-    ttft_s: float                 # submit -> first token
-    latency_s: float              # submit -> last token
-    finish_reason: str            # 'eos' | 'length' | 'error' | 'deadline'
+    ttft_s: float                 # arrival/submit -> first token
+    latency_s: float              # arrival/submit -> last token
+    # 'eos' | 'length' | 'error' | 'deadline' | 'cancelled'
+    finish_reason: str
     error: Optional[str] = None
     error_class: Optional[str] = None   # 'client' | 'internal' | 'shed'
     # log P(token | context) for each generated token.
@@ -142,7 +183,7 @@ def _unpack_head(buf: np.ndarray, topk: int):
 
 class _Slot:
     __slots__ = ('request', 'length', 'generated', 'submit_time',
-                 'first_token_time', 'max_new', 'lps', 'tops')
+                 'first_token_time', 'max_new', 'streamed', 'lps', 'tops')
 
     def __init__(self, request: Request, length: int, submit_time: float,
                  max_new: int):
@@ -152,6 +193,7 @@ class _Slot:
         self.submit_time = submit_time
         self.first_token_time: Optional[float] = None
         self.max_new = max_new
+        self.streamed = 0                  # tokens already stream_cb'd
         self.lps: List[float] = []         # logprob per generated token
         self.tops: List[List[Tuple[int, float]]] = []
 
@@ -175,6 +217,11 @@ class InferenceEngine:
             raise TypeError('the port serves the llama family so far; got '
                             f'{type(model_config).__name__}')
         self.device = resolve_device(device)
+        # The serving thread selects this card itself: the current
+        # device is per thread.
+        self._cuda_index = (None if self.device.type != 'cuda' else
+                            self.device.index if self.device.index is not None
+                            else torch.cuda.current_device())
         self.model_config = model_config
         self.cfg = cfg = cfg or InferConfig()
         defaults = InferConfig()
@@ -194,6 +241,10 @@ class InferenceEngine:
         if cfg.decode_steps < 1:
             raise ValueError(
                 f'decode_steps must be >= 1 (got {cfg.decode_steps})')
+        if cfg.prefills_per_gap < 1:
+            # 0 would block every new prefill while any slot is active.
+            raise ValueError(f'prefills_per_gap must be >= 1 '
+                             f'(got {cfg.prefills_per_gap})')
         if cfg.prefill_lanes < 1:
             raise ValueError(f'prefill_lanes must be >= 1 '
                              f'(got {cfg.prefill_lanes})')
@@ -201,6 +252,9 @@ class InferenceEngine:
             raise ValueError(
                 f'logprob_topk must be in [1, vocab_size='
                 f'{model_config.vocab_size}] (got {cfg.logprob_topk})')
+        if cfg.run_stall_timeout_s <= 0:
+            raise ValueError(f'run_stall_timeout_s must be > 0 '
+                             f'(got {cfg.run_stall_timeout_s})')
         buckets = tuple(b for b in cfg.prefill_buckets
                         if b <= cfg.max_cache_len)
         if not buckets or buckets[-1] < cfg.max_cache_len:
@@ -217,14 +271,100 @@ class InferenceEngine:
         self.cache = init_cache(model_config, cfg.num_slots,
                                 cfg.max_cache_len, cfg.cache_dtype,
                                 self.device)
+        # Failure/recovery counters (stats()['faults'], /stats):
+        #   internal_errors      requests failed with error_class='internal'
+        #   deadline_evictions   requests evicted past Request.deadline_s
+        #   loop_restarts        serving-loop supervisor restarts
+        #   quarantined_batches  unattributed decode failures that failed
+        #                        the whole active batch (+ cache zeroed)
+        #   nonfinite_lanes      lanes killed by the non-finite logit guard
+        self.fault_stats = {'internal_errors': 0, 'deadline_evictions': 0,
+                            'loop_restarts': 0, 'quarantined_batches': 0,
+                            'nonfinite_lanes': 0}
+        # An armed faults.FaultPlan (tests only); None = one attribute
+        # check per site.
+        self._faults = None
+        # Requests failed inside the dispatch path (non-finite guard),
+        # delivered by _harvest like every other finish.
+        self._pending_failures: List[Tuple[Request, RequestResult]] = []
+        # What /stats reads of the features this engine does not have
+        # yet (speculation, prefix caching, chunked prefill: ROADMAP.md
+        # A6): the JAX dense engine's counters, always empty here.
+        self.spec_stats = {'dispatches': 0, 'drafted': 0, 'accepted': 0}
+        self.prefix_stats = {'hits': 0, 'tokens_reused': 0}
+        self.chunk_stats = {'rounds': 0, 'chunks': 0, 'requests': 0}
+        self._prefixes: Dict[Tuple[int, ...], Any] = {}
+        self._chunking: Dict[int, Any] = {}
+        # Admission order (strict FIFO; the QoS scheduler is A6), shed
+        # and per-tenant admission counters.
+        self._sched = FifoScheduler()
+        self.qos_stats = {'preemptions': 0, 'sheds': 0}
+        self._tenant_qos: Dict[str, Dict[str, int]] = {}
         b = cfg.num_slots
         self._slots: List[Optional[_Slot]] = [None] * b
+        # Request ids cancelled while still queued: dropped at dequeue.
+        # id -> mark time; marks expire (_CANCEL_MARK_TTL_S) so a cancel
+        # that raced a finish cannot poison a later request reusing the
+        # id.
+        self._cancelled: Dict[str, float] = {}
+        # Backlog snapshot for the window policy (_select_window): the
+        # serving loop sets it before each step; 0 outside the loop, so
+        # offline generate() runs full windows.
+        self._arrivals_hint = 0
+        # Decode lookahead: a dispatched, unconsumed window (host-copy
+        # handle, device-side (tokens, lengths) chain, slot snapshot,
+        # prefill epoch).  The epoch bumps on every prefill so a chain
+        # is never extended across a slot recycle.
+        self._ahead = None
+        self._serving = False
+        self._prefill_epoch = 0
+        # Consecutive dequeue passes that yielded only cancelled requests:
+        # right-shifts the arrivals hint (a queue of tombstones must not
+        # force short windows).
+        self._cancel_only_streak = 0
         # Host mirrors of per-slot decode state, sent to the device per
         # window as small tensors.
         self._lengths = np.zeros((b,), np.int64)
         self._last_tokens = np.zeros((b,), np.int64)
         self._temps = np.zeros((b,), np.float32)
         self._lock = threading.Lock()
+
+    def _reset_cache(self) -> None:
+        """Zero the KV cache in place -- the quarantine path after an
+        unattributed dispatch failure.  In place because the tensors are
+        the ones the next dispatch writes; rows a later prefill has not
+        written are never read before they are written, so zero is as
+        good as any value.  Caller holds no live slots."""
+        with torch.no_grad():
+            for k, v in self.cache:
+                k.zero_()
+                v.zero_()
+
+    # ------------------------------------------------------ fault plans
+
+    def arm_faults(self, plan) -> None:
+        """Arm a faults.FaultPlan: the engine consults it at named sites
+        (see faults.SITES).  Tests only."""
+        self._faults = plan
+
+    def disarm_faults(self) -> None:
+        self._faults = None
+
+    def _fault(self, site: str):
+        """One consult of a named injection site; unarmed it is a single
+        attribute check."""
+        if self._faults is None:
+            return None
+        return self._faults.check(site)
+
+    def _fault_raise(self, site: str) -> None:
+        """Consult and raise InjectedFault if the plan fires.  Called on
+        the host before a dispatch, so the cache stays intact."""
+        sp = self._fault(site)
+        if sp is not None:
+            raise InjectedFault(
+                f'{sp.message} [site={site}]', site,
+                slots=None if sp.slot is None else [sp.slot])
 
     # --------------------------------------------------------- device
 
@@ -271,9 +411,11 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _decode(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                temps: torch.Tensor, steps: int) -> torch.Tensor:
+                temps: torch.Tensor, steps: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """`steps` decode steps for every slot; tokens/lengths/temps [B].
-        Returns the packed window [steps, B, 2+2k]."""
+        Returns the packed window [steps, B, 2+2k] and the device-side
+        (last tokens, lengths) a lookahead window continues from."""
         heads = []
         for _ in range(steps):
             logits, _ = self.model(tokens[:, None], lengths[:, None],
@@ -281,10 +423,150 @@ class InferenceEngine:
             tokens, head = self._pack_head(logits[:, 0], temps)
             heads.append(head)
             lengths = lengths + 1
-        return torch.stack(heads)
+        return torch.stack(heads), tokens, lengths
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        """A copy of a host array on the engine's device.  To a card the
+        copy is queued on the stream from pinned memory: a blocking copy
+        would wait for every window already queued, which decode
+        lookahead must not do."""
+        t = torch.from_numpy(np.array(a))     # the mirror may change
+        if self.device.type != 'cuda':
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, t: torch.Tensor):
+        """Queue the device->host copy of t now; returns the handle
+        ``_host_array`` waits on.  From a card the copy goes into pinned
+        memory behind an event, so work queued after it (the lookahead
+        window) does not delay the host's read."""
+        if self.device.type != 'cuda':
+            return t, None
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        return buf, ev
+
+    @staticmethod
+    def _host_array(handle) -> np.ndarray:
+        buf, ev = handle
+        if ev is not None:
+            ev.synchronize()
+        return buf.numpy()
+
+    # ------------------------------------------------------- surfaces
+
+    @property
+    def serving(self) -> bool:
+        """True while the serving loop is alive (generate_stream's
+        supervisor holds it); False before it starts, after a clean stop
+        and after the supervisor gave up on a crash loop."""
+        return self._serving
+
+    @property
+    def adapters(self) -> Dict[str, int]:
+        """Registered LoRA adapters: none (multi-LoRA is ROADMAP.md A6)."""
+        return {}
+
+    def _host_tier_section(self) -> Dict[str, Any]:
+        """kv.host_tier of the JAX engine without a host tier (the tier
+        is ROADMAP.md A6): one key set for every replica."""
+        return {'enabled': False, 'budget_bytes': 0, 'bytes': 0,
+                'entries': 0, 'spills': 0, 'restores': 0,
+                'restore_hit_rate': 0.0, 'in_flight': 0, 'evictions': 0,
+                'exported': 0, 'adopted': 0}
+
+    def kv_health(self) -> Dict[str, Any]:
+        """The /healthz KV summary: the JAX dense engine's key set (the
+        LB's prober reads block_size, occupancy and radix.hit_rate)."""
+        return {
+            'layout': 'dense',
+            'block_size': 0,
+            'blocks_total': 0,
+            'blocks_free': 0,
+            'occupancy': 0.0,
+            'tp': 1,
+            'radix': {'enabled': False, 'hits': 0, 'lookups': 0,
+                      'hit_rate': 0.0, 'nodes': 0, 'evictions': 0},
+            'host_tier': self._host_tier_section(),
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        """KV-cache accounting (served by /stats): the JAX dense engine's
+        structured 'kv' section and its deprecated flat aliases."""
+        mc = self.model_config
+        row_bytes = (2 * mc.num_kv_heads * mc.head_dim_ *
+                     self.cfg.cache_dtype.itemsize * mc.num_layers)
+        total = self.cfg.num_slots * self.cfg.max_cache_len * row_bytes
+        kv = {
+            'layout': 'dense',
+            'tp': 1,
+            'bytes': {'total': total, 'resident': total,
+                      'per_chip_total': total, 'per_chip_resident': total},
+            'prefix': {**self.prefix_stats, 'resident': len(self._prefixes)},
+            'radix': {'enabled': False, 'hits': 0, 'lookups': 0,
+                      'hit_rate': 0.0, 'tokens_reused': 0, 'inserts': 0,
+                      'evictions': 0, 'nodes': 0, 'blocks_held': 0,
+                      'pinned': 0},
+            'host_tier': self._host_tier_section(),
+        }
+        return {
+            'kv': kv,
+            'serving': bool(self._serving),
+            # deprecated aliases of kv.*, zeros where dense has no pool
+            'kv_layout': 'dense',
+            'block_size': 0,
+            'blocks_total': 0,
+            'blocks_free': 0,
+            'blocks_allocated': 0,
+            'blocks_shared': 0,
+            'blocks_prefix': 0,
+            'shared_refs_saved': 0,
+            'kv_bytes_per_block': 0,
+            'kv_bytes_total': total,
+            'kv_bytes_resident': total,
+            'admission_deferred': 0,
+            'prefix_block_hits': 0,
+            'faults': dict(self.fault_stats),
+            'qos': {
+                'enabled': False,
+                'scheduler': self._sched.stats(),
+                'preemptions': self.qos_stats['preemptions'],
+                'sheds': self.qos_stats['sheds'],
+                # The projection shed's rate estimate is QoS (A6).
+                'service_rate_tokens_per_s': None,
+                'tenants': {t: dict(c)
+                            for t, c in list(self._tenant_qos.items())},
+            },
+        }
+
+    # Per-tenant counter rows are bounded: unbounded distinct tenant ids
+    # must not grow engine memory without limit.
+    _MAX_TENANT_ROWS = 256
+
+    def _tenant_row(self, tenant: Optional[str]) -> Dict[str, int]:
+        t = tenant or DEFAULT_TENANT
+        row = self._tenant_qos.get(t)
+        if row is None:
+            if len(self._tenant_qos) >= self._MAX_TENANT_ROWS:
+                t = '_overflow'
+            row = self._tenant_qos.setdefault(t, {'admitted': 0, 'shed': 0})
+        return row
+
+    def export_hot_prefixes(self) -> Dict[str, Any]:
+        """The drain-time hot-prefix payload (GET /hot_prefixes) of a
+        replica without a radix cache: the header, no prefixes."""
+        return {'version': 1, 'model': self.cfg.model, 'block_size': 0,
+                'cache_dtype': str(self.cfg.cache_dtype).split('.')[-1],
+                'num_layers': len(self.cache), 'prefixes': []}
+
+    def adopt_prefixes(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """POST /adopt_blocks: a dense replica has no radix tree to adopt
+        into -- the client error the JAX dense engine gives."""
+        del payload
+        raise ValueError('replica has no radix cache '
+                         '(kv_block_size/auto_prefix_cache off)')
 
     # ------------------------------------------------------- schedule
 
@@ -302,6 +584,11 @@ class InferenceEngine:
                 return i
         return None
 
+    def has_free_slot(self) -> bool:
+        """Lock-free saturation peek for the server's admission control
+        (a stale answer shifts one admission decision by one loop gap)."""
+        return any(s is None for s in self._slots)
+
     def _max_new(self, req: Request) -> int:
         return self.cfg.max_new_tokens if req.max_new_tokens is None \
             else req.max_new_tokens
@@ -312,10 +599,6 @@ class InferenceEngine:
         if req.want_prompt_logprobs:
             raise NotImplementedError(
                 'prompt logprobs are not ported yet (ROADMAP.md A6)')
-        if req.stream_cb is not None:
-            raise NotImplementedError(
-                'streaming callbacks are not ported yet (ROADMAP.md A5, '
-                'generate_stream)')
         n = len(req.tokens)
         max_new = self._max_new(req)
         if n < 1:
@@ -347,7 +630,16 @@ class InferenceEngine:
         rows per dispatch.  items: (req, slot, submit_time, prompt_len,
         bucket, max_new) tuples.  Dispatch width is always
         prefill_lanes; pad lanes duplicate the last real lane, slot
-        included, so their cache writes are identical rewrites."""
+        included, so their cache writes are identical rewrites.
+
+        Bumps the prefill epoch first: an in-flight lookahead window's
+        chain is never extended across a slot recycle, and its snapshot
+        keeps a recycled slot from consuming the old occupant's column.
+        The prefill need not wait for that window: it is queued behind
+        it on the device, so its KV rows land after the window's dead
+        rows."""
+        self._fault_raise('prefill')
+        self._prefill_epoch += 1
         lanes = self.cfg.prefill_lanes
         by_bucket: Dict[int, list] = {}
         for it in items:
@@ -374,7 +666,8 @@ class InferenceEngine:
                     self._to_device(tokens), self._to_device(true_lens),
                     self._to_device(slots), self._to_device(temps))
                 first, first_lp, tids, tlps = _unpack_head(
-                    head.cpu().numpy(), self.cfg.logprob_topk)  # ONE transfer
+                    self._host_array(self._to_host(head)),
+                    self.cfg.logprob_topk)                # ONE transfer
                 now = time.time()
                 for i, (req, slot, submit_time, n, _, max_new) in \
                         enumerate(chunk):
@@ -389,11 +682,31 @@ class InferenceEngine:
                     self._last_tokens[slot] = s.generated[0]
                     self._temps[slot] = req.temperature
 
+    def _flush_streams(self) -> None:
+        """Deliver the newly generated tokens of every streaming slot.
+        A callback's error is swallowed: a broken consumer must not kill
+        the loop (its request still finishes normally)."""
+        for s in self._slots:
+            if s is None or s.request.stream_cb is None:
+                continue
+            if len(s.generated) > s.streamed:
+                chunk = s.generated[s.streamed:]
+                s.streamed = len(s.generated)
+                try:
+                    s.request.stream_cb(list(chunk))
+                except Exception:  # noqa: BLE001
+                    pass
+
     def _finish_slot(self, i: int, reason: str,
                      error: Optional[str] = None,
                      error_class: Optional[str] = None,
                      ) -> Tuple[Request, RequestResult]:
         s = self._slots[i]
+        if s.request.stream_cb is not None and len(s.generated) > s.streamed:
+            try:
+                s.request.stream_cb(list(s.generated[s.streamed:]))
+            except Exception:  # noqa: BLE001
+                pass
         now = time.time()
         res = RequestResult(
             request_id=s.request.request_id,
@@ -409,28 +722,179 @@ class InferenceEngine:
         self._slots[i] = None
         self._lengths[i] = 0
         self._temps[i] = 0.0
+        if s.request.request_id is not None:
+            self._cancelled.pop(s.request.request_id, None)   # stale mark
         return s.request, res
 
-    def _decode_step(self) -> List[Tuple[Request, RequestResult]]:
-        """One decode window for every slot: dispatch from the host
-        mirrors, then consume it.  Returns lanes killed by the
-        non-finite guard."""
-        packed = self._decode(self._to_device(self._last_tokens),
-                              self._to_device(self._lengths),
-                              self._to_device(self._temps),
-                              self.cfg.decode_steps)
-        return self._consume_window(packed)
+    # ----------------------------------------------------- containment
 
-    def _consume_window(self, packed: torch.Tensor
-                        ) -> List[Tuple[Request, RequestResult]]:
+    def _fail_slot(self, i: int,
+                   error: str) -> Tuple[Request, RequestResult]:
+        """Fail one active slot's request with error_class='internal':
+        the slot is freed, the partial output returned."""
+        self.fault_stats['internal_errors'] += 1
+        return self._finish_slot(i, 'error', error=error,
+                                 error_class='internal')
+
+    def _shed_request(self, req: Request, elapsed: float, reason: str,
+                      result_cb) -> None:
+        """Deadline shed at dequeue (expired while queued): the JAX
+        engine's typed shape -- finish_reason 'deadline', error_class
+        'shed' -- and its counters."""
+        with self._lock:
+            self.fault_stats['deadline_evictions'] += 1
+            self.qos_stats['sheds'] += 1
+            self._tenant_row(req.tenant_id)['shed'] += 1
+            result_cb(RequestResult(
+                request_id=req.request_id,
+                prompt_tokens=list(req.tokens),
+                output_tokens=[], ttft_s=0.0,
+                latency_s=elapsed,
+                finish_reason='deadline',
+                error=reason, error_class='shed'))
+
+    def _contain_failure(self, exc: BaseException, phase: str
+                         ) -> List[Tuple[Request, RequestResult]]:
+        """Step-level containment of a decode-phase failure (under the
+        engine lock).  An InjectedFault names the slot(s) it injured and
+        only those fail.  Anything else cannot be bisected after the
+        fact -- the window is one batched dispatch that writes the cache
+        in place -- so the whole active batch fails with
+        error_class='internal' and the cache is zeroed (_reset_cache),
+        leaving the engine clean for the queue still waiting."""
+        msg = f'{phase} failed: {exc!r}'
+        slots_hint = getattr(exc, 'slots', None)
+        failed: List[Tuple[Request, RequestResult]] = []
+        # An in-flight lookahead window was dispatched against
+        # pre-failure state: drop it rather than consume it.
+        self._ahead = None
+        if slots_hint:
+            for i in slots_hint:
+                if 0 <= i < self.cfg.num_slots and self._slots[i] is not None:
+                    failed.append(self._fail_slot(i, msg))
+            return failed
+        self.fault_stats['quarantined_batches'] += 1
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                failed.append(self._fail_slot(i, msg))
+        self._reset_cache()
+        return failed
+
+    # ---------------------------------------------------------- decode
+
+    def _select_window(self) -> int:
+        """Decode-window policy (adaptive_decode_window), queue-aware:
+        a short window only while an arrival waits for the next prefill
+        gap with a slot free to take it.  A request streaming alone gets
+        full windows (a short one costs it a dispatch per two tokens)."""
+        steps = self.cfg.decode_steps
+        if (self.cfg.adaptive_decode_window and self._arrivals_hint > 0
+                and any(s is None for s in self._slots)):
+            return min(2, steps)
+        return steps
+
+    def _decode_step(self, steps: Optional[int] = None) -> None:
+        """One decode window for every active slot: consume a pending
+        lookahead window if one exists, else dispatch from the host
+        mirrors; maybe queue the NEXT window from the device-side chain
+        before waiting for this one's transfer (_maybe_dispatch_ahead);
+        then append up to K tokens per slot (_consume_window)."""
+        if self._ahead is not None:
+            handle, chain, snap, epoch = self._ahead
+            self._ahead = None
+            if epoch != self._prefill_epoch:
+                # A prefill happened while this window was in flight: its
+                # chain lacks the new slot(s), so nothing more hangs off
+                # it.  If no snapshot slot is alive any more, serve the
+                # current slots a fresh window instead.
+                chain = None
+                if not any(s is not None and s is snap[i]
+                           for i, s in enumerate(self._slots)):
+                    handle = None
+            if handle is not None:
+                if chain is not None:
+                    # Ahead windows are always full: the pending one is
+                    # cfg.decode_steps in flight.
+                    self._maybe_dispatch_ahead(chain, snap,
+                                               self.cfg.decode_steps)
+                self._consume_window(handle, snap)
+                return
+        if steps is None:
+            steps = self._select_window()
+        handle, chain = self._dispatch_decode(steps)
+        self._maybe_dispatch_ahead(chain, list(self._slots), steps)
+        self._consume_window(handle)
+
+    def _dispatch_decode(self, steps: int):
+        """One window dispatched from the host slot mirrors.  Returns the
+        host-copy handle of its packed result and the device-side
+        (tokens, lengths) chain."""
+        packed, last, lens = self._decode(
+            self._to_device(self._last_tokens),
+            self._to_device(self._lengths), self._to_device(self._temps),
+            steps)
+        return self._to_host(packed), (last, lens)
+
+    def _maybe_dispatch_ahead(self, chain, snap,
+                              in_flight_steps: int = 0) -> None:
+        """Decode lookahead: queue the next full window now, fed by the
+        previous window's device-side last tokens and lengths, so it
+        never waits for that window's trip to the host.  Safe because
+        decode is independent per slot:
+
+        - a slot that finishes while the window is in flight has its
+          column discarded (the consume is restricted to `snap`, the
+          slot objects active at dispatch), and its cache writes are the
+          dead rows windowed decode already tolerates;
+        - a prefill recycling a freed slot does not wait: it is queued
+          behind the window, the snapshot keeps the new request from a
+          stale column, and the epoch bump keeps lookahead off the stale
+          chain;
+        - while arrivals wait (hint > 0) nothing is queued ahead: the
+          window would push their prefill back (TTFT);
+        - a window no survivor could take a token from (each finishes
+          inside the `in_flight_steps` already queued) is not queued."""
+        if (not self.cfg.decode_lookahead or not self._serving or
+                self._arrivals_hint > 0):
+            return
+        live = [s for i, s in enumerate(snap)
+                if s is not None and self._slots[i] is s]
+        if not live:
+            return          # nobody left to deliver the window to
+        if all(min(s.max_new - len(s.generated),
+                   self.cfg.max_cache_len - 1 - s.length)
+               <= in_flight_steps for s in live):
+            return          # every survivor finishes in flight
+        packed, last, lens = self._decode(chain[0], chain[1],
+                                          self._to_device(self._temps),
+                                          self.cfg.decode_steps)
+        self._ahead = (self._to_host(packed), (last, lens), snap,
+                       self._prefill_epoch)
+
+    def _consume_window(self, handle, snap=None) -> None:
         """Append up to K tokens per slot, stopping at EOS, max_new or the
         cache end; tokens past a slot's stop are speculative overrun and
-        are discarded."""
+        are discarded.  With `snap` (a lookahead window), only the slots
+        that were active at its dispatch take its columns."""
         toks, lps, gtoks, glps = _unpack_head(
-            packed.cpu().numpy(), self.cfg.logprob_topk)  # ONE transfer
+            self._host_array(handle), self.cfg.logprob_topk)  # ONE transfer
+        sp = self._fault('nonfinite_logits')
+        if sp is not None:
+            # Poison one lane's logprobs after the transfer, the way a
+            # real blow-up of that lane's logits would reach the host.
+            lane = sp.slot
+            if lane is None:
+                lane = next((i for i, s in enumerate(self._slots)
+                             if s is not None), 0)
+            lps = np.array(lps)
+            lps[:, lane] = np.nan
         bad: List[int] = []
         for i, s in enumerate(self._slots):
             if s is None:
+                continue
+            if snap is not None and snap[i] is not s:
+                # Dispatched before this slot's occupant existed: the
+                # column is the previous request's.
                 continue
             for k in range(toks.shape[0]):
                 if len(s.generated) >= s.max_new:
@@ -451,19 +915,60 @@ class InferenceEngine:
                 s.tops.append(_pairs(gtoks[k, i], glps[k, i]))
             self._lengths[i] = s.length
             self._last_tokens[i] = s.generated[-1]
-        return [self._finish_slot(
-                    i, 'error',
-                    error='non-finite logits in decode window (lane killed)',
-                    error_class='internal') for i in bad]
+        for i in bad:
+            self.fault_stats['nonfinite_lanes'] += 1
+            self._pending_failures.append(self._fail_slot(
+                i, 'non-finite logits in decode window (lane killed)'))
+
+    _CANCEL_MARK_TTL_S = 600.0
+
+    def cancel(self, request_id: str) -> bool:
+        """Stop generating for a request and free its slot now (client
+        gone, stop string hit).  Returns True when it was in a slot (its
+        result is not delivered: the caller owns the consequence); False
+        marks it to be dropped at dequeue."""
+        with self._lock:
+            self._prune_cancel_marks()
+            for i, s in enumerate(self._slots):
+                if s is not None and s.request.request_id == request_id:
+                    self._finish_slot(i, 'cancelled')
+                    return True
+            self._cancelled[request_id] = time.time()
+            return False
+
+    def uncancel(self, request_id: str) -> None:
+        """Drop a pending-cancel mark, for the caller who learns after
+        cancel() returned False that the request had already finished."""
+        with self._lock:
+            self._cancelled.pop(request_id, None)
+
+    def _prune_cancel_marks(self) -> None:
+        now = time.time()
+        stale = [rid for rid, ts in self._cancelled.items()
+                 if now - ts > self._CANCEL_MARK_TTL_S]
+        for rid in stale:
+            del self._cancelled[rid]
+
+    def _step(self) -> None:
+        """One decode window (the decode_step fault site first)."""
+        self._fault_raise('decode_step')
+        self._decode_step()
 
     def _harvest(self) -> List[Tuple[Request, RequestResult]]:
         done = []
+        if self._pending_failures:
+            done.extend(self._pending_failures)
+            self._pending_failures = []
         now = time.time()
         for i, s in enumerate(self._slots):
             if s is None:
                 continue
             dl = s.request.deadline_s
             if dl is not None and now - s.submit_time >= dl:
+                # Deadline eviction: the partial output ships and the
+                # slot frees now.  Checked before eos/length so an
+                # expired request never counts as a clean finish.
+                self.fault_stats['deadline_evictions'] += 1
                 done.append(self._finish_slot(i, 'deadline'))
             elif self.cfg.eos_id is not None and \
                     s.generated[-1] == self.cfg.eos_id:
@@ -480,7 +985,8 @@ class InferenceEngine:
         """Offline batch generation with continuous batching: every free
         slot is filled from the pending list before each decode window,
         and slots are refilled as requests finish.  Results come back in
-        request order."""
+        request order.  A decode failure is contained as in the serving
+        loop (_contain_failure)."""
         with self._lock:
             pending = list(requests)
             finished: List[Tuple[Request, RequestResult]] = []
@@ -510,11 +1016,329 @@ class InferenceEngine:
                 finished.extend(self._harvest())
                 if not any(s is not None for s in self._slots):
                     continue
-                finished.extend(self._decode_step())
+                try:
+                    self._step()
+                except Exception as e:  # pylint: disable=broad-except
+                    finished.extend(self._contain_failure(e, 'decode step'))
                 finished.extend(self._harvest())
             order = {id(r): i for i, r in enumerate(requests)}
             finished.sort(key=lambda pair: order.get(id(pair[0]), 0))
             return [res for _, res in finished]
+
+    # Consecutive fast deaths (loop up < 1 s) before the supervisor
+    # gives up: a crash loop that makes no progress surfaces to the
+    # caller instead of spinning and eating the queue.
+    _MAX_LOOP_RESTARTS = 3
+
+    def generate_stream(self, request_queue: 'queue.Queue[Request]',
+                        result_cb, stop_event: threading.Event,
+                        idle_sleep: float = 0.005) -> None:
+        """Serving loop: pull requests from a queue, run continuous
+        batching until stop_event is set, deliver RequestResults through
+        result_cb (and tokens through each request's stream_cb).
+
+        Supervised: an exception that escapes _serve_loop's contained
+        regions (1) fails every in-flight request now with
+        error_class='internal', (2) restarts the loop with the queue
+        intact, (3) after _MAX_LOOP_RESTARTS consecutive sub-second
+        deaths fails the queued requests too and re-raises.
+
+        Runs on the caller's thread, which it puts in inference mode and
+        on the engine's card: both are per thread, and a serving thread
+        outside inference mode would record autograd state every window.
+        """
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        consecutive = 0
+        try:
+            self._serving = True
+            while True:
+                t_up = time.time()
+                try:
+                    with torch.inference_mode():
+                        self._serve_loop(request_queue, result_cb,
+                                         stop_event, idle_sleep)
+                    return
+                except Exception as e:  # pylint: disable=broad-except
+                    with self._lock:
+                        self.fault_stats['loop_restarts'] += 1
+                        self._ahead = None
+                        for _, res in self._fail_all_inflight(
+                                f'serving loop died: {e!r}'):
+                            try:
+                                result_cb(res)
+                            except Exception:  # noqa: BLE001
+                                pass
+                    if stop_event.is_set():
+                        return
+                    consecutive = (consecutive + 1
+                                   if time.time() - t_up < 1.0 else 1)
+                    if consecutive > self._MAX_LOOP_RESTARTS:
+                        self._drain_queue_failing(request_queue,
+                                                  result_cb, e)
+                        raise
+        finally:
+            # Outside the loop the hint is 0 (offline generate runs full
+            # windows) and no lookahead window is pending.
+            self._serving = False
+            with self._lock:
+                self._ahead = None
+                self._arrivals_hint = 0
+
+    def _fail_all_inflight(self, msg: str
+                           ) -> List[Tuple[Request, RequestResult]]:
+        """Fail every active slot (caller holds the lock): the loop that
+        would advance them is dead."""
+        return [self._fail_slot(i, msg)
+                for i, s in enumerate(self._slots) if s is not None]
+
+    def _drain_queue_failing(self, request_queue, result_cb,
+                             exc: BaseException) -> None:
+        """Terminal supervisor path: the queued requests will never
+        serve, so fail them now rather than leave their clients waiting
+        for timeouts."""
+        with self._lock:
+            pending = []
+            while True:
+                r = self._sched.pop()
+                if r is None:
+                    break
+                pending.append(r)
+            while True:
+                try:
+                    pending.append(request_queue.get_nowait())
+                except queue.Empty:
+                    break
+            for req in pending:
+                self.fault_stats['internal_errors'] += 1
+                try:
+                    result_cb(RequestResult(
+                        request_id=req.request_id,
+                        prompt_tokens=list(req.tokens),
+                        output_tokens=[], ttft_s=0.0, latency_s=0.0,
+                        finish_reason='error',
+                        error=f'serving loop dead: {exc!r}',
+                        error_class='internal'))
+                except Exception:  # noqa: BLE001
+                    pass
+
+    def _serve_loop(self, request_queue, result_cb, stop_event,
+                    idle_sleep) -> None:
+        while not stop_event.is_set():
+            if self._faults is not None:
+                sp = self._fault('stall')
+                if sp is not None:
+                    time.sleep(sp.stall_s)   # a wedged host thread
+                if any(s is not None for s in self._slots):
+                    # Loop death outside every contained region, the
+                    # supervisor's case; consulted only with work in
+                    # flight so "hit 1" does not race the idle spin.
+                    self._fault_raise('serve_loop')
+            moved = False
+            to_start = []
+            dequeued = cancelled_deq = 0
+            while True:
+                try:
+                    self._sched.push(request_queue.get_nowait())
+                except queue.Empty:
+                    break
+            while True:
+                if len(to_start) >= self.cfg.prefills_per_gap and any(
+                        s is not None for s in self._slots):
+                    break  # let active slots decode; prefill more next gap
+                slot = self._free_slot(exclude=[it[1] for it in to_start])
+                if slot is None:
+                    break
+                req = self._sched.pop()
+                if req is None:
+                    break
+                if (req.request_id is not None and
+                        req.request_id in self._cancelled):
+                    # Cancelled while queued: never prefill it.  Results
+                    # are delivered under the lock, as at every
+                    # result_cb site: a caller who sees cancel() return
+                    # False can rely on a prior finish being delivered.
+                    with self._lock:
+                        self._cancelled.pop(req.request_id, None)
+                        result_cb(RequestResult(
+                            request_id=req.request_id,
+                            prompt_tokens=list(req.tokens),
+                            output_tokens=[], ttft_s=0.0, latency_s=0.0,
+                            finish_reason='cancelled'))
+                    moved = True
+                    dequeued += 1
+                    cancelled_deq += 1
+                    continue
+                dequeued += 1
+                elapsed = (time.time() - req.arrival_time
+                           if req.arrival_time is not None else 0.0)
+                if (req.deadline_s is not None and
+                        req.arrival_time is not None and
+                        elapsed >= req.deadline_s):
+                    # Expired while queued: never spend a prefill on it.
+                    self._shed_request(
+                        req, elapsed,
+                        f'deadline_s={req.deadline_s} expired in queue '
+                        f'({elapsed:.3f}s elapsed)', result_cb)
+                    moved = True
+                    continue
+                try:
+                    to_start.append((req, slot,
+                                     req.arrival_time or time.time(),
+                                     *self._validate_request(req)))
+                except (ValueError, NotImplementedError) as e:
+                    with self._lock:
+                        result_cb(RequestResult(
+                            request_id=req.request_id,
+                            prompt_tokens=list(req.tokens),
+                            output_tokens=[], ttft_s=0.0, latency_s=0.0,
+                            finish_reason='error', error=str(e),
+                            error_class='client'))
+                moved = True
+            if dequeued:
+                # A pass that dequeued only cancelled requests halves the
+                # hint's view of the backlog; a real dequeue resets it.
+                if dequeued == cancelled_deq:
+                    self._cancel_only_streak = min(
+                        self._cancel_only_streak + 1, 16)
+                else:
+                    self._cancel_only_streak = 0
+            if to_start:
+                try:
+                    with self._lock:
+                        # Re-check cancel marks under the lock: a cancel()
+                        # racing the unlocked dequeue above left only a
+                        # mark.
+                        dropped = [
+                            it for it in to_start
+                            if it[0].request_id is not None and
+                            it[0].request_id in self._cancelled]
+                        to_start = [it for it in to_start
+                                    if it not in dropped]
+                        for it in dropped:
+                            self._cancelled.pop(it[0].request_id, None)
+                        if to_start:
+                            self._start_batch(to_start)
+                            for it in to_start:
+                                self._tenant_row(
+                                    it[0].tenant_id)['admitted'] += 1
+                        for it in dropped:
+                            result_cb(RequestResult(
+                                request_id=it[0].request_id,
+                                prompt_tokens=list(it[0].tokens),
+                                output_tokens=[], ttft_s=0.0,
+                                latency_s=0.0, finish_reason='cancelled'))
+                except Exception as e:  # pylint: disable=broad-except
+                    # A prefill failure must not kill the loop: every
+                    # request of the batch fails as internal, and a slot
+                    # a partly applied batch already filled is freed (it
+                    # would also be harvested otherwise).
+                    with self._lock:
+                        for req, slot, *_ in to_start:
+                            s = self._slots[slot]
+                            if s is not None and s.request is req:
+                                self._slots[slot] = None
+                                self._lengths[slot] = 0
+                                self._temps[slot] = 0.0
+                        for req, slot, *_ in to_start:
+                            self.fault_stats['internal_errors'] += 1
+                            result_cb(RequestResult(
+                                request_id=req.request_id,
+                                prompt_tokens=list(req.tokens),
+                                output_tokens=[], ttft_s=0.0,
+                                latency_s=0.0,
+                                finish_reason='error', error=str(e),
+                                error_class='internal'))
+            with self._lock:
+                self._flush_streams()            # prefill first tokens
+                for _, res in self._harvest():   # prefill-only finishes
+                    result_cb(res)
+                if any(s is not None for s in self._slots):
+                    # The backlog the window policy sees: requests still
+                    # queued at step time (decayed by a cancel-only
+                    # streak).
+                    self._arrivals_hint = (
+                        (request_queue.qsize() + self._sched.backlog())
+                        >> self._cancel_only_streak)
+                    try:
+                        self._step()
+                    except Exception as e:  # pylint: disable=broad-except
+                        for _, res in self._contain_failure(
+                                e, 'decode step'):
+                            result_cb(res)
+                    self._flush_streams()
+                    for _, res in self._harvest():
+                        result_cb(res)
+                    moved = True
+            if not moved:
+                time.sleep(idle_sleep)
+
+    def generate_served(self, requests: List[Request]) -> List[RequestResult]:
+        """Run requests (distinct request_ids) through the serving loop
+        on a thread of its own and return their results in request
+        order.  Stall detection is progress-aware: the run fails after
+        one window of cfg.run_stall_timeout_s in which no request
+        finished, with stats() in the error; a long healthy run resets
+        the window with every finish."""
+        ids = [r.request_id for r in requests]
+        if None in ids or len(set(ids)) != len(ids):
+            raise ValueError('generate_served needs distinct request_ids')
+        results: Dict[str, RequestResult] = {}
+        done = threading.Event()
+
+        def deliver(res: RequestResult) -> None:
+            results[res.request_id] = res
+            if len(results) == len(requests):
+                done.set()
+
+        q: 'queue.Queue[Request]' = queue.Queue()
+        for r in requests:
+            q.put(r)
+        stop = threading.Event()
+        loop = threading.Thread(target=self.generate_stream,
+                                args=(q, deliver, stop), daemon=True)
+        loop.start()
+        stall_s = self.cfg.run_stall_timeout_s
+        last_done = 0
+        try:
+            while not done.wait(timeout=stall_s):
+                if len(results) == last_done:
+                    raise RuntimeError(
+                        f'serving stalled: {len(results)}/{len(requests)} '
+                        f'requests finished, none in the last '
+                        f'{stall_s:.1f}s (InferConfig.run_stall_timeout_s);'
+                        f' engine stats: {self.stats()}')
+                last_done = len(results)
+        finally:
+            stop.set()
+            loop.join(timeout=30)
+        return [results[i] for i in ids]
+
+    def warmup(self) -> None:
+        """Warm-up before serving: one prefill per configured bucket and
+        the decode windows (warmup_decode), so the first real request
+        finds cuBLAS handles, workspaces and the caching allocator's
+        blocks in place.  Runs through offline generate(): call it
+        before generate_stream starts."""
+        for bi, bkt in enumerate(self.cfg.prefill_buckets):
+            # Two tokens of room: the prompt lands in this bucket and
+            # prompt + max_new_tokens fits the cache.
+            n = min(bkt, self.cfg.max_cache_len - 2)
+            self.generate([Request(tokens=[bi + 2] * n, max_new_tokens=2)])
+        self.warmup_decode([1, 2, 3])
+
+    def warmup_decode(self, tokens: Sequence[int]) -> None:
+        """One short request (a prefill and a full decode window) and,
+        with the adaptive window, one through the short window too."""
+        self.generate([Request(tokens=list(tokens), max_new_tokens=2)])
+        if (self.cfg.adaptive_decode_window and self.cfg.decode_steps > 2
+                and self.cfg.num_slots >= 2):
+            self._arrivals_hint = 1
+            try:
+                self.generate([Request(tokens=list(tokens),
+                                       max_new_tokens=2)])
+            finally:
+                self._arrivals_hint = 0
 
 
 def engine_from_name(model: str, cfg: Optional[InferConfig] = None,

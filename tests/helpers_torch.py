@@ -1,0 +1,69 @@
+"""Shared pieces of the port's serving tests (test_torch_faults.py,
+test_torch_server.py): one tiny f32 Llama built on both sides from the
+same numpy weights, and engine factories for the JAX engine and the
+port's."""
+import flax
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from skypilot_tpu.infer import InferConfig as JaxInferConfig
+from skypilot_tpu.infer import InferenceEngine as JaxEngine
+from skypilot_tpu.models.llama import Llama as JaxLlama
+from skypilot_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from skypilot_tpu_torch.infer import engine as port
+from skypilot_tpu_torch.models import convert
+from skypilot_tpu_torch.models.llama import LlamaConfig as PortLlamaConfig
+
+# The geometry of tests/test_faults.py's tiny model.
+GEOMETRY = dict(name='serve-test', vocab_size=101, hidden_size=32,
+                intermediate_size=64, num_layers=2, num_heads=4,
+                num_kv_heads=2, max_seq_len=128, tie_embeddings=True)
+JAX_CFG = JaxLlamaConfig(**GEOMETRY, dtype='float32')
+PORT_CFG = PortLlamaConfig(**GEOMETRY, dtype=torch.float32)
+
+# The engine settings of tests/test_faults.py (COMMON).
+COMMON = dict(num_slots=4, max_cache_len=64, prefill_buckets=(8, 16, 32),
+              max_new_tokens=8)
+
+# Weights at std 0.02 * WEIGHT_SCALE: at the init's 0.02 a 2-layer model's
+# logits are nearly flat, and near-ties could order differently under two
+# summation orders; scaled, greedy paths change token every few steps.
+WEIGHT_SCALE = 10.0
+
+
+def make_params(seed: int = 3):
+    """numpy params['params'] in the flax tree's layout."""
+    shapes = flax.linen.meta.unbox(jax.eval_shape(
+        JaxLlama(JAX_CFG).init, jax.random.PRNGKey(0),
+        jnp.zeros((1, 8), jnp.int32)))['params']
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda x: rng.normal(
+        0, 0.02 * WEIGHT_SCALE, x.shape).astype(np.float32), shapes)
+
+
+def jax_engine(params, **overrides) -> JaxEngine:
+    kw = {**COMMON, 'cache_dtype': jnp.float32, **overrides}
+    return JaxEngine(JAX_CFG, JaxInferConfig(**kw),
+                     params={'params': params},
+                     rng=jax.random.PRNGKey(7))
+
+
+def port_engine(params, **overrides) -> port.InferenceEngine:
+    kw = {**COMMON, 'cache_dtype': torch.float32, **overrides}
+    return port.InferenceEngine(
+        PORT_CFG, port.InferConfig(**kw),
+        params=convert.state_dict_from_jax(params, PORT_CFG),
+        generator=torch.Generator().manual_seed(0), device='cpu')
+
+
+def key_sets(doc):
+    """The nested key structure of a JSON document: dicts by their keys,
+    lists element-wise, every leaf one mark (timings and ids differ
+    between replicas; their keys must not)."""
+    if isinstance(doc, dict):
+        return {k: key_sets(v) for k, v in doc.items()}
+    if isinstance(doc, list):
+        return [key_sets(v) for v in doc]
+    return 'leaf'

@@ -5,10 +5,19 @@ a card and no JAX, with the JAX-pinning conftest switched off:
 
     python -m pytest --noconftest -q tests/test_torch_card.py
 """
+import dataclasses
+import json
+import threading
+from http.client import HTTPConnection
+from http.server import ThreadingHTTPServer
+
 import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu_torch.infer import server
+from skypilot_tpu_torch.infer.engine import InferConfig, InferenceEngine
+from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.ops import flash_attention as fa
 
 # f32 kernels against their plain versions: summation order only.
@@ -145,3 +154,45 @@ def test_backward_kernels_within_their_bounds(card, case):
     for g, r, bound in zip(got, ref, bounds):
         assert ((g.float() - r.float()).abs() <= bound).all()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _post(port, body):
+    conn = HTTPConnection('127.0.0.1', port, timeout=120)
+    conn.request('POST', '/generate', body=json.dumps(body).encode(),
+                 headers={'Content-Type': 'application/json'})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    assert resp.status == 200, data
+    if resp.getheader('Content-Type') == 'text/event-stream':
+        return [json.loads(ev[6:]) for ev in data.split(b'\n\n')
+                if ev.startswith(b'data: ')]
+    return json.loads(data)
+
+
+def test_server_on_the_card_streams_what_it_returns(card):
+    """The port's server over a depth-2 llama-1b (bf16) on the card: a
+    plain and an SSE /generate of one greedy prompt give the same tokens,
+    and the stream's chunks concatenate to its final result."""
+    cfg = dataclasses.replace(get_model_config('llama-1b'), num_layers=2)
+    engine = InferenceEngine(cfg, InferConfig(
+        num_slots=2, max_cache_len=256, prefill_buckets=(64,),
+        decode_steps=4), generator=torch.Generator('cuda').manual_seed(0))
+    srv = server.InferenceServer(engine)
+    srv.start()
+    httpd = ThreadingHTTPServer(('127.0.0.1', 0), server._make_handler(srv))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        assert srv.ready.wait(120)
+        body = {'tokens': list(range(1, 40)), 'max_new_tokens': 16}
+        plain = _post(httpd.server_address[1], body)
+        events = _post(httpd.server_address[1], {**body, 'stream': True})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+    done = events[-1]
+    assert done['done'] and done['finish_reason'] == 'length'
+    assert [t for e in events[:-1] for t in e['tokens']] == \
+        done['output_tokens'] == plain['output_tokens']
+    assert len(plain['output_tokens']) == 16 and len(events) > 2

@@ -180,8 +180,9 @@ def test_buckets_cover_the_cache(params):
 @pytest.mark.parametrize('field,value', [
     ('kv_block_size', 8), ('auto_prefix_cache', True),
     ('host_kv_bytes', 1 << 20), ('prefill_chunk', 16), ('draft_len', 2),
-    ('lora_rank', 4), ('qos', True), ('decode_lookahead', True),
-    ('adaptive_decode_window', True), ('cache_dtype', torch.float8_e4m3fn),
+    ('lora_rank', 4), ('qos', True), ('kv_blocks', 64),
+    ('max_prefixes', 4), ('qos_tenant_weights', {'a': 2.0}),
+    ('cache_dtype', torch.float8_e4m3fn),
 ])
 def test_unported_features_raise(params, field, value):
     with pytest.raises(NotImplementedError, match='ROADMAP'):

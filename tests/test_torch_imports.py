@@ -42,6 +42,9 @@ def test_importing_every_module_loads_no_jax():
     assert 'skypilot_tpu_torch.ops.flash_attention' in modules
     assert 'skypilot_tpu_torch.infer.engine' in modules
     assert 'skypilot_tpu_torch.train.trainer' in modules
+    assert {'skypilot_tpu_torch.infer.server',
+            'skypilot_tpu_torch.infer.scheduler',
+            'skypilot_tpu_torch.infer.faults'} <= set(modules)
     code = (
         'import importlib, json, sys\n'
         f'for m in {modules!r}:\n'
@@ -78,6 +81,7 @@ def test_entry_points_need_a_card():
         pytest.skip('a CUDA card is visible')
     from skypilot_tpu_torch.device import resolve_device
     from skypilot_tpu_torch.entry import entry
+    from skypilot_tpu_torch.infer import server
     from skypilot_tpu_torch.infer.engine import (InferConfig,
                                                  InferenceEngine,
                                                  engine_from_name)
@@ -95,6 +99,8 @@ def test_entry_points_need_a_card():
     with pytest.raises(RuntimeError, match='no CUDA device'):
         InferenceEngine(get_model_config('llama-debug'),
                         InferConfig(max_cache_len=64))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        server.run(model='llama-debug', max_cache_len=64)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Trainer(TrainConfig(model='llama-debug'))
     with pytest.raises(RuntimeError, match='no CUDA device'):
