@@ -9,10 +9,12 @@ each against its plain PyTorch version on the card, drives the port's
 main paths -- the llama-1b no-cache forward (tokens [1, 1024]), offline
 serving through the dense-cache engine, the HTTP server (16 concurrent
 requests through /generate, its SSE stream and /v1/completions, again
-with decode lookahead and the adaptive window on, then a drain), and
-training of llama-1b at batch 8 x 2048 through the Trainer -- at full
-width with random weights from a seed, and checks what comes out.  Every phase prints one JSON
-line; any failed check raises, so the script exits non-zero and the
+with decode lookahead and the adaptive window on, then a drain), the
+block-paged KV pool (against the dense engine, the radix prefix cache on
+and off, a tight pool with the host tier, the hot-prefix handoff between
+two servers), and training of llama-1b at batch 8 x 2048 through the
+Trainer -- at full width with random weights from a seed, and checks
+what comes out.  Every phase prints one JSON line; any failed check raises, so the script exits non-zero and the
 closing line is never printed.  The last two lines are the kernels line
 and {"ok": true, "device": {...}}.
 
@@ -28,6 +30,7 @@ copy fails the bound the smoke run holds the sound kernels to.
 Needs a CUDA card (exits non-zero without one) and imports nothing of
 JAX or of the JAX package.
 """
+import base64
 import ctypes
 import dataclasses
 import itertools
@@ -512,6 +515,15 @@ def teacher_forced_err(model, results, use_cache: bool = False) -> float:
     return err
 
 
+def serve_prompts(vocab: int) -> tuple:
+    """The serve phase's 12 requests from a seed: prompts of 20-250
+    tokens, 10 greedy and 2 at temperature 0.8."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, int(rng.integers(20, 251))).tolist()
+               for _ in range(12)]
+    return prompts, [0.0] * 10 + [0.8] * 2
+
+
 def phase_serve(model, card: str) -> None:
     cfg = InferConfig(model='llama-1b', num_slots=8, max_cache_len=1024,
                       prefill_buckets=(64, 128, 256), decode_steps=8,
@@ -519,11 +531,7 @@ def phase_serve(model, card: str) -> None:
     engine = InferenceEngine(model.config, cfg, params=model.state_dict(),
                              generator=torch.Generator(
                                  device='cuda').manual_seed(1))
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, model.config.vocab_size,
-                            int(rng.integers(20, 251))).tolist()
-               for _ in range(12)]
-    temps = [0.0] * 10 + [0.8] * 2
+    prompts, temps = serve_prompts(model.config.vocab_size)
 
     def run():
         reqs = [Request(tokens=p, temperature=t, request_id=str(i))
@@ -938,6 +946,322 @@ def phase_server(model, env: dict) -> None:
           'max_memory_allocated_gib': peak_gib})
 
 
+# The paged phase's engines: llama-1b bf16 at the server's defaults (8
+# slots, cache 2048, the default buckets, decode_steps 8) with 16-token
+# blocks; the tight pool holds about three full-length requests.
+PAGED_BLOCK = 16
+PAGED_NEW_TOKENS = 32
+TIGHT_BLOCKS = 3 * (2048 // PAGED_BLOCK) + 1
+TIER_BYTES = 512 << 20
+
+
+def paged_engine(model, **options) -> InferenceEngine:
+    options = {'kv_block_size': PAGED_BLOCK, **options}
+    return InferenceEngine(
+        model.config, InferConfig(model='llama-1b',
+                                  max_new_tokens=PAGED_NEW_TOKENS,
+                                  **options),
+        params=model.state_dict(), device=model.embedding.device,
+        generator=torch.Generator(
+            device=model.embedding.device).manual_seed(1))
+
+
+def conservation_errors(eng) -> list:
+    """The pool's block-conservation law, from outside the allocator:
+    each block's refcount equals its holders (slot table entries, a
+    radix node, 1 for the dump block 0), the free list is exactly the
+    unheld blocks, idle slots hold none, the host tier's ledger
+    balances."""
+    want = np.zeros_like(eng._block_refs)
+    want[0] = 1
+    errors = []
+    for slot in range(eng.cfg.num_slots):
+        n = int(eng._slot_nblocks[slot])
+        if n and eng._slots[slot] is None:
+            errors.append(f'idle slot {slot} holds {n} blocks')
+        np.add.at(want, eng._tables_np[slot, :n], 1)
+    if eng._radix is not None:
+        for node in eng._radix.walk():
+            want[node.block] += 1
+    bad = np.nonzero(eng._block_refs != want)[0]
+    errors += [f'block {b}: refs {eng._block_refs[b]} != holders {want[b]}'
+               for b in bad[:5]]
+    free = list(eng._free_blocks)
+    if len(set(free)) != len(free) or \
+            sorted(free) != np.nonzero(want == 0)[0].tolist():
+        errors.append('free list != the unheld blocks')
+    if eng._host_tier is not None:
+        errors += eng._host_tier.audit()
+    return errors
+
+
+def audited_windows(eng) -> list:
+    """Check the conservation law after every decode window the engine
+    runs from now on; returns the list the window count and any
+    violation land in."""
+    log = [0]
+    step = eng._step
+
+    def audited():
+        step()
+        log[0] += 1
+        log.extend(conservation_errors(eng))
+
+    eng._step = audited
+    return log
+
+
+def first_diffs(a: list, b: list) -> list:
+    """Per request pair: the first index where two greedy outputs differ,
+    None where they agree."""
+    return [next((i for i, (x, y) in enumerate(
+        zip(r.output_tokens, q.output_tokens)) if x != y), None)
+        for r, q in zip(a, b)]
+
+
+def radix_requests(vocab: int) -> list:
+    """16 requests behind one seeded 1024-token system prompt, suffixes of
+    16-200 tokens, 32 new tokens each, greedy."""
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, vocab, 1024).tolist()
+    return [system + rng.integers(0, vocab,
+                                  int(rng.integers(16, 201))).tolist()
+            for _ in range(16)]
+
+
+def wave(engine, prompts: list) -> tuple:
+    """One offline wave through generate(); (results, report): wall, TTFT
+    p50 from submission, tok/s and the radix counters it moved."""
+    hits0 = engine.radix_stats['hits']
+    blocks0 = engine.paged_stats['prefix_block_hits']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate([Request(tokens=p, request_id=str(i))
+                           for i, p in enumerate(prompts)])
+    wall = time.perf_counter() - t0
+    for r in res:
+        check(r.finish_reason == 'length' and
+              len(r.output_tokens) == PAGED_NEW_TOKENS,
+              f'request {r.request_id}: {r.finish_reason} ({r.error})')
+    n_tok = sum(len(r.output_tokens) for r in res)
+    return res, {'wall_s': wall, 'tok_per_s': n_tok / wall,
+                 'ttft_s_p50': float(np.percentile(
+                     [r.ttft_s for r in res], 50)),
+                 'radix_hits': engine.radix_stats['hits'] - hits0,
+                 'hit_blocks': (engine.paged_stats['prefix_block_hits']
+                                - blocks0)}
+
+
+def pool_rows(engine, blocks: list) -> tuple:
+    """Pool rows of `blocks` as [n, L, Hkv, bs, D] (k, v) device tensors."""
+    idx = torch.tensor(blocks, device=engine.device)
+    return (torch.stack([kp[idx] for kp, _ in engine.cache], dim=1),
+            torch.stack([vp[idx] for _, vp in engine.cache], dim=1))
+
+
+def payload_rows(prefix: dict, shape: tuple, device) -> tuple:
+    """A /hot_prefixes prefix's blocks decoded as [n, L, Hkv, bs, D] bf16
+    (k, v): the wire's raw little-endian bytes."""
+    def rows(key):
+        return torch.stack([torch.frombuffer(
+            bytearray(base64.b64decode(rec[key])),
+            dtype=torch.bfloat16).reshape(shape)
+            for rec in prefix['blocks']]).to(device)
+    return rows('k'), rows('v')
+
+
+def phase_paged(model, env: dict) -> None:
+    """The block-paged pool at llama-1b full width and depth, bf16, the
+    server's defaults with 16-token blocks, over the forward phase's
+    weights: (a) the serve phase's 12 requests through a fully
+    provisioned pool (1025 blocks) against the dense engine; (b) 16
+    requests behind a shared 1024-token system prompt, two waves with
+    the radix cache on and off in turns; (c) (b) again on a pool of
+    three full requests with a 512 MiB host tier, the conservation law
+    checked after every window; (d) two servers: /hot_prefixes from (b)'s
+    radix engine, /adopt_blocks into a fresh one, then a hot request
+    there (lookahead on).  No flash kernel runs on this path (the engine attends
+    through decode_attention over the gathered blocks)."""
+    vocab = model.config.vocab_size
+    bf16_bound = 0.25          # the serve phase's teacher-forced bound
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+
+    # (a) Paged against dense.
+    prompts, temps = serve_prompts(vocab)
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    out = {}
+    for name, options in (('dense', {'kv_block_size': 0}), ('paged', {})):
+        engine = paged_engine(model, **options)
+        check(name == 'dense' or engine._num_blocks == 1025,
+              f'the full pool has {engine._num_blocks} blocks')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.generate([Request(tokens=p, temperature=t,
+                                       request_id=str(i))
+                               for i, (p, t) in enumerate(zip(prompts,
+                                                              temps))])
+        wall = time.perf_counter() - t0
+        for r in res:
+            check(r.finish_reason == 'length',
+                  f'{name} request {r.request_id}: {r.finish_reason}')
+        out[name] = ([res[i] for i in greedy], wall, engine)
+    # A decode window over 8 slots at 256 prompt tokens on each engine, in
+    # turns: the paged one attends over a 512-row gathered view, the
+    # dense one over all 2048 rows of its cache.
+    windows = {'dense': [], 'paged': []}
+    for name in ('dense', 'paged', 'paged', 'dense'):
+        windows[name].append(profile_windows(out[name][2], vocab))
+    paged_res, paged_wall, paged_eng = out['paged']
+    launches_a = launch_counts()
+    gap_a = teacher_forced_err(paged_eng.model, paged_res)
+    check(gap_a <= bf16_bound, f'paged teacher-forced gap {gap_a}')
+    n_tok = sum(len(r.output_tokens) for r in paged_res)
+    report_a = {'requests': len(prompts), 'pool_blocks': 1025,
+                'first_diff_vs_dense': first_diffs(paged_res, out['dense'][0]),
+                'teacher_forced_max_abs_err': gap_a,
+                'teacher_forced_bound': bf16_bound,
+                'paged_wall_s': paged_wall, 'dense_wall_s': out['dense'][1],
+                'paged_greedy_tok_per_s': n_tok / paged_wall,
+                'kv': paged_eng.stats()['kv']['blocks'],
+                'decode_window': {
+                    name: [{k: w[k] for k in ('wall_ms_per_window',
+                                              'device_ms_per_window',
+                                              'idle_share', 'top')}
+                           for w in ws] for name, ws in windows.items()}}
+    del out, paged_eng
+    torch.cuda.empty_cache()
+
+    # (b) Radix on and off, in turns.
+    reset_launch_counts()
+    system_prompts = radix_requests(vocab)
+    engines = {'radix_on': paged_engine(model, auto_prefix_cache=True),
+               'radix_off': paged_engine(model)}
+    report_b = {name: [] for name in engines}
+    results_b = {}
+    for turn in ('radix_on', 'radix_off', 'radix_on', 'radix_off'):
+        res, rep = wave(engines[turn], system_prompts)
+        report_b[turn].append(rep)
+        results_b.setdefault(turn, []).append(res)
+    launches_b = launch_counts()
+    second = report_b['radix_on'][1]
+    check(second['hit_blocks'] >= 8 * 64,
+          f'second radix wave hit {second["hit_blocks"]} blocks')
+    gap_b = teacher_forced_err(engines['radix_on'].model,
+                               results_b['radix_on'][1])
+    check(gap_b <= bf16_bound, f'radix teacher-forced gap {gap_b}')
+    report_b.update(
+        teacher_forced_max_abs_err=gap_b, teacher_forced_bound=bf16_bound,
+        first_diff_on_vs_off=first_diffs(results_b['radix_on'][1],
+                                         results_b['radix_off'][1]),
+        radix=engines['radix_on'].stats()['kv']['radix'])
+    radix_engine = engines['radix_on']
+    del engines
+    torch.cuda.empty_cache()
+
+    # (c) A pool of three full requests and the host tier.
+    reset_launch_counts()
+    tight = paged_engine(model, auto_prefix_cache=True,
+                         kv_blocks=TIGHT_BLOCKS, host_kv_bytes=TIER_BYTES)
+    audit = audited_windows(tight)
+    waves_c = [wave(tight, system_prompts) for _ in range(2)]
+    launches_c = launch_counts()
+    del tight._step
+    tier = tight.stats()['kv']['host_tier']
+    deferred = tight.stats()['admission_deferred']
+    check(audit[0] > 0 and audit[1:] == [],
+          f'conservation after {audit[0]} windows: {audit[1:]}')
+    check(tier['spills'] > 0 and tier['restores'] > 0,
+          f'host tier: {tier}')
+    check(deferred > 0, 'a pool of three requests deferred nothing')
+    gap_c = max(teacher_forced_err(tight.model, res) for res, _ in waves_c)
+    check(gap_c <= bf16_bound, f'tight-pool teacher-forced gap {gap_c}')
+    report_c = {'kv_blocks': TIGHT_BLOCKS, 'host_kv_bytes': TIER_BYTES,
+                'waves': [rep for _, rep in waves_c],
+                'windows_audited': audit[0], 'conservation_errors': 0,
+                'admission_deferred': deferred, 'host_tier': tier,
+                'first_diff_vs_full_pool': first_diffs(
+                    waves_c[1][0], results_b['radix_on'][1]),
+                'teacher_forced_max_abs_err': gap_c,
+                'teacher_forced_bound': bf16_bound}
+    del tight
+    torch.cuda.empty_cache()
+
+    # (d) The drain-time handoff between two port servers.
+    reset_launch_counts()
+    src_port, src_thread, _, _ = start_server(radix_engine)
+    # The survivor serves with decode lookahead and the adaptive window:
+    # the paged tables of a window queued ahead come from host mirrors.
+    dst_engine = paged_engine(model, auto_prefix_cache=True,
+                              decode_lookahead=True,
+                              adaptive_decode_window=True)
+    dst_port, dst_thread, _, _ = start_server(dst_engine)
+    # The warm-up's prompts are now the newest leaves of the source's
+    # tree: one more request behind the system prompt makes that path
+    # the hottest again, as live traffic would.
+    body = {'tokens': system_prompts[0], 'max_new_tokens': 2}
+    check(http(src_port, 'POST', '/generate', body)[0] == 200,
+          'the source server did not serve')
+    t0 = time.perf_counter()
+    code, _, payload = http(src_port, 'GET', '/hot_prefixes')
+    export_s = time.perf_counter() - t0
+    check(code == 200 and payload['cache_dtype'] == 'bfloat16' and
+          payload['prefixes'], f'/hot_prefixes answered {code}')
+    hot = payload['prefixes'][0]
+    check(hot['tokens'][:1024] == system_prompts[0][:1024],
+          'the hottest prefix is not the system prompt')
+    t0 = time.perf_counter()
+    code, _, adopted = http(dst_port, 'POST', '/adopt_blocks',
+                            {**payload, 'prefixes': [hot]})
+    adopt_s = time.perf_counter() - t0
+    n_blocks = len(hot['blocks'])
+    check(code == 200 and adopted['adopted_blocks'] == n_blocks,
+          f'/adopt_blocks answered {code} {adopted}')
+    mc = model.config
+    shape = (mc.num_layers, mc.num_kv_heads, PAGED_BLOCK, mc.head_dim_)
+    blocks = dst_engine._radix.peek(None, hot['tokens'], len(hot['tokens']))
+    check(len(blocks) == n_blocks, f'{len(blocks)} blocks in the tree')
+    got, sent = pool_rows(dst_engine, blocks), payload_rows(hot, shape, dst_engine.device)
+    check(all(torch.equal(a, b) for a, b in zip(got, sent)),
+          'adopted pool rows differ from the exported bytes')
+    probe = system_prompts[0][:1024] + list(range(5, 105))
+    hits = dst_engine.radix_stats['hits']
+    body = {'tokens': probe, 'max_new_tokens': PAGED_NEW_TOKENS}
+    code, _, doc = http(dst_port, 'POST', '/generate', body)
+    check(code == 200 and dst_engine.radix_stats['hits'] == hits + 1,
+          f'the hot request on the survivor: {code}, radix hits '
+          f'{dst_engine.radix_stats["hits"] - hits}')
+    _, _, src_doc = http(src_port, 'POST', '/generate', body)
+    launches_d = launch_counts()
+    for port_, thread in ((src_port, src_thread), (dst_port, dst_thread)):
+        http(port_, 'POST', '/drain', {'deadline_s': 60})
+        thread.join(timeout=120)
+        check(not thread.is_alive(), 'a paged server did not drain')
+    report_d = {'exported_prefixes': len(payload['prefixes']),
+                'adopted_blocks': n_blocks,
+                'payload_mb': len(json.dumps(payload)) / 1e6,
+                'export_s': export_s, 'adopt_s': adopt_s,
+                'rows_identical': True, 'survivor_radix_hit': True,
+                'greedy_same_as_exporter': (doc['output_tokens'] ==
+                                            src_doc['output_tokens'])}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del radix_engine, dst_engine
+    torch.cuda.empty_cache()
+    emit({'phase': 'paged', 'model': 'llama-1b',
+          'device': env['device'], 'nvidia_smi': env['nvidia_smi'],
+          'config': {'num_slots': 8, 'max_cache_len': 2048,
+                     'decode_steps': 8, 'kv_block_size': PAGED_BLOCK,
+                     'dtype': 'bfloat16'},
+          # Attention over the gathered blocks is decode_attention, as in
+          # the JAX engine: no flash launch is expected on this path.
+          'flash_launches': {'a': list(launches_a), 'b': list(launches_b),
+                             'c': list(launches_c), 'd': list(launches_d)},
+          'a_paged_vs_dense': report_a, 'b_radix': report_b,
+          'c_tight_pool_tier': report_c, 'd_handoff': report_d,
+          'max_memory_allocated_gib': peak_gib})
+
+
 # Step-1 loss of the random init: ln V plus about sigma^2 / 2, where the
 # tied logits' std is sigma ~ sqrt(2048) * 0.02 ~ 0.9 (a unit-RMS hidden
 # state against N(0, 0.02^2) embedding rows): ~0.4 nats above ln 32000.
@@ -1167,6 +1491,7 @@ def main() -> int:
     model, forward_launches = phase_forward()
     phase_serve(model, env['device'])
     phase_server(model, env)
+    phase_paged(model, env)
     del model
     torch.cuda.empty_cache()
     train_fwd, train_dq, train_dkv = phase_train(env['device'])

@@ -1,15 +1,27 @@
-"""Continuous-batching inference engine over a dense slotted KV cache --
-the PyTorch twin of the dense path of ``skypilot_tpu/infer/engine.py``.
+"""Continuous-batching inference engine over a dense slotted KV cache or a
+block-paged KV pool -- the PyTorch twin of ``skypilot_tpu/infer/engine.py``.
 
-- **KV cache**: one ``[num_slots, Hkv, max_cache_len, D]`` pair per layer,
-  allocated once and updated in place.  A request occupies a slot from
-  prefill until EOS / max-tokens, then the slot is recycled.
-- **Bucketed, batched prefill** (``_prefill_insert``): prompts are
-  right-padded to a bucket length and prefilled ``prefill_lanes`` at a
-  time over a fresh ``[P, Hkv, bucket, D]`` cache; pad lanes duplicate
-  the last real lane and target its slot (rewriting the same rows with
-  the same values).  The first token is sampled at ``true_len - 1`` and
-  each prompt's KV rows are copied into its slot.
+- **Dense KV cache**: one ``[num_slots, Hkv, max_cache_len, D]`` pair per
+  layer, allocated once and updated in place.  A request occupies a slot
+  from prefill until EOS / max-tokens, then the slot is recycled.
+- **Block-paged KV pool** (``kv_block_size > 0``): one
+  ``[kv_blocks, Hkv, kv_block_size, D]`` pair per layer shared by every
+  slot; a host-side allocator (``infer/block_pool.py``) maps each slot's
+  logical blocks to pool blocks and admission reserves each request's
+  worst-case block demand up front, deferring the head of the queue
+  when the pool cannot hold it (``admission_deferred``).  With
+  ``auto_prefix_cache`` a radix tree (``infer/radix.py``) indexes
+  finished prompts' full blocks: a new prompt reuses its longest cached
+  block-aligned prefix by reference and prefills only the suffix.  With
+  ``host_kv_bytes`` radix eviction spills recently used blocks to a
+  host-RAM tier and the next match restores them.  The hottest prefixes
+  export (``export_hot_prefixes``) and adopt (``adopt_prefixes``) in the
+  JAX replica's wire form: the drain-time handoff.
+- **Bucketed, batched prefill** (``_prefill_insert``, ``_paged_prefill``):
+  prompts are right-padded to a bucket length and prefilled
+  ``prefill_lanes`` at a time; pad lanes duplicate the last real lane and
+  target its slot (rewriting the same rows with the same values).  The
+  first token is sampled at ``true_len - 1``.
 - **Windowed decode** (``_decode``): ``decode_steps`` steps for every
   slot per window, with greedy or temperature sampling on the device,
   the chosen token's logprob and the top-``logprob_topk`` logprobs.  The
@@ -23,17 +35,20 @@ the PyTorch twin of the dense path of ``skypilot_tpu/infer/engine.py``.
   busy, streams each window's tokens through ``Request.stream_cb``,
   honours cancels and deadlines, and contains every dispatch failure
   (``_contain_failure``): an attributed fault fails its slot, anything
-  else fails the active batch and zeroes the cache.  The queue-aware
-  window (``adaptive_decode_window``) and decode lookahead
+  else fails the active batch and zeroes the cache (the paged pool's
+  allocator and radix tree reset with it; the host tier stays).  The
+  queue-aware window (``adaptive_decode_window``) and decode lookahead
   (``decode_lookahead``, the next window queued on the device from the
   current one's device-side tokens before the host waits for it) change
   the dispatch schedule, never the greedy tokens.
 
-Prefill attends through ``write_kv_and_attend``/``decode_attention`` like
-the JAX engine (not through the flash kernel).  Not ported yet: the paged
-cache, radix prefix cache, host tier and the other serving features
-(ROADMAP.md A6).
+Prefill attends through ``write_kv_and_attend``/``decode_attention`` (or
+their paged twins) like the JAX engine, not through the flash kernel.
+Not ported yet (ROADMAP.md): registered prefixes, chunked prefill, prompt
+logprobs and the fp8 cache (A6b); speculative decoding, QoS and
+multi-LoRA serving (A6c).
 """
+import base64
 import dataclasses
 import queue
 import threading
@@ -44,12 +59,15 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.infer.block_pool import BlockPool, HostKVTier
 from skypilot_tpu_torch.infer.faults import InjectedFault
+from skypilot_tpu_torch.infer.radix import RadixTree
 from skypilot_tpu_torch.infer.scheduler import (DEFAULT_TENANT,
                                                 PRIORITY_CLASSES,
                                                 FifoScheduler)
 from skypilot_tpu_torch.models.convert import init_params
-from skypilot_tpu_torch.models.llama import Llama, LlamaConfig, init_cache
+from skypilot_tpu_torch.models.llama import (Llama, LlamaConfig, init_cache,
+                                             init_paged_cache)
 from skypilot_tpu_torch.models.registry import get_model_config
 
 DEFAULT_PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
@@ -109,17 +127,19 @@ class InferConfig:
 
 # InferConfig features outside this slice: field -> ROADMAP.md item.
 _UNPORTED = {
-    'kv_block_size': 'A6 (paged KV + radix + host tier)',
-    'kv_blocks': 'A6 (paged KV + radix + host tier)',
-    'auto_prefix_cache': 'A6 (paged KV + radix + host tier)',
-    'host_kv_bytes': 'A6 (paged KV + radix + host tier)',
-    'max_prefixes': 'A6 (the dense prefix cache)',
-    'prefill_chunk': 'A6 (chunked prefill)',
-    'draft_len': 'A6 (speculative decoding)',
-    'lora_rank': 'A6 (multi-LoRA serving)',
-    'qos': 'A6 (QoS scheduling)',
-    'qos_tenant_weights': 'A6 (QoS scheduling)',
+    'max_prefixes': 'A6b (registered prefixes)',
+    'prefill_chunk': 'A6b (chunked prefill)',
+    'draft_len': 'A6c (speculative decoding)',
+    'lora_rank': 'A6c (multi-LoRA serving)',
+    'qos': 'A6c (QoS scheduling)',
+    'qos_tenant_weights': 'A6c (QoS scheduling)',
 }
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The cache dtype's name on the wire: numpy's name for the JAX
+    engine's dtype ('bfloat16', 'float32')."""
+    return str(dtype).split('.')[-1]
 
 
 @dataclasses.dataclass
@@ -233,7 +253,7 @@ class InferenceEngine:
         if cfg.cache_dtype not in (torch.bfloat16, torch.float32):
             raise NotImplementedError(
                 f'cache_dtype {cfg.cache_dtype} is not ported yet '
-                '(ROADMAP.md A6: the fp8 KV cache)')
+                '(ROADMAP.md A6b: the fp8 KV cache)')
         if cfg.max_cache_len > model_config.max_seq_len:
             raise ValueError(
                 f'max_cache_len {cfg.max_cache_len} exceeds model '
@@ -255,12 +275,46 @@ class InferenceEngine:
         if cfg.run_stall_timeout_s <= 0:
             raise ValueError(f'run_stall_timeout_s must be > 0 '
                              f'(got {cfg.run_stall_timeout_s})')
+        if cfg.kv_block_size < 0:
+            raise ValueError(f'kv_block_size must be >= 0 '
+                             f'(got {cfg.kv_block_size})')
+        self._paged = cfg.kv_block_size > 0
+        if self._paged and cfg.max_cache_len % cfg.kv_block_size:
+            raise ValueError(
+                f'max_cache_len ({cfg.max_cache_len}) must be a multiple '
+                f'of kv_block_size ({cfg.kv_block_size})')
+        if cfg.auto_prefix_cache and not self._paged:
+            raise ValueError(
+                'auto_prefix_cache requires the block-paged KV cache '
+                '(set kv_block_size > 0): the radix tree shares pool '
+                'blocks by refcount')
+        if cfg.host_kv_bytes < 0:
+            raise ValueError(f'host_kv_bytes must be >= 0 '
+                             f'(got {cfg.host_kv_bytes})')
         buckets = tuple(b for b in cfg.prefill_buckets
                         if b <= cfg.max_cache_len)
         if not buckets or buckets[-1] < cfg.max_cache_len:
             # Any prompt the cache can hold has a bucket.
             buckets += (cfg.max_cache_len,)
         cfg.prefill_buckets = buckets
+        if self._paged:
+            bs_ = cfg.kv_block_size
+            bad = [b for b in buckets if b % bs_]
+            if bad:
+                raise ValueError(
+                    f'every prefill bucket must be a multiple of '
+                    f'kv_block_size ({bs_}); got {bad}')
+            max_blocks = cfg.max_cache_len // bs_
+            n_blocks = cfg.kv_blocks
+            if n_blocks is None:
+                # Full provisioning (+1 dump block): admission never
+                # defers, so dense and paged engines schedule alike.
+                n_blocks = cfg.num_slots * max_blocks + 1
+            if n_blocks < max_blocks + 1:
+                raise ValueError(
+                    f'kv_blocks ({n_blocks}) must be >= max_cache_len/'
+                    f'kv_block_size + 1 ({max_blocks + 1}): one '
+                    'full-length request must fit the pool')
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self._gen = generator
@@ -268,9 +322,38 @@ class InferenceEngine:
         self.model.load_state_dict(
             params if params is not None
             else init_params(model_config, generator))
-        self.cache = init_cache(model_config, cfg.num_slots,
-                                cfg.max_cache_len, cfg.cache_dtype,
-                                self.device)
+        b = cfg.num_slots
+        self._pool: Optional[BlockPool] = None
+        if self._paged:
+            self._pool = BlockPool(n_blocks, bs_, max_blocks, b)
+            self.paged_stats = {'deferred': 0, 'prefix_block_hits': 0}
+            self.cache = init_paged_cache(model_config, n_blocks, bs_,
+                                          cfg.cache_dtype, self.device)
+        else:
+            self.cache = init_cache(model_config, b, cfg.max_cache_len,
+                                    cfg.cache_dtype, self.device)
+        # Automatic radix prefix caching over the pool (None when off);
+        # radix_stats always exists so stats() has one shape.
+        self._radix = (RadixTree(cfg.kv_block_size)
+                       if self._paged and cfg.auto_prefix_cache else None)
+        self.radix_stats = {'hits': 0, 'tokens_reused': 0, 'lookups': 0,
+                            'inserts': 0, 'evictions': 0}
+        # Host-RAM KV tier, fed by radix eviction.  It survives
+        # _reset_cache: its copies are keyed by token content, not pool
+        # state.
+        self._host_tier = (HostKVTier(
+            cfg.host_kv_bytes, cfg.kv_block_size,
+            recency_window=max(64, 4 * self._pool._num_blocks))
+                           if self._radix is not None
+                           and cfg.host_kv_bytes > 0 else None)
+        # Pinned host rows of restores still being copied to the card,
+        # each with the event after its copy: kept alive until it passed.
+        self._h2d_inflight: List[Tuple[torch.Tensor, Any]] = []
+        # Drain-time hot-set handoff counters, under kv.host_tier.
+        self.handoff_stats = {'exported': 0, 'adopted': 0}
+        # Requests dequeued but not admissible yet (paged admission):
+        # admitted first once blocks free up.
+        self._deferred: List[Request] = []
         # Failure/recovery counters (stats()['faults'], /stats):
         #   internal_errors      requests failed with error_class='internal'
         #   deadline_evictions   requests evicted past Request.deadline_s
@@ -288,19 +371,18 @@ class InferenceEngine:
         # delivered by _harvest like every other finish.
         self._pending_failures: List[Tuple[Request, RequestResult]] = []
         # What /stats reads of the features this engine does not have
-        # yet (speculation, prefix caching, chunked prefill: ROADMAP.md
-        # A6): the JAX dense engine's counters, always empty here.
+        # yet (speculation A6c; registered prefixes, chunked prefill A6b
+        # in ROADMAP.md): the JAX engine's counters, always empty here.
         self.spec_stats = {'dispatches': 0, 'drafted': 0, 'accepted': 0}
         self.prefix_stats = {'hits': 0, 'tokens_reused': 0}
         self.chunk_stats = {'rounds': 0, 'chunks': 0, 'requests': 0}
         self._prefixes: Dict[Tuple[int, ...], Any] = {}
         self._chunking: Dict[int, Any] = {}
-        # Admission order (strict FIFO; the QoS scheduler is A6), shed
+        # Admission order (strict FIFO; the QoS scheduler is A6c), shed
         # and per-tenant admission counters.
         self._sched = FifoScheduler()
         self.qos_stats = {'preemptions': 0, 'sheds': 0}
         self._tenant_qos: Dict[str, Dict[str, int]] = {}
-        b = cfg.num_slots
         self._slots: List[Optional[_Slot]] = [None] * b
         # Request ids cancelled while still queued: dropped at dequeue.
         # id -> mark time; marks expire (_CANCEL_MARK_TTL_S) so a cancel
@@ -334,11 +416,18 @@ class InferenceEngine:
         unattributed dispatch failure.  In place because the tensors are
         the ones the next dispatch writes; rows a later prefill has not
         written are never read before they are written, so zero is as
-        good as any value.  Caller holds no live slots."""
+        good as any value.  Paged: the allocator resets to empty and the
+        radix tree is dropped (its generation bump invalidates any match
+        taken before); the host tier stays.  Caller holds no live
+        slots."""
         with torch.no_grad():
             for k, v in self.cache:
                 k.zero_()
                 v.zero_()
+        if self._paged:
+            self._pool.reset()
+            if self._radix is not None:
+                self._radix.clear()
 
     # ------------------------------------------------------ fault plans
 
@@ -409,17 +498,60 @@ class InferenceEngine:
             v[slots, :, :bucket] = pv
         return head
 
+    def _pkw(self, tables: Optional[torch.Tensor]) -> Dict[str, Any]:
+        """The model's paged-attention arguments (none when dense)."""
+        if tables is None:
+            return {}
+        return {'paged_tables': tables,
+                'paged_block_size': self.cfg.kv_block_size}
+
+    @torch.inference_mode()
+    def _paged_prefill(self, tokens: torch.Tensor, starts: torch.Tensor,
+                       true_pos: torch.Tensor, tables: torch.Tensor,
+                       temps: torch.Tensor) -> torch.Tensor:
+        """The paged prefill dispatch: tokens [P, W] forward at positions
+        starts + arange(W) straight over the block pool through the
+        per-lane tables [P, NB], the first token sampled at true_pos
+        (the last real token's index within the window).  Serves the
+        monolithic bucket prefill (starts 0) and the radix suffix
+        prefill over shared prefix blocks (starts = matched length, per
+        lane).  Writes past a lane's allocated blocks land in the dump
+        block, past every query position.  Returns the packed head
+        [P, 2+2k]."""
+        p, w = tokens.shape
+        positions = starts[:, None] + torch.arange(w, device=self.device)
+        logits, _ = self.model(tokens, positions, self.cache,
+                               **self._pkw(tables))
+        last = logits[torch.arange(p, device=self.device), true_pos]
+        _, head = self._pack_head(last, temps)
+        return head
+
+    @torch.inference_mode()
+    def _paged_restore_blocks(self, dsts: torch.Tensor, krows: torch.Tensor,
+                              vrows: torch.Tensor) -> None:
+        """Scatter host-restored rows into pool blocks dsts [G]:
+        krows/vrows [L, G, Hkv, bs, D], one tier entry per dst (the
+        host-tier restore and hot-set adoption path).  Queued ahead of
+        the suffix prefill that reads them."""
+        for li, (kp, vp) in enumerate(self.cache):
+            kp[dsts] = krows[li]
+            vp[dsts] = vrows[li]
+
     @torch.inference_mode()
     def _decode(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                temps: torch.Tensor, steps: int
+                temps: torch.Tensor, steps: int,
+                tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """`steps` decode steps for every slot; tokens/lengths/temps [B].
-        Returns the packed window [steps, B, 2+2k] and the device-side
-        (last tokens, lengths) a lookahead window continues from."""
+        """`steps` decode steps for every slot; tokens/lengths/temps [B];
+        tables [B, NB] over the paged pool (None: the dense cache), built
+        by the host to cover every write of the window.  Returns the
+        packed window [steps, B, 2+2k] and the device-side (last tokens,
+        lengths) a lookahead window continues from."""
         heads = []
+        pkw = self._pkw(tables)
         for _ in range(steps):
             logits, _ = self.model(tokens[:, None], lengths[:, None],
-                                   self.cache)
+                                   self.cache, **pkw)
             tokens, head = self._pack_head(logits[:, 0], temps)
             heads.append(head)
             lengths = lengths + 1
@@ -455,6 +587,245 @@ class InferenceEngine:
             ev.synchronize()
         return buf.numpy()
 
+    def _rows_to_device(self, rows: torch.Tensor) -> torch.Tensor:
+        """Host rows (pinned when the engine is on a card) to the device
+        without blocking.  The pinned source stays referenced, with the
+        event recorded after its copy, until that event has passed: the
+        host allocator must not hand its memory out under the copy."""
+        if self.device.type != 'cuda':
+            return rows
+        self._h2d_inflight = [(t, ev) for t, ev in self._h2d_inflight
+                              if not ev.query()]
+        out = rows.to(self.device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._h2d_inflight.append((rows, ev))
+        return out
+
+    # ---------------------------------------------------- paged allocator
+    #
+    # The allocator lives in infer/block_pool.py (BlockPool); the engine
+    # keeps thin delegates and read-only views of the pool's arrays under
+    # the JAX engine's names (the conservation checks read them).  All
+    # run under _lock.
+
+    @property
+    def _block_refs(self) -> np.ndarray:
+        return self._pool._block_refs
+
+    @property
+    def _tables_np(self) -> np.ndarray:
+        return self._pool._tables_np
+
+    @property
+    def _slot_nblocks(self) -> np.ndarray:
+        return self._pool._slot_nblocks
+
+    @property
+    def _free_blocks(self) -> List[int]:
+        return self._pool._free_blocks
+
+    @property
+    def _num_blocks(self) -> int:
+        return self._pool._num_blocks if self._pool is not None else 0
+
+    @property
+    def _max_blocks(self) -> int:
+        return self._pool._max_blocks if self._pool is not None else 1
+
+    def _nb_bucket(self, needed: int) -> int:
+        """Table width (in blocks) for a dispatch: the smallest power of
+        two >= needed, capped at max_blocks (the JAX engine's width, so
+        the rows gathered match its)."""
+        nb = 1
+        while nb < needed and nb < self._max_blocks:
+            nb *= 2
+        return min(nb, self._max_blocks)
+
+    def _alloc_blocks(self, k: int) -> List[int]:
+        return self._pool._alloc_blocks(k)
+
+    def _deref_block(self, b: int) -> None:
+        self._pool._deref_block(b)
+
+    def _addref_block(self, b: int) -> None:
+        self._pool._addref_block(b)
+
+    def _ensure_blocks(self, slot: int, upto: int) -> None:
+        self._pool._ensure_blocks(slot, upto)
+
+    def _append_shared_blocks(self, slot: int, ids: Sequence[int]) -> None:
+        self._pool._append_shared_blocks(slot, ids)
+
+    def _free_slot_blocks(self, slot: int) -> None:
+        self._pool._free_slot_blocks(slot)
+
+    def _evict_radix(self, need: int) -> int:
+        """Evict unpinned radix LEAVES whose only reference is the tree's
+        own (so the deref frees a block), LRU-first, until `need` blocks
+        are freed or nothing evictable remains.  With the host tier, each
+        victim's rows are spilled first (_spill_blocks): the block id is
+        still freed here, only the rows survive."""
+        on_evict = (self._spill_blocks if self._host_tier is not None
+                    else None)
+        freed = self._radix.evict(need, self._block_refs,
+                                  self._deref_block, on_evict=on_evict)
+        self.radix_stats['evictions'] += freed
+        return freed
+
+    def _spill_blocks(self, adapter: Optional[str], node) -> None:
+        """Radix-eviction spill hook: queue the copy of the victim
+        block's rows into the host tier BEFORE the deref recycles the
+        block id (the rows are views of the pool; the copy is queued on
+        this stream ahead of any later write into the block).
+        Dead-cold victims (outside the tier's recency window) skip the
+        copy."""
+        tier = self._host_tier
+        if (self._radix.clock - node.last_used) > tier.recency_window:
+            return
+        blk = int(node.block)
+        tier.spill((adapter, RadixTree.path_tokens(node)),
+                   [kp[blk] for kp, _ in self.cache],
+                   [vp[blk] for _, vp in self.cache])
+
+    def _lane_tables(self, slot_rows: Sequence[int],
+                     nb: int) -> torch.Tensor:
+        """Device table array [len(slot_rows), nb] for a dispatch: the
+        named slots' table rows truncated to `nb` entries (entries past a
+        slot's allocation are 0, the dump block), sent without
+        blocking."""
+        rows = self._tables_np[np.asarray(slot_rows, np.int64), :nb]
+        return self._to_device(rows.astype(np.int64))
+
+    def _decode_tables(self, horizon: int) -> torch.Tensor:
+        """Ensure every active slot's blocks for `horizon` more rows
+        (capped at its worst-case demand -- writes past the cap go to the
+        dump block) and build the dispatch table, wide enough to cover
+        every lane's frontier + horizon: a position past the table's
+        width would clamp into a live block."""
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                self._ensure_blocks(i, min(
+                    int(self._lengths[i]) + horizon,
+                    self._slot_cap_rows(len(s.request.tokens), s.max_new)))
+        nb = self._nb_bucket(-(-(int(self._lengths.max()) + horizon)
+                               // self.cfg.kv_block_size))
+        return self._lane_tables(range(self.cfg.num_slots), nb)
+
+    # ------------------------------------------------------ host KV tier
+
+    def _restore_from_tier(self, req: Request, blocks: List[int],
+                           n: int) -> List[int]:
+        """Extend a radix match with blocks restored from the host tier:
+        probe successive block-aligned prefixes past the device match,
+        pop the hits, scatter their rows into freshly allocated pool
+        blocks and index them in the tree -- the caller then treats the
+        extended match like any other radix hit.
+
+        Admission safety: the restored blocks join the requesting slot's
+        table in place of private blocks its admitted worst-case demand
+        already reserved; headroom backing other slots is untouched."""
+        tier = self._host_tier
+        bs_ = self.cfg.kv_block_size
+        limit = (n - 1) // bs_       # >= 1 suffix token must forward
+        keys: List[Any] = []
+        while len(blocks) + len(keys) < limit:
+            j = len(blocks) + len(keys)
+            key = (req.adapter,
+                   tuple(int(t) for t in req.tokens[:(j + 1) * bs_]))
+            if not tier.contains(key):
+                break
+            keys.append(key)
+        # Restore only when a suffix bucket still fits beside the
+        # extended match: otherwise the request falls back to a full
+        # prefill and the fresh blocks would be stranded in the tree.
+        while keys:
+            start = (len(blocks) + len(keys)) * bs_
+            if (self._suffix_bucket(start, n - start) is not None
+                    and len(keys) <= len(self._free_blocks)):
+                break
+            keys.pop()
+        if not keys:
+            return blocks
+        rows = [tier.take(k) for k in keys]
+        end = (len(blocks) + len(keys)) * bs_
+        ids = self._adopt_host_rows(req.adapter, req.tokens[:end],
+                                    blocks, rows)
+        tier.stats['restores'] += len(ids)
+        return list(blocks) + ids
+
+    def _adopt_host_rows(self, adapter: Optional[str],
+                         tokens: Sequence[int],
+                         base_blocks: Sequence[int], rows) -> List[int]:
+        """Allocate pool blocks for host rows (tier restore or hot-set
+        adoption), scatter them in with one queued dispatch and index
+        them in the radix tree as the continuation of ``base_blocks``.
+        ``rows``: (k, v) host tensor pairs, each [L, Hkv, bs, D] in cache
+        dtype."""
+        ids = self._alloc_blocks(len(rows))
+        try:
+            pin = self.device.type == 'cuda'
+            stacked = []
+            for part in (0, 1):
+                src = [r[part] for r in rows]
+                buf = torch.empty((src[0].shape[0], len(src))
+                                  + tuple(src[0].shape[1:]),
+                                  dtype=src[0].dtype, pin_memory=pin)
+                torch.stack(src, dim=1, out=buf)
+                stacked.append(self._rows_to_device(buf))
+            self._paged_restore_blocks(
+                self._to_device(np.asarray(ids, np.int64)), *stacked)
+        except BaseException:
+            for b in ids:
+                self._deref_block(b)
+            raise
+        self.radix_stats['inserts'] += self._radix.insert(
+            adapter, tokens, list(base_blocks) + ids,
+            addref=self._addref_block, deref=self._deref_block, own=True)
+        return ids
+
+    # -------------------------------------------------------- admission
+
+    def _slot_cap_rows(self, n: int, max_new: int) -> int:
+        """Worst-case filled rows of a request: prompt + generated (the
+        prefill token is generated token #1, so the last decode write
+        lands at row n + max_new - 2), capped at the cache."""
+        return min(n + max_new - 1, self.cfg.max_cache_len)
+
+    def _blocks_demand(self, n: int, max_new: int) -> int:
+        return -(-self._slot_cap_rows(n, max_new) // self.cfg.kv_block_size)
+
+    def _blocks_outstanding(self) -> int:
+        """Blocks running slots may still allocate (worst case): their
+        total demand minus what they already hold.  Shared prefix blocks
+        count as held, so sharing raises admission headroom."""
+        out = 0
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                out += max(0, self._blocks_demand(
+                    len(s.request.tokens), s.max_new)
+                    - int(self._slot_nblocks[i]))
+        return out
+
+    def _can_admit_blocks(self, demand: int, extra: int = 0) -> bool:
+        """Admission rule: start a request only when free blocks cover its
+        worst-case demand beyond everything running slots (and `extra`,
+        the demand of requests admitted in the same gap) may still
+        claim, so _alloc_blocks never fails mid-flight.  Unreferenced
+        radix leaves are reclaimable capacity, evicted before the
+        request is deferred."""
+        if not self._paged:
+            return True
+        if self._fault('block_alloc') is not None:
+            # Injected pool pressure: the normal defer path.
+            return False
+        short = (demand + self._blocks_outstanding() + extra
+                 - len(self._free_blocks))
+        if short > 0 and self._radix is not None:
+            self._evict_radix(short)
+        return (len(self._free_blocks) - self._blocks_outstanding()
+                - extra >= demand)
+
     # ------------------------------------------------------- surfaces
 
     @property
@@ -466,79 +837,162 @@ class InferenceEngine:
 
     @property
     def adapters(self) -> Dict[str, int]:
-        """Registered LoRA adapters: none (multi-LoRA is ROADMAP.md A6)."""
+        """Registered LoRA adapters: none (multi-LoRA is ROADMAP.md A6c)."""
         return {}
 
+    def _radix_section(self) -> Dict[str, Any]:
+        rs = self.radix_stats
+        lookups = rs['lookups']
+        return {
+            'enabled': self._radix is not None,
+            'hits': rs['hits'],
+            'lookups': lookups,
+            'hit_rate': (rs['hits'] / lookups) if lookups else 0.0,
+            'tokens_reused': rs['tokens_reused'],
+            'inserts': rs['inserts'],
+            'evictions': rs['evictions'],
+            'nodes': self._radix.nodes if self._radix else 0,
+            'blocks_held': self._radix.blocks_held if self._radix else 0,
+            'pinned': self._radix.pinned if self._radix else 0,
+        }
+
     def _host_tier_section(self) -> Dict[str, Any]:
-        """kv.host_tier of the JAX engine without a host tier (the tier
-        is ROADMAP.md A6): one key set for every replica."""
-        return {'enabled': False, 'budget_bytes': 0, 'bytes': 0,
-                'entries': 0, 'spills': 0, 'restores': 0,
-                'restore_hit_rate': 0.0, 'in_flight': 0, 'evictions': 0,
-                'exported': 0, 'adopted': 0}
+        """kv.host_tier: one key set whether the tier exists or not.
+        Lock-free counter reads, like the rest."""
+        if self._host_tier is None:
+            sec = {'enabled': False, 'budget_bytes': 0, 'bytes': 0,
+                   'entries': 0, 'spills': 0, 'restores': 0,
+                   'restore_hit_rate': 0.0, 'in_flight': 0,
+                   'evictions': 0}
+        else:
+            sec = self._host_tier.stats_section()
+        sec['exported'] = self.handoff_stats['exported']
+        sec['adopted'] = self.handoff_stats['adopted']
+        return sec
 
     def kv_health(self) -> Dict[str, Any]:
-        """The /healthz KV summary: the JAX dense engine's key set (the
-        LB's prober reads block_size, occupancy and radix.hit_rate)."""
+        """The /healthz KV summary, counters only: the JAX engine's key
+        set (the LB's prober reads block_size, occupancy and
+        radix.hit_rate)."""
+        rs = self.radix_stats
+        lookups = rs['lookups']
+        radix = {'enabled': self._radix is not None, 'hits': rs['hits'],
+                 'lookups': lookups,
+                 'hit_rate': (rs['hits'] / lookups) if lookups else 0.0,
+                 'nodes': self._radix.nodes if self._radix else 0,
+                 'evictions': rs['evictions']}
+        if not self._paged:
+            return {'layout': 'dense', 'block_size': 0, 'blocks_total': 0,
+                    'blocks_free': 0, 'occupancy': 0.0, 'tp': 1,
+                    'radix': radix, 'host_tier': self._host_tier_section()}
+        usable = self._num_blocks - 1
+        free = len(self._free_blocks)
         return {
-            'layout': 'dense',
-            'block_size': 0,
-            'blocks_total': 0,
-            'blocks_free': 0,
-            'occupancy': 0.0,
+            'layout': 'paged',
+            'block_size': self.cfg.kv_block_size,
+            'blocks_total': usable,
+            'blocks_free': free,
+            'occupancy': ((usable - free) / usable) if usable else 0.0,
             'tp': 1,
-            'radix': {'enabled': False, 'hits': 0, 'lookups': 0,
-                      'hit_rate': 0.0, 'nodes': 0, 'evictions': 0},
+            'radix': radix,
             'host_tier': self._host_tier_section(),
         }
 
     def stats(self) -> Dict[str, Any]:
-        """KV-cache accounting (served by /stats): the JAX dense engine's
+        """KV-cache accounting (served by /stats): the JAX engine's
         structured 'kv' section and its deprecated flat aliases."""
         mc = self.model_config
         row_bytes = (2 * mc.num_kv_heads * mc.head_dim_ *
                      self.cfg.cache_dtype.itemsize * mc.num_layers)
-        total = self.cfg.num_slots * self.cfg.max_cache_len * row_bytes
-        kv = {
-            'layout': 'dense',
-            'tp': 1,
-            'bytes': {'total': total, 'resident': total,
-                      'per_chip_total': total, 'per_chip_resident': total},
-            'prefix': {**self.prefix_stats, 'resident': len(self._prefixes)},
-            'radix': {'enabled': False, 'hits': 0, 'lookups': 0,
-                      'hit_rate': 0.0, 'tokens_reused': 0, 'inserts': 0,
-                      'evictions': 0, 'nodes': 0, 'blocks_held': 0,
-                      'pinned': 0},
-            'host_tier': self._host_tier_section(),
-        }
-        return {
-            'kv': kv,
-            'serving': bool(self._serving),
-            # deprecated aliases of kv.*, zeros where dense has no pool
-            'kv_layout': 'dense',
-            'block_size': 0,
-            'blocks_total': 0,
-            'blocks_free': 0,
-            'blocks_allocated': 0,
-            'blocks_shared': 0,
-            'blocks_prefix': 0,
-            'shared_refs_saved': 0,
-            'kv_bytes_per_block': 0,
-            'kv_bytes_total': total,
-            'kv_bytes_resident': total,
-            'admission_deferred': 0,
-            'prefix_block_hits': 0,
+        prefix = {**self.prefix_stats, 'resident': len(self._prefixes)}
+        common = {
             'faults': dict(self.fault_stats),
             'qos': {
                 'enabled': False,
                 'scheduler': self._sched.stats(),
                 'preemptions': self.qos_stats['preemptions'],
                 'sheds': self.qos_stats['sheds'],
-                # The projection shed's rate estimate is QoS (A6).
+                # The projection shed's rate estimate is QoS (A6c).
                 'service_rate_tokens_per_s': None,
                 'tenants': {t: dict(c)
                             for t, c in list(self._tenant_qos.items())},
             },
+        }
+        if not self._paged:
+            total = self.cfg.num_slots * self.cfg.max_cache_len * row_bytes
+            kv = {
+                'layout': 'dense',
+                'tp': 1,
+                'bytes': {'total': total, 'resident': total,
+                          'per_chip_total': total,
+                          'per_chip_resident': total},
+                'prefix': prefix,
+                'radix': self._radix_section(),
+                'host_tier': self._host_tier_section(),
+            }
+            return {
+                'kv': kv,
+                'serving': bool(self._serving),
+                # deprecated aliases of kv.*, zeros where dense has no
+                # pool
+                'kv_layout': 'dense',
+                'block_size': 0,
+                'blocks_total': 0,
+                'blocks_free': 0,
+                'blocks_allocated': 0,
+                'blocks_shared': 0,
+                'blocks_prefix': 0,
+                'shared_refs_saved': 0,
+                'kv_bytes_per_block': 0,
+                'kv_bytes_total': total,
+                'kv_bytes_resident': total,
+                'admission_deferred': 0,
+                'prefix_block_hits': 0,
+                **common,
+            }
+        bs_ = self.cfg.kv_block_size
+        block_bytes = bs_ * row_bytes
+        usable = self._num_blocks - 1
+        free = len(self._free_blocks)
+        refs = self._block_refs
+        shared = int((refs[1:] > 1).sum())
+        saved = int((refs[1:][refs[1:] > 1] - 1).sum())
+        prefix['block_hits'] = self.paged_stats['prefix_block_hits']
+        prefix['blocks'] = 0          # registered prefixes are A6b
+        total = self._num_blocks * block_bytes
+        resident = (usable - free) * block_bytes
+        kv = {
+            'layout': 'paged',
+            'tp': 1,
+            'blocks': {'size': bs_, 'total': usable, 'free': free,
+                       'allocated': usable - free, 'shared': shared,
+                       'shared_refs_saved': saved},
+            'bytes': {'per_block': block_bytes, 'total': total,
+                      'resident': resident, 'per_chip_total': total,
+                      'per_chip_resident': resident},
+            'admission': {'deferred': self.paged_stats['deferred']},
+            'prefix': prefix,
+            'radix': self._radix_section(),
+            'host_tier': self._host_tier_section(),
+        }
+        return {
+            'kv': kv,
+            'serving': bool(self._serving),
+            # deprecated aliases of kv.*
+            'kv_layout': 'paged',
+            'block_size': bs_,
+            'blocks_total': usable,
+            'blocks_free': free,
+            'blocks_allocated': usable - free,
+            'blocks_shared': shared,
+            'blocks_prefix': 0,
+            'shared_refs_saved': saved,
+            'kv_bytes_per_block': block_bytes,
+            'kv_bytes_total': total,
+            'kv_bytes_resident': resident,
+            'admission_deferred': self.paged_stats['deferred'],
+            'prefix_block_hits': self.paged_stats['prefix_block_hits'],
+            **common,
         }
 
     # Per-tenant counter rows are bounded: unbounded distinct tenant ids
@@ -554,19 +1008,158 @@ class InferenceEngine:
             row = self._tenant_qos.setdefault(t, {'admitted': 0, 'shed': 0})
         return row
 
-    def export_hot_prefixes(self) -> Dict[str, Any]:
-        """The drain-time hot-prefix payload (GET /hot_prefixes) of a
-        replica without a radix cache: the header, no prefixes."""
-        return {'version': 1, 'model': self.cfg.model, 'block_size': 0,
-                'cache_dtype': str(self.cfg.cache_dtype).split('.')[-1],
-                'num_layers': len(self.cache), 'prefixes': []}
+    def _wire_rows(self, rows: torch.Tensor) -> str:
+        """Base64 of one block's rows [L, Hkv, bs, D] as raw
+        little-endian bytes in cache dtype (the JAX engine's wire form;
+        bf16 goes through a byte view, which numpy cannot hold)."""
+        raw = rows.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+        return base64.b64encode(raw).decode('ascii')
+
+    def export_hot_prefixes(self, max_prefixes: int = 8,
+                            max_blocks: int = 64) -> Dict[str, Any]:
+        """Serialize the hottest radix prefixes -- device tree first (still
+        resident = hottest), then host-tier entries, most recent first --
+        into the wire form adopt_prefixes() takes (GET /hot_prefixes; the
+        LB hands it to the affinity survivor during drain).  Blocking
+        device->host reads: the drain path, not the serving one."""
+        payload: Dict[str, Any] = {
+            'version': 1,
+            'model': self.cfg.model,
+            'block_size': self.cfg.kv_block_size,
+            'cache_dtype': _dtype_name(self.cfg.cache_dtype),
+            'num_layers': len(self.cache),
+            'prefixes': [],
+        }
+        if self._radix is None:
+            return payload
+        bs_ = self.cfg.kv_block_size
+        with self._lock:
+            leaves = [(ad, nd) for ad, nd in self._radix.walk_adapters()
+                      if not nd.children]
+            leaves.sort(key=lambda x: -x[1].last_used)
+            cands = [(ad, RadixTree.path_tokens(nd)) for ad, nd in leaves]
+            if self._host_tier is not None:
+                cands.extend(self._host_tier.keys_recent_first())
+            # Drop candidates subsumed by an earlier (hotter) one.
+            chosen: List[Tuple[Optional[str], Tuple[int, ...]]] = []
+            for ad, toks in cands:
+                if len(chosen) >= max_prefixes:
+                    break
+                if any(a == ad and t[:len(toks)] == toks
+                       for a, t in chosen):
+                    continue
+                chosen.append((ad, toks))
+            budget = max_blocks
+            for ad, toks in chosen:
+                if budget <= 0:
+                    break
+                path = self._radix.peek(ad, toks, len(toks))
+                recs = []
+                for i in range(min(len(toks) // bs_, budget)):
+                    if i < len(path):
+                        blk = int(path[i])
+                        k_rows = torch.stack([kp[blk] for kp, _ in self.cache])
+                        v_rows = torch.stack([vp[blk] for _, vp in self.cache])
+                    else:
+                        entry = (self._host_tier.get(
+                            (ad, toks[:(i + 1) * bs_]))
+                            if self._host_tier is not None else None)
+                        if entry is None:
+                            break   # a hole: a prefix must be contiguous
+                        k_rows, v_rows = entry
+                    recs.append({'k': self._wire_rows(k_rows),
+                                 'v': self._wire_rows(v_rows)})
+                if not recs:
+                    continue
+                budget -= len(recs)
+                payload['prefixes'].append({
+                    'adapter': ad,
+                    'tokens': [int(t) for t in toks[:len(recs) * bs_]],
+                    'blocks': recs,
+                })
+            self.handoff_stats['exported'] += sum(
+                len(p['blocks']) for p in payload['prefixes'])
+        return payload
 
     def adopt_prefixes(self, payload: Dict[str, Any]) -> Dict[str, Any]:
-        """POST /adopt_blocks: a dense replica has no radix tree to adopt
-        into -- the client error the JAX dense engine gives."""
-        del payload
-        raise ValueError('replica has no radix cache '
-                         '(kv_block_size/auto_prefix_cache off)')
+        """Adopt a drained peer's serialized hot prefixes into this
+        engine's radix tree (the POST /adopt_blocks body), so a failover
+        costs a suffix prefill instead of a full one.  The peer may be a
+        JAX replica or a port replica: the form is the same.  A
+        payload-level mismatch raises ValueError (a client error); a
+        malformed prefix is skipped."""
+        if self._radix is None:
+            raise ValueError('replica has no radix cache '
+                             '(kv_block_size/auto_prefix_cache off)')
+        if int(payload.get('version', 0)) != 1:
+            raise ValueError(
+                f"unsupported hot-prefix payload version "
+                f"{payload.get('version')!r}")
+        bs_ = self.cfg.kv_block_size
+        if int(payload.get('block_size', 0)) != bs_:
+            raise ValueError(
+                f"block_size mismatch: payload "
+                f"{payload.get('block_size')!r}, engine {bs_}")
+        name = _dtype_name(self.cfg.cache_dtype)
+        if payload.get('cache_dtype') != name:
+            raise ValueError(
+                f"cache_dtype mismatch: payload "
+                f"{payload.get('cache_dtype')!r}, engine {name}")
+        if payload.get('model') != self.cfg.model:
+            raise ValueError(
+                f"model mismatch: payload {payload.get('model')!r}, "
+                f"engine {self.cfg.model!r}")
+        nl = len(self.cache)
+        if int(payload.get('num_layers', 0)) != nl:
+            raise ValueError(
+                f"num_layers mismatch: payload "
+                f"{payload.get('num_layers')!r}, engine {nl}")
+        mc = self.model_config
+        row_shape = (nl, mc.num_kv_heads, bs_, mc.head_dim_)
+
+        def decode(text) -> torch.Tensor:
+            raw = bytearray(base64.b64decode(text))
+            return torch.frombuffer(raw, dtype=self.cfg.cache_dtype
+                                    ).reshape(row_shape)
+
+        adopted_p = adopted_b = skipped = 0
+        with self._lock, torch.inference_mode():
+            for pref in payload.get('prefixes', []):
+                tokens = [int(t) for t in pref.get('tokens', [])]
+                adapter = pref.get('adapter')
+                if adapter is not None:   # no adapters here (A6c)
+                    skipped += 1
+                    continue
+                try:
+                    rows = [(decode(rec['k']), decode(rec['v']))
+                            for rec in pref.get('blocks', [])]
+                except (KeyError, TypeError, ValueError, RuntimeError):
+                    skipped += 1
+                    continue
+                nruns = min(len(rows), len(tokens) // bs_)
+                if nruns < 1:
+                    skipped += 1
+                    continue
+                existing = self._radix.match(adapter, tokens, nruns * bs_)
+                rows = rows[len(existing):nruns]
+                if not rows:
+                    continue            # already resident
+                # Adopted blocks are cache, not load: never eat into the
+                # headroom running slots' admission already reserved.
+                headroom = (len(self._free_blocks)
+                            - self._blocks_outstanding())
+                rows = rows[:max(0, headroom)]
+                if not rows:
+                    skipped += 1
+                    continue
+                end = (len(existing) + len(rows)) * bs_
+                ids = self._adopt_host_rows(adapter, tokens[:end],
+                                            existing, rows)
+                adopted_p += 1
+                adopted_b += len(ids)
+            self.handoff_stats['adopted'] += adopted_b
+        return {'adopted_prefixes': adopted_p,
+                'adopted_blocks': adopted_b, 'skipped': skipped}
 
     # ------------------------------------------------------- schedule
 
@@ -598,7 +1191,7 @@ class InferenceEngine:
         bad request and NotImplementedError on a feature not ported."""
         if req.want_prompt_logprobs:
             raise NotImplementedError(
-                'prompt logprobs are not ported yet (ROADMAP.md A6)')
+                'prompt logprobs are not ported yet (ROADMAP.md A6b)')
         n = len(req.tokens)
         max_new = self._max_new(req)
         if n < 1:
@@ -623,14 +1216,127 @@ class InferenceEngine:
             raise ValueError(
                 f'prompt ({n}) + max_new_tokens ({max_new}) exceeds cache '
                 f'({self.cfg.max_cache_len})')
+        if self._paged:
+            demand = self._blocks_demand(n, max_new)
+            usable = self._num_blocks - 1
+            if demand > usable:
+                raise ValueError(
+                    f'request needs {demand} KV blocks but the pool '
+                    f'only has {usable} (kv_blocks too small for this '
+                    'prompt + max_new_tokens)')
         return n, bucket, max_new
+
+    def _suffix_bucket(self, start: int, suffix_len: int) -> Optional[int]:
+        for b in self.cfg.prefill_buckets:
+            if b >= suffix_len and start + b <= self.cfg.max_cache_len:
+                return b
+        return None
+
+    def _activate(self, chunk, head: torch.Tensor) -> None:
+        """Fill the slots of one prefill dispatch's real lanes from its
+        packed head (ONE transfer): chunk holds the lanes' (req, slot,
+        submit_time, n, bucket, max_new) tuples."""
+        first, first_lp, tids, tlps = _unpack_head(
+            self._host_array(self._to_host(head)), self.cfg.logprob_topk)
+        now = time.time()
+        for i, (req, slot, submit_time, n, _, max_new) in enumerate(chunk):
+            s = _Slot(req, length=n, submit_time=submit_time,
+                      max_new=max_new)
+            s.first_token_time = now
+            s.generated.append(int(first[i]))
+            s.lps.append(float(first_lp[i]))
+            s.tops.append(_pairs(tids[i], tlps[i]))
+            self._slots[slot] = s
+            self._lengths[slot] = n
+            self._last_tokens[slot] = s.generated[0]
+            self._temps[slot] = req.temperature
+
+    def _start_radix_group_paged(self, group, sb: int, gen: int) -> None:
+        """Start radix-matched requests sharing a suffix bucket: each
+        slot's table gets its matched blocks by REFERENCE (matches are
+        block-aligned, so no block is ever copied), then the suffixes
+        forward in lane-batched paged prefills with per-lane starts.
+
+        group: ((req, slot, submit_time, n, bucket, max_new), start,
+        blocks) triples.  `gen` is the tree generation the matches were
+        taken under; match to refcount bump runs under one lock hold, so
+        a mismatch means a reset slid in between -- fail loudly rather
+        than share dead blocks."""
+        if gen != self._radix.generation:
+            raise RuntimeError(
+                'radix tree reset between match and start '
+                f'({gen} != {self._radix.generation})')
+        bs_ = self.cfg.kv_block_size
+        lanes = self.cfg.prefill_lanes
+        for ofs in range(0, len(group), lanes):
+            chunk = group[ofs:ofs + lanes]
+            p = len(chunk)
+            tokens = np.zeros((lanes, sb), np.int64)
+            starts = np.zeros((lanes,), np.int64)
+            true_pos = np.zeros((lanes,), np.int64)
+            slots = np.zeros((lanes,), np.int64)
+            temps = np.zeros((lanes,), np.float32)
+            for it, start, blocks in chunk:       # real lanes only
+                req, slot, _, n, _, _ = it
+                self._append_shared_blocks(slot, blocks)
+                self._ensure_blocks(slot, n)
+                self.paged_stats['prefix_block_hits'] += len(blocks)
+                self.radix_stats['hits'] += 1
+                self.radix_stats['tokens_reused'] += start
+            for i in range(lanes):
+                it, start, _ = chunk[min(i, p - 1)]
+                req, slot, _, n, _, _ = it
+                tokens[i, :n - start] = req.tokens[start:]
+                starts[i] = start
+                true_pos[i] = n - start - 1
+                slots[i] = slot
+                temps[i] = req.temperature
+            # The table covers every lane's start + suffix bucket (pad
+            # lanes duplicate a real lane, so the max is a real one).
+            nb = self._nb_bucket(-(-(int(starts.max()) + sb) // bs_))
+            head = self._paged_prefill(
+                self._to_device(tokens), self._to_device(starts),
+                self._to_device(true_pos), self._lane_tables(slots, nb),
+                self._to_device(temps))
+            self._activate([it for it, _, _ in chunk], head)
+
+    def _start_radix(self, items) -> list:
+        """The radix branch of _start_batch: match each prompt against
+        the tree (capped at n-1 tokens: one token must forward),
+        extend the match from the host tier, and start the matched
+        requests by suffix bucket.  Returns the items left for a full
+        prefill."""
+        rgroups: Dict[int, list] = {}
+        rest = []
+        gen = self._radix.generation
+        bs_ = self.cfg.kv_block_size
+        for it in items:
+            req, _, _, n, _, _ = it
+            self.radix_stats['lookups'] += 1
+            blocks = self._radix.match(req.adapter, req.tokens, n - 1)
+            if self._host_tier is not None:
+                blocks = self._restore_from_tier(req, blocks, n)
+            if not blocks:
+                rest.append(it)
+                continue
+            start = len(blocks) * bs_
+            sb = self._suffix_bucket(start, n - start)
+            if sb is None:       # no bucket fits beside the match
+                rest.append(it)
+                continue
+            rgroups.setdefault(sb, []).append((it, start, blocks))
+        for sb, rgroup in rgroups.items():
+            self._start_radix_group_paged(rgroup, sb, gen)
+        return rest
 
     def _start_batch(self, items) -> None:
         """Prefill validated requests, grouped by bucket, prefill_lanes
         rows per dispatch.  items: (req, slot, submit_time, prompt_len,
         bucket, max_new) tuples.  Dispatch width is always
         prefill_lanes; pad lanes duplicate the last real lane, slot
-        included, so their cache writes are identical rewrites.
+        included, so their cache writes are identical rewrites.  With
+        the radix cache, matched prompts first prefill only their
+        suffix (_start_radix).
 
         Bumps the prefill epoch first: an in-flight lookahead window's
         chain is never extended across a slot recycle, and its snapshot
@@ -640,6 +1346,8 @@ class InferenceEngine:
         rows."""
         self._fault_raise('prefill')
         self._prefill_epoch += 1
+        if self._radix is not None and items:
+            items = self._start_radix(items)
         lanes = self.cfg.prefill_lanes
         by_bucket: Dict[int, list] = {}
         for it in items:
@@ -662,25 +1370,36 @@ class InferenceEngine:
                     raise RuntimeError(
                         f'pad lanes must duplicate the last real lane: '
                         f'{slots=} p={p}')
-                head = self._prefill_insert(
-                    self._to_device(tokens), self._to_device(true_lens),
-                    self._to_device(slots), self._to_device(temps))
-                first, first_lp, tids, tlps = _unpack_head(
-                    self._host_array(self._to_host(head)),
-                    self.cfg.logprob_topk)                # ONE transfer
-                now = time.time()
-                for i, (req, slot, submit_time, n, _, max_new) in \
-                        enumerate(chunk):
-                    s = _Slot(req, length=n, submit_time=submit_time,
-                              max_new=max_new)
-                    s.first_token_time = now
-                    s.generated.append(int(first[i]))
-                    s.lps.append(float(first_lp[i]))
-                    s.tops.append(_pairs(tids[i], tlps[i]))
-                    self._slots[slot] = s
-                    self._lengths[slot] = n
-                    self._last_tokens[slot] = s.generated[0]
-                    self._temps[slot] = req.temperature
+                if self._paged:
+                    for req, slot, _, n, _, _ in chunk:   # real lanes
+                        self._ensure_blocks(slot, n)
+                    head = self._paged_prefill(
+                        self._to_device(tokens),
+                        self._to_device(np.zeros((lanes,), np.int64)),
+                        self._to_device(true_lens - 1),
+                        self._lane_tables(slots, self._nb_bucket(
+                            bucket // self.cfg.kv_block_size)),
+                        self._to_device(temps))
+                else:
+                    head = self._prefill_insert(
+                        self._to_device(tokens), self._to_device(true_lens),
+                        self._to_device(slots), self._to_device(temps))
+                self._activate(chunk, head)
+
+    def _radix_adopt(self, slot: int, tokens: Sequence[int], rows: int,
+                     adapter: Optional[str]) -> None:
+        """Insert the slot's full PROMPT blocks (rows [0, rows) of
+        `tokens`, whole blocks only) into the radix tree by reference.
+        Only prefill-written rows are indexed: decode-written rows at the
+        same positions could differ numerically from a prefill's.
+        Idempotent: already-cached runs get an LRU touch."""
+        full = min(rows // self.cfg.kv_block_size,
+                   int(self._slot_nblocks[slot]))
+        if full < 1:
+            return
+        blocks = [int(b) for b in self._tables_np[slot, :full]]
+        self.radix_stats['inserts'] += self._radix.insert(
+            adapter, tokens, blocks, addref=self._addref_block)
 
     def _flush_streams(self) -> None:
         """Deliver the newly generated tokens of every streaming slot.
@@ -719,12 +1438,21 @@ class InferenceEngine:
             error_class=error_class,
             logprobs=list(s.lps),
             top_logprobs=list(s.tops))
+        req = s.request
         self._slots[i] = None
         self._lengths[i] = 0
         self._temps[i] = 0.0
-        if s.request.request_id is not None:
-            self._cancelled.pop(s.request.request_id, None)   # stale mark
-        return s.request, res
+        if self._paged:
+            if self._radix is not None and reason != 'error':
+                # The slot's full prompt blocks join the tree before the
+                # table is torn down ('error' finishes may have left rows
+                # unwritten).
+                self._radix_adopt(i, req.tokens, len(req.tokens),
+                                  req.adapter)
+            self._free_slot_blocks(i)
+        if req.request_id is not None:
+            self._cancelled.pop(req.request_id, None)   # stale mark
+        return req, res
 
     # ----------------------------------------------------- containment
 
@@ -829,10 +1557,11 @@ class InferenceEngine:
         """One window dispatched from the host slot mirrors.  Returns the
         host-copy handle of its packed result and the device-side
         (tokens, lengths) chain."""
+        paged = {'tables': self._decode_tables(steps)} if self._paged else {}
         packed, last, lens = self._decode(
             self._to_device(self._last_tokens),
             self._to_device(self._lengths), self._to_device(self._temps),
-            steps)
+            steps, **paged)
         return self._to_host(packed), (last, lens)
 
     def _maybe_dispatch_ahead(self, chain, snap,
@@ -865,9 +1594,15 @@ class InferenceEngine:
                    self.cfg.max_cache_len - 1 - s.length)
                <= in_flight_steps for s in live):
             return          # every survivor finishes in flight
+        # Paged: the window in flight advances the device lengths past
+        # the host mirror, so the tables budget both windows' rows (built
+        # on the host from the mirrors, sent without blocking).
+        paged = ({'tables': self._decode_tables(in_flight_steps +
+                                                self.cfg.decode_steps)}
+                 if self._paged else {})
         packed, last, lens = self._decode(chain[0], chain[1],
                                           self._to_device(self._temps),
-                                          self.cfg.decode_steps)
+                                          self.cfg.decode_steps, **paged)
         self._ahead = (self._to_host(packed), (last, lens), snap,
                        self._prefill_epoch)
 
@@ -993,14 +1728,30 @@ class InferenceEngine:
             t0 = time.time()
             while pending or any(s is not None for s in self._slots):
                 to_start = []
+                admit_extra = 0
                 while pending:
                     slot = self._free_slot(exclude=[it[1] for it in to_start])
                     if slot is None:
                         break
+                    if self._paged:
+                        req = pending[0]
+                        demand = self._blocks_demand(
+                            len(req.tokens), self._max_new(req))
+                        # An oversized demand falls through to
+                        # _validate_request, which fails it alone.  With
+                        # nothing running every radix block is
+                        # evictable, so the head always fits then.
+                        if demand <= self._num_blocks - 1 and \
+                                not self._can_admit_blocks(demand,
+                                                           admit_extra):
+                            self.paged_stats['deferred'] += 1
+                            break
                     req = pending.pop(0)
                     try:
                         to_start.append((req, slot, t0,
                                          *self._validate_request(req)))
+                        if self._paged:
+                            admit_extra += demand
                     except ValueError as e:
                         # A bad request fails alone, not the whole batch.
                         finished.append((req, RequestResult(
@@ -1098,7 +1849,8 @@ class InferenceEngine:
         serve, so fail them now rather than leave their clients waiting
         for timeouts."""
         with self._lock:
-            pending = []
+            pending = list(self._deferred)
+            self._deferred = []
             while True:
                 r = self._sched.pop()
                 if r is None:
@@ -1136,6 +1888,7 @@ class InferenceEngine:
                     self._fault_raise('serve_loop')
             moved = False
             to_start = []
+            admit_extra = 0
             dequeued = cancelled_deq = 0
             while True:
                 try:
@@ -1149,9 +1902,31 @@ class InferenceEngine:
                 slot = self._free_slot(exclude=[it[1] for it in to_start])
                 if slot is None:
                     break
-                req = self._sched.pop()
-                if req is None:
-                    break
+                # Admission-deferred requests go first (head of line: a
+                # big request must not starve behind small ones that keep
+                # fitting around it).
+                if self._deferred:
+                    req = self._deferred.pop(0)
+                else:
+                    req = self._sched.pop()
+                    if req is None:
+                        break
+                if self._paged:
+                    demand = self._blocks_demand(len(req.tokens),
+                                                 self._max_new(req))
+                    # Under the lock: admission may evict radix leaves,
+                    # and the lock orders it against a quarantine reset.
+                    with self._lock:
+                        admissible = (demand > self._num_blocks - 1 or
+                                      self._can_admit_blocks(demand,
+                                                             admit_extra))
+                        if not admissible:
+                            # Back to the head; admitted first once blocks
+                            # free up.
+                            self._deferred.insert(0, req)
+                            self.paged_stats['deferred'] += 1
+                    if not admissible:
+                        break
                 if (req.request_id is not None and
                         req.request_id in self._cancelled):
                     # Cancelled while queued: never prefill it.  Results
@@ -1186,6 +1961,8 @@ class InferenceEngine:
                     to_start.append((req, slot,
                                      req.arrival_time or time.time(),
                                      *self._validate_request(req)))
+                    if self._paged:
+                        admit_extra += demand
                 except (ValueError, NotImplementedError) as e:
                     with self._lock:
                         result_cb(RequestResult(
@@ -1240,6 +2017,10 @@ class InferenceEngine:
                                 self._slots[slot] = None
                                 self._lengths[slot] = 0
                                 self._temps[slot] = 0.0
+                            if self._paged and self._slots[slot] is None:
+                                # Blocks a half-applied batch allocated
+                                # for this slot would leak.
+                                self._free_slot_blocks(slot)
                         for req, slot, *_ in to_start:
                             self.fault_stats['internal_errors'] += 1
                             result_cb(RequestResult(
@@ -1271,6 +2052,11 @@ class InferenceEngine:
                         result_cb(res)
                     moved = True
             if not moved:
+                if self._host_tier is not None:
+                    # Land in-flight spill copies while idle, so the next
+                    # restore probe does not wait for them.
+                    with self._lock:
+                        self._host_tier.finalize()
                 time.sleep(idle_sleep)
 
     def generate_served(self, requests: List[Request]) -> List[RequestResult]:

@@ -28,7 +28,7 @@ Design rules:
   containment path uses that to fail only those requests.  Faults
   without attribution exercise the quarantine-the-batch fallback.
 
-Sites the port's dense engine consults:
+Sites the port's engine consults:
 
 ==================  =====================================================
 ``prefill``         top of ``_start_batch``, before the prefill dispatch
@@ -46,9 +46,12 @@ Sites the port's dense engine consults:
                     request state instead of racing the idle spin)
 ==================  =====================================================
 
-``chunk_round`` and ``block_alloc`` belong to chunked prefill and the
-paged pool (ROADMAP.md A6): a plan naming them is accepted and never
-fires, as on a dense JAX engine.  ``replica_kill``, ``net_degrade`` and
+``block_alloc`` is consulted by the paged pool's admission check
+(``_can_admit_blocks``): a firing spec answers "no room", so the request
+takes the deferral path; a dense engine never consults it.
+``chunk_round`` belongs to chunked prefill (ROADMAP.md A6b): a plan
+naming it is accepted and never fires, as on a JAX engine without
+chunking.  ``replica_kill``, ``net_degrade`` and
 ``lb_kill`` are consulted by chaos harnesses around the process, never by
 the engine.
 

@@ -13,7 +13,9 @@ routes over a fleet that mixes both:
                      503 with X-SkyTpu-Draining: 1 while draining
   GET  /stats        slots, queue, shed, drain, fault and KV counters
   GET  /v1/models    the served model
-  GET  /hot_prefixes the drain-time hot-prefix export (dense: no prefixes)
+  GET  /hot_prefixes the drain-time hot-prefix export: the hottest radix
+                     prefixes' KV rows in the JAX replica's wire form
+                     (a replica without the radix cache: no prefixes)
   POST /drain        {"deadline_s": s} stop admitting, finish in-flight;
                      {"cancel": true} undo
   POST /generate     {"tokens": [...], "max_new_tokens": N,
@@ -24,7 +26,10 @@ routes over a fleet that mixes both:
                                  nothing), temperature, stop, logprobs,
                                  n, stream (SSE + [DONE])
   POST /v1/chat/completions      messages, via the tokenizer
-  POST /adopt_blocks 400: a dense replica has no radix cache
+  POST /adopt_blocks adopt a peer's /hot_prefixes payload into the radix
+                     cache; 400 on a malformed or mismatched payload
+                     (model, block size, cache dtype, layers) or without
+                     a radix cache
 
 Not ported yet, answered 501 naming the ROADMAP.md item: POST
 /cache_prefix and /load_adapter, prompt logprobs (/generate
@@ -67,11 +72,11 @@ def _refuse_unported_options(adapter_dir: Optional[str],
     if adapter_dir is not None:
         raise NotImplementedError(_unported(
             'runtime adapter loading (--adapter-dir)',
-            'A6 (multi-LoRA serving)'))
+            'A6c (multi-LoRA serving)'))
     if auto_prefix:
         raise NotImplementedError(_unported(
             'automatic prefix caching (--auto-prefix)',
-            'A6 (the dense prefix cache)'))
+            'A6b (registered prefixes)'))
 
 
 class DrainingError(Exception):
@@ -118,7 +123,7 @@ class InferenceServer:
         reacts to what happened; the queue cap bounds what can happen.
 
         adapter_dir (runtime LoRA loading) and auto_prefix (the dense
-        prefix cache) are not ported yet and raise (ROADMAP.md A6).
+        prefix cache) are not ported yet and raise (ROADMAP.md A6c, A6b).
 
         warmup: run engine.warmup() (every prefill bucket and the decode
         windows) before declaring ready; else one short request."""
@@ -559,7 +564,10 @@ def _make_handler(server: InferenceServer):
                            if doc['draining'] else None)
                 self._json(code, doc, extra_headers=headers)
             elif self.path == '/hot_prefixes':
-                # Warm-failover export (dense: the header, no prefixes).
+                # Warm-failover export: the draining replica's hottest
+                # radix prefixes, [L, Hkv, bs, D] rows in base64.  The LB
+                # fetches it during drain and POSTs it to a survivor's
+                # /adopt_blocks.
                 try:
                     self._json(200, server.engine.export_hot_prefixes())
                 except Exception as e:  # noqa: BLE001 -- drain path:
@@ -778,7 +786,7 @@ def _make_handler(server: InferenceServer):
             if want_lp and echo:
                 self._json(501, {'error': {
                     'message': _unported('prompt logprobs (echo with '
-                                         'logprobs)', 'A6'),
+                                         'logprobs)', 'A6b'),
                     'type': 'not_implemented'}})
                 return None
             req = Request(tokens=[int(t) for t in tokens],
@@ -1133,19 +1141,24 @@ def _make_handler(server: InferenceServer):
                 return
             if self.path == '/load_adapter':
                 self._json(501, {'error': _unported(
-                    'runtime adapter loading', 'A6 (multi-LoRA serving)')})
+                    'runtime adapter loading', 'A6c (multi-LoRA serving)')})
                 return
             if self.path == '/cache_prefix':
                 self._json(501, {'error': _unported(
-                    'the dense prefix cache (/cache_prefix)', 'A6')})
+                    'the dense prefix cache (/cache_prefix)', 'A6b')})
                 return
             if self.path == '/adopt_blocks':
-                # Warm-failover import: a dense replica has no radix
-                # cache, a clean 400 (the survivor serves cold).
+                # Warm-failover import into the radix cache.  A payload
+                # that does not fit this replica is a clean 400 (the
+                # survivor then serves cold).
                 try:
                     self._json(200, server.engine.adopt_prefixes(payload))
                 except (TypeError, ValueError, KeyError) as e:
                     self._json(400, {'error': str(e)})
+                except Exception as e:  # noqa: BLE001 -- adoption is an
+                    # optimization: a failure leaves the survivor
+                    # serving (cold), never a dead handler thread.
+                    self._json(500, {'error': str(e)})
                 return
             self._json(404, {'error': 'not found'})
 
@@ -1189,7 +1202,7 @@ def _make_handler(server: InferenceServer):
                 return
             if payload.get('prompt_logprobs'):
                 self._json(501, {'error': _unported('prompt logprobs',
-                                                    'A6')})
+                                                    'A6b')})
                 return
             req = Request(tokens=tokens, max_new_tokens=max_new,
                           temperature=temperature,
@@ -1399,19 +1412,19 @@ def main() -> None:
                         help='shard over N cards (not ported yet: A9; '
                              'default: $SKYTPU_SERVE_TP_SIZE or 0)')
     parser.add_argument('--draft-len', type=int, default=0,
-                        help='speculative decoding (not ported yet: A6)')
+                        help='speculative decoding (not ported yet: A6c)')
     parser.add_argument('--ngram-max', type=int, default=4,
                         help='longest n-gram tried when drafting')
     parser.add_argument('--max-prefixes', type=int, default=16,
                         help='resident prefix-KV entries (the dense '
-                             'prefix cache is not ported yet: A6)')
+                             'prefix cache is not ported yet: A6b)')
     parser.add_argument('--lora-rank', type=int, default=0,
-                        help='multi-LoRA serving (not ported yet: A6)')
+                        help='multi-LoRA serving (not ported yet: A6c)')
     parser.add_argument('--lora-max-adapters', type=int, default=8,
                         help='resident adapter slots (--lora-rank)')
     parser.add_argument('--adapter-dir', default=None,
                         help='directory POST /load_adapter may read '
-                             'from (not ported yet: A6)')
+                             'from (not ported yet: A6c)')
     parser.add_argument('--adaptive-window', action='store_true',
                         help='queue-aware decode windows: short '
                              'dispatches only while arrivals wait')
@@ -1420,20 +1433,42 @@ def main() -> None:
                              'reading the current one')
     parser.add_argument('--auto-prefix', action='store_true',
                         help='automatic prefix caching (not ported yet: '
-                             'A6)')
+                             'A6b)')
     parser.add_argument('--prefill-chunk', type=int, default=0,
-                        help='chunked prefill (not ported yet: A6)')
+                        help='chunked prefill (not ported yet: A6b)')
     parser.add_argument('--kv-block-size', type=int, default=0,
-                        help='block-paged KV cache (not ported yet: A6)')
+                        help='block-paged KV cache: pool block size in '
+                             'tokens (0 = dense slotted layout; must '
+                             'divide --max-cache-len and every prefill '
+                             'bucket). Decode reads ceil(len/block)*block '
+                             'cached rows per step instead of '
+                             'max_cache_len, and prefix hits share blocks '
+                             'copy-free')
     parser.add_argument('--kv-blocks', type=int, default=None,
-                        help='paged pool size (not ported yet: A6)')
+                        help='pool size in blocks (incl. the reserved '
+                             'dump block). Default fully provisions '
+                             'num_slots*max_cache_len/block + 1; smaller '
+                             'pools oversubscribe device memory and '
+                             'admission-defer requests whose worst-case '
+                             'demand does not fit')
     parser.add_argument('--auto-prefix-cache', action='store_true',
-                        help='radix prefix caching (not ported yet: A6)')
+                        help='engine-level automatic radix-tree prefix '
+                             'caching over the paged KV pool (requires '
+                             '--kv-block-size): completed prompts\' '
+                             'full blocks become matchable, admitted '
+                             'prompts reuse their longest block-aligned '
+                             'cached prefix copy-free, unreferenced '
+                             'leaves are LRU-evicted under pool '
+                             'pressure')
     parser.add_argument('--host-kv-bytes', type=int,
                         default=int(os.environ.get(
                             'SKYTPU_SERVE_HOST_KV_BYTES', '0') or 0),
-                        help='host-RAM KV tier (not ported yet: A6; '
-                             'default: $SKYTPU_SERVE_HOST_KV_BYTES or 0)')
+                        help='host-RAM KV tier budget in bytes '
+                             '(requires --auto-prefix-cache): radix '
+                             'blocks evicted under device-memory pressure '
+                             'spill to host RAM and restore on the next '
+                             'prefix match (0 disables; default: '
+                             '$SKYTPU_SERVE_HOST_KV_BYTES or 0)')
     parser.add_argument('--warmup', action='store_true',
                         default=os.environ.get(
                             'SKYTPU_SERVE_WARMUP', '') in
@@ -1442,10 +1477,10 @@ def main() -> None:
                              'windows before declaring ready (default: '
                              '$SKYTPU_SERVE_WARMUP or off)')
     parser.add_argument('--qos', action='store_true',
-                        help='QoS scheduling (not ported yet: A6)')
+                        help='QoS scheduling (not ported yet: A6c)')
     parser.add_argument('--qos-tenant-weights', default=None,
                         help='per-tenant WFQ weights, e.g. '
-                             '"teamA=3,teamB=1" (not ported yet: A6)')
+                             '"teamA=3,teamB=1" (not ported yet: A6c)')
     args = parser.parse_args()
     run(model=args.model, host=args.host, port=args.port,
         num_slots=args.num_slots, max_cache_len=args.max_cache_len,

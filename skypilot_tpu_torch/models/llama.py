@@ -15,7 +15,10 @@ The no-cache forward attends through ``ops.flash_attention`` (the Hopper
 kernels on a CUDA tensor) and, with grad enabled, checkpoints each
 decoder layer by ``config.remat_policy``; the cached forward writes K/V
 in place into a per-layer ``[B, Hkv, M, D]`` cache and attends with
-``decode_attention``, as the JAX serving path does.
+``decode_attention``, as the JAX serving path does; the block-paged
+forward (``paged_tables``) scatters them into a per-layer
+``[num_blocks, Hkv, block_size, D]`` pool and attends over the gathered
+blocks (``paged_write_kv_and_attend``).
 """
 import dataclasses
 import functools
@@ -168,6 +171,48 @@ def write_kv_and_attend(kv_cache: Tuple[torch.Tensor, torch.Tensor],
     return out, (k_cache, v_cache)
 
 
+def paged_write_kv_and_attend(kv_pool: Tuple[torch.Tensor, torch.Tensor],
+                              k: torch.Tensor, v: torch.Tensor,
+                              q: torch.Tensor, positions: torch.Tensor,
+                              tables: torch.Tensor, block_size: int,
+                              window: Optional[int] = None):
+    """Block-paged twin of write_kv_and_attend: the cache is one
+    [num_blocks, Hkv, block_size, D] pool per layer shared by every
+    sequence, and `tables` [B, NB] maps each sequence's logical block
+    index to a pool block id (the engine's host-side allocator owns the
+    mapping; block 0 is the dump block that absorbs writes past a
+    sequence's allocated region).
+
+    The T new K/V rows of each sequence are written in place at
+    (tables[b, pos // bs], pos % bs); attention gathers the NB table
+    blocks into a [B, Hkv, NB*bs, D] view whose row r IS absolute
+    position r, so decode_attention's mask applies unchanged (rows of
+    unallocated entries lie past every query and are masked).
+
+    A position past the table's range clamps to the last entry, as the
+    JAX package's gather does (the engine relies on it for dead lanes);
+    the clamp is explicit here because torch's gather raises instead.
+    Duplicate (block, offset) targets within a call carry identical rows
+    (pad lanes) or land in the dump block, so the plain index_put_
+    (no accumulate) is safe."""
+    k_pool, v_pool = kv_pool
+    b, nb = tables.shape
+    idx = (positions // block_size).clamp_max(nb - 1)
+    blk = torch.gather(tables, 1, idx)                          # [B, T]
+    off = positions % block_size                                # [B, T]
+    # Advanced indices around the head slice: value shape [B, T, Hkv, D].
+    k_pool[blk, :, off] = k.transpose(1, 2).to(k_pool.dtype)
+    v_pool[blk, :, off] = v.transpose(1, 2).to(v_pool.dtype)
+
+    def view(pool):
+        g = pool[tables].transpose(1, 2)          # [B, Hkv, NB, bs, D]
+        return g.reshape(b, g.shape[1], nb * block_size, g.shape[-1])
+
+    out = decode_attention(q, view(k_pool), view(v_pool), positions,
+                           window=window)
+    return out, (k_pool, v_pool)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, q_positions: torch.Tensor,
                      window: Optional[int] = None) -> torch.Tensor:
@@ -221,7 +266,8 @@ class Attention(nn.Module):
         self.v_proj = Linear(h, cfg.num_kv_heads * d, bias, dt, pd, device)
         self.o_proj = Linear(cfg.num_heads * d, h, False, dt, pd, device)
 
-    def forward(self, x, positions, kv_cache=None):
+    def forward(self, x, positions, kv_cache=None, paged_tables=None,
+                paged_block_size=None):
         cfg = self.config
         b, s, _ = x.shape
         d = cfg.head_dim_
@@ -232,7 +278,11 @@ class Attention(nn.Module):
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling_)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling_)
         new_cache = None
-        if kv_cache is not None:
+        if kv_cache is not None and paged_tables is not None:
+            out, new_cache = paged_write_kv_and_attend(
+                kv_cache, k, v, q, positions, paged_tables,
+                paged_block_size, window=cfg.sliding_window)
+        elif kv_cache is not None:
             out, new_cache = write_kv_and_attend(kv_cache, k, v, q, positions,
                                                  window=cfg.sliding_window)
         else:
@@ -282,10 +332,12 @@ class DecoderLayer(nn.Module):
                                       device)
         self.mlp = MLP(config, device, param_dtype)
 
-    def forward(self, x, positions, kv_cache=None):
+    def forward(self, x, positions, kv_cache=None, paged_tables=None,
+                paged_block_size=None):
         attn_in = self.input_norm(x)
         if kv_cache is not None:
-            attn_out, new_cache = self.attn(attn_in, positions, kv_cache)
+            attn_out, new_cache = self.attn(attn_in, positions, kv_cache,
+                                            paged_tables, paged_block_size)
         else:
             attn_out, new_cache = self.attn(attn_in, positions), None
         h = x + attn_out
@@ -356,7 +408,8 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, hidden_only: bool = False,
-                paged_tables: Optional[torch.Tensor] = None):
+                paged_tables: Optional[torch.Tensor] = None,
+                paged_block_size: Optional[int] = None):
         """Scoring: forward(tokens) -> logits.  hidden_only=True returns the
         final-norm hidden states [B, S, H] instead.
 
@@ -364,15 +417,22 @@ class Llama(nn.Module):
         (logits, cache), where `cache` is the per-layer list of (k, v)
         [B, Hkv, M, D] pairs from init_cache, updated in place, and
         `positions` [B, T] are the absolute cache positions of `tokens`.
+
+        Block-paged inference: also pass paged_tables [B, NB] (pool block
+        ids per sequence, int64) and paged_block_size; `cache` is then the
+        per-layer [(k_pool, v_pool)] block pools from init_paged_cache.
+
+        Token ids map as the JAX module's gather does: a negative id wraps
+        once (id + V) and the result clamps to [0, V - 1], so an id out of
+        range costs its own request its answer, never the batch's.
         """
         cfg = self.config
-        if paged_tables is not None:
-            raise NotImplementedError(
-                'the block-paged KV cache is not ported yet (ROADMAP.md '
-                'A6, paged KV + radix + host tier)')
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
+        vocab = cfg.vocab_size
+        tokens = torch.where(tokens < 0, tokens + vocab,
+                             tokens).clamp(0, vocab - 1)
         x = self.embedding[tokens].to(cfg.dtype)
         if cfg.scale_embeddings:
             # Normalizer cast to dtype BEFORE the multiply, as HF Gemma.
@@ -382,7 +442,8 @@ class Llama(nn.Module):
         remat = None if cache is not None else _remat(cfg.remat_policy)
         for i, layer in enumerate(self.layers):
             if cache is not None:
-                x, layer_cache = layer(x, positions, cache[i])
+                x, layer_cache = layer(x, positions, cache[i],
+                                       paged_tables, paged_block_size)
                 new_cache.append(layer_cache)
             elif remat is not None:
                 x = remat(layer, x, positions)
@@ -404,6 +465,20 @@ def init_cache(config: LlamaConfig, batch_size: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> KVCache:
     """Per-layer [(k, v)] KV cache, each [B, Hkv, max_len, head_dim]."""
     shape = (batch_size, config.num_kv_heads, max_len, config.head_dim_)
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(config.num_layers)]
+
+
+def init_paged_cache(config: LlamaConfig, num_blocks: int, block_size: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> KVCache:
+    """Per-layer [(k_pool, v_pool)] block-paged KV cache, each
+    [num_blocks, Hkv, block_size, head_dim].  Block 0 is the dump block
+    the engine's allocator reserves (it absorbs dead-lane and overrun
+    writes); sequences map logical blocks to pool blocks through the
+    tables passed to paged_write_kv_and_attend."""
+    shape = (num_blocks, config.num_kv_heads, block_size, config.head_dim_)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(config.num_layers)]

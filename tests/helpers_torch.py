@@ -67,3 +67,62 @@ def key_sets(doc):
     if isinstance(doc, list):
         return [key_sets(v) for v in doc]
     return 'leaf'
+
+
+def conservation_errors(eng):
+    """The paged pool's block-conservation law, checked from outside the
+    allocator: every block's refcount equals its holders -- the table
+    entries of the slots' allocated prefixes, plus one for a radix node
+    holding it, plus one for the dump block 0 -- the free list is exactly
+    the blocks with no holder, idle slots hold nothing, and the host
+    tier's byte ledger balances.  Returns error strings (empty = ok)."""
+    refs = eng._block_refs
+    want = np.zeros_like(refs)
+    want[0] = 1
+    errors = []
+    for slot in range(eng.cfg.num_slots):
+        n = int(eng._slot_nblocks[slot])
+        if n and eng._slots[slot] is None:
+            errors.append(f'idle slot {slot} holds {n} blocks')
+        for b in eng._tables_np[slot, :n]:
+            want[int(b)] += 1
+    if eng._radix is not None:
+        for node in eng._radix.walk():
+            want[node.block] += 1
+    for b in np.nonzero(refs != want)[0]:
+        errors.append(f'block {b}: refcount {refs[b]} != holders {want[b]}')
+    free = list(eng._free_blocks)
+    if len(set(free)) != len(free) or \
+            sorted(free) != np.nonzero(want == 0)[0].tolist():
+        errors.append(f'free list {sorted(free)} != unheld blocks')
+    if eng._host_tier is not None:
+        errors.extend(eng._host_tier.audit())
+    return errors
+
+
+class WindowAudit:
+    """Checks conservation_errors after every decode window the engine
+    runs (offline or on the serving thread) while in the with-block;
+    violations are collected, not raised, so the serving loop's
+    containment cannot swallow them.  .windows counts the checks."""
+
+    def __init__(self, eng):
+        self.eng, self.errors, self.windows = eng, [], 0
+
+    def __enter__(self):
+        step = self.eng._step
+
+        def audited():
+            try:
+                step()
+            finally:
+                self.windows += 1
+                self.errors.extend(conservation_errors(self.eng))
+
+        self.eng._step = audited
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._step          # back to the class's method
+        self.errors.extend(conservation_errors(self.eng))
+        return False

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from skypilot_tpu_torch.infer import server
-from skypilot_tpu_torch.infer.engine import InferConfig, InferenceEngine
+from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
+                                             Request)
 from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.ops import flash_attention as fa
 
@@ -196,3 +197,106 @@ def test_server_on_the_card_streams_what_it_returns(card):
     assert [t for e in events[:-1] for t in e['tokens']] == \
         done['output_tokens'] == plain['output_tokens']
     assert len(plain['output_tokens']) == 16 and len(events) > 2
+
+
+# ------------------------------------------------------ the paged pool
+
+def _depth2_engine(dtype, **options):
+    cfg = dataclasses.replace(get_model_config('llama-1b'), num_layers=2,
+                              dtype=dtype)
+    # One draw of the weights (load_state_dict casts them to the model's
+    # dtype), so every engine of these tests serves the same model.
+    eng = InferenceEngine(cfg, InferConfig(
+        num_slots=4, max_cache_len=256, prefill_buckets=(64, 128, 256),
+        decode_steps=4, max_new_tokens=16, cache_dtype=dtype, **options),
+        params=_depth2_engine.params,
+        generator=torch.Generator('cuda').manual_seed(0))
+    if _depth2_engine.params is None:
+        _depth2_engine.params = eng.model.state_dict()
+    return eng
+
+
+_depth2_engine.params = None
+
+
+def _teacher_forced_gap(model, results) -> float:
+    """Max |logprob| gap between each generated token's reported logprob
+    and the no-cache forward over prompt + output."""
+    gap = 0.0
+    for r in results:
+        seq = torch.tensor([r.prompt_tokens + r.output_tokens[:-1]],
+                           device='cuda')
+        with torch.inference_mode():
+            lp = torch.log_softmax(model(seq)[0].float(), dim=-1)
+        n = len(r.prompt_tokens)
+        rows = torch.arange(n - 1, n - 1 + len(r.output_tokens),
+                            device='cuda')
+        ref = lp[rows, torch.tensor(r.output_tokens, device='cuda')].cpu()
+        gap = max(gap, (ref - torch.tensor(r.logprobs)).abs().max().item())
+    return gap
+
+
+def test_paged_matches_dense_on_the_card(card):
+    """llama-1b at depth 2, f32, on the card: the paged engine (16-token
+    blocks, radix cache on, two waves) against the dense engine and the
+    no-cache forward -- teacher-forced gap <= 2e-3 nats (the serve
+    phase's f32 bound: summation order only), and up to any first
+    differing greedy token the two engines' logprobs agree as closely."""
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, 32000, 40).tolist()
+    prompts = [system + rng.integers(0, 32000, int(n)).tolist()
+               for n in rng.integers(5, 80, 6)]
+    dense = _depth2_engine(torch.float32)
+    paged = _depth2_engine(torch.float32, kv_block_size=16,
+                           auto_prefix_cache=True)
+    for _ in range(2):
+        reqs = [Request(tokens=p, max_new_tokens=16) for p in prompts]
+        want, got = dense.generate(reqs), paged.generate(reqs)
+        assert _teacher_forced_gap(paged.model, got) <= 2e-3
+        for a, b in zip(want, got):
+            assert b.finish_reason == a.finish_reason == 'length'
+            k = next((i for i, (x, y) in enumerate(
+                zip(a.output_tokens, b.output_tokens)) if x != y),
+                len(a.output_tokens))
+            np.testing.assert_allclose(b.logprobs[:k], a.logprobs[:k],
+                                       atol=2e-3)
+    assert paged.radix_stats['hits'] >= 6
+
+
+def test_spill_recycle_restore_on_a_real_stream(card):
+    """The host tier on the card, bf16: the hot prefix's blocks spill
+    (copies queued into pinned memory on the serving stream) and are
+    recycled by the very next prefill; the restore brings back the rows
+    bit for bit, and the hot request's greedy tokens equal those of an
+    engine whose pool never evicted them."""
+    hot = [(5 * j) % 997 + 1 for j in range(48)]          # 3 blocks
+
+    def churn(i):
+        return Request(tokens=[(7 * j + 11 * i) % 997 + 1
+                               for j in range(50)], max_new_tokens=4)
+
+    roomy = _depth2_engine(torch.bfloat16, kv_block_size=16,
+                           auto_prefix_cache=True)
+    tier = _depth2_engine(torch.bfloat16, kv_block_size=16, kv_blocks=25,
+                          auto_prefix_cache=True, host_kv_bytes=64 << 20)
+    for eng in (roomy, tier):
+        eng.generate([Request(tokens=hot + [50], max_new_tokens=4)])
+    blocks = tier._radix.peek(None, hot, len(hot))
+    before = [torch.stack([kp[b] for kp, _ in tier.cache]).clone()
+              for b in blocks]
+    for i in range(20):
+        if not tier._radix.peek(None, hot, len(hot)):
+            break
+        for eng in (roomy, tier):
+            eng.generate([churn(i)])
+    assert tier._host_tier.stats['spills'] >= 3
+    assert any(not torch.equal(a, torch.stack([kp[b] for kp, _ in
+                                                tier.cache]))
+               for a, b in zip(before, blocks))      # recycled, rewritten
+    probe = [Request(tokens=hot + [60, 61], max_new_tokens=8)]
+    got, want = tier.generate(probe)[0], roomy.generate(probe)[0]
+    assert tier._host_tier.stats['restores'] == 3
+    restored = tier._radix.peek(None, hot, len(hot))
+    for a, b in zip(before, restored):
+        assert torch.equal(a, torch.stack([kp[b] for kp, _ in tier.cache]))
+    assert got.output_tokens == want.output_tokens

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch import jax_engine, make_params, port_engine
 from skypilot_tpu.infer import InferConfig as JaxInferConfig
 from skypilot_tpu.infer import InferenceEngine as JaxEngine
 from skypilot_tpu.infer import Request as JaxRequest
@@ -178,15 +179,42 @@ def test_buckets_cover_the_cache(params):
 
 
 @pytest.mark.parametrize('field,value', [
-    ('kv_block_size', 8), ('auto_prefix_cache', True),
-    ('host_kv_bytes', 1 << 20), ('prefill_chunk', 16), ('draft_len', 2),
-    ('lora_rank', 4), ('qos', True), ('kv_blocks', 64),
+    ('prefill_chunk', 16), ('draft_len', 2),
+    ('lora_rank', 4), ('qos', True),
     ('max_prefixes', 4), ('qos_tenant_weights', {'a': 2.0}),
     ('cache_dtype', torch.float8_e4m3fn),
 ])
 def test_unported_features_raise(params, field, value):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         _port_engine(params, **{field: value})
+
+
+@pytest.mark.parametrize('field,value', [
+    ('prefill_chunk', 16), ('draft_len', 2), ('max_prefixes', 4),
+    ('cache_dtype', torch.float8_e4m3fn),
+])
+def test_unported_features_raise_on_the_paged_engine(params, field, value):
+    """The block-paged engine (with the radix cache) refuses the features
+    outside its slice as the dense one does: registered prefixes,
+    chunked prefill and the fp8 cache (A6b), speculation (A6c)."""
+    with pytest.raises(NotImplementedError, match='ROADMAP.md A6'):
+        _port_engine(params, kv_block_size=16, auto_prefix_cache=True,
+                     **{field: value})
+
+
+def test_out_of_range_token_id_served_as_the_jax_engine_does():
+    """ROADMAP C1: a prompt id of V maps as the JAX model's gather maps it
+    (clamped to V - 1), so the request is served -- 'length' and three
+    tokens, the reference's -- instead of failing its prefill batch."""
+    p = make_params()
+    [ref] = jax_engine(p).generate([JaxRequest(tokens=[101, 3],
+                                               max_new_tokens=3)])
+    [out] = port_engine(p).generate([port.Request(tokens=[101, 3],
+                                                  max_new_tokens=3)])
+    assert ref.finish_reason == out.finish_reason == 'length'
+    assert out.output_tokens == ref.output_tokens
+    assert len(out.output_tokens) == 3
+    np.testing.assert_allclose(out.logprobs, ref.logprobs, atol=1e-5)
 
 
 def test_prompt_logprobs_raise(params, prompts):

@@ -13,7 +13,8 @@ import time
 import pytest
 import torch
 
-from helpers_torch import jax_engine, key_sets, make_params, port_engine
+from helpers_torch import (WindowAudit, conservation_errors, jax_engine,
+                           key_sets, make_params, port_engine)
 from skypilot_tpu.infer import FaultPlan as JaxFaultPlan
 from skypilot_tpu.infer import FaultSpec as JaxFaultSpec
 from skypilot_tpu.infer import Request as JaxRequest
@@ -625,3 +626,115 @@ def test_inference_mode_on_the_serving_thread(dense):
     finally:
         del dense._decode
     assert seen and all(seen)
+
+
+# ------------------------------------------- out-of-range ids (ROADMAP C1)
+
+def test_out_of_range_ids_do_not_fail_their_prefill_batch(dense,
+                                                          jax_dense):
+    """A valid request co-batched (one prefill dispatch) with an id of V
+    and one of -V-1 (V = 101): all three are served with the JAX
+    engine's tokens and finish reasons, the valid one 'length'."""
+    prompts = [[1, 2, 3], [101, 5, 6], [-102, 8, 9]]
+    ref = jax_dense.generate([JaxRequest(request_id=str(i), tokens=p,
+                                         max_new_tokens=6)
+                              for i, p in enumerate(prompts)])
+    before = dense.fault_stats['internal_errors']
+    results = _serve(dense, [Request(request_id=str(i), tokens=p,
+                                     max_new_tokens=6)
+                             for i, p in enumerate(prompts)])
+    for r in ref:
+        assert results[r.request_id].output_tokens == r.output_tokens
+        assert results[r.request_id].finish_reason == r.finish_reason
+    assert results['0'].finish_reason == 'length'
+    assert dense.fault_stats['internal_errors'] == before
+
+
+# ---------------------------------------- the paged pool with the tree
+
+@pytest.fixture(scope='module')
+def paged(params):
+    """A paged engine with the radix cache and the host tier on a pool of
+    20 blocks (radix eviction, so spills, under the traffic below)."""
+    return port_engine(params, kv_block_size=8, kv_blocks=20,
+                       auto_prefix_cache=True, host_kv_bytes=1 << 20)
+
+
+def _long_reqs(n, max_new=8):
+    """_prompts behind a shared 16-token head (two full blocks), so the
+    tree has prefixes to match."""
+    head = [(7 * j) % 97 + 1 for j in range(16)]
+    return [Request(request_id=str(i), tokens=head + p,
+                    max_new_tokens=max_new)
+            for i, p in enumerate(_prompts(n))]
+
+
+@pytest.fixture(scope='module')
+def jax_long_tokens(jax_dense):
+    res = jax_dense.generate([JaxRequest(request_id=r.request_id,
+                                         tokens=r.tokens, max_new_tokens=8)
+                              for r in _long_reqs(6)])
+    return {r.request_id: r.output_tokens for r in res}
+
+
+def test_paged_prefill_fault_fails_batch_then_serves(paged,
+                                                     jax_long_tokens):
+    """A prefill fault on the paged engine fails its batch; the loop and
+    the pool survive, the next burst (radix hits included) gives the JAX
+    engine's tokens, and the conservation law holds after every window
+    and after the fault."""
+    with WindowAudit(paged) as audit:
+        paged.arm_faults(FaultPlan(seed=3, specs=[
+            FaultSpec(site='prefill', hits=(1,))]))
+        try:
+            first = _serve(paged, _long_reqs(6))
+        finally:
+            paged.disarm_faults()
+        errs = [r for r in first.values() if r.finish_reason == 'error']
+        assert errs and all(r.error_class == 'internal' for r in errs)
+        assert conservation_errors(paged) == []
+        hits = paged.radix_stats['hits']
+        again = _serve(paged, _long_reqs(6))
+    assert {k: r.output_tokens for k, r in again.items()} == jax_long_tokens
+    assert paged.radix_stats['hits'] > hits
+    assert audit.windows > 0 and audit.errors == []
+
+
+@pytest.mark.parametrize('slot', [1, None], ids=['attributed',
+                                                 'unattributed'])
+def test_paged_decode_fault_contained_then_serves(paged, jax_long_tokens,
+                                                  slot):
+    """A decode fault on the paged engine: attributed, only the injured
+    request fails; unattributed, the active batch fails, the pool is
+    zeroed in place, the allocator reset and the tree dropped while the
+    host tier stays.  Either way the next requests give the JAX engine's
+    tokens, and no block leaks."""
+    with WindowAudit(paged) as audit:
+        _serve(paged, _long_reqs(6))             # the tree holds prefixes
+        tier_entries = paged._host_tier.entries
+        gen = paged._radix.generation
+        quarantined = paged.fault_stats['quarantined_batches']
+        pool = [k for k, _ in paged.cache]
+        paged.arm_faults(FaultPlan(seed=2, specs=[
+            FaultSpec(site='decode_step', hits=(2,), slot=slot)]))
+        try:
+            hit = _serve(paged, _long_reqs(6))
+        finally:
+            paged.disarm_faults()
+        errs = [r for r in hit.values() if r.finish_reason == 'error']
+        if slot is not None:
+            assert len(errs) == 1
+            for rid, res in hit.items():
+                if res.finish_reason != 'error':
+                    assert res.output_tokens == jax_long_tokens[rid]
+        else:
+            assert errs and all(r.error_class == 'internal' for r in errs)
+            assert paged.fault_stats['quarantined_batches'] == \
+                quarantined + 1
+            assert paged._radix.generation == gen + 1    # tree dropped
+            assert all(a is b for a, (b, _) in zip(pool, paged.cache))
+            assert paged._host_tier.entries >= tier_entries
+        assert conservation_errors(paged) == []
+        again = _serve(paged, _long_reqs(6))
+    assert {k: r.output_tokens for k, r in again.items()} == jax_long_tokens
+    assert audit.errors == []

@@ -44,7 +44,9 @@ def test_importing_every_module_loads_no_jax():
     assert 'skypilot_tpu_torch.train.trainer' in modules
     assert {'skypilot_tpu_torch.infer.server',
             'skypilot_tpu_torch.infer.scheduler',
-            'skypilot_tpu_torch.infer.faults'} <= set(modules)
+            'skypilot_tpu_torch.infer.faults',
+            'skypilot_tpu_torch.infer.radix',
+            'skypilot_tpu_torch.infer.block_pool'} <= set(modules)
     code = (
         'import importlib, json, sys\n'
         f'for m in {modules!r}:\n'
@@ -100,7 +102,15 @@ def test_entry_points_need_a_card():
         InferenceEngine(get_model_config('llama-debug'),
                         InferConfig(max_cache_len=64))
     with pytest.raises(RuntimeError, match='no CUDA device'):
+        InferenceEngine(get_model_config('llama-debug'),
+                        InferConfig(max_cache_len=64, kv_block_size=16,
+                                    auto_prefix_cache=True,
+                                    host_kv_bytes=1 << 20))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
         server.run(model='llama-debug', max_cache_len=64)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        server.run(model='llama-debug', max_cache_len=64,
+                   kv_block_size=16, auto_prefix_cache=True)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Trainer(TrainConfig(model='llama-debug'))
     with pytest.raises(RuntimeError, match='no CUDA device'):

@@ -90,6 +90,20 @@ def test_logits_match_flax(case):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=TOL_F32)
 
 
+def test_out_of_range_token_ids_map_as_the_flax_gather():
+    """ROADMAP C1: ids outside [0, V) -- V, V + 7, -1, -V, -V - 1 -- give
+    the flax model's logits (its jitted gather wraps a negative id once
+    and clamps), instead of raising."""
+    jcfg, tcfg = _configs('llama-debug', {})
+    v = jcfg.vocab_size
+    tokens = np.array([[v, v + 7, -1, 5, -v, -v - 1, 0, v - 1]])
+    params = _jax_params(jcfg, np.zeros((1, 8), np.int64))
+    ref = _jax_forward(jcfg, params, tokens)
+    with torch.no_grad():
+        out = _port(tcfg, params)(torch.from_numpy(tokens))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=TOL_F32)
+
+
 @pytest.mark.parametrize('name', ['llama-debug', 'gemma-debug'])
 def test_hidden_only_matches_flax(name):
     jcfg, tcfg = _configs(name, {})
@@ -190,10 +204,6 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         llama.Llama(dataclasses.replace(base, weight_dtype='int8'),
                     device='cpu')
-    model = llama.Llama(base, device='cpu')
-    with pytest.raises(NotImplementedError, match='paged'):
-        model(torch.zeros(1, 4, dtype=torch.long),
-              paged_tables=torch.zeros(1, 1, dtype=torch.long))
     with pytest.raises(NotImplementedError, match='not yet ported'):
         registry.get_model_config('mixtral-debug')
     with pytest.raises(ValueError, match='Unknown model'):

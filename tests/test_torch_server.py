@@ -334,7 +334,7 @@ def test_unported_options_fail_at_startup(params):
     for kw, item in [({'hf_model': 'x'}, 'A8'),
                      ({'tensor_parallel': 2}, 'A9'),
                      ({'weight_dtype': 'int8'}, 'A8'),
-                     ({'kv_block_size': 16}, 'A6'),
+                     ({'prefill_chunk': 16}, 'A6'),
                      ({'qos': True}, 'A6'),
                      ({'cache_dtype': 'fp8'}, 'A6')]:
         with pytest.raises(NotImplementedError, match=item):
