@@ -5,16 +5,21 @@
     python3 chip_smoke.py --planted-faults # the bounds' planted-fault check
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the port's
-main paths -- the llama-1b no-cache forward (tokens [1, 1024]), offline
-serving through the dense-cache engine, the HTTP server (16 concurrent
-requests through /generate, its SSE stream and /v1/completions, again
-with decode lookahead and the adaptive window on, then a drain), the
-block-paged KV pool (against the dense engine, the radix prefix cache on
-and off, a tight pool with the host tier, the hot-prefix handoff between
-two servers), and training of llama-1b at batch 8 x 2048 through the
-Trainer -- at full width with random weights from a seed, and checks
-what comes out.  Every phase prints one JSON line; any failed check raises, so the script exits non-zero and the
+each against its plain PyTorch version on the card and times all three
+at bench_torch.py's headline shape (seq 8192), drives the port's main
+paths -- bench_torch.py whole (llama-800m training at seq 8192 and 2048,
+in a subprocess), the llama-1b no-cache forward (tokens [1, 1024]),
+offline serving through the dense-cache engine, the HTTP server (16
+concurrent requests through /generate, its SSE stream and
+/v1/completions, again with decode lookahead and the adaptive window on,
+then a drain), the block-paged KV pool (against the dense engine, the
+radix prefix cache on and off, a tight pool with the host tier, the
+hot-prefix handoff between two servers), chunked prefill (prompts past
+the largest bucket offline, and long prompts arriving while streams
+decode, chunking off and on), prompt scoring (against the no-cache
+forward, and the lm-eval loglikelihood pattern over HTTP), and training
+of llama-1b at batch 8 x 2048 through the Trainer -- at full width with
+random weights from a seed, and checks what comes out.  Every phase prints one JSON line; any failed check raises, so the script exits non-zero and the
 closing line is never printed.  The last two lines are the kernels line
 and {"ok": true, "device": {...}}.
 
@@ -33,9 +38,12 @@ JAX or of the JAX package.
 import base64
 import ctypes
 import dataclasses
+import gc
 import itertools
 import json
 import math
+import pathlib
+import queue
 import shutil
 import socket
 import subprocess
@@ -401,6 +409,177 @@ def phase_kernel_bwd() -> dict:
     return timing
 
 
+# The headline shape of bench_torch.py: llama-800m at seq 8192, batch 6.
+# The whole batch at once would need about 25 GB of f32 scores per plain
+# version; batch rows are independent in the kernels and in the plain
+# versions, so agreement is held one row at a time (about 4.3 GB a score
+# tensor, a few at once).
+HEADLINE_CASE = ('llama-800m-8192', 6, 16, 8, 8192, 128, torch.bfloat16,
+                 True, None)
+
+
+def timed_call(fn) -> tuple:
+    """(fn()'s result, the CUDA-event time in ms of a second call)."""
+    out = fn()
+    return out, cuda_ms(fn, iters=1, warmup=0)
+
+
+def headline_errors(args, out, lse, grads) -> tuple:
+    """The kernels' full-batch outputs (O, LSE; dQ, dK, dV) against the
+    plain versions on the same inputs, one batch row at a time, within
+    the KERNEL_CASES bounds (fa.attention_fwd_bound and BOUND_LSE,
+    fa.attention_bwd_bound).  Returns (the worst errors of each kernel,
+    the plain versions' times in ms summed over the rows)."""
+    q, k, v, do, full_lse, delta, causal, scale, window = args
+    fwd, bwd = {}, {}
+    plain = {'fwd': 0.0, 'dq': 0.0, 'dkv': 0.0}
+    for i in range(q.shape[0]):
+        qi, ki, vi, doi = (t[i:i + 1] for t in (q, k, v, do))
+        row = (qi, ki, vi, doi, full_lse[i:i + 1], delta[i:i + 1], causal,
+               scale, window)
+        ref, ms = timed_call(lambda: fa.attention_fwd_reference(
+            qi, ki, vi, causal, scale, window))
+        plain['fwd'] += ms
+        diff = (out[i:i + 1].float() - ref[0].float()).abs()
+        bound = fa.attention_fwd_bound(qi, ki, vi, causal, scale, window,
+                                       ref[0])
+        for key, val in (('max_abs_err', diff.max().item()),
+                         ('max_err_over_bound', (diff / bound).max().item()),
+                         ('max_abs_err_lse',
+                          (lse[i:i + 1] - ref[1]).abs().max().item())):
+            fwd[key] = float(np.maximum(fwd.get(key, 0.0), val))  # NaN wins
+        del ref, diff, bound
+        dq, ms = timed_call(lambda: fa.attention_bwd_dq_reference(*row))
+        plain['dq'] += ms
+        dkv, ms = timed_call(lambda: fa.attention_bwd_dkv_reference(*row))
+        plain['dkv'] += ms
+        ref = (dq, *dkv)
+        errs = bwd_errors([g[i:i + 1] for g in grads], ref,
+                          fa.attention_bwd_bound(*row, ref))
+        for name, e in errs.items():
+            for key, val in e.items():
+                bwd.setdefault(name, {})[key] = float(np.maximum(
+                    bwd.get(name, {}).get(key, 0.0), val))
+        del dq, dkv, ref
+        torch.cuda.empty_cache()
+    return {'fwd': fwd, **bwd}, plain
+
+
+def phase_kernel_headline() -> dict:
+    """All three kernels at the headline shape: the full batch launched
+    at once, held against the plain versions row by row
+    (headline_errors), and timed each in turns with
+    scaled_dot_product_attention (forward: kernel, library, library,
+    kernel; backward: dQ, dK/dV, library, library, dK/dV, dQ), with
+    their bounds."""
+    name, b, hq, hkv, s, d, dtype, causal, window = HEADLINE_CASE
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
+                               device='cuda').to(dtype)
+                   for h in (hq, hkv, hkv, hq))
+    scale = d ** -0.5
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, window)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, causal, scale, window)
+        grads = run_bwd(args)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (out, lse, *grads)),
+              'non-finite kernel output at the headline shape')
+        errs, plain = headline_errors(args, out, lse, grads)
+        del grads
+        (fwd_ms, fwd_lib_ms), fwd_turns = in_turns((
+            lambda: fa.flash_attention_fwd(*args[:3], causal, scale, window),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)))
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ref = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, is_causal=causal, enable_gqa=True)
+    ms, turns = in_turns((
+        lambda: fa.flash_attention_bwd_dq(*args),
+        lambda: fa.flash_attention_bwd_dkv(*args),
+        lambda: torch.autograd.grad(ref, (qr, kr, vr), do,
+                                    retain_graph=True)))
+    del ref, qr, kr, vr
+    shape = (b, hq, hkv, s, d, dtype, causal, window)
+    pairs = visible_pairs(s, causal, window)
+    timing = {}
+    for key, t_ms, lib_ms, bound_args, max_abs in (
+            ('fwd', fwd_ms, fwd_lib_ms, (4, 2, 2, 1),
+             errs['fwd']['max_abs_err']),
+            ('dq', ms[0], ms[2], (6, 3, 2, 2), errs['dq']['max_abs_err']),
+            ('dkv', ms[1], ms[2], (8, 2, 4, 2),
+             max(errs['dk']['max_abs_err'], errs['dv']['max_abs_err']))):
+        bound_ms, bound_by = attention_bound(*shape, *bound_args)
+        timing[key] = {'ms': t_ms, 'library_ms': lib_ms,
+                       'plain_ms': plain[key], 'max_abs_err': max_abs,
+                       'bound_ms': bound_ms, 'bound_by': bound_by,
+                       'tflop_per_s': (bound_args[0] * b * hq * d * pairs
+                                       / (t_ms * 1e9)),
+                       'share_of_bound': bound_ms / t_ms}
+    emit({'phase': 'kernel_headline', 'case': name,
+          'shape': [b, hq, hkv, s, d], 'dtype': str(dtype),
+          'causal': causal, 'errors_row_by_row': errs,
+          'bound_lse': BOUND_LSE,
+          'plain_ms_summed_over_rows': plain,
+          'fwd_turns_kernel_library_library_kernel': fwd_turns,
+          'bwd_turns_dq_dkv_library_library_dkv_dq': turns, **timing})
+    del q, k, v, do, out, lse, delta, args
+    torch.cuda.empty_cache()
+    failures = [key for key, e in errs.items()
+                if not e['max_err_over_bound'] <= 1.0]
+    if not errs['fwd']['max_abs_err_lse'] <= BOUND_LSE:
+        failures.append('lse')
+    check(not failures, f'kernels disagree with their plain versions at '
+          f'the headline shape: {failures}')
+    return timing
+
+
+# bench_torch.py's points: (detail key, batch); each runs 1 + 3 x 10 steps,
+# and every step launches the forward kernel twice per layer (full remat)
+# and each backward kernel once.
+BENCH_POINTS = (('seq8192', 6), ('seq2048', 24))
+BENCH_STEPS = 1 + 3 * 10
+
+
+def phase_bench(card: str) -> tuple:
+    """bench_torch.py whole, in a subprocess (the script as a user runs
+    it): its JSON line must carry finite losses, positive throughput, an
+    MFU under 1.05 and the launch counts of every step.  Returns the
+    kernels' launches summed over both points."""
+    torch.cuda.empty_cache()
+    script = pathlib.Path(__file__).resolve().parent / 'bench_torch.py'
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=900, cwd=script.parent)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f'bench_torch.py exited {proc.returncode}: {proc.stderr[-2000:]}')
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    layers = 16       # llama-800m
+    want = [2 * layers * BENCH_STEPS, layers * BENCH_STEPS,
+            layers * BENCH_STEPS]
+    launches = [0, 0, 0]
+    for key, batch in BENCH_POINTS:
+        pt = line['detail'][key]
+        check(pt['batch_per_chip'] == batch and
+              math.isfinite(pt['final_loss']) and
+              pt['raw_tokens_per_sec_per_chip'] > 0 and
+              pt['mfu'] is not None and 0 < pt['mfu'] < 1.05,
+              f'bench point {key}: {pt}')
+        check(pt['flash_launches_fwd_dq_dkv'] == want,
+              f'bench point {key} launched {pt["flash_launches_fwd_dq_dkv"]}'
+              f', expected {want}')
+        launches = [a + x for a, x in zip(launches,
+                                          pt['flash_launches_fwd_dq_dkv'])]
+    check(line['detail']['platform'] == 'gpu' and line['value'] > 0,
+          f'bench line: {line}')
+    emit({'phase': 'bench', 'device': card, 'wall_s': wall,
+          'result': line})
+    return tuple(launches)
+
+
 def launch_counts() -> tuple:
     return (fa.flash_fwd_launches, fa.flash_bwd_dq_launches,
             fa.flash_bwd_dkv_launches)
@@ -410,6 +589,17 @@ def reset_launch_counts() -> None:
     fa.flash_fwd_launches = 0
     fa.flash_bwd_dq_launches = 0
     fa.flash_bwd_dkv_launches = 0
+
+
+def counted(fn, tally: list):
+    """fn() with the kernels' launch counts set to 0 just before it and
+    read just after, added into tally [fwd, dq, dkv]; returns fn()'s
+    result.  Keeps a path's launches apart from its checks' forwards."""
+    reset_launch_counts()
+    out = fn()
+    for i, n in enumerate(launch_counts()):
+        tally[i] += n
+    return out
 
 
 def profile_device(fn, top: int = 8) -> dict:
@@ -970,14 +1160,14 @@ def conservation_errors(eng) -> list:
     """The pool's block-conservation law, from outside the allocator:
     each block's refcount equals its holders (slot table entries, a
     radix node, 1 for the dump block 0), the free list is exactly the
-    unheld blocks, idle slots hold none, the host tier's ledger
-    balances."""
+    unheld blocks, idle slots (neither active nor chunking) hold none,
+    the host tier's ledger balances."""
     want = np.zeros_like(eng._block_refs)
     want[0] = 1
     errors = []
     for slot in range(eng.cfg.num_slots):
         n = int(eng._slot_nblocks[slot])
-        if n and eng._slots[slot] is None:
+        if n and eng._slots[slot] is None and slot not in eng._chunking:
             errors.append(f'idle slot {slot} holds {n} blocks')
         np.add.at(want, eng._tables_np[slot, :n], 1)
     if eng._radix is not None:
@@ -1262,6 +1452,282 @@ def phase_paged(model, env: dict) -> None:
           'max_memory_allocated_gib': peak_gib})
 
 
+# Chunked prefill at llama-1b full width: 256-row chunks, buckets up to
+# 1024, prompts of 1100-2000 tokens (past the largest bucket).
+CHUNK_ROWS = 256
+CHUNK_BUCKETS = (64, 128, 256, 512, 1024)
+CHUNK_NEW_TOKENS = 32
+# Serving: 8 streams decode STREAM_NEW_TOKENS each while 4 long prompts
+# arrive; 12 slots hold all of them.
+STREAM_NEW_TOKENS = 160
+
+
+def chunk_engine(model, chunk: int, **options) -> InferenceEngine:
+    return InferenceEngine(
+        model.config, InferConfig(model='llama-1b', num_slots=12,
+                                  max_cache_len=2048,
+                                  prefill_buckets=CHUNK_BUCKETS,
+                                  decode_steps=8,
+                                  max_new_tokens=CHUNK_NEW_TOKENS,
+                                  prefill_chunk=chunk, **options),
+        params=model.state_dict(), device=model.embedding.device,
+        generator=torch.Generator(
+            device=model.embedding.device).manual_seed(1))
+
+
+def long_prompts(vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(1100, 2001))).tolist()
+            for _ in range(4)]
+
+
+def stream_stall(engine, shorts: list, longs: list) -> tuple:
+    """Serve `shorts` as streams, then, once each has had four deliveries,
+    let `longs` arrive 20 ms apart.  Returns (results by id, report): the
+    worst gap between two deliveries of any stream from the first
+    arrival until the last long prompt's first token, the streams'
+    median gap before it, and the long prompts' TTFT."""
+    q, results, stop = queue.Queue(), {}, threading.Event()
+    times = [[] for _ in shorts]
+    loop = threading.Thread(target=engine.generate_stream,
+                            args=(q, lambda r: results.__setitem__(
+                                r.request_id, r), stop), daemon=True)
+    loop.start()
+    for i, p in enumerate(shorts):
+        q.put(Request(tokens=p, max_new_tokens=STREAM_NEW_TOKENS,
+                      request_id=f's{i}', arrival_time=time.time(),
+                      stream_cb=lambda toks, t=times[i]: t.append(
+                          time.perf_counter())))
+
+    def wait(cond, what):
+        t0 = time.perf_counter()
+        while not cond():
+            check(time.perf_counter() - t0 < 300, f'waited 300 s for {what}')
+            time.sleep(0.001)
+
+    wait(lambda: all(len(t) >= 4 for t in times),
+         'the streams\' first windows')
+    arrivals = []
+    for j, p in enumerate(longs):
+        arrivals.append(time.perf_counter())
+        q.put(Request(tokens=p, request_id=f'l{j}',
+                      arrival_time=time.time()))
+        time.sleep(0.02)
+    wait(lambda: len(results) == len(shorts) + len(longs), 'every result')
+    stop.set()
+    loop.join(timeout=60)
+    check(not loop.is_alive(), 'the serving loop did not stop')
+    t_arrive = arrivals[0]
+    t_first = max(a + results[f'l{j}'].ttft_s
+                  for j, a in enumerate(arrivals))
+    worst = before = 0.0
+    steady = []
+    for t in times:
+        check(t[-1] > t_first, 'a stream ended before the long prompts '
+              'had their first tokens')
+        for a, b in zip(t, t[1:]):
+            if b < t_arrive:
+                steady.append(b - a)
+            elif a < t_first:
+                worst = max(worst, b - max(a, t_arrive))
+    ttft = [results[f'l{j}'].ttft_s for j in range(len(longs))]
+    return results, {'worst_gap_ms': 1e3 * worst,
+                     'steady_gap_ms_p50': 1e3 * float(np.median(steady)),
+                     'long_ttft_s_p50': float(np.median(ttft)),
+                     'long_ttft_s': ttft}
+
+
+def phase_chunked(model, env: dict) -> None:
+    """Chunked prefill at llama-1b full width and depth, bf16, dense and
+    paged (16-token blocks): (a) offline, four prompts of 1100-2000
+    tokens past the largest bucket chunk 256 rows a round; (b) serving,
+    8 streams decode while the four arrive, chunking off and on in turns
+    (dense: off, on, on, off; paged: on, off): the streams' worst
+    inter-token gap and the long prompts' TTFT.  Checks: every request's tokens against the no-cache
+    forward over its prompt + output (teacher-forced, 0.25 nats, the
+    serve phase's bf16 bound) and, paged, the conservation law after
+    every window."""
+    vocab = model.config.vocab_size
+    longs = long_prompts(vocab, seed=5)
+    rng = np.random.default_rng(6)
+    shorts = [rng.integers(0, vocab, int(rng.integers(100, 201))).tolist()
+              for _ in range(8)]
+    launches = [0, 0, 0]
+    report = {}
+    for layout, options, order in (
+            ('dense', {}, ('off', 'on', 'on', 'off')),
+            ('paged', {'kv_block_size': PAGED_BLOCK}, ('on', 'off'))):
+        eng = chunk_engine(model, CHUNK_ROWS, **options)
+        audit = audited_windows(eng) if eng._paged else [0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = counted(lambda: eng.generate([
+            Request(tokens=p, request_id=str(i))
+            for i, p in enumerate(longs)]), launches)
+        wall = time.perf_counter() - t0
+        for r in res:
+            check(r.finish_reason == 'length' and
+                  len(r.output_tokens) == CHUNK_NEW_TOKENS,
+                  f'{layout} long request {r.request_id}: '
+                  f'{r.finish_reason} ({r.error})')
+        check(eng.chunk_stats['requests'] == len(longs),
+              f'{layout}: chunk_stats {eng.chunk_stats}')
+        tf_err = teacher_forced_err(eng.model, res)
+        check(tf_err <= 0.25,
+              f'{layout} chunked: teacher-forced logprobs differ by {tf_err}')
+        check(len(audit) == 1, f'{layout} conservation: {audit[1:6]}')
+        offline = {'wall_s': wall, 'chunk_stats': dict(eng.chunk_stats),
+                   'teacher_forced_max_abs_err': tf_err,
+                   'windows_audited': audit[0]}
+        del eng, audit
+        gc.collect()
+        torch.cuda.empty_cache()
+        engines = {'off': chunk_engine(model, 0, **options),
+                   'on': chunk_engine(model, CHUNK_ROWS, **options)}
+        audits = {k: audited_windows(e) if e._paged else [0]
+                  for k, e in engines.items()}
+        turns = []
+        for turn in order:
+            results, rep = counted(lambda: stream_stall(
+                engines[turn], shorts, longs), launches)
+            for r in results.values():
+                check(r.finish_reason == 'length', f'{layout} {turn} '
+                      f'{r.request_id}: {r.finish_reason} ({r.error})')
+            tf_err = teacher_forced_err(
+                model, [results[f'l{j}'] for j in range(len(longs))])
+            check(tf_err <= 0.25, f'{layout} serving {turn}: '
+                  f'teacher-forced logprobs differ by {tf_err}')
+            turns.append({'chunking': turn, **rep,
+                          'teacher_forced_max_abs_err': tf_err})
+        for k, log in audits.items():
+            check(len(log) == 1, f'{layout} {k} conservation: {log[1:6]}')
+        report[layout] = {
+            'offline': offline, 'serving_turns': turns,
+            'chunk_stats_on': dict(engines['on'].chunk_stats),
+            'windows_audited': {k: log[0] for k, log in audits.items()}}
+        del engines, audits
+        gc.collect()          # the audits' closures hold their engines
+        torch.cuda.empty_cache()
+    emit({'phase': 'chunked', 'model': 'llama-1b', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'],
+          'config': {'num_slots': 12, 'max_cache_len': 2048,
+                     'prefill_chunk': CHUNK_ROWS,
+                     'prefill_buckets': list(CHUNK_BUCKETS),
+                     'decode_steps': 8, 'dtype': 'bfloat16',
+                     'kv_block_size_paged': PAGED_BLOCK},
+          'long_prompt_lens': [len(p) for p in longs],
+          'stream_prompt_lens': [len(p) for p in shorts],
+          # The engine runs alone (not the teacher-forced checks'
+          # forwards): chunks attend through decode_attention, as in the
+          # JAX engine, so no flash launch is expected on this path.
+          'flash_launches': launches, **report})
+
+
+def score_errors(model, results) -> float:
+    """Max |prompt logprob - log-softmax of the no-cache forward| over
+    every scored position (entry 0 has none)."""
+    dev = model.embedding.device
+    err = 0.0
+    for r in results:
+        seq = torch.tensor([r.prompt_tokens], device=dev)
+        with torch.inference_mode():
+            lp = torch.log_softmax(model(seq)[0].float(), dim=-1)
+        rows = torch.arange(len(r.prompt_tokens) - 1, device=dev)
+        ref = lp[rows, seq[0, 1:]].cpu()
+        err = max(err, (ref - torch.tensor(r.prompt_logprobs[1:])
+                        ).abs().max().item())
+    return err
+
+
+def phase_prompt_logprobs(model, env: dict) -> None:
+    """Prompt scoring at llama-1b full width, bf16: (a) the engine's
+    prompt logprobs, dense and paged, against the log-softmax of the
+    no-cache forward on the same tokens (0.25 nats, the serve phase's
+    bf16 bound); (b) the lm-eval-harness loglikelihood pattern over HTTP
+    (/v1/completions with echo, logprobs 1, max_tokens 0) against a port
+    server: each continuation's summed score against the same forward
+    (0.25 nats a token); is_greedy is recorded beside the forward's
+    argmax (bf16 near-ties may flip it, so it is not a check)."""
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in (37, 300, 1000)]
+    launches = [0, 0, 0]
+    report = {}
+    for layout, options in (('dense', {}),
+                            ('paged', {'kv_block_size': PAGED_BLOCK,
+                                       'auto_prefix_cache': True})):
+        eng = chunk_engine(model, 0, **options)
+        res = counted(lambda: eng.generate([
+            Request(tokens=p, max_new_tokens=4, want_prompt_logprobs=True)
+            for p in prompts]), launches)
+        for r in res:
+            check(r.finish_reason == 'length' and
+                  len(r.prompt_logprobs) == len(r.prompt_tokens) and
+                  r.prompt_logprobs[0] is None,
+                  f'{layout} scored request: {r.finish_reason} ({r.error})')
+        err = score_errors(eng.model, res)
+        check(err <= 0.25, f'{layout} prompt logprobs differ by {err}')
+        report[layout] = {'max_abs_err': err,
+                          'radix_lookups': eng.radix_stats['lookups']}
+        if eng._radix is not None:
+            check(eng.radix_stats['lookups'] == 0,
+                  'a scored request looked up the radix tree')
+        del eng
+        torch.cuda.empty_cache()
+    eng = chunk_engine(model, 0)
+    port_, thread, warm_s, _ = start_server(eng)
+    context = rng.integers(0, vocab, 200).tolist()
+    code, _, doc = counted(lambda: http(
+        port_, 'POST', '/generate',
+        {'tokens': context, 'max_new_tokens': 6}), launches)
+    check(code == 200, f'/generate answered {code}: {doc}')
+    greedy = doc['output_tokens']
+    conts = [greedy, rng.integers(0, vocab, 6).tolist(),
+             rng.integers(0, vocab, 20).tolist()]
+    rows = []
+    for cont in conts:
+        code, _, doc = counted(lambda: http(
+            port_, 'POST', '/v1/completions', {
+                'prompt': context + cont, 'max_tokens': 0, 'echo': True,
+                'logprobs': 1, 'temperature': 0}), launches)
+        check(code == 200, f'/v1/completions echo answered {code}: {doc}')
+        lp = doc['choices'][0]['logprobs']
+        check(len(lp['token_logprobs']) == len(context) + len(cont) and
+              lp['token_logprobs'][0] is None and
+              doc['usage']['completion_tokens'] == 0,
+              f'echo reply shape: {doc["usage"]}')
+        got = sum(lp['token_logprobs'][-len(cont):])
+        got_greedy = all(
+            abs(max(t.values()) - x) < 1e-6 for t, x in zip(
+                lp['top_logprobs'][-len(cont):],
+                lp['token_logprobs'][-len(cont):]))
+        seq = torch.tensor([context + cont], device=eng.device)
+        with torch.inference_mode():
+            ref_lp = torch.log_softmax(eng.model(seq)[0].float(), dim=-1)
+        pos = torch.arange(len(context) - 1, len(context) + len(cont) - 1,
+                           device=eng.device)
+        tok = torch.tensor(cont, device=eng.device)
+        want = ref_lp[pos, tok].sum().item()
+        want_greedy = bool((ref_lp[pos].argmax(-1) == tok).all())
+        check(abs(got - want) <= 0.25 * len(cont),
+              f'loglikelihood {got} vs the forward\'s {want}')
+        rows.append({'continuation_len': len(cont), 'sum': got,
+                     'forward_sum': want, 'is_greedy': got_greedy,
+                     'forward_is_greedy': want_greedy})
+    http(port_, 'POST', '/drain', {'deadline_s': 60})
+    thread.join(timeout=120)
+    check(not thread.is_alive(), 'the scoring server did not drain')
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({'phase': 'prompt_logprobs', 'model': 'llama-1b',
+          'device': env['device'], 'prompt_lens': [len(p) for p in prompts],
+          'engine': report, 'bound_nats': 0.25, 'server_warmup_s': warm_s,
+          'lm_eval_pattern': rows,
+          # The engine and server alone, as in the chunked phase.
+          'flash_launches': launches})
+
+
 # Step-1 loss of the random init: ln V plus about sigma^2 / 2, where the
 # tied logits' std is sigma ~ sqrt(2048) * 0.02 ~ 0.9 (a unit-RMS hidden
 # state against N(0, 0.02^2) embedding rows): ~0.4 nats above ln 32000.
@@ -1469,6 +1935,15 @@ def phase_planted_faults() -> None:
     check(not missed, f'planted faults within the bound: {missed}')
 
 
+def timed(fn, *args):
+    """fn(*args), its wall seconds on stderr (the run's time budget)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f'[{fn.__name__}] {time.perf_counter() - t0:.1f} s',
+          file=sys.stderr, flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is visible', file=sys.stderr)
@@ -1482,34 +1957,44 @@ def main() -> int:
         print(json.dumps({'planted_faults': 'all caught',
                           'device': env['device']}), flush=True)
         return 0
-    main_kernel, train_kernel = phase_kernel()
-    bwd = phase_kernel_bwd()
+    main_kernel, train_kernel = timed(phase_kernel)
+    bwd = timed(phase_kernel_bwd)
+    headline = timed(phase_kernel_headline)
     if '--kernels' in sys.argv[1:]:
         print(json.dumps({'kernels_only': 'all within their bounds',
                           'device': env['device']}), flush=True)
         return 0
-    model, forward_launches = phase_forward()
-    phase_serve(model, env['device'])
-    phase_server(model, env)
-    phase_paged(model, env)
+    bench_fwd, bench_dq, bench_dkv = timed(phase_bench, env['device'])
+    model, forward_launches = timed(phase_forward)
+    timed(phase_serve, model, env['device'])
+    timed(phase_server, model, env)
+    timed(phase_paged, model, env)
+    timed(phase_chunked, model, env)
+    timed(phase_prompt_logprobs, model, env)
     del model
+    gc.collect()    # engines held in reference cycles (window audits)
     torch.cuda.empty_cache()
-    train_fwd, train_dq, train_dkv = phase_train(env['device'])
+    train_fwd, train_dq, train_dkv = timed(phase_train, env['device'])
     csrc = 'skypilot_tpu_torch/ops/csrc/'
     tpu = 'skypilot_tpu/ops/flash_attention.py:'
     print(json.dumps({'kernels': [
         dict(name='flash_attention_fwd', route='cuda',
              source=csrc + 'flash_attention_fwd.cu', replaces=tpu + '146',
-             launches=forward_launches + train_fwd,
+             launches=forward_launches + train_fwd + bench_fwd,
              launches_by_path={'forward': forward_launches,
-                               'train': train_fwd},
-             **main_kernel, train_shape=train_kernel),
+                               'train': train_fwd, 'bench': bench_fwd},
+             **main_kernel, train_shape=train_kernel,
+             headline_shape=headline['fwd']),
         dict(name='flash_attention_bwd_dq', route='cuda',
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
-             launches=train_dq, **bwd['dq']),
+             launches=train_dq + bench_dq,
+             launches_by_path={'train': train_dq, 'bench': bench_dq},
+             **bwd['dq'], headline_shape=headline['dq']),
         dict(name='flash_attention_bwd_dkv', route='cuda',
              source=csrc + 'flash_attention_bwd_dkv.cu',
-             replaces=tpu + '227', launches=train_dkv, **bwd['dkv']),
+             replaces=tpu + '227', launches=train_dkv + bench_dkv,
+             launches_by_path={'train': train_dkv, 'bench': bench_dkv},
+             **bwd['dkv'], headline_shape=headline['dkv']),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

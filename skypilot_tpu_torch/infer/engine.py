@@ -21,7 +21,16 @@ block-paged KV pool -- the PyTorch twin of ``skypilot_tpu/infer/engine.py``.
   prompts are right-padded to a bucket length and prefilled
   ``prefill_lanes`` at a time; pad lanes duplicate the last real lane and
   target its slot (rewriting the same rows with the same values).  The
-  first token is sampled at ``true_len - 1``.
+  first token is sampled at ``true_len - 1``.  A request with
+  ``want_prompt_logprobs`` also gets every prompt position's log-prob
+  and top-k from the same logits (``RequestResult.prompt_logprobs``,
+  entry 0 ``None``); such requests bypass the radix tree.
+- **Chunked prefill** (``prefill_chunk`` = C > 0, ``_chunk_round``): a
+  prompt longer than the largest bucket, or (serving) one longer than C
+  while other streams decode, is written C rows per serving gap in one
+  full-slot-width dispatch over the live cache; its slot activates on
+  the final chunk.  An active stream then stalls at most one chunk per
+  window instead of a whole prefill.
 - **Windowed decode** (``_decode``): ``decode_steps`` steps for every
   slot per window, with greedy or temperature sampling on the device,
   the chosen token's logprob and the top-``logprob_topk`` logprobs.  The
@@ -44,12 +53,12 @@ block-paged KV pool -- the PyTorch twin of ``skypilot_tpu/infer/engine.py``.
 
 Prefill attends through ``write_kv_and_attend``/``decode_attention`` (or
 their paged twins) like the JAX engine, not through the flash kernel.
-Not ported yet (ROADMAP.md): registered prefixes, chunked prefill, prompt
-logprobs and the fp8 cache (A6b); speculative decoding, QoS and
-multi-LoRA serving (A6c).
+Not ported yet (ROADMAP.md): registered prefixes and the fp8 cache (A6b);
+speculative decoding, QoS and multi-LoRA serving (A6c).
 """
 import base64
 import dataclasses
+import math
 import queue
 import threading
 import time
@@ -128,7 +137,6 @@ class InferConfig:
 # InferConfig features outside this slice: field -> ROADMAP.md item.
 _UNPORTED = {
     'max_prefixes': 'A6b (registered prefixes)',
-    'prefill_chunk': 'A6b (chunked prefill)',
     'draft_len': 'A6c (speculative decoding)',
     'lora_rank': 'A6c (multi-LoRA serving)',
     'qos': 'A6c (QoS scheduling)',
@@ -189,21 +197,27 @@ def _pairs(ids_row, lps_row) -> List[Tuple[int, float]]:
     return [(int(i), float(l)) for i, l in zip(ids_row, lps_row)]
 
 
+def _unpack_scores(buf: np.ndarray, topk: int):
+    """Host inverse of ``_pack_scores``: one transferred f32 block
+    [..., 1+2k] -> (logprobs f32, top-k ids i32, top-k lps f32).  The id
+    columns were bitcast on the device; a same-itemsize view restores
+    them (the transfer is a byte copy)."""
+    tids = np.ascontiguousarray(buf[..., 1:1 + topk]).view(np.int32)
+    return buf[..., 0], tids, buf[..., 1 + topk:]
+
+
 def _unpack_head(buf: np.ndarray, topk: int):
     """Host inverse of ``_pack_head``: one transferred f32 block
     [..., 2+2k] -> (tokens i32, logprobs f32, top-k ids i32, top-k lps
-    f32).  The id columns were bitcast on the device; a same-itemsize
-    view restores them (the transfer is a byte copy)."""
+    f32)."""
     toks = np.ascontiguousarray(buf[..., 0]).view(np.int32)
-    lps = buf[..., 1]
-    tids = np.ascontiguousarray(buf[..., 2:2 + topk]).view(np.int32)
-    tlps = buf[..., 2 + topk:]
-    return toks, lps, tids, tlps
+    return (toks, *_unpack_scores(buf[..., 1:], topk))
 
 
 class _Slot:
     __slots__ = ('request', 'length', 'generated', 'submit_time',
-                 'first_token_time', 'max_new', 'streamed', 'lps', 'tops')
+                 'first_token_time', 'max_new', 'streamed', 'lps', 'tops',
+                 'prompt_lps', 'prompt_tops')
 
     def __init__(self, request: Request, length: int, submit_time: float,
                  max_new: int):
@@ -216,6 +230,28 @@ class _Slot:
         self.streamed = 0                  # tokens already stream_cb'd
         self.lps: List[float] = []         # logprob per generated token
         self.tops: List[List[Tuple[int, float]]] = []
+        # want_prompt_logprobs: per prompt position, entry 0 None.
+        self.prompt_lps: Optional[list] = None
+        self.prompt_tops: Optional[list] = None
+
+
+class _ChunkJob:
+    """A prompt mid-chunked-prefill.  Owns its slot (excluded from
+    _free_slot) but has no _Slot yet: rows [0, done) of the slot hold its
+    prompt KV, and the host length mirror tracks `done`, so interleaved
+    decode's dead-row writes for this lane land at the frontier, past the
+    prompt rows already written.  The slot activates (becomes a _Slot,
+    first token sampled) on the final chunk."""
+    __slots__ = ('req', 'slot', 'submit_time', 'n', 'max_new', 'done')
+
+    def __init__(self, req: Request, slot: int, submit_time: float,
+                 n: int, max_new: int):
+        self.req = req
+        self.slot = slot
+        self.submit_time = submit_time
+        self.n = n                         # total prompt tokens
+        self.max_new = max_new
+        self.done = 0                      # prompt rows already written
 
 
 class InferenceEngine:
@@ -268,6 +304,16 @@ class InferenceEngine:
         if cfg.prefill_lanes < 1:
             raise ValueError(f'prefill_lanes must be >= 1 '
                              f'(got {cfg.prefill_lanes})')
+        if cfg.prefill_chunk < 0:
+            raise ValueError(f'prefill_chunk must be >= 0 '
+                             f'(got {cfg.prefill_chunk})')
+        if cfg.prefill_chunk and cfg.max_cache_len % cfg.prefill_chunk:
+            # Chunk writes are C rows wide and start at multiples of C:
+            # divisibility keeps start + C <= max_cache_len, so a write is
+            # never clamped back onto the slot's own live prompt rows.
+            raise ValueError(
+                f'max_cache_len ({cfg.max_cache_len}) must be a multiple '
+                f'of prefill_chunk ({cfg.prefill_chunk})')
         if not 1 <= cfg.logprob_topk <= model_config.vocab_size:
             raise ValueError(
                 f'logprob_topk must be in [1, vocab_size='
@@ -283,6 +329,10 @@ class InferenceEngine:
             raise ValueError(
                 f'max_cache_len ({cfg.max_cache_len}) must be a multiple '
                 f'of kv_block_size ({cfg.kv_block_size})')
+        if self._paged and cfg.prefill_chunk % cfg.kv_block_size:
+            raise ValueError(
+                f'prefill_chunk ({cfg.prefill_chunk}) must be a multiple '
+                f'of kv_block_size ({cfg.kv_block_size})')
         if cfg.auto_prefix_cache and not self._paged:
             raise ValueError(
                 'auto_prefix_cache requires the block-paged KV cache '
@@ -293,8 +343,10 @@ class InferenceEngine:
                              f'(got {cfg.host_kv_bytes})')
         buckets = tuple(b for b in cfg.prefill_buckets
                         if b <= cfg.max_cache_len)
-        if not buckets or buckets[-1] < cfg.max_cache_len:
-            # Any prompt the cache can hold has a bucket.
+        if not buckets or (buckets[-1] < cfg.max_cache_len
+                           and not cfg.prefill_chunk):
+            # Any prompt the cache can hold has a bucket; with chunked
+            # prefill, prompts past the largest bucket chunk instead.
             buckets += (cfg.max_cache_len,)
         cfg.prefill_buckets = buckets
         if self._paged:
@@ -371,13 +423,16 @@ class InferenceEngine:
         # delivered by _harvest like every other finish.
         self._pending_failures: List[Tuple[Request, RequestResult]] = []
         # What /stats reads of the features this engine does not have
-        # yet (speculation A6c; registered prefixes, chunked prefill A6b
-        # in ROADMAP.md): the JAX engine's counters, always empty here.
+        # yet (speculation A6c; registered prefixes A6b in ROADMAP.md):
+        # the JAX engine's counters, always empty here.
         self.spec_stats = {'dispatches': 0, 'drafted': 0, 'accepted': 0}
         self.prefix_stats = {'hits': 0, 'tokens_reused': 0}
-        self.chunk_stats = {'rounds': 0, 'chunks': 0, 'requests': 0}
         self._prefixes: Dict[Tuple[int, ...], Any] = {}
-        self._chunking: Dict[int, Any] = {}
+        # Chunked prefill: slot -> _ChunkJob for prompts whose KV rows are
+        # written one prefill_chunk per serving gap (_chunk_round).  A
+        # chunking slot is reserved (not free) but has no _Slot yet.
+        self._chunking: Dict[int, _ChunkJob] = {}
+        self.chunk_stats = {'rounds': 0, 'chunks': 0, 'requests': 0}
         # Admission order (strict FIFO; the QoS scheduler is A6c), shed
         # and per-tenant admission counters.
         self._sched = FifoScheduler()
@@ -471,21 +526,50 @@ class InferenceEngine:
         sampled = (logits / temps.clamp_min(1e-4)[:, None] + gumbel).argmax(-1)
         chosen = torch.where(temps > 0, sampled, greedy)
         lp = logits.gather(-1, chosen[:, None])[:, 0] - logz
-        top_vals, top_ids = torch.topk(logits, self.cfg.logprob_topk, dim=-1)
         return chosen, torch.cat([
             chosen.to(torch.int32).view(torch.float32)[:, None],
-            lp[:, None],
-            top_ids.to(torch.int32).view(torch.float32),
-            top_vals - logz[:, None]], dim=-1)
+            self._pack_scores(logits, logz, lp)], dim=-1)
+
+    def _pack_scores(self, logits: torch.Tensor, logz: torch.Tensor,
+                     lp: torch.Tensor) -> torch.Tensor:
+        """The packed scores of logits [..., V] (logz their logsumexp,
+        lp the chosen tokens' logprobs [...]): one f32 block
+        [..., 1 + 2k] of the logprob, the top-k ids bitcast to f32 and
+        their logprobs -- the tail of ``_pack_head``'s block and all of
+        ``_pack_prompt``'s, as ``_unpack_head`` reads them."""
+        top_vals, top_ids = torch.topk(logits, self.cfg.logprob_topk, dim=-1)
+        return torch.cat([lp[..., None],
+                          top_ids.to(torch.int32).view(torch.float32),
+                          top_vals - logz[..., None]], dim=-1)
+
+    def _pack_prompt(self, logits: torch.Tensor,
+                     tokens: torch.Tensor) -> torch.Tensor:
+        """Prompt scoring from a prefill's logits [P, S, V] over its
+        tokens [P, S]: position t-1 predicts token t.  Returns one f32
+        block [P, S-1, 1+2k] packing the token's logprob, the top-k ids
+        (bitcast) and their logprobs.  A token id outside [-V, V) scores
+        NaN, as the JAX engine's gather fills it (the model itself reads
+        such an id clamped)."""
+        head = logits[:, :-1]
+        vocab = head.shape[-1]
+        logz = torch.logsumexp(head, dim=-1)
+        ids = tokens[:, 1:]
+        ids = torch.where(ids < 0, ids + vocab, ids)
+        valid = (ids >= 0) & (ids < vocab)
+        sel = head.gather(-1, ids.clamp(0, vocab - 1)[..., None])[..., 0]
+        lp = torch.where(valid, sel - logz, torch.full_like(sel, math.nan))
+        return self._pack_scores(head, logz, lp)
 
     @torch.inference_mode()
     def _prefill_insert(self, tokens: torch.Tensor, true_lens: torch.Tensor,
-                        slots: torch.Tensor,
-                        temps: torch.Tensor) -> torch.Tensor:
+                        slots: torch.Tensor, temps: torch.Tensor,
+                        want_plp: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """P prompts forward over a fresh [P, Hkv, bucket, D] cache, first
         token sampled at true_lens-1, each prompt's KV rows copied into
         its slot.  tokens [P, bucket]; true_lens/slots/temps [P].
-        Returns the packed head [P, 2+2k]."""
+        Returns the packed head [P, 2+2k] and, with want_plp, the packed
+        prompt scores [P, bucket-1, 1+2k] (else None)."""
         p, bucket = tokens.shape
         pcache = init_cache(self.model_config, p, bucket,
                             self.cfg.cache_dtype, self.device)
@@ -496,7 +580,8 @@ class InferenceEngine:
         for (k, v), (pk, pv) in zip(self.cache, pcache):
             k[slots, :, :bucket] = pk
             v[slots, :, :bucket] = pv
-        return head
+        return head, (self._pack_prompt(logits, tokens) if want_plp
+                      else None)
 
     def _pkw(self, tables: Optional[torch.Tensor]) -> Dict[str, Any]:
         """The model's paged-attention arguments (none when dense)."""
@@ -507,24 +592,35 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _paged_prefill(self, tokens: torch.Tensor, starts: torch.Tensor,
-                       true_pos: torch.Tensor, tables: torch.Tensor,
-                       temps: torch.Tensor) -> torch.Tensor:
-        """The paged prefill dispatch: tokens [P, W] forward at positions
-        starts + arange(W) straight over the block pool through the
-        per-lane tables [P, NB], the first token sampled at true_pos
-        (the last real token's index within the window).  Serves the
-        monolithic bucket prefill (starts 0) and the radix suffix
-        prefill over shared prefix blocks (starts = matched length, per
-        lane).  Writes past a lane's allocated blocks land in the dump
-        block, past every query position.  Returns the packed head
-        [P, 2+2k]."""
+                       true_pos: torch.Tensor,
+                       tables: Optional[torch.Tensor],
+                       temps: torch.Tensor, want_plp: bool = False
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """A prefill dispatch straight over the live cache: tokens [P, W]
+        forward at positions starts + arange(W), through the per-lane
+        tables [P, NB] into the block pool (None: the dense cache, lane
+        i being slot i), the first token sampled at true_pos (the last
+        real token's index within the window).  Serves the paged
+        monolithic bucket prefill (starts 0), the radix suffix prefill
+        over shared prefix blocks (starts = matched length, per lane)
+        and chunk rounds in both layouts (full slot width: a chunking
+        lane starts at its frontier, an active lane at its length --
+        dead rows past its live ones, as windowed decode writes -- an
+        idle lane at 0).  Paged, writes past a lane's allocated blocks
+        land in the dump block, past every query position; dense, the
+        caller guarantees start + W <= max_cache_len for every lane
+        (config divisibility and _chunk_round's guard), so no write is
+        clamped onto live rows.  Returns the packed head [P, 2+2k] and,
+        with want_plp (monolithic lanes only), the packed prompt scores
+        (else None)."""
         p, w = tokens.shape
         positions = starts[:, None] + torch.arange(w, device=self.device)
         logits, _ = self.model(tokens, positions, self.cache,
                                **self._pkw(tables))
         last = logits[torch.arange(p, device=self.device), true_pos]
         _, head = self._pack_head(last, temps)
-        return head
+        return head, (self._pack_prompt(logits, tokens) if want_plp
+                      else None)
 
     @torch.inference_mode()
     def _paged_restore_blocks(self, dsts: torch.Tensor, krows: torch.Tensor,
@@ -805,6 +901,9 @@ class InferenceEngine:
                 out += max(0, self._blocks_demand(
                     len(s.request.tokens), s.max_new)
                     - int(self._slot_nblocks[i]))
+        for slot, job in self._chunking.items():
+            out += max(0, self._blocks_demand(job.n, job.max_new)
+                       - int(self._slot_nblocks[slot]))
         return out
 
     def _can_admit_blocks(self, demand: int, extra: int = 0) -> bool:
@@ -1173,25 +1272,27 @@ class InferenceEngine:
 
     def _free_slot(self, exclude=()) -> Optional[int]:
         for i, s in enumerate(self._slots):
-            if s is None and i not in exclude:
+            if s is None and i not in exclude and i not in self._chunking:
                 return i
         return None
 
     def has_free_slot(self) -> bool:
         """Lock-free saturation peek for the server's admission control
-        (a stale answer shifts one admission decision by one loop gap)."""
-        return any(s is None for s in self._slots)
+        (a stale answer shifts one admission decision by one loop gap).
+        A slot mid-chunked-prefill is taken, not free."""
+        return any(s is None and i not in self._chunking
+                   for i, s in enumerate(self._slots))
 
     def _max_new(self, req: Request) -> int:
         return self.cfg.max_new_tokens if req.max_new_tokens is None \
             else req.max_new_tokens
 
-    def _validate_request(self, req: Request) -> Tuple[int, int, int]:
+    def _validate_request(self,
+                          req: Request) -> Tuple[int, Optional[int], int]:
         """Returns (prompt_len, bucket, max_new); raises ValueError on a
-        bad request and NotImplementedError on a feature not ported."""
-        if req.want_prompt_logprobs:
-            raise NotImplementedError(
-                'prompt logprobs are not ported yet (ROADMAP.md A6b)')
+        bad request.  bucket is None when no bucket holds the prompt but
+        chunked prefill can: such prompts are accepted up to
+        max_cache_len - max_new and always chunk."""
         n = len(req.tokens)
         max_new = self._max_new(req)
         if n < 1:
@@ -1211,7 +1312,19 @@ class InferenceEngine:
             raise ValueError(
                 f'unknown priority {req.priority!r}; expected one of '
                 f'{list(PRIORITY_CLASSES)}')
-        bucket = self._bucket(n)
+        try:
+            bucket: Optional[int] = self._bucket(n)
+        except ValueError:
+            if not self.cfg.prefill_chunk:
+                raise
+            if req.want_prompt_logprobs:
+                # Scoring needs every prompt position's logits in one
+                # forward; chunks discard all but the final one's.
+                raise ValueError(
+                    f'prompt_logprobs requires the prompt ({n}) to fit '
+                    f'the largest prefill bucket '
+                    f'({self.cfg.prefill_buckets[-1]})') from None
+            bucket = None
         if n + max_new > self.cfg.max_cache_len:
             raise ValueError(
                 f'prompt ({n}) + max_new_tokens ({max_new}) exceeds cache '
@@ -1226,18 +1339,42 @@ class InferenceEngine:
                     'prompt + max_new_tokens)')
         return n, bucket, max_new
 
+    def _should_chunk(self, req: Request, n: int,
+                      bucket: Optional[int]) -> bool:
+        """Chunked-prefill policy.  A prompt no bucket holds must chunk.
+        An in-bucket prompt chunks only in the serving loop, only when
+        longer than one chunk, and only when someone would stall behind
+        its monolithic prefill (an active slot or another chunk job):
+        offline throughput and a prompt arriving to an idle engine want
+        the one-dispatch prefill.  Scored prompts never chunk."""
+        c = self.cfg.prefill_chunk
+        if not c or req.want_prompt_logprobs:
+            return False
+        if bucket is None:
+            return True
+        return (self._serving and n > c and
+                (any(s is not None for s in self._slots) or
+                 bool(self._chunking)))
+
     def _suffix_bucket(self, start: int, suffix_len: int) -> Optional[int]:
         for b in self.cfg.prefill_buckets:
             if b >= suffix_len and start + b <= self.cfg.max_cache_len:
                 return b
         return None
 
-    def _activate(self, chunk, head: torch.Tensor) -> None:
+    def _activate(self, chunk, head: torch.Tensor,
+                  prompt: Optional[torch.Tensor] = None) -> None:
         """Fill the slots of one prefill dispatch's real lanes from its
         packed head (ONE transfer): chunk holds the lanes' (req, slot,
-        submit_time, n, bucket, max_new) tuples."""
+        submit_time, n, bucket, max_new) tuples.  prompt: the packed
+        prompt scores of a want_plp dispatch, given to the lanes that
+        asked for them."""
+        topk = self.cfg.logprob_topk
         first, first_lp, tids, tlps = _unpack_head(
-            self._host_array(self._to_host(head)), self.cfg.logprob_topk)
+            self._host_array(self._to_host(head)), topk)
+        if prompt is not None:
+            plp, ptids, ptlps = _unpack_scores(
+                self._host_array(self._to_host(prompt)), topk)
         now = time.time()
         for i, (req, slot, submit_time, n, _, max_new) in enumerate(chunk):
             s = _Slot(req, length=n, submit_time=submit_time,
@@ -1246,6 +1383,10 @@ class InferenceEngine:
             s.generated.append(int(first[i]))
             s.lps.append(float(first_lp[i]))
             s.tops.append(_pairs(tids[i], tlps[i]))
+            if req.want_prompt_logprobs:
+                s.prompt_lps = [None] + [float(x) for x in plp[i, :n - 1]]
+                s.prompt_tops = [None] + [_pairs(ptids[i, t], ptlps[i, t])
+                                          for t in range(n - 1)]
             self._slots[slot] = s
             self._lengths[slot] = n
             self._last_tokens[slot] = s.generated[0]
@@ -1294,7 +1435,7 @@ class InferenceEngine:
             # The table covers every lane's start + suffix bucket (pad
             # lanes duplicate a real lane, so the max is a real one).
             nb = self._nb_bucket(-(-(int(starts.max()) + sb) // bs_))
-            head = self._paged_prefill(
+            head, _ = self._paged_prefill(
                 self._to_device(tokens), self._to_device(starts),
                 self._to_device(true_pos), self._lane_tables(slots, nb),
                 self._to_device(temps))
@@ -1312,6 +1453,11 @@ class InferenceEngine:
         bs_ = self.cfg.kv_block_size
         for it in items:
             req, _, _, n, _, _ = it
+            if req.want_prompt_logprobs:
+                # Scoring needs every prompt position's logits, which
+                # reused rows do not have: a full prefill, no lookup.
+                rest.append(it)
+                continue
             self.radix_stats['lookups'] += 1
             blocks = self._radix.match(req.adapter, req.tokens, n - 1)
             if self._host_tier is not None:
@@ -1338,6 +1484,9 @@ class InferenceEngine:
         the radix cache, matched prompts first prefill only their
         suffix (_start_radix).
 
+        With chunked prefill, the prompts _should_chunk picks reserve
+        their slot as a _ChunkJob instead; _chunk_round writes them.
+
         Bumps the prefill epoch first: an in-flight lookahead window's
         chain is never extended across a slot recycle, and its snapshot
         keeps a recycled slot from consuming the old occupant's column.
@@ -1348,6 +1497,23 @@ class InferenceEngine:
         self._prefill_epoch += 1
         if self._radix is not None and items:
             items = self._start_radix(items)
+        if self.cfg.prefill_chunk:
+            rest = []
+            for it in items:
+                req, slot, submit_time, n, bucket, max_new = it
+                if not self._should_chunk(req, n, bucket):
+                    rest.append(it)
+                    continue
+                # Reserve the slot without activating it: decode windows
+                # in between write dead rows at the frontier (the length
+                # mirror), which later chunks overwrite before any query
+                # position reaches them.
+                self._chunking[slot] = _ChunkJob(req, slot, submit_time,
+                                                 n, max_new)
+                self._lengths[slot] = 0
+                self._temps[slot] = 0.0
+                self.chunk_stats['requests'] += 1
+            items = rest
         lanes = self.cfg.prefill_lanes
         by_bucket: Dict[int, list] = {}
         for it in items:
@@ -1370,21 +1536,110 @@ class InferenceEngine:
                     raise RuntimeError(
                         f'pad lanes must duplicate the last real lane: '
                         f'{slots=} p={p}')
+                # Prompt scoring is a full [P, S, V] pass: only when a
+                # request of the dispatch asked for it.
+                want_plp = any(it[0].want_prompt_logprobs for it in chunk)
                 if self._paged:
                     for req, slot, _, n, _, _ in chunk:   # real lanes
                         self._ensure_blocks(slot, n)
-                    head = self._paged_prefill(
+                    head, prompt = self._paged_prefill(
                         self._to_device(tokens),
                         self._to_device(np.zeros((lanes,), np.int64)),
                         self._to_device(true_lens - 1),
                         self._lane_tables(slots, self._nb_bucket(
                             bucket // self.cfg.kv_block_size)),
-                        self._to_device(temps))
+                        self._to_device(temps), want_plp)
                 else:
-                    head = self._prefill_insert(
+                    head, prompt = self._prefill_insert(
                         self._to_device(tokens), self._to_device(true_lens),
-                        self._to_device(slots), self._to_device(temps))
-                self._activate(chunk, head)
+                        self._to_device(slots), self._to_device(temps),
+                        want_plp)
+                self._activate(chunk, head, prompt)
+
+    def _chunk_round(self) -> bool:
+        """Advance every in-progress chunked prefill by one chunk in a
+        single full-width dispatch; activate the slots whose final chunk
+        landed.  Returns True when a dispatch happened (the serving
+        loop's `moved`).  Called between decode windows, so an active
+        slot's worst inter-token stall is one chunk forward instead of a
+        whole prefill.
+
+        Two skip guards keep the cache writes sound:
+
+        - an active slot within C of the cache end would have the
+          dispatch's C-row frontier write clamped back onto its live
+          rows (dense) or past its table; such a slot finishes within C
+          tokens (harvested at length + 1 >= M), so skipping this gap
+          cannot deadlock: decode keeps running in between.
+        - an in-flight lookahead window's dead-row writes would land
+          after a chunk dispatched now and garble the chunk's rows at
+          the frontier: wait for the next decode step to consume it
+          (lookahead is off while chunking, so at most one window of
+          delay).  With no active slot left to consume it, drop it,
+          as _decode_step would."""
+        if not self._chunking:
+            return False
+        self._fault_raise('chunk_round')
+        c = self.cfg.prefill_chunk
+        m = self.cfg.max_cache_len
+        if self._ahead is not None:
+            if any(s is not None for s in self._slots):
+                return False
+            self._ahead = None
+        if any(s is not None and s.length + c > m for s in self._slots):
+            return False
+        # An in-flight chain is never extended across these writes (and a
+        # final chunk is a slot recycle, like any prefill).
+        self._prefill_epoch += 1
+        b = self.cfg.num_slots
+        tokens = np.zeros((b, c), np.int64)
+        starts = self._lengths.copy()
+        true_pos = np.zeros((b,), np.int64)
+        temps = np.zeros((b,), np.float32)
+        finals = []
+        for slot, job in self._chunking.items():
+            real = min(c, job.n - job.done)
+            tokens[slot, :real] = job.req.tokens[job.done:job.done + real]
+            starts[slot] = job.done
+            true_pos[slot] = real - 1
+            if self._paged:
+                self._ensure_blocks(slot, job.done + real)
+            if job.done + real >= job.n:
+                temps[slot] = job.req.temperature
+                finals.append((slot, job))
+            job.done += real
+            # The mirror tracks the frontier: interleaved decode's dead
+            # rows for this lane land past the prompt rows written.
+            self._lengths[slot] = job.done
+            self.chunk_stats['chunks'] += 1
+        self.chunk_stats['rounds'] += 1
+        tables = None
+        if self._paged:
+            # The table covers every lane's frontier + C (active lanes
+            # write dead rows there): a position past its width would
+            # clamp into a live block.
+            tables = self._lane_tables(range(b), self._nb_bucket(
+                -(-(int(starts.max()) + c) // self.cfg.kv_block_size)))
+        head, _ = self._paged_prefill(
+            self._to_device(tokens), self._to_device(starts),
+            self._to_device(true_pos), tables, self._to_device(temps))
+        if self._radix is not None:
+            # Block-boundary inserts, after the dispatch (a raised chunk
+            # fault never indexes unwritten rows): every full block of
+            # prompt rows the pool now holds is matchable at once.
+            # Finals are still in _chunking; their insert at finish is
+            # an idempotent touch on top.
+            for slot, job in self._chunking.items():
+                self._radix_adopt(slot, job.req.tokens, job.done,
+                                  job.req.adapter)
+        if finals:
+            for slot, _ in finals:
+                del self._chunking[slot]
+            lanes = self._to_device(np.asarray([slot for slot, _ in finals]))
+            self._activate([(job.req, slot, job.submit_time, job.n, None,
+                             job.max_new) for slot, job in finals],
+                           head[lanes])
+        return True
 
     def _radix_adopt(self, slot: int, tokens: Sequence[int], rows: int,
                      adapter: Optional[str]) -> None:
@@ -1437,16 +1692,21 @@ class InferenceEngine:
             error=error,
             error_class=error_class,
             logprobs=list(s.lps),
-            top_logprobs=list(s.tops))
+            top_logprobs=list(s.tops),
+            prompt_logprobs=(list(s.prompt_lps)
+                             if s.prompt_lps is not None else None),
+            prompt_top_logprobs=(list(s.prompt_tops)
+                                 if s.prompt_tops is not None else None))
         req = s.request
         self._slots[i] = None
         self._lengths[i] = 0
         self._temps[i] = 0.0
         if self._paged:
-            if self._radix is not None and reason != 'error':
+            if (self._radix is not None and reason != 'error' and
+                    not req.want_prompt_logprobs):
                 # The slot's full prompt blocks join the tree before the
                 # table is torn down ('error' finishes may have left rows
-                # unwritten).
+                # unwritten; a scored request bypasses the tree).
                 self._radix_adopt(i, req.tokens, len(req.tokens),
                                   req.adapter)
             self._free_slot_blocks(i)
@@ -1463,6 +1723,31 @@ class InferenceEngine:
         self.fault_stats['internal_errors'] += 1
         return self._finish_slot(i, 'error', error=error,
                                  error_class='internal')
+
+    def _fail_chunk_job(self, slot: int, reason: str,
+                        error: Optional[str] = None
+                        ) -> Tuple[Request, RequestResult]:
+        """End a part-prefilled chunk job (reason 'error' or 'deadline'):
+        release the reserved slot and every block its chunks wrote."""
+        job = self._chunking.pop(slot)
+        self._lengths[slot] = 0
+        self._temps[slot] = 0.0
+        if self._paged:
+            self._free_slot_blocks(slot)
+        if error is not None:
+            self.fault_stats['internal_errors'] += 1
+        if job.req.request_id is not None:
+            self._cancelled.pop(job.req.request_id, None)
+        now = time.time()
+        return job.req, RequestResult(
+            request_id=job.req.request_id,
+            prompt_tokens=list(job.req.tokens),
+            output_tokens=[],
+            ttft_s=now - job.submit_time,
+            latency_s=now - job.submit_time,
+            finish_reason=reason,
+            error=error,
+            error_class='internal' if error is not None else None)
 
     def _shed_request(self, req: Request, elapsed: float, reason: str,
                       result_cb) -> None:
@@ -1500,11 +1785,12 @@ class InferenceEngine:
             for i in slots_hint:
                 if 0 <= i < self.cfg.num_slots and self._slots[i] is not None:
                     failed.append(self._fail_slot(i, msg))
+                elif i in self._chunking:
+                    failed.append(
+                        self._fail_chunk_job(i, 'error', error=msg))
             return failed
         self.fault_stats['quarantined_batches'] += 1
-        for i, s in enumerate(self._slots):
-            if s is not None:
-                failed.append(self._fail_slot(i, msg))
+        failed.extend(self._fail_all_inflight(msg))
         self._reset_cache()
         return failed
 
@@ -1513,11 +1799,16 @@ class InferenceEngine:
     def _select_window(self) -> int:
         """Decode-window policy (adaptive_decode_window), queue-aware:
         a short window only while an arrival waits for the next prefill
-        gap with a slot free to take it.  A request streaming alone gets
-        full windows (a short one costs it a dispatch per two tokens)."""
+        gap with a slot free to take it, or while a prompt is
+        mid-chunked-prefill (its next chunk rides the gap after this
+        window).  A request streaming alone gets full windows (a short
+        one costs it a dispatch per two tokens)."""
         steps = self.cfg.decode_steps
-        if (self.cfg.adaptive_decode_window and self._arrivals_hint > 0
-                and any(s is None for s in self._slots)):
+        if self.cfg.adaptive_decode_window and (
+                self._chunking or
+                (self._arrivals_hint > 0
+                 and any(s is None and i not in self._chunking
+                         for i, s in enumerate(self._slots)))):
             return min(2, steps)
         return steps
 
@@ -1579,12 +1870,15 @@ class InferenceEngine:
           behind the window, the snapshot keeps the new request from a
           stale column, and the epoch bump keeps lookahead off the stale
           chain;
-        - while arrivals wait (hint > 0) nothing is queued ahead: the
-          window would push their prefill back (TTFT);
+        - while arrivals wait (hint > 0) or a prompt is mid-chunked-
+          prefill nothing is queued ahead: the window would push their
+          prefill or chunk back (TTFT), and a chunk must never be
+          dispatched under a window's frontier writes (_chunk_round
+          waits for _ahead to drain);
         - a window no survivor could take a token from (each finishes
           inside the `in_flight_steps` already queued) is not queued."""
         if (not self.cfg.decode_lookahead or not self._serving or
-                self._arrivals_hint > 0):
+                self._arrivals_hint > 0 or self._chunking):
             return
         live = [s for i, s in enumerate(snap)
                 if s is not None and self._slots[i] is s]
@@ -1668,6 +1962,16 @@ class InferenceEngine:
                 if s is not None and s.request.request_id == request_id:
                     self._finish_slot(i, 'cancelled')
                     return True
+            for slot, job in list(self._chunking.items()):
+                if job.req.request_id == request_id:
+                    # Mid-chunked-prefill: free the reserved slot; its
+                    # partly written prompt rows are dead (the next
+                    # occupant writes every row before reading it).
+                    del self._chunking[slot]
+                    self._lengths[slot] = 0
+                    if self._paged:
+                        self._free_slot_blocks(slot)
+                    return True
             self._cancelled[request_id] = time.time()
             return False
 
@@ -1712,6 +2016,13 @@ class InferenceEngine:
                 done.append(self._finish_slot(i, 'length'))
             elif s.length + 1 >= self.cfg.max_cache_len:
                 done.append(self._finish_slot(i, 'length'))
+        for slot, job in list(self._chunking.items()):
+            dl = job.req.deadline_s
+            if dl is not None and now - job.submit_time >= dl:
+                # A part-prefilled prompt past its deadline: no more
+                # chunk dispatches for a result nobody will read.
+                self.fault_stats['deadline_evictions'] += 1
+                done.append(self._fail_chunk_job(slot, 'deadline'))
         return done
 
     # ------------------------------------------------------------ API
@@ -1726,7 +2037,8 @@ class InferenceEngine:
             pending = list(requests)
             finished: List[Tuple[Request, RequestResult]] = []
             t0 = time.time()
-            while pending or any(s is not None for s in self._slots):
+            while (pending or self._chunking or
+                   any(s is not None for s in self._slots)):
                 to_start = []
                 admit_extra = 0
                 while pending:
@@ -1762,6 +2074,14 @@ class InferenceEngine:
                             error_class='client')))
                 if to_start:
                     self._start_batch(to_start)
+                if self._chunking:
+                    # Offline only prompts no bucket holds chunk: one
+                    # chunk per pass, between the decode windows.
+                    try:
+                        self._chunk_round()
+                    except Exception as e:  # pylint: disable=broad-except
+                        finished.extend(
+                            self._contain_failure(e, 'chunk round'))
                 # The prefill already produced one token, which may meet
                 # max_new_tokens=1 or be the EOS.
                 finished.extend(self._harvest())
@@ -1838,10 +2158,13 @@ class InferenceEngine:
 
     def _fail_all_inflight(self, msg: str
                            ) -> List[Tuple[Request, RequestResult]]:
-        """Fail every active slot (caller holds the lock): the loop that
-        would advance them is dead."""
-        return [self._fail_slot(i, msg)
-                for i, s in enumerate(self._slots) if s is not None]
+        """Fail every active slot and chunk job (caller holds the lock):
+        the loop that would advance them is dead."""
+        failed = [self._fail_slot(i, msg)
+                  for i, s in enumerate(self._slots) if s is not None]
+        for slot in list(self._chunking):
+            failed.append(self._fail_chunk_job(slot, 'error', error=msg))
+        return failed
 
     def _drain_queue_failing(self, request_queue, result_cb,
                              exc: BaseException) -> None:
@@ -1881,7 +2204,8 @@ class InferenceEngine:
                 sp = self._fault('stall')
                 if sp is not None:
                     time.sleep(sp.stall_s)   # a wedged host thread
-                if any(s is not None for s in self._slots):
+                if self._chunking or any(s is not None
+                                         for s in self._slots):
                     # Loop death outside every contained region, the
                     # supervisor's case; consulted only with work in
                     # flight so "hit 1" does not race the idle spin.
@@ -1963,7 +2287,7 @@ class InferenceEngine:
                                      *self._validate_request(req)))
                     if self._paged:
                         admit_extra += demand
-                except (ValueError, NotImplementedError) as e:
+                except ValueError as e:
                     with self._lock:
                         result_cb(RequestResult(
                             request_id=req.request_id,
@@ -2017,7 +2341,8 @@ class InferenceEngine:
                                 self._slots[slot] = None
                                 self._lengths[slot] = 0
                                 self._temps[slot] = 0.0
-                            if self._paged and self._slots[slot] is None:
+                            if (self._paged and self._slots[slot] is None
+                                    and slot not in self._chunking):
                                 # Blocks a half-applied batch allocated
                                 # for this slot would leak.
                                 self._free_slot_blocks(slot)
@@ -2031,6 +2356,18 @@ class InferenceEngine:
                                 finish_reason='error', error=str(e),
                                 error_class='internal'))
             with self._lock:
+                if self._chunking:
+                    # At most one chunk between decode windows: an active
+                    # stream's stall from a long arrival is one chunk plus
+                    # one window, not the whole prefill.  Contained like
+                    # a prefill.
+                    try:
+                        moved = self._chunk_round() or moved
+                    except Exception as e:  # pylint: disable=broad-except
+                        for _, res in self._contain_failure(
+                                e, 'chunk round'):
+                            result_cb(res)
+                        moved = True
                 self._flush_streams()            # prefill first tokens
                 for _, res in self._harvest():   # prefill-only finishes
                     result_cb(res)
@@ -2059,13 +2396,17 @@ class InferenceEngine:
                         self._host_tier.finalize()
                 time.sleep(idle_sleep)
 
-    def generate_served(self, requests: List[Request]) -> List[RequestResult]:
+    def generate_served(self, requests: List[Request],
+                        gaps: Optional[Sequence[float]] = None
+                        ) -> List[RequestResult]:
         """Run requests (distinct request_ids) through the serving loop
         on a thread of its own and return their results in request
-        order.  Stall detection is progress-aware: the run fails after
-        one window of cfg.run_stall_timeout_s in which no request
-        finished, with stats() in the error; a long healthy run resets
-        the window with every finish."""
+        order.  gaps: seconds to wait before each request arrives (its
+        arrival_time is stamped as it is queued); None queues them all
+        before the loop starts.  Stall detection is progress-aware: the
+        run fails after one window of cfg.run_stall_timeout_s in which
+        no request finished, with stats() in the error; a long healthy
+        run resets the window with every finish."""
         ids = [r.request_id for r in requests]
         if None in ids or len(set(ids)) != len(ids):
             raise ValueError('generate_served needs distinct request_ids')
@@ -2078,8 +2419,9 @@ class InferenceEngine:
                 done.set()
 
         q: 'queue.Queue[Request]' = queue.Queue()
-        for r in requests:
-            q.put(r)
+        if gaps is None:
+            for r in requests:
+                q.put(r)
         stop = threading.Event()
         loop = threading.Thread(target=self.generate_stream,
                                 args=(q, deliver, stop), daemon=True)
@@ -2087,6 +2429,10 @@ class InferenceEngine:
         stall_s = self.cfg.run_stall_timeout_s
         last_done = 0
         try:
+            for r, gap in zip(requests, gaps if gaps is not None else ()):
+                time.sleep(float(gap))
+                r.arrival_time = time.time()
+                q.put(r)
             while not done.wait(timeout=stall_s):
                 if len(results) == last_done:
                     raise RuntimeError(
@@ -2114,8 +2460,10 @@ class InferenceEngine:
         self.warmup_decode([1, 2, 3])
 
     def warmup_decode(self, tokens: Sequence[int]) -> None:
-        """One short request (a prefill and a full decode window) and,
-        with the adaptive window, one through the short window too."""
+        """One short request (a prefill and a full decode window); with
+        the adaptive window, one through the short window too; with
+        chunked prefill, one prompt past the largest bucket (every chunk
+        round has one [num_slots, C] shape)."""
         self.generate([Request(tokens=list(tokens), max_new_tokens=2)])
         if (self.cfg.adaptive_decode_window and self.cfg.decode_steps > 2
                 and self.cfg.num_slots >= 2):
@@ -2125,6 +2473,86 @@ class InferenceEngine:
                                        max_new_tokens=2)])
             finally:
                 self._arrivals_hint = 0
+        if self.cfg.prefill_chunk:
+            n = min(max(self.cfg.prefill_buckets) + 1,
+                    self.cfg.max_cache_len - 1)
+            base = list(tokens) or [1]
+            rep = (base * (n // len(base) + 1))[:n]
+            self.generate([Request(tokens=rep, max_new_tokens=1)])
+
+    def benchmark_serving(self, num_requests: int = 64,
+                          prompt_len: int = 219, new_tokens: int = 188,
+                          qps: Optional[float] = None,
+                          seed: int = 0) -> Dict[str, Any]:
+        """Serving benchmark: random prompts arrive over time (Poisson at
+        `qps` from a numpy seed; None = all at once) into the serving
+        loop (generate_served, with its stall detection), so TTFT is a
+        time to first token under load.  Reports req/s, tok/s, TTFT and
+        TPOT p50/p99 (the JAX engine's keys)."""
+        rng = np.random.default_rng(seed)
+        reqs = [Request(tokens=rng.integers(
+            0, self.model_config.vocab_size, size=prompt_len).tolist(),
+                        max_new_tokens=new_tokens, request_id=str(i))
+                for i in range(num_requests)]
+        # Both phases (and both window variants) warm before the clock.
+        self.warmup_decode(reqs[0].tokens)
+        gaps = (rng.exponential(1.0 / qps, size=num_requests)
+                if qps else np.zeros(num_requests))
+        t0 = time.time()
+        results = self.generate_served(reqs, gaps)
+        elapsed = time.time() - t0
+        out_tokens = sum(len(r.output_tokens) for r in results)
+        in_tokens = sum(len(r.prompt_tokens) for r in results)
+        ttfts = sorted(r.ttft_s for r in results)
+        tpots = sorted(
+            (r.latency_s - r.ttft_s) / max(len(r.output_tokens) - 1, 1)
+            for r in results)
+
+        def pct(xs, p):
+            return xs[min(len(xs) - 1, int(len(xs) * p))]
+
+        return {
+            'requests_per_second': len(results) / elapsed,
+            'output_tokens_per_second': out_tokens / elapsed,
+            'input_tokens_per_second': in_tokens / elapsed,
+            'ttft_median_s': pct(ttfts, 0.5),
+            'ttft_p99_s': pct(ttfts, 0.99),
+            'tpot_median_s': pct(tpots, 0.5),
+            'tpot_p99_s': pct(tpots, 0.99),
+            # None (JSON null) without an arrival rate: float('inf')
+            # would serialize as the non-standard 'Infinity'.
+            'offered_qps': qps if qps else None,
+            'completed': len(results),
+            'elapsed_s': elapsed,
+        }
+
+    def benchmark(self, num_requests: int = 32, prompt_len: int = 128,
+                  new_tokens: int = 64, seed: int = 0) -> Dict[str, float]:
+        """Offline benchmark: req/s, output tok/s and TTFT of random
+        prompts (from a numpy seed) through generate()."""
+        rng = np.random.default_rng(seed)
+        reqs = [Request(tokens=rng.integers(
+            0, self.model_config.vocab_size, size=prompt_len).tolist(),
+                        max_new_tokens=new_tokens)
+                for _ in range(num_requests)]
+        # A full-length request first, so the timed run meets warm
+        # buffers in the same prefill bucket.
+        self.warmup_decode(reqs[0].tokens)
+        t0 = time.time()
+        results = self.generate(reqs)
+        elapsed = time.time() - t0
+        out_tokens = sum(len(r.output_tokens) for r in results)
+        in_tokens = sum(len(r.prompt_tokens) for r in results)
+        ttfts = sorted(r.ttft_s for r in results)
+        return {
+            'requests_per_second': num_requests / elapsed,
+            'output_tokens_per_second': out_tokens / elapsed,
+            'input_tokens_per_second': in_tokens / elapsed,
+            'ttft_median_s': ttfts[len(ttfts) // 2],
+            'ttft_p99_s': ttfts[min(len(ttfts) - 1,
+                                    int(len(ttfts) * 0.99))],
+            'elapsed_s': elapsed,
+        }
 
 
 def engine_from_name(model: str, cfg: Optional[InferConfig] = None,

@@ -33,6 +33,8 @@ Sites the port's engine consults:
 ==================  =====================================================
 ``prefill``         top of ``_start_batch``, before the prefill dispatch
 ``decode_step``     top of ``_step``, before the decode-window dispatch
+``chunk_round``     top of ``_chunk_round`` while a prompt is being
+                    prefilled in chunks, before the chunk dispatch
 ``nonfinite_logits``  after the decode window's host unpack -- a firing
                     spec overwrites one lane's logprobs with NaN to
                     exercise the non-finite guard
@@ -49,11 +51,8 @@ Sites the port's engine consults:
 ``block_alloc`` is consulted by the paged pool's admission check
 (``_can_admit_blocks``): a firing spec answers "no room", so the request
 takes the deferral path; a dense engine never consults it.
-``chunk_round`` belongs to chunked prefill (ROADMAP.md A6b): a plan
-naming it is accepted and never fires, as on a JAX engine without
-chunking.  ``replica_kill``, ``net_degrade`` and
-``lb_kill`` are consulted by chaos harnesses around the process, never by
-the engine.
+``replica_kill``, ``net_degrade`` and ``lb_kill`` are consulted by chaos
+harnesses around the process, never by the engine.
 
 Injected dispatch faults are raised on the host, before the dispatch, so
 the cache the survivors decode from is untouched.  A *real* device

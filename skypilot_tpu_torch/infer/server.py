@@ -19,11 +19,14 @@ routes over a fleet that mixes both:
   POST /drain        {"deadline_s": s} stop admitting, finish in-flight;
                      {"cancel": true} undo
   POST /generate     {"tokens": [...], "max_new_tokens": N,
-                      "temperature": T, "stream": bool, "deadline_s": s}
+                      "temperature": T, "stream": bool, "deadline_s": s,
+                      "logprobs": bool, "prompt_logprobs": bool}
   POST /generate_text            with --tokenizer
   POST /v1/completions           prompt (string or token array),
-                                 max_tokens (0 = score nothing, generate
-                                 nothing), temperature, stop, logprobs,
+                                 max_tokens (0 = generate nothing),
+                                 temperature, stop, logprobs, echo (with
+                                 logprobs: the prompt's scores, the
+                                 lm-eval-harness loglikelihood pattern),
                                  n, stream (SSE + [DONE])
   POST /v1/chat/completions      messages, via the tokenizer
   POST /adopt_blocks adopt a peer's /hot_prefixes payload into the radix
@@ -32,9 +35,7 @@ routes over a fleet that mixes both:
                      a radix cache
 
 Not ported yet, answered 501 naming the ROADMAP.md item: POST
-/cache_prefix and /load_adapter, prompt logprobs (/generate
-``prompt_logprobs``, /v1/completions ``echo`` with ``logprobs``); the
-matching flags fail at startup.
+/cache_prefix and /load_adapter; the matching flags fail at startup.
 
 stdlib only (ThreadingHTTPServer): each request blocks its handler
 thread while the one engine thread runs continuous batching across all
@@ -783,17 +784,12 @@ def _make_handler(server: InferenceServer):
                         'type': 'invalid_request_error',
                         'code': 'model_not_found'}})
                     return None
-            if want_lp and echo:
-                self._json(501, {'error': {
-                    'message': _unported('prompt logprobs (echo with '
-                                         'logprobs)', 'A6b'),
-                    'type': 'not_implemented'}})
-                return None
             req = Request(tokens=[int(t) for t in tokens],
                           max_new_tokens=max_new,
                           temperature=temperature,
                           request_id=uuid.uuid4().hex,
                           adapter=adapter,
+                          want_prompt_logprobs=want_lp and echo,
                           deadline_s=deadline_s,
                           priority=priority,
                           tenant_id=tenant_id)
@@ -825,11 +821,13 @@ def _make_handler(server: InferenceServer):
             # n > 1 (OpenAI `n`): independent engine requests batched by
             # continuous batching like any concurrent traffic.
             # dataclasses.replace copies every field, so a new sampling
-            # knob cannot be dropped from the clones.
+            # knob cannot be dropped from the clones; the prompt is scored
+            # once (the clones reuse choice 0's scores).
             reqs = [req] + [
                 dataclasses.replace(req, tokens=list(req.tokens),
                                     request_id=uuid.uuid4().hex,
-                                    arrival_time=None, stream_cb=None)
+                                    arrival_time=None, stream_cb=None,
+                                    want_prompt_logprobs=False)
                 for _ in range(opts['n'] - 1)
             ]
             if len(reqs) > 1:
@@ -882,6 +880,9 @@ def _make_handler(server: InferenceServer):
                     if code == 400 else 'internal_error'}})
                 return
             res = results[0]
+            for r in results[1:]:
+                r.prompt_logprobs = res.prompt_logprobs
+                r.prompt_top_logprobs = res.prompt_top_logprobs
             choices = []
             completion_tokens = 0
             for index, res_i in enumerate(results):
@@ -960,11 +961,16 @@ def _make_handler(server: InferenceServer):
                 if text is None:    # token-only serving
                     choice['tokens'] = out_tokens
                 if opts['logprobs']:
-                    # Echo with logprobs is refused at parse (501), so
-                    # these are the generated positions only.
-                    ids = out_tokens[:n_completion]
-                    lps = out_lps[:n_completion]
-                    tops = list(res.top_logprobs or [])[:n_completion]
+                    # With echo the prompt's positions come first (entry
+                    # 0 null, as OpenAI's).
+                    echo = opts['echo']
+                    ids = ((list(res.prompt_tokens) if echo else []) +
+                           out_tokens[:n_completion])
+                    lps = ((list(res.prompt_logprobs or []) if echo
+                            else []) + out_lps[:n_completion])
+                    tops = ((list(res.prompt_top_logprobs or []) if echo
+                             else []) +
+                            list(res.top_logprobs or [])[:n_completion])
                     tok = server.tokenizer
 
                     def tstr(t):
@@ -1200,14 +1206,12 @@ def _make_handler(server: InferenceServer):
                     f'unknown priority {priority!r}; expected one of '
                     f'{list(PRIORITY_CLASSES)}')})
                 return
-            if payload.get('prompt_logprobs'):
-                self._json(501, {'error': _unported('prompt logprobs',
-                                                    'A6b')})
-                return
             req = Request(tokens=tokens, max_new_tokens=max_new,
                           temperature=temperature,
                           request_id=uuid.uuid4().hex,
                           adapter=payload.get('adapter'),
+                          want_prompt_logprobs=bool(
+                              payload.get('prompt_logprobs')),
                           deadline_s=deadline,
                           priority=priority,
                           tenant_id=tenant_id)
@@ -1250,6 +1254,8 @@ def _make_handler(server: InferenceServer):
                 out['error_class'] = res.error_class
             if payload.get('logprobs'):
                 out['logprobs'] = res.logprobs
+            if payload.get('prompt_logprobs'):
+                out['prompt_logprobs'] = res.prompt_logprobs
             if server.tokenizer is not None:
                 out['text'] = server.tokenizer.decode(res.output_tokens)
             self._json(200, out)
@@ -1435,7 +1441,12 @@ def main() -> None:
                         help='automatic prefix caching (not ported yet: '
                              'A6b)')
     parser.add_argument('--prefill-chunk', type=int, default=0,
-                        help='chunked prefill (not ported yet: A6b)')
+                        help='chunked prefill: split prompts into '
+                             'N-token pieces interleaved between decode '
+                             'windows, bounding the decode stall to one '
+                             'chunk and lifting the largest-bucket '
+                             'prompt cap (0 = monolithic prefill; must '
+                             'divide --max-cache-len)')
     parser.add_argument('--kv-block-size', type=int, default=0,
                         help='block-paged KV cache: pool block size in '
                              'tokens (0 = dense slotted layout; must '

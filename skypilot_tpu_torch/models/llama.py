@@ -89,6 +89,23 @@ class LlamaConfig:
                 self.rope_scaling_high_freq,
                 self.rope_scaling_original_max_len)
 
+    @property
+    def num_params(self) -> int:
+        """Approximate parameter count (for MFU math)."""
+        h, v, l = self.hidden_size, self.vocab_size, self.num_layers
+        d = self.head_dim_
+        attn = h * d * (self.num_heads * 2 + self.num_kv_heads * 2)
+        mlp = 3 * h * self.intermediate_size
+        norms = 2 * h
+        embed = v * h * (1 if self.tie_embeddings else 2)
+        return l * (attn + mlp + norms) + embed + h
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Training FLOPs/token: 6*N + attention term (12*L*d_head*H*S)."""
+        attn_flops = 12 * self.num_layers * self.num_heads * \
+            self.head_dim_ * seq_len
+        return 6 * self.num_params + attn_flops
+
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             eps: float) -> torch.Tensor:

@@ -74,15 +74,16 @@ def conservation_errors(eng):
     allocator: every block's refcount equals its holders -- the table
     entries of the slots' allocated prefixes, plus one for a radix node
     holding it, plus one for the dump block 0 -- the free list is exactly
-    the blocks with no holder, idle slots hold nothing, and the host
-    tier's byte ledger balances.  Returns error strings (empty = ok)."""
+    the blocks with no holder, idle slots (neither active nor mid-chunked
+    prefill) hold nothing, and the host tier's byte ledger balances.
+    Returns error strings (empty = ok)."""
     refs = eng._block_refs
     want = np.zeros_like(refs)
     want[0] = 1
     errors = []
     for slot in range(eng.cfg.num_slots):
         n = int(eng._slot_nblocks[slot])
-        if n and eng._slots[slot] is None:
+        if n and eng._slots[slot] is None and slot not in eng._chunking:
             errors.append(f'idle slot {slot} holds {n} blocks')
         for b in eng._tables_np[slot, :n]:
             want[int(b)] += 1

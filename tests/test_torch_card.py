@@ -206,11 +206,12 @@ def _depth2_engine(dtype, **options):
                               dtype=dtype)
     # One draw of the weights (load_state_dict casts them to the model's
     # dtype), so every engine of these tests serves the same model.
-    eng = InferenceEngine(cfg, InferConfig(
-        num_slots=4, max_cache_len=256, prefill_buckets=(64, 128, 256),
-        decode_steps=4, max_new_tokens=16, cache_dtype=dtype, **options),
-        params=_depth2_engine.params,
-        generator=torch.Generator('cuda').manual_seed(0))
+    kw = dict(num_slots=4, max_cache_len=256, prefill_buckets=(64, 128, 256),
+              decode_steps=4, max_new_tokens=16, cache_dtype=dtype)
+    kw.update(options)
+    eng = InferenceEngine(cfg, InferConfig(**kw),
+                          params=_depth2_engine.params,
+                          generator=torch.Generator('cuda').manual_seed(0))
     if _depth2_engine.params is None:
         _depth2_engine.params = eng.model.state_dict()
     return eng
@@ -300,3 +301,51 @@ def test_spill_recycle_restore_on_a_real_stream(card):
     for a, b in zip(before, restored):
         assert torch.equal(a, torch.stack([kp[b] for kp, _ in tier.cache]))
     assert got.output_tokens == want.output_tokens
+
+
+# ------------------------------------- chunked prefill, prompt scoring
+
+@pytest.mark.parametrize('paged', [False, True])
+def test_chunked_matches_monolithic_on_the_card(card, paged):
+    """llama-1b at depth 2, f32, on the card: prompts of 150-230 tokens
+    past the largest bucket (128) chunk 32 rows a round, dense and paged;
+    their greedy tokens equal the monolithic engine's, and the
+    teacher-forced gap stays within the f32 bound (2e-3 nats)."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 32000, int(n)).tolist()
+               for n in rng.integers(150, 231, 5)]
+    layout = dict(kv_block_size=16) if paged else {}
+    mono = _depth2_engine(torch.float32, max_new_tokens=12, **layout)
+    chunked = _depth2_engine(torch.float32, max_new_tokens=12,
+                             prefill_buckets=(64, 128), prefill_chunk=32,
+                             **layout)
+    reqs = [Request(tokens=p, max_new_tokens=12) for p in prompts]
+    want, got = mono.generate(reqs), chunked.generate(reqs)
+    assert chunked.chunk_stats['requests'] == len(prompts)
+    for a, b in zip(want, got):
+        assert b.finish_reason == a.finish_reason == 'length'
+        assert b.output_tokens == a.output_tokens
+    assert _teacher_forced_gap(chunked.model, got) <= 2e-3
+
+
+def test_prompt_logprobs_on_the_card_match_the_cpu(card):
+    """Prompt scores and their top-k from the card within 2e-3 of the
+    same f32 engine's on the CPU (summation order only)."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 32000, n).tolist() for n in (9, 70, 128)]
+    gpu = _depth2_engine(torch.float32)
+    cpu = InferenceEngine(
+        gpu.model_config, InferConfig(**{
+            **dataclasses.asdict(gpu.cfg), 'prefill_buckets': (64, 128, 256)}),
+        params={k: v.cpu() for k, v in gpu.model.state_dict().items()},
+        generator=torch.Generator().manual_seed(0), device='cpu')
+    reqs = [Request(tokens=p, max_new_tokens=2, want_prompt_logprobs=True)
+            for p in prompts]
+    for a, b in zip(cpu.generate(reqs), gpu.generate(reqs)):
+        assert b.prompt_logprobs[0] is None
+        np.testing.assert_allclose(b.prompt_logprobs[1:],
+                                   a.prompt_logprobs[1:], atol=2e-3)
+        for ta, tb in zip(a.prompt_top_logprobs[1:],
+                          b.prompt_top_logprobs[1:]):
+            np.testing.assert_allclose([lp for _, lp in tb],
+                                       [lp for _, lp in ta], atol=2e-3)

@@ -179,7 +179,7 @@ def test_buckets_cover_the_cache(params):
 
 
 @pytest.mark.parametrize('field,value', [
-    ('prefill_chunk', 16), ('draft_len', 2),
+    ('draft_len', 2),
     ('lora_rank', 4), ('qos', True),
     ('max_prefixes', 4), ('qos_tenant_weights', {'a': 2.0}),
     ('cache_dtype', torch.float8_e4m3fn),
@@ -190,13 +190,13 @@ def test_unported_features_raise(params, field, value):
 
 
 @pytest.mark.parametrize('field,value', [
-    ('prefill_chunk', 16), ('draft_len', 2), ('max_prefixes', 4),
+    ('draft_len', 2), ('max_prefixes', 4),
     ('cache_dtype', torch.float8_e4m3fn),
 ])
 def test_unported_features_raise_on_the_paged_engine(params, field, value):
     """The block-paged engine (with the radix cache) refuses the features
-    outside its slice as the dense one does: registered prefixes,
-    chunked prefill and the fp8 cache (A6b), speculation (A6c)."""
+    outside its slice as the dense one does: registered prefixes and
+    the fp8 cache (A6b), speculation (A6c)."""
     with pytest.raises(NotImplementedError, match='ROADMAP.md A6'):
         _port_engine(params, kv_block_size=16, auto_prefix_cache=True,
                      **{field: value})
@@ -217,8 +217,41 @@ def test_out_of_range_token_id_served_as_the_jax_engine_does():
     np.testing.assert_allclose(out.logprobs, ref.logprobs, atol=1e-5)
 
 
-def test_prompt_logprobs_raise(params, prompts):
-    eng = _port_engine(params)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        eng.generate([port.Request(tokens=prompts[0],
-                                   want_prompt_logprobs=True)])
+# ---------------------------------------------------------- benchmarks
+
+BENCH = dict(num_requests=4, prompt_len=10, new_tokens=5)
+
+
+def test_benchmark_keys_match_the_jax_engine():
+    """benchmark(): the JAX engine's keys, every request generated."""
+    p = make_params()
+    ref = jax_engine(p).benchmark(**BENCH)
+    out = port_engine(p).benchmark(**BENCH)
+    assert set(out) == set(ref)
+    assert all(np.isfinite(v) and v > 0 for v in out.values())
+
+
+@pytest.mark.parametrize('qps', [None, 200.0])
+def test_benchmark_serving_keys_match_the_jax_engine(qps):
+    """benchmark_serving(): the JAX engine's keys, all requests completed,
+    all at once and with Poisson arrivals."""
+    p = make_params()
+    ref = jax_engine(p).benchmark_serving(qps=qps, **BENCH)
+    out = port_engine(p).benchmark_serving(qps=qps, **BENCH)
+    assert set(out) == set(ref)
+    assert out['completed'] == ref['completed'] == BENCH['num_requests']
+    assert out['offered_qps'] == qps
+    assert out['output_tokens_per_second'] > 0
+
+
+def test_benchmark_serving_stall_raises():
+    """A wedged serving loop (the stall fault site sleeps every pass)
+    trips the progress-aware stall detection: RuntimeError with the
+    engine's stats in the message."""
+    from skypilot_tpu_torch.infer import FaultPlan, FaultSpec
+    eng = port_engine(make_params(), run_stall_timeout_s=0.3)
+    eng.arm_faults(FaultPlan(seed=0, specs=[
+        FaultSpec(site='stall', prob=1.0, stall_s=1.0)]))
+    with pytest.raises(RuntimeError, match='serving stalled.*engine stats'):
+        eng.benchmark_serving(**BENCH)
+    assert not eng.serving

@@ -1,6 +1,6 @@
-"""The port (skypilot_tpu_torch) stands alone: it imports neither JAX nor
-anything of the JAX package, and its entry points need a card unless
-the caller asks for the CPU."""
+"""The port (skypilot_tpu_torch, with bench_torch.py and chip_smoke.py)
+stands alone: it imports neither JAX nor anything of the JAX package,
+and its entry points need a card unless the caller asks for the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -38,7 +38,7 @@ def test_forbidden_matcher_spares_the_port():
 def test_importing_every_module_loads_no_jax():
     """In a fresh interpreter: import every module of the port, then no
     jax/flax/optax and no skypilot_tpu(.*) may be in sys.modules."""
-    modules = _port_modules()
+    modules = _port_modules() + ['bench_torch']
     assert 'skypilot_tpu_torch.ops.flash_attention' in modules
     assert 'skypilot_tpu_torch.infer.engine' in modules
     assert 'skypilot_tpu_torch.train.trainer' in modules
@@ -62,7 +62,7 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize('path', sorted(
     [str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')] +
-    ['chip_smoke.py', 'tests/test_torch_card.py']))
+    ['bench_torch.py', 'chip_smoke.py', 'tests/test_torch_card.py']))
 def test_sources_import_no_jax(path):
     """No import statement anywhere in the file -- including ones inside
     functions -- names a forbidden package."""
@@ -81,6 +81,7 @@ def test_entry_points_need_a_card():
     RuntimeError instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is visible')
+    import bench_torch
     from skypilot_tpu_torch.device import resolve_device
     from skypilot_tpu_torch.entry import entry
     from skypilot_tpu_torch.infer import server
@@ -115,7 +116,19 @@ def test_entry_points_need_a_card():
         Trainer(TrainConfig(model='llama-debug'))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         next(synthetic_data(1, 8, 16))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        bench_torch.measure('llama-debug', seq_len=64, batch_per_chip=1)
     assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_bench_torch_refuses_to_run_without_a_card():
+    """python3 bench_torch.py exits non-zero and prints no JSON line."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is visible')
+    out = subprocess.run([sys.executable, 'bench_torch.py'], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"metric"' not in out.stdout
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -316,8 +316,6 @@ def test_drain_refuses_new_work_then_undrains(pair):
 @pytest.mark.parametrize('path,body', [
     ('/cache_prefix', {'tokens': PROMPT}),
     ('/load_adapter', {'name': 'a', 'path': 'a.npz'}),
-    ('/generate', {'tokens': PROMPT, 'prompt_logprobs': True}),
-    ('/v1/completions', {'prompt': PROMPT, 'echo': True, 'logprobs': 1}),
 ])
 def test_unported_routes_answer_501(pair, path, body):
     code, _, doc, _ = _call(pair[1].port, 'POST', path, body)
@@ -334,7 +332,6 @@ def test_unported_options_fail_at_startup(params):
     for kw, item in [({'hf_model': 'x'}, 'A8'),
                      ({'tensor_parallel': 2}, 'A9'),
                      ({'weight_dtype': 'int8'}, 'A8'),
-                     ({'prefill_chunk': 16}, 'A6'),
                      ({'qos': True}, 'A6'),
                      ({'cache_dtype': 'fp8'}, 'A6')]:
         with pytest.raises(NotImplementedError, match=item):
