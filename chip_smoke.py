@@ -17,8 +17,10 @@ radix prefix cache on and off, a tight pool with the host tier, the
 hot-prefix handoff between two servers), chunked prefill (prompts past
 the largest bucket offline, and long prompts arriving while streams
 decode, chunking off and on), prompt scoring (against the no-cache
-forward, and the lm-eval loglikelihood pattern over HTTP), and training
-of llama-1b at batch 8 x 2048 through the Trainer -- at full width with
+forward, and the lm-eval loglikelihood pattern over HTTP), training of
+llama-1b at batch 8 x 2048 through the Trainer, then Gemma at head_dim
+256 (the gemma-7b no-cache forward and greedy requests through the
+dense engine, gemma-2b training at batch 8 x 2048) -- at full width with
 random weights from a seed, and checks what comes out.  Every phase prints one JSON line; any failed check raises, so the script exits non-zero and the
 closing line is never printed.  The last two lines are the kernels line
 and {"ok": true, "device": {...}}.
@@ -29,8 +31,11 @@ deliberate fault (forward: O's rescale skipped, V read from the wrong ring
 stage, the diagonal tile's mask skipped, one 16-key slice of P dropped
 from P V; each backward kernel: delta dropped, one K tile shifted by a
 row, the diagonal tile's mask skipped, and K (dQ) or dO (dK/dV) read from
-the wrong ring stage), under build/planted_faults/, and shows that each
-copy fails the bound the smoke run holds the sound kernels to.
+the wrong ring stage) and, at head_dim 256, one more each (the upper half
+of P V or dS K reading the lower half's columns, dK/dV's second
+warpgroup taking P^T of the next kv row), under build/planted_faults/,
+and shows that each copy fails the bound the smoke run holds the sound
+kernels to.
 
 Needs a CUDA card (exits non-zero without one) and imports nothing of
 JAX or of the JAX package.
@@ -63,7 +68,8 @@ from skypilot_tpu_torch.infer import server
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request)
 from skypilot_tpu_torch.models import llama
-from skypilot_tpu_torch.models.convert import init_params
+from skypilot_tpu_torch.models.convert import init_params, iter_params
+from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import flash_attention as fa
 from skypilot_tpu_torch.train import trainer as train_lib
@@ -168,11 +174,21 @@ def phase_build() -> None:
 # the train step gives all three kernels; every kernel is timed there.
 TRAIN_CASE = ('llama-1b-train', 8, 16, 8, 2048, 128, torch.bfloat16, True,
               None)
+# The head_dim-256 shapes: the gemma-7b forward (tokens [1, 1024], MHA)
+# and the gemma-2b train step (batch 8 x 2048, MQA: one kv head for 8 q
+# heads, folded inside the dK/dV kernel); every kernel is timed at the
+# second, the forward at both.
+GEMMA_FWD_CASE = ('gemma-7b', 1, 16, 16, 1024, 256, torch.bfloat16, True,
+                  None)
+GEMMA_TRAIN_CASE = ('gemma-2b-train', 8, 8, 1, 2048, 256, torch.bfloat16,
+                    True, None)
 # (name, b, hq, hkv, s, d, dtype, causal, window); the first is the shape
 # the llama-1b forward gives the kernel, timed as well.  The bf16 kernel
-# works in 128-row tiles: ragged_1088 and non_causal_1088 leave the last q
-# and kv tiles half full at full width, window_300 starts the kv loop past
-# tile 0.
+# works in 128-row tiles up to head_dim 128: ragged_1088 and
+# non_causal_1088 leave the last q and kv tiles half full at full width,
+# window_300 starts the kv loop past tile 0.  At head_dim 256 the kv tiles
+# (and dQ's q tiles) have 64 rows: S 200 leaves every last tile ragged,
+# S 1088 the forward's last 128-row q tile half full.
 KERNEL_CASES = [
     ('llama-1b', 1, 16, 8, 1024, 128, torch.bfloat16, True, None),
     TRAIN_CASE,
@@ -185,7 +201,19 @@ KERNEL_CASES = [
     ('non_causal_1088', 1, 16, 8, 1088, 128, torch.bfloat16, False, None),
     ('f32', 1, 8, 4, 200, 128, torch.float32, True, None),
     ('f32_window_d64', 2, 8, 2, 256, 64, torch.float32, True, 48),
+    GEMMA_FWD_CASE,
+    GEMMA_TRAIN_CASE,
+    ('ragged_200_d256', 1, 4, 2, 200, 256, torch.bfloat16, True, None),
+    ('ragged_1088_d256_mqa', 1, 8, 1, 1088, 256, torch.bfloat16, True, None),
+    ('window_300_d256_mqa', 1, 8, 1, 1088, 256, torch.bfloat16, True, 300),
+    ('non_causal_1088_d256', 1, 16, 16, 1088, 256, torch.bfloat16, False,
+     None),
+    ('f32_mqa_d256', 1, 8, 1, 200, 256, torch.float32, True, None),
+    ('f32_window_d256', 1, 4, 2, 256, 256, torch.float32, True, 48),
 ]
+# The forward is timed at these shapes.
+TIMED_FWD = (KERNEL_CASES[0][0], TRAIN_CASE[0], GEMMA_FWD_CASE[0],
+             GEMMA_TRAIN_CASE[0])
 
 
 # Agreement of the forward kernel with its plain version (same inputs; the
@@ -255,10 +283,10 @@ def time_fwd(q, k, v, causal, scale, window) -> dict:
             'share_of_bound': bound_ms / ms}
 
 
-def phase_kernel() -> tuple:
+def phase_kernel() -> dict:
     """The forward kernel against its plain version at every KERNEL_CASES
-    shape, timed at the entry and the training shapes.  Returns their
-    errors and times."""
+    shape, timed at the TIMED_FWD shapes.  Returns their errors and times
+    by case name."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     failures, timed = [], {}
     for name, b, hq, hkv, s, d, dtype, causal, window in KERNEL_CASES:
@@ -276,7 +304,7 @@ def phase_kernel() -> tuple:
         if not (errs['max_err_over_bound'] <= 1.0
                 and errs['max_abs_err_lse'] <= BOUND_LSE):
             failures.append(name)
-        if name in (KERNEL_CASES[0][0], TRAIN_CASE[0]):
+        if name in TIMED_FWD:
             timed[name] = {**errs, **time_fwd(q, k, v, causal, scale,
                                                window)}
             row['timing'] = timed[name]
@@ -284,13 +312,16 @@ def phase_kernel() -> tuple:
         del q, k, v, ref
         torch.cuda.empty_cache()
     check(not failures, f'kernel disagrees with its plain version: {failures}')
-    return timed[KERNEL_CASES[0][0]], timed[TRAIN_CASE[0]]
+    return timed
 
 
 # The training shape, then the forward's other KERNEL_CASES: the bf16
-# backward kernels work in 128-row tiles too (dK/dV: KV tiles, dQ: q
-# tiles), which the 1088 cases leave half full.
+# backward kernels work in 128-row tiles too up to head_dim 128 (dK/dV:
+# KV tiles, dQ: q tiles), which the 1088 cases leave half full, and in
+# 64-row tiles at head_dim 256.  Both kernels are timed at both training
+# shapes.
 BWD_CASES = [TRAIN_CASE] + KERNEL_CASES[2:]
+TIMED_BWD = (TRAIN_CASE[0], GEMMA_TRAIN_CASE[0])
 
 # Agreement of the backward kernels with their plain versions (same q, k,
 # v, dO, LSE and delta; the plain versions compute in f32): dQ, dK and dV
@@ -376,8 +407,11 @@ def time_bwd(args) -> dict:
 
 
 def phase_kernel_bwd() -> dict:
+    """Both backward kernels against their plain versions at every
+    BWD_CASES shape, deterministic, timed at the TIMED_BWD shapes.
+    Returns the times by case name."""
     gen = torch.Generator(device='cuda').manual_seed(1)
-    failures, timing = [], None
+    failures, timed = [], {}
     for name, b, hq, hkv, s, d, dtype, causal, window in BWD_CASES:
         args = bwd_inputs(gen, b, hq, hkv, s, d, dtype, causal, window)
         got = run_bwd(args)
@@ -394,19 +428,19 @@ def phase_kernel_bwd() -> dict:
                                     for e in errs.values()):
             failures.append(name)
         del got, ref
-        if timing is None:
+        if name in TIMED_BWD:
             timing = time_bwd(args)
             timing['dq']['max_abs_err'] = errs['dq']['max_abs_err']
             timing['dkv']['max_abs_err'] = max(errs['dk']['max_abs_err'],
                                                errs['dv']['max_abs_err'])
-            row['timing'] = timing
+            row['timing'] = timed[name] = timing
         emit(row)
         del args
         torch.cuda.empty_cache()
     check(not failures,
           f'backward kernels disagree with their plain versions or are not '
           f'deterministic: {failures}')
-    return timing
+    return timed
 
 
 # The headline shape of bench_torch.py: llama-800m at seq 8192, batch 6.
@@ -1730,18 +1764,30 @@ def phase_prompt_logprobs(model, env: dict) -> None:
 
 # Step-1 loss of the random init: ln V plus about sigma^2 / 2, where the
 # tied logits' std is sigma ~ sqrt(2048) * 0.02 ~ 0.9 (a unit-RMS hidden
-# state against N(0, 0.02^2) embedding rows): ~0.4 nats above ln 32000.
-LOSS_STEP1 = (math.log(32000), 11.5)
+# state against N(0, 0.02^2) embedding rows): ~0.4 nats above ln V for
+# llama-1b and gemma-2b alike (both 2048 wide).  Held within
+# [ln V, ln V + LOSS_STEP1_MARGIN].
+LOSS_STEP1_MARGIN = 1.125
 # Depth 2, f32, the card (the kernels' f32 paths, cuBLAS f32) against the
 # CPU (autograd through the plain attention): f32 sums in another order
-# over a 2048-wide residual stream and a 32000-way logsumexp.  Loss
-# relative; each gradient tensor against its own max |g|.
+# over a 2048-wide residual stream and a 32000-way (llama-1b) or
+# 256000-way (gemma-2b) logsumexp.  Loss relative; each gradient tensor
+# against its own max |g|.
 BOUND_DEPTH2_LOSS = 1e-5
 BOUND_DEPTH2_GRAD = 5e-4
 
 
-def phase_train(card: str) -> tuple:
-    cfg = train_lib.TrainConfig(model='llama-1b', batch_size=8,
+def train_phase_name(model_name: str) -> str:
+    return 'train' if model_name == 'llama-1b' else f'{model_name}_train'
+
+
+def phase_train(card: str, model_name: str = 'llama-1b') -> tuple:
+    """`model_name` trained for 6 steps at batch 8 x 2048 through the
+    Trainer (f32 master weights, remat full, loss chunk 128): launches per
+    step, the step-1 loss near ln V, step time and peak memory; a
+    repeated batch's loss falls; depth 2 in f32, card against CPU.
+    Returns the kernels' launches over the 6 steps."""
+    cfg = train_lib.TrainConfig(model=model_name, batch_size=8,
                                 seq_len=2048, warmup_steps=2,
                                 total_steps=100)
     trainer = train_lib.Trainer(cfg)
@@ -1749,6 +1795,8 @@ def phase_train(card: str) -> tuple:
     mc = trainer.model_config
     # remat 'full': each layer's forward kernel runs again in backward.
     expected = (2 * mc.num_layers, mc.num_layers, mc.num_layers)
+    loss_step1 = (math.log(mc.vocab_size),
+                  math.log(mc.vocab_size) + LOSS_STEP1_MARGIN)
     counts = []
 
     def counted(batches):   # launch counts as each step takes its batch
@@ -1772,8 +1820,8 @@ def phase_train(card: str) -> tuple:
     losses = [loss for _, loss in trainer.history]
     check(len(losses) == 6 and all(math.isfinite(x) for x in losses),
           f'losses {losses}')
-    check(LOSS_STEP1[0] <= losses[0] <= LOSS_STEP1[1],
-          f'step-1 loss {losses[0]} outside {LOSS_STEP1}')
+    check(loss_step1[0] <= losses[0] <= loss_step1[1],
+          f'step-1 loss {losses[0]} outside {loss_step1}')
     step_fn = train_lib.make_train_step(cfg.loss_chunk)
     batch = next(train_lib.synthetic_data(cfg.batch_size, cfg.seq_len,
                                           mc.vocab_size, seed=2))
@@ -1819,19 +1867,141 @@ def phase_train(card: str) -> tuple:
     check(loss_err <= BOUND_DEPTH2_LOSS and grad_err <= BOUND_DEPTH2_GRAD,
           f'depth-2 f32 card vs CPU: loss {loss_err}, grads {grad_err}')
     tokens_per_step = cfg.batch_size * cfg.seq_len
-    emit({'phase': 'train', 'model': 'llama-1b', 'device': card,
+    emit({'phase': train_phase_name(model_name), 'model': model_name,
+          'device': card,
           'batch': [cfg.batch_size, cfg.seq_len], 'remat': mc.remat_policy,
           'dtype': str(mc.dtype), 'param_dtype': 'torch.float32',
           'launches_per_step': per_step, 'losses': losses,
           'step_ms': 1e3 * tokens_per_step / out['tokens_per_second'],
           'tokens_per_s': out['tokens_per_second'],
           'max_memory_allocated_gib': peak_gib,
+          'loss_step1_bounds': list(loss_step1),
           'repeat_batch_losses': repeat, 'repeat_batch_loss_after': after,
           'depth2_f32_loss_rel_err': loss_err,
           'depth2_f32_grad_max_rel_err': grad_err,
           'depth2_bounds': [BOUND_DEPTH2_LOSS, BOUND_DEPTH2_GRAD],
           'step_profile': step_profile})
     return launches
+
+
+def gemma_model(name: str, seed: int) -> llama.Llama:
+    """`name` at full width and depth on the card, random weights from a
+    seed: each tensor is drawn in f32 (iter_params, init_params' draws)
+    and copied into the model's own dtype before the next is drawn, so the
+    f32 state_dict (34 GB at gemma-7b) never exists whole."""
+    cfg = get_model_config(name)
+    model = llama.Llama(cfg, device='cuda').eval()
+    sd = model.state_dict()
+    filled = set()
+    with torch.no_grad():
+        for key, t in iter_params(cfg, torch.Generator(
+                device='cuda').manual_seed(seed)):
+            sd[key].copy_(t)
+            filled.add(key)
+            del t
+    check(filled == set(sd), f'{name}: init left {set(sd) - filled} unset')
+    return model
+
+
+# Timed runs of the gemma phase's 12 requests after the first.
+GEMMA_SERVE_RUNS = 3
+
+
+def phase_gemma(card: str) -> int:
+    """gemma-7b (head_dim 256, MHA) on the card: the no-cache forward over
+    tokens [1, 1024] through the head_dim-256 forward kernel, then the
+    dense-cache engine at the server's defaults (8 slots, cache 2048, the
+    default buckets, decode_steps 8) serving the serve phase's 12
+    requests x 32 new tokens: a first run, then GEMMA_SERVE_RUNS timed
+    ones, greedy tokens identical across all, each greedy token's logprob
+    held against the no-cache forward over prompt + output.  Returns the
+    forward's kernel launches."""
+    torch.cuda.reset_peak_memory_stats()
+    model = gemma_model('gemma-7b', seed=0)
+    cfg = model.config
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 1024))).cuda()
+    n_params = sum(t.numel() for t in model.parameters())
+    param_gib = sum(t.numel() * t.element_size()
+                    for t in model.parameters()) / 2 ** 30
+
+    def forward():
+        with torch.inference_mode():
+            return model(tokens)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    logits = forward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == (cfg.num_layers, 0, 0),
+          f'gemma-7b forward launched the kernels {counts} times, expected '
+          f'{(cfg.num_layers, 0, 0)}')
+    check(tuple(logits.shape) == (1, 1024, cfg.vocab_size),
+          f'logits shape {tuple(logits.shape)}')
+    check(bool(torch.isfinite(logits).all()), 'non-finite gemma-7b logits')
+    del logits
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        forward()
+    torch.cuda.synchronize()
+    forward_ms = 1e3 * (time.perf_counter() - t0) / reps
+    profile = profile_device(forward)
+
+    # Dense-cache serving, then the teacher-forced gap against the
+    # no-cache forward (the head_dim-256 kernel), bounded as in the serve
+    # phase (bf16, two attention paths that round apart).
+    engine = InferenceEngine(
+        cfg, InferConfig(model='gemma-7b', max_new_tokens=32),
+        params=model.state_dict(),
+        generator=torch.Generator(device='cuda').manual_seed(1))
+    del model
+    torch.cuda.empty_cache()
+    prompts, temps = serve_prompts(cfg.vocab_size)
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    runs = []
+    for _ in range(1 + GEMMA_SERVE_RUNS):
+        reqs = [Request(tokens=p, temperature=t, request_id=str(i))
+                for i, (p, t) in enumerate(zip(prompts, temps))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.generate(reqs)
+        runs.append((res, time.perf_counter() - t0))
+        for r in res:
+            check(r.finish_reason == 'length' and len(r.output_tokens) == 32,
+                  f'gemma-7b request {r.request_id}: {r.finish_reason} '
+                  f'after {len(r.output_tokens)} tokens ({r.error})')
+        check(all(res[i].output_tokens == runs[0][0][i].output_tokens
+                  for i in greedy), 'gemma-7b greedy tokens differ between '
+              'runs')
+    tf_bound = 0.25
+    tf_err = teacher_forced_err(engine.model, [runs[0][0][i]
+                                               for i in greedy])
+    check(tf_err <= tf_bound,
+          f'gemma-7b teacher-forced logprobs differ by {tf_err}')
+    n_tok = sum(len(r.output_tokens) for r in runs[0][0])
+    timed_runs = runs[1:]
+    ttft = [r.ttft_s for res, _ in timed_runs for r in res]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({'phase': 'gemma', 'model': 'gemma-7b', 'device': card,
+          'params': n_params, 'param_gib': param_gib,
+          'tokens': [1, 1024], 'flash_fwd_launches': counts[0],
+          'forward_ms': forward_ms, 'logits_finite': True,
+          'profile': profile, 'requests': len(prompts),
+          'greedy': len(greedy), 'prompt_lens': [len(p) for p in prompts],
+          'new_tokens_a_run': n_tok, 'first_run_wall_s': runs[0][1],
+          'wall_s': [wall for _, wall in timed_runs],
+          'tok_per_s': [n_tok / wall for _, wall in timed_runs],
+          'ttft_s_mean': float(np.mean(ttft)),
+          'ttft_s_max': float(np.max(ttft)),
+          'teacher_forced_max_abs_err': tf_err,
+          'teacher_forced_bound': tf_bound,
+          'max_memory_allocated_gib': peak_gib})
+    return counts[0]
 
 
 # Planted faults: (fault, library, line of the sound source, the line
@@ -1846,7 +2016,7 @@ FAULTS = (
      'issue_pv<D>(o, pa, sV + prev * kBytes);',
      'issue_pv<D>(o, pa, sV + st * kBytes);'),
     ('diagonal_tile_mask_skipped', 'flash_attention_fwd',
-     '(p.causal && kv0 + kTileRows - 1 > wq0) ||',
+     '(p.causal && kv0 + kKvRows - 1 > wq0) ||',
      '(p.causal && kv0 > wq0) ||'),
     ('p_subtile_dropped_from_pv', 'flash_attention_fwd',
      'wgmma_rs<D>(o, pa[kc], sw128_desc(sv + kc * 16 * kRowBytes,',
@@ -1879,67 +2049,89 @@ FAULTS = (
      'issue_acc<D>(dv, pa, sdo);',
      'issue_acc<D>(dv, pa, sdO + ((st + 1) % kStages) * T::kQBytes);'),
 )
+# And one for each kernel at head_dim 256, where only that instantiation
+# goes, each caught at the gemma-2b training shape: (fault, library, the
+# file it is planted in -- hopper.cuh in that library's build alone --,
+# the sound line, the line with the fault).
+FAULTS_D256 = (
+    ('pv_upper_half_reads_lower_columns', 'flash_attention_fwd',
+     'hopper.cuh', 'desc_b + 2 * ((desc_b >> 16) & 0x3FFF));', 'desc_b);'),
+    ('dsk_upper_half_reads_lower_columns', 'flash_attention_bwd_dq',
+     'hopper.cuh', 'desc_b + 2 * ((desc_b >> 16) & 0x3FFF));', 'desc_b);'),
+    ('p_t_taken_from_the_next_row', 'flash_attention_bwd_dkv',
+     'flash_attention_bwd_dkv.cu',
+     'for (int j = 0; j < kQRows / 2; ++j) pt[j] = sP[j * 128 + t];',
+     'for (int j = 0; j < kQRows / 2; ++j) pt[j] = sP[j * 128 + (t ^ 4)];'),
+)
 
 
 def phase_planted_faults() -> None:
     """Build a copy of a kernel per planted fault (under
-    build/planted_faults/), run it in place of the sound library at the
-    training shape, and hold its output to the smoke run's bound."""
+    build/planted_faults/), run it in place of the sound library at its
+    case, and hold its output to the smoke run's bound."""
     root = _build.BUILD_DIR.parent / 'planted_faults'
     shutil.rmtree(root, ignore_errors=True)
     builds = []
-    for i, (fault, lib, sound, planted) in enumerate(FAULTS):
-        src = (_build.CSRC / f'{lib}.cu').read_text()
+    faults = ([(fault, lib, f'{lib}.cu', sound, planted, TRAIN_CASE)
+               for fault, lib, sound, planted in FAULTS]
+              + [(*fault, GEMMA_TRAIN_CASE) for fault in FAULTS_D256])
+    for i, (fault, lib, file, sound, planted, case) in enumerate(faults):
+        src = (_build.CSRC / file).read_text()
         check(src.count(sound) == 1,
-              f'{fault}: the line to plant is not in {lib}.cu exactly once')
+              f'{fault}: the line to plant is not in {file} exactly once')
         d = root / str(i)
         d.mkdir(parents=True)
-        for header in _build.CSRC.glob('*.cuh'):
-            shutil.copy(header, d)
-        (d / f'{lib}.cu').write_text(src.replace(sound, planted))
+        for source in (*_build.CSRC.glob('*.cuh'), _build.CSRC / f'{lib}.cu'):
+            shutil.copy(source, d)
+        (d / file).write_text(src.replace(sound, planted))
         so = d / f'lib{lib}.so'
-        builds.append((fault, lib, so, subprocess.Popen(
+        builds.append((fault, lib, case, so, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, '-o', str(so),
              str(d / f'{lib}.cu')], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
-    for fault, lib, _, proc in builds:
+    for fault, lib, _, _, proc in builds:
         log, _ = proc.communicate()
         check(proc.returncode == 0, f'{fault} in {lib}: nvcc failed\n{log}')
-    gen = torch.Generator(device='cuda').manual_seed(1)
-    args = bwd_inputs(gen, *TRAIN_CASE[1:])
-    ref = plain_bwd(args)
-    bounds = fa.attention_bwd_bound(*args, ref)
-    q, k, v, _, _, _, causal, scale, window = args
-    fwd_args = (q, k, v, causal, scale, window)
-    fwd_ref = fa.attention_fwd_reference(*fwd_args)
     missed = []
-    for fault, lib, so, _ in builds:
-        sound = _build.load(lib)
-        _build.swap(lib, ctypes.CDLL(str(so)))
-        try:
-            if lib == 'flash_attention_fwd':
-                errs = {'o': fwd_errors(*fwd_args, fwd_ref)}
-            else:
-                got = run_bwd(args)
-                torch.cuda.synchronize()
-                errs = bwd_errors(got, ref, bounds)
-        finally:
-            _build.swap(lib, sound)
-        worst = max(e['max_err_over_bound'] for e in errs.values())
-        caught = not worst <= 1.0   # NaN is caught too
-        emit({'phase': 'planted_fault', 'fault': fault, 'kernel': lib,
-              'shape': list(TRAIN_CASE[1:6]), **errs, 'caught': caught})
-        if not caught:
-            missed.append(f'{fault} in {lib}')
+    for case in (TRAIN_CASE, GEMMA_TRAIN_CASE):
+        gen = torch.Generator(device='cuda').manual_seed(1)
+        args = bwd_inputs(gen, *case[1:])
+        ref = plain_bwd(args)
+        bounds = fa.attention_bwd_bound(*args, ref)
+        q, k, v, _, _, _, causal, scale, window = args
+        fwd_args = (q, k, v, causal, scale, window)
+        fwd_ref = fa.attention_fwd_reference(*fwd_args)
+        for fault, lib, _, so, _ in (b for b in builds if b[2] is case):
+            sound = _build.load(lib)
+            _build.swap(lib, ctypes.CDLL(str(so)))
+            try:
+                if lib == 'flash_attention_fwd':
+                    errs = {'o': fwd_errors(*fwd_args, fwd_ref)}
+                else:
+                    got = run_bwd(args)
+                    torch.cuda.synchronize()
+                    errs = bwd_errors(got, ref, bounds)
+                    del got
+            finally:
+                _build.swap(lib, sound)
+            worst = max(e['max_err_over_bound'] for e in errs.values())
+            caught = not worst <= 1.0   # NaN is caught too
+            emit({'phase': 'planted_fault', 'fault': fault, 'kernel': lib,
+                  'case': case[0], 'shape': list(case[1:6]), **errs,
+                  'caught': caught})
+            if not caught:
+                missed.append(f'{fault} in {lib}')
+        del args, ref, bounds, q, k, v, fwd_args, fwd_ref
+        torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
     check(not missed, f'planted faults within the bound: {missed}')
 
 
-def timed(fn, *args):
+def timed(fn, *args, label: str = ''):
     """fn(*args), its wall seconds on stderr (the run's time budget)."""
     t0 = time.perf_counter()
     out = fn(*args)
-    print(f'[{fn.__name__}] {time.perf_counter() - t0:.1f} s',
+    print(f'[{label or fn.__name__}] {time.perf_counter() - t0:.1f} s',
           file=sys.stderr, flush=True)
     return out
 
@@ -1957,7 +2149,7 @@ def main() -> int:
         print(json.dumps({'planted_faults': 'all caught',
                           'device': env['device']}), flush=True)
         return 0
-    main_kernel, train_kernel = timed(phase_kernel)
+    fwd = timed(phase_kernel)
     bwd = timed(phase_kernel_bwd)
     headline = timed(phase_kernel_headline)
     if '--kernels' in sys.argv[1:]:
@@ -1975,26 +2167,42 @@ def main() -> int:
     gc.collect()    # engines held in reference cycles (window audits)
     torch.cuda.empty_cache()
     train_fwd, train_dq, train_dkv = timed(phase_train, env['device'])
+    torch.cuda.empty_cache()
+    gemma_fwd = timed(phase_gemma, env['device'])
+    gemma_train = timed(phase_train, env['device'], 'gemma-2b',
+                        label='phase_' + train_phase_name('gemma-2b'))
     csrc = 'skypilot_tpu_torch/ops/csrc/'
     tpu = 'skypilot_tpu/ops/flash_attention.py:'
     print(json.dumps({'kernels': [
         dict(name='flash_attention_fwd', route='cuda',
              source=csrc + 'flash_attention_fwd.cu', replaces=tpu + '146',
-             launches=forward_launches + train_fwd + bench_fwd,
+             launches=(forward_launches + train_fwd + bench_fwd + gemma_fwd
+                       + gemma_train[0]),
              launches_by_path={'forward': forward_launches,
-                               'train': train_fwd, 'bench': bench_fwd},
-             **main_kernel, train_shape=train_kernel,
-             headline_shape=headline['fwd']),
+                               'train': train_fwd, 'bench': bench_fwd,
+                               'gemma_forward': gemma_fwd,
+                               'gemma_train': gemma_train[0]},
+             **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
+             headline_shape=headline['fwd'],
+             head_dim_256_shapes={name: fwd[name]
+                                  for name in TIMED_FWD[2:]}),
         dict(name='flash_attention_bwd_dq', route='cuda',
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
-             launches=train_dq + bench_dq,
-             launches_by_path={'train': train_dq, 'bench': bench_dq},
-             **bwd['dq'], headline_shape=headline['dq']),
+             launches=train_dq + bench_dq + gemma_train[1],
+             launches_by_path={'train': train_dq, 'bench': bench_dq,
+                               'gemma_train': gemma_train[1]},
+             **bwd[TRAIN_CASE[0]]['dq'], headline_shape=headline['dq'],
+             head_dim_256_shapes={name: bwd[name]['dq']
+                                  for name in TIMED_BWD[1:]}),
         dict(name='flash_attention_bwd_dkv', route='cuda',
              source=csrc + 'flash_attention_bwd_dkv.cu',
-             replaces=tpu + '227', launches=train_dkv + bench_dkv,
-             launches_by_path={'train': train_dkv, 'bench': bench_dkv},
-             **bwd['dkv'], headline_shape=headline['dkv']),
+             replaces=tpu + '227',
+             launches=train_dkv + bench_dkv + gemma_train[2],
+             launches_by_path={'train': train_dkv, 'bench': bench_dkv,
+                               'gemma_train': gemma_train[2]},
+             **bwd[TRAIN_CASE[0]]['dkv'], headline_shape=headline['dkv'],
+             head_dim_256_shapes={name: bwd[name]['dkv']
+                                  for name in TIMED_BWD[1:]}),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

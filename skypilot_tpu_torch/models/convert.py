@@ -8,7 +8,7 @@ flax tree, or drawn at random with the JAX package's distributions.
 become ``[heads*D, H]`` and o_proj ``[heads, D, H]`` becomes
 ``[H, heads*D]``.  RMSNorm scales keep their stored ``w - 1`` form.
 """
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +57,14 @@ def init_params(config: LlamaConfig,
     normal(0.02/sqrt(2L)) for o_proj (depth-scaled residual branch);
     zeros for norm scales and biases.  Tensors are f32 on the
     generator's device.  Does not reproduce JAX's random bits."""
+    return dict(iter_params(config, generator))
+
+
+def iter_params(config: LlamaConfig, generator: torch.Generator
+                ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """init_params one tensor at a time, (name, f32 tensor) in the same
+    order and from the same draws: a caller that copies each into a
+    model in a narrower dtype never holds the whole f32 state_dict."""
     dev = generator.device
     h, d, n_layers = config.hidden_size, config.head_dim_, config.num_layers
 
@@ -66,24 +74,24 @@ def init_params(config: LlamaConfig,
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
-    sd: StateDict = {'embedding': normal(0.02, config.vocab_size, h),
-                     'final_norm.scale': zeros(h)}
+    yield 'embedding', normal(0.02, config.vocab_size, h)
+    yield 'final_norm.scale', zeros(h)
     if not config.tie_embeddings:
-        sd['lm_head.weight'] = normal(0.02, config.vocab_size, h)
+        yield 'lm_head.weight', normal(0.02, config.vocab_size, h)
     heads = {'q_proj': config.num_heads, 'k_proj': config.num_kv_heads,
              'v_proj': config.num_kv_heads}
     o_std = 0.02 / (2 * n_layers) ** 0.5
     for i in range(n_layers):
         p = f'layers.{i}.'
-        sd[p + 'input_norm.scale'] = zeros(h)
-        sd[p + 'post_attn_norm.scale'] = zeros(h)
+        yield p + 'input_norm.scale', zeros(h)
+        yield p + 'post_attn_norm.scale', zeros(h)
         for name, n in heads.items():
-            sd[f'{p}attn.{name}.weight'] = normal(0.02, n * d, h)
+            yield f'{p}attn.{name}.weight', normal(0.02, n * d, h)
             if config.attention_bias:
-                sd[f'{p}attn.{name}.bias'] = zeros(n * d)
-        sd[p + 'attn.o_proj.weight'] = normal(o_std, h, config.num_heads * d)
+                yield f'{p}attn.{name}.bias', zeros(n * d)
+        yield p + 'attn.o_proj.weight', normal(o_std, h,
+                                                config.num_heads * d)
         inter = config.intermediate_size
-        sd[p + 'mlp.gate_proj.weight'] = normal(0.02, inter, h)
-        sd[p + 'mlp.up_proj.weight'] = normal(0.02, inter, h)
-        sd[p + 'mlp.down_proj.weight'] = normal(0.02, h, inter)
-    return sd
+        yield p + 'mlp.gate_proj.weight', normal(0.02, inter, h)
+        yield p + 'mlp.up_proj.weight', normal(0.02, inter, h)
+        yield p + 'mlp.down_proj.weight', normal(0.02, h, inter)

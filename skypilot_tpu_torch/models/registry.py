@@ -59,8 +59,9 @@ _register(
                 num_kv_heads=2, max_seq_len=256, tie_embeddings=True))
 
 # ----------------------------------------------------------------- gemma
-# head_dim 256: the Hopper attention kernel takes 64 and 128 so far, so
-# the no-cache forward of these two raises on the card (ROADMAP.md A7).
+# head_dim 256: the Hopper attention kernels take it (64, 128 and 256),
+# so gemma-7b and gemma-2b run their forward and training on the card;
+# gemma-debug's head_dim 32 is still refused there (ROADMAP.md B2).
 _register(
     LlamaConfig(name='gemma-7b', vocab_size=256000, hidden_size=3072,
                 intermediate_size=24576, num_layers=28, num_heads=16,

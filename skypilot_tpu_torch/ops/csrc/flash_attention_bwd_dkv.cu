@@ -44,6 +44,18 @@
 //     per-element mask, the rest a copy compiled without it; q tiles that
 //     see none of the KV tile are never loaded; KV rows past S are never
 //     stored.
+// head_dim 256 (Gemma): K and V of 128 rows take 128 KB there and a
+// three-stage Q/dO ring 192 KB, and dK plus dV of 64 rows x 256 are 256
+// f32 registers a thread, past the 255 a thread may hold.  A CTA takes 64
+// kv rows (K and V 2 x 32 KB resident, a two-stage ring of 64-row Q and
+// dO tiles 2 x 2 x 32 KB: 192 KB with the 16 KB below), and its two
+// consumer warpgroups split the products rather than the rows: the first
+// forms S^T and P^T and accumulates dV (128 registers), the second forms
+// dP^T, takes P^T from the first through 16 KB of shared memory (named
+// barriers 1 and 2), forms dS^T and accumulates dK (128 registers).  No
+// product runs twice, and the grid of an MQA kv head (B * S / 64 CTAs)
+// is twice the one 128-row tiles would give.  P^T dO and dS^T Q are
+// m64n256, each run as two m64n128 products.
 // No atomics: every dK/dV element is summed by one thread in a fixed
 // order, so two calls on the same inputs give bit-identical results.
 // The Hopper primitives live in hopper.cuh.
@@ -75,30 +87,38 @@ struct Params {
 
 // ---------------------------------------------------------------- bf16
 
-constexpr int kKvRows = 128;           // kv rows of a CTA
 constexpr int kWgRows = 64;            // kv rows of a consumer warpgroup
 constexpr int kQRows = 64;             // q rows of a streamed tile
 constexpr int kConsumerThreads = 256;  // two consumer warpgroups
 constexpr int kThreadsBf16 = 384;      // and the producer warpgroup
 constexpr int kProducerRegs = 40;      // setmaxnreg: 40 * 128 + 232 * 256
 constexpr int kConsumerRegs = 232;     //   = the 168 * 384 of the launch
-constexpr int kStages = 3;             // Q/dO tiles in flight
+constexpr int kPFullBar = 1;           // head_dim 256: P^T written,
+constexpr int kPFreeBar = 2;           //   and read (named barriers)
 
 template <int D>
 struct Tiles {
+  // head_dim 256 splits the work of one 64-row KV tile between the two
+  // consumer warpgroups (see the header); below it each warpgroup has a
+  // 64-row half of a 128-row tile.  Q/dO tiles in flight: 3, or 2.
+  static constexpr bool kSplit = D == 256;
+  static constexpr int kKvRows = kSplit ? kWgRows : 2 * kWgRows;  // a CTA's
+  static constexpr int kStages = kSplit ? 2 : 3;
   static constexpr uint32_t kKvBytes = kKvRows * D * 2;      // K or V
   static constexpr uint32_t kKvBlock = kKvRows * kRowBytes;  // 64 columns
   static constexpr uint32_t kQBytes = kQRows * D * 2;        // a Q or dO tile
   static constexpr uint32_t kQBlock = kQRows * kRowBytes;
-  // K, V, the ring of Q and dO tiles, its LSE and delta rows, the
+  // P^T passed from one warpgroup to the other: an m64n64 f32 accumulator.
+  static constexpr uint32_t kPBytes = kSplit ? kWgRows * kQRows * 4 : 0;
+  // K, V, the ring of Q and dO tiles, its LSE and delta rows, P^T, the
   // barriers, and room to align.
   static constexpr int kSmem = 2 * kKvBytes + kStages * 2 * kQBytes +
-                               kStages * 2 * kQRows * 4 +
+                               kStages * 2 * kQRows * 4 + kPBytes +
                                8 * (1 + 2 * kStages) + kAtomBytes;
 };
 
-// S^T = K Q^T (or dP^T = V dO^T) for one consumer warpgroup: its 64 rows
-// of the resident tile at sk against the 64 rows of the q tile at sq, both
+// S^T = K Q^T (or dP^T = V dO^T) for one consumer warpgroup: 64 rows of
+// the resident tile at sk against the 64 rows of the q tile at sq, both
 // K-major.  Accumulator element 4j + e of a thread holds kv row
 // kvrow[e >> 1] and q column 8j + 2 t4 + (e & 1).
 template <int D>
@@ -124,6 +144,16 @@ __device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
   for (int kc = 0; kc < kQRows / 16; ++kc)
     wgmma_rs<D>(acc, a[kc], sw128_desc(sq + kc * 16 * kRowBytes,
                                        Tiles<D>::kQBlock, kAtomBytes));
+}
+
+// The q tile at q0 against the 64 kv rows from wkv0 holds a pair hidden
+// from some query: the ragged edge on either side, the causal diagonal,
+// the window's lower edge.  Only such tiles run the per-element mask.
+__device__ __forceinline__ bool needs_mask(const Params& p, int q0,
+                                           int wkv0) {
+  return q0 + kQRows > p.s || wkv0 + kWgRows > p.s ||
+         (p.causal && wkv0 + kWgRows - 1 > q0) ||
+         (p.window > 0 && q0 + kQRows - 1 - wkv0 >= p.window);
 }
 
 // P^T = exp2(S^T * scale_log2 - LSE2[q]) in place (pt holds S^T), the
@@ -175,6 +205,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
                               const __grid_constant__ CUtensorMap tm_do,
                               const Params p) {
   using T = Tiles<D>;
+  constexpr int kKvRows = T::kKvRows, kStages = T::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* base = smem_raw + (kAtomBytes - smem_u32(smem_raw) % kAtomBytes) %
                                  kAtomBytes;
@@ -183,10 +214,11 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
   const uint32_t sQ = sV + T::kKvBytes;            // stage i at + i * kQBytes
   const uint32_t sdO = sQ + kStages * T::kQBytes;
   // Stage i's LSE (log2 units, +inf past S) at sRows + 2 i kQRows, its
-  // delta kQRows after.
+  // delta kQRows after; then P^T (head_dim 256), then the barriers.
   float* sRows = reinterpret_cast<float*>(
       base + 2 * T::kKvBytes + 2 * kStages * T::kQBytes);
-  const uint32_t kv_bar = smem_u32(sRows + kStages * 2 * kQRows);
+  float* sP = sRows + kStages * 2 * kQRows;
+  const uint32_t kv_bar = smem_u32(sP) + T::kPBytes;
   const uint32_t full_bar = kv_bar + 8;            // stage i: + 8 * i
   const uint32_t empty_bar = full_bar + 8 * kStages;
 
@@ -250,7 +282,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
           if (++st == kStages) st = 0, phase ^= 1;
         }
     }
-  } else {
+  } else if constexpr (!T::kSplit) {
     // Two consumer warpgroups of 64 kv rows each.
     regs_inc<kConsumerRegs>();
     const int wg = tid / 128 - 1, warp = (tid % 128) / 32, lane = tid % 32;
@@ -270,13 +302,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
       for (int q0 = q_first; q0 < q_end; q0 += kQRows) {
         const uint32_t sq = sQ + st * T::kQBytes, sdo = sdO + st * T::kQBytes;
         const float* rows = sRows + st * 2 * kQRows;
-        // Mask only the tiles that hold a pair hidden from some query: the
-        // ragged edge on either side, the causal diagonal, the window's
-        // lower edge.
-        const bool need_mask = q0 + kQRows > p.s || wkv0 + kWgRows > p.s ||
-                               (p.causal && wkv0 + kWgRows - 1 > q0) ||
-                               (p.window > 0 &&
-                                q0 + kQRows - 1 - wkv0 >= p.window);
+        const bool need_mask = needs_mask(p, q0, wkv0);
         mbar_wait(full_bar + 8 * st, phase);
 
         float pt[kQRows / 2], dpt[kQRows / 2];
@@ -318,6 +344,75 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
                        static_cast<__nv_bfloat16*>(p.dk) + kv_off, p.s);
     store_rows_bf16<D>(dv, kvrow, t4,
                        static_cast<__nv_bfloat16*>(p.dv) + kv_off, p.s);
+  } else {
+    // head_dim 256: both consumer warpgroups take the CTA's 64 kv rows.
+    // Warpgroup 0 forms S^T = K Q^T and P^T and accumulates dV += P^T dO;
+    // warpgroup 1 forms dP^T = V dO^T, takes P^T through sP, forms dS^T
+    // and accumulates dK += dS^T Q.  The code is the same for both (the
+    // wgmma in no branch); the operands are chosen by warpgroup.
+    regs_inc<kConsumerRegs>();
+    const int wg = tid / 128 - 1, t = tid % 128, warp = t / 32;
+    const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+    const int kvrow[2] = {kv0 + warp * 16 + g, kv0 + warp * 16 + g + 8};
+    const float scale_log2 = p.scale * kLog2e;
+    const int n_tiles = group * (qt_end - qt_first);
+    float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    named_bar_arrive(kPFreeBar, kConsumerThreads, wg == 1);  // sP is free
+    mbar_wait(kv_bar, 0);
+
+    int st = 0, phase = 0, n = 0;
+    for (int gi = 0; gi < group; ++gi)
+      for (int q0 = q_first; q0 < q_end; q0 += kQRows, ++n) {
+        const uint32_t sq = sQ + st * T::kQBytes, sdo = sdO + st * T::kQBytes;
+        const float* rows = sRows + st * 2 * kQRows;
+        mbar_wait(full_bar + 8 * st, phase);
+
+        float x[kQRows / 2];  // S^T, then P^T (0); dP^T, then dS^T (1)
+        wgmma_fence();
+        issue_kq<D>(x, wg == 0 ? sK : sV, wg == 0 ? sq : sdo);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(x);
+        if (wg == 0) {
+          if (needs_mask(p, q0, kv0))
+            probs_t<true>(x, rows, q0, kvrow, t4, p, scale_log2);
+          else
+            probs_t<false>(x, rows, q0, kvrow, t4, p, scale_log2);
+          // Thread t of either warpgroup holds the same elements: sP is
+          // [element][thread], so a warp's stores and loads are
+          // consecutive words.
+          named_bar_sync(kPFreeBar, kConsumerThreads);
+#pragma unroll
+          for (int j = 0; j < kQRows / 2; ++j) sP[j * 128 + t] = x[j];
+          named_bar_arrive(kPFullBar, kConsumerThreads);
+        } else {
+          float pt[kQRows / 2];
+          named_bar_sync(kPFullBar, kConsumerThreads);
+#pragma unroll
+          for (int j = 0; j < kQRows / 2; ++j) pt[j] = sP[j * 128 + t];
+          named_bar_arrive(kPFreeBar, kConsumerThreads, n + 1 < n_tiles);
+          grads_t(x, pt, rows + kQRows, t4, p.scale);
+        }
+        uint32_t a[kQRows / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < kQRows / 16; ++kc)
+          c_to_a(a[kc], &x[8 * kc], &x[8 * kc + 4]);
+        wgmma_fence();
+        issue_acc<D>(acc, a, wg == 0 ? sdo : sq);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(a);
+        mbar_arrive(empty_bar + 8 * st);  // the stage may be refilled
+        if (++st == kStages) st = 0, phase ^= 1;
+      }
+
+    store_rows_bf16<D>(acc, kvrow, t4,
+                       static_cast<__nv_bfloat16*>(wg == 0 ? p.dv : p.dk) +
+                           (size_t)bkv * p.s * D,
+                       p.s);
   }
 }
 
@@ -325,6 +420,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 // pointers, so every launch encodes its own) and launch the bf16 kernel.
 template <int D>
 int launch_bf16(const Params& p, int b, cudaStream_t st) {
+  constexpr int kKvRows = Tiles<D>::kKvRows;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kQRows);
   if (err == 0) err = encode_rows_map(&tm_do, p.dout, D, p.s, b * p.hq, kQRows);
@@ -348,10 +444,13 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_f32_kernel(const Params p) {
   constexpr int E = D / 32;  // head_dim elements per lane: d = lane + 32*i
-  __shared__ float sQ[kSimtBlockQ * D];
-  __shared__ float sdO[kSimtBlockQ * D];
-  __shared__ float sLse[kSimtBlockQ];
-  __shared__ float sDelta[kSimtBlockQ];
+  // The staged Q and dO tiles and their LSE and delta rows (64 KB at
+  // head_dim 256: dynamic).
+  extern __shared__ float simt_smem[];
+  float* sQ = simt_smem;              // [kSimtBlockQ][D]
+  float* sdO = sQ + kSimtBlockQ * D;
+  float* sLse = sdO + kSimtBlockQ * D;
+  float* sDelta = sLse + kSimtBlockQ;
 
   const int kv_tile = blockIdx.y;
   const int bkv = blockIdx.x;
@@ -476,16 +575,22 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f32) {
     const dim3 grid(b * hkv, (s + kSimtBlockM - 1) / kSimtBlockM);
+    // sQ and sdO, then the LSE and delta rows.
+    constexpr int kTiles = 2 * kSimtBlockQ, kRows = 2 * kSimtBlockQ;
     if (d == 64)
-      flash_bwd_dkv_f32_kernel<64><<<grid, kThreads, 0, st>>>(p);
-    else if (d == 128)
-      flash_bwd_dkv_f32_kernel<128><<<grid, kThreads, 0, st>>>(p);
-    else
-      return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
+      return launch_simt(flash_bwd_dkv_f32_kernel<64>, grid,
+                         simt_smem_bytes<64>(kTiles, kRows), st, p);
+    if (d == 128)
+      return launch_simt(flash_bwd_dkv_f32_kernel<128>, grid,
+                         simt_smem_bytes<128>(kTiles, kRows), st, p);
+    if (d == 256)
+      return launch_simt(flash_bwd_dkv_f32_kernel<256>, grid,
+                         simt_smem_bytes<256>(kTiles, kRows), st, p);
+    return (int)cudaErrorInvalidValue;
   }
   if (d == 64) return launch_bf16<64>(p, b, st);
   if (d == 128) return launch_bf16<128>(p, b, st);
+  if (d == 256) return launch_bf16<256>(p, b, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -35,6 +35,13 @@
 //     diagonal, the window's lower edge) run the per-element mask; KV
 //     tiles past the diagonal (and below a window's band) are never
 //     loaded; rows past S are never stored.
+// head_dim 256 (Gemma): 128-row Q and dO alone take 128 KB there, and the
+// 128-row K/V ring 256 KB.  A CTA takes 64 q rows in one consumer
+// warpgroup and streams 64-row K/V tiles through the two-stage ring: Q
+// and dO 2 x 32 KB, the ring 2 x 2 x 32 KB, 192 KB in all; dQ (64 x 256
+// f32) is 128 registers a thread beside S and dP (m64n64, 32 each).  With
+// 256 threads a CTA every thread may hold 255 registers, so nothing is
+// reallocated.  dS K is m64n256, run as two m64n128 products.
 // No atomics: every dQ element is summed by one thread in a fixed order,
 // so two calls on the same inputs give bit-identical results.  The Hopper
 // primitives live in hopper.cuh.
@@ -63,17 +70,20 @@ struct Params {
 
 // ---------------------------------------------------------------- bf16
 
-constexpr int kQRows = 128;            // q rows of a CTA
 constexpr int kWgRows = 64;            // q rows of a consumer warpgroup
-constexpr int kKvRows = 128;           // kv rows of a streamed tile
-constexpr int kConsumerThreads = 256;  // two consumer warpgroups
-constexpr int kThreadsBf16 = 384;      // and the producer warpgroup
 constexpr int kProducerRegs = 24;      // setmaxnreg: 24 * 128 + 240 * 256
 constexpr int kConsumerRegs = 240;     //   registers fit the SM's 65536
 constexpr int kStages = 2;             // K/V tiles in flight
 
 template <int D>
 struct Tiles {
+  // q rows of a CTA and kv rows of a streamed tile: 128 and 128, or 64
+  // and 64 at head_dim 256 (see the header).
+  static constexpr int kQRows = D == 256 ? 64 : 128;
+  static constexpr int kKvRows = D == 256 ? 64 : 128;
+  static constexpr int kConsumers = kQRows / kWgRows;  // warpgroups
+  static constexpr int kConsumerThreads = 128 * kConsumers;
+  static constexpr int kThreads = kConsumerThreads + 128;  // + the producer
   static constexpr uint32_t kQBytes = kQRows * D * 2;        // Q or dO
   static constexpr uint32_t kQBlock = kQRows * kRowBytes;    // 64 columns
   static constexpr uint32_t kKvBytes = kKvRows * D * 2;      // a K or V tile
@@ -84,19 +94,19 @@ struct Tiles {
 };
 
 // S = Q K^T (or dP = dO V^T) for one consumer warpgroup: its 64 rows of
-// the resident tile at sq against the 128 rows of the kv tile at sk, both
-// K-major.  Accumulator element 4j + e of a thread holds q row
-// qrow[e >> 1] and key 8j + 2 t4 + (e & 1) of the tile.
+// the resident tile at sq against the kv tile at sk, both K-major.
+// Accumulator element 4j + e of a thread holds q row qrow[e >> 1] and key
+// 8j + 2 t4 + (e & 1) of the tile.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&d)[kKvRows / 2], uint32_t sq,
-                                         uint32_t sk) {
+__device__ __forceinline__ void issue_qk(float (&d)[Tiles<D>::kKvRows / 2],
+                                         uint32_t sq, uint32_t sk) {
+  using T = Tiles<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
-    wgmma_ss_n128(
-        d, sw128_desc(sq + (kk / 4) * Tiles<D>::kQBlock + col, 16, kAtomBytes),
-        sw128_desc(sk + (kk / 4) * Tiles<D>::kKvBlock + col, 16, kAtomBytes),
-        kk);
+    wgmma_ss<T::kKvRows>(
+        d, sw128_desc(sq + (kk / 4) * T::kQBlock + col, 16, kAtomBytes),
+        sw128_desc(sk + (kk / 4) * T::kKvBlock + col, 16, kAtomBytes), kk);
   }
 }
 
@@ -104,9 +114,10 @@ __device__ __forceinline__ void issue_qk(float (&d)[kKvRows / 2], uint32_t sq,
 // lies (MN-major, the transpose bit).
 template <int D>
 __device__ __forceinline__ void issue_dsk(
-    float (&dq)[D / 2], const uint32_t (&dsa)[kKvRows / 16][4], uint32_t sk) {
+    float (&dq)[D / 2], const uint32_t (&dsa)[Tiles<D>::kKvRows / 16][4],
+    uint32_t sk) {
 #pragma unroll
-  for (int kc = 0; kc < kKvRows / 16; ++kc)
+  for (int kc = 0; kc < Tiles<D>::kKvRows / 16; ++kc)
     wgmma_rs<D>(dq, dsa[kc], sw128_desc(sk + kc * 16 * kRowBytes,
                                         Tiles<D>::kKvBlock, kAtomBytes));
 }
@@ -114,13 +125,13 @@ __device__ __forceinline__ void issue_dsk(
 // P = exp2(S * scale_log2 - LSE2[row]) in place (sc holds S); where
 // kMask (the tiles that hold a key hidden from some row), zero where the
 // key at kv0 + column is hidden from the row.
-template <bool kMask>
-__device__ __forceinline__ void probs(float (&sc)[kKvRows / 2],
+template <bool kMask, int N>
+__device__ __forceinline__ void probs(float (&sc)[N / 2],
                                       const float (&lse2)[2], int kv0,
                                       const int (&qrow)[2], int t4,
                                       const Params& p, float scale_log2) {
 #pragma unroll
-  for (int j = 0; j < kKvRows / 2; ++j) {
+  for (int j = 0; j < N / 2; ++j) {
     float pv = exp2_approx(fmaf(sc[j], scale_log2, -lse2[(j >> 1) & 1]));
     if (kMask && !visible(p.s, p.causal, p.window, qrow[(j >> 1) & 1],
                           kv0 + (j >> 2) * 8 + t4 * 2 + (j & 1)))
@@ -130,13 +141,15 @@ __device__ __forceinline__ void probs(float (&sc)[kKvRows / 2],
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsBf16, 1)
+__global__ void __launch_bounds__(Tiles<D>::kThreads, 1)
     flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
                              const __grid_constant__ CUtensorMap tm_do,
                              const Params p) {
   using T = Tiles<D>;
+  constexpr int kQRows = T::kQRows, kKvRows = T::kKvRows;
+  constexpr int kConsumerThreads = T::kConsumerThreads;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + kAtomBytes - 1) &
                       ~uint32_t(kAtomBytes - 1);
@@ -168,8 +181,9 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 
   if (tid < 128) {
     // Producer warpgroup: one thread loads Q and dO once and keeps the K/V
-    // ring full.
-    regs_dec<kProducerRegs>();
+    // ring full.  Registers move to two consumer warpgroups; one has
+    // enough without.
+    if constexpr (T::kConsumers == 2) regs_dec<kProducerRegs>();
     if (tid == 0) {
       mbar_arrive_expect_tx(q_bar, 2 * T::kQBytes);
       tma_load_tile<D, kQRows>(sQ, &tm_q, q_bar, q0, bh);
@@ -187,8 +201,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
       }
     }
   } else {
-    // Two consumer warpgroups of 64 q rows each.
-    regs_inc<kConsumerRegs>();
+    // One or two consumer warpgroups of 64 q rows each.
+    if constexpr (T::kConsumers == 2) regs_inc<kConsumerRegs>();
     const int wg = tid / 128 - 1, warp = (tid % 128) / 32, lane = tid % 32;
     const int g = lane >> 2, t4 = lane & 3;
     const int wq0 = q0 + wg * kWgRows;  // this warpgroup's first q row
@@ -231,9 +245,9 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
       wgmma_wait<1>();
       fence_regs(sc);
       if (need_mask)
-        probs<true>(sc, lse2, kv0, qrow, t4, p, scale_log2);
+        probs<true, kKvRows>(sc, lse2, kv0, qrow, t4, p, scale_log2);
       else
-        probs<false>(sc, lse2, kv0, qrow, t4, p, scale_log2);
+        probs<false, kKvRows>(sc, lse2, kv0, qrow, t4, p, scale_log2);
       wgmma_wait<0>();
       fence_regs(dp);
 #pragma unroll
@@ -263,6 +277,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 // pointers, so every launch encodes its own) and launch the bf16 kernel.
 template <int D>
 int launch_bf16(const Params& p, int b, cudaStream_t st) {
+  constexpr int kQRows = Tiles<D>::kQRows, kKvRows = Tiles<D>::kKvRows;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kQRows);
   if (err == 0) err = encode_rows_map(&tm_do, p.dout, D, p.s, b * p.hq, kQRows);
@@ -275,7 +290,7 @@ int launch_bf16(const Params& p, int b, cudaStream_t st) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (cerr != cudaSuccess) return (int)cerr;
   const dim3 grid(b * p.hq, (p.s + kQRows - 1) / kQRows);
-  flash_bwd_dq_bf16_kernel<D><<<grid, kThreadsBf16, bytes, st>>>(
+  flash_bwd_dq_bf16_kernel<D><<<grid, Tiles<D>::kThreads, bytes, st>>>(
       tm_q, tm_k, tm_v, tm_do, p);
   return (int)cudaGetLastError();
 }
@@ -286,8 +301,10 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_f32_kernel(const Params p) {
   constexpr int E = D / 32;  // head_dim elements per lane: d = lane + 32*i
-  __shared__ float sK[kSimtBlockN * D];
-  __shared__ float sV[kSimtBlockN * D];
+  // The staged K and V tiles (64 KB at head_dim 256: dynamic).
+  extern __shared__ float simt_smem[];
+  float* sK = simt_smem;              // [kSimtBlockN][D]
+  float* sV = sK + kSimtBlockN * D;
 
   const int q_tile = gridDim.y - 1 - blockIdx.y;
   const int bh = blockIdx.x;
@@ -397,19 +414,23 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(kThreads);
   if (is_f32) {
     const dim3 grid(b * hq, (s + kSimtBlockM - 1) / kSimtBlockM);
+    constexpr int kTiles = 2 * kSimtBlockN;  // sK and sV
     if (d == 64)
-      flash_bwd_dq_f32_kernel<64><<<grid, block, 0, st>>>(p);
-    else if (d == 128)
-      flash_bwd_dq_f32_kernel<128><<<grid, block, 0, st>>>(p);
-    else
-      return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
+      return launch_simt(flash_bwd_dq_f32_kernel<64>, grid,
+                         simt_smem_bytes<64>(kTiles), st, p);
+    if (d == 128)
+      return launch_simt(flash_bwd_dq_f32_kernel<128>, grid,
+                         simt_smem_bytes<128>(kTiles), st, p);
+    if (d == 256)
+      return launch_simt(flash_bwd_dq_f32_kernel<256>, grid,
+                         simt_smem_bytes<256>(kTiles), st, p);
+    return (int)cudaErrorInvalidValue;
   }
   if (d == 64) return launch_bf16<64>(p, b, st);
   if (d == 128) return launch_bf16<128>(p, b, st);
+  if (d == 256) return launch_bf16<256>(p, b, st);
   return (int)cudaErrorInvalidValue;
 }
 

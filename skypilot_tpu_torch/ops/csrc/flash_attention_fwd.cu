@@ -35,12 +35,18 @@
 //     the band) are skipped; causal CTAs are issued longest first;
 //   * q head h of batch b reads kv head b*Hkv + h/(Hq/Hkv): no K/V copies;
 //     rows past S are never stored.
+// head_dim 256 (Gemma) keeps this design with 64-row K/V tiles in a
+// two-stage ring: the head_dim-128 tiling would need (1 + 2 * 3) 64 KB
+// tiles, twice the 227 KB an SM has, while Q (64 KB) and two stages of
+// 64-row K and V (4 x 32 KB) take 192 KB.  S is then m64n64 (32 f32
+// registers) beside the 128 of O; P V is m64n256, run as two m64n128
+// products (hopper.cuh).
 // Registers and layouts are described where they are used; the Hopper
 // primitives live in hopper.cuh.
 //
 // float32 inputs take a SIMT path (one warp per q row at a time, lanes
-// split head_dim, 16-row q tiles of four warps); it exists for parity
-// checks, not speed.
+// split head_dim, 16-row q tiles of four warps, K and V staged in dynamic
+// shared memory); it exists for parity checks, not speed.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -61,22 +67,27 @@ struct Params {
 
 // ---------------------------------------------------------------- bf16
 
-constexpr int kTileRows = 128;          // q rows of a CTA, kv rows of a tile
+constexpr int kQRows = 128;             // q rows of a CTA
 constexpr int kWgRows = 64;             // q rows of a consumer warpgroup
 constexpr int kConsumerThreads = 256;   // two consumer warpgroups
 constexpr int kThreadsBf16 = 384;       // and the producer warpgroup
 constexpr int kProducerRegs = 24;       // setmaxnreg: 24 * 128 + 240 * 256
 constexpr int kConsumerRegs = 240;      //   registers fit the SM's 65536
-constexpr int kStages = 3;              // K/V tiles in flight
 constexpr int kTurnBar = 1;             // named barriers 1 and 2
 
 template <int D>
 struct Tiles {
-  static constexpr uint32_t kBytes = kTileRows * D * 2;  // one 128 x D tile
-  static constexpr uint32_t kBlockBytes = kTileRows * kRowBytes;  // 64 cols
+  // kv rows of a K/V tile and the tiles in flight: 128 and 3, or 64 and 2
+  // at head_dim 256 (see the header).
+  static constexpr int kKvRows = D == 256 ? 64 : 128;
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr uint32_t kQBytes = kQRows * D * 2;          // Q
+  static constexpr uint32_t kQBlock = kQRows * kRowBytes;      // 64 columns
+  static constexpr uint32_t kBytes = kKvRows * D * 2;          // K or V tile
+  static constexpr uint32_t kBlockBytes = kKvRows * kRowBytes;
   // Q, the ring of K and V tiles, the barriers, and room to align.
-  static constexpr int kSmem =
-      (1 + 2 * kStages) * kBytes + 8 * (1 + 2 * kStages) + kAtomBytes;
+  static constexpr int kSmem = kQBytes + 2 * kStages * kBytes +
+                               8 * (1 + 2 * kStages) + kAtomBytes;
 };
 
 // S = Q K^T for one consumer warpgroup (wgmma, both from shared memory,
@@ -84,13 +95,15 @@ struct Tiles {
 // Accumulator element 4j + e of a thread holds row qrow[e >> 1] and
 // column 8j + 2 t4 + (e & 1).
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kTileRows / 2],
+__device__ __forceinline__ void issue_qk(float (&s)[Tiles<D>::kKvRows / 2],
                                          uint32_t sq, uint32_t sk) {
+  using T = Tiles<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t at = (kk / 4) * Tiles<D>::kBlockBytes + (kk % 4) * 32;
-    wgmma_ss_n128(s, sw128_desc(sq + at, 16, kAtomBytes),
-                  sw128_desc(sk + at, 16, kAtomBytes), kk);
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss<T::kKvRows>(
+        s, sw128_desc(sq + (kk / 4) * T::kQBlock + col, 16, kAtomBytes),
+        sw128_desc(sk + (kk / 4) * T::kBlockBytes + col, 16, kAtomBytes), kk);
   }
 }
 
@@ -98,9 +111,10 @@ __device__ __forceinline__ void issue_qk(float (&s)[kTileRows / 2],
 // read as it lies (MN-major, the transpose bit).
 template <int D>
 __device__ __forceinline__ void issue_pv(
-    float (&o)[D / 2], const uint32_t (&pa)[kTileRows / 16][4], uint32_t sv) {
+    float (&o)[D / 2], const uint32_t (&pa)[Tiles<D>::kKvRows / 16][4],
+    uint32_t sv) {
 #pragma unroll
-  for (int kc = 0; kc < kTileRows / 16; ++kc)
+  for (int kc = 0; kc < Tiles<D>::kKvRows / 16; ++kc)
     wgmma_rs<D>(o, pa[kc], sw128_desc(sv + kc * 16 * kRowBytes,
                                       Tiles<D>::kBlockBytes, kAtomBytes));
 }
@@ -110,15 +124,15 @@ __device__ __forceinline__ void issue_pv(
 // (of S * scale_log2), turn S into P = exp2(S * scale_log2 - m) in place,
 // and return the factor corr = exp2(m_old - m) by which l (here) and O (by
 // the caller) are rescaled.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[kTileRows / 2],
+template <bool kMask, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&corr)[2], int kv0,
                                              const int (&qrow)[2], int t4,
                                              const Params& p) {
   float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < kTileRows / 8; ++j)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (kMask && !visible(p.s, p.causal, p.window, qrow[e >> 1],
@@ -138,7 +152,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kTileRows / 2],
   }
   float lsum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < kTileRows / 2; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const float pv = exp2_approx(fmaf(s[i], p.scale_log2, -mb[(i >> 1) & 1]));
     s[i] = pv;
     lsum[(i >> 1) & 1] += pv;
@@ -178,11 +192,13 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const Params p) {
-  constexpr uint32_t kBytes = Tiles<D>::kBytes;
+  using T = Tiles<D>;
+  constexpr uint32_t kBytes = T::kBytes;
+  constexpr int kKvRows = T::kKvRows, kStages = T::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + kAtomBytes - 1) &
                       ~uint32_t(kAtomBytes - 1);
-  const uint32_t sK = sQ + kBytes;                 // stage i at + i * kBytes
+  const uint32_t sK = sQ + T::kQBytes;             // stage i at + i * kBytes
   const uint32_t sV = sK + kStages * kBytes;
   const uint32_t q_bar = sV + kStages * kBytes;    // Q landed
   const uint32_t full_bar = q_bar + 8;             // stage i: + 8 * i
@@ -191,10 +207,10 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
   const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest tiles first
   const int bh = blockIdx.y;
   const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
-  const int q0 = q_tile * kTileRows;
+  const int q0 = q_tile * kQRows;
   int kv_first, kv_end;
-  kv_tile_range(p.s, p.causal, p.window, q0, min(q0 + kTileRows, p.s) - 1,
-                kTileRows, &kv_first, &kv_end);
+  kv_tile_range(p.s, p.causal, p.window, q0, min(q0 + kQRows, p.s) - 1,
+                kKvRows, &kv_first, &kv_end);
   const int n_kv = kv_end - kv_first;
 
   const int tid = threadIdx.x;
@@ -212,16 +228,16 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     // Producer warpgroup: one thread keeps the K/V ring full.
     regs_dec<kProducerRegs>();
     if (tid == 0) {
-      mbar_arrive_expect_tx(q_bar, kBytes);
-      tma_load_tile<D, kTileRows>(sQ, &tm_q, q_bar, q0, bh);
+      mbar_arrive_expect_tx(q_bar, T::kQBytes);
+      tma_load_tile<D, kQRows>(sQ, &tm_q, q_bar, q0, bh);
       for (int i = 0; i < n_kv; ++i) {
-        const int st = i % kStages, kv0 = (kv_first + i) * kTileRows;
+        const int st = i % kStages, kv0 = (kv_first + i) * kKvRows;
         mbar_wait(empty_bar + 8 * st, ((i / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(full_bar + 8 * st, 2 * kBytes);
-        tma_load_tile<D, kTileRows>(sK + st * kBytes, &tm_k,
-                                    full_bar + 8 * st, kv0, kvh);
-        tma_load_tile<D, kTileRows>(sV + st * kBytes, &tm_v,
-                                    full_bar + 8 * st, kv0, kvh);
+        tma_load_tile<D, kKvRows>(sK + st * kBytes, &tm_k,
+                                  full_bar + 8 * st, kv0, kvh);
+        tma_load_tile<D, kKvRows>(sV + st * kBytes, &tm_v,
+                                  full_bar + 8 * st, kv0, kvh);
       }
     }
   } else {
@@ -240,17 +256,17 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};  // per-thread partial sums (same m per row)
-    float s[kTileRows / 2], corr[2];
-    uint32_t pa[kTileRows / 16][4];  // P of the previous tile, bf16
+    float s[kKvRows / 2], corr[2];
+    uint32_t pa[kKvRows / 16][4];  // P of the previous tile, bf16
     // Mask only the tiles that hold a key hidden from some row: the
     // ragged edge, the causal diagonal, the window's lower edge.
     auto softmax = [&](int kv0) {
-      if (kv0 + kTileRows > p.s ||
-          (p.causal && kv0 + kTileRows - 1 > wq0) ||
+      if (kv0 + kKvRows > p.s ||
+          (p.causal && kv0 + kKvRows - 1 > wq0) ||
           (p.window > 0 && wq0 + kWgRows - 1 - kv0 >= p.window))
-        softmax_tile<true>(s, m, l, corr, kv0, qrow, t4, p);
+        softmax_tile<true, kKvRows>(s, m, l, corr, kv0, qrow, t4, p);
       else
-        softmax_tile<false>(s, m, l, corr, kv0, qrow, t4, p);
+        softmax_tile<false, kKvRows>(s, m, l, corr, kv0, qrow, t4, p);
     };
     named_bar_arrive(kTurnBar, kConsumerThreads, wg == 0);  // goes first
     mbar_wait(q_bar, 0);
@@ -264,14 +280,14 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     named_bar_arrive(kTurnBar + 1 - wg, kConsumerThreads);
     wgmma_wait<0>();
     fence_regs(s);
-    softmax(kv_first * kTileRows);
+    softmax(kv_first * kKvRows);
 #pragma unroll
-    for (int kc = 0; kc < kTileRows / 16; ++kc)
+    for (int kc = 0; kc < kKvRows / 16; ++kc)
       c_to_a(pa[kc], &s[8 * kc], &s[8 * kc + 4]);
 
     for (int i = 1; i < n_kv; ++i) {
       const int st = i % kStages, prev = (i - 1) % kStages;
-      const int kv0 = (kv_first + i) * kTileRows;
+      const int kv0 = (kv_first + i) * kKvRows;
       mbar_wait(full_bar + 8 * st, (i / kStages) & 1);
       named_bar_sync(kTurnBar + wg, kConsumerThreads);
       wgmma_fence();
@@ -290,7 +306,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) o[j] *= corr[(j >> 1) & 1];
 #pragma unroll
-      for (int kc = 0; kc < kTileRows / 16; ++kc)
+      for (int kc = 0; kc < kKvRows / 16; ++kc)
         c_to_a(pa[kc], &s[8 * kc], &s[8 * kc + 4]);
     }
 
@@ -313,16 +329,17 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 template <int D>
 int launch_bf16(const Params& p, int b, cudaStream_t st) {
   CUtensorMap tm_q, tm_k, tm_v;
-  int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kTileRows);
-  if (err == 0) err = encode_rows_map(&tm_k, p.k, D, p.s, b * p.hkv, kTileRows);
-  if (err == 0) err = encode_rows_map(&tm_v, p.v, D, p.s, b * p.hkv, kTileRows);
+  constexpr int kKvRows = Tiles<D>::kKvRows;
+  int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kQRows);
+  if (err == 0) err = encode_rows_map(&tm_k, p.k, D, p.s, b * p.hkv, kKvRows);
+  if (err == 0) err = encode_rows_map(&tm_v, p.v, D, p.s, b * p.hkv, kKvRows);
   if (err != 0) return err;
   constexpr int bytes = Tiles<D>::kSmem;
   const cudaError_t cerr = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (cerr != cudaSuccess) return (int)cerr;
-  const dim3 grid((p.s + kTileRows - 1) / kTileRows, b * p.hq);
+  const dim3 grid((p.s + kQRows - 1) / kQRows, b * p.hq);
   flash_fwd_bf16_kernel<D><<<grid, kThreadsBf16, bytes, st>>>(tm_q, tm_k,
                                                             tm_v, p);
   return (int)cudaGetLastError();
@@ -334,8 +351,11 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const Params p) {
   constexpr int E = D / 32;  // head_dim elements per lane: d = lane + 32*i
-  __shared__ float sK[kSimtBlockN][D];
-  __shared__ float sV[kSimtBlockN][D];
+  // The staged K and V tiles (simt_smem_bytes<D>: 64 KB at head_dim 256,
+  // past the 48 KB of static shared memory).
+  extern __shared__ float simt_smem[];
+  float* sK = simt_smem;              // [kSimtBlockN][D]
+  float* sV = sK + kSimtBlockN * D;
 
   const int q_tile = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
@@ -371,12 +391,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kv_first; kt < kv_end; ++kt) {
     const int kv0 = kt * kSimtBlockN;
     __syncthreads();
-    for (int c = tid; c < kSimtBlockN * D; c += kThreads) {
-      const int r = c / D, col = c % D;
-      const bool in = kv0 + r < p.s;
-      sK[r][col] = in ? kg[(size_t)(kv0 + r) * D + col] : 0.f;
-      sV[r][col] = in ? vg[(size_t)(kv0 + r) * D + col] : 0.f;
-    }
+    stage_rows_f32<D>(sK, kg, kv0, kSimtBlockN, p.s);
+    stage_rows_f32<D>(sV, vg, kv0, kSimtBlockN, p.s);
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -384,7 +400,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kSimtBlockN; ++j) {
         float part = 0.f;
 #pragma unroll
-        for (int i = 0; i < E; ++i) part += q[r][i] * sK[j][lane + 32 * i];
+        for (int i = 0; i < E; ++i)
+          part += q[r][i] * sK[j * D + lane + 32 * i];
         part = warp_sum(part);
         if (lane == j) mine = part;
       }
@@ -402,7 +419,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kSimtBlockN; ++j) {
         const float pb = __shfl_sync(0xffffffffu, pj, j);
 #pragma unroll
-        for (int i = 0; i < E; ++i) acc[r][i] += pb * sV[j][lane + 32 * i];
+        for (int i = 0; i < E; ++i)
+          acc[r][i] += pb * sV[j * D + lane + 32 * i];
       }
     }
   }
@@ -448,23 +466,24 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.window = window;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(kThreads);
   if (is_f32) {
     const dim3 grid((s + kSimtBlockM - 1) / kSimtBlockM, b * hq);
+    constexpr int kTiles = 2 * kSimtBlockN;  // sK and sV
     if (d == 64)
-      flash_fwd_f32_kernel<64><<<grid, block, 0, st>>>(p);
-    else if (d == 128)
-      flash_fwd_f32_kernel<128><<<grid, block, 0, st>>>(p);
-    else
-      return (int)cudaErrorInvalidValue;
-  } else if (d == 64) {
-    return launch_bf16<64>(p, b, st);
-  } else if (d == 128) {
-    return launch_bf16<128>(p, b, st);
-  } else {
+      return launch_simt(flash_fwd_f32_kernel<64>, grid,
+                         simt_smem_bytes<64>(kTiles), st, p);
+    if (d == 128)
+      return launch_simt(flash_fwd_f32_kernel<128>, grid,
+                         simt_smem_bytes<128>(kTiles), st, p);
+    if (d == 256)
+      return launch_simt(flash_fwd_f32_kernel<256>, grid,
+                         simt_smem_bytes<256>(kTiles), st, p);
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (d == 64) return launch_bf16<64>(p, b, st);
+  if (d == 128) return launch_bf16<128>(p, b, st);
+  if (d == 256) return launch_bf16<256>(p, b, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_attention_fwd_error_string(int code) {

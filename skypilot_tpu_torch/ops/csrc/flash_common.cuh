@@ -1,7 +1,8 @@
 // Pieces shared by the flash-attention kernels for Hopper (sm_90a):
-// tile sizes of the f32 paths, the visibility rule of causal / banded
-// attention, the KV (q) tile range a q (KV) tile needs, warp reductions
-// and the re-packing of an f32 wgmma accumulator into bf16 A fragments.
+// tile sizes of the f32 paths and their launch, the visibility rule of
+// causal / banded attention, the KV (q) tile range a q (KV) tile needs,
+// warp reductions and the re-packing of an f32 wgmma accumulator into
+// bf16 A fragments.
 //
 // Layout of a wgmma m64nN f32 accumulator, warp w of the warpgroup, lane
 // = 4 * g + t4: element 4j + e holds row 16 w + g + 8 (e >> 1) and column
@@ -110,6 +111,28 @@ __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
     const int r = c / D;
     dst[c] = row0 + r < s ? src[(size_t)(row0 + r) * D + c % D] : 0.f;
   }
+}
+
+// Dynamic shared memory of a SIMT (f32) kernel that stages `rows` rows of
+// D floats and `extra` floats more.
+template <int D>
+constexpr int simt_smem_bytes(int rows, int extra = 0) {
+  return (rows * D + extra) * 4;
+}
+
+// Launch a SIMT (f32) kernel of kThreads threads with `bytes` of dynamic
+// shared memory, first raising the kernel's limit where `bytes` passes
+// the 48 KB every kernel may use.  Returns the CUDA error code.
+template <typename P>
+inline int launch_simt(void (*kernel)(P), dim3 grid, int bytes,
+                       cudaStream_t st, const P& p) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kThreads, bytes, st>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace flash

@@ -10,8 +10,9 @@
 // bf16 (128 bytes a row) lies row after row, and the 16-byte chunk c of
 // row r sits at chunk c ^ (r % 8) -- the 128-byte swizzle, in 1024-byte
 // atoms of 8 rows.  A head_dim-128 tile is two such 64-column blocks,
-// one after the other.  Every tile starts 1024-byte aligned, so the
-// swizzle the hardware applies to absolute addresses is the tile's own.
+// one after the other, a head_dim-256 tile four.  Every tile starts
+// 1024-byte aligned, so the swizzle the hardware applies to absolute
+// addresses is the tile's own.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -217,15 +218,47 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(1));
 }
 
+// The accumulator of columns [c0, c0 + 128) of a wider m64n accumulator:
+// elements 4j + e with j >= c0 / 8 (see the layout in flash_common.cuh).
+using Acc128 = float[64];  // an m64n128 f32 accumulator
+
+template <int C0, int N>
+__device__ __forceinline__ Acc128& acc_cols(float (&d)[N]) {
+  static_assert(C0 % 128 == 0 && C0 / 2 + 64 <= N, "a 128-column slice");
+  return *reinterpret_cast<Acc128*>(&d[C0 / 2]);
+}
+
+// d (m64nN, f32) = A * B + (scale_d ? d : 0), both operands in shared
+// memory, K-major; N 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "m64nNk16 with N 64 or 128");
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_ss_n128(d, desc_a, desc_b, scale_d);
+}
+
+// d (m64nN, f32) += A (registers) * B (shared, MN-major), N 64, 128 or
+// 256.  N 256 runs as two m64n128 products: B's columns 128..255 start two
+// 64-column blocks -- twice the descriptor's leading byte offset -- after
+// its first column, and feed the upper half of d.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  static_assert(N == 64 || N == 128, "m64nNk16 with N 64 or 128");
-  if constexpr (N == 64)
+  static_assert(N == 64 || N == 128 || N == 256,
+                "m64nNk16 with N 64, 128 or 256");
+  if constexpr (N == 64) {
     wgmma_rs_n64(d, a, desc_b);
-  else
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, desc_b);
+  } else {
+    wgmma_rs_n128(acc_cols<0>(d), a, desc_b);
+    wgmma_rs_n128(acc_cols<128>(d), a,
+                  desc_b + 2 * ((desc_b >> 16) & 0x3FFF));
+  }
 }
 
 // ------------------------------------------------------------ mbarriers

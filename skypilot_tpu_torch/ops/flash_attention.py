@@ -21,11 +21,12 @@ import torch
 from skypilot_tpu_torch.ops import _build
 
 # TPU tile sizes of the JAX kernel, kept for signature parity: the Hopper
-# kernels' tiles are fixed in their sources (bf16: the forward and dQ 128
-# q rows x 128 kv rows, dK/dV 128 kv rows x 64 q rows).
+# kernels' tiles are fixed in their sources (bf16 up to head_dim 128: the
+# forward and dQ 128 q rows x 128 kv rows, dK/dV 128 kv rows x 64 q rows;
+# at head_dim 256: the forward 128 q x 64 kv, dQ 64 x 64, dK/dV 64 x 64).
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 512
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 _NEG_INF = -1e30
 
 # Launches of each kernel in this process (read and reset by

@@ -75,6 +75,24 @@ def test_backward_kernels_match_plain_versions(card, window):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def test_backward_kernels_f32_head_dim_256_mqa(card):
+    """The f32 (SIMT) backward kernels at head_dim 256, one kv head for
+    eight q heads (the GQA fold of 8 inside dK/dV), ragged S 200 and a
+    window, against their plain versions."""
+    q, k, v, do = _inputs([(1, 8, 200, 256), (1, 1, 200, 256),
+                           (1, 1, 200, 256), (1, 8, 200, 256)],
+                          torch.float32, seed=13)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, 256 ** -0.5, 48)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, do, lse, delta, True, 256 ** -0.5, 48)
+    got = (fa.flash_attention_bwd_dq(*args),
+           *fa.flash_attention_bwd_dkv(*args))
+    want = (fa.attention_bwd_dq_reference(*args),
+            *fa.attention_bwd_dkv_reference(*args))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=TOL)
+
+
 def test_function_gradients_match_plain_on_the_card(card):
     """FlashAttentionFunction on CUDA tensors against the same Function on
     CPU tensors (the plain versions), f32."""
@@ -92,14 +110,19 @@ def test_function_gradients_match_plain_on_the_card(card):
 
 
 # (b, hq, hkv, s, d, causal, window): the bf16 forward works in 128-row
-# tiles, so these leave the last q and kv tiles part full (S 200, 1088)
-# and start the kv loop past tile 0 (window 300).
+# tiles (64-row kv tiles at head_dim 256), so these leave the last q and
+# kv tiles part full (S 200, 1088) and start the kv loop past tile 0
+# (window 300).
 FWD_CASES = {
     'ragged_200': (1, 4, 2, 200, 128, True, None),
     'ragged_1088': (1, 16, 8, 1088, 128, True, None),
     'non_causal_ragged_200': (1, 4, 2, 200, 128, False, None),
     'window_48': (2, 8, 2, 256, 128, True, 48),
     'window_300_d64': (1, 8, 2, 1088, 64, True, 300),
+    'ragged_200_d256': (1, 4, 2, 200, 256, True, None),
+    'ragged_1088_d256_mqa': (1, 8, 1, 1088, 256, True, None),
+    'non_causal_ragged_200_d256': (1, 4, 4, 200, 256, False, None),
+    'window_300_d256_mqa': (1, 8, 1, 1088, 256, True, 300),
 }
 
 
@@ -120,16 +143,21 @@ def test_forward_kernel_within_its_bound(card, case):
 
 
 # (b, hq, hkv, s, d, causal, window): the bf16 backward kernels work in
-# 128-row tiles (dK/dV: KV tiles, dQ: q tiles) of two 64-row warpgroups:
-# these leave tiles part full (S 200, 1088), start the q (KV) loop past
-# tile 0 (window 300) and run every tile unmasked but the edge
-# (non-causal).
+# 128-row tiles (dK/dV: KV tiles, dQ: q tiles) of two 64-row warpgroups,
+# 64-row tiles at head_dim 256: these leave tiles part full (S 200,
+# 1088), start the q (KV) loop past tile 0 (window 300), run every tile
+# unmasked but the edge (non-causal) and fold eight q heads into one kv
+# head (MQA).
 BWD_CASES = {
     'ragged_200': (1, 4, 2, 200, 128, True, None),
     'ragged_1088': (1, 16, 8, 1088, 128, True, None),
     'window_48': (2, 8, 2, 256, 128, True, 48),
     'window_300_d64': (1, 8, 2, 1088, 64, True, 300),
     'non_causal_1088': (1, 16, 8, 1088, 128, False, None),
+    'ragged_200_d256': (1, 4, 2, 200, 256, True, None),
+    'ragged_1088_d256_mqa': (1, 8, 1, 1088, 256, True, None),
+    'window_300_d256_mqa': (1, 8, 1, 1088, 256, True, 300),
+    'non_causal_1088_d256': (1, 8, 8, 1088, 256, False, None),
 }
 
 

@@ -37,6 +37,11 @@ CASES = {
     'window_covers_seq': (1, 2, 2, 128, 32, True, 128, 64, 64),
     'head_dim_32': (1, 4, 2, 128, 32, True, None, 64, 64),
     'head_dim_32_window': (1, 4, 1, 128, 32, True, 48, 64, 64),
+    # head_dim 256 (Gemma), which the Hopper kernels take since they tile
+    # it by 64 kv rows: GQA, MQA with a window, non-causal.
+    'head_dim_256': (1, 4, 2, 128, 256, True, None, 64, 64),
+    'head_dim_256_mqa_window': (1, 4, 1, 128, 256, True, 48, 64, 64),
+    'head_dim_256_non_causal': (1, 2, 2, 128, 256, False, None, 64, 64),
 }
 
 
@@ -115,6 +120,8 @@ BAD_KERNEL_INPUTS = {
     'scale_zero': (dict(scale=0.0), 'positive scale'),
     'scale_negative': (dict(scale=-0.125), 'positive scale'),
     'head_dim_96': (dict(d=96), 'head_dim 96'),
+    # a head_dim the kernels take: only the device rule is left to fail
+    'head_dim_256_cpu': (dict(d=256), 'CUDA'),
     'float16': (dict(dtype=torch.float16), 'bfloat16 or float32'),
     'gqa_3_over_2': (dict(hq=3), 'multiple'),
     'window_not_causal': (dict(causal=False, window=16), 'window'),

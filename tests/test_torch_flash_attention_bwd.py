@@ -38,6 +38,10 @@ CASES = {
     'window_48': (1, 4, 2, 128, 64, True, 48, 64),
     'head_dim_32': (1, 4, 2, 128, 32, True, None, 64),
     'head_dim_64_gqa_non_causal': (1, 8, 2, 64, 64, False, None, 32),
+    # head_dim 256 (Gemma): GQA, MQA with a window, non-causal.
+    'head_dim_256': (1, 4, 2, 128, 256, True, None, 64),
+    'head_dim_256_mqa_window': (1, 4, 1, 128, 256, True, 48, 64),
+    'head_dim_256_non_causal': (1, 2, 2, 128, 256, False, None, 64),
 }
 
 
@@ -74,7 +78,8 @@ def test_plain_versions_match_pallas_kernels(case):
 
 
 @pytest.mark.parametrize('case', ['causal', 'gqa_8_2', 'window_48',
-                                  'head_dim_64_gqa_non_causal'])
+                                  'head_dim_64_gqa_non_causal',
+                                  'head_dim_256_mqa_window'])
 def test_function_gradients_match_autograd_and_jax(case):
     """FlashAttentionFunction on CPU tensors (the plain forward and both
     plain backward versions) against autograd through
@@ -153,6 +158,8 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
 # because the device is checked last.
 BAD_BWD_INPUTS = {
     'head_dim_96': (dict(d=96), 'head_dim 96'),
+    # a head_dim the kernels take: only the device rule is left to fail
+    'head_dim_256_cpu': (dict(d=256), 'CUDA'),
     'window_not_causal': (dict(causal=False, window=16), 'window'),
     'do_shape': (dict(do=lambda do: do[:, :, :32]), 'do must match q'),
     'do_dtype': (dict(do=lambda do: do.float()), 'do must match q'),

@@ -32,6 +32,9 @@ CASES = {
     'llama-debug': ('llama-debug', {}, 40),
     'gemma-debug': ('gemma-debug', {}, 40),
     'gemma-mqa-debug': ('gemma-mqa-debug', {}, 40),
+    # gemma's own head_dim, the width the Hopper kernels took last
+    'gemma-mqa-debug-head-dim-256': ('gemma-mqa-debug', {'head_dim': 256},
+                                     40),
     'llama-debug-window48': ('llama-debug', {'sliding_window': 48}, 96),
     'llama-debug-attention-bias': ('llama-debug', {'attention_bias': True},
                                    40),

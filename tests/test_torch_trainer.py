@@ -125,13 +125,13 @@ def test_chunked_cross_entropy_matches_jax():
     np.testing.assert_allclose(val.item(), full.item(), rtol=TOL_LOSS)
 
 
-def test_three_train_steps_match_jax():
-    """Three make_train_step steps on llama-debug (f32) against JAX
-    make_train_step on a one-device mesh, from the JAX state's params
-    carried across by state_dict_from_jax.  warmup_steps=2, so the steps
-    take lr 0, then half of peak, then peak."""
-    jcfg, tcfg = _configs()
-    cfg_kwargs = dict(model='llama-debug', batch_size=4, seq_len=32,
+def _three_steps_match_jax(name, **overrides):
+    """Three make_train_step steps of model `name` (f32, `overrides` on
+    both sides' configs) against JAX make_train_step on a one-device mesh,
+    from the JAX state's params carried across by state_dict_from_jax:
+    loss and grad_norm each step, params after the third."""
+    jcfg, tcfg = _configs(name, **overrides)
+    cfg_kwargs = dict(model=name, batch_size=4, seq_len=32,
                       learning_rate=PEAK_LR, warmup_steps=2, total_steps=10)
     mesh = make_mesh(MeshSpec(), devices=jax.devices()[:1])
     jstate, _ = jt.create_sharded_state(jcfg, jt.TrainConfig(**cfg_kwargs),
@@ -141,7 +141,7 @@ def test_three_train_steps_match_jax():
     jstep = jt.make_train_step(mesh)
     step = tt.make_train_step()
     for i in range(3):
-        tokens = _tokens(4, 32, seed=10 + i)
+        tokens = _tokens(4, 32, seed=10 + i, vocab=tcfg.vocab_size)
         with mesh:
             jstate, jm = jstep(jstate, {'tokens': jnp.asarray(tokens)})
         m = step(state, {'tokens': torch.from_numpy(tokens)})
@@ -151,9 +151,35 @@ def test_three_train_steps_match_jax():
                                    float(jm['grad_norm']), rtol=TOL_LOSS)
     assert state.step == 3
     want = convert.state_dict_from_jax(_np_tree(jstate.params), tcfg)
-    for name, p in state.model.state_dict().items():
-        np.testing.assert_allclose(p.numpy(), want[name].numpy(), rtol=0,
-                                   atol=TOL_PARAMS, err_msg=name)
+    for key, p in state.model.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), want[key].numpy(), rtol=0,
+                                   atol=TOL_PARAMS, err_msg=key)
+
+
+def test_three_train_steps_match_jax():
+    """Three make_train_step steps on llama-debug (f32) against JAX
+    make_train_step on a one-device mesh, from the JAX state's params
+    carried across by state_dict_from_jax.  warmup_steps=2, so the steps
+    take lr 0, then half of peak, then peak."""
+    _three_steps_match_jax('llama-debug')
+
+
+# Gemma (gelu_tanh, scaled embeddings, zero-centred norms, an explicit
+# head_dim): its debug configs, MHA-like GQA 4/2 and MQA, and the MQA one
+# at gemma's own head_dim 256 -- the width the Hopper kernels took last.
+GEMMA_TRAIN_CASES = {
+    'gemma-debug': ('gemma-debug', {}),
+    'gemma-mqa-debug': ('gemma-mqa-debug', {}),
+    'gemma-mqa-debug-head-dim-256': ('gemma-mqa-debug', {'head_dim': 256}),
+}
+
+
+@pytest.mark.parametrize('case', list(GEMMA_TRAIN_CASES))
+def test_gemma_train_steps_match_jax(case):
+    """Three make_train_step steps of each Gemma debug config (f32)
+    against JAX make_train_step, held as llama-debug's are."""
+    name, overrides = GEMMA_TRAIN_CASES[case]
+    _three_steps_match_jax(name, **overrides)
 
 
 @pytest.mark.parametrize('variant', ['full_logits', 'window_48'])
