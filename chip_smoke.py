@@ -17,7 +17,12 @@ radix prefix cache on and off, a tight pool with the host tier, the
 hot-prefix handoff between two servers), chunked prefill (prompts past
 the largest bucket offline, and long prompts arriving while streams
 decode, chunking off and on), prompt scoring (against the no-cache
-forward, and the lm-eval loglikelihood pattern over HTTP), training of
+forward, and the lm-eval loglikelihood pattern over HTTP), the fp8 KV
+cache (the card's cast against the CPU's bytes, dense and paged serving,
+an fp8 handoff), registered prefixes (/cache_prefix over HTTP,
+--auto-prefix, a paged prefix with a tail block, the tight-pool
+force-admit, a pinned radix prefix), prompt-lookup speculative decoding
+(dense and paged, lookup and oracle drafts), training of
 llama-1b at batch 8 x 2048 through the Trainer, then Gemma at head_dim
 256 (the gemma-7b no-cache forward and greedy requests through the
 dense engine, gemma-2b training at batch 8 x 2048) -- at full width with
@@ -64,6 +69,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from skypilot_tpu_torch.entry import entry
+from skypilot_tpu_torch.infer import engine as engine_mod
 from skypilot_tpu_torch.infer import server
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request)
@@ -713,11 +719,13 @@ def phase_forward():
     return model, launches
 
 
-def teacher_forced_err(model, results, use_cache: bool = False) -> float:
+def teacher_forced_err(model, results, use_cache: bool = False,
+                       cache_dtype=None) -> float:
     """Max |logprob| gap between what the engine reported for each
     generated token and a forward over prompt + output: the no-cache
     forward (flash kernel) or, with use_cache, the cached forward (the
-    engine's own attention path) over a fresh cache."""
+    engine's own attention path) over a fresh cache of cache_dtype (the
+    model's dtype by default)."""
     dev = model.embedding.device
     err = 0.0
     for r in results:
@@ -726,7 +734,8 @@ def teacher_forced_err(model, results, use_cache: bool = False) -> float:
         with torch.inference_mode():
             if use_cache:
                 cache = llama.init_cache(model.config, 1, len(toks),
-                                         model.config.dtype, dev)
+                                         cache_dtype or model.config.dtype,
+                                         dev)
                 pos = torch.arange(len(toks), device=dev)[None]
                 logits = model(seq, pos, cache)[0]
             else:
@@ -1193,7 +1202,8 @@ def paged_engine(model, **options) -> InferenceEngine:
 def conservation_errors(eng) -> list:
     """The pool's block-conservation law, from outside the allocator:
     each block's refcount equals its holders (slot table entries, a
-    radix node, 1 for the dump block 0), the free list is exactly the
+    radix node, a registered prefix entry, 1 for the dump block 0), the
+    free list is exactly the
     unheld blocks, idle slots (neither active nor chunking) hold none,
     the host tier's ledger balances."""
     want = np.zeros_like(eng._block_refs)
@@ -1207,6 +1217,8 @@ def conservation_errors(eng) -> list:
     if eng._radix is not None:
         for node in eng._radix.walk():
             want[node.block] += 1
+    for entry in eng._prefixes.values():
+        np.add.at(want, np.asarray(entry['blocks'], np.int64), 1)
     bad = np.nonzero(eng._block_refs != want)[0]
     errors += [f'block {b}: refs {eng._block_refs[b]} != holders {want[b]}'
                for b in bad[:5]]
@@ -1762,6 +1774,505 @@ def phase_prompt_logprobs(model, env: dict) -> None:
           'flash_launches': launches})
 
 
+# ------------------------------------------- fp8 cache, prefixes, spec
+
+FP8 = torch.float8_e4m3fn
+# The fp8 phase's bound against the no-cache forward: e4m3 keeps 3
+# mantissa bits, so each cached K/V value is off by up to 2^-4 of itself
+# where bf16's rounding is 2^-9; much of it averages out over 128-wide
+# heads, the rest compounds over 22 layers.  Four times the serve phase's
+# bf16 bound.  Through the engine's own attention path over a fresh fp8
+# cache (the same quantized rows) the bf16 bound stands.
+FP8_NO_CACHE_BOUND = 1.0
+
+
+def fp8_sweep() -> torch.Tensor:
+    """bf16 values on the host: normal values at scales 1e-3 .. 300, the
+    band 440 .. 1000 around e4m3's largest finite value (448) and its
+    overflow past 464, +-464, +-465, +-inf, NaN and the subnormal range,
+    both signs."""
+    rng = np.random.default_rng(9)
+    x = np.concatenate(
+        [rng.normal(0, s, 20000) for s in (1e-3, 1e-2, 0.1, 1, 10, 100, 300)]
+        + [np.linspace(440, 1000, 5601), [464, 465, 1e6, np.inf, np.nan],
+           np.linspace(0, 2 ** -6, 2001), [2 ** -9, 2 ** -10, 3 * 2 ** -11]])
+    x = torch.from_numpy(x.astype(np.float32))
+    return torch.cat([x, -x]).to(torch.bfloat16)
+
+
+def serve_engine(model, **options) -> InferenceEngine:
+    """An engine at the serve phase's settings (8 slots, cache 1024,
+    buckets 64/128/256, decode_steps 8, 32 new tokens) over the forward
+    phase's weights."""
+    dev = model.embedding.device
+    return InferenceEngine(
+        model.config, InferConfig(model='llama-1b', num_slots=8,
+                                  max_cache_len=1024,
+                                  prefill_buckets=(64, 128, 256),
+                                  decode_steps=8, max_new_tokens=32,
+                                  **options),
+        params=model.state_dict(), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))
+
+
+def cache_bytes(engine) -> int:
+    """Bytes the engine's KV cache tensors hold on the card."""
+    return sum(t.numel() * t.element_size()
+               for kv in engine.cache for t in kv)
+
+
+def pool_bytes(engine, blocks: list) -> torch.Tensor:
+    """Pool rows of `blocks` as bytes [2, n, L, Hkv, bs, D] (k, v)."""
+    idx = torch.tensor(blocks, device=engine.device)
+    return torch.stack([torch.stack([llama.as_bytes(kv[part])[idx]
+                                     for kv in engine.cache], dim=1)
+                        for part in (0, 1)])
+
+
+def window_device_ms(engine) -> dict:
+    """One decode window over every slot at cache position 256 (rows
+    past every request's end) under profile_device (dense engines)."""
+    n, dev = engine.cfg.num_slots, engine.device
+    return profile_device(lambda: engine._decode(
+        torch.zeros(n, dtype=torch.long, device=dev),
+        torch.full((n,), 256, dtype=torch.long, device=dev),
+        torch.zeros(n, device=dev), engine.cfg.decode_steps)[0])
+
+
+def count_calls(obj, name: str) -> list:
+    """Count the calls of obj.<name> from now on (an instance attribute
+    over the method); returns the one-element counter."""
+    calls = [0]
+    fn = getattr(obj, name)
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(obj, name, counting)
+    return calls
+
+
+def timed_generate(engine, requests: list) -> tuple:
+    """engine.generate(requests) after a sync; (results, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate(requests)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_fp8(model, env: dict) -> None:
+    """The fp8 (e4m3) KV cache at llama-1b full width and depth: (a) the
+    card's cast (models.llama.to_fp8) over fp8_sweep gives the CPU's
+    bytes, which tests/test_torch_fp8.py holds against the JAX cast; (b)
+    the dense and the paged engine with an fp8 cache serve the serve
+    phase's 12 requests: the teacher-forced gap against the no-cache
+    forward within FP8_NO_CACHE_BOUND and through the engine's own
+    attention path within 0.25 nats, cache bytes exactly half the bf16
+    engine's, the decode window's device time fp8 beside bf16 (recorded);
+    (c) the hot-prefix handoff between two fp8 engines gives
+    byte-identical pool rows, and a bf16 engine refuses the payload."""
+    vocab = model.config.vocab_size
+    dev = model.embedding.device
+    launches = [0, 0, 0]
+    x = fp8_sweep()
+    want = llama.to_fp8(x).view(torch.uint8)
+    got = llama.to_fp8(x.to(dev)).view(torch.uint8).cpu()
+    check(torch.equal(got, want), 'the card\'s fp8 bytes differ from the '
+          f'CPU\'s at {int((got != want).sum())} values')
+    xf = x.float()
+    over = ~(xf.abs() <= 464)
+    plain = x.to(dev).to(FP8).view(torch.uint8).cpu()
+    cast = {'values': x.numel(), 'overflow_values': int(over.sum()),
+            'nan_bytes': int(((want & 0x7F) == 0x7F).sum()),
+            'card_equals_cpu': True,
+            # What torch's own cast gives past 464 on this card.
+            'plain_cast_overflow_bytes': sorted(set(
+                plain[over & torch.isfinite(xf)].tolist()))}
+    prompts, temps = serve_prompts(vocab)
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+
+    def requests():
+        return [Request(tokens=p, temperature=t, request_id=str(i))
+                for i, (p, t) in enumerate(zip(prompts, temps))]
+
+    report = {}
+    for layout, options in (('dense', {}),
+                            ('paged', {'kv_block_size': PAGED_BLOCK})):
+        row = {}
+        for name, dtype in (('bfloat16', torch.bfloat16), ('fp8', FP8)):
+            eng = serve_engine(model, cache_dtype=dtype, **options)
+            counted(lambda: eng.generate(requests()), launches)   # warm
+            res, wall = counted(lambda: timed_generate(eng, requests()),
+                                launches)
+            for r in res:
+                check(r.finish_reason == 'length' and
+                      len(r.output_tokens) == 32,
+                      f'{layout} {name} request {r.request_id}: '
+                      f'{r.finish_reason} ({r.error})')
+            n_tok = sum(len(r.output_tokens) for r in res)
+            entry = {'cache_bytes': cache_bytes(eng),
+                     'stats_bytes_total':
+                         eng.stats()['kv']['bytes']['total'],
+                     'wall_s': wall, 'tok_per_s': n_tok / wall,
+                     'greedy': [res[i].output_tokens for i in greedy]}
+            if dtype is FP8:
+                tf = teacher_forced_err(eng.model, [res[i] for i in greedy])
+                tfc = teacher_forced_err(eng.model, [res[i] for i in greedy],
+                                         use_cache=True, cache_dtype=FP8)
+                check(tf <= FP8_NO_CACHE_BOUND,
+                      f'{layout} fp8 teacher-forced gap {tf}')
+                check(tfc <= 0.25, f'{layout} fp8 cache-path gap {tfc}')
+                entry.update(teacher_forced_max_abs_err=tf,
+                             cache_path_max_abs_err=tfc)
+            if layout == 'dense':
+                entry['decode_window_profile'] = window_device_ms(eng)
+            row[name] = entry
+            del eng
+            torch.cuda.empty_cache()
+        half = row['fp8']
+        check(2 * half['cache_bytes'] == row['bfloat16']['cache_bytes'] and
+              2 * half['stats_bytes_total'] ==
+              row['bfloat16']['stats_bytes_total'],
+              f'{layout}: fp8 cache {half["cache_bytes"]} bytes, bf16 '
+              f'{row["bfloat16"]["cache_bytes"]}')
+        same = sum(a == b for a, b in zip(row['fp8'].pop('greedy'),
+                                          row['bfloat16'].pop('greedy')))
+        row['greedy_streams_identical_to_bf16'] = same
+        report[layout] = row
+    # (c) the handoff: 4 requests behind the radix phase's 1024-token
+    # system prompt on one fp8 radix engine, exported and adopted.
+    hot = radix_requests(vocab)[:4]
+    a = paged_engine(model, auto_prefix_cache=True, cache_dtype=FP8)
+    a.generate([Request(tokens=p) for p in hot])
+    t0 = time.perf_counter()
+    payload = a.export_hot_prefixes()
+    export_s = time.perf_counter() - t0
+    check(payload['cache_dtype'] == 'float8_e4m3fn' and
+          payload['prefixes'], f'fp8 export: {payload["cache_dtype"]}, '
+          f'{len(payload["prefixes"])} prefixes')
+    b = paged_engine(model, auto_prefix_cache=True, cache_dtype=FP8)
+    t0 = time.perf_counter()
+    adopted = b.adopt_prefixes(payload)
+    adopt_s = time.perf_counter() - t0
+    check(adopted['adopted_blocks'] > 0, f'fp8 adoption: {adopted}')
+    compared = 0
+    for pref in payload['prefixes']:
+        toks = pref['tokens']
+        on_b = b._radix.peek(None, toks, len(toks))
+        on_a = a._radix.peek(None, toks, len(toks))[:len(on_b)]
+        check(len(on_b) == len(pref['blocks']),
+              f'{len(on_b)} of {len(pref["blocks"])} blocks adopted')
+        check(torch.equal(pool_bytes(a, on_a), pool_bytes(b, on_b)),
+              'adopted fp8 rows differ from the exporter\'s')
+        compared += len(on_b)
+    hits = b.radix_stats['hits']
+    probe = [Request(tokens=hot[0][:1024] + [5, 6, 7], max_new_tokens=8)]
+    check(b.generate(probe)[0].output_tokens ==
+          a.generate(probe)[0].output_tokens,
+          'the adopter\'s tokens differ from the exporter\'s')
+    check(b.radix_stats['hits'] == hits + 1, 'the probe missed the tree')
+    mb = len(json.dumps(payload)) / 1e6
+    del a, b
+    torch.cuda.empty_cache()
+    bf = paged_engine(model, auto_prefix_cache=True)
+    try:
+        bf.adopt_prefixes(payload)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and 'cache_dtype mismatch' in refused,
+          f'a bf16 engine took an fp8 payload ({refused})')
+    del bf, payload
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({'phase': 'fp8', 'model': 'llama-1b', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'cast': cast,
+          'requests': len(prompts), 'greedy': len(greedy),
+          'teacher_forced_bound': FP8_NO_CACHE_BOUND,
+          'cache_path_bound': 0.25, **report,
+          'handoff': {**adopted,
+                      'blocks_compared': compared, 'payload_mb': mb,
+                      'export_s': export_s, 'adopt_s': adopt_s,
+                      'bf16_engine_refused': refused},
+          # The serving paths attend through decode_attention.
+          'flash_launches': launches})
+
+
+def phase_prefix(model, env: dict) -> None:
+    """Registered prefixes at llama-1b full width, bf16.  Dense, over
+    HTTP (the server's defaults): 8 requests behind a 1024-token system
+    prompt, before and after POST /cache_prefix of it -- 8 hits, 8 x 1024
+    tokens reused, the teacher-forced gap within 0.25 nats, TTFT p50
+    without and with the prefix and the streams greedy-identical to the
+    unprefixed run (recorded: in bf16 the suffix-only prefill's products
+    have other shapes).  --auto-prefix (the same engine under an
+    InferenceServer with auto_prefix) registers a head on its second
+    sighting.  Paged: a 1000-token prefix (62 full blocks and an 8-row
+    tail, so paged_copy_blocks runs) with the conservation law after
+    every window, and _force_admit_blocks reached by an offline request
+    in a 160-block pool held by three prefixes.  Radix: a pinned prefix
+    survives waves that evict the rest of a 385-block pool."""
+    vocab = model.config.vocab_size
+    dev = model.embedding.device
+    launches = [0, 0, 0]
+    prompts = radix_requests(vocab)[:8]
+    system = prompts[0][:1024]
+    n_new = PAGED_NEW_TOKENS
+    eng = InferenceEngine(model.config, InferConfig(model='llama-1b'),
+                          params=model.state_dict(), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    port_, thread, warm_s, _ = start_server(eng)
+    reqs = [('plain', '/generate',
+             {'tokens': p, 'max_new_tokens': n_new, 'logprobs': True})
+            for p in prompts]
+    runs = {}
+    for name in ('without', 'with'):
+        if name == 'with':
+            code, _, doc = http(port_, 'POST', '/cache_prefix',
+                                {'tokens': system})
+            check(code == 200 and doc == {'cached_prefix_len': 1024},
+                  f'/cache_prefix answered {code} {doc}')
+        replies, wall = counted(lambda: post_all(port_, reqs), launches)
+        for code, _, doc in replies:
+            check(code == 200 and len(doc['output_tokens']) == n_new,
+                  f'prefixed request answered {code}: {doc}')
+        runs[name] = {'wall_s': wall, 'replies': replies,
+                      'ttft_s_p50': float(np.percentile(
+                          [d['ttft_s'] for _, _, d in replies], 50))}
+    code, _, st = http(port_, 'GET', '/stats')
+    check(st['prefix'] == {'hits': 8, 'tokens_reused': 8 * 1024} and
+          st['resident_prefixes'] == 1, f'/stats prefix: {st["prefix"]}')
+    results = [types.SimpleNamespace(prompt_tokens=p,
+                                     output_tokens=d['output_tokens'],
+                                     logprobs=d['logprobs'])
+               for p, (_, _, d) in zip(prompts, runs['with']['replies'])]
+    tf = teacher_forced_err(eng.model, results)
+    check(tf <= 0.25, f'prefixed teacher-forced gap {tf}')
+    identical = sum(a[2]['output_tokens'] == b[2]['output_tokens']
+                    for a, b in zip(runs['without']['replies'],
+                                    runs['with']['replies']))
+    http(port_, 'POST', '/drain', {'deadline_s': 60})
+    thread.join(timeout=120)
+    check(not thread.is_alive(), 'the prefix server did not drain')
+    dense = {name: {k: v for k, v in run.items() if k != 'replies'}
+             for name, run in runs.items()}
+    # --auto-prefix: a second system prompt's 1024-token head (the
+    # longest bucket inside a 1100-token prompt) registers on its second
+    # sighting, and the third prompt behind it is a hit.
+    rng = np.random.default_rng(11)
+    head = rng.integers(0, vocab, 1024).tolist()
+    srv = server.InferenceServer(eng, auto_prefix=True)
+    srv.start()
+    check(srv.ready.wait(300), 'the auto-prefix server never got ready')
+    key = (None, tuple(head))
+    seen = []
+    for k in range(3):
+        if k == 2:
+            t0 = time.perf_counter()
+            while key not in eng._prefixes and \
+                    time.perf_counter() - t0 < 120:
+                time.sleep(0.01)
+            hits = dict(eng.prefix_stats)
+        res = counted(lambda: srv.submit(Request(
+            tokens=head + rng.integers(0, vocab, 76).tolist(),
+            max_new_tokens=8)), launches)
+        check(res is not None and res.finish_reason == 'length',
+              f'auto-prefix request {k}: {res}')
+        seen.append(key in eng._prefixes)
+    srv.stop()
+    check(seen[0] is False and key in eng._prefixes,
+          f'auto-prefix registration after sightings: {seen}')
+    check(eng.prefix_stats['hits'] == hits['hits'] + 1 and
+          eng.prefix_stats['tokens_reused'] ==
+          hits['tokens_reused'] + 1024, f'auto-prefix hit: {hits} -> '
+          f'{eng.prefix_stats}')
+    auto = {'registered_after_sighting': 2, 'third_request_hit': True}
+    del eng, srv
+    torch.cuda.empty_cache()
+    # Paged: a registered prefix with a partial tail block.
+    pe = paged_engine(model)
+    check(pe.register_prefix(system[:1000]) == 1000, 'paged registration')
+    copies = count_calls(pe, '_paged_copy_blocks')
+    log = audited_windows(pe)
+    res, wall = counted(lambda: timed_generate(
+        pe, [Request(tokens=p) for p in prompts]), launches)
+    for r in res:
+        check(r.finish_reason == 'length', f'paged prefixed: {r.error}')
+    check(log[1:] == [], f'conservation: {log[1:6]}')
+    check(pe.prefix_stats == {'hits': 8, 'tokens_reused': 8000} and
+          copies[0] >= 1 and pe.stats()['blocks_prefix'] == 63,
+          f'paged prefix: {pe.prefix_stats}, {copies[0]} copies')
+    tf_paged = teacher_forced_err(pe.model, res)
+    check(tf_paged <= 0.25, f'paged prefixed teacher-forced gap {tf_paged}')
+    paged = {'windows_audited': log[0], 'tail_copies': copies[0],
+             'prefix_block_hits': pe.paged_stats['prefix_block_hits'],
+             'wall_s': wall, 'teacher_forced_max_abs_err': tf_paged}
+    del pe
+    torch.cuda.empty_cache()
+    # _force_admit_blocks: 160 usable blocks, three 512-token prefixes
+    # hold 96; a 1500-token request with 32 new tokens needs 96.
+    tight = paged_engine(model, kv_blocks=161, max_prefixes=4)
+    for _ in range(3):
+        tight.register_prefix(rng.integers(0, vocab, 512).tolist())
+    forced = count_calls(tight, '_force_admit_blocks')
+    log = audited_windows(tight)
+    [big] = counted(lambda: tight.generate([Request(
+        tokens=rng.integers(0, vocab, 1500).tolist())]), launches)
+    check(big.finish_reason == 'length' and forced[0] >= 1 and
+          len(tight._prefixes) == 2 and log[1:] == [] and
+          conservation_errors(tight) == [],
+          f'force-admit: {big.finish_reason}, {forced[0]} calls, '
+          f'{len(tight._prefixes)} prefixes left, {log[1:4]}')
+    paged['force_admit'] = {'calls': forced[0], 'prefixes_left': 2,
+                            'windows_audited': log[0]}
+    del tight
+    torch.cuda.empty_cache()
+    # Radix: pinning survives eviction waves.
+    rx = paged_engine(model, auto_prefix_cache=True, kv_blocks=TIGHT_BLOCKS)
+    check(rx.register_prefix(system) == 1024 and rx._radix.pinned == 64,
+          f'radix pin: {rx._radix.pinned} nodes')
+    log = audited_windows(rx)
+    for _ in range(2):
+        counted(lambda: rx.generate([Request(
+            tokens=rng.integers(0, vocab, int(n)).tolist())
+            for n in rng.integers(800, 1001, 8)]), launches)
+    hits = dict(rx.radix_stats)
+    counted(lambda: rx.generate([Request(tokens=prompts[1])]), launches)
+    check(rx.radix_stats['evictions'] > 0 and rx._radix.pinned == 64 and
+          rx.radix_stats['hits'] == hits['hits'] + 1 and
+          rx.radix_stats['tokens_reused'] >= hits['tokens_reused'] + 1024
+          and log[1:] == [],
+          f'radix pin through waves: {rx.radix_stats}, pinned '
+          f'{rx._radix.pinned}, {log[1:4]}')
+    radix = {'pinned_nodes': 64, 'evictions': rx.radix_stats['evictions'],
+             'windows_audited': log[0]}
+    del rx
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({'phase': 'prefix', 'model': 'llama-1b', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'system_prompt': 1024,
+          'requests': len(prompts), 'server_warmup_s': warm_s,
+          'dense_http': {**dense, 'hits': 8, 'tokens_reused': 8 * 1024,
+                         'teacher_forced_max_abs_err': tf,
+                         'teacher_forced_bound': 0.25,
+                         'greedy_identical_to_unprefixed': identical},
+          'auto_prefix': auto, 'paged': paged, 'radix': radix,
+          'flash_launches': launches})
+
+
+SPEC_DRAFT = 4
+
+
+def repetitive_prompts(vocab: int) -> list:
+    """8 prompts from a seed, each a 16-token pattern six times over and
+    8 tokens more: prompt lookup drafts from the pattern when a stream
+    continues it."""
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, vocab, 16).tolist() * 6 +
+            rng.integers(0, vocab, 8).tolist() for _ in range(8)]
+
+
+def phase_spec(model, env: dict) -> None:
+    """Prompt-lookup speculative decoding (draft_len 4) at llama-1b full
+    width, bf16, dense and paged, against windowed decode at the serve
+    phase's settings: (a) prompt lookup on repetitive prompts; (b)
+    oracle drafts -- each prompt's windowed greedy continuation, through
+    a patched engine.prompt_lookup_draft -- on the serve phase's 12
+    requests (2 sampled, which ride the verify at one token).  Random
+    weights seldom continue a prompt's pattern, so lookup may find no
+    draft at all (then every dispatch is a window).  Checks: accepted <=
+    drafted, verify dispatched and accepted > 0 under the oracle,
+    finish reasons and
+    token counts equal windowed decode's, teacher-forced gap within 0.25
+    nats.  Recorded: acceptance rate, verify dispatches beside windowed
+    windows, tok/s beside windowed decode's."""
+    vocab = model.config.vocab_size
+    launches = [0, 0, 0]
+    serve_p, temps = serve_prompts(vocab)
+    sets = {'prompt_lookup': (repetitive_prompts(vocab), [0.0] * 8),
+            'oracle': (serve_p, temps)}
+    report = {}
+    for layout, options in (('dense', {}),
+                            ('paged', {'kv_block_size': PAGED_BLOCK})):
+        windowed = serve_engine(model, **options)
+        windows = count_calls(windowed, '_decode')
+        refs = {}
+        for name, (prompts, ts) in sets.items():
+            reqs = [Request(tokens=p, temperature=t)
+                    for p, t in zip(prompts, ts)]
+            windows[0] = 0
+            res, wall = counted(lambda: timed_generate(windowed, reqs),
+                                launches)
+            refs[name] = (res, wall, windows[0])
+        del windowed
+        torch.cuda.empty_cache()
+        row = {}
+        for name, (prompts, ts) in sets.items():
+            ref, ref_wall, ref_windows = refs[name]
+            spec = serve_engine(model, draft_len=SPEC_DRAFT, **options)
+            fallback = count_calls(spec, '_decode')
+            lookup = engine_mod.prompt_lookup_draft
+            if name == 'oracle':
+                by_prompt = {tuple(r.prompt_tokens): r.output_tokens
+                             for r, t in zip(ref, ts) if t == 0.0}
+
+                def oracle(hist, k, nmax):
+                    for prompt, out in by_prompt.items():
+                        if tuple(hist[:len(prompt)]) == prompt:
+                            done = len(hist) - len(prompt)
+                            return out[done:done + k]
+                    return []
+
+                engine_mod.prompt_lookup_draft = oracle
+            try:
+                spec._warm_spec(64)        # restores spec_stats
+                reqs = [Request(tokens=p, temperature=t)
+                        for p, t in zip(prompts, ts)]
+                fallback[0] = 0
+                res, wall = counted(lambda: timed_generate(spec, reqs),
+                                    launches)
+            finally:
+                engine_mod.prompt_lookup_draft = lookup
+            st = dict(spec.spec_stats)
+            check([(r.finish_reason, len(r.output_tokens)) for r in res] ==
+                  [(r.finish_reason, len(r.output_tokens)) for r in ref],
+                  f'{layout} {name}: finishes differ from windowed decode')
+            check(st['accepted'] <= st['drafted'],
+                  f'{layout} {name} spec_stats {st}')
+            if name == 'oracle':
+                check(st['dispatches'] > 0 and st['accepted'] > 0,
+                      f'{layout} oracle: {st}')
+            greedy = [r for r, t in zip(res, ts) if t == 0.0]
+            tf = teacher_forced_err(spec.model, greedy)
+            check(tf <= 0.25, f'{layout} {name} teacher-forced gap {tf}')
+            n_tok = sum(len(r.output_tokens) for r in res)
+            ref_tok = sum(len(r.output_tokens) for r in ref)
+            row[name] = {
+                'spec_stats': st,
+                'acceptance_rate': (st['accepted'] / st['drafted']
+                                    if st['drafted'] else None),
+                'verify_dispatches': st['dispatches'],
+                'windowed_fallback_windows': fallback[0],
+                'windowed_engine_windows': ref_windows,
+                'tok_per_s': n_tok / wall,
+                'windowed_tok_per_s': ref_tok / ref_wall,
+                'teacher_forced_max_abs_err': tf,
+                'greedy_streams_identical_to_windowed': sum(
+                    a.output_tokens == b.output_tokens
+                    for a, b, t in zip(ref, res, ts) if t == 0.0)}
+            del spec
+            torch.cuda.empty_cache()
+        report[layout] = row
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({'phase': 'spec', 'model': 'llama-1b', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'draft_len': SPEC_DRAFT,
+          'new_tokens': 32, 'teacher_forced_bound': 0.25, **report,
+          'flash_launches': launches})
+
+
 # Step-1 loss of the random init: ln V plus about sigma^2 / 2, where the
 # tied logits' std is sigma ~ sqrt(2048) * 0.02 ~ 0.9 (a unit-RMS hidden
 # state against N(0, 0.02^2) embedding rows): ~0.4 nats above ln V for
@@ -2163,6 +2674,9 @@ def main() -> int:
     timed(phase_paged, model, env)
     timed(phase_chunked, model, env)
     timed(phase_prompt_logprobs, model, env)
+    timed(phase_fp8, model, env)
+    timed(phase_prefix, model, env)
+    timed(phase_spec, model, env)
     del model
     gc.collect()    # engines held in reference cycles (window audits)
     torch.cuda.empty_cache()

@@ -51,12 +51,30 @@ block-paged KV pool -- the PyTorch twin of ``skypilot_tpu/infer/engine.py``.
   current one's device-side tokens before the host waits for it) change
   the dispatch schedule, never the greedy tokens.
 
+- **fp8 KV cache** (``cache_dtype=torch.float8_e4m3fn``): half the
+  cache bytes per slot; rows enter the cache through
+  ``models.llama.cast_rows`` (the JAX engine's bytes, NaN past e4m3's
+  range) and move as their uint8 view (``as_bytes``) everywhere else.
+- **Registered prefixes** (``register_prefix``, ``max_prefixes``): a
+  system prompt's KV rows stay resident and a prompt that starts with it
+  prefills only its suffix.  Dense: the rows are kept apart and
+  preloaded into each lane's prefill cache (``_prefix_prefill``); paged:
+  the entry holds pool blocks that matching slots share by reference, a
+  partial tail block copied (``_paged_copy_blocks``); with the radix
+  cache registration pins the prefix's nodes.
+- **Prompt-lookup speculative decoding** (``draft_len`` = D > 0,
+  ``_spec_step``): each greedy slot drafts up to D tokens from an
+  earlier occurrence of its trailing n-gram (``prompt_lookup_draft``),
+  one ``[B, 1+D]`` cached forward verifies them, and the agreed prefix
+  plus the model's own next token is accepted: greedy tokens are those
+  of windowed decode.
+
 Prefill attends through ``write_kv_and_attend``/``decode_attention`` (or
 their paged twins) like the JAX engine, not through the flash kernel.
-Not ported yet (ROADMAP.md): registered prefixes and the fp8 cache (A6b);
-speculative decoding, QoS and multi-LoRA serving (A6c).
+Not ported yet (ROADMAP.md A6c): QoS scheduling and multi-LoRA serving.
 """
 import base64
+import collections
 import dataclasses
 import math
 import queue
@@ -75,7 +93,8 @@ from skypilot_tpu_torch.infer.scheduler import (DEFAULT_TENANT,
                                                 PRIORITY_CLASSES,
                                                 FifoScheduler)
 from skypilot_tpu_torch.models.convert import init_params
-from skypilot_tpu_torch.models.llama import (Llama, LlamaConfig, init_cache,
+from skypilot_tpu_torch.models.llama import (FP8, Llama, LlamaConfig,
+                                             as_bytes, init_cache,
                                              init_paged_cache)
 from skypilot_tpu_torch.models.registry import get_model_config
 
@@ -83,6 +102,7 @@ DEFAULT_PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 
 _CACHE_DTYPES = {
     'bfloat16': torch.bfloat16,
+    'bf16': torch.bfloat16,
     'fp8': torch.float8_e4m3fn,
     'float8_e4m3fn': torch.float8_e4m3fn,
     'float32': torch.float32,
@@ -90,8 +110,9 @@ _CACHE_DTYPES = {
 
 
 def resolve_cache_dtype(name: str) -> torch.dtype:
-    """CLI string -> KV-cache dtype (the JAX engine's names; fp8 is not
-    ported yet and the engine refuses it)."""
+    """CLI string -> KV-cache dtype (the JAX engine's names).  fp8 (e4m3)
+    halves the cache's bytes per slot; it keeps no scales, so rows past
+    e4m3's range store NaN, as the JAX engine's do."""
     try:
         return _CACHE_DTYPES[name]
     except KeyError:
@@ -136,8 +157,6 @@ class InferConfig:
 
 # InferConfig features outside this slice: field -> ROADMAP.md item.
 _UNPORTED = {
-    'max_prefixes': 'A6b (registered prefixes)',
-    'draft_len': 'A6c (speculative decoding)',
     'lora_rank': 'A6c (multi-LoRA serving)',
     'qos': 'A6c (QoS scheduling)',
     'qos_tenant_weights': 'A6c (QoS scheduling)',
@@ -146,7 +165,7 @@ _UNPORTED = {
 
 def _dtype_name(dtype: torch.dtype) -> str:
     """The cache dtype's name on the wire: numpy's name for the JAX
-    engine's dtype ('bfloat16', 'float32')."""
+    engine's dtype ('bfloat16', 'float8_e4m3fn', 'float32')."""
     return str(dtype).split('.')[-1]
 
 
@@ -190,6 +209,31 @@ class RequestResult:
     prompt_logprobs: Optional[List[Optional[float]]] = None
     prompt_top_logprobs: Optional[List[Optional[List[Tuple[
         int, float]]]]] = None
+
+
+def prompt_lookup_draft(hist: Sequence[int], k: int,
+                        ngram_max: int) -> List[int]:
+    """Prompt-lookup drafting: up to `k` tokens continuing the most recent
+    earlier occurrence of the history's trailing n-gram, the longest n
+    first.  Host-side numpy over the slot's own prompt + output tokens:
+    no draft model, no device work."""
+    length = len(hist)
+    if length < 2 or k < 1:
+        return []
+    h = np.asarray(hist, np.int32)
+    for n in range(min(ngram_max, length - 1), 0, -1):
+        tail = h[length - n:]
+        # Windows start at 0 .. length-1-n: the trailing n-gram itself
+        # (start length-n) is left out, so a match is an earlier one.
+        windows = np.lib.stride_tricks.sliding_window_view(
+            h[:length - 1], n)
+        cand = np.flatnonzero((windows == tail).all(axis=1))
+        if cand.size:
+            start = int(cand[-1]) + n
+            proposal = h[start:start + k]
+            if proposal.size:
+                return proposal.tolist()
+    return []
 
 
 def _pairs(ids_row, lps_row) -> List[Tuple[int, float]]:
@@ -286,10 +330,10 @@ class InferenceEngine:
                 raise NotImplementedError(
                     f'InferConfig.{name}={getattr(cfg, name)!r} is not '
                     f'ported yet (ROADMAP.md {item})')
-        if cfg.cache_dtype not in (torch.bfloat16, torch.float32):
-            raise NotImplementedError(
-                f'cache_dtype {cfg.cache_dtype} is not ported yet '
-                '(ROADMAP.md A6b: the fp8 KV cache)')
+        if cfg.cache_dtype not in (torch.bfloat16, FP8, torch.float32):
+            raise ValueError(
+                f'cache_dtype must be one of bfloat16, float8_e4m3fn, '
+                f'float32 (got {cfg.cache_dtype})')
         if cfg.max_cache_len > model_config.max_seq_len:
             raise ValueError(
                 f'max_cache_len {cfg.max_cache_len} exceeds model '
@@ -324,6 +368,16 @@ class InferenceEngine:
         if cfg.kv_block_size < 0:
             raise ValueError(f'kv_block_size must be >= 0 '
                              f'(got {cfg.kv_block_size})')
+        if cfg.draft_len < 0:
+            raise ValueError(f'draft_len must be >= 0 '
+                             f'(got {cfg.draft_len})')
+        if cfg.draft_len + 1 >= cfg.max_cache_len:
+            raise ValueError(
+                f'draft_len + 1 ({cfg.draft_len + 1}) must be < '
+                f'max_cache_len ({cfg.max_cache_len})')
+        if cfg.draft_len and cfg.ngram_max < 1:
+            raise ValueError(f'ngram_max must be >= 1 '
+                             f'(got {cfg.ngram_max})')
         self._paged = cfg.kv_block_size > 0
         if self._paged and cfg.max_cache_len % cfg.kv_block_size:
             raise ValueError(
@@ -422,12 +476,21 @@ class InferenceEngine:
         # Requests failed inside the dispatch path (non-finite guard),
         # delivered by _harvest like every other finish.
         self._pending_failures: List[Tuple[Request, RequestResult]] = []
-        # What /stats reads of the features this engine does not have
-        # yet (speculation A6c; registered prefixes A6b in ROADMAP.md):
-        # the JAX engine's counters, always empty here.
+        # Speculation: verify dispatches, drafts offered, drafts
+        # accepted.  The acceptance EMA gates verify against windowed
+        # decode (_spec_step): it starts optimistic, and while the
+        # expected bonus is under half a token per active slot the
+        # engine decodes windowed, re-probing every 50th step.
         self.spec_stats = {'dispatches': 0, 'drafted': 0, 'accepted': 0}
+        self._accept_ema = 0.5
+        self._spec_skips = 0
+        # Registered prefixes, LRU-ordered: (adapter, tokens) -> dense,
+        # per-layer (k, v) rows [Hkv, n, D] in cache dtype (fp8 as its
+        # uint8 view); paged,
+        # {'blocks': pool block ids (one ref each), 'len': n}.  The
+        # adapter is None until multi-LoRA serving (A6c).
+        self._prefixes: collections.OrderedDict = collections.OrderedDict()
         self.prefix_stats = {'hits': 0, 'tokens_reused': 0}
-        self._prefixes: Dict[Tuple[int, ...], Any] = {}
         # Chunked prefill: slot -> _ChunkJob for prompts whose KV rows are
         # written one prefill_chunk per serving gap (_chunk_round).  A
         # chunking slot is reserved (not free) but has no _Slot yet.
@@ -471,16 +534,18 @@ class InferenceEngine:
         unattributed dispatch failure.  In place because the tensors are
         the ones the next dispatch writes; rows a later prefill has not
         written are never read before they are written, so zero is as
-        good as any value.  Paged: the allocator resets to empty and the
-        radix tree is dropped (its generation bump invalidates any match
-        taken before); the host tier stays.  Caller holds no live
-        slots."""
+        good as any value.  Paged: the allocator resets to empty, the
+        registered prefixes (their blocks are pool blocks) are dropped
+        and so is the radix tree (its generation bump invalidates any
+        match taken before); the host tier stays, and so do dense
+        prefixes (rows of their own).  Caller holds no live slots."""
         with torch.no_grad():
             for k, v in self.cache:
-                k.zero_()
-                v.zero_()
+                as_bytes(k).zero_()
+                as_bytes(v).zero_()
         if self._paged:
             self._pool.reset()
+            self._prefixes.clear()
             if self._radix is not None:
                 self._radix.clear()
 
@@ -578,8 +643,8 @@ class InferenceEngine:
         last = logits[torch.arange(p, device=self.device), true_lens - 1]
         _, head = self._pack_head(last, temps)
         for (k, v), (pk, pv) in zip(self.cache, pcache):
-            k[slots, :, :bucket] = pk
-            v[slots, :, :bucket] = pv
+            as_bytes(k)[slots, :, :bucket] = as_bytes(pk)
+            as_bytes(v)[slots, :, :bucket] = as_bytes(pv)
         return head, (self._pack_prompt(logits, tokens) if want_plp
                       else None)
 
@@ -623,15 +688,55 @@ class InferenceEngine:
                       else None)
 
     @torch.inference_mode()
+    def _prefix_prefill(self, tokens: torch.Tensor, start: int,
+                        true_lens: torch.Tensor, rows, slots: torch.Tensor,
+                        temps: torch.Tensor) -> torch.Tensor:
+        """Lane-batched suffix prefill over a registered prefix (dense):
+        tokens [P, SB] are the suffixes; each lane's fresh
+        [Hkv, start + SB, D] cache holds the prefix rows [0, start) --
+        rows (k, v) [Hkv, >= start, D] per layer, shared by the lanes --
+        the suffix forwards at positions start.., the first token is
+        sampled at true_lens - 1 of the suffix, and rows
+        [0, start + SB) go into each lane's slot.  Returns the packed
+        head [P, 2+2k]."""
+        p, sb = tokens.shape
+        width = start + sb
+        pcache = init_cache(self.model_config, p, width,
+                            self.cfg.cache_dtype, self.device)
+        for (pk, pv), (rk, rv) in zip(pcache, rows):
+            as_bytes(pk)[:, :, :start] = rk[:, :start]
+            as_bytes(pv)[:, :, :start] = rv[:, :start]
+        positions = start + torch.arange(sb, device=self.device).expand(p, sb)
+        logits, pcache = self.model(tokens, positions, pcache)
+        last = logits[torch.arange(p, device=self.device), true_lens - 1]
+        _, head = self._pack_head(last, temps)
+        for (k, v), (pk, pv) in zip(self.cache, pcache):
+            as_bytes(k)[slots, :, :width] = as_bytes(pk)
+            as_bytes(v)[slots, :, :width] = as_bytes(pv)
+        return head
+
+    @torch.inference_mode()
     def _paged_restore_blocks(self, dsts: torch.Tensor, krows: torch.Tensor,
                               vrows: torch.Tensor) -> None:
         """Scatter host-restored rows into pool blocks dsts [G]:
         krows/vrows [L, G, Hkv, bs, D], one tier entry per dst (the
-        host-tier restore and hot-set adoption path).  Queued ahead of
-        the suffix prefill that reads them."""
+        host-tier restore and hot-set adoption path; fp8 rows as their
+        uint8 view).  Queued ahead of the suffix prefill that reads
+        them."""
         for li, (kp, vp) in enumerate(self.cache):
-            kp[dsts] = krows[li]
-            vp[dsts] = vrows[li]
+            as_bytes(kp)[dsts] = krows[li]
+            as_bytes(vp)[dsts] = vrows[li]
+
+    @torch.inference_mode()
+    def _paged_copy_blocks(self, src: int, dsts: torch.Tensor) -> None:
+        """Copy pool block `src` into every block of dsts [G], per layer:
+        the one device op a registered-prefix hit pays (each lane's
+        partial tail block made private; the full blocks are shared by
+        table reference)."""
+        for kp, vp in self.cache:
+            for pool in (as_bytes(kp), as_bytes(vp)):
+                pool[dsts] = pool[src].clone().expand(
+                    (dsts.shape[0],) + tuple(pool.shape[1:]))
 
     @torch.inference_mode()
     def _decode(self, tokens: torch.Tensor, lengths: torch.Tensor,
@@ -652,6 +757,25 @@ class InferenceEngine:
             heads.append(head)
             lengths = lengths + 1
         return torch.stack(heads), tokens, lengths
+
+    @torch.inference_mode()
+    def _spec_verify(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                     temps: torch.Tensor,
+                     tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One speculative verify: tokens [B, 1+D] (column 0 each slot's
+        last token, then its drafts) forward at lengths + arange(1+D)
+        over the cache, every row written (rows past the accepted prefix
+        are dead: the next dispatch writes from the accepted length
+        before any query reaches them).  Returns the packed head
+        [B, 1+D, 2+2k] of the model's next token after each position
+        (greedy, or sampled where temps > 0)."""
+        b, k = tokens.shape
+        positions = lengths[:, None] + torch.arange(k, device=self.device)
+        logits, _ = self.model(tokens, positions, self.cache,
+                               **self._pkw(tables))
+        _, head = self._pack_head(logits.reshape(b * k, -1),
+                                  temps.repeat_interleave(k))
+        return head.reshape(b, k, -1)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A copy of a host array on the engine's device.  To a card the
@@ -781,8 +905,8 @@ class InferenceEngine:
             return
         blk = int(node.block)
         tier.spill((adapter, RadixTree.path_tokens(node)),
-                   [kp[blk] for kp, _ in self.cache],
-                   [vp[blk] for _, vp in self.cache])
+                   [as_bytes(kp)[blk] for kp, _ in self.cache],
+                   [as_bytes(vp)[blk] for _, vp in self.cache])
 
     def _lane_tables(self, slot_rows: Sequence[int],
                      nb: int) -> torch.Tensor:
@@ -857,7 +981,7 @@ class InferenceEngine:
         adoption), scatter them in with one queued dispatch and index
         them in the radix tree as the continuation of ``base_blocks``.
         ``rows``: (k, v) host tensor pairs, each [L, Hkv, bs, D] in cache
-        dtype."""
+        dtype (fp8 as its uint8 view)."""
         ids = self._alloc_blocks(len(rows))
         try:
             pin = self.device.type == 'cuda'
@@ -1056,8 +1180,11 @@ class InferenceEngine:
         refs = self._block_refs
         shared = int((refs[1:] > 1).sum())
         saved = int((refs[1:][refs[1:] > 1] - 1).sum())
+        # A snapshot: stats() runs lock-free beside the serving thread.
+        prefix_blocks = sum(len(e['blocks'])
+                            for e in list(self._prefixes.values()))
         prefix['block_hits'] = self.paged_stats['prefix_block_hits']
-        prefix['blocks'] = 0          # registered prefixes are A6b
+        prefix['blocks'] = prefix_blocks
         total = self._num_blocks * block_bytes
         resident = (usable - free) * block_bytes
         kv = {
@@ -1084,7 +1211,7 @@ class InferenceEngine:
             'blocks_free': free,
             'blocks_allocated': usable - free,
             'blocks_shared': shared,
-            'blocks_prefix': 0,
+            'blocks_prefix': prefix_blocks,
             'shared_refs_saved': saved,
             'kv_bytes_per_block': block_bytes,
             'kv_bytes_total': total,
@@ -1110,7 +1237,8 @@ class InferenceEngine:
     def _wire_rows(self, rows: torch.Tensor) -> str:
         """Base64 of one block's rows [L, Hkv, bs, D] as raw
         little-endian bytes in cache dtype (the JAX engine's wire form;
-        bf16 goes through a byte view, which numpy cannot hold)."""
+        bf16 and fp8 go through a byte view, which numpy cannot
+        hold)."""
         raw = rows.cpu().contiguous().view(torch.uint8).numpy().tobytes()
         return base64.b64encode(raw).decode('ascii')
 
@@ -1157,8 +1285,10 @@ class InferenceEngine:
                 for i in range(min(len(toks) // bs_, budget)):
                     if i < len(path):
                         blk = int(path[i])
-                        k_rows = torch.stack([kp[blk] for kp, _ in self.cache])
-                        v_rows = torch.stack([vp[blk] for _, vp in self.cache])
+                        k_rows = torch.stack([as_bytes(kp)[blk]
+                                              for kp, _ in self.cache])
+                        v_rows = torch.stack([as_bytes(vp)[blk]
+                                              for _, vp in self.cache])
                     else:
                         entry = (self._host_tier.get(
                             (ad, toks[:(i + 1) * bs_]))
@@ -1216,10 +1346,12 @@ class InferenceEngine:
         mc = self.model_config
         row_shape = (nl, mc.num_kv_heads, bs_, mc.head_dim_)
 
+        # Rows move as the cache's bytes (fp8 as its uint8 view).
+        row_dtype = as_bytes(self.cache[0][0]).dtype
+
         def decode(text) -> torch.Tensor:
             raw = bytearray(base64.b64decode(text))
-            return torch.frombuffer(raw, dtype=self.cfg.cache_dtype
-                                    ).reshape(row_shape)
+            return torch.frombuffer(raw, dtype=row_dtype).reshape(row_shape)
 
         adopted_p = adopted_b = skipped = 0
         with self._lock, torch.inference_mode():
@@ -1259,6 +1391,195 @@ class InferenceEngine:
             self.handoff_stats['adopted'] += adopted_b
         return {'adopted_prefixes': adopted_p,
                 'adopted_blocks': adopted_b, 'skipped': skipped}
+
+    # ---------------------------------------------------- prefix cache
+
+    def register_prefix(self, tokens: Sequence[int],
+                        adapter: Optional[str] = None) -> int:
+        """Compute a prefix's KV rows and keep them resident; later
+        prompts that start with these tokens prefill only their suffix.
+        Returns the prefix length (under the radix cache, the pinned
+        block-aligned length).  LRU-evicts past cfg.max_prefixes.
+
+        Dense: the capture forward reads only the weights, so it runs
+        outside the engine lock and in-flight decode keeps going; only
+        the registry insert takes the lock.  Paged and radix: the
+        capture writes the shared pool, under the lock."""
+        if not self.cfg.max_prefixes:
+            raise ValueError('prefix caching disabled (max_prefixes=0)')
+        n = len(tokens)
+        if n < 1:
+            raise ValueError('empty prefix')
+        if adapter is not None:      # no adapters here (A6c)
+            raise ValueError(f'unknown adapter {adapter!r}')
+        bucket = self._bucket(n)     # raises when no bucket holds it
+        arr = np.zeros((1, bucket), np.int64)
+        arr[0, :n] = tokens
+        if self._paged:
+            if self._radix is not None:
+                return self._register_prefix_radix(arr, n, bucket,
+                                                   adapter, tokens)
+            return self._register_prefix_paged(arr, n, bucket, adapter,
+                                               tokens)
+        rows = self._prefill_capture(self._to_device(arr), n)
+        key = (adapter, tuple(int(t) for t in tokens))
+        with self._lock:
+            self._prefixes[key] = rows
+            self._prefixes.move_to_end(key)
+            while len(self._prefixes) > self.cfg.max_prefixes:
+                self._prefixes.popitem(last=False)
+        return n
+
+    @torch.inference_mode()
+    def _prefill_capture(self, tokens: torch.Tensor,
+                         n: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Forward a prefix [1, bucket] over a fresh cache and return its
+        first n rows per layer, (k, v) [Hkv, n, D] (fp8 as its uint8
+        view); the logits are discarded."""
+        bucket = tokens.shape[1]
+        pcache = init_cache(self.model_config, 1, bucket,
+                            self.cfg.cache_dtype, self.device)
+        positions = torch.arange(bucket, device=self.device)[None]
+        self.model(tokens, positions, pcache)
+        return [(as_bytes(k)[0, :, :n].clone(), as_bytes(v)[0, :, :n].clone())
+                for k, v in pcache]
+
+    def _register_prefix_paged(self, arr: np.ndarray, n: int, bucket: int,
+                               adapter: Optional[str],
+                               tokens: Sequence[int]) -> int:
+        """Paged capture: forward the prefix over the live pool into
+        freshly allocated blocks; the entry holds one reference on each,
+        and later hits share the full blocks by reference."""
+        bs_ = self.cfg.kv_block_size
+        need = -(-n // bs_)
+        key = (adapter, tuple(int(t) for t in tokens))
+        with self._lock:
+            def headroom():
+                return len(self._free_blocks) - self._blocks_outstanding()
+
+            # LRU entries go first (their blocks free at once unless a
+            # running slot still shares them).
+            while headroom() < need and self._prefixes:
+                _, old = self._prefixes.popitem(last=False)
+                for b in old['blocks']:
+                    self._deref_block(b)
+            if headroom() < need:
+                raise ValueError(
+                    f'KV block pool too small to register a {n}-token '
+                    f'prefix ({need} blocks; {len(self._free_blocks)} '
+                    'free after honoring running slots) -- raise '
+                    'kv_blocks')
+            blocks = self._capture_into_blocks(arr, n, bucket, need)
+            self._prefixes[key] = {'blocks': blocks, 'len': n}
+            self._prefixes.move_to_end(key)
+            while len(self._prefixes) > self.cfg.max_prefixes:
+                _, old = self._prefixes.popitem(last=False)
+                for b in old['blocks']:
+                    self._deref_block(b)
+        return n
+
+    def _register_prefix_radix(self, arr: np.ndarray, n: int, bucket: int,
+                               adapter: Optional[str],
+                               tokens: Sequence[int]) -> int:
+        """register_prefix under auto_prefix_cache is pinning: the
+        prefix's full blocks are prefilled into the pool (or found
+        cached), inserted into the radix tree and marked pinned, so
+        eviction passes them by.  Returns the pinned, block-aligned
+        length (a sub-block tail is not cacheable)."""
+        bs_ = self.cfg.kv_block_size
+        m = (n // bs_) * bs_
+        if m < bs_:
+            raise ValueError(
+                f'prefix shorter than one KV block ({bs_} tokens) '
+                'cannot be pinned under auto_prefix_cache')
+        need = m // bs_
+        with self._lock:
+            # Admission sheds unpinned radix leaves first, so pinning
+            # displaces cache before it can fail.
+            if not self._can_admit_blocks(need):
+                raise ValueError(
+                    f'KV block pool too small to pin a {n}-token '
+                    f'prefix ({need} blocks; {len(self._free_blocks)} '
+                    'free after honoring running slots) -- raise '
+                    'kv_blocks')
+            # Rows [m, n) scatter past the table's allocated entries,
+            # into the dump block.
+            blocks = self._capture_into_blocks(arr, n, bucket, need)
+            # own=True: the tree takes over the allocation refs; runs
+            # already cached are dereffed (freed).
+            self.radix_stats['inserts'] += self._radix.insert(
+                adapter, tokens, blocks, addref=self._addref_block,
+                deref=self._deref_block, own=True, pinned=True)
+        return m
+
+    def _capture_into_blocks(self, arr: np.ndarray, n: int, bucket: int,
+                             need: int) -> List[int]:
+        """Allocate `need` pool blocks and prefill the prefix arr
+        [1, bucket] into them in one paged dispatch (under the lock).
+        Returns the blocks, each holding the caller's reference; on a
+        failure they are returned to the pool."""
+        bs_ = self.cfg.kv_block_size
+        blocks = self._alloc_blocks(need)
+        table = np.zeros((1, bucket // bs_), np.int64)
+        table[0, :need] = blocks
+        try:
+            self._paged_prefill(
+                self._to_device(arr), self._to_device(np.zeros(1, np.int64)),
+                self._to_device(np.full(1, n - 1, np.int64)),
+                self._to_device(table),
+                self._to_device(np.zeros(1, np.float32)))
+        except BaseException:
+            for b in blocks:
+                self._deref_block(b)
+            raise
+        return blocks
+
+    def _match_prefix(self, tokens: Sequence[int],
+                      adapter: Optional[str] = None):
+        """The longest registered prefix under the same adapter that the
+        prompt starts with.  Returns (start, key), start being the rows
+        reused -- len(prefix), or len(prefix) - 1 when the prompt IS the
+        prefix (one token must forward for the first token's logits) --
+        or None.  A prompt strictly inside a prefix takes a full
+        prefill.  A hit is an LRU touch."""
+        n = len(tokens)
+        best = None
+        for key in self._prefixes:
+            p_adapter, p_tokens = key
+            if p_adapter != adapter:
+                continue
+            lp = len(p_tokens)
+            if n > lp:
+                if tuple(tokens[:lp]) != p_tokens:
+                    continue
+                start = lp
+            elif n == lp:
+                start = lp - 1
+                if start < 1 or tuple(tokens[:start]) != p_tokens[:start]:
+                    continue
+            else:
+                continue
+            if best is None or start > best[0]:
+                best = (start, key)
+        if best is None:
+            return None
+        start, key = best
+        self._prefixes.move_to_end(key)
+        return start, key
+
+    def _force_admit_blocks(self, demand: int) -> bool:
+        """Last resort when a request cannot be admitted and nothing is
+        running (an offline batch with prefix entries holding the pool):
+        LRU-evict prefix entries until it fits.  With no running slot
+        every shared reference is an entry's, so eviction frees blocks.
+        Returns admissibility."""
+        while (not self._can_admit_blocks(demand) and self._prefixes and
+               not any(s is not None for s in self._slots) and
+               not self._chunking):
+            _, entry = self._prefixes.popitem(last=False)
+            for b in entry['blocks']:
+                self._deref_block(b)
+        return self._can_admit_blocks(demand)
 
     # ------------------------------------------------------- schedule
 
@@ -1475,6 +1796,122 @@ class InferenceEngine:
             self._start_radix_group_paged(rgroup, sb, gen)
         return rest
 
+    def _start_prefixed_group(self, group, start: int, sb: int,
+                              key) -> None:
+        """Start requests that matched one registered prefix with the
+        same start and suffix bucket, prefill_lanes to a dispatch, pad
+        lanes duplicating the last real lane (slot included)."""
+        if self._paged:
+            self._start_prefixed_group_paged(group, start, sb, key)
+            return
+        rows = self._prefixes[key]
+        lanes = self.cfg.prefill_lanes
+        for ofs in range(0, len(group), lanes):
+            chunk = group[ofs:ofs + lanes]
+            p = len(chunk)
+            tokens = np.zeros((lanes, sb), np.int64)
+            true_lens = np.ones((lanes,), np.int64)
+            slots = np.zeros((lanes,), np.int64)
+            temps = np.zeros((lanes,), np.float32)
+            for i in range(lanes):
+                req, slot, _, n, _, _ = chunk[min(i, p - 1)]
+                tokens[i, :n - start] = req.tokens[start:]
+                true_lens[i] = n - start
+                slots[i] = slot
+                temps[i] = req.temperature
+            if any(slots[i] != slots[p - 1] for i in range(p, lanes)):
+                raise RuntimeError(
+                    f'pad lanes must duplicate the last real lane: '
+                    f'{slots=} p={p}')
+            head = self._prefix_prefill(
+                self._to_device(tokens), start, self._to_device(true_lens),
+                rows, self._to_device(slots), self._to_device(temps))
+            self._activate(chunk, head)
+            self.prefix_stats['hits'] += p
+            self.prefix_stats['tokens_reused'] += start * p
+
+    def _start_prefixed_group_paged(self, group, start: int, sb: int,
+                                    key) -> None:
+        """Paged prefix reuse: each matched slot's table takes the
+        prefix's full blocks by reference, a partial tail block is made
+        private with one block copy per dispatch, and the suffixes
+        forward over the pool at start."""
+        entry = self._prefixes[key]
+        bs_ = self.cfg.kv_block_size
+        shared_n = start // bs_
+        tail = start % bs_
+        lanes = self.cfg.prefill_lanes
+        for ofs in range(0, len(group), lanes):
+            chunk = group[ofs:ofs + lanes]
+            p = len(chunk)
+            tokens = np.zeros((lanes, sb), np.int64)
+            true_pos = np.zeros((lanes,), np.int64)
+            slots = np.zeros((lanes,), np.int64)
+            temps = np.zeros((lanes,), np.float32)
+            dsts = []
+            for req, slot, _, n, _, _ in chunk:   # real lanes only
+                self._append_shared_blocks(
+                    slot, [int(b) for b in entry['blocks'][:shared_n]])
+                if tail:
+                    # A private block for the tail: the allocation's
+                    # reference is the table entry's.
+                    [dst] = self._alloc_blocks(1)
+                    cur = int(self._slot_nblocks[slot])
+                    self._tables_np[slot, cur] = dst
+                    self._slot_nblocks[slot] = cur + 1
+                    dsts.append(dst)
+                self._ensure_blocks(slot, n)
+                self.paged_stats['prefix_block_hits'] += shared_n
+            for i in range(lanes):
+                req, slot, _, n, _, _ = chunk[min(i, p - 1)]
+                tokens[i, :n - start] = req.tokens[start:]
+                true_pos[i] = n - start - 1
+                slots[i] = slot
+                temps[i] = req.temperature
+            if any(slots[i] != slots[p - 1] for i in range(p, lanes)):
+                raise RuntimeError(
+                    f'pad lanes must duplicate the last real lane: '
+                    f'{slots=} p={p}')
+            if dsts:
+                self._paged_copy_blocks(
+                    int(entry['blocks'][shared_n]),
+                    self._to_device(np.asarray(dsts, np.int64)))
+            nb = self._nb_bucket(-(-(start + sb) // bs_))
+            head, _ = self._paged_prefill(
+                self._to_device(tokens),
+                self._to_device(np.full((lanes,), start, np.int64)),
+                self._to_device(true_pos), self._lane_tables(slots, nb),
+                self._to_device(temps))
+            self._activate(chunk, head)
+            self.prefix_stats['hits'] += p
+            self.prefix_stats['tokens_reused'] += start * p
+
+    def _start_prefixed(self, items) -> list:
+        """The registered-prefix branch of _start_batch: group the
+        prompts that match a prefix and have a suffix bucket beside it
+        by (prefix, start, suffix bucket) and start them.  Returns the
+        items left (no match, scoring, or no suffix bucket -- such a
+        prompt takes a full prefill, or chunks)."""
+        groups: Dict[Any, list] = {}
+        rest = []
+        for it in items:
+            # Scoring needs every prompt position's logits, which reused
+            # rows do not have: a full prefill.
+            m = (None if it[0].want_prompt_logprobs else
+                 self._match_prefix(it[0].tokens, it[0].adapter))
+            if m is None:
+                rest.append(it)
+                continue
+            start, key = m
+            sb = self._suffix_bucket(start, len(it[0].tokens) - start)
+            if sb is None:
+                rest.append(it)
+                continue
+            groups.setdefault((key, start, sb), []).append(it)
+        for (key, start, sb), group in groups.items():
+            self._start_prefixed_group(group, start, sb, key)
+        return rest
+
     def _start_batch(self, items) -> None:
         """Prefill validated requests, grouped by bucket, prefill_lanes
         rows per dispatch.  items: (req, slot, submit_time, prompt_len,
@@ -1483,6 +1920,9 @@ class InferenceEngine:
         included, so their cache writes are identical rewrites.  With
         the radix cache, matched prompts first prefill only their
         suffix (_start_radix).
+
+        With registered prefixes, prompts that start with one prefill
+        only their suffix (_start_prefixed).
 
         With chunked prefill, the prompts _should_chunk picks reserve
         their slot as a _ChunkJob instead; _chunk_round writes them.
@@ -1497,6 +1937,8 @@ class InferenceEngine:
         self._prefill_epoch += 1
         if self._radix is not None and items:
             items = self._start_radix(items)
+        if self._prefixes:
+            items = self._start_prefixed(items)
         if self.cfg.prefill_chunk:
             rest = []
             for it in items:
@@ -1876,9 +2318,13 @@ class InferenceEngine:
           dispatched under a window's frontier writes (_chunk_round
           waits for _ahead to drain);
         - a window no survivor could take a token from (each finishes
-          inside the `in_flight_steps` already queued) is not queued."""
-        if (not self.cfg.decode_lookahead or not self._serving or
-                self._arrivals_hint > 0 or self._chunking):
+          inside the `in_flight_steps` already queued) is not queued;
+        - under speculative decoding nothing is queued ahead: a verify
+          needs the host's drafts, which need the last window's
+          tokens."""
+        if (not self.cfg.decode_lookahead or self.cfg.draft_len > 0 or
+                not self._serving or self._arrivals_hint > 0 or
+                self._chunking):
             return
         live = [s for i, s in enumerate(snap)
                 if s is not None and self._slots[i] is s]
@@ -1949,6 +2395,108 @@ class InferenceEngine:
             self._pending_failures.append(self._fail_slot(
                 i, 'non-finite logits in decode window (lane killed)'))
 
+    def _spec_step(self) -> None:
+        """One speculative dispatch: draft by prompt lookup, verify
+        [B, 1+D] in one forward, accept the agreed prefix plus the
+        model's own next token (so a dispatch yields at least one token,
+        and greedy tokens equal windowed decode's)."""
+        k = self.cfg.draft_len + 1
+        cache_len = self.cfg.max_cache_len
+        # A slot within k of the cache end would have its k-row write
+        # clamped back onto live rows; such slots finish within a few
+        # tokens, so windowed decode runs until they do.  A chunking
+        # slot's frontier is the same hazard.
+        if (any(s is not None and s.length > cache_len - k
+                for s in self._slots) or
+                any(job.done > cache_len - k
+                    for job in self._chunking.values())):
+            self._decode_step()
+            return
+        b = self.cfg.num_slots
+        tokens = np.zeros((b, k), np.int64)
+        tokens[:, 0] = self._last_tokens
+        drafted = np.zeros((b,), np.int64)
+        for i, s in enumerate(self._slots):
+            if s is None or s.request.temperature > 0:
+                # A sampled slot cannot accept greedy-verified drafts:
+                # it rides the dispatch at one token.
+                continue
+            # A dispatch appends at most `budget` tokens, the first of
+            # which needs no draft: drafting past it is wasted and would
+            # understate the acceptance rate.
+            budget = min(s.max_new - len(s.generated),
+                         cache_len - 1 - s.length)
+            want = min(self.cfg.draft_len, budget - 1)
+            if want < 1:
+                continue
+            hist = s.request.tokens + s.generated
+            drafts = prompt_lookup_draft(hist, want, self.cfg.ngram_max)
+            tokens[i, 1:1 + len(drafts)] = drafts
+            drafted[i] = len(drafts)
+        if not drafted.any():
+            # Nothing to verify: windowed decode's decode_steps tokens
+            # a dispatch beat a one-token verify.
+            self._decode_step()
+            return
+        active = sum(s is not None for s in self._slots)
+        if self._accept_ema * float(drafted.sum()) < 0.5 * active:
+            # Expected bonus under half a token per active slot: decode
+            # windowed, with a verify probe every 50th step to keep the
+            # EMA live as traffic shifts.
+            self._spec_skips += 1
+            if self._spec_skips < 50:
+                self._decode_step()
+                return
+        self._spec_skips = 0
+        tables = self._decode_tables(k) if self._paged else None
+        packed = self._spec_verify(
+            self._to_device(tokens), self._to_device(self._lengths),
+            self._to_device(self._temps), tables)
+        preds, preds_lp, g_toks, g_lps = _unpack_head(
+            self._host_array(self._to_host(packed)),
+            self.cfg.logprob_topk)                     # ONE transfer
+        self.spec_stats['dispatches'] += 1
+        accepted_before = self.spec_stats['accepted']
+        bad: List[int] = []
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            self.spec_stats['drafted'] += int(drafted[i])
+            for t in range(k):
+                if len(s.generated) >= s.max_new:
+                    break
+                if (self.cfg.eos_id is not None and s.generated and
+                        s.generated[-1] == self.cfg.eos_id):
+                    break
+                if s.length + 1 >= cache_len:
+                    break
+                if not np.isfinite(preds_lp[i, t]):
+                    # This lane's logits blew up: the lane dies alone.
+                    bad.append(i)
+                    break
+                if t > 0:
+                    # Position t fed draft tokens[i, t]: it counts only if
+                    # the prediction at t - 1 agrees (greedy slots only).
+                    if (s.request.temperature > 0 or t > drafted[i] or
+                            int(tokens[i, t]) != int(preds[i, t - 1])):
+                        break
+                    self.spec_stats['accepted'] += 1
+                s.length += 1
+                s.generated.append(int(preds[i, t]))
+                s.lps.append(float(preds_lp[i, t]))
+                s.tops.append(_pairs(g_toks[i, t], g_lps[i, t]))
+            self._lengths[i] = s.length
+            self._last_tokens[i] = s.generated[-1]
+        for i in bad:
+            self.fault_stats['nonfinite_lanes'] += 1
+            self._pending_failures.append(self._fail_slot(
+                i, 'non-finite logits in spec verify (lane killed)'))
+        dispatch_drafted = int(drafted.sum())
+        dispatch_accepted = self.spec_stats['accepted'] - accepted_before
+        if dispatch_drafted:
+            rate = dispatch_accepted / dispatch_drafted
+            self._accept_ema = 0.9 * self._accept_ema + 0.1 * rate
+
     _CANCEL_MARK_TTL_S = 600.0
 
     def cancel(self, request_id: str) -> bool:
@@ -1989,9 +2537,13 @@ class InferenceEngine:
             del self._cancelled[rid]
 
     def _step(self) -> None:
-        """One decode window (the decode_step fault site first)."""
+        """One decode dispatch (the decode_step fault site first): a
+        speculative verify when drafting is on, else a window."""
         self._fault_raise('decode_step')
-        self._decode_step()
+        if self.cfg.draft_len > 0:
+            self._spec_step()
+        else:
+            self._decode_step()
 
     def _harvest(self) -> List[Tuple[Request, RequestResult]]:
         done = []
@@ -2056,8 +2608,14 @@ class InferenceEngine:
                         if demand <= self._num_blocks - 1 and \
                                 not self._can_admit_blocks(demand,
                                                            admit_extra):
-                            self.paged_stats['deferred'] += 1
-                            break
+                            # Nothing running and nothing about to:
+                            # evict prefix entries rather than deadlock.
+                            if (to_start or self._chunking or
+                                    any(s is not None
+                                        for s in self._slots) or
+                                    not self._force_admit_blocks(demand)):
+                                self.paged_stats['deferred'] += 1
+                                break
                     req = pending.pop(0)
                     try:
                         to_start.append((req, slot, t0,
@@ -2244,6 +2802,13 @@ class InferenceEngine:
                         admissible = (demand > self._num_blocks - 1 or
                                       self._can_admit_blocks(demand,
                                                              admit_extra))
+                        if (not admissible and not to_start and
+                                not self._chunking and
+                                not any(s is not None
+                                        for s in self._slots)):
+                            # Registered prefixes hold the pool and
+                            # nothing runs: evict them, LRU first.
+                            admissible = self._force_admit_blocks(demand)
                         if not admissible:
                             # Back to the head; admitted first once blocks
                             # free up.
@@ -2458,6 +3023,7 @@ class InferenceEngine:
             n = min(bkt, self.cfg.max_cache_len - 2)
             self.generate([Request(tokens=[bi + 2] * n, max_new_tokens=2)])
         self.warmup_decode([1, 2, 3])
+        self._warm_spec(min(max(self.cfg.prefill_buckets[0], 8), 64))
 
     def warmup_decode(self, tokens: Sequence[int]) -> None:
         """One short request (a prefill and a full decode window); with
@@ -2480,6 +3046,20 @@ class InferenceEngine:
             rep = (base * (n // len(base) + 1))[:n]
             self.generate([Request(tokens=rep, max_new_tokens=1)])
 
+    def _warm_spec(self, prompt_len: int) -> None:
+        """Run the speculative verify once outside a measurement: a
+        repetitive prompt makes sure it drafts, so _spec_step really
+        dispatches.  The acceptance EMA and spec_stats are restored, so
+        warm-up neither biases the policy nor shows in the counters."""
+        if not self.cfg.draft_len:
+            return
+        ema = self._accept_ema
+        stats = dict(self.spec_stats)
+        rep = ([7, 8] * (prompt_len // 2 + 1))[:max(prompt_len, 4)]
+        self.generate([Request(tokens=rep, max_new_tokens=4)])
+        self._accept_ema = ema
+        self.spec_stats.update(stats)
+
     def benchmark_serving(self, num_requests: int = 64,
                           prompt_len: int = 219, new_tokens: int = 188,
                           qps: Optional[float] = None,
@@ -2496,6 +3076,7 @@ class InferenceEngine:
                 for i in range(num_requests)]
         # Both phases (and both window variants) warm before the clock.
         self.warmup_decode(reqs[0].tokens)
+        self._warm_spec(prompt_len)
         gaps = (rng.exponential(1.0 / qps, size=num_requests)
                 if qps else np.zeros(num_requests))
         t0 = time.time()
@@ -2538,6 +3119,7 @@ class InferenceEngine:
         # A full-length request first, so the timed run meets warm
         # buffers in the same prefill bucket.
         self.warmup_decode(reqs[0].tokens)
+        self._warm_spec(prompt_len)
         t0 = time.time()
         results = self.generate(reqs)
         elapsed = time.time() - t0

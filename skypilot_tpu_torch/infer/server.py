@@ -33,9 +33,18 @@ routes over a fleet that mixes both:
                      cache; 400 on a malformed or mismatched payload
                      (model, block size, cache dtype, layers) or without
                      a radix cache
+  POST /cache_prefix {"tokens": [...]} (or "prompt" with a tokenizer):
+                     register a system prompt's KV rows, so prompts that
+                     start with it prefill only their suffix; answers
+                     {"cached_prefix_len": n} (under --auto-prefix-cache
+                     it pins the prefix's blocks, n block-aligned)
+
+--auto-prefix registers a prompt's bucket-length head the second time it
+is seen; --draft-len turns on prompt-lookup speculative decoding and
+--cache-dtype fp8 the e4m3 KV cache.
 
 Not ported yet, answered 501 naming the ROADMAP.md item: POST
-/cache_prefix and /load_adapter; the matching flags fail at startup.
+/load_adapter; the matching flags fail at startup.
 
 stdlib only (ThreadingHTTPServer): each request blocks its handler
 thread while the one engine thread runs continuous batching across all
@@ -68,16 +77,11 @@ def _unported(what: str, item: str) -> str:
     return f'{what} is not ported yet (ROADMAP.md {item})'
 
 
-def _refuse_unported_options(adapter_dir: Optional[str],
-                             auto_prefix: bool) -> None:
+def _refuse_unported_options(adapter_dir: Optional[str]) -> None:
     if adapter_dir is not None:
         raise NotImplementedError(_unported(
             'runtime adapter loading (--adapter-dir)',
             'A6c (multi-LoRA serving)'))
-    if auto_prefix:
-        raise NotImplementedError(_unported(
-            'automatic prefix caching (--auto-prefix)',
-            'A6b (registered prefixes)'))
 
 
 class DrainingError(Exception):
@@ -123,16 +127,25 @@ class InferenceServer:
         backlog reaches it while every slot is busy.  The TTFT bound
         reacts to what happened; the queue cap bounds what can happen.
 
-        adapter_dir (runtime LoRA loading) and auto_prefix (the dense
-        prefix cache) are not ported yet and raise (ROADMAP.md A6c, A6b).
+        adapter_dir (runtime LoRA loading) is not ported yet and raises
+        (ROADMAP.md A6c).
+
+        auto_prefix: a prompt head (quantized to a prefill bucket
+        length) seen twice registers itself as a prefix in a background
+        thread, so later prompts with it prefill only their suffix.
 
         warmup: run engine.warmup() (every prefill bucket and the decode
         windows) before declaring ready; else one short request."""
-        _refuse_unported_options(adapter_dir, auto_prefix)
+        _refuse_unported_options(adapter_dir)
         self.engine = engine
         self.tokenizer = tokenizer
         self.max_projected_ttft_s = max_projected_ttft_s
         self.max_queue = max_queue
+        self.auto_prefix = auto_prefix
+        self._auto_lock = threading.Lock()
+        self._auto_counts: Dict[tuple, int] = {}
+        self._auto_inflight: set = set()
+        self._auto_failed: set = set()
         self.warmup = warmup
         self.ready = threading.Event()
         self._queue: 'queue.Queue[Request]' = queue.Queue()
@@ -345,8 +358,68 @@ class InferenceServer:
             doc['kv'] = self.engine.kv_health()
         return doc
 
+    _AUTO_PREFIX_MIN = 64        # shortest head worth caching
+    _AUTO_PREFIX_TRACKED = 256   # tracked heads (a simple size cap)
+
+    def _maybe_auto_prefix(self, req: Request) -> None:
+        """Count the request's prompt head, quantized to the longest
+        prefill bucket inside the prompt; on its second sighting,
+        register it as a prefix in a background thread.  No-op unless
+        auto_prefix and the engine has prefix slots, and under the radix
+        cache (which caches every prompt's blocks already)."""
+        if self.engine._radix is not None:
+            return
+        if not self.auto_prefix or not self.engine.cfg.max_prefixes:
+            return
+        if req.want_prompt_logprobs:
+            return                        # scoring bypasses prefix reuse
+        n = len(req.tokens)
+        starts = [b for b in self.engine.cfg.prefill_buckets
+                  if self._AUTO_PREFIX_MIN <= b < n]
+        if not starts:
+            return
+        b = starts[-1]
+        key = (req.adapter, b, tuple(req.tokens[:b]))
+        with self._auto_lock:
+            if len(self._auto_counts) >= self._AUTO_PREFIX_TRACKED and \
+                    key not in self._auto_counts:
+                self._auto_counts.clear()     # a cheap reset beats an LRU
+            self._auto_counts[key] = self._auto_counts.get(key, 0) + 1
+            hot = self._auto_counts[key] >= 2
+            if (not hot or key in self._auto_inflight or
+                    key in self._auto_failed):
+                return
+            if (req.adapter, key[2]) in self.engine._prefixes:
+                return                      # already resident
+            # Auto-registration only fills free prefix slots, never
+            # evicts (more hot heads than slots would thrash the LRU);
+            # registrations in flight count as occupied.
+            if (len(self.engine._prefixes) + len(self._auto_inflight)
+                    >= self.engine.cfg.max_prefixes):
+                return
+            self._auto_inflight.add(key)
+
+        def register():
+            ok = False
+            try:
+                self.engine.register_prefix(list(key[2]),
+                                            adapter=req.adapter)
+                ok = True
+            except Exception:  # noqa: BLE001 -- a best-effort cache warm
+                pass
+            finally:
+                with self._auto_lock:
+                    self._auto_inflight.discard(key)
+                    if not ok:
+                        # A capture that keeps failing must not cost a
+                        # forward per sighting.
+                        self._auto_failed.add(key)
+
+        threading.Thread(target=register, daemon=True).start()
+
     def submit(self, req: Request, timeout: float = 300.0,
-               pre_admitted: bool = False) -> Optional[RequestResult]:
+               pre_admitted: bool = False,
+               count_prefix: bool = True) -> Optional[RequestResult]:
         rid = req.request_id or uuid.uuid4().hex
         req.request_id = rid
         if req.arrival_time is None:   # TTFT counts slot-queue wait
@@ -355,6 +428,11 @@ class InferenceServer:
         # (the n>1 handler admits the whole batch atomically up front).
         if not pre_admitted:
             self._admit(rid)
+        # count_prefix=False: an OpenAI `n` clone -- one HTTP request's
+        # prompt head counts once, else a single n >= 2 request would
+        # register a one-off prompt as seen twice.
+        if count_prefix:
+            self._maybe_auto_prefix(req)
         ev = threading.Event()
         self._events[rid] = ev
         self._queue.put(req)
@@ -398,6 +476,7 @@ class InferenceServer:
             # handler pre-admits instead, so the 429 can go out before
             # the SSE response line.
             self._admit(rid)
+        self._maybe_auto_prefix(req)
         chunks: 'queue.Queue' = queue.Queue()
         req.stream_cb = lambda toks: chunks.put(('tokens', toks))
         self._stream_queues[rid] = chunks
@@ -848,7 +927,8 @@ def _make_handler(server: InferenceServer):
             def one(i):
                 try:
                     results[i] = server.submit(
-                        reqs[i], pre_admitted=len(reqs) > 1)
+                        reqs[i], pre_admitted=len(reqs) > 1,
+                        count_prefix=i == 0)
                 except AdmissionError as e:
                     # Only reachable for n == 1 (batch pre-admits).
                     results[i] = ('shed', e)
@@ -1150,8 +1230,29 @@ def _make_handler(server: InferenceServer):
                     'runtime adapter loading', 'A6c (multi-LoRA serving)')})
                 return
             if self.path == '/cache_prefix':
-                self._json(501, {'error': _unported(
-                    'the dense prefix cache (/cache_prefix)', 'A6b')})
+                # Register a prefix (system prompt): its KV rows stay
+                # resident and prompts that start with it prefill only
+                # their suffix.  Under --auto-prefix-cache this pins the
+                # prefix's radix blocks (cached_prefix_len is then
+                # block-aligned).
+                tokens = payload.get('tokens')
+                if tokens is None and server.tokenizer is not None:
+                    prompt = payload.get('prompt')
+                    if prompt:
+                        tokens = server.tokenizer.encode(prompt)
+                if not isinstance(tokens, list) or not tokens:
+                    self._json(400, {'error': '"tokens" list (or '
+                                     '"prompt" with a tokenizer) '
+                                     'required'})
+                    return
+                try:
+                    n = server.engine.register_prefix(
+                        [int(t) for t in tokens],
+                        adapter=payload.get('adapter'))
+                except (TypeError, ValueError) as e:
+                    self._json(400, {'error': str(e)})
+                    return
+                self._json(200, {'cached_prefix_len': n})
                 return
             if self.path == '/adopt_blocks':
                 # Warm-failover import into the radix cache.  A payload
@@ -1366,7 +1467,7 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     if weight_dtype != 'bf16':
         raise NotImplementedError(_unported(
             f'weight_dtype {weight_dtype!r} (int8 weights)', 'A8'))
-    _refuse_unported_options(adapter_dir, auto_prefix)
+    _refuse_unported_options(adapter_dir)
     cfg = InferConfig(model=model, num_slots=num_slots,
                       max_cache_len=max_cache_len, eos_id=eos_id,
                       decode_steps=decode_steps,
@@ -1411,19 +1512,22 @@ def main() -> None:
     parser.add_argument('--hf-model', default=None,
                         help='HF Llama checkpoint (not ported yet: A8)')
     parser.add_argument('--cache-dtype', default='bfloat16',
-                        choices=['bfloat16', 'fp8'])
+                        choices=['bfloat16', 'fp8', 'float8_e4m3fn'],
+                        help='KV-cache storage dtype; fp8 (e4m3) halves '
+                             'the cache bytes per slot')
     parser.add_argument('--tensor-parallel', type=int,
                         default=int(os.environ.get(
                             'SKYTPU_SERVE_TP_SIZE', '0') or 0),
                         help='shard over N cards (not ported yet: A9; '
                              'default: $SKYTPU_SERVE_TP_SIZE or 0)')
     parser.add_argument('--draft-len', type=int, default=0,
-                        help='speculative decoding (not ported yet: A6c)')
+                        help='speculative decoding: prompt-lookup draft '
+                             'tokens per dispatch (0 disables)')
     parser.add_argument('--ngram-max', type=int, default=4,
                         help='longest n-gram tried when drafting')
     parser.add_argument('--max-prefixes', type=int, default=16,
-                        help='resident prefix-KV entries (the dense '
-                             'prefix cache is not ported yet: A6b)')
+                        help='resident prefix-KV entries for '
+                             '/cache_prefix (LRU; 0 disables)')
     parser.add_argument('--lora-rank', type=int, default=0,
                         help='multi-LoRA serving (not ported yet: A6c)')
     parser.add_argument('--lora-max-adapters', type=int, default=8,
@@ -1438,8 +1542,9 @@ def main() -> None:
                         help='queue the next decode window before '
                              'reading the current one')
     parser.add_argument('--auto-prefix', action='store_true',
-                        help='automatic prefix caching (not ported yet: '
-                             'A6b)')
+                        help='automatic prefix caching: a prompt head '
+                             'seen twice registers itself (quantized to '
+                             'a prefill bucket)')
     parser.add_argument('--prefill-chunk', type=int, default=0,
                         help='chunked prefill: split prompts into '
                              'N-token pieces interleaved between decode '

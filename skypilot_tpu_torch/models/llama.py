@@ -19,6 +19,13 @@ in place into a per-layer ``[B, Hkv, M, D]`` cache and attends with
 forward (``paged_tables``) scatters them into a per-layer
 ``[num_blocks, Hkv, block_size, D]`` pool and attends over the gathered
 blocks (``paged_write_kv_and_attend``).
+
+An fp8 (e4m3) cache takes its rows through ``cast_rows``, which gives the
+bytes the JAX package's cast gives on every device (NaN past the format's
+range, where torch's own cast saturates on the CPU), and every move of cache rows -- the writes'
+scatters, the paged gather, the engine's block copies, spills and wire
+rows -- runs on the rows' uint8 view (``as_bytes``): only the cast and
+``decode_attention``'s f32 read see the fp8 dtype.
 """
 import dataclasses
 import functools
@@ -164,6 +171,37 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return rotated.to(x.dtype)
 
 
+FP8 = torch.float8_e4m3fn
+# The largest magnitude e4m3 rounds to a finite value: 448 is the largest
+# finite, 480 (the next step) is the NaN encoding, and 464, halfway, rounds
+# to even, which is 448.
+_FP8_ROUNDS_FINITE = 464.0
+
+
+def to_fp8(x: torch.Tensor) -> torch.Tensor:
+    """x in e4m3 with the JAX package's (ml_dtypes') bytes: round to
+    nearest even in range, as torch's own cast does, and NaN with x's sign
+    (byte 0x7F or 0xFF) for |x| > 464, +-inf and NaN, where torch's cast
+    saturates to +-448 on the CPU (and gives NaN on an H100): the mask
+    makes every device give the same bytes."""
+    out = x.to(FP8).view(torch.uint8)
+    nan = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
+    out = torch.where(x.abs() <= _FP8_ROUNDS_FINITE, out, nan)
+    return out.view(FP8)
+
+
+def cast_rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K/V rows into the cache dtype (fp8 through ``to_fp8``)."""
+    return to_fp8(x) if dtype == FP8 else x.to(dtype)
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor's uint8 view, for moving its rows (index_put, gather,
+    copies, stacks): the byte ops are covered on every device, some fp8
+    ones are not.  Other dtypes as they are."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
 def write_kv_and_attend(kv_cache: Tuple[torch.Tensor, torch.Tensor],
                         k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
                         positions: torch.Tensor,
@@ -182,8 +220,11 @@ def write_kv_and_attend(kv_cache: Tuple[torch.Tensor, torch.Tensor],
     rows = start[:, None] + torch.arange(t, device=k.device)     # [B, T]
     batch = torch.arange(k.shape[0], device=k.device)[:, None]   # [B, 1]
     # Advanced indices around the head slice: value shape [B, T, Hkv, D].
-    k_cache[batch, :, rows] = k.transpose(1, 2).to(k_cache.dtype)
-    v_cache[batch, :, rows] = v.transpose(1, 2).to(v_cache.dtype)
+    dt = k_cache.dtype
+    as_bytes(k_cache)[batch, :, rows] = as_bytes(
+        cast_rows(k.transpose(1, 2), dt))
+    as_bytes(v_cache)[batch, :, rows] = as_bytes(
+        cast_rows(v.transpose(1, 2), dt))
     out = decode_attention(q, k_cache, v_cache, positions, window=window)
     return out, (k_cache, v_cache)
 
@@ -218,12 +259,14 @@ def paged_write_kv_and_attend(kv_pool: Tuple[torch.Tensor, torch.Tensor],
     blk = torch.gather(tables, 1, idx)                          # [B, T]
     off = positions % block_size                                # [B, T]
     # Advanced indices around the head slice: value shape [B, T, Hkv, D].
-    k_pool[blk, :, off] = k.transpose(1, 2).to(k_pool.dtype)
-    v_pool[blk, :, off] = v.transpose(1, 2).to(v_pool.dtype)
+    dt = k_pool.dtype
+    as_bytes(k_pool)[blk, :, off] = as_bytes(cast_rows(k.transpose(1, 2), dt))
+    as_bytes(v_pool)[blk, :, off] = as_bytes(cast_rows(v.transpose(1, 2), dt))
 
     def view(pool):
-        g = pool[tables].transpose(1, 2)          # [B, Hkv, NB, bs, D]
-        return g.reshape(b, g.shape[1], nb * block_size, g.shape[-1])
+        g = as_bytes(pool)[tables].transpose(1, 2)   # [B, Hkv, NB, bs, D]
+        g = g.reshape(b, g.shape[1], nb * block_size, g.shape[-1])
+        return g.view(pool.dtype)
 
     out = decode_attention(q, view(k_pool), view(v_pool), positions,
                            window=window)

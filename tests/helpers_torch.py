@@ -73,7 +73,8 @@ def conservation_errors(eng):
     """The paged pool's block-conservation law, checked from outside the
     allocator: every block's refcount equals its holders -- the table
     entries of the slots' allocated prefixes, plus one for a radix node
-    holding it, plus one for the dump block 0 -- the free list is exactly
+    holding it, plus one for each registered prefix entry holding it,
+    plus one for the dump block 0 -- the free list is exactly
     the blocks with no holder, idle slots (neither active nor mid-chunked
     prefill) hold nothing, and the host tier's byte ledger balances.
     Returns error strings (empty = ok)."""
@@ -90,6 +91,9 @@ def conservation_errors(eng):
     if eng._radix is not None:
         for node in eng._radix.walk():
             want[node.block] += 1
+    for entry in eng._prefixes.values():
+        for b in entry['blocks']:
+            want[int(b)] += 1
     for b in np.nonzero(refs != want)[0]:
         errors.append(f'block {b}: refcount {refs[b]} != holders {want[b]}')
     free = list(eng._free_blocks)

@@ -377,3 +377,66 @@ def test_prompt_logprobs_on_the_card_match_the_cpu(card):
                           b.prompt_top_logprobs[1:]):
             np.testing.assert_allclose([lp for _, lp in tb],
                                        [lp for _, lp in ta], atol=2e-3)
+
+
+# ------------------------------- fp8 cache, prefixes, speculative decode
+
+def _fp8_sweep() -> np.ndarray:
+    """The range e4m3 rounds into, the overflow band past 464, the
+    rounding ties near 448-480, +-inf, NaN and subnormals, both signs."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.normal(0, 1, 20000), rng.normal(0, 300, 20000),
+        np.linspace(440, 1000, 5601), [464, 465, 480, 1e6, np.inf, np.nan],
+        np.linspace(0, 2 ** -6, 2001), [2 ** -9, 2 ** -10, 3 * 2 ** -11]])
+    x = x.astype(np.float32)
+    return np.concatenate([x, -x])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fp8_cast_on_the_card_gives_the_cpu_bytes(card, dtype):
+    """models.llama.to_fp8 on the card gives the CPU's bytes (which
+    tests/test_torch_fp8.py holds against the JAX cast), the overflow
+    band included: the card's own conversion saturates or not, the
+    helper's mask decides."""
+    from skypilot_tpu_torch.models.llama import to_fp8
+    x = torch.from_numpy(_fp8_sweep()).to(dtype)
+    want = to_fp8(x).view(torch.uint8)
+    got = to_fp8(x.cuda()).view(torch.uint8).cpu()
+    assert torch.equal(got, want)
+    assert int((want == 0x7F).sum()) > 1000
+
+
+def test_spec_and_prefix_on_the_card(card, monkeypatch):
+    """llama-1b at depth 2, f32, on the card, dense and paged: a
+    registered 70-token prefix and speculation (draft_len 4) with oracle
+    drafts -- each prompt's windowed greedy continuation -- so the verify
+    dispatches and accepts: every prompt a prefix hit, and the reported
+    logprobs within the f32 bound (2e-3 nats) of the no-cache forward."""
+    from skypilot_tpu_torch.infer import engine as engine_mod
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, 32000, 70).tolist()
+    prompts = [system + rng.integers(0, 32000, 6).tolist() for _ in range(4)]
+    for layout in ({}, dict(kv_block_size=16)):
+        windowed = _depth2_engine(torch.float32, **layout).generate(
+            [Request(tokens=p, max_new_tokens=16) for p in prompts])
+        by_prompt = {tuple(r.prompt_tokens): r.output_tokens
+                     for r in windowed}
+
+        def oracle(hist, k, nmax, by_prompt=by_prompt):
+            for prompt, out in by_prompt.items():
+                if tuple(hist[:len(prompt)]) == prompt:
+                    done = len(hist) - len(prompt)
+                    return out[done:done + k]
+            return []
+
+        monkeypatch.setattr(engine_mod, 'prompt_lookup_draft', oracle)
+        eng = _depth2_engine(torch.float32, draft_len=4, **layout)
+        assert eng.register_prefix(system) == 70
+        got = eng.generate([Request(tokens=p, max_new_tokens=16)
+                            for p in prompts])
+        assert all(r.finish_reason == 'length' for r in got)
+        assert eng.prefix_stats == {'hits': 4, 'tokens_reused': 280}
+        st = eng.spec_stats
+        assert 0 < st['accepted'] <= st['drafted']
+        assert _teacher_forced_gap(eng.model, got) <= 2e-3

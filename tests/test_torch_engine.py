@@ -178,13 +178,41 @@ def test_buckets_cover_the_cache(params):
         eng._bucket(97)
 
 
+def _matches_jax_with(params, prompts, field, value, **layout):
+    """A field ported since it was refused: the engine builds and serves
+    the six prompts as the JAX engine with the same setting does (with
+    max_prefixes, a 32-token prefix of prompt 5 registered on both)."""
+    jax_value = jnp.float8_e4m3fn if value is torch.float8_e4m3fn else value
+    ref = JaxEngine(JAX_CFG, JaxInferConfig(**_engine_kwargs(
+        **{'cache_dtype': jnp.float32, **layout, field: jax_value})),
+                    params={'params': params})
+    eng = _port_engine(params, **layout, **{field: value})
+    if field == 'max_prefixes':
+        assert (eng.register_prefix(prompts[5][:32]) ==
+                ref.register_prefix(prompts[5][:32]) == 32)
+    reqs = [(p, m) for p, m in zip(prompts, MAX_NEW)]
+    _assert_same(
+        ref.generate([JaxRequest(tokens=p, max_new_tokens=m)
+                      for p, m in reqs]),
+        eng.generate([port.Request(tokens=p, max_new_tokens=m)
+                      for p, m in reqs]))
+    assert eng.spec_stats == ref.spec_stats
+    assert eng.prefix_stats == ref.prefix_stats
+
+
 @pytest.mark.parametrize('field,value', [
     ('draft_len', 2),
     ('lora_rank', 4), ('qos', True),
     ('max_prefixes', 4), ('qos_tenant_weights', {'a': 2.0}),
     ('cache_dtype', torch.float8_e4m3fn),
 ])
-def test_unported_features_raise(params, field, value):
+def test_unported_features_raise(params, prompts, field, value):
+    """The features outside the port (multi-LoRA and QoS, A6c) raise,
+    naming their ROADMAP.md item; the ones ported since (speculation,
+    registered prefixes, the fp8 cache) serve as the JAX engine does."""
+    if field not in port._UNPORTED:
+        _matches_jax_with(params, prompts, field, value)
+        return
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         _port_engine(params, **{field: value})
 
@@ -193,13 +221,14 @@ def test_unported_features_raise(params, field, value):
     ('draft_len', 2), ('max_prefixes', 4),
     ('cache_dtype', torch.float8_e4m3fn),
 ])
-def test_unported_features_raise_on_the_paged_engine(params, field, value):
-    """The block-paged engine (with the radix cache) refuses the features
-    outside its slice as the dense one does: registered prefixes and
-    the fp8 cache (A6b), speculation (A6c)."""
-    with pytest.raises(NotImplementedError, match='ROADMAP.md A6'):
-        _port_engine(params, kv_block_size=16, auto_prefix_cache=True,
-                     **{field: value})
+def test_unported_features_raise_on_the_paged_engine(params, prompts, field,
+                                                     value):
+    """Speculation, registered prefixes (pinned in the radix tree) and
+    the fp8 cache on the block-paged engine with the radix cache: as the
+    JAX paged engine serves them."""
+    assert field not in port._UNPORTED
+    _matches_jax_with(params, prompts, field, value, kv_block_size=16,
+                      auto_prefix_cache=True)
 
 
 def test_out_of_range_token_id_served_as_the_jax_engine_does():

@@ -16,6 +16,7 @@ from http.server import ThreadingHTTPServer
 
 import numpy as np
 import pytest
+import torch
 
 from helpers_openai import Tok
 from helpers_torch import jax_engine, key_sets, make_params, port_engine
@@ -314,28 +315,40 @@ def test_drain_refuses_new_work_then_undrains(pair):
 
 
 @pytest.mark.parametrize('path,body', [
-    ('/cache_prefix', {'tokens': PROMPT}),
+    ('/cache_prefix', {'tokens': [97, 98, 99, 96, 95]}),
     ('/load_adapter', {'name': 'a', 'path': 'a.npz'}),
 ])
 def test_unported_routes_answer_501(pair, path, body):
+    """/load_adapter (A6c) answers 501 naming its item; /cache_prefix,
+    ported since, answers as the JAX server does (a prefix no other test
+    of this module's prompts starts with)."""
+    if path == '/cache_prefix':
+        (code, _, j, _), (_, _, p, _) = _both(pair, 'POST', path, body)
+        assert code == 200
+        assert p == j == {'cached_prefix_len': len(body['tokens'])}
+        return
     code, _, doc, _ = _call(pair[1].port, 'POST', path, body)
     assert code == 501
     assert 'ROADMAP.md A6' in json.dumps(doc)
 
 
 def test_unported_options_fail_at_startup(params):
+    """--adapter-dir, HF import, tp serving, int8 weights and QoS still
+    fail at startup naming their item; --auto-prefix and the fp8 cache,
+    ported since, start."""
     eng = port_engine(params)
-    with pytest.raises(NotImplementedError, match='A6'):
-        port_server.InferenceServer(eng, auto_prefix=True)
+    assert port_server.InferenceServer(eng, auto_prefix=True).auto_prefix
     with pytest.raises(NotImplementedError, match='A6'):
         port_server.InferenceServer(eng, adapter_dir='/nonexistent')
     for kw, item in [({'hf_model': 'x'}, 'A8'),
                      ({'tensor_parallel': 2}, 'A9'),
                      ({'weight_dtype': 'int8'}, 'A8'),
-                     ({'qos': True}, 'A6'),
-                     ({'cache_dtype': 'fp8'}, 'A6')]:
+                     ({'qos': True}, 'A6')]:
         with pytest.raises(NotImplementedError, match=item):
             port_server.run(model='llama-debug', device='cpu', **kw)
+    fp8 = port_engine(params, cache_dtype=port_server.resolve_cache_dtype(
+        'fp8'))
+    assert fp8.cache[0][0].dtype == torch.float8_e4m3fn
 
 
 # --------------------------------------------------------- mixed fleet
