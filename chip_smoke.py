@@ -23,7 +23,11 @@ an fp8 handoff), registered prefixes (/cache_prefix over HTTP,
 --auto-prefix, a paged prefix with a tail block, the tight-pool
 force-admit, a pinned radix prefix), prompt-lookup speculative decoding
 (dense and paged, lookup and oracle drafts), training of
-llama-1b at batch 8 x 2048 through the Trainer, then Gemma at head_dim
+llama-1b at batch 8 x 2048 through the Trainer, LoRA (frozen-base
+rank-16 adapter training of llama-1b through the Trainer, then
+multi-LoRA serving of the trained adapter and two random ones beside the
+base through server.run() and POST /load_adapter, and a paged radix
+pool keyed by adapter), then Gemma at head_dim
 256 (the gemma-7b no-cache forward and greedy requests through the
 dense engine, gemma-2b training at batch 8 x 2048) -- at full width with
 random weights from a seed, and checks what comes out.  Every phase prints one JSON line; any failed check raises, so the script exits non-zero and the
@@ -58,10 +62,12 @@ import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
 from http.client import HTTPConnection
+from typing import Optional
 
 import numpy as np
 import torch
@@ -78,6 +84,7 @@ from skypilot_tpu_torch.models.convert import init_params, iter_params
 from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import flash_attention as fa
+from skypilot_tpu_torch.train import lora
 from skypilot_tpu_torch.train import trainer as train_lib
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of a kernel
@@ -868,13 +875,20 @@ def http(port: int, method: str, path: str, body=None,
 
 
 def start_server(engine) -> tuple:
-    """The port's serve() on 127.0.0.1 in a daemon thread, warm-up on.
-    Polls /healthz from the moment the listener answers until it says
-    ok; returns (port, thread, warm-up seconds, statuses seen)."""
+    """The port's serve() on 127.0.0.1 in a daemon thread, warm-up on,
+    polled until ready (wait_ready); returns (port, thread, warm-up
+    seconds, statuses seen)."""
     port = free_port()
     thread = threading.Thread(target=server.serve, args=(engine,),
                               kwargs=dict(host='127.0.0.1', port=port,
                                           warmup=True), daemon=True)
+    return (port, thread, *wait_ready(port, thread))
+
+
+def wait_ready(port: int, thread: threading.Thread) -> tuple:
+    """Start the server thread and poll /healthz from the moment the
+    listener answers until it says ok; returns (warm-up seconds,
+    statuses seen): 503 starting, then 200 ok."""
     t0 = time.perf_counter()
     thread.start()
     statuses = []
@@ -893,7 +907,7 @@ def start_server(engine) -> tuple:
     check(statuses[:1] == [(503, 'starting')] and
           statuses[-1] == (200, 'ok'),
           f'/healthz went {statuses}, expected 503 starting then 200 ok')
-    return port, thread, warm_s, statuses
+    return warm_s, statuses
 
 
 SERVER_NEW_TOKENS = 32
@@ -2297,7 +2311,8 @@ def phase_train(card: str, model_name: str = 'llama-1b') -> tuple:
     Trainer (f32 master weights, remat full, loss chunk 128): launches per
     step, the step-1 loss near ln V, step time and peak memory; a
     repeated batch's loss falls; depth 2 in f32, card against CPU.
-    Returns the kernels' launches over the 6 steps."""
+    Returns the kernels' launches over the 6 steps and the phase's
+    line."""
     cfg = train_lib.TrainConfig(model=model_name, batch_size=8,
                                 seq_len=2048, warmup_steps=2,
                                 total_steps=100)
@@ -2378,21 +2393,542 @@ def phase_train(card: str, model_name: str = 'llama-1b') -> tuple:
     check(loss_err <= BOUND_DEPTH2_LOSS and grad_err <= BOUND_DEPTH2_GRAD,
           f'depth-2 f32 card vs CPU: loss {loss_err}, grads {grad_err}')
     tokens_per_step = cfg.batch_size * cfg.seq_len
-    emit({'phase': train_phase_name(model_name), 'model': model_name,
-          'device': card,
+    line = {'phase': train_phase_name(model_name), 'model': model_name,
+            'device': card,
+            'batch': [cfg.batch_size, cfg.seq_len], 'remat': mc.remat_policy,
+            'dtype': str(mc.dtype), 'param_dtype': 'torch.float32',
+            'launches_per_step': per_step, 'losses': losses,
+            'step_ms': 1e3 * tokens_per_step / out['tokens_per_second'],
+            'tokens_per_s': out['tokens_per_second'],
+            'max_memory_allocated_gib': peak_gib,
+            'loss_step1_bounds': list(loss_step1),
+            'repeat_batch_losses': repeat, 'repeat_batch_loss_after': after,
+            'depth2_f32_loss_rel_err': loss_err,
+            'depth2_f32_grad_max_rel_err': grad_err,
+            'depth2_bounds': [BOUND_DEPTH2_LOSS, BOUND_DEPTH2_GRAD],
+            'step_profile': step_profile}
+    emit(line)
+    return launches, line
+
+
+# LoRA at the rank and targets of examples/finetune_llama31.yaml and
+# examples/serve_lora.yaml: rank 16 on q/k/v/o, alpha 16 (scale 1).
+LORA_RANK = 16
+LORA_ALPHA = 16.0
+# llama-1b: 22 layers x (q 2048x16 + 16x2048, k and v 2048x16 + 16x1024,
+# o 2048x16 + 16x2048).
+LORA_TRAIN_PARAMS = 22 * (65_536 + 49_152 + 49_152 + 65_536)
+# The LoRA phases' device: a CPU rehearsal at llama-debug width sets it to
+# 'cpu' (with the torch.cuda calls stubbed); the smoke run keeps the card.
+DEV = 'cuda'
+
+
+def lora_param_count(mc) -> int:
+    """rank x (in + out) summed over every adapted projection."""
+    h, d = mc.hidden_size, mc.head_dim_
+    dims = {'q_proj': (h, mc.num_heads * d),
+            'k_proj': (h, mc.num_kv_heads * d),
+            'v_proj': (h, mc.num_kv_heads * d),
+            'o_proj': (mc.num_heads * d, h),
+            'gate_proj': (h, mc.intermediate_size),
+            'up_proj': (h, mc.intermediate_size),
+            'down_proj': (mc.intermediate_size, h)}
+    return mc.num_layers * sum(mc.lora_rank * sum(dims[t])
+                               for t in mc.lora_targets)
+
+
+def lora_config(model_name: str = 'llama-1b', **overrides):
+    return dataclasses.replace(get_model_config(model_name),
+                               lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA,
+                               **overrides)
+
+
+def phase_lora_train(card: str, full: dict,
+                     model_name: str = 'llama-1b') -> tuple:
+    """Frozen-base LoRA training of `model_name` at full width and depth:
+    rank 16 on q/k/v/o, 6 steps at batch 8 x 2048 through the Trainer,
+    the train phase's other settings.  Checks: 44/22/22 launches a step
+    (dQ, dK and dV flow to the q/k/v adapters through the backward
+    kernels); the step-1 loss equal, to the bit, to the base model's on
+    the same batch and weights (B = 0); the base parameters byte-identical
+    after 6 steps; Adam moments for exactly the adapters' 5,046,272
+    parameters; a repeated batch's loss falls; at depth 2 in f32 the
+    adapter gradients on the card within 5e-4 of their max of the CPU's.
+    Records step ms, tokens/s and peak memory beside the full train
+    phase's (`full`, its line).  Saves the adapter with
+    ``save_adapter_npz`` to a temporary directory.  Returns the kernels'
+    launches over the 6 steps and that directory."""
+    mc = lora_config(model_name)
+    cfg = train_lib.TrainConfig(model=model_name, batch_size=8,
+                                seq_len=2048, warmup_steps=2,
+                                total_steps=100)
+    trainer = train_lib.Trainer(cfg, mc, device=DEV)
+    trainer.setup(seed=0)
+    model = trainer.state.model
+    base = {n: p.detach().clone() for n, p in model.named_parameters()
+            if not lora.is_lora_path(n)}
+    held = trainer.state.optimizer.param_groups[0]['params']
+    n_adapter = lora.num_adapter_params(model)
+    want_params = lora_param_count(mc)
+    check(model_name != 'llama-1b' or want_params == LORA_TRAIN_PARAMS,
+          f'{want_params} adapter parameters, expected {LORA_TRAIN_PARAMS}')
+    check(sum(p.numel() for p in held) == n_adapter == want_params
+          and all(p.requires_grad == lora.is_lora_path(n)
+                  for n, p in model.named_parameters()),
+          f'optimizer holds {sum(p.numel() for p in held)} parameters, '
+          f'adapters {n_adapter}, expected {want_params}')
+
+    # The base model on the same weights and step-1 batch, under grad as
+    # the step runs it (each layer checkpointed).
+    first = next(train_lib.synthetic_data(
+        cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0,
+        device=DEV))['tokens']
+    plain = llama.Llama(get_model_config(model_name), device=DEV,
+                        param_dtype=torch.float32)
+    plain.load_state_dict(base)
+    base_loss = train_lib.loss_fn(plain, first[:, :-1], first[:, 1:],
+                                  loss_chunk=cfg.loss_chunk).item()
+    del plain
+    torch.cuda.empty_cache()
+
+    expected = (2 * mc.num_layers, mc.num_layers, mc.num_layers)
+    counts = []
+
+    def counted_data(batches):
+        for batch in batches:
+            counts.append(launch_counts())
+            yield batch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = trainer.train(data=counted_data(train_lib.synthetic_data(
+        cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0, device=DEV)),
+        num_steps=6, log_every=1)
+    launches = launch_counts()
+    counts.append(launches)
+    per_step = [[b - a for a, b in zip(c0, c1)]
+                for c0, c1 in zip(counts, counts[1:])]
+    check(per_step == [list(expected)] * 6,
+          f'launches per step {per_step}, expected {expected}')
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [loss for _, loss in trainer.history]
+    check(len(losses) == 6 and all(math.isfinite(x) for x in losses),
+          f'losses {losses}')
+    check(losses[0] == base_loss,
+          f'step-1 loss {losses[0]} differs from the base model loss '
+          f'{base_loss}')
+    frozen = all(torch.equal(p, base[n]) for n, p in
+                 model.named_parameters() if not lora.is_lora_path(n))
+    check(frozen, 'a base parameter changed')
+    # B started at 0: each trained B must have moved off it.
+    moved = [bool(p.detach().any()) for n, p in model.named_parameters()
+             if n.endswith('lora_b')]
+    moments = sum(st['exp_avg'].numel()
+                  for st in trainer.state.optimizer.state.values())
+    check(moments == want_params and all(moved),
+          f'Adam moments for {moments} parameters, {sum(moved)} of '
+          f'{len(moved)} B moved')
+    adapter_dir = tempfile.mkdtemp(prefix='lora_smoke_')
+    npz = pathlib.Path(adapter_dir) / 'trained.npz'
+    leaves = lora.save_adapter_npz(model, str(npz))
+    del trainer, model, base
+    torch.cuda.empty_cache()
+
+    # One repeated batch: six steps (lr 0, half of peak, then peak) must
+    # lower its loss.
+    trainer = train_lib.Trainer(cfg, mc, device=DEV)
+    trainer.setup(seed=0)
+    batch = next(train_lib.synthetic_data(cfg.batch_size, cfg.seq_len,
+                                          mc.vocab_size, seed=1, device=DEV))
+    trainer.train(data=itertools.repeat(batch), num_steps=6, log_every=1)
+    repeat = [loss for _, loss in trainer.history]
+    after = trainer.evaluate(iter([batch]), num_batches=1)['eval_loss']
+    check(after < repeat[1],
+          f'repeated batch: loss {after} after 6 steps, {repeat[1]} at 2')
+    del trainer
+    torch.cuda.empty_cache()
+
+    # Depth 2 in f32, B drawn non-zero so A has a gradient too: the
+    # adapters' gradients on the card against the CPU's.
+    cfg2 = dataclasses.replace(mc, num_layers=2, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    sd = {k: (torch.randn(v.shape, generator=gen) * 0.02
+              if k.endswith('lora_b') else v)
+          for k, v in init_params(cfg2, gen).items()}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg2.vocab_size, (2, 257)))
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        m2 = llama.Llama(cfg2, device=DEV if dev == 'cuda' else dev,
+                         param_dtype=torch.float32)
+        m2.load_state_dict(sd)
+        train_lib.trainable_parameters(m2)
+        t = toks.to(m2.embedding.device)
+        loss = train_lib.loss_fn(m2, t[:, :-1], t[:, 1:],
+                                 loss_chunk=cfg.loss_chunk)
+        loss.backward()
+        res[dev] = (loss.item(), {n: p.grad.cpu()
+                                  for n, p in m2.named_parameters()
+                                  if p.grad is not None})
+        del m2, loss
+    check(set(res['cuda'][1]) == set(res['cpu'][1]) and
+          all(lora.is_lora_path(n) for n in res['cpu'][1]),
+          'depth-2: gradients beyond the adapters')
+    loss_err = abs(res['cuda'][0] - res['cpu'][0]) / abs(res['cpu'][0])
+    grad_err = max((g - res['cpu'][1][n]).abs().max().item() /
+                   max(res['cpu'][1][n].abs().max().item(), 1e-30)
+                   for n, g in res['cuda'][1].items())
+    check(loss_err <= BOUND_DEPTH2_LOSS and grad_err <= BOUND_DEPTH2_GRAD,
+          f'depth-2 f32 card vs CPU: loss {loss_err}, adapter grads '
+          f'{grad_err}')
+    tokens_per_step = cfg.batch_size * cfg.seq_len
+    emit({'phase': 'lora_train', 'model': model_name, 'device': card,
+          'lora': {'rank': LORA_RANK, 'alpha': LORA_ALPHA,
+                   'targets': list(mc.lora_targets)},
           'batch': [cfg.batch_size, cfg.seq_len], 'remat': mc.remat_policy,
           'dtype': str(mc.dtype), 'param_dtype': 'torch.float32',
           'launches_per_step': per_step, 'losses': losses,
+          'base_model_step1_loss': base_loss,
+          'step1_loss_equals_base': True, 'base_byte_identical': True,
+          'adapter_params': n_adapter, 'adam_moment_params': moments,
           'step_ms': 1e3 * tokens_per_step / out['tokens_per_second'],
           'tokens_per_s': out['tokens_per_second'],
           'max_memory_allocated_gib': peak_gib,
-          'loss_step1_bounds': list(loss_step1),
+          'full_train': {k: full[k] for k in (
+              'step_ms', 'tokens_per_s', 'max_memory_allocated_gib')},
           'repeat_batch_losses': repeat, 'repeat_batch_loss_after': after,
           'depth2_f32_loss_rel_err': loss_err,
-          'depth2_f32_grad_max_rel_err': grad_err,
+          'depth2_f32_adapter_grad_max_rel_err': grad_err,
           'depth2_bounds': [BOUND_DEPTH2_LOSS, BOUND_DEPTH2_GRAD],
-          'step_profile': step_profile})
-    return launches
+          'npz_leaves': leaves, 'npz_bytes': npz.stat().st_size})
+    return launches, adapter_dir
+
+
+# Random serving adapters, A at the init's 0.02.  B at 0.05 gives a delta
+# about a fifth of each adapted projection's output (trained adapters are
+# small next to their base), which moves a random model's greedy tokens.
+# At 0.5 (the JAX package's tests draw that for a 32-wide model) the
+# deltas double the projections and the bf16 teacher-forced gap reached
+# 0.66-1.06 nats on an H100 (PERF.md, the LoRA findings); the f32 check
+# at depth 2, where only summation order differs, keeps B at 0.5.
+LORA_B_STD = 0.05
+LORA_B_STD_F32 = 0.5
+LORA_NEW_TOKENS = 32
+
+
+def random_adapter_tree(engine, seed: int, b_std: Optional[float] = None
+                        ) -> dict:
+    """A rank-16 adapter for the engine's targets as a nested flax-form
+    tree, every leaf drawn with numpy from `seed` (B at `b_std`, by
+    default LORA_B_STD)."""
+    b_std = LORA_B_STD if b_std is None else b_std
+    rng = np.random.default_rng(seed)
+    return lora.nest({
+        lora.flax_path(name): rng.normal(
+            0, b_std if name.endswith('lora_b') else 0.02,
+            tuple(p.shape[1:])).astype(np.float32)
+        for name, p in engine.model.named_parameters()
+        if lora.is_lora_path(name)})
+
+
+def single_adapter_model(engine, slot: int) -> llama.Llama:
+    """The engine's base weights with stack slot `slot`'s adapter, as a
+    single-adapter model (no stack, no ids): the teacher-forced
+    reference of that adapter's streams."""
+    cfg = dataclasses.replace(engine.model_config, lora_num_adapters=0)
+    model = llama.Llama(cfg, device=DEV).eval()
+    sd = engine.model.state_dict()
+    model.load_state_dict({k: (v[slot] if lora.is_lora_path(k) else v)
+                           for k, v in sd.items()})
+    return model
+
+
+def adapter_gaps(engine, results: list, names: list, tally: list) -> dict:
+    """Per adapter, the teacher-forced gap of its streams against a
+    single-adapter model with its weights: the no-cache forward (the
+    flash kernel, whose launches go into `tally`) and the cached forward
+    (the engine's own attention path)."""
+    gaps = {}
+    for slot, name in enumerate(names):
+        ref = single_adapter_model(engine, slot)
+        mine = [r for r in results if r.adapter == name]
+        gaps[name] = {
+            'no_cache': counted(lambda: teacher_forced_err(ref, mine),
+                                tally),
+            'cache_path': teacher_forced_err(ref, mine, use_cache=True)}
+        del ref
+    return gaps
+
+
+def f32_adapter_gaps(engine, prompts: list, tally: list) -> dict:
+    """The engine's base weights at depth 2 in f32 with two adapters at
+    B std 0.5: an f32 engine serves `prompts` over the base and both
+    adapters in one batch; each adapter stream against the no-cache
+    forward of its single-adapter model (the kernel's f32 path), whose
+    launches go into `tally`.  Only summation order differs: 2e-3 nats,
+    the serve phase's f32 bound."""
+    cfg = dataclasses.replace(engine.model_config, num_layers=2,
+                              dtype=torch.float32)
+    keep = {k: v.float() for k, v in engine.model.state_dict().items()
+            if not lora.is_lora_path(k) and (
+                not k.startswith('layers.') or k.split('.')[1] in ('0', '1'))}
+    eng = InferenceEngine(
+        dataclasses.replace(cfg, lora_rank=0, lora_num_adapters=0),
+        InferConfig(model=engine.cfg.model, num_slots=8, max_cache_len=512,
+                    prefill_buckets=(64, 128, 256), max_new_tokens=16,
+                    cache_dtype=torch.float32, lora_rank=LORA_RANK,
+                    lora_alpha=LORA_ALPHA, lora_max_adapters=2),
+        params=keep, device=DEV)
+    names = ['f32_a', 'f32_b']
+    for i, name in enumerate(names):
+        eng.register_adapter(name, random_adapter_tree(
+            eng, seed=20 + i, b_std=LORA_B_STD_F32))
+    adapters = [a for _ in prompts for a in [None] + names]
+    res = [types.SimpleNamespace(prompt_tokens=r.prompt_tokens,
+                                 output_tokens=r.output_tokens,
+                                 logprobs=r.logprobs, adapter=a)
+           for r, a in zip(eng.generate([
+               Request(tokens=p, adapter=a)
+               for p, a in zip([p for p in prompts for _ in range(3)],
+                               adapters)]), adapters)]
+    gaps = {n: g['no_cache']
+            for n, g in adapter_gaps(eng, res, names, tally).items()}
+    moved = sum(a.output_tokens != b.output_tokens
+                for a, b in zip(res[1::3], res[0::3]))
+    del eng
+    return {'gaps': gaps, 'adapter_streams_differing_from_base': moved,
+            'b_std': LORA_B_STD_F32}
+
+
+def lora_requests(prompts: list, names: list) -> list:
+    """(kind, path, body, adapter) per prompt, adapters in turns over
+    `names` (None: the base), every other one named through the OpenAI
+    "model" field of /v1/completions, the rest through /generate's
+    "adapter" field; all greedy."""
+    out = []
+    for i, p in enumerate(prompts):
+        name = names[i % len(names)]
+        if i % 2 and name is not None:
+            out.append(('completion', '/v1/completions',
+                        {'model': name, 'prompt': p,
+                         'max_tokens': LORA_NEW_TOKENS, 'temperature': 0,
+                         'logprobs': 1}, name))
+        else:
+            body = {'tokens': p, 'max_new_tokens': LORA_NEW_TOKENS,
+                    'logprobs': True}
+            if name is not None:
+                body['adapter'] = name
+            out.append(('plain', '/generate', body, name))
+    return out
+
+
+def lora_burst(port: int, requests: list) -> tuple:
+    """The requests at once; returns (tok/s, wall s, per request:
+    namespace of prompt, output tokens, logprobs, adapter)."""
+    replies, wall = post_all(port, [r[:3] for r in requests])
+    got = []
+    for (kind, _, body, name), (code, _, doc) in zip(requests, replies):
+        check(code == 200, f'{kind} under {name}: {code} {doc}')
+        if kind == 'plain':
+            tokens, lps = doc['output_tokens'], doc['logprobs']
+        else:
+            choice = doc['choices'][0]
+            check(doc['model'] == name, f'answered as {doc["model"]}')
+            tokens = choice['tokens']
+            lps = choice['logprobs']['token_logprobs']
+        check(len(tokens) == LORA_NEW_TOKENS, f'{len(tokens)} tokens')
+        got.append(types.SimpleNamespace(
+            prompt_tokens=body.get('tokens') or body['prompt'],
+            output_tokens=tokens, logprobs=lps, adapter=name))
+    n_tok = sum(len(r.output_tokens) for r in got)
+    return n_tok / wall, wall, got
+
+
+def window_ms(engine, ids: list) -> dict:
+    """One decode window over every slot at cache position 256, with
+    per-slot adapter ids `ids` (None: an engine without adapters), under
+    profile_device."""
+    n = engine.cfg.num_slots
+    kw = ({} if ids is None else
+          {'adapter_ids': torch.tensor(ids, device=DEV)})
+    prof = profile_device(lambda: engine._decode(
+        torch.zeros(n, dtype=torch.long, device=DEV),
+        torch.full((n,), 256, dtype=torch.long, device=DEV),
+        torch.zeros(n, device=DEV), engine.cfg.decode_steps, **kw)[0])
+    return {k: prof[k] for k in ('wall_ms', 'device_ms', 'idle_share')}
+
+
+def phase_lora_serve(env: dict, adapter_dir: str,
+                     model_name: str = 'llama-1b') -> int:
+    """Multi-LoRA serving of `model_name` with the flags of
+    examples/serve_lora.yaml (--lora-rank 16 --lora-max-adapters 8),
+    started through server.run() with --adapter-dir at the lora_train
+    phase's directory.  POST /load_adapter loads the trained adapter and
+    two drawn from a seeded generator; a path escaping the directory
+    gets 400; /v1/models lists them.  The serve phase's 12 prompts go
+    first all to the base (no adapter registered yet), then mixed over
+    the base and the three adapters (by "adapter" and by the OpenAI
+    "model" field), all at once, so base and adapters share windows.
+    Checks: the base streams byte-identical to the first burst's; at
+    least one adapter stream differs from the base's; each adapter
+    stream's teacher-forced gap against the no-cache forward (the flash
+    kernel) of a single-adapter model with its weights within 0.25 nats
+    (bf16, as the serve phase).  Then a paged pool with the radix cache:
+    a second wave under one adapter hits, the other adapters' and the
+    base's do not; the conservation law after every window; and C3:
+    re-registering that adapter with another's weights, its next wave
+    has no hit and gives that other adapter's tokens.  Recorded, not
+    gated: tok/s of the mixed burst against the base-only one, and the
+    decode window's device time with the slots spread over the base and
+    the adapters, all base, and on an engine without adapters.  Returns
+    the forward kernel's launches of the teacher-forced reference."""
+    torch.cuda.synchronize()
+    port = free_port()
+    built = []
+
+    class Recording(InferenceEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    server.InferenceEngine = Recording
+    try:
+        thread = threading.Thread(target=server.run, kwargs=dict(
+            model=model_name, host='127.0.0.1', port=port,
+            lora_rank=LORA_RANK, lora_max_adapters=8,
+            adapter_dir=adapter_dir, warmup=True, device=DEV), daemon=True)
+        warm_s, statuses = wait_ready(port, thread)
+    finally:
+        server.InferenceEngine = InferenceEngine
+    [engine] = built
+    names = ['trained', 'rand1', 'rand2']
+    for i, name in enumerate(names[1:]):
+        lora.save_adapter_npz(random_adapter_tree(engine, seed=10 + i),
+                              str(pathlib.Path(adapter_dir) / f'{name}.npz'))
+    prompts, _ = serve_prompts(engine.model_config.vocab_size)
+    base_only = lora_requests(prompts, [None])
+    base_tps, base_wall, base_res = lora_burst(port, base_only)
+    code, _, doc = http(port, 'POST', '/load_adapter',
+                        {'name': 'x', 'path': '../trained.npz'})
+    check(code == 400 and 'escapes' in doc['error'],
+          f'escaping path: {code} {doc}')
+    for slot, name in enumerate(names):
+        code, _, doc = http(port, 'POST', '/load_adapter',
+                            {'name': name, 'path': f'{name}.npz'})
+        check((code, doc) == (200, {'adapter': name, 'slot': slot}),
+              f'/load_adapter {name}: {code} {doc}')
+    code, _, doc = http(port, 'GET', '/v1/models')
+    listed = [m['id'] for m in doc['data']]
+    check(listed == [model_name] + sorted(names), f'/v1/models {listed}')
+    mixed = lora_requests(prompts, [None] + names)
+    mixed_tps, mixed_wall, mixed_res = lora_burst(port, mixed)
+    for r, b in zip(mixed_res, base_res):
+        if r.adapter is None:
+            check(r.output_tokens == b.output_tokens,
+                  'a base stream changed once adapters were registered')
+    check(any(r.output_tokens != b.output_tokens
+              for r, b in zip(mixed_res, base_res) if r.adapter),
+          'no adapter stream differs from the base stream')
+    lora_forward = [0, 0, 0]
+    gaps = adapter_gaps(engine, mixed_res, names, lora_forward)
+    check(max(g['no_cache'] for g in gaps.values()) <= 0.25,
+          f'teacher-forced gaps {gaps}')
+    layers = engine.model_config.num_layers
+    check(lora_forward[0] == layers * len(prompts) * 3 // 4 and
+          lora_forward[1:] == [0, 0], f'reference launches {lora_forward}')
+    f32 = f32_adapter_gaps(engine, prompts[:6], lora_forward)
+    check(max(f32['gaps'].values()) <= 2e-3,
+          f'f32 depth-2 teacher-forced gaps {f32}')
+    with engine._lock:
+        n = engine.cfg.num_slots
+        spread = [i % 4 - 1 for i in range(n)]     # base and 3 adapters
+        windows = {'base_and_adapters': window_ms(engine, spread),
+                   'all_base': window_ms(engine, [-1] * n)}
+    code, _, _ = http(port, 'POST', '/drain', {'deadline_s': 60})
+    thread.join(timeout=120)
+    check(code == 200 and not thread.is_alive(), 'server did not drain')
+    base_sd = {k: v for k, v in engine.model.state_dict().items()
+               if not lora.is_lora_path(k)}
+    trees = {name: random_adapter_tree(engine, seed=10 + i)
+             for i, name in enumerate(names[1:])}
+    del engine, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = InferenceEngine(get_model_config(model_name),
+                            InferConfig(model=model_name), params=base_sd,
+                            device=DEV)
+    windows['no_adapters_engine'] = window_ms(plain, None)
+    del plain
+
+    # The paged pool with the radix cache: 4 prompts behind a shared
+    # 256-token system prompt, in one 512-token bucket.
+    paged = InferenceEngine(
+        get_model_config(model_name),
+        InferConfig(model=model_name, kv_block_size=PAGED_BLOCK,
+                    auto_prefix_cache=True, lora_rank=LORA_RANK,
+                    lora_max_adapters=8, max_new_tokens=LORA_NEW_TOKENS),
+        params=base_sd, device=DEV)
+    for name, tree in trees.items():
+        paged.register_adapter(name, tree)
+    rng = np.random.default_rng(3)
+    vocab = paged.model_config.vocab_size
+    system = rng.integers(0, vocab, 256).tolist()
+    wave_p = [system + rng.integers(0, vocab, 40).tolist()
+              for _ in range(4)]
+
+    def wave(adapters):
+        return paged.generate([Request(tokens=p, adapter=a)
+                               for a in adapters for p in wave_p])
+
+    audit = audited_windows(paged)
+    wave(['rand1'])
+    hits0 = paged.radix_stats['hits']
+    second = wave(['rand1', 'rand2', None])
+    hits1 = paged.radix_stats['hits']
+    check(hits1 - hits0 == len(wave_p),
+          f'second wave: {hits1 - hits0} hits, expected {len(wave_p)} '
+          '(rand1 only)')
+    paged.register_adapter('rand1', trees['rand2'])
+    third = wave(['rand1'])
+    hits2 = paged.radix_stats['hits']
+    del paged._step
+    check(hits2 == hits1, f'{hits2 - hits1} hits after re-registration')
+    check([r.output_tokens for r in third] ==
+          [r.output_tokens for r in second[4:8]],
+          're-registered rand1 does not give the tokens of rand2')
+    check(audit[0] > 0 and audit[1:] == [],
+          f'conservation after {audit[0]} windows: {audit[1:]}')
+    check(conservation_errors(paged) == [], 'conservation at the end')
+    radix = dict(paged.radix_stats)
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({'phase': 'lora_serve', 'model': model_name,
+          'device': env['device'], 'nvidia_smi': env['nvidia_smi'],
+          'flags': {'lora_rank': LORA_RANK, 'lora_max_adapters': 8,
+                    'adapter_dir': True},
+          'warmup_s': warm_s, 'healthz': statuses,
+          'adapters': names, 'requests': len(prompts),
+          'new_tokens': LORA_NEW_TOKENS,
+          'base_only_tok_per_s': base_tps, 'base_only_wall_s': base_wall,
+          'mixed_tok_per_s': mixed_tps, 'mixed_wall_s': mixed_wall,
+          'base_streams_identical': True,
+          'adapter_streams_differing_from_base': sum(
+              r.output_tokens != b.output_tokens
+              for r, b in zip(mixed_res, base_res) if r.adapter),
+          'teacher_forced_max_abs_err': gaps, 'teacher_forced_bound': 0.25,
+          'b_std': LORA_B_STD, 'f32_depth2': f32,
+          'f32_teacher_forced_bound': 2e-3,
+          'reference_flash_fwd_launches': lora_forward[0],
+          'decode_window': windows,
+          'paged_radix': {'block_size': PAGED_BLOCK, 'prompts': len(wave_p),
+                          'second_wave_hits': hits1 - hits0,
+                          'hits_after_reregistration': hits2 - hits1,
+                          'radix_stats': radix,
+                          'windows_audited': audit[0],
+                          'conservation_errors': 0}})
+    return lora_forward[0]
 
 
 def gemma_model(name: str, seed: int) -> llama.Llama:
@@ -2680,40 +3216,55 @@ def main() -> int:
     del model
     gc.collect()    # engines held in reference cycles (window audits)
     torch.cuda.empty_cache()
-    train_fwd, train_dq, train_dkv = timed(phase_train, env['device'])
+    (train_fwd, train_dq, train_dkv), train_line = timed(
+        phase_train, env['device'])
+    torch.cuda.empty_cache()
+    lora_train, adapter_dir = timed(phase_lora_train, env['device'],
+                                    train_line)
+    torch.cuda.empty_cache()
+    try:
+        lora_forward = timed(phase_lora_serve, env, adapter_dir)
+    finally:
+        shutil.rmtree(adapter_dir, ignore_errors=True)
+    gc.collect()
     torch.cuda.empty_cache()
     gemma_fwd = timed(phase_gemma, env['device'])
-    gemma_train = timed(phase_train, env['device'], 'gemma-2b',
-                        label='phase_' + train_phase_name('gemma-2b'))
+    gemma_train, _ = timed(phase_train, env['device'], 'gemma-2b',
+                           label='phase_' + train_phase_name('gemma-2b'))
     csrc = 'skypilot_tpu_torch/ops/csrc/'
     tpu = 'skypilot_tpu/ops/flash_attention.py:'
     print(json.dumps({'kernels': [
         dict(name='flash_attention_fwd', route='cuda',
              source=csrc + 'flash_attention_fwd.cu', replaces=tpu + '146',
              launches=(forward_launches + train_fwd + bench_fwd + gemma_fwd
-                       + gemma_train[0]),
+                       + gemma_train[0] + lora_train[0] + lora_forward),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
-                               'gemma_train': gemma_train[0]},
+                               'gemma_train': gemma_train[0],
+                               'lora_train': lora_train[0],
+                               'lora_forward': lora_forward},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
              headline_shape=headline['fwd'],
              head_dim_256_shapes={name: fwd[name]
                                   for name in TIMED_FWD[2:]}),
         dict(name='flash_attention_bwd_dq', route='cuda',
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
-             launches=train_dq + bench_dq + gemma_train[1],
+             launches=train_dq + bench_dq + gemma_train[1] + lora_train[1],
              launches_by_path={'train': train_dq, 'bench': bench_dq,
-                               'gemma_train': gemma_train[1]},
+                               'gemma_train': gemma_train[1],
+                               'lora_train': lora_train[1]},
              **bwd[TRAIN_CASE[0]]['dq'], headline_shape=headline['dq'],
              head_dim_256_shapes={name: bwd[name]['dq']
                                   for name in TIMED_BWD[1:]}),
         dict(name='flash_attention_bwd_dkv', route='cuda',
              source=csrc + 'flash_attention_bwd_dkv.cu',
              replaces=tpu + '227',
-             launches=train_dkv + bench_dkv + gemma_train[2],
+             launches=(train_dkv + bench_dkv + gemma_train[2]
+                       + lora_train[2]),
              launches_by_path={'train': train_dkv, 'bench': bench_dkv,
-                               'gemma_train': gemma_train[2]},
+                               'gemma_train': gemma_train[2],
+                               'lora_train': lora_train[2]},
              **bwd[TRAIN_CASE[0]]['dkv'], headline_shape=headline['dkv'],
              head_dim_256_shapes={name: bwd[name]['dkv']
                                   for name in TIMED_BWD[1:]}),

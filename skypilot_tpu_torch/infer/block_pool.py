@@ -173,6 +173,16 @@ class HostKVTier:
         self._pending.clear()
         self._bytes = 0
 
+    def drop_adapter(self, adapter: Optional[str]) -> int:
+        """Drop every entry (in flight ones landed first) whose key names
+        `adapter`: rows computed under weights that were replaced.
+        Returns the number dropped."""
+        self.finalize()
+        keys = [k for k in self._entries if k[0] == adapter]
+        for key in keys:
+            self._bytes -= _nbytes(self._entries.pop(key))
+        return len(keys)
+
     # ------------------------------------------------------------- spill
 
     @staticmethod

@@ -62,6 +62,17 @@ block-paged KV pool -- the PyTorch twin of ``skypilot_tpu/infer/engine.py``.
   the entry holds pool blocks that matching slots share by reference, a
   partial tail block copied (``_paged_copy_blocks``); with the radix
   cache registration pins the prefix's nodes.
+- **Multi-LoRA serving** (``lora_rank`` > 0): the model carries
+  ``lora_max_adapters`` stacked zero adapters per target;
+  ``register_adapter`` writes a trained adapter (``train.lora``'s
+  ``.npz`` tree) into a slot in place, and every dispatch -- prefill of
+  each kind, chunk rounds, decode windows and their lookahead, the
+  speculative verify, prefix capture and prompt scoring -- takes one
+  adapter id per row from the ``_slot_adapters`` host mirror (-1: the
+  base model), so base and adapter requests share a batch.  Registered
+  prefixes, radix nodes, host-tier entries and handed-off prefixes are
+  keyed by adapter.  Re-registering a name drops every cached row
+  computed under its old weights (ROADMAP.md C3).
 - **Prompt-lookup speculative decoding** (``draft_len`` = D > 0,
   ``_spec_step``): each greedy slot drafts up to D tokens from an
   earlier occurrence of its trailing n-gram (``prompt_lookup_draft``),
@@ -71,16 +82,18 @@ block-paged KV pool -- the PyTorch twin of ``skypilot_tpu/infer/engine.py``.
 
 Prefill attends through ``write_kv_and_attend``/``decode_attention`` (or
 their paged twins) like the JAX engine, not through the flash kernel.
-Not ported yet (ROADMAP.md A6c): QoS scheduling and multi-LoRA serving.
+Not ported yet (ROADMAP.md A6c): QoS scheduling.
 """
 import base64
 import collections
+import contextlib
 import dataclasses
 import math
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -92,11 +105,12 @@ from skypilot_tpu_torch.infer.radix import RadixTree
 from skypilot_tpu_torch.infer.scheduler import (DEFAULT_TENANT,
                                                 PRIORITY_CLASSES,
                                                 FifoScheduler)
-from skypilot_tpu_torch.models.convert import init_params
+from skypilot_tpu_torch.models.convert import init_params, iter_params
 from skypilot_tpu_torch.models.llama import (FP8, Llama, LlamaConfig,
                                              as_bytes, init_cache,
                                              init_paged_cache)
 from skypilot_tpu_torch.models.registry import get_model_config
+from skypilot_tpu_torch.train.lora import flax_path, is_lora_path, nest
 
 DEFAULT_PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 
@@ -157,7 +171,6 @@ class InferConfig:
 
 # InferConfig features outside this slice: field -> ROADMAP.md item.
 _UNPORTED = {
-    'lora_rank': 'A6c (multi-LoRA serving)',
     'qos': 'A6c (QoS scheduling)',
     'qos_tenant_weights': 'A6c (QoS scheduling)',
 }
@@ -261,11 +274,15 @@ def _unpack_head(buf: np.ndarray, topk: int):
 class _Slot:
     __slots__ = ('request', 'length', 'generated', 'submit_time',
                  'first_token_time', 'max_new', 'streamed', 'lps', 'tops',
-                 'prompt_lps', 'prompt_tops')
+                 'prompt_lps', 'prompt_tops', 'agen')
 
     def __init__(self, request: Request, length: int, submit_time: float,
-                 max_new: int):
+                 max_new: int, agen: int = 0):
         self.request = request
+        # The registration generation of the request's adapter when its
+        # prompt rows were written: a re-registration since makes them
+        # stale, and they must not join the radix tree (C3).
+        self.agen = agen
         self.length = length               # filled cache positions
         self.generated: List[int] = []
         self.submit_time = submit_time
@@ -286,11 +303,14 @@ class _ChunkJob:
     decode's dead-row writes for this lane land at the frontier, past the
     prompt rows already written.  The slot activates (becomes a _Slot,
     first token sampled) on the final chunk."""
-    __slots__ = ('req', 'slot', 'submit_time', 'n', 'max_new', 'done')
+    __slots__ = ('req', 'slot', 'submit_time', 'n', 'max_new', 'done', 'aid',
+                 'agen')
 
     def __init__(self, req: Request, slot: int, submit_time: float,
-                 n: int, max_new: int):
+                 n: int, max_new: int, aid: int = -1, agen: int = 0):
         self.req = req
+        self.aid = aid                     # adapter stack slot, -1 base
+        self.agen = agen                   # as _Slot.agen
         self.slot = slot
         self.submit_time = submit_time
         self.n = n                         # total prompt tokens
@@ -395,6 +415,18 @@ class InferenceEngine:
         if cfg.host_kv_bytes < 0:
             raise ValueError(f'host_kv_bytes must be >= 0 '
                              f'(got {cfg.host_kv_bytes})')
+        base_config = model_config
+        if cfg.lora_rank:
+            # Multi-LoRA: the model carries lora_max_adapters stacked
+            # zero-delta adapters per target (the base model until one
+            # is registered).
+            if cfg.lora_max_adapters < 1:
+                raise ValueError('lora_max_adapters must be >= 1')
+            model_config = dataclasses.replace(
+                model_config, lora_rank=cfg.lora_rank,
+                lora_alpha=cfg.lora_alpha,
+                lora_num_adapters=cfg.lora_max_adapters)
+            self.model_config = model_config
         buckets = tuple(b for b in cfg.prefill_buckets
                         if b <= cfg.max_cache_len)
         if not buckets or (buckets[-1] < cfg.max_cache_len
@@ -425,9 +457,25 @@ class InferenceEngine:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self._gen = generator
         self.model = Llama(model_config, device=self.device).eval()
-        self.model.load_state_dict(
-            params if params is not None
-            else init_params(model_config, generator))
+        if params is None:
+            # The base weights a plain engine draws from this generator.
+            params = init_params(base_config, generator)
+        if cfg.lora_rank and not any(is_lora_path(k) for k in params):
+            # A base state_dict: grafted under freshly drawn zero-delta
+            # adapters (drawn one tensor at a time, the rest discarded).
+            params = {**params, **{k: v for k, v in iter_params(
+                model_config, generator) if is_lora_path(k)}}
+        self.model.load_state_dict(params)
+        # Multi-LoRA: registered name -> stack slot, the name's
+        # registration generation (C3), and the parameters as a nested
+        # tree under their flax names, the shape register_adapter walks
+        # (the JAX engine walks its param tree; only the stacked adapter
+        # leaves are targets).  The Parameter objects are written in
+        # place and never swapped: dispatches hold them.
+        self._adapter_names: Dict[str, int] = {}
+        self._adapter_gen: Dict[str, int] = {}
+        self._param_tree = nest({flax_path(name): prm for name, prm
+                                 in self.model.named_parameters()})
         b = cfg.num_slots
         self._pool: Optional[BlockPool] = None
         if self._paged:
@@ -527,6 +575,9 @@ class InferenceEngine:
         self._lengths = np.zeros((b,), np.int64)
         self._last_tokens = np.zeros((b,), np.int64)
         self._temps = np.zeros((b,), np.float32)
+        # Adapter stack slot of each slot's request (-1: the base model),
+        # set at admission and reset at finish and cancel.
+        self._slot_adapters = np.full((b,), -1, np.int64)
         self._lock = threading.Lock()
 
     def _reset_cache(self) -> None:
@@ -628,18 +679,21 @@ class InferenceEngine:
     @torch.inference_mode()
     def _prefill_insert(self, tokens: torch.Tensor, true_lens: torch.Tensor,
                         slots: torch.Tensor, temps: torch.Tensor,
-                        want_plp: bool = False
+                        want_plp: bool = False,
+                        adapter_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """P prompts forward over a fresh [P, Hkv, bucket, D] cache, first
         token sampled at true_lens-1, each prompt's KV rows copied into
-        its slot.  tokens [P, bucket]; true_lens/slots/temps [P].
-        Returns the packed head [P, 2+2k] and, with want_plp, the packed
-        prompt scores [P, bucket-1, 1+2k] (else None)."""
+        its slot.  tokens [P, bucket]; true_lens/slots/temps [P];
+        adapter_ids [P] (multi-LoRA, else None).  Returns the packed head
+        [P, 2+2k] and, with want_plp, the packed prompt scores
+        [P, bucket-1, 1+2k] (else None)."""
         p, bucket = tokens.shape
         pcache = init_cache(self.model_config, p, bucket,
                             self.cfg.cache_dtype, self.device)
         positions = torch.arange(bucket, device=self.device).expand(p, bucket)
-        logits, pcache = self.model(tokens, positions, pcache)
+        logits, pcache = self.model(tokens, positions, pcache,
+                                    adapter_ids=adapter_ids)
         last = logits[torch.arange(p, device=self.device), true_lens - 1]
         _, head = self._pack_head(last, temps)
         for (k, v), (pk, pv) in zip(self.cache, pcache):
@@ -647,6 +701,22 @@ class InferenceEngine:
             as_bytes(v)[slots, :, :bucket] = as_bytes(pv)
         return head, (self._pack_prompt(logits, tokens) if want_plp
                       else None)
+
+    def _akw(self, ids) -> Dict[str, torch.Tensor]:
+        """A dispatch's adapter argument: the per-row adapter ids [P] on
+        the device (-1: the base model), none when the engine serves no
+        adapters."""
+        if not self.cfg.lora_rank:
+            return {}
+        return {'adapter_ids': self._to_device(np.asarray(ids, np.int64))}
+
+    def _adapter_id(self, adapter: Optional[str]) -> int:
+        """The stack slot of a registered adapter; -1 for the base."""
+        return -1 if adapter is None else self._adapter_names[adapter]
+
+    def _agen(self, adapter: Optional[str]) -> int:
+        """The registration generation of `adapter` (0 for the base)."""
+        return self._adapter_gen.get(adapter, 0) if adapter else 0
 
     def _pkw(self, tables: Optional[torch.Tensor]) -> Dict[str, Any]:
         """The model's paged-attention arguments (none when dense)."""
@@ -659,7 +729,8 @@ class InferenceEngine:
     def _paged_prefill(self, tokens: torch.Tensor, starts: torch.Tensor,
                        true_pos: torch.Tensor,
                        tables: Optional[torch.Tensor],
-                       temps: torch.Tensor, want_plp: bool = False
+                       temps: torch.Tensor, want_plp: bool = False,
+                       adapter_ids: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """A prefill dispatch straight over the live cache: tokens [P, W]
         forward at positions starts + arange(W), through the per-lane
@@ -681,7 +752,7 @@ class InferenceEngine:
         p, w = tokens.shape
         positions = starts[:, None] + torch.arange(w, device=self.device)
         logits, _ = self.model(tokens, positions, self.cache,
-                               **self._pkw(tables))
+                               adapter_ids=adapter_ids, **self._pkw(tables))
         last = logits[torch.arange(p, device=self.device), true_pos]
         _, head = self._pack_head(last, temps)
         return head, (self._pack_prompt(logits, tokens) if want_plp
@@ -690,7 +761,9 @@ class InferenceEngine:
     @torch.inference_mode()
     def _prefix_prefill(self, tokens: torch.Tensor, start: int,
                         true_lens: torch.Tensor, rows, slots: torch.Tensor,
-                        temps: torch.Tensor) -> torch.Tensor:
+                        temps: torch.Tensor,
+                        adapter_ids: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
         """Lane-batched suffix prefill over a registered prefix (dense):
         tokens [P, SB] are the suffixes; each lane's fresh
         [Hkv, start + SB, D] cache holds the prefix rows [0, start) --
@@ -707,7 +780,8 @@ class InferenceEngine:
             as_bytes(pk)[:, :, :start] = rk[:, :start]
             as_bytes(pv)[:, :, :start] = rv[:, :start]
         positions = start + torch.arange(sb, device=self.device).expand(p, sb)
-        logits, pcache = self.model(tokens, positions, pcache)
+        logits, pcache = self.model(tokens, positions, pcache,
+                                    adapter_ids=adapter_ids)
         last = logits[torch.arange(p, device=self.device), true_lens - 1]
         _, head = self._pack_head(last, temps)
         for (k, v), (pk, pv) in zip(self.cache, pcache):
@@ -741,7 +815,8 @@ class InferenceEngine:
     @torch.inference_mode()
     def _decode(self, tokens: torch.Tensor, lengths: torch.Tensor,
                 temps: torch.Tensor, steps: int,
-                tables: Optional[torch.Tensor] = None
+                tables: Optional[torch.Tensor] = None,
+                adapter_ids: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """`steps` decode steps for every slot; tokens/lengths/temps [B];
         tables [B, NB] over the paged pool (None: the dense cache), built
@@ -752,7 +827,8 @@ class InferenceEngine:
         pkw = self._pkw(tables)
         for _ in range(steps):
             logits, _ = self.model(tokens[:, None], lengths[:, None],
-                                   self.cache, **pkw)
+                                   self.cache, adapter_ids=adapter_ids,
+                                   **pkw)
             tokens, head = self._pack_head(logits[:, 0], temps)
             heads.append(head)
             lengths = lengths + 1
@@ -761,7 +837,9 @@ class InferenceEngine:
     @torch.inference_mode()
     def _spec_verify(self, tokens: torch.Tensor, lengths: torch.Tensor,
                      temps: torch.Tensor,
-                     tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     tables: Optional[torch.Tensor] = None,
+                     adapter_ids: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
         """One speculative verify: tokens [B, 1+D] (column 0 each slot's
         last token, then its drafts) forward at lengths + arange(1+D)
         over the cache, every row written (rows past the accepted prefix
@@ -772,7 +850,7 @@ class InferenceEngine:
         b, k = tokens.shape
         positions = lengths[:, None] + torch.arange(k, device=self.device)
         logits, _ = self.model(tokens, positions, self.cache,
-                               **self._pkw(tables))
+                               adapter_ids=adapter_ids, **self._pkw(tables))
         _, head = self._pack_head(logits.reshape(b * k, -1),
                                   temps.repeat_interleave(k))
         return head.reshape(b, k, -1)
@@ -1060,8 +1138,97 @@ class InferenceEngine:
 
     @property
     def adapters(self) -> Dict[str, int]:
-        """Registered LoRA adapters: none (multi-LoRA is ROADMAP.md A6c)."""
-        return {}
+        """Registered LoRA adapters: name -> stack slot."""
+        return dict(self._adapter_names)
+
+    def register_adapter(self, name: str, adapter_tree) -> int:
+        """Load a trained LoRA adapter -- the nested ``*_lora`` tree of
+        ``train.lora`` (``load_adapter_npz``; the JAX package's artifact
+        is the same) -- into a stack slot; later requests naming it
+        decode with its delta.  Re-registering a name overwrites its
+        slot.  Returns the slot index.
+
+        Every leaf is checked before any is written, then the slot is
+        written in place (``copy_`` into the stacked parameters the
+        dispatches hold) under the engine lock, on the engine's card and
+        its current stream: a window already queued reads the old
+        values, a later one the new, none half of each.
+
+        Every cached row computed under the name's old weights is
+        dropped (ROADMAP.md C3): its registered prefixes, its radix nodes
+        (the tree's references; blocks a live slot shares stay until it
+        finishes) and its host-tier entries; slots admitted under the old
+        weights do not insert their blocks into the tree when they
+        finish.  The JAX engine drops only the registered prefixes."""
+        if not self.cfg.lora_rank:
+            raise ValueError(
+                'engine built without lora_rank; pass '
+                'InferConfig(lora_rank=...) / --lora-rank to serve '
+                'adapters')
+        if isinstance(adapter_tree, Mapping) and \
+                set(adapter_tree) == {'params'}:
+            adapter_tree = adapter_tree['params']   # tolerate the wrapper
+        writes: List[Tuple[torch.Tensor, np.ndarray]] = []
+
+        def walk(tree, sub, path=''):
+            for k, v in sub.items():
+                target = tree.get(k) if isinstance(tree, Mapping) else None
+                if target is None or (isinstance(v, Mapping) !=
+                                      isinstance(target, Mapping)) or (
+                        not isinstance(v, Mapping) and
+                        not is_lora_path(path + k)):
+                    raise KeyError(
+                        f'adapter param {path}{k!r} has no target in the '
+                        'model tree (wrong family/targets?)')
+                if isinstance(v, Mapping):
+                    walk(target, v, f'{path}{k}/')
+                    continue
+                arr = np.asarray(v, np.float32)
+                if arr.shape != tuple(target.shape[1:]):
+                    raise ValueError(
+                        f'adapter leaf {path}{k} shape {arr.shape} '
+                        f'does not match model {tuple(target.shape[1:])} '
+                        '(rank mismatch?)')
+                writes.append((target, arr))
+
+        walk(self._param_tree, adapter_tree)
+        dev = (torch.cuda.device(self._cuda_index)
+               if self._cuda_index is not None else contextlib.nullcontext())
+        with dev:
+            # Staged on the device before the lock: the host copies wait
+            # for nothing the serving loop holds.
+            staged = [(prm, torch.from_numpy(arr).to(self.device))
+                      for prm, arr in writes]
+        with self._lock:
+            idx = self._adapter_names.get(name)
+            if idx is None:
+                if len(self._adapter_names) >= self.cfg.lora_max_adapters:
+                    raise ValueError(
+                        f'adapter slots full '
+                        f'({self.cfg.lora_max_adapters}); re-register an '
+                        'existing name to replace it')
+                idx = len(self._adapter_names)
+            with dev, torch.no_grad():
+                for prm, arr in staged:
+                    prm[idx].copy_(arr)
+            self._adapter_names[name] = idx
+            self._adapter_gen[name] = self._adapter_gen.get(name, 0) + 1
+            self._drop_adapter_rows(name)
+        return idx
+
+    def _drop_adapter_rows(self, name: str) -> None:
+        """Forget every cached row computed under adapter `name` (caller
+        holds the lock): registered prefixes, radix nodes, host-tier
+        entries (C3)."""
+        for key in [k for k in self._prefixes if k[0] == name]:
+            entry = self._prefixes.pop(key)
+            if self._paged:
+                for b in entry['blocks']:
+                    self._deref_block(b)
+        if self._radix is not None:
+            self._radix.drop_adapter(name, self._deref_block)
+        if self._host_tier is not None:
+            self._host_tier.drop_adapter(name)
 
     def _radix_section(self) -> Dict[str, Any]:
         rs = self.radix_stats
@@ -1358,7 +1525,8 @@ class InferenceEngine:
             for pref in payload.get('prefixes', []):
                 tokens = [int(t) for t in pref.get('tokens', [])]
                 adapter = pref.get('adapter')
-                if adapter is not None:   # no adapters here (A6c)
+                if (adapter is not None
+                        and adapter not in self._adapter_names):
                     skipped += 1
                     continue
                 try:
@@ -1404,24 +1572,30 @@ class InferenceEngine:
         Dense: the capture forward reads only the weights, so it runs
         outside the engine lock and in-flight decode keeps going; only
         the registry insert takes the lock.  Paged and radix: the
-        capture writes the shared pool, under the lock."""
+        capture writes the shared pool, under the lock.
+
+        adapter: compute (and match) the rows under that LoRA adapter;
+        prefix KV is adapter-dependent, so an entry only ever matches
+        requests naming the same adapter (None: the base model)."""
         if not self.cfg.max_prefixes:
             raise ValueError('prefix caching disabled (max_prefixes=0)')
         n = len(tokens)
         if n < 1:
             raise ValueError('empty prefix')
-        if adapter is not None:      # no adapters here (A6c)
+        if adapter is not None and adapter not in self._adapter_names:
             raise ValueError(f'unknown adapter {adapter!r}')
+        aid = self._adapter_id(adapter)
         bucket = self._bucket(n)     # raises when no bucket holds it
         arr = np.zeros((1, bucket), np.int64)
         arr[0, :n] = tokens
         if self._paged:
             if self._radix is not None:
                 return self._register_prefix_radix(arr, n, bucket,
-                                                   adapter, tokens)
+                                                   adapter, aid, tokens)
             return self._register_prefix_paged(arr, n, bucket, adapter,
-                                               tokens)
-        rows = self._prefill_capture(self._to_device(arr), n)
+                                               aid, tokens)
+        rows = self._prefill_capture(self._to_device(arr), n,
+                                     **self._akw([aid]))
         key = (adapter, tuple(int(t) for t in tokens))
         with self._lock:
             self._prefixes[key] = rows
@@ -1431,8 +1605,9 @@ class InferenceEngine:
         return n
 
     @torch.inference_mode()
-    def _prefill_capture(self, tokens: torch.Tensor,
-                         n: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def _prefill_capture(self, tokens: torch.Tensor, n: int,
+                         adapter_ids: Optional[torch.Tensor] = None
+                         ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Forward a prefix [1, bucket] over a fresh cache and return its
         first n rows per layer, (k, v) [Hkv, n, D] (fp8 as its uint8
         view); the logits are discarded."""
@@ -1440,12 +1615,12 @@ class InferenceEngine:
         pcache = init_cache(self.model_config, 1, bucket,
                             self.cfg.cache_dtype, self.device)
         positions = torch.arange(bucket, device=self.device)[None]
-        self.model(tokens, positions, pcache)
+        self.model(tokens, positions, pcache, adapter_ids=adapter_ids)
         return [(as_bytes(k)[0, :, :n].clone(), as_bytes(v)[0, :, :n].clone())
                 for k, v in pcache]
 
     def _register_prefix_paged(self, arr: np.ndarray, n: int, bucket: int,
-                               adapter: Optional[str],
+                               adapter: Optional[str], aid: int,
                                tokens: Sequence[int]) -> int:
         """Paged capture: forward the prefix over the live pool into
         freshly allocated blocks; the entry holds one reference on each,
@@ -1469,7 +1644,7 @@ class InferenceEngine:
                     f'prefix ({need} blocks; {len(self._free_blocks)} '
                     'free after honoring running slots) -- raise '
                     'kv_blocks')
-            blocks = self._capture_into_blocks(arr, n, bucket, need)
+            blocks = self._capture_into_blocks(arr, n, bucket, need, aid)
             self._prefixes[key] = {'blocks': blocks, 'len': n}
             self._prefixes.move_to_end(key)
             while len(self._prefixes) > self.cfg.max_prefixes:
@@ -1479,7 +1654,7 @@ class InferenceEngine:
         return n
 
     def _register_prefix_radix(self, arr: np.ndarray, n: int, bucket: int,
-                               adapter: Optional[str],
+                               adapter: Optional[str], aid: int,
                                tokens: Sequence[int]) -> int:
         """register_prefix under auto_prefix_cache is pinning: the
         prefix's full blocks are prefilled into the pool (or found
@@ -1504,7 +1679,7 @@ class InferenceEngine:
                     'kv_blocks')
             # Rows [m, n) scatter past the table's allocated entries,
             # into the dump block.
-            blocks = self._capture_into_blocks(arr, n, bucket, need)
+            blocks = self._capture_into_blocks(arr, n, bucket, need, aid)
             # own=True: the tree takes over the allocation refs; runs
             # already cached are dereffed (freed).
             self.radix_stats['inserts'] += self._radix.insert(
@@ -1513,9 +1688,10 @@ class InferenceEngine:
         return m
 
     def _capture_into_blocks(self, arr: np.ndarray, n: int, bucket: int,
-                             need: int) -> List[int]:
+                             need: int, aid: int) -> List[int]:
         """Allocate `need` pool blocks and prefill the prefix arr
-        [1, bucket] into them in one paged dispatch (under the lock).
+        [1, bucket] into them in one paged dispatch (under the lock), under
+        adapter slot `aid` (-1: the base model).
         Returns the blocks, each holding the caller's reference; on a
         failure they are returned to the pool."""
         bs_ = self.cfg.kv_block_size
@@ -1527,7 +1703,8 @@ class InferenceEngine:
                 self._to_device(arr), self._to_device(np.zeros(1, np.int64)),
                 self._to_device(np.full(1, n - 1, np.int64)),
                 self._to_device(table),
-                self._to_device(np.zeros(1, np.float32)))
+                self._to_device(np.zeros(1, np.float32)),
+                **self._akw([aid]))
         except BaseException:
             for b in blocks:
                 self._deref_block(b)
@@ -1619,9 +1796,14 @@ class InferenceEngine:
         if n < 1:
             raise ValueError('empty prompt')
         if req.adapter is not None:
-            raise ValueError(
-                f'request names adapter {req.adapter!r} but the engine '
-                'was built without lora_rank')
+            if not self.cfg.lora_rank:
+                raise ValueError(
+                    f'request names adapter {req.adapter!r} but the '
+                    'engine was built without lora_rank')
+            if req.adapter not in self._adapter_names:
+                raise ValueError(
+                    f'unknown adapter {req.adapter!r}; registered: '
+                    f'{sorted(self._adapter_names)}')
         if max_new < 1:
             raise ValueError(
                 f'max_new_tokens must be >= 1 (got {max_new}); generation '
@@ -1684,12 +1866,15 @@ class InferenceEngine:
         return None
 
     def _activate(self, chunk, head: torch.Tensor,
-                  prompt: Optional[torch.Tensor] = None) -> None:
+                  prompt: Optional[torch.Tensor] = None,
+                  agens: Optional[Sequence[int]] = None) -> None:
         """Fill the slots of one prefill dispatch's real lanes from its
         packed head (ONE transfer): chunk holds the lanes' (req, slot,
         submit_time, n, bucket, max_new) tuples.  prompt: the packed
         prompt scores of a want_plp dispatch, given to the lanes that
-        asked for them."""
+        asked for them.  agens: the lanes' adapter generations when their
+        rows were written before this call (chunked prefill), else the
+        current ones."""
         topk = self.cfg.logprob_topk
         first, first_lp, tids, tlps = _unpack_head(
             self._host_array(self._to_host(head)), topk)
@@ -1699,7 +1884,9 @@ class InferenceEngine:
         now = time.time()
         for i, (req, slot, submit_time, n, _, max_new) in enumerate(chunk):
             s = _Slot(req, length=n, submit_time=submit_time,
-                      max_new=max_new)
+                      max_new=max_new,
+                      agen=(agens[i] if agens is not None
+                            else self._agen(req.adapter)))
             s.first_token_time = now
             s.generated.append(int(first[i]))
             s.lps.append(float(first_lp[i]))
@@ -1712,6 +1899,7 @@ class InferenceEngine:
             self._lengths[slot] = n
             self._last_tokens[slot] = s.generated[0]
             self._temps[slot] = req.temperature
+            self._slot_adapters[slot] = self._adapter_id(req.adapter)
 
     def _start_radix_group_paged(self, group, sb: int, gen: int) -> None:
         """Start radix-matched requests sharing a suffix bucket: each
@@ -1738,6 +1926,7 @@ class InferenceEngine:
             true_pos = np.zeros((lanes,), np.int64)
             slots = np.zeros((lanes,), np.int64)
             temps = np.zeros((lanes,), np.float32)
+            aids = np.full((lanes,), -1, np.int64)
             for it, start, blocks in chunk:       # real lanes only
                 req, slot, _, n, _, _ = it
                 self._append_shared_blocks(slot, blocks)
@@ -1753,13 +1942,14 @@ class InferenceEngine:
                 true_pos[i] = n - start - 1
                 slots[i] = slot
                 temps[i] = req.temperature
+                aids[i] = self._adapter_id(req.adapter)
             # The table covers every lane's start + suffix bucket (pad
             # lanes duplicate a real lane, so the max is a real one).
             nb = self._nb_bucket(-(-(int(starts.max()) + sb) // bs_))
             head, _ = self._paged_prefill(
                 self._to_device(tokens), self._to_device(starts),
                 self._to_device(true_pos), self._lane_tables(slots, nb),
-                self._to_device(temps))
+                self._to_device(temps), **self._akw(aids))
             self._activate([it for it, _, _ in chunk], head)
 
     def _start_radix(self, items) -> list:
@@ -1805,6 +1995,7 @@ class InferenceEngine:
             self._start_prefixed_group_paged(group, start, sb, key)
             return
         rows = self._prefixes[key]
+        aid = self._adapter_id(key[0])
         lanes = self.cfg.prefill_lanes
         for ofs in range(0, len(group), lanes):
             chunk = group[ofs:ofs + lanes]
@@ -1825,7 +2016,8 @@ class InferenceEngine:
                     f'{slots=} p={p}')
             head = self._prefix_prefill(
                 self._to_device(tokens), start, self._to_device(true_lens),
-                rows, self._to_device(slots), self._to_device(temps))
+                rows, self._to_device(slots), self._to_device(temps),
+                **self._akw([aid] * lanes))
             self._activate(chunk, head)
             self.prefix_stats['hits'] += p
             self.prefix_stats['tokens_reused'] += start * p
@@ -1837,6 +2029,7 @@ class InferenceEngine:
         private with one block copy per dispatch, and the suffixes
         forward over the pool at start."""
         entry = self._prefixes[key]
+        aid = self._adapter_id(key[0])
         bs_ = self.cfg.kv_block_size
         shared_n = start // bs_
         tail = start % bs_
@@ -1881,7 +2074,7 @@ class InferenceEngine:
                 self._to_device(tokens),
                 self._to_device(np.full((lanes,), start, np.int64)),
                 self._to_device(true_pos), self._lane_tables(slots, nb),
-                self._to_device(temps))
+                self._to_device(temps), **self._akw([aid] * lanes))
             self._activate(chunk, head)
             self.prefix_stats['hits'] += p
             self.prefix_stats['tokens_reused'] += start * p
@@ -1950,10 +2143,12 @@ class InferenceEngine:
                 # in between write dead rows at the frontier (the length
                 # mirror), which later chunks overwrite before any query
                 # position reaches them.
-                self._chunking[slot] = _ChunkJob(req, slot, submit_time,
-                                                 n, max_new)
+                self._chunking[slot] = _ChunkJob(
+                    req, slot, submit_time, n, max_new,
+                    self._adapter_id(req.adapter), self._agen(req.adapter))
                 self._lengths[slot] = 0
                 self._temps[slot] = 0.0
+                self._slot_adapters[slot] = -1
                 self.chunk_stats['requests'] += 1
             items = rest
         lanes = self.cfg.prefill_lanes
@@ -1968,12 +2163,14 @@ class InferenceEngine:
                 true_lens = np.ones((lanes,), np.int64)
                 slots = np.zeros((lanes,), np.int64)
                 temps = np.zeros((lanes,), np.float32)
+                aids = np.full((lanes,), -1, np.int64)
                 for i in range(lanes):
                     req, slot, _, n, _, _ = chunk[min(i, p - 1)]
                     tokens[i, :n] = req.tokens
                     true_lens[i] = n
                     slots[i] = slot
                     temps[i] = req.temperature
+                    aids[i] = self._adapter_id(req.adapter)
                 if any(slots[i] != slots[p - 1] for i in range(p, lanes)):
                     raise RuntimeError(
                         f'pad lanes must duplicate the last real lane: '
@@ -1990,12 +2187,13 @@ class InferenceEngine:
                         self._to_device(true_lens - 1),
                         self._lane_tables(slots, self._nb_bucket(
                             bucket // self.cfg.kv_block_size)),
-                        self._to_device(temps), want_plp)
+                        self._to_device(temps), want_plp,
+                        **self._akw(aids))
                 else:
                     head, prompt = self._prefill_insert(
                         self._to_device(tokens), self._to_device(true_lens),
                         self._to_device(slots), self._to_device(temps),
-                        want_plp)
+                        want_plp, **self._akw(aids))
                 self._activate(chunk, head, prompt)
 
     def _chunk_round(self) -> bool:
@@ -2038,12 +2236,14 @@ class InferenceEngine:
         starts = self._lengths.copy()
         true_pos = np.zeros((b,), np.int64)
         temps = np.zeros((b,), np.float32)
+        aids = self._slot_adapters.copy()
         finals = []
         for slot, job in self._chunking.items():
             real = min(c, job.n - job.done)
             tokens[slot, :real] = job.req.tokens[job.done:job.done + real]
             starts[slot] = job.done
             true_pos[slot] = real - 1
+            aids[slot] = job.aid
             if self._paged:
                 self._ensure_blocks(slot, job.done + real)
             if job.done + real >= job.n:
@@ -2064,23 +2264,26 @@ class InferenceEngine:
                 -(-(int(starts.max()) + c) // self.cfg.kv_block_size)))
         head, _ = self._paged_prefill(
             self._to_device(tokens), self._to_device(starts),
-            self._to_device(true_pos), tables, self._to_device(temps))
+            self._to_device(true_pos), tables, self._to_device(temps),
+            **self._akw(aids))
         if self._radix is not None:
             # Block-boundary inserts, after the dispatch (a raised chunk
             # fault never indexes unwritten rows): every full block of
             # prompt rows the pool now holds is matchable at once.
             # Finals are still in _chunking; their insert at finish is
-            # an idempotent touch on top.
+            # an idempotent touch on top.  A job whose adapter was
+            # re-registered since its first chunk holds stale rows.
             for slot, job in self._chunking.items():
-                self._radix_adopt(slot, job.req.tokens, job.done,
-                                  job.req.adapter)
+                if job.agen == self._agen(job.req.adapter):
+                    self._radix_adopt(slot, job.req.tokens, job.done,
+                                      job.req.adapter)
         if finals:
             for slot, _ in finals:
                 del self._chunking[slot]
             lanes = self._to_device(np.asarray([slot for slot, _ in finals]))
             self._activate([(job.req, slot, job.submit_time, job.n, None,
                              job.max_new) for slot, job in finals],
-                           head[lanes])
+                           head[lanes], agens=[job.agen for _, job in finals])
         return True
 
     def _radix_adopt(self, slot: int, tokens: Sequence[int], rows: int,
@@ -2143,12 +2346,15 @@ class InferenceEngine:
         self._slots[i] = None
         self._lengths[i] = 0
         self._temps[i] = 0.0
+        self._slot_adapters[i] = -1
         if self._paged:
             if (self._radix is not None and reason != 'error' and
-                    not req.want_prompt_logprobs):
+                    not req.want_prompt_logprobs and
+                    s.agen == self._agen(req.adapter)):
                 # The slot's full prompt blocks join the tree before the
                 # table is torn down ('error' finishes may have left rows
-                # unwritten; a scored request bypasses the tree).
+                # unwritten; a scored request bypasses the tree; rows
+                # written under an adapter's replaced weights are stale).
                 self._radix_adopt(i, req.tokens, len(req.tokens),
                                   req.adapter)
             self._free_slot_blocks(i)
@@ -2174,6 +2380,7 @@ class InferenceEngine:
         job = self._chunking.pop(slot)
         self._lengths[slot] = 0
         self._temps[slot] = 0.0
+        self._slot_adapters[slot] = -1
         if self._paged:
             self._free_slot_blocks(slot)
         if error is not None:
@@ -2294,7 +2501,7 @@ class InferenceEngine:
         packed, last, lens = self._decode(
             self._to_device(self._last_tokens),
             self._to_device(self._lengths), self._to_device(self._temps),
-            steps, **paged)
+            steps, **paged, **self._akw(self._slot_adapters))
         return self._to_host(packed), (last, lens)
 
     def _maybe_dispatch_ahead(self, chain, snap,
@@ -2340,9 +2547,10 @@ class InferenceEngine:
         paged = ({'tables': self._decode_tables(in_flight_steps +
                                                 self.cfg.decode_steps)}
                  if self._paged else {})
-        packed, last, lens = self._decode(chain[0], chain[1],
-                                          self._to_device(self._temps),
-                                          self.cfg.decode_steps, **paged)
+        packed, last, lens = self._decode(
+            chain[0], chain[1], self._to_device(self._temps),
+            self.cfg.decode_steps,
+            **paged, **self._akw(self._slot_adapters))
         self._ahead = (self._to_host(packed), (last, lens), snap,
                        self._prefill_epoch)
 
@@ -2451,7 +2659,8 @@ class InferenceEngine:
         tables = self._decode_tables(k) if self._paged else None
         packed = self._spec_verify(
             self._to_device(tokens), self._to_device(self._lengths),
-            self._to_device(self._temps), tables)
+            self._to_device(self._temps), tables,
+            **self._akw(self._slot_adapters))
         preds, preds_lp, g_toks, g_lps = _unpack_head(
             self._host_array(self._to_host(packed)),
             self.cfg.logprob_topk)                     # ONE transfer
@@ -2517,6 +2726,7 @@ class InferenceEngine:
                     # occupant writes every row before reading it).
                     del self._chunking[slot]
                     self._lengths[slot] = 0
+                    self._slot_adapters[slot] = -1
                     if self._paged:
                         self._free_slot_blocks(slot)
                     return True
@@ -2906,6 +3116,7 @@ class InferenceEngine:
                                 self._slots[slot] = None
                                 self._lengths[slot] = 0
                                 self._temps[slot] = 0.0
+                                self._slot_adapters[slot] = -1
                             if (self._paged and self._slots[slot] is None
                                     and slot not in self._chunking):
                                 # Blocks a half-applied batch allocated

@@ -123,6 +123,25 @@ class RadixTree:
         self._pinned = 0
         self.generation += 1
 
+    def drop_adapter(self, adapter: Optional[str],
+                     deref: Callable[[int], None]) -> int:
+        """Drop every node under `adapter`, pinned ones included, and
+        deref each node's block: the tree's references go, blocks a slot
+        still shares stay until it frees them.  For rows computed under
+        weights that were replaced.  Returns the number of nodes
+        dropped."""
+        level = self._roots.pop(adapter, None)
+        dropped = 0
+        stack = list(level.values()) if level else []
+        while stack:
+            nd = stack.pop()
+            stack.extend(nd.children.values())
+            self._pinned -= nd.pinned
+            deref(nd.block)
+            dropped += 1
+        self._nodes -= dropped
+        return dropped
+
     def match(self, adapter: Optional[str], tokens: Sequence[int],
               max_tokens: int) -> List[int]:
         """Longest cached block-aligned prefix of ``tokens`` under

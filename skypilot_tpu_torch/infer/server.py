@@ -38,13 +38,19 @@ routes over a fleet that mixes both:
                      start with it prefill only their suffix; answers
                      {"cached_prefix_len": n} (under --auto-prefix-cache
                      it pins the prefix's blocks, n block-aligned)
+  POST /load_adapter {"name": ..., "path": "adapter.npz"}: load a trained
+                     LoRA adapter (``train.lora.save_adapter_npz``, either
+                     package's) from under --adapter-dir into a stack
+                     slot (--lora-rank, --lora-max-adapters); requests
+                     select it by the "adapter" field or the OpenAI
+                     "model" field, and share batches with the base
 
 --auto-prefix registers a prompt's bucket-length head the second time it
 is seen; --draft-len turns on prompt-lookup speculative decoding and
 --cache-dtype fp8 the e4m3 KV cache.
 
-Not ported yet, answered 501 naming the ROADMAP.md item: POST
-/load_adapter; the matching flags fail at startup.
+Not ported yet, failing at startup naming the ROADMAP.md item: QoS
+(--qos), HF import, tp serving and int8 weights.
 
 stdlib only (ThreadingHTTPServer): each request blocks its handler
 thread while the one engine thread runs continuous batching across all
@@ -71,17 +77,11 @@ from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              resolve_cache_dtype)
 from skypilot_tpu_torch.infer.scheduler import PRIORITY_CLASSES
 from skypilot_tpu_torch.models.registry import get_model_config
+from skypilot_tpu_torch.train.lora import load_adapter_npz
 
 
 def _unported(what: str, item: str) -> str:
     return f'{what} is not ported yet (ROADMAP.md {item})'
-
-
-def _refuse_unported_options(adapter_dir: Optional[str]) -> None:
-    if adapter_dir is not None:
-        raise NotImplementedError(_unported(
-            'runtime adapter loading (--adapter-dir)',
-            'A6c (multi-LoRA serving)'))
 
 
 class DrainingError(Exception):
@@ -127,8 +127,9 @@ class InferenceServer:
         backlog reaches it while every slot is busy.  The TTFT bound
         reacts to what happened; the queue cap bounds what can happen.
 
-        adapter_dir (runtime LoRA loading) is not ported yet and raises
-        (ROADMAP.md A6c).
+        adapter_dir: the directory POST /load_adapter may read adapter
+        files from; None (the default) answers it 403.  The API is
+        unauthenticated, so a path must resolve inside this directory.
 
         auto_prefix: a prompt head (quantized to a prefill bucket
         length) seen twice registers itself as a prefix in a background
@@ -136,8 +137,8 @@ class InferenceServer:
 
         warmup: run engine.warmup() (every prefill bucket and the decode
         windows) before declaring ready; else one short request."""
-        _refuse_unported_options(adapter_dir)
         self.engine = engine
+        self.adapter_dir = adapter_dir
         self.tokenizer = tokenizer
         self.max_projected_ttft_s = max_projected_ttft_s
         self.max_queue = max_queue
@@ -1226,8 +1227,7 @@ def _make_handler(server: InferenceServer):
                     server.end_generate()
                 return
             if self.path == '/load_adapter':
-                self._json(501, {'error': _unported(
-                    'runtime adapter loading', 'A6c (multi-LoRA serving)')})
+                self._load_adapter(payload)
                 return
             if self.path == '/cache_prefix':
                 # Register a prefix (system prompt): its KV rows stay
@@ -1268,6 +1268,38 @@ def _make_handler(server: InferenceServer):
                     self._json(500, {'error': str(e)})
                 return
             self._json(404, {'error': 'not found'})
+
+        def _load_adapter(self, payload: dict) -> None:
+            """POST /load_adapter: a trained adapter file (.npz, either
+            package's) from under --adapter-dir into a stack slot.  403
+            without --adapter-dir; 400 for a missing name or path, a
+            path that escapes the directory, or a bad artifact."""
+            name = payload.get('name')
+            path = payload.get('path')
+            if not name or not path:
+                self._json(400, {'error': '"name" and "path" required'})
+                return
+            if server.adapter_dir is None:
+                self._json(403, {'error': 'runtime adapter loading '
+                                 'disabled; start the server with '
+                                 '--adapter-dir to enable'})
+                return
+            root = os.path.realpath(server.adapter_dir)
+            resolved = os.path.realpath(os.path.join(root, str(path)))
+            if not (resolved == root or
+                    resolved.startswith(root + os.sep)):
+                self._json(400, {'error': 'adapter path escapes '
+                                 '--adapter-dir'})
+                return
+            try:
+                idx = server.engine.register_adapter(
+                    name, load_adapter_npz(resolved))
+            except Exception as e:  # noqa: BLE001 -- client input (a
+                # missing file, a directory, a corrupt npz, the wrong
+                # family or rank): a JSON 400, never a dead handler.
+                self._json(400, {'error': str(e)})
+                return
+            self._json(200, {'adapter': name, 'slot': idx})
 
         def _native_generate(self, payload: dict) -> None:
             if self.path == '/generate':
@@ -1467,7 +1499,6 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     if weight_dtype != 'bf16':
         raise NotImplementedError(_unported(
             f'weight_dtype {weight_dtype!r} (int8 weights)', 'A8'))
-    _refuse_unported_options(adapter_dir)
     cfg = InferConfig(model=model, num_slots=num_slots,
                       max_cache_len=max_cache_len, eos_id=eos_id,
                       decode_steps=decode_steps,
@@ -1529,12 +1560,13 @@ def main() -> None:
                         help='resident prefix-KV entries for '
                              '/cache_prefix (LRU; 0 disables)')
     parser.add_argument('--lora-rank', type=int, default=0,
-                        help='multi-LoRA serving (not ported yet: A6c)')
+                        help='multi-LoRA serving: adapter rank '
+                             '(0 disables; POST /load_adapter to load)')
     parser.add_argument('--lora-max-adapters', type=int, default=8,
                         help='resident adapter slots (--lora-rank)')
     parser.add_argument('--adapter-dir', default=None,
                         help='directory POST /load_adapter may read '
-                             'from (not ported yet: A6c)')
+                             'from (unset: loading is disabled)')
     parser.add_argument('--adaptive-window', action='store_true',
                         help='queue-aware decode windows: short '
                              'dispatches only while arrivals wait')

@@ -7,6 +7,10 @@ flax tree, or drawn at random with the JAX package's distributions.
 ``[out, in]`` weights, the per-head q/k/v kernels ``[H, heads, D]``
 become ``[heads*D, H]`` and o_proj ``[heads, D, H]`` becomes
 ``[H, heads*D]``.  RMSNorm scales keep their stored ``w - 1`` form.
+LoRA adapter leaves (``*_lora/lora_a``, ``lora_b``, single or stacked)
+keep their shapes, which are already flattened over the feature dims;
+``train.lora.extract_adapter_tree`` is the way back for them (the
+``.npz`` writer's input).
 """
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models.llama import LlamaConfig
+from skypilot_tpu_torch.train import lora
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -47,7 +52,19 @@ def state_dict_from_jax(params: Mapping[str, Any],
             _t(attn['o_proj']['kernel']).reshape(-1, h).T
         for name in ('gate_proj', 'up_proj', 'down_proj'):
             sd[f'{dst}mlp.{name}.weight'] = _t(src['mlp'][name]['kernel']).T
+        for path, leaf in _flat_tree(src, f'layer_{i}/'):
+            if lora.is_lora_path(path):
+                sd[lora.port_name(path)] = _t(leaf)
     return {k: v.contiguous() for k, v in sd.items()}
+
+
+def _flat_tree(tree: Mapping[str, Any], prefix: str
+               ) -> Iterator[Tuple[str, Any]]:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flat_tree(val, f'{prefix}{key}/')
+        else:
+            yield prefix + key, val
 
 
 def init_params(config: LlamaConfig,
@@ -55,8 +72,11 @@ def init_params(config: LlamaConfig,
     """A random state_dict with the JAX module's init distributions:
     normal(0.02) for the embedding, every projection and lm_head;
     normal(0.02/sqrt(2L)) for o_proj (depth-scaled residual branch);
-    zeros for norm scales and biases.  Tensors are f32 on the
-    generator's device.  Does not reproduce JAX's random bits."""
+    zeros for norm scales and biases; with ``lora_rank`` > 0, each
+    target's adapter as ``train.lora.adapter_init`` draws it (A normal(0.02),
+    B zeros; stacked ``lora_num_adapters`` deep when that is > 0).
+    Tensors are f32 on the generator's device.  Does not reproduce JAX's
+    random bits."""
     return dict(iter_params(config, generator))
 
 
@@ -81,6 +101,17 @@ def iter_params(config: LlamaConfig, generator: torch.Generator
     heads = {'q_proj': config.num_heads, 'k_proj': config.num_kv_heads,
              'v_proj': config.num_kv_heads}
     o_std = 0.02 / (2 * n_layers) ** 0.5
+    n_ad = config.lora_num_adapters
+
+    def adapter(prefix, name, n_in, n_out):
+        if not (config.lora_rank and name in config.lora_targets):
+            return
+        r, stack = config.lora_rank, (n_ad,) if n_ad else ()
+        a, b = lora.adapter_init(stack + (n_in, r), stack + (r, n_out),
+                                 generator)
+        yield f'{prefix}{name}_lora.lora_a', a
+        yield f'{prefix}{name}_lora.lora_b', b
+
     for i in range(n_layers):
         p = f'layers.{i}.'
         yield p + 'input_norm.scale', zeros(h)
@@ -89,9 +120,13 @@ def iter_params(config: LlamaConfig, generator: torch.Generator
             yield f'{p}attn.{name}.weight', normal(0.02, n * d, h)
             if config.attention_bias:
                 yield f'{p}attn.{name}.bias', zeros(n * d)
-        yield p + 'attn.o_proj.weight', normal(o_std, h,
-                                                config.num_heads * d)
+            yield from adapter(p + 'attn.', name, h, n * d)
+        hd = config.num_heads * d
+        yield p + 'attn.o_proj.weight', normal(o_std, h, hd)
+        yield from adapter(p + 'attn.', 'o_proj', hd, h)
         inter = config.intermediate_size
-        yield p + 'mlp.gate_proj.weight', normal(0.02, inter, h)
-        yield p + 'mlp.up_proj.weight', normal(0.02, inter, h)
-        yield p + 'mlp.down_proj.weight', normal(0.02, h, inter)
+        for name, n_in, n_out in (('gate_proj', h, inter),
+                                  ('up_proj', h, inter),
+                                  ('down_proj', inter, h)):
+            yield f'{p}mlp.{name}.weight', normal(0.02, n_out, n_in)
+            yield from adapter(p + 'mlp.', name, n_in, n_out)

@@ -26,6 +26,12 @@ range, where torch's own cast saturates on the CPU), and every move of cache row
 scatters, the paged gather, the engine's block copies, spills and wire
 rows -- runs on the rows' uint8 view (``as_bytes``): only the cast and
 ``decode_attention``'s f32 read see the fp8 dtype.
+
+With ``lora_rank`` > 0 each projection named in ``lora_targets`` gets a
+sibling ``<name>_lora`` adapter (``train.lora.LoRAAdapter``, f32
+parameters) whose delta is added to the projection's output in the
+compute dtype; ``lora_num_adapters`` > 0 stacks that many per target and
+every forward path takes ``adapter_ids [B]`` (multi-LoRA serving).
 """
 import dataclasses
 import functools
@@ -38,6 +44,7 @@ from torch.nn import functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
+from skypilot_tpu_torch.train.lora import LoRAAdapter
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -313,6 +320,33 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(self.compute_dtype), bias)
 
 
+def _add_proj(owner: nn.Module, name: str, n_in: int, n_out: int,
+              bias: bool, param_dtype: torch.dtype, device) -> None:
+    """Register projection `name` on its owning module and, when `name` is
+    a configured LoRA target, its sibling '<name>_lora' adapter (f32
+    parameters, stacked when ``lora_num_adapters`` > 0) -- the counterpart
+    of the JAX module's ``_proj``, the single wiring point of every
+    adapted projection."""
+    cfg = owner.config
+    setattr(owner, name, Linear(n_in, n_out, bias, cfg.dtype, param_dtype,
+                                device))
+    if cfg.lora_rank and name in cfg.lora_targets:
+        setattr(owner, f'{name}_lora', LoRAAdapter(
+            n_in, n_out, cfg.lora_rank, cfg.lora_alpha, cfg.dtype,
+            cfg.lora_num_adapters, device))
+
+
+def _proj(owner: nn.Module, name: str, x: torch.Tensor,
+          adapter_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """base(x), plus the adapter's delta where `name` has one, added in
+    the compute dtype."""
+    y = getattr(owner, name)(x)
+    adapter = getattr(owner, f'{name}_lora', None)
+    if adapter is None:
+        return y
+    return y + adapter(x, adapter_ids)
+
+
 class Attention(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, param_dtype=None):
@@ -320,21 +354,25 @@ class Attention(nn.Module):
         cfg = self.config = config
         d, h = cfg.head_dim_, cfg.hidden_size
         bias = cfg.attention_bias
-        dt, pd = cfg.dtype, param_dtype or cfg.dtype
-        self.q_proj = Linear(h, cfg.num_heads * d, bias, dt, pd, device)
-        self.k_proj = Linear(h, cfg.num_kv_heads * d, bias, dt, pd, device)
-        self.v_proj = Linear(h, cfg.num_kv_heads * d, bias, dt, pd, device)
-        self.o_proj = Linear(cfg.num_heads * d, h, False, dt, pd, device)
+        pd = param_dtype or cfg.dtype
+        _add_proj(self, 'q_proj', h, cfg.num_heads * d, bias, pd, device)
+        _add_proj(self, 'k_proj', h, cfg.num_kv_heads * d, bias, pd, device)
+        _add_proj(self, 'v_proj', h, cfg.num_kv_heads * d, bias, pd, device)
+        _add_proj(self, 'o_proj', cfg.num_heads * d, h, False, pd, device)
 
     def forward(self, x, positions, kv_cache=None, paged_tables=None,
-                paged_block_size=None):
+                paged_block_size=None, adapter_ids=None):
         cfg = self.config
         b, s, _ = x.shape
         d = cfg.head_dim_
+
+        def proj(name, inp):
+            return _proj(self, name, inp, adapter_ids)
+
         # [B, S, H*D] -> [B, H, S, D]
-        q = self.q_proj(x).view(b, s, cfg.num_heads, d).transpose(1, 2)
-        k = self.k_proj(x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
-        v = self.v_proj(x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
+        q = proj('q_proj', x).view(b, s, cfg.num_heads, d).transpose(1, 2)
+        k = proj('k_proj', x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
+        v = proj('v_proj', x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling_)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling_)
         new_cache = None
@@ -349,7 +387,7 @@ class Attention(nn.Module):
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=True,
                                   window=cfg.sliding_window)
-        out = self.o_proj(out.transpose(1, 2).reshape(b, s, -1))
+        out = proj('o_proj', out.transpose(1, 2).reshape(b, s, -1))
         if kv_cache is not None:
             return out, new_cache
         return out
@@ -365,13 +403,14 @@ class MLP(nn.Module):
                 f'Unknown hidden_act {cfg.hidden_act!r}; '
                 "expected 'silu', 'gelu' or 'gelu_tanh'.")
         h, i = cfg.hidden_size, cfg.intermediate_size
-        dt, pd = cfg.dtype, param_dtype or cfg.dtype
-        self.gate_proj = Linear(h, i, False, dt, pd, device)
-        self.up_proj = Linear(h, i, False, dt, pd, device)
-        self.down_proj = Linear(i, h, False, dt, pd, device)
+        pd = param_dtype or cfg.dtype
+        _add_proj(self, 'gate_proj', h, i, False, pd, device)
+        _add_proj(self, 'up_proj', h, i, False, pd, device)
+        _add_proj(self, 'down_proj', i, h, False, pd, device)
 
-    def forward(self, x):
-        gate, up = self.gate_proj(x), self.up_proj(x)
+    def forward(self, x, adapter_ids=None):
+        gate = _proj(self, 'gate_proj', x, adapter_ids)
+        up = _proj(self, 'up_proj', x, adapter_ids)
         act = self.config.hidden_act
         if act == 'gelu_tanh':          # Gemma GeGLU
             h = F.gelu(gate, approximate='tanh') * up
@@ -379,7 +418,7 @@ class MLP(nn.Module):
             h = F.gelu(gate) * up
         else:
             h = F.silu(gate) * up
-        return self.down_proj(h)
+        return _proj(self, 'down_proj', h, adapter_ids)
 
 
 class DecoderLayer(nn.Module):
@@ -393,15 +432,18 @@ class DecoderLayer(nn.Module):
         self.mlp = MLP(config, device, param_dtype)
 
     def forward(self, x, positions, kv_cache=None, paged_tables=None,
-                paged_block_size=None):
+                paged_block_size=None, adapter_ids=None):
         attn_in = self.input_norm(x)
         if kv_cache is not None:
             attn_out, new_cache = self.attn(attn_in, positions, kv_cache,
-                                            paged_tables, paged_block_size)
+                                            paged_tables, paged_block_size,
+                                            adapter_ids)
         else:
-            attn_out, new_cache = self.attn(attn_in, positions), None
+            attn_out = self.attn(attn_in, positions,
+                                 adapter_ids=adapter_ids)
+            new_cache = None
         h = x + attn_out
-        out = h + self.mlp(self.post_attn_norm(h))
+        out = h + self.mlp(self.post_attn_norm(h), adapter_ids)
         if kv_cache is not None:
             return out, new_cache
         return out
@@ -442,10 +484,6 @@ class Llama(nn.Module):
     def __init__(self, config: LlamaConfig, device=None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if config.lora_rank > 0:
-            raise NotImplementedError(
-                'LoRA adapters are not ported yet (ROADMAP.md A8, other '
-                'families and weight paths)')
         if config.weight_dtype == 'int8':
             raise NotImplementedError(
                 'int8 weight storage is not ported yet (ROADMAP.md A8, '
@@ -469,9 +507,15 @@ class Llama(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, hidden_only: bool = False,
                 paged_tables: Optional[torch.Tensor] = None,
-                paged_block_size: Optional[int] = None):
+                paged_block_size: Optional[int] = None,
+                adapter_ids: Optional[torch.Tensor] = None):
         """Scoring: forward(tokens) -> logits.  hidden_only=True returns the
         final-norm hidden states [B, S, H] instead.
+
+        Multi-LoRA (``lora_num_adapters`` > 0): adapter_ids [B] selects one
+        stacked adapter per sequence (< 0: the base model) on every path;
+        with the ids given the no-cache forward calls its layers without
+        checkpointing, as the JAX module's multi-LoRA scoring does.
 
         Incremental inference: forward(tokens, positions, cache) ->
         (logits, cache), where `cache` is the per-layer list of (k, v)
@@ -503,8 +547,11 @@ class Llama(nn.Module):
         for i, layer in enumerate(self.layers):
             if cache is not None:
                 x, layer_cache = layer(x, positions, cache[i],
-                                       paged_tables, paged_block_size)
+                                       paged_tables, paged_block_size,
+                                       adapter_ids)
                 new_cache.append(layer_cache)
+            elif adapter_ids is not None:
+                x = layer(x, positions, adapter_ids=adapter_ids)
             elif remat is not None:
                 x = remat(layer, x, positions)
             else:

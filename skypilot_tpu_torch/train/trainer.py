@@ -10,10 +10,20 @@ by global norm and AdamW on f32 master weights -- what ``make_train_step``
 computes, to float noise.  Names follow the JAX module so each piece has
 an obvious counterpart.
 
-Not ported here: a mesh and pipeline parallelism (ROADMAP.md A9), LoRA
-and the other model families with the MoE router loss (ROADMAP.md A8);
-each raises ``NotImplementedError``.  Checkpoints use the port's own
-format (``torch.save``; there is no orbax).
+With ``model_config.lora_rank`` > 0 the step trains the ``*_lora``
+adapters only (``train.lora``): the base parameters get
+``requires_grad_(False)``, so the backward computes no gradient for them
+(dQ, dK and dV still flow through the attention kernels to reach the
+q/k/v adapters), and the optimizer is built over the adapter parameters,
+so clipping, ``grad_norm`` and weight decay see the adapters alone and
+the base carries no Adam moments -- what ``make_train_step(trainable=
+lora.is_lora_path)`` with the reference's ``multi_transform`` optimizer
+computes.
+
+Not ported here: a mesh and pipeline parallelism (ROADMAP.md A9) and the
+other model families with the MoE router loss (ROADMAP.md A8); each
+raises ``NotImplementedError``.  Checkpoints use the port's own format
+(``torch.save``; there is no orbax).
 """
 import dataclasses
 import math
@@ -33,6 +43,7 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models.convert import init_params
 from skypilot_tpu_torch.models.llama import Llama, LlamaConfig
 from skypilot_tpu_torch.models.registry import get_model_config
+from skypilot_tpu_torch.train.lora import is_lora_path, merge_base_params
 
 Batch = Dict[str, torch.Tensor]
 _CKPT_DIR = re.compile(r'step_(\d+)$')
@@ -143,6 +154,21 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor]
     schedule = torch.optim.lr_scheduler.LambdaLR(
         optimizer, warmup_cosine_schedule(cfg))
     return optimizer, schedule
+
+
+def trainable_parameters(model: Llama) -> List[torch.nn.Parameter]:
+    """The parameters a train step updates: with ``lora_rank`` > 0 the
+    ``*_lora`` adapters only, after freezing every other parameter
+    (``requires_grad_(False)``: no gradient, no optimizer state); else
+    all of them."""
+    if not model.config.lora_rank:
+        return list(model.parameters())
+    out = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(is_lora_path(name))
+        if p.requires_grad:
+            out.append(p)
+    return out
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -328,10 +354,6 @@ class Trainer:
             raise NotImplementedError(
                 f'{cfg.model!r}: only the llama family is ported; the '
                 'others are not yet ported (ROADMAP.md A8)')
-        if self.model_config.lora_rank > 0:
-            raise NotImplementedError(
-                'LoRA training is not ported yet (ROADMAP.md A8, other '
-                'families and weight paths)')
         if cfg.grad_accum_steps > 1 and \
                 cfg.batch_size % cfg.grad_accum_steps:
             raise ValueError(
@@ -349,14 +371,23 @@ class Trainer:
         """Build the model with f32 master weights -- ``params`` (a
         state_dict, e.g. from ``convert.state_dict_from_jax``) or random
         ones from a generator seeded with `seed` -- and the optimizer;
-        resume from the latest checkpoint if there is one."""
-        model = Llama(self.model_config, device=self.device,
-                      param_dtype=torch.float32)
+        resume from the latest checkpoint if there is one.  With LoRA, a
+        base ``params`` (no ``*_lora`` entries; with none given, the base a
+        plain trainer draws from `seed`) is grafted under freshly drawn
+        adapters (``lora.merge_base_params``), and the optimizer holds the
+        adapters alone (``trainable_parameters``)."""
+        mc = self.model_config
+        model = Llama(mc, device=self.device, param_dtype=torch.float32)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         if params is None:
-            params = init_params(self.model_config, torch.Generator(
-                device=self.device).manual_seed(seed))
+            # The base weights a plain trainer (and a serving engine)
+            # draws from this seed; adapters are drawn after them.
+            params = init_params(dataclasses.replace(mc, lora_rank=0), gen)
+        if mc.lora_rank and not any(is_lora_path(k) for k in params):
+            params = merge_base_params(init_params(mc, gen), params)
         model.load_state_dict(params)
-        optimizer, schedule = make_optimizer(self.cfg, model.parameters())
+        optimizer, schedule = make_optimizer(self.cfg,
+                                             trainable_parameters(model))
         self.state = TrainState(0, model, optimizer, schedule)
         self._step_fn = make_train_step(
             loss_chunk=self.cfg.loss_chunk,

@@ -8,6 +8,7 @@ a card and no JAX, with the JAX-pinning conftest switched off:
 import dataclasses
 import json
 import threading
+import time
 from http.client import HTTPConnection
 from http.server import ThreadingHTTPServer
 
@@ -20,6 +21,7 @@ from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request)
 from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.ops import flash_attention as fa
+from skypilot_tpu_torch.train import lora
 
 # f32 kernels against their plain versions: summation order only.
 TOL = 1e-4
@@ -440,3 +442,116 @@ def test_spec_and_prefix_on_the_card(card, monkeypatch):
         st = eng.spec_stats
         assert 0 < st['accepted'] <= st['drafted']
         assert _teacher_forced_gap(eng.model, got) <= 2e-3
+
+
+ALL_TARGETS = ('q_proj', 'k_proj', 'v_proj', 'o_proj', 'gate_proj',
+               'up_proj', 'down_proj')
+
+
+def _lora_sd(cfg, b_std, seed=0):
+    """init_params of `cfg` with every lora_b drawn at `b_std`, so the
+    adapters move the output."""
+    from skypilot_tpu_torch.models.convert import init_params
+    gen = torch.Generator().manual_seed(seed)
+    return {k: (torch.randn(v.shape, generator=gen) * b_std
+                if k.endswith('lora_b') else v)
+            for k, v in init_params(cfg, gen).items()}
+
+
+def test_stacked_adapter_forward_on_the_card_matches_the_cpu(card):
+    """llama-1b at depth 2, f32, adapters stacked 3 deep on every target
+    with B drawn non-zero: the no-cache and the cached forward with
+    per-row ids (-1, a base row, among them) on the card against the
+    CPU, within the forward phase's f32 bound (2e-3: summation order
+    over a 2048-wide stream and a 32000-way logit product)."""
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(get_model_config('llama-1b'), num_layers=2,
+                              dtype=torch.float32, lora_rank=16,
+                              lora_targets=ALL_TARGETS, lora_num_adapters=3)
+    sd = _lora_sd(cfg, b_std=0.02)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 48)))
+    ids = torch.tensor([1, -1, 2])
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        model = llama.Llama(cfg, device=dev).eval()
+        model.load_state_dict(sd)
+        t = tokens.to(dev)
+        with torch.inference_mode():
+            full = model(t, adapter_ids=ids.to(dev))
+            cache = llama.init_cache(cfg, 3, 48, torch.float32, dev)
+            pos = torch.arange(48, device=dev).expand(3, 48)
+            cached, _ = model(t, pos, cache, adapter_ids=ids.to(dev))
+        outs[dev] = (full.cpu(), cached.cpu())
+    for got, want in zip(outs['cuda'], outs['cpu']):
+        assert (got - want).abs().max().item() <= 2e-3
+    # The adapters move every adapter row, and the base row is the base.
+    plain = dataclasses.replace(cfg, lora_rank=0)
+    model = llama.Llama(plain, device='cuda').eval()
+    model.load_state_dict({k: v for k, v in sd.items()
+                           if not lora.is_lora_path(k)})
+    with torch.inference_mode():
+        base = model(tokens.cuda()).cpu()
+    assert (outs['cuda'][0][1] - base[1]).abs().max().item() <= 2e-3
+    assert (outs['cuda'][0][0] - base[0]).abs().max().item() > 1e-2
+
+
+def test_register_adapter_from_a_second_thread_while_windows_run(card):
+    """The serving loop decodes a base and an adapter stream on its own
+    thread while this thread registers a new adapter into the stacked
+    parameters (copy_ under the engine lock, on the engine's stream):
+    the streams in flight and a request for the new adapter, queued
+    once registration returned, give the tokens of an engine that had
+    both adapters before serving (f32, depth 2)."""
+    import queue
+    cfg = dataclasses.replace(get_model_config('llama-1b'), num_layers=2,
+                              dtype=torch.float32)
+    sd = _lora_sd(dataclasses.replace(cfg, lora_rank=16,
+                                      lora_num_adapters=2), b_std=0.5)
+    base = {k: v for k, v in sd.items() if not lora.is_lora_path(k)}
+    trees = [lora.nest({lora.flax_path(k): v[slot].numpy()
+                        for k, v in sd.items() if lora.is_lora_path(k)})
+             for slot in range(2)]
+
+    def engine():
+        return InferenceEngine(
+            cfg, InferConfig(num_slots=4, max_cache_len=256,
+                             prefill_buckets=(64,), decode_steps=4,
+                             max_new_tokens=48, cache_dtype=torch.float32,
+                             lora_rank=16, lora_max_adapters=2),
+            params=base, generator=torch.Generator('cuda').manual_seed(0))
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 32000, 30).tolist() for _ in range(3)]
+    reqs = lambda: [Request(tokens=prompts[0], adapter='x',  # noqa: E731
+                            request_id='x'),
+                    Request(tokens=prompts[1], request_id='base'),
+                    Request(tokens=prompts[2], adapter='y',
+                            max_new_tokens=16, request_id='y')]
+    ref = engine()
+    ref.register_adapter('x', trees[0])
+    ref.register_adapter('y', trees[1])
+    want = {r.request_id: r.output_tokens for r in ref.generate(reqs())}
+    del ref
+    live = engine()
+    live.register_adapter('x', trees[0])
+    q, results, stop = queue.Queue(), {}, threading.Event()
+    loop = threading.Thread(target=live.generate_stream, args=(
+        q, lambda r: results.__setitem__(r.request_id, r), stop),
+        daemon=True)
+    loop.start()
+    first, second, third = reqs()
+    q.put(first)
+    q.put(second)
+    deadline = time.time() + 60
+    while sum(s is not None and len(s.generated) > 8
+              for s in live._slots) < 2 and time.time() < deadline:
+        time.sleep(0.001)
+    assert live.register_adapter('y', trees[1]) == 1
+    q.put(third)
+    while len(results) < 3 and time.time() < deadline:
+        loop.join(timeout=0.01)
+    stop.set()
+    loop.join(timeout=30)
+    assert all(r.finish_reason == 'length' for r in results.values())
+    assert {k: r.output_tokens for k, r in results.items()} == want

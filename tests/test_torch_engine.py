@@ -207,9 +207,10 @@ def _matches_jax_with(params, prompts, field, value, **layout):
     ('cache_dtype', torch.float8_e4m3fn),
 ])
 def test_unported_features_raise(params, prompts, field, value):
-    """The features outside the port (multi-LoRA and QoS, A6c) raise,
-    naming their ROADMAP.md item; the ones ported since (speculation,
-    registered prefixes, the fp8 cache) serve as the JAX engine does."""
+    """The features outside the port (QoS, A6c) raise, naming their
+    ROADMAP.md item; the ones ported since (speculation, multi-LoRA with
+    no adapter registered, registered prefixes, the fp8 cache) serve as
+    the JAX engine does."""
     if field not in port._UNPORTED:
         _matches_jax_with(params, prompts, field, value)
         return

@@ -2,6 +2,7 @@
 stands alone: it imports neither JAX nor anything of the JAX package,
 and its entry points need a card unless the caller asks for the CPU."""
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -42,6 +43,7 @@ def test_importing_every_module_loads_no_jax():
     assert 'skypilot_tpu_torch.ops.flash_attention' in modules
     assert 'skypilot_tpu_torch.infer.engine' in modules
     assert 'skypilot_tpu_torch.train.trainer' in modules
+    assert 'skypilot_tpu_torch.train.lora' in modules
     assert {'skypilot_tpu_torch.infer.server',
             'skypilot_tpu_torch.infer.scheduler',
             'skypilot_tpu_torch.infer.faults',
@@ -114,6 +116,12 @@ def test_entry_points_need_a_card():
                    kv_block_size=16, auto_prefix_cache=True)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Trainer(TrainConfig(model='llama-debug'))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        Trainer(TrainConfig(model='llama-debug'), dataclasses.replace(
+            get_model_config('llama-debug'), lora_rank=4))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        server.run(model='llama-debug', max_cache_len=64, lora_rank=4,
+                   adapter_dir='.')
     with pytest.raises(RuntimeError, match='no CUDA device'):
         next(synthetic_data(1, 8, 16))
     with pytest.raises(RuntimeError, match='no CUDA device'):

@@ -201,9 +201,20 @@ def test_init_params_distributions():
 
 
 def test_unported_features_raise():
-    base = registry.get_model_config('llama-debug')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        llama.Llama(dataclasses.replace(base, lora_rank=4), device='cpu')
+    """int8 weights (A8) and the other families still raise; LoRA, ported
+    since, builds, and at init (B = 0) gives the base model's logits."""
+    base = dataclasses.replace(registry.get_model_config('llama-debug'),
+                               dtype=torch.float32)
+    sd = convert.init_params(base, torch.Generator().manual_seed(0))
+    lcfg = dataclasses.replace(base, lora_rank=4)
+    adapted = llama.Llama(lcfg, device='cpu')
+    adapted.load_state_dict({**convert.init_params(
+        lcfg, torch.Generator().manual_seed(1)), **sd})
+    plain = llama.Llama(base, device='cpu')
+    plain.load_state_dict(sd)
+    tokens = torch.arange(12)[None]
+    with torch.no_grad():
+        assert torch.equal(adapted(tokens), plain(tokens))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         llama.Llama(dataclasses.replace(base, weight_dtype='int8'),
                     device='cpu')

@@ -319,27 +319,28 @@ def test_drain_refuses_new_work_then_undrains(pair):
     ('/load_adapter', {'name': 'a', 'path': 'a.npz'}),
 ])
 def test_unported_routes_answer_501(pair, path, body):
-    """/load_adapter (A6c) answers 501 naming its item; /cache_prefix,
-    ported since, answers as the JAX server does (a prefix no other test
-    of this module's prompts starts with)."""
+    """Both routes once refused are ported and answer as the JAX server
+    does: /cache_prefix (a prefix no other test of this module's prompts
+    starts with), and /load_adapter on a server started without
+    --adapter-dir: the same 403 body."""
+    (code, _, j, _), (_, _, p, _) = _both(pair, 'POST', path, body)
     if path == '/cache_prefix':
-        (code, _, j, _), (_, _, p, _) = _both(pair, 'POST', path, body)
         assert code == 200
         assert p == j == {'cached_prefix_len': len(body['tokens'])}
         return
-    code, _, doc, _ = _call(pair[1].port, 'POST', path, body)
-    assert code == 501
-    assert 'ROADMAP.md A6' in json.dumps(doc)
+    assert code == 403 and p == j
+    assert '--adapter-dir' in p['error']
 
 
-def test_unported_options_fail_at_startup(params):
-    """--adapter-dir, HF import, tp serving, int8 weights and QoS still
-    fail at startup naming their item; --auto-prefix and the fp8 cache,
-    ported since, start."""
+def test_unported_options_fail_at_startup(params, tmp_path):
+    """HF import, tp serving, int8 weights and QoS still fail at startup
+    naming their item; --auto-prefix, the fp8 cache and --adapter-dir
+    (with --lora-rank), ported since, start."""
     eng = port_engine(params)
     assert port_server.InferenceServer(eng, auto_prefix=True).auto_prefix
-    with pytest.raises(NotImplementedError, match='A6'):
-        port_server.InferenceServer(eng, adapter_dir='/nonexistent')
+    lora = port_engine(params, lora_rank=4, lora_max_adapters=2)
+    srv = port_server.InferenceServer(lora, adapter_dir=str(tmp_path))
+    assert srv.adapter_dir == str(tmp_path) and lora.adapters == {}
     for kw, item in [({'hf_model': 'x'}, 'A8'),
                      ({'tensor_parallel': 2}, 'A9'),
                      ({'weight_dtype': 'int8'}, 'A8'),
