@@ -2418,9 +2418,6 @@ LORA_ALPHA = 16.0
 # llama-1b: 22 layers x (q 2048x16 + 16x2048, k and v 2048x16 + 16x1024,
 # o 2048x16 + 16x2048).
 LORA_TRAIN_PARAMS = 22 * (65_536 + 49_152 + 49_152 + 65_536)
-# The LoRA phases' device: a CPU rehearsal at llama-debug width sets it to
-# 'cpu' (with the torch.cuda calls stubbed); the smoke run keeps the card.
-DEV = 'cuda'
 
 
 def lora_param_count(mc) -> int:
@@ -2455,15 +2452,19 @@ def phase_lora_train(card: str, full: dict,
     parameters; a repeated batch's loss falls; at depth 2 in f32 the
     adapter gradients on the card within 5e-4 of their max of the CPU's.
     Records step ms, tokens/s and peak memory beside the full train
-    phase's (`full`, its line).  Saves the adapter with
+    phase's (`full`, its line), and the peak of the trainer's setup.  Saves the adapter with
     ``save_adapter_npz`` to a temporary directory.  Returns the kernels'
     launches over the 6 steps and that directory."""
     mc = lora_config(model_name)
     cfg = train_lib.TrainConfig(model=model_name, batch_size=8,
                                 seq_len=2048, warmup_steps=2,
                                 total_steps=100)
-    trainer = train_lib.Trainer(cfg, mc, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2 ** 30
+    trainer = train_lib.Trainer(cfg, mc)
     trainer.setup(seed=0)
+    setup_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     model = trainer.state.model
     base = {n: p.detach().clone() for n, p in model.named_parameters()
             if not lora.is_lora_path(n)}
@@ -2482,8 +2483,8 @@ def phase_lora_train(card: str, full: dict,
     # the step runs it (each layer checkpointed).
     first = next(train_lib.synthetic_data(
         cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0,
-        device=DEV))['tokens']
-    plain = llama.Llama(get_model_config(model_name), device=DEV,
+        device='cuda'))['tokens']
+    plain = llama.Llama(get_model_config(model_name), device='cuda',
                         param_dtype=torch.float32)
     plain.load_state_dict(base)
     base_loss = train_lib.loss_fn(plain, first[:, :-1], first[:, 1:],
@@ -2503,8 +2504,8 @@ def phase_lora_train(card: str, full: dict,
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     out = trainer.train(data=counted_data(train_lib.synthetic_data(
-        cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0, device=DEV)),
-        num_steps=6, log_every=1)
+        cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0,
+        device='cuda')), num_steps=6, log_every=1)
     launches = launch_counts()
     counts.append(launches)
     per_step = [[b - a for a, b in zip(c0, c1)]
@@ -2537,10 +2538,11 @@ def phase_lora_train(card: str, full: dict,
 
     # One repeated batch: six steps (lr 0, half of peak, then peak) must
     # lower its loss.
-    trainer = train_lib.Trainer(cfg, mc, device=DEV)
+    trainer = train_lib.Trainer(cfg, mc)
     trainer.setup(seed=0)
     batch = next(train_lib.synthetic_data(cfg.batch_size, cfg.seq_len,
-                                          mc.vocab_size, seed=1, device=DEV))
+                                          mc.vocab_size, seed=1,
+                                          device='cuda'))
     trainer.train(data=itertools.repeat(batch), num_steps=6, log_every=1)
     repeat = [loss for _, loss in trainer.history]
     after = trainer.evaluate(iter([batch]), num_batches=1)['eval_loss']
@@ -2560,8 +2562,7 @@ def phase_lora_train(card: str, full: dict,
         0, cfg2.vocab_size, (2, 257)))
     res = {}
     for dev in ('cuda', 'cpu'):
-        m2 = llama.Llama(cfg2, device=DEV if dev == 'cuda' else dev,
-                         param_dtype=torch.float32)
+        m2 = llama.Llama(cfg2, device=dev, param_dtype=torch.float32)
         m2.load_state_dict(sd)
         train_lib.trainable_parameters(m2)
         t = toks.to(m2.embedding.device)
@@ -2595,6 +2596,8 @@ def phase_lora_train(card: str, full: dict,
           'step_ms': 1e3 * tokens_per_step / out['tokens_per_second'],
           'tokens_per_s': out['tokens_per_second'],
           'max_memory_allocated_gib': peak_gib,
+          'setup_max_memory_allocated_gib': setup_peak_gib,
+          'allocated_before_setup_gib': before_gib,
           'full_train': {k: full[k] for k in (
               'step_ms', 'tokens_per_s', 'max_memory_allocated_gib')},
           'repeat_batch_losses': repeat, 'repeat_batch_loss_after': after,
@@ -2632,15 +2635,18 @@ def random_adapter_tree(engine, seed: int, b_std: Optional[float] = None
         if lora.is_lora_path(name)})
 
 
-def single_adapter_model(engine, slot: int) -> llama.Llama:
+def single_adapter_model(engine, slot: Optional[int]) -> llama.Llama:
     """The engine's base weights with stack slot `slot`'s adapter, as a
     single-adapter model (no stack, no ids): the teacher-forced
-    reference of that adapter's streams."""
+    reference of that adapter's streams.  slot None: the base model."""
     cfg = dataclasses.replace(engine.model_config, lora_num_adapters=0)
-    model = llama.Llama(cfg, device=DEV).eval()
+    if slot is None:
+        cfg = dataclasses.replace(cfg, lora_rank=0)
+    model = llama.Llama(cfg, device='cuda').eval()
     sd = engine.model.state_dict()
     model.load_state_dict({k: (v[slot] if lora.is_lora_path(k) else v)
-                           for k, v in sd.items()})
+                           for k, v in sd.items()
+                           if slot is not None or not lora.is_lora_path(k)})
     return model
 
 
@@ -2661,6 +2667,27 @@ def adapter_gaps(engine, results: list, names: list, tally: list) -> dict:
     return gaps
 
 
+def wrong_adapter_gaps(engine, results: list, names: list,
+                       slots: list) -> dict:
+    """Controls of the teacher-forced gate: the streams of each adapter
+    in `names` (stack slots `slots`) against the no-cache forward of the
+    next one's single-adapter model (two slots swapped) and of the base
+    model (the base served in place of the adapter).  Each must exceed
+    the gate, or the gate could not tell a wrong adapter from the
+    right one."""
+    out = {}
+    base = single_adapter_model(engine, None)
+    for i, name in enumerate(names):
+        other = names[(i + 1) % len(names)]
+        ref = single_adapter_model(engine, slots[(i + 1) % len(slots)])
+        mine = [r for r in results if r.adapter == name]
+        out[name] = {f'as_{other}': teacher_forced_err(ref, mine),
+                     'as_base': teacher_forced_err(base, mine)}
+        del ref
+    del base
+    return out
+
+
 def f32_adapter_gaps(engine, prompts: list, tally: list) -> dict:
     """The engine's base weights at depth 2 in f32 with two adapters at
     B std 0.5: an f32 engine serves `prompts` over the base and both
@@ -2679,7 +2706,7 @@ def f32_adapter_gaps(engine, prompts: list, tally: list) -> dict:
                     prefill_buckets=(64, 128, 256), max_new_tokens=16,
                     cache_dtype=torch.float32, lora_rank=LORA_RANK,
                     lora_alpha=LORA_ALPHA, lora_max_adapters=2),
-        params=keep, device=DEV)
+        params=keep)
     names = ['f32_a', 'f32_b']
     for i, name in enumerate(names):
         eng.register_adapter(name, random_adapter_tree(
@@ -2751,11 +2778,11 @@ def window_ms(engine, ids: list) -> dict:
     profile_device."""
     n = engine.cfg.num_slots
     kw = ({} if ids is None else
-          {'adapter_ids': torch.tensor(ids, device=DEV)})
+          {'adapter_ids': torch.tensor(ids, device='cuda')})
     prof = profile_device(lambda: engine._decode(
-        torch.zeros(n, dtype=torch.long, device=DEV),
-        torch.full((n,), 256, dtype=torch.long, device=DEV),
-        torch.zeros(n, device=DEV), engine.cfg.decode_steps, **kw)[0])
+        torch.zeros(n, dtype=torch.long, device='cuda'),
+        torch.full((n,), 256, dtype=torch.long, device='cuda'),
+        torch.zeros(n, device='cuda'), engine.cfg.decode_steps, **kw)[0])
     return {k: prof[k] for k in ('wall_ms', 'device_ms', 'idle_share')}
 
 
@@ -2774,7 +2801,9 @@ def phase_lora_serve(env: dict, adapter_dir: str,
     least one adapter stream differs from the base's; each adapter
     stream's teacher-forced gap against the no-cache forward (the flash
     kernel) of a single-adapter model with its weights within 0.25 nats
-    (bf16, as the serve phase).  Then a paged pool with the radix cache:
+    (bf16, as the serve phase), and each random adapter's streams beyond
+    0.25 nats against the other's model and the base model (the gate's
+    controls).  Then a paged pool with the radix cache:
     a second wave under one adapter hits, the other adapters' and the
     base's do not; the conservation law after every window; and C3:
     re-registering that adapter with another's weights, its next wave
@@ -2797,7 +2826,7 @@ def phase_lora_serve(env: dict, adapter_dir: str,
         thread = threading.Thread(target=server.run, kwargs=dict(
             model=model_name, host='127.0.0.1', port=port,
             lora_rank=LORA_RANK, lora_max_adapters=8,
-            adapter_dir=adapter_dir, warmup=True, device=DEV), daemon=True)
+            adapter_dir=adapter_dir, warmup=True), daemon=True)
         warm_s, statuses = wait_ready(port, thread)
     finally:
         server.InferenceEngine = InferenceEngine
@@ -2834,6 +2863,9 @@ def phase_lora_serve(env: dict, adapter_dir: str,
     gaps = adapter_gaps(engine, mixed_res, names, lora_forward)
     check(max(g['no_cache'] for g in gaps.values()) <= 0.25,
           f'teacher-forced gaps {gaps}')
+    controls = wrong_adapter_gaps(engine, mixed_res, names[1:], [1, 2])
+    check(min(x for g in controls.values() for x in g.values()) > 0.25,
+          f'a wrong adapter within the 0.25-nat gate: {controls}')
     layers = engine.model_config.num_layers
     check(lora_forward[0] == layers * len(prompts) * 3 // 4 and
           lora_forward[1:] == [0, 0], f'reference launches {lora_forward}')
@@ -2856,8 +2888,7 @@ def phase_lora_serve(env: dict, adapter_dir: str,
     gc.collect()
     torch.cuda.empty_cache()
     plain = InferenceEngine(get_model_config(model_name),
-                            InferConfig(model=model_name), params=base_sd,
-                            device=DEV)
+                            InferConfig(model=model_name), params=base_sd)
     windows['no_adapters_engine'] = window_ms(plain, None)
     del plain
 
@@ -2868,7 +2899,7 @@ def phase_lora_serve(env: dict, adapter_dir: str,
         InferConfig(model=model_name, kv_block_size=PAGED_BLOCK,
                     auto_prefix_cache=True, lora_rank=LORA_RANK,
                     lora_max_adapters=8, max_new_tokens=LORA_NEW_TOKENS),
-        params=base_sd, device=DEV)
+        params=base_sd)
     for name, tree in trees.items():
         paged.register_adapter(name, tree)
     rng = np.random.default_rng(3)
@@ -2918,6 +2949,7 @@ def phase_lora_serve(env: dict, adapter_dir: str,
               r.output_tokens != b.output_tokens
               for r, b in zip(mixed_res, base_res) if r.adapter),
           'teacher_forced_max_abs_err': gaps, 'teacher_forced_bound': 0.25,
+          'wrong_adapter_controls': controls,
           'b_std': LORA_B_STD, 'f32_depth2': f32,
           'f32_teacher_forced_bound': 2e-3,
           'reference_flash_fwd_launches': lora_forward[0],

@@ -1571,7 +1571,8 @@ class InferenceEngine:
 
         Dense: the capture forward reads only the weights, so it runs
         outside the engine lock and in-flight decode keeps going; only
-        the registry insert takes the lock.  Paged and radix: the
+        the registry insert takes the lock, and it captures again when
+        the adapter was re-registered meanwhile.  Paged and radix: the
         capture writes the shared pool, under the lock.
 
         adapter: compute (and match) the rows under that LoRA adapter;
@@ -1594,15 +1595,21 @@ class InferenceEngine:
                                                    adapter, aid, tokens)
             return self._register_prefix_paged(arr, n, bucket, adapter,
                                                aid, tokens)
-        rows = self._prefill_capture(self._to_device(arr), n,
-                                     **self._akw([aid]))
         key = (adapter, tuple(int(t) for t in tokens))
-        with self._lock:
-            self._prefixes[key] = rows
-            self._prefixes.move_to_end(key)
-            while len(self._prefixes) > self.cfg.max_prefixes:
-                self._prefixes.popitem(last=False)
-        return n
+        while True:
+            # A re-registration of the adapter during the capture (C3)
+            # leaves rows of its old weights: capture again.
+            gen = self._agen(adapter)
+            rows = self._prefill_capture(self._to_device(arr), n,
+                                         **self._akw([aid]))
+            with self._lock:
+                if self._agen(adapter) != gen:
+                    continue
+                self._prefixes[key] = rows
+                self._prefixes.move_to_end(key)
+                while len(self._prefixes) > self.cfg.max_prefixes:
+                    self._prefixes.popitem(last=False)
+            return n
 
     @torch.inference_mode()
     def _prefill_capture(self, tokens: torch.Tensor, n: int,

@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models.llama import LlamaConfig
-from skypilot_tpu_torch.train import lora
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -32,6 +31,8 @@ def state_dict_from_jax(params: Mapping[str, Any],
     """flax ``params['params']`` (nested dicts of numpy arrays) -> the
     port's ``Llama`` state_dict (f32 CPU tensors; ``load_state_dict``
     casts each to its parameter's dtype)."""
+    # Imported here: the train package imports this module.
+    from skypilot_tpu_torch.train import lora
     h = config.hidden_size
     sd: StateDict = {'embedding': _t(params['embedding']),
                      'final_norm.scale': _t(params['final_norm']['scale'])}
@@ -102,6 +103,8 @@ def iter_params(config: LlamaConfig, generator: torch.Generator
              'v_proj': config.num_kv_heads}
     o_std = 0.02 / (2 * n_layers) ** 0.5
     n_ad = config.lora_num_adapters
+    # Imported here: the train package imports this module.
+    from skypilot_tpu_torch.train import lora
 
     def adapter(prefix, name, n_in, n_out):
         if not (config.lora_rank and name in config.lora_targets):

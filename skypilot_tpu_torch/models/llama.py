@@ -44,7 +44,6 @@ from torch.nn import functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
-from skypilot_tpu_torch.train.lora import LoRAAdapter
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -331,6 +330,8 @@ def _add_proj(owner: nn.Module, name: str, n_in: int, n_out: int,
     setattr(owner, name, Linear(n_in, n_out, bias, cfg.dtype, param_dtype,
                                 device))
     if cfg.lora_rank and name in cfg.lora_targets:
+        # Imported here: the train package imports this module.
+        from skypilot_tpu_torch.train.lora import LoRAAdapter
         setattr(owner, f'{name}_lora', LoRAAdapter(
             n_in, n_out, cfg.lora_rank, cfg.lora_alpha, cfg.dtype,
             cfg.lora_num_adapters, device))

@@ -1,14 +1,9 @@
 """Training of the port: the single-device trainer (``train.trainer``) and
-LoRA adapters (``train.lora``).  The trainer's names load on first use:
-the model modules import ``train.lora``, and the trainer imports them."""
-import importlib
+LoRA adapters (``train.lora``)."""
+from skypilot_tpu_torch.train.trainer import (Trainer, TrainConfig,
+                                              TrainState, make_eval_step,
+                                              make_optimizer,
+                                              make_train_step)
 
 __all__ = ['Trainer', 'TrainConfig', 'TrainState', 'make_eval_step',
            'make_optimizer', 'make_train_step']
-
-
-def __getattr__(name):
-    if name in __all__:
-        return getattr(importlib.import_module(
-            'skypilot_tpu_torch.train.trainer'), name)
-    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

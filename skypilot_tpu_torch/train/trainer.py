@@ -40,10 +40,10 @@ from torch.nn import functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.device import resolve_device
-from skypilot_tpu_torch.models.convert import init_params
+from skypilot_tpu_torch.models.convert import init_params, iter_params
 from skypilot_tpu_torch.models.llama import Llama, LlamaConfig
 from skypilot_tpu_torch.models.registry import get_model_config
-from skypilot_tpu_torch.train.lora import is_lora_path, merge_base_params
+from skypilot_tpu_torch.train.lora import is_lora_path
 
 Batch = Dict[str, torch.Tensor]
 _CKPT_DIR = re.compile(r'step_(\d+)$')
@@ -374,8 +374,8 @@ class Trainer:
         resume from the latest checkpoint if there is one.  With LoRA, a
         base ``params`` (no ``*_lora`` entries; with none given, the base a
         plain trainer draws from `seed`) is grafted under freshly drawn
-        adapters (``lora.merge_base_params``), and the optimizer holds the
-        adapters alone (``trainable_parameters``)."""
+        adapters, and the optimizer holds the adapters alone
+        (``trainable_parameters``)."""
         mc = self.model_config
         model = Llama(mc, device=self.device, param_dtype=torch.float32)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -384,7 +384,10 @@ class Trainer:
             # draws from this seed; adapters are drawn after them.
             params = init_params(dataclasses.replace(mc, lora_rank=0), gen)
         if mc.lora_rank and not any(is_lora_path(k) for k in params):
-            params = merge_base_params(init_params(mc, gen), params)
+            # A base state_dict: grafted under freshly drawn adapters
+            # (drawn one tensor at a time, the rest discarded).
+            params = {**params, **{k: v for k, v in iter_params(mc, gen)
+                                   if is_lora_path(k)}}
         model.load_state_dict(params)
         optimizer, schedule = make_optimizer(self.cfg,
                                              trainable_parameters(model))

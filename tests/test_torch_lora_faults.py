@@ -15,6 +15,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from helpers_torch import WindowAudit, jax_engine, make_params, port_engine
 from skypilot_tpu.infer import Request as JaxRequest
@@ -105,6 +106,44 @@ def test_c3_slot_admitted_under_old_weights_is_not_cached(params, files):
     assert pe._radix.peek('t', prompt, 16) == []
     assert pe.radix_stats['inserts'] == 0
     assert audit.errors == [] and audit.windows > 0
+
+
+def test_c3_prefix_captured_across_reregistration_is_recaptured(params,
+                                                                files):
+    """A dense register_prefix captures outside the engine lock: when 't'
+    is re-registered between the capture and the insert, the rows of its
+    old weights are not kept.  The prefix is captured again, so its rows
+    equal a fresh engine's with the new weights, and a request under 't'
+    gets that fresh JAX engine's tokens."""
+    pe = port_engine(params, **LORA)
+    pe.register_adapter('t', lora.load_adapter_npz(str(files / 'a.npz')))
+    capture, calls = pe._prefill_capture, []
+
+    def reregister_after_first(*args, **kw):
+        rows = capture(*args, **kw)
+        calls.append(len(calls))
+        if len(calls) == 1:
+            pe.register_adapter('t', lora.load_adapter_npz(
+                str(files / 'b.npz')))
+        return rows
+
+    pe._prefill_capture = reregister_after_first
+    prefix = PROMPTS[0][:5]
+    assert pe.register_prefix(prefix, adapter='t') == 5
+    assert len(calls) == 2
+    fresh = port_engine(params, **LORA)
+    fresh.register_adapter('t', lora.load_adapter_npz(
+        str(files / 'b.npz')))
+    fresh.register_prefix(prefix, adapter='t')
+    key = ('t', tuple(prefix))
+    for (k, v), (fk, fv) in zip(pe._prefixes[key], fresh._prefixes[key]):
+        assert torch.equal(k, fk) and torch.equal(v, fv)
+    want = jax_engine(params, **LORA)
+    want.register_adapter('t', jlora.load_adapter_npz(str(files / 'b.npz')))
+    req = dict(tokens=PROMPTS[0], max_new_tokens=8, adapter='t')
+    hits = pe.prefix_stats['hits']
+    _same(want.generate([JaxRequest(**req)]), pe.generate([Request(**req)]))
+    assert pe.prefix_stats['hits'] == hits + 1
 
 
 def test_c4_nonfinite_adapter_in_slot_0_spares_base_rows(params, files):
