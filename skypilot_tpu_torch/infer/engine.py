@@ -79,10 +79,18 @@ block-paged KV pool -- the PyTorch twin of ``skypilot_tpu/infer/engine.py``.
   one ``[B, 1+D]`` cached forward verifies them, and the agreed prefix
   plus the model's own next token is accepted: greedy tokens are those
   of windowed decode.
+- **QoS** (``qos``, ``qos_tenant_weights``; ``infer/qos.py``): priority
+  classes and per-tenant weighted-fair queueing decide the admission
+  order; at dequeue a request whose deadline the observed service rate
+  cannot meet is shed (typed: finish_reason 'deadline', error_class
+  'shed'), a more over-share tenant's doomed row first; with a paged pool,
+  the radix tree and chunked prefill, an interactive arrival parks a
+  part-prefilled batch prompt at its chunk boundary (``_park_chunk_job``)
+  and the prompt resumes from its radix blocks.  QoS reorders and rejects
+  work, never changes a stream's tokens.
 
 Prefill attends through ``write_kv_and_attend``/``decode_attention`` (or
 their paged twins) like the JAX engine, not through the flash kernel.
-Not ported yet (ROADMAP.md A6c): QoS scheduling.
 """
 import base64
 import collections
@@ -100,11 +108,11 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer.block_pool import BlockPool, HostKVTier
+from skypilot_tpu_torch.infer import qos as qos_mod
 from skypilot_tpu_torch.infer.faults import InjectedFault
+from skypilot_tpu_torch.infer.qos import DEFAULT_TENANT, PRIORITY_CLASSES
 from skypilot_tpu_torch.infer.radix import RadixTree
-from skypilot_tpu_torch.infer.scheduler import (DEFAULT_TENANT,
-                                                PRIORITY_CLASSES,
-                                                FifoScheduler)
+from skypilot_tpu_torch.infer.scheduler import FifoScheduler
 from skypilot_tpu_torch.models.convert import init_params, iter_params
 from skypilot_tpu_torch.models.llama import (FP8, Llama, LlamaConfig,
                                              as_bytes, init_cache,
@@ -137,9 +145,7 @@ def resolve_cache_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass
 class InferConfig:
-    """Fields and defaults of the JAX engine's InferConfig.  The ones the
-    port does not have yet must keep their defaults (see
-    ``_UNPORTED``)."""
+    """Fields and defaults of the JAX engine's InferConfig."""
     model: str = 'llama-1b'
     num_slots: int = 8
     max_cache_len: int = 2048
@@ -167,13 +173,6 @@ class InferConfig:
     run_stall_timeout_s: float = 120.0
     qos: bool = False
     qos_tenant_weights: Optional[Dict[str, float]] = None
-
-
-# InferConfig features outside this slice: field -> ROADMAP.md item.
-_UNPORTED = {
-    'qos': 'A6c (QoS scheduling)',
-    'qos_tenant_weights': 'A6c (QoS scheduling)',
-}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -344,12 +343,6 @@ class InferenceEngine:
                             else torch.cuda.current_device())
         self.model_config = model_config
         self.cfg = cfg = cfg or InferConfig()
-        defaults = InferConfig()
-        for name, item in _UNPORTED.items():
-            if getattr(cfg, name) != getattr(defaults, name):
-                raise NotImplementedError(
-                    f'InferConfig.{name}={getattr(cfg, name)!r} is not '
-                    f'ported yet (ROADMAP.md {item})')
         if cfg.cache_dtype not in (torch.bfloat16, FP8, torch.float32):
             raise ValueError(
                 f'cache_dtype must be one of bfloat16, float8_e4m3fn, '
@@ -536,7 +529,7 @@ class InferenceEngine:
         # per-layer (k, v) rows [Hkv, n, D] in cache dtype (fp8 as its
         # uint8 view); paged,
         # {'blocks': pool block ids (one ref each), 'len': n}.  The
-        # adapter is None until multi-LoRA serving (A6c).
+        # adapter is None for the base model.
         self._prefixes: collections.OrderedDict = collections.OrderedDict()
         self.prefix_stats = {'hits': 0, 'tokens_reused': 0}
         # Chunked prefill: slot -> _ChunkJob for prompts whose KV rows are
@@ -544,11 +537,21 @@ class InferenceEngine:
         # chunking slot is reserved (not free) but has no _Slot yet.
         self._chunking: Dict[int, _ChunkJob] = {}
         self.chunk_stats = {'rounds': 0, 'chunks': 0, 'requests': 0}
-        # Admission order (strict FIFO; the QoS scheduler is A6c), shed
-        # and per-tenant admission counters.
-        self._sched = FifoScheduler()
+        # Admission order: strict FIFO, or with cfg.qos priority classes
+        # and per-tenant WFQ (infer/qos.py).  The scheduler has its own
+        # lock (stats() reads it from other threads).
+        self._sched = (
+            qos_mod.WfqScheduler(
+                weights=cfg.qos_tenant_weights,
+                cost_fn=lambda r: len(r.tokens) + self._max_new(r))
+            if cfg.qos else FifoScheduler())
+        # preemptions: batch chunk jobs parked for interactive work;
+        # sheds: typed deadline rejections at dequeue.
         self.qos_stats = {'preemptions': 0, 'sheds': 0}
         self._tenant_qos: Dict[str, Dict[str, int]] = {}
+        # Observed service rate (tokens/s a request, EWMA), fed by every
+        # clean finish in _finish_slot; the projection shed reads it.
+        self._svc_estimator = qos_mod.ServiceEstimator()
         self._slots: List[Optional[_Slot]] = [None] * b
         # Request ids cancelled while still queued: dropped at dequeue.
         # id -> mark time; marks expire (_CANCEL_MARK_TTL_S) so a cancel
@@ -1298,12 +1301,11 @@ class InferenceEngine:
         common = {
             'faults': dict(self.fault_stats),
             'qos': {
-                'enabled': False,
+                'enabled': bool(self.cfg.qos),
                 'scheduler': self._sched.stats(),
                 'preemptions': self.qos_stats['preemptions'],
                 'sheds': self.qos_stats['sheds'],
-                # The projection shed's rate estimate is QoS (A6c).
-                'service_rate_tokens_per_s': None,
+                'service_rate_tokens_per_s': self._svc_estimator.rate(),
                 'tenants': {t: dict(c)
                             for t, c in list(self._tenant_qos.items())},
             },
@@ -2334,6 +2336,12 @@ class InferenceEngine:
             except Exception:  # noqa: BLE001
                 pass
         now = time.time()
+        if reason in ('eos', 'length'):
+            # Clean finishes feed the shed bound's service-rate EWMA
+            # (error and deadline durations would skew it short).
+            self._svc_estimator.observe(
+                len(s.request.tokens) + len(s.generated),
+                now - s.submit_time)
         res = RequestResult(
             request_id=s.request.request_id,
             prompt_tokens=list(s.request.tokens),
@@ -2407,9 +2415,10 @@ class InferenceEngine:
 
     def _shed_request(self, req: Request, elapsed: float, reason: str,
                       result_cb) -> None:
-        """Deadline shed at dequeue (expired while queued): the JAX
-        engine's typed shape -- finish_reason 'deadline', error_class
-        'shed' -- and its counters."""
+        """Typed shed at dequeue, one shape for both triggers (the
+        deadline expired in the queue; the projected completion cannot
+        meet it): finish_reason 'deadline', error_class 'shed', the
+        deadline_evictions counter and the qos and tenant counters."""
         with self._lock:
             self.fault_stats['deadline_evictions'] += 1
             self.qos_stats['sheds'] += 1
@@ -2421,6 +2430,71 @@ class InferenceEngine:
                 latency_s=elapsed,
                 finish_reason='deadline',
                 error=reason, error_class='shed'))
+
+    # ------------------------------------------------------------- qos
+
+    def _park_chunk_job(self, slot: int) -> Request:
+        """Preempt a part-prefilled prompt at its chunk boundary (caller
+        holds the lock): the reserved slot frees now for higher-priority
+        work, and the rows already written stay as refcounted radix
+        blocks, so resuming is a suffix-only prefill.  Nothing has
+        streamed (a chunk job has no _Slot yet).  A job whose adapter was
+        re-registered since its first chunk holds stale rows: they are
+        not adopted, and the job resumes from scratch.  Returns the
+        request for the caller to requeue."""
+        job = self._chunking.pop(slot)
+        if (self._radix is not None and job.done > 0 and
+                job.agen == self._agen(job.req.adapter)):
+            self._radix_adopt(slot, job.req.tokens, job.done,
+                              job.req.adapter)
+        self._lengths[slot] = 0
+        self._temps[slot] = 0.0
+        self._slot_adapters[slot] = -1
+        self._free_slot_blocks(slot)
+        self.qos_stats['preemptions'] += 1
+        return job.req
+
+    def _maybe_preempt_for(self, exclude) -> Optional[int]:
+        """Every slot is taken, but an interactive request waits and a
+        batch prompt is only part-prefilled: park the batch job with the
+        most prefill still ahead of it and hand its slot over.  Gated on
+        qos, a paged pool with the radix tree and chunked prefill (what
+        makes park and resume nearly free), and on no lookahead window in
+        flight (its dead-row writes for the parked lane would land in
+        blocks the pool has already recycled)."""
+        if not (self.cfg.qos and self._paged and
+                self._radix is not None and self.cfg.prefill_chunk):
+            return None
+        if self._deferred or not self._sched.waiting('interactive'):
+            # Deferred head-of-line work is admitted first whatever its
+            # class: preempting for it would be a no-op.
+            return None
+        victim = None
+        with self._lock:
+            if self._ahead is not None:
+                return None
+            remaining = -1
+            for slot, job in self._chunking.items():
+                if slot in exclude or qos_mod.classify(job.req) != 'batch':
+                    continue
+                if job.n - job.done > remaining:
+                    victim, remaining = slot, job.n - job.done
+            if victim is None:
+                return None
+            req = self._park_chunk_job(victim)
+        self._sched.requeue(req)
+        return victim
+
+    def _doomed(self, req: Request, now: float) -> bool:
+        """True when `req` carries a deadline that its elapsed queue time
+        plus the projected service time cannot meet."""
+        if req.deadline_s is None:
+            return False
+        elapsed = (now - req.arrival_time
+                   if req.arrival_time is not None else 0.0)
+        proj = self._svc_estimator.projected_s(
+            len(req.tokens) + self._max_new(req))
+        return proj is not None and elapsed + proj > req.deadline_s
 
     def _contain_failure(self, exc: BaseException, phase: str
                          ) -> List[Tuple[Request, RequestResult]]:
@@ -2998,9 +3072,15 @@ class InferenceEngine:
                 if len(to_start) >= self.cfg.prefills_per_gap and any(
                         s is not None for s in self._slots):
                     break  # let active slots decode; prefill more next gap
-                slot = self._free_slot(exclude=[it[1] for it in to_start])
+                excl = [it[1] for it in to_start]
+                slot = self._free_slot(exclude=excl)
                 if slot is None:
-                    break
+                    # QoS preemption: an interactive arrival may take a
+                    # part-prefilled batch prompt's slot at its chunk
+                    # boundary (a no-op unless cfg.qos).
+                    slot = self._maybe_preempt_for(excl)
+                    if slot is None:
+                        break
                 # Admission-deferred requests go first (head of line: a
                 # big request must not starve behind small ones that keep
                 # fitting around it).
@@ -3051,16 +3131,45 @@ class InferenceEngine:
                     cancelled_deq += 1
                     continue
                 dequeued += 1
-                elapsed = (time.time() - req.arrival_time
+                now = time.time()
+                elapsed = (now - req.arrival_time
                            if req.arrival_time is not None else 0.0)
+                shed_reason = None
                 if (req.deadline_s is not None and
                         req.arrival_time is not None and
                         elapsed >= req.deadline_s):
                     # Expired while queued: never spend a prefill on it.
-                    self._shed_request(
-                        req, elapsed,
+                    shed_reason = (
                         f'deadline_s={req.deadline_s} expired in queue '
-                        f'({elapsed:.3f}s elapsed)', result_cb)
+                        f'({elapsed:.3f}s elapsed)')
+                elif self.cfg.qos and self._doomed(req, now):
+                    # Projection bound: at the observed service rate the
+                    # prefill and decode cannot land inside the deadline;
+                    # a typed shed now beats an eviction mid-flight.
+                    proj = self._svc_estimator.projected_s(
+                        len(req.tokens) + self._max_new(req))
+                    shed_reason = (
+                        f'projected completion {elapsed + proj:.3f}s '
+                        f'cannot meet deadline_s={req.deadline_s}')
+                    # WFQ order pops the under-share tenant first: shed
+                    # a doomed queued row of a tenant strictly more over
+                    # its fair share instead, when there is one.
+                    victim = self._sched.shed_victim(
+                        prefer_over=req.tenant_id or DEFAULT_TENANT,
+                        doomed=lambda r, _now=now: self._doomed(r, _now))
+                    if victim is not None:
+                        self._sched.requeue(req)
+                        self._shed_request(
+                            victim, (now - victim.arrival_time
+                                     if victim.arrival_time is not None
+                                     else 0.0),
+                            'over-fair-share victim: projected completion '
+                            f'cannot meet deadline_s={victim.deadline_s}',
+                            result_cb)
+                        moved = True
+                        continue
+                if shed_reason is not None:
+                    self._shed_request(req, elapsed, shed_reason, result_cb)
                     moved = True
                     continue
                 try:

@@ -1,6 +1,6 @@
 """Admission-order seam of the serving loop -- the port's copy of
-``skypilot_tpu/infer/scheduler.py``, with the two constants of
-``skypilot_tpu/infer/qos.py`` that the engine and the server read.
+``skypilot_tpu/infer/scheduler.py``.  The weighted-fair QoS scheduler, the
+priority classes and the default tenant are in ``infer/qos.py``.
 
 The serving loop drains its client queue into a ``Scheduler`` and admits
 in the order it yields:
@@ -13,8 +13,7 @@ Validation, cancellation and deadlines stay in the engine; the scheduler
 decides only which queued request is next.  push/pop/requeue run on the
 serving-loop thread; backlog()/stats() may be called from any thread
 (the server's /stats), so every scheduler carries its own lock and never
-calls back into the engine.  The weighted-fair QoS scheduler is not
-ported yet (ROADMAP.md A6).
+calls back into the engine.
 """
 import collections
 import threading
@@ -22,13 +21,6 @@ from typing import TYPE_CHECKING, Any, Dict, Optional
 
 if TYPE_CHECKING:                     # import cycle guard: engine.py
     from skypilot_tpu_torch.infer.engine import Request  # pragma: no cover
-
-# Strict-priority order, highest first.  A request without a priority is
-# 'interactive'; the server and the engine reject any other value.
-PRIORITY_CLASSES = ('interactive', 'batch')
-
-# Tenant key of requests without a tenant_id: they share one row.
-DEFAULT_TENANT = '_default'
 
 
 class Scheduler:

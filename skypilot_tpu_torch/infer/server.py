@@ -47,10 +47,14 @@ routes over a fleet that mixes both:
 
 --auto-prefix registers a prompt's bucket-length head the second time it
 is seen; --draft-len turns on prompt-lookup speculative decoding and
---cache-dtype fp8 the e4m3 KV cache.
+--cache-dtype fp8 the e4m3 KV cache.  --hf-model serves a llama-family
+transformers checkpoint (bf16; --weight-dtype int8 quantizes it, or draws
+random int8 weights for a registered --model); --qos turns on priority
+classes, per-tenant WFQ (--qos-tenant-weights), the deadline shed and
+chunk-boundary preemption, with a "qos" section on /stats.
 
-Not ported yet, failing at startup naming the ROADMAP.md item: QoS
-(--qos), HF import, tp serving and int8 weights.
+Not ported yet, failing at startup naming the ROADMAP.md item: tp serving
+(--tensor-parallel) and --hf-model checkpoints outside the llama family.
 
 stdlib only (ThreadingHTTPServer): each request blocks its handler
 thread while the one engine thread runs continuous batching across all
@@ -72,10 +76,14 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 
+import torch
+
+from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request, RequestResult,
                                              resolve_cache_dtype)
-from skypilot_tpu_torch.infer.scheduler import PRIORITY_CLASSES
+from skypilot_tpu_torch.infer.qos import PRIORITY_CLASSES
+from skypilot_tpu_torch.models import quantize
 from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.train.lora import load_adapter_npz
 
@@ -1486,19 +1494,43 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
         qos: bool = False,
         qos_tenant_weights: Optional[str] = None,
         warmup: bool = False) -> None:
-    """Build the engine (random weights from seed 0, the registry's
-    config) and an optional tokenizer, and serve.  device: None means
-    the card.  A feature the port does not have yet fails here, before
-    any weight is made, naming its ROADMAP.md item."""
-    if hf_model:
-        raise NotImplementedError(_unported('--hf-model (HF import)',
-                                            'A8'))
+    """Build the engine and an optional tokenizer, and serve.  The weights
+    are a transformers checkpoint's (``hf_model``, llama family, loaded
+    in bf16) or random ones from seed 0 for the registry's ``model``;
+    ``weight_dtype='int8'`` quantizes the checkpoint's (on the engine's
+    device) or draws random int8 ones.  The tokenizer defaults to the
+    checkpoint's; when that implied one is missing the server runs
+    token-only.  device: None means the card.  A feature the port does
+    not have yet fails here, before any weight is read, naming its
+    ROADMAP.md item."""
     if tensor_parallel and tensor_parallel > 1:
         raise NotImplementedError(_unported(
             '--tensor-parallel (tp serving)', 'A9'))
-    if weight_dtype != 'bf16':
-        raise NotImplementedError(_unported(
-            f'weight_dtype {weight_dtype!r} (int8 weights)', 'A8'))
+    params = None
+    tokenizer_implied = False   # tokenizer_name defaulted from hf_model
+    if hf_model:
+        from skypilot_tpu_torch.models import hf_import
+        dev = resolve_device(device)
+        # load_hf_model refuses a family it does not serve from
+        # config.json alone, before the (tens-of-GB) weight load.
+        model_config, params = hf_import.load_hf_model(
+            hf_model, param_dtype=torch.bfloat16)
+        if weight_dtype == 'int8':
+            model_config = dataclasses.replace(model_config,
+                                               weight_dtype='int8')
+            # On the engine's device, one weight at a time: no host f32
+            # copy of the model.
+            params = dict(quantize.iter_quantized(
+                (k, params.pop(k).to(dev)) for k in list(params)))
+        model = model_config.name
+        if tokenizer_name is None:
+            tokenizer_name = hf_model
+            tokenizer_implied = True
+    else:
+        model_config = get_model_config(model)
+        if weight_dtype == 'int8':
+            model_config = dataclasses.replace(model_config,
+                                               weight_dtype='int8')
     cfg = InferConfig(model=model, num_slots=num_slots,
                       max_cache_len=max_cache_len, eos_id=eos_id,
                       decode_steps=decode_steps,
@@ -1519,10 +1551,18 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     tokenizer = None
     if tokenizer_name:
         from transformers import AutoTokenizer
-        tokenizer = AutoTokenizer.from_pretrained(tokenizer_name)
-        if eos_id is None:
+        try:
+            tokenizer = AutoTokenizer.from_pretrained(tokenizer_name)
+        except Exception as e:  # noqa: BLE001 -- the tokenizer is optional
+            if not tokenizer_implied:
+                raise            # explicitly requested: fail loudly
+            # A checkpoint directory without tokenizer files: token-only.
+            print(f'warning: no tokenizer in {tokenizer_name} ({e}); '
+                  '/generate_text disabled, /generate (token API) works')
+            tokenizer = None
+        if eos_id is None and tokenizer is not None:
             cfg.eos_id = getattr(tokenizer, 'eos_token_id', None)
-    engine = InferenceEngine(get_model_config(model), cfg, device=device)
+    engine = InferenceEngine(model_config, cfg, params=params, device=device)
     serve(engine, host=host, port=port, tokenizer=tokenizer,
           max_projected_ttft_s=max_ttft, max_queue=max_queue,
           adapter_dir=adapter_dir, auto_prefix=auto_prefix,
@@ -1541,7 +1581,9 @@ def main() -> None:
     parser.add_argument('--eos-id', type=int, default=None)
     parser.add_argument('--decode-steps', type=int, default=8)
     parser.add_argument('--hf-model', default=None,
-                        help='HF Llama checkpoint (not ported yet: A8)')
+                        help='transformers checkpoint directory of the '
+                             'llama family (llama, qwen2, mistral, '
+                             'gemma), served in bf16')
     parser.add_argument('--cache-dtype', default='bfloat16',
                         choices=['bfloat16', 'fp8', 'float8_e4m3fn'],
                         help='KV-cache storage dtype; fp8 (e4m3) halves '
@@ -1624,11 +1666,18 @@ def main() -> None:
                         help='warm every prefill bucket and the decode '
                              'windows before declaring ready (default: '
                              '$SKYTPU_SERVE_WARMUP or off)')
+    parser.add_argument('--weight-dtype', default='bf16',
+                        choices=['bf16', 'int8'],
+                        help='int8 stores the decoder projections '
+                             'quantized per output channel (about half '
+                             "the weight bytes); the llama family's only")
     parser.add_argument('--qos', action='store_true',
-                        help='QoS scheduling (not ported yet: A6c)')
+                        help='QoS scheduling: interactive ahead of batch, '
+                             'per-tenant weighted-fair queueing, deadline '
+                             'shedding, chunk-boundary preemption')
     parser.add_argument('--qos-tenant-weights', default=None,
                         help='per-tenant WFQ weights, e.g. '
-                             '"teamA=3,teamB=1" (not ported yet: A6c)')
+                             '"teamA=3,teamB=1"')
     args = parser.parse_args()
     run(model=args.model, host=args.host, port=args.port,
         num_slots=args.num_slots, max_cache_len=args.max_cache_len,
@@ -1636,6 +1685,7 @@ def main() -> None:
         decode_steps=args.decode_steps, hf_model=args.hf_model,
         cache_dtype=args.cache_dtype,
         tensor_parallel=args.tensor_parallel,
+        weight_dtype=args.weight_dtype,
         draft_len=args.draft_len, ngram_max=args.ngram_max,
         max_prefixes=args.max_prefixes, lora_rank=args.lora_rank,
         lora_max_adapters=args.lora_max_adapters,

@@ -7,6 +7,9 @@ flax tree, or drawn at random with the JAX package's distributions.
 ``[out, in]`` weights, the per-head q/k/v kernels ``[H, heads, D]``
 become ``[heads*D, H]`` and o_proj ``[heads, D, H]`` becomes
 ``[H, heads*D]``.  RMSNorm scales keep their stored ``w - 1`` form.
+An int8 tree's ``kernel_q``/``scale`` leaves (``QuantDenseGeneral``) map
+the same way to ``weight_q`` (int8) and ``scale`` (f32, flattened over the
+output dims), with or without LoRA adapters beside them.
 LoRA adapter leaves (``*_lora/lora_a``, ``lora_b``, single or stacked)
 keep their shapes, which are already flattened over the feature dims;
 ``train.lora.extract_adapter_tree`` is the way back for them (the
@@ -26,11 +29,15 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _i8(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.int8))
+
+
 def state_dict_from_jax(params: Mapping[str, Any],
                         config: LlamaConfig) -> StateDict:
     """flax ``params['params']`` (nested dicts of numpy arrays) -> the
-    port's ``Llama`` state_dict (f32 CPU tensors; ``load_state_dict``
-    casts each to its parameter's dtype)."""
+    port's ``Llama`` state_dict (f32 CPU tensors, int8 for quantized
+    weights; ``load_state_dict`` casts each to its parameter's dtype)."""
     # Imported here: the train package imports this module.
     from skypilot_tpu_torch.train import lora
     h = config.hidden_size
@@ -43,16 +50,27 @@ def state_dict_from_jax(params: Mapping[str, Any],
         for norm in ('input_norm', 'post_attn_norm'):
             sd[f'{dst}{norm}.scale'] = _t(src[norm]['scale'])
         attn = src['attn']
+
+        def weight(leaf, key, layout):
+            """The projection's weight under `key` (``weight``, or
+            ``weight_q`` and ``scale`` for an int8 leaf), `layout` turning
+            the flax kernel into ``[out, in]``."""
+            if 'kernel_q' in leaf:
+                sd[key + 'weight_q'] = layout(_i8(leaf['kernel_q']))
+                sd[key + 'scale'] = _t(leaf['scale']).reshape(-1)
+            else:
+                sd[key + 'weight'] = layout(_t(leaf['kernel']))
+
         for name in ('q_proj', 'k_proj', 'v_proj'):
-            sd[f'{dst}attn.{name}.weight'] = \
-                _t(attn[name]['kernel']).reshape(h, -1).T
+            weight(attn[name], f'{dst}attn.{name}.',
+                   lambda k: k.reshape(h, -1).T)
             if config.attention_bias:
                 sd[f'{dst}attn.{name}.bias'] = \
                     _t(attn[name]['bias']).reshape(-1)
-        sd[f'{dst}attn.o_proj.weight'] = \
-            _t(attn['o_proj']['kernel']).reshape(-1, h).T
+        weight(attn['o_proj'], f'{dst}attn.o_proj.',
+               lambda k: k.reshape(-1, h).T)
         for name in ('gate_proj', 'up_proj', 'down_proj'):
-            sd[f'{dst}mlp.{name}.weight'] = _t(src['mlp'][name]['kernel']).T
+            weight(src['mlp'][name], f'{dst}mlp.{name}.', lambda k: k.T)
         for path, leaf in _flat_tree(src, f'layer_{i}/'):
             if lora.is_lora_path(path):
                 sd[lora.port_name(path)] = _t(leaf)
@@ -73,7 +91,10 @@ def init_params(config: LlamaConfig,
     """A random state_dict with the JAX module's init distributions:
     normal(0.02) for the embedding, every projection and lm_head;
     normal(0.02/sqrt(2L)) for o_proj (depth-scaled residual branch);
-    zeros for norm scales and biases; with ``lora_rank`` > 0, each
+    zeros for norm scales and biases; with ``weight_dtype='int8'`` each
+    projection as ``QuantDenseGeneral`` draws it (the normal draw at the
+    projection's std, quantized at the fixed scale ``4*std/127``, which
+    every channel's ``scale`` holds); with ``lora_rank`` > 0, each
     target's adapter as ``train.lora.adapter_init`` draws it (A normal(0.02),
     B zeros; stacked ``lora_num_adapters`` deep when that is > 0).
     Tensors are f32 on the generator's device.  Does not reproduce JAX's
@@ -94,6 +115,16 @@ def iter_params(config: LlamaConfig, generator: torch.Generator
 
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
+
+    def proj(key, std, n_out, n_in):
+        w = normal(std, n_out, n_in)
+        if config.weight_dtype != 'int8':
+            yield key + 'weight', w
+            return
+        scale0 = 4.0 * std / 127.0
+        yield key + 'weight_q', torch.clamp(
+            torch.round(w / scale0), -127, 127).to(torch.int8)
+        yield key + 'scale', torch.full((n_out,), scale0, device=dev)
 
     yield 'embedding', normal(0.02, config.vocab_size, h)
     yield 'final_norm.scale', zeros(h)
@@ -120,16 +151,16 @@ def iter_params(config: LlamaConfig, generator: torch.Generator
         yield p + 'input_norm.scale', zeros(h)
         yield p + 'post_attn_norm.scale', zeros(h)
         for name, n in heads.items():
-            yield f'{p}attn.{name}.weight', normal(0.02, n * d, h)
+            yield from proj(f'{p}attn.{name}.', 0.02, n * d, h)
             if config.attention_bias:
                 yield f'{p}attn.{name}.bias', zeros(n * d)
             yield from adapter(p + 'attn.', name, h, n * d)
         hd = config.num_heads * d
-        yield p + 'attn.o_proj.weight', normal(o_std, h, hd)
+        yield from proj(p + 'attn.o_proj.', o_std, h, hd)
         yield from adapter(p + 'attn.', 'o_proj', hd, h)
         inter = config.intermediate_size
         for name, n_in, n_out in (('gate_proj', h, inter),
                                   ('up_proj', h, inter),
                                   ('down_proj', inter, h)):
-            yield f'{p}mlp.{name}.weight', normal(0.02, n_out, n_in)
+            yield from proj(f'{p}mlp.{name}.', 0.02, n_out, n_in)
             yield from adapter(p + 'mlp.', name, n_in, n_out)

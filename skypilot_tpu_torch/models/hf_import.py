@@ -1,0 +1,259 @@
+"""HuggingFace checkpoint import for the llama family -- the port's
+counterpart of ``skypilot_tpu/models/hf_import.py`` (llama, qwen2, mistral
+and gemma checkpoints; the other families are ROADMAP.md A8.2).
+
+Two layers, as in the JAX package:
+
+- ``convert_state_dict(cfg, state_dict)``: HF parameter names -> the
+  port's ``Llama`` state_dict, in torch.  HF's ``[out, in]`` linears are
+  already ``nn.Linear``'s layout, so weights keep their shape and stored
+  dtype (or take ``param_dtype``); RMSNorm weights become the port's
+  ``w - 1`` form in f32 (Gemma checkpoints already store it:
+  ``hf_norm_zero_centered``).  No transformers import.
+- ``load_hf_model(name_or_path)``: loads a transformers checkpoint (a
+  local directory, or a model id already in the local cache: nothing is
+  downloaded), derives the config with ``config_from_hf`` and converts.
+  ``transformers`` is imported inside it only.
+
+RoPE is the rotate-half convention on both sides: no head-dim permutation.
+"""
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from skypilot_tpu_torch.models.llama import LlamaConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+# HF model types of the JAX package's importer that the port does not
+# have yet.
+_NOT_PORTED = ('gpt2', 'mixtral', 'bert')
+# HF model types the JAX server takes for --hf-model: the causal LMs.
+_CAUSAL_LM = ('llama', 'qwen2', 'mistral', 'mixtral', 'gpt2', 'gemma')
+
+# Non-weight buffers that legitimately remain unconverted (matched as
+# suffixes against checkpoint keys).
+_IGNORABLE_SUFFIXES = (
+    'rotary_emb.inv_freq',          # old llama checkpoints
+)
+
+
+class _SD:
+    """state_dict view that strips an optional prefix and tracks usage."""
+
+    def __init__(self, sd: Dict[str, Any]):
+        self._sd = dict(sd)
+        self.used = set()
+
+    def __call__(self, key: str):
+        for k in (key, f'model.{key}', f'transformer.{key}'):
+            if k in self._sd:
+                self.used.add(k)
+                return self._sd[k]
+        raise KeyError(
+            f'{key!r} not in checkpoint (tried bare/model./transformer. '
+            f'prefixes); sample keys: {sorted(self._sd)[:5]}')
+
+    def unused(self):
+        return sorted(set(self._sd) - self.used)
+
+
+def _convert_llama(cfg: LlamaConfig, sd: _SD,
+                   param_dtype: Optional[torch.dtype]) -> StateDict:
+    def w(key):
+        t = torch.as_tensor(sd(key)).detach()
+        return t if param_dtype is None else t.to(param_dtype)
+
+    def norm(key):
+        # As the JAX importer: the weight in the target dtype, then the
+        # '+1' reparam in f32 (the subtraction must not round in bf16).
+        t = w(key).float()
+        return t if cfg.hf_norm_zero_centered else t - 1.0
+
+    out: StateDict = {'embedding': w('embed_tokens.weight'),
+                      'final_norm.scale': norm('norm.weight')}
+    if not cfg.tie_embeddings:
+        out['lm_head.weight'] = w('lm_head.weight')
+    for i in range(cfg.num_layers):
+        p = f'layers.{i}.'           # the same layer prefix on both sides
+        out[p + 'input_norm.scale'] = norm(p + 'input_layernorm.weight')
+        out[p + 'post_attn_norm.scale'] = norm(
+            p + 'post_attention_layernorm.weight')
+        for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj'):
+            out[f'{p}attn.{name}.weight'] = w(f'{p}self_attn.{name}.weight')
+        if cfg.attention_bias:       # Qwen2-style q/k/v biases
+            for name in ('q_proj', 'k_proj', 'v_proj'):
+                out[f'{p}attn.{name}.bias'] = w(f'{p}self_attn.{name}.bias')
+        for name in ('gate_proj', 'up_proj', 'down_proj'):
+            out[f'{p}mlp.{name}.weight'] = w(f'{p}mlp.{name}.weight')
+    return out
+
+
+def convert_state_dict(cfg: LlamaConfig, state_dict: Dict[str, Any],
+                       strict: bool = True,
+                       param_dtype: Optional[torch.dtype] = None
+                       ) -> StateDict:
+    """An HF torch state_dict -> the port's ``Llama`` state_dict.
+
+    strict: raise if the checkpoint holds weights with no target (q/k/v
+    biases the config does not declare, extra heads): dropping them
+    silently would serve a wrong model.  Pass False to convert anyway.
+
+    param_dtype: the dtype of the converted weights (None keeps each
+    tensor's stored dtype); norm scales are f32 regardless."""
+    if not isinstance(cfg, LlamaConfig):
+        raise ValueError(
+            f'no HF converter for {type(cfg).__name__}; supported: '
+            "['LlamaConfig']")
+    sd = _SD(state_dict)
+    out = _convert_llama(cfg, sd, param_dtype)
+    leftover = [
+        k for k in sd.unused()
+        if not k.endswith(_IGNORABLE_SUFFIXES)
+        and not (cfg.tie_embeddings and k.endswith('lm_head.weight'))
+    ]
+    if leftover and strict:
+        raise ValueError(
+            f'checkpoint weights with no converter target (would be '
+            f'silently dropped): {leftover[:8]}'
+            f'{" ..." if len(leftover) > 8 else ""}; pass strict=False '
+            f'to convert anyway')
+    return out
+
+
+def config_from_hf(hf_config, name: Optional[str] = None) -> LlamaConfig:
+    """Map a transformers config object to the port's ``LlamaConfig``,
+    with the JAX importer's refusals word for word."""
+    mt = getattr(hf_config, 'model_type', None)
+    name = name or f'hf-{mt}'
+    if mt in ('llama', 'qwen2', 'mistral'):
+        # Qwen2 is llama + unconditional q/k/v biases; Mistral is llama +
+        # sliding-window attention.
+        if mt == 'qwen2' and getattr(hf_config, 'use_sliding_window',
+                                     False):
+            # Qwen2's flag windows only SOME layers (per
+            # max_window_layers): a uniform band would be wrong.
+            raise ValueError(
+                'qwen2 use_sliding_window=true is layer-selective and '
+                'not implemented; refusing to load with wrong masking')
+        sliding = (getattr(hf_config, 'sliding_window', None)
+                   if mt == 'mistral' else None)
+        scaling_kw = {}
+        rs = getattr(hf_config, 'rope_scaling', None)
+        rope_type = rs.get('rope_type', rs.get('type')) if rs else None
+        if rope_type == 'default':   # HF 'default' == unscaled RoPE
+            rs = None
+        if rs:
+            if rope_type != 'llama3':
+                raise ValueError(
+                    f'unsupported rope_scaling type {rope_type!r} (only '
+                    f"'llama3' frequency scaling is implemented); refusing "
+                    'to load with wrong RoPE frequencies')
+            scaling_kw = dict(
+                rope_scaling_factor=float(rs['factor']),
+                rope_scaling_low_freq=float(rs['low_freq_factor']),
+                rope_scaling_high_freq=float(rs['high_freq_factor']),
+                rope_scaling_original_max_len=int(
+                    rs['original_max_position_embeddings']))
+        return LlamaConfig(
+            name=name, vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            intermediate_size=hf_config.intermediate_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            head_dim=getattr(hf_config, 'head_dim', None),
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=getattr(hf_config, 'rope_theta', 10000.0),
+            norm_eps=hf_config.rms_norm_eps,
+            attention_bias=(mt == 'qwen2' or
+                            getattr(hf_config, 'attention_bias', False)),
+            tie_embeddings=getattr(hf_config, 'tie_word_embeddings', False),
+            sliding_window=sliding,
+            **scaling_kw)
+    if mt == 'gemma':
+        # Gemma: llama topology + GeGLU, sqrt(H)-scaled embeddings, an
+        # explicit head_dim, tied embeddings and zero-centered norm
+        # weights.  The activation comes from the checkpoint: early
+        # configs run exact GELU.
+        hf_act = (getattr(hf_config, 'hidden_activation', None) or
+                  getattr(hf_config, 'hidden_act', 'gelu_pytorch_tanh'))
+        act = {'gelu_pytorch_tanh': 'gelu_tanh', 'gelu_tanh': 'gelu_tanh',
+               'gelu': 'gelu', 'gelu_new': 'gelu_tanh',
+               'silu': 'silu'}.get(hf_act)
+        if act is None:
+            raise ValueError(
+                f'unsupported gemma hidden activation {hf_act!r}; '
+                'refusing to load with a wrong MLP')
+        return LlamaConfig(
+            name=name, vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            intermediate_size=hf_config.intermediate_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            head_dim=getattr(hf_config, 'head_dim', 256),
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=getattr(hf_config, 'rope_theta', 10000.0),
+            norm_eps=hf_config.rms_norm_eps,
+            tie_embeddings=True,
+            hidden_act=act,
+            scale_embeddings=True,
+            hf_norm_zero_centered=True)
+    if mt in _NOT_PORTED:
+        raise NotImplementedError(
+            f'HF model_type {mt!r} belongs to a family that is not yet '
+            'ported (ROADMAP.md A8.2, the other families)')
+    raise ValueError(f'unsupported HF model_type: {mt!r}')
+
+
+def load_hf_model(name_or_path: str, dtype: Optional[torch.dtype] = None,
+                  param_dtype: Optional[torch.dtype] = None
+                  ) -> Tuple[LlamaConfig, StateDict]:
+    """Load a transformers checkpoint (a local directory or a warm cache)
+    and return ``(config, state_dict)``.  The config comes first, from
+    ``config.json`` alone, so a checkpoint that is no causal LM (the JAX
+    server's ValueError) or of a family the port does not have fails
+    before any weight is read.
+
+    dtype: the config's compute dtype; param_dtype: the dtype the
+    converted weights are stored in (see convert_state_dict)."""
+    import transformers
+    hf_cfg = transformers.AutoConfig.from_pretrained(name_or_path)
+    mt = getattr(hf_cfg, 'model_type', None)
+    if mt not in _CAUSAL_LM:
+        raise ValueError(
+            f'--hf-model must be a supported causal-LM checkpoint '
+            f"(model_type 'llama', 'qwen2', 'mistral', 'mixtral', "
+            f"'gpt2' or 'gemma'); got model_type={mt!r}")
+    cfg = config_from_hf(hf_cfg, name=name_or_path)
+    # dtype='auto' keeps the checkpoint's stored precision.  The keyword
+    # was renamed torch_dtype -> dtype in transformers 4.56, and
+    # from_pretrained swallows unknown keywords, so pick it by version.
+    ver = tuple(int(x) for x in transformers.__version__.split('.')[:2])
+    dtype_kw = 'dtype' if ver >= (4, 56) else 'torch_dtype'
+    model = transformers.AutoModelForCausalLM.from_pretrained(
+        name_or_path, low_cpu_mem_usage=True, **{dtype_kw: 'auto'})
+    # If the keyword was ignored anyway, the model comes back fp32 though
+    # the checkpoint stores a narrower dtype.
+    stored = getattr(hf_cfg, 'dtype', None) or getattr(
+        hf_cfg, 'torch_dtype', None)
+    first_param = next(iter(model.parameters()), None)
+    loaded = None if first_param is None else first_param.dtype
+    if (stored is not None and loaded is not None
+            and str(stored).replace('torch.', '') != 'float32'
+            and loaded == torch.float32):
+        import warnings
+        warnings.warn(
+            f'{name_or_path}: checkpoint stores {stored} but transformers '
+            f'{transformers.__version__} loaded fp32 (dtype kwarg ignored) '
+            '— converting; expect a transient 2x host-RAM peak')
+        model = model.to(stored if not isinstance(stored, str)
+                         else getattr(torch, stored))
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    params = convert_state_dict(cfg, model.state_dict(),
+                                param_dtype=param_dtype)
+    del model
+    return cfg, params

@@ -27,6 +27,12 @@ scatters, the paged gather, the engine's block copies, spills and wire
 rows -- runs on the rows' uint8 view (``as_bytes``): only the cast and
 ``decode_attention``'s f32 read see the fp8 dtype.
 
+With ``weight_dtype='int8'`` every decoder projection is a ``QuantLinear``
+(the counterpart of the JAX module's ``QuantDenseGeneral``): an int8
+weight with an f32 scale per output channel, dequantized inside the
+product in the compute dtype.  ``models.quantize`` converts float weights;
+``models.convert.iter_params`` draws random int8 ones.
+
 With ``lora_rank`` > 0 each projection named in ``lora_targets`` gets a
 sibling ``<name>_lora`` adapter (``train.lora.LoRAAdapter``, f32
 parameters) whose delta is added to the projection's output in the
@@ -319,16 +325,51 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(self.compute_dtype), bias)
 
 
+class QuantLinear(nn.Module):
+    """A projection with int8 weight storage, per output channel: the
+    counterpart of the JAX module's ``QuantDenseGeneral``.  Holds
+    ``weight_q`` int8 ``[out, in]`` and ``scale`` f32 ``[out]`` (buffers:
+    nothing trains them) and an optional ``bias`` in ``param_dtype``.
+    The forward follows the reference's order: the product in the compute
+    dtype with the weight cast from int8, then ``* scale`` in the compute
+    dtype, then ``+ bias``.  In eager PyTorch the cast materialises a
+    compute-dtype copy of the weight at each call; a fused dequantizing
+    GEMM is speed work (ROADMAP.md)."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool,
+                 compute_dtype: torch.dtype, param_dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.in_features, self.out_features = n_in, n_out
+        self.compute_dtype = compute_dtype
+        self.register_buffer('weight_q', torch.zeros(
+            n_out, n_in, dtype=torch.int8, device=device))
+        self.register_buffer('scale', torch.ones(
+            n_out, dtype=torch.float32, device=device))
+        self.bias = (nn.Parameter(torch.zeros(n_out, dtype=param_dtype,
+                                              device=device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.linear(x.to(dt), self.weight_q.to(dt))
+        y = y * self.scale.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
 def _add_proj(owner: nn.Module, name: str, n_in: int, n_out: int,
               bias: bool, param_dtype: torch.dtype, device) -> None:
-    """Register projection `name` on its owning module and, when `name` is
-    a configured LoRA target, its sibling '<name>_lora' adapter (f32
-    parameters, stacked when ``lora_num_adapters`` > 0) -- the counterpart
-    of the JAX module's ``_proj``, the single wiring point of every
-    adapted projection."""
+    """Register projection `name` on its owning module (a ``QuantLinear``
+    with int8 weights) and, when `name` is a configured LoRA target, its
+    sibling '<name>_lora' adapter (f32 parameters, stacked when
+    ``lora_num_adapters`` > 0) -- the counterpart of the JAX module's
+    ``_proj``, the single wiring point of every adapted projection."""
     cfg = owner.config
-    setattr(owner, name, Linear(n_in, n_out, bias, cfg.dtype, param_dtype,
-                                device))
+    cls = QuantLinear if cfg.weight_dtype == 'int8' else Linear
+    setattr(owner, name, cls(n_in, n_out, bias, cfg.dtype, param_dtype,
+                             device))
     if cfg.lora_rank and name in cfg.lora_targets:
         # Imported here: the train package imports this module.
         from skypilot_tpu_torch.train.lora import LoRAAdapter
@@ -485,11 +526,7 @@ class Llama(nn.Module):
     def __init__(self, config: LlamaConfig, device=None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if config.weight_dtype == 'int8':
-            raise NotImplementedError(
-                'int8 weight storage is not ported yet (ROADMAP.md A8, '
-                'other families and weight paths)')
-        if config.weight_dtype != 'bf16':
+        if config.weight_dtype not in ('bf16', 'int8'):
             raise ValueError(f"weight_dtype must be 'bf16' or 'int8'; got "
                              f'{config.weight_dtype!r}')
         self.config = config

@@ -276,6 +276,14 @@ def make_train_step(loss_chunk: Optional[int] = 128,
     def step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         inputs, targets, mask = _shift(state, batch)
         model = state.model
+        mc = model.config
+        if mc.weight_dtype == 'int8' and not mc.lora_rank:
+            # As the JAX step's jax.grad over an int8 leaf: int8 weights
+            # are a serving path (LoRA adapters on an int8 base train).
+            raise TypeError(
+                'grad requires real- or complex-valued inputs, but got '
+                'int8: int8 weights are a serving path; train bf16 '
+                'weights, or LoRA adapters on the int8 base')
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum_steps <= 1:
             loss = loss_fn(model, inputs, targets, mask, loss_chunk)

@@ -69,6 +69,16 @@ def key_sets(doc):
     return 'leaf'
 
 
+def assert_same_qos(mine, ref):
+    """stats()['qos'] sections equal whole, but for the wall-clock service
+    rate, whose None-ness must match."""
+    mine, ref = dict(mine), dict(ref)
+    rates = (mine.pop('service_rate_tokens_per_s'),
+             ref.pop('service_rate_tokens_per_s'))
+    assert (rates[0] is None) == (rates[1] is None), rates
+    assert mine == ref
+
+
 def conservation_errors(eng):
     """The paged pool's block-conservation law, checked from outside the
     allocator: every block's refcount equals its holders -- the table

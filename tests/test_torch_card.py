@@ -118,6 +118,8 @@ def test_function_gradients_match_plain_on_the_card(card):
 FWD_CASES = {
     'ragged_200': (1, 4, 2, 200, 128, True, None),
     'ragged_1088': (1, 16, 8, 1088, 128, True, None),
+    # the int8 llama2-7b no-cache forward: MHA 32:32, ragged
+    'llama2_7b_mha_281': (1, 32, 32, 281, 128, True, None),
     'non_causal_ragged_200': (1, 4, 2, 200, 128, False, None),
     'window_48': (2, 8, 2, 256, 128, True, 48),
     'window_300_d64': (1, 8, 2, 1088, 64, True, 300),
@@ -407,6 +409,39 @@ def test_fp8_cast_on_the_card_gives_the_cpu_bytes(card, dtype):
     got = to_fp8(x.cuda()).view(torch.uint8).cpu()
     assert torch.equal(got, want)
     assert int((want == 0x7F).sum()) > 1000
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_int8_quantization_on_the_card_gives_the_cpu_bytes(card, dtype):
+    """models.quantize on the card gives the CPU's int8 bytes and f32
+    scales for the same weights (which tests/test_torch_int8.py holds
+    against the JAX package's quantize_params), and QuantLinear's bf16
+    product on the card is within the bf16 bound of the CPU's f32 one:
+    the product, the scale and the bias each round once to bf16 (2^-9
+    relative), so 2^-6 of the output's largest magnitude."""
+    from skypilot_tpu_torch.models import quantize
+    from skypilot_tpu_torch.models.llama import QuantLinear
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.normal(0, 0.02, (1024, 2048)).astype(
+        np.float32)).to(dtype)
+    w[3] = 0                                 # an all-zero channel
+    q, scale = quantize.quantize_weight(w)
+    got_q, got_scale = quantize.quantize_weight(w.cuda())
+    assert torch.equal(got_q.cpu(), q) and torch.equal(got_scale.cpu(),
+                                                       scale)
+    assert int(q.abs().max()) == 127 and not q[3].any()
+    bias = torch.from_numpy(rng.normal(0, 0.1, 1024).astype(np.float32))
+    x = torch.from_numpy(rng.normal(0, 1, (4, 2048)).astype(np.float32))
+    lin = QuantLinear(2048, 1024, True, torch.bfloat16, torch.bfloat16,
+                      device='cuda')
+    with torch.no_grad():
+        lin.weight_q.copy_(q)
+        lin.scale.copy_(scale)
+        lin.bias.copy_(bias)
+        got = lin(x.cuda().to(torch.bfloat16)).float().cpu()
+    want = (x.to(torch.bfloat16).float() @ q.float().T) * scale + \
+        bias.to(torch.bfloat16).float()
+    assert (got - want).abs().max().item() <= 2 ** -6 * want.abs().max()
 
 
 def test_spec_and_prefix_on_the_card(card, monkeypatch):

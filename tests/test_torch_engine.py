@@ -207,15 +207,13 @@ def _matches_jax_with(params, prompts, field, value, **layout):
     ('cache_dtype', torch.float8_e4m3fn),
 ])
 def test_unported_features_raise(params, prompts, field, value):
-    """The features outside the port (QoS, A6c) raise, naming their
-    ROADMAP.md item; the ones ported since (speculation, multi-LoRA with
-    no adapter registered, registered prefixes, the fp8 cache) serve as
-    the JAX engine does."""
-    if field not in port._UNPORTED:
-        _matches_jax_with(params, prompts, field, value)
-        return
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        _port_engine(params, **{field: value})
+    """Every InferConfig field is ported now (QoS last): speculation,
+    multi-LoRA with no adapter registered, QoS and its tenant weights,
+    registered prefixes and the fp8 cache each serve as the JAX engine
+    with the same setting does, and the engine keeps no table of
+    refused fields."""
+    assert not hasattr(port, '_UNPORTED')
+    _matches_jax_with(params, prompts, field, value)
 
 
 @pytest.mark.parametrize('field,value', [
@@ -227,7 +225,7 @@ def test_unported_features_raise_on_the_paged_engine(params, prompts, field,
     """Speculation, registered prefixes (pinned in the radix tree) and
     the fp8 cache on the block-paged engine with the radix cache: as the
     JAX paged engine serves them."""
-    assert field not in port._UNPORTED
+    assert not hasattr(port, '_UNPORTED')
     _matches_jax_with(params, prompts, field, value, kv_block_size=16,
                       auto_prefix_cache=True)
 

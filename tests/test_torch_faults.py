@@ -13,8 +13,8 @@ import time
 import pytest
 import torch
 
-from helpers_torch import (WindowAudit, conservation_errors, jax_engine,
-                           key_sets, make_params, port_engine)
+from helpers_torch import (WindowAudit, assert_same_qos, conservation_errors,
+                           jax_engine, key_sets, make_params, port_engine)
 from skypilot_tpu.infer import FaultPlan as JaxFaultPlan
 from skypilot_tpu.infer import FaultSpec as JaxFaultSpec
 from skypilot_tpu.infer import Request as JaxRequest
@@ -393,17 +393,31 @@ def test_submit_timeout_cancels_into_engine(dense):
         srv.stop()
 
 
-def test_stats_key_sets_match_the_jax_dense_engine(dense, jax_dense):
+def test_stats_key_sets_match_the_jax_dense_engine(params, dense,
+                                                  jax_dense):
     """stats() and kv_health() carry the JAX dense engine's keys, at
     every depth (the server and the LB's prober read them)."""
     dense.generate(_reqs(1))
     assert set(dense.stats()['faults']) == {
         'internal_errors', 'deadline_evictions', 'loop_restarts',
         'quarantined_batches', 'nonfinite_lanes'}
-    mine, ref = dense.stats(), jax_dense.stats()
-    # Per-tenant rows exist once a tenant was admitted by the loop.
-    mine['qos']['tenants'] = ref['qos']['tenants'] = {}
+    # The module's dense engine has served through the loop (tenant rows,
+    # sheds) and the JAX one offline only: the sections are compared
+    # whole between a fresh engine and the JAX one after the same
+    # offline request.
+    fresh = port_engine(params)
+    fresh.generate(_reqs(1))
+    jax_dense.generate([JaxRequest(request_id='0', tokens=_prompts(1)[0],
+                                   max_new_tokens=8)])
+    mine, ref = fresh.stats(), jax_dense.stats()
+    assert_same_qos(mine['qos'], ref['qos'])
     assert key_sets(mine) == key_sets(ref)
+    # The module's engine after its loop history: every key at every
+    # depth, but for the per-tenant rows, which exist once the loop has
+    # admitted a tenant.
+    served = dense.stats()
+    served['qos']['tenants'] = ref['qos']['tenants'] = {}
+    assert key_sets(served) == key_sets(ref)
     assert key_sets(dense.kv_health()) == key_sets(jax_dense.kv_health())
     assert dense.stats()['kv_bytes_total'] == \
         jax_dense.stats()['kv_bytes_total']

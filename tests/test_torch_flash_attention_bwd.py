@@ -7,6 +7,10 @@ through ``reference_attention`` and against ``jax.grad`` of the JAX
 both.  Everything here runs on the CPU, in f32; the Hopper kernels
 themselves are held against these plain versions on the card by
 chip_smoke.py and tests/test_torch_card.py."""
+import hashlib
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,27 +58,102 @@ def _jax_bwd(q, k, v, do, causal, window, block):
     dq, dk, dv = _flash_bwd(jq, jk, jv, out, lse, jdo, causal=causal,
                             scale=scale, block_q=block, block_kv=block,
                             window=window)
-    return tuple(np.asarray(x) for x in (out, lse, dq, dk, dv))
+    # Owned copies once every output is ready: np.asarray of a CPU jax
+    # Array can be a view of the runtime's buffer.
+    return tuple(np.array(x) for x in jax.block_until_ready(
+        (out, lse, dq, dk, dv)))
 
 
-@pytest.mark.parametrize('case', list(CASES), ids=list(CASES))
-def test_plain_versions_match_pallas_kernels(case):
-    """attention_bwd_dq_reference and attention_bwd_dkv_reference (the
-    kernels' plain versions) against _flash_bwd, from the same O and LSE
-    and with delta = rowsum(dO * O) in f32 as the JAX package forms it."""
-    b, hq, hkv, s, d, causal, window, block = CASES[case]
-    q, k, v, do = _inputs(b, hq, hkv, s, d, seed=len(case))
-    out, lse, jdq, jdk, jdv = _jax_bwd(q, k, v, do, causal, window, block)
-    out, lse = np.array(out), np.array(lse)
+def _plain_bwd(q, k, v, do, out, lse, causal, window):
+    """(dq, dk, dv) from the plain versions, as numpy."""
     tq, tk, tv, tdo, tout, tlse = map(torch.from_numpy,
                                       (q, k, v, do, out, lse))
     delta = (tdo * tout).sum(-1)
-    args = (tq, tk, tv, tdo, tlse, delta, causal, d ** -0.5, window)
+    args = (tq, tk, tv, tdo, tlse, delta, causal, q.shape[-1] ** -0.5,
+            window)
     dq = fa.attention_bwd_dq_reference(*args)
     dk, dv = fa.attention_bwd_dkv_reference(*args)
-    assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
-    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
-        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+    return dq.numpy(), dk.numpy(), dv.numpy()
+
+
+def _digest(x: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()[:16]
+
+
+def _numeric_state() -> dict:
+    """The torch, JAX and process settings a CPU f32 result can hang on."""
+    return {
+        'torch_threads': torch.get_num_threads(),
+        'torch_interop_threads': torch.get_num_interop_threads(),
+        'torch_f32_matmul_precision': torch.get_float32_matmul_precision(),
+        'torch_cpu_capability': torch.backends.cpu.get_cpu_capability(),
+        'torch_mkldnn': torch.backends.mkldnn.enabled,
+        'torch_default_dtype': str(torch.get_default_dtype()),
+        'torch_deterministic': torch.are_deterministic_algorithms_enabled(),
+        'jax_default_matmul_precision':
+            jax.config.jax_default_matmul_precision,
+        'jax_enable_x64': jax.config.jax_enable_x64,
+        'jax_backend': jax.default_backend(),
+        'env': {k: os.environ.get(k) for k in (
+            'XLA_FLAGS', 'OMP_NUM_THREADS', 'MKL_NUM_THREADS',
+            'JAX_PLATFORMS', 'PYTEST_XDIST_WORKER')},
+        'cpus': len(os.sched_getaffinity(0))}
+
+
+def _failure_report(inputs, jax_outs, plain, tmp_path, causal, window,
+                    block) -> str:
+    """What a failure of the comparison below leaves behind: every array
+    in an .npz under tmp_path, and in the message the digests of the
+    inputs and of both sides' outputs, the worst element of each
+    gradient, whether a second run of each side gives its first run's
+    bytes, and the numeric state of the process."""
+    q, k, v, do = inputs
+    jax_again = _jax_bwd(q, k, v, do, causal, window, block)
+    plain_again = _plain_bwd(q, k, v, do, *jax_outs[:2], causal, window)
+    worst = {}
+    for name, got, want in zip(('dq', 'dk', 'dv'), plain, jax_outs[2:]):
+        err = np.abs(got - want)
+        i = np.unravel_index(np.nanargmax(err), err.shape)
+        worst[name] = {'max_abs_err': float(err[i]), 'at': list(map(int, i)),
+                       'plain': float(got[i]), 'jax': float(want[i]),
+                       'nan': int(np.isnan(got).sum() + np.isnan(want).sum())}
+    path = tmp_path / 'flash_bwd_failure.npz'
+    np.savez(path, q=q, k=k, v=v, do=do,
+             **dict(zip(('out', 'lse', 'jdq', 'jdk', 'jdv'), jax_outs)),
+             **dict(zip(('dq', 'dk', 'dv'), plain)))
+    return json.dumps({
+        'arrays': str(path),
+        'inputs': [_digest(x) for x in inputs],
+        'jax_out_lse_dq_dk_dv': [_digest(x) for x in jax_outs],
+        'plain_dq_dk_dv': [_digest(x) for x in plain],
+        'jax_rerun_same_bytes': [bool(np.array_equal(a, b, equal_nan=True))
+                                 for a, b in zip(jax_outs, jax_again)],
+        'plain_rerun_same_bytes': [
+            bool(np.array_equal(a, b, equal_nan=True))
+            for a, b in zip(plain, plain_again)],
+        'worst': worst, 'state': _numeric_state()})
+
+
+@pytest.mark.parametrize('case', list(CASES), ids=list(CASES))
+def test_plain_versions_match_pallas_kernels(case, tmp_path):
+    """attention_bwd_dq_reference and attention_bwd_dkv_reference (the
+    kernels' plain versions) against _flash_bwd, from the same O and LSE
+    and with delta = rowsum(dO * O) in f32 as the JAX package forms it.
+    A failure names its cause's evidence (_failure_report)."""
+    b, hq, hkv, s, d, causal, window, block = CASES[case]
+    inputs = _inputs(b, hq, hkv, s, d, seed=len(case))
+    jax_outs = _jax_bwd(*inputs, causal, window, block)
+    plain = _plain_bwd(*inputs, *jax_outs[:2], causal, window)
+    assert plain[0].shape == inputs[0].shape
+    assert plain[1].shape == plain[2].shape == inputs[1].shape
+    report = ''
+    if not all(np.abs(got - want).max() <= TOL
+               for got, want in zip(plain, jax_outs[2:])):
+        report = _failure_report(inputs, jax_outs, plain, tmp_path, causal,
+                                 window, block)
+    for got, want in zip(plain, jax_outs[2:]):
+        np.testing.assert_allclose(got, want, rtol=0, atol=TOL,
+                                   err_msg=report)
 
 
 @pytest.mark.parametrize('case', ['causal', 'gqa_8_2', 'window_48',

@@ -48,7 +48,10 @@ def test_importing_every_module_loads_no_jax():
             'skypilot_tpu_torch.infer.scheduler',
             'skypilot_tpu_torch.infer.faults',
             'skypilot_tpu_torch.infer.radix',
-            'skypilot_tpu_torch.infer.block_pool'} <= set(modules)
+            'skypilot_tpu_torch.infer.block_pool',
+            'skypilot_tpu_torch.infer.qos',
+            'skypilot_tpu_torch.models.quantize',
+            'skypilot_tpu_torch.models.hf_import'} <= set(modules)
     code = (
         'import importlib, json, sys\n'
         f'for m in {modules!r}:\n'
@@ -122,6 +125,12 @@ def test_entry_points_need_a_card():
     with pytest.raises(RuntimeError, match='no CUDA device'):
         server.run(model='llama-debug', max_cache_len=64, lora_rank=4,
                    adapter_dir='.')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        server.run(model='llama-debug', max_cache_len=64,
+                   weight_dtype='int8')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        server.run(model='llama-debug', max_cache_len=64, qos=True,
+                   qos_tenant_weights='a=3,b=1')
     with pytest.raises(RuntimeError, match='no CUDA device'):
         next(synthetic_data(1, 8, 16))
     with pytest.raises(RuntimeError, match='no CUDA device'):

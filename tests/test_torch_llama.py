@@ -201,8 +201,10 @@ def test_init_params_distributions():
 
 
 def test_unported_features_raise():
-    """int8 weights (A8) and the other families still raise; LoRA, ported
-    since, builds, and at init (B = 0) gives the base model's logits."""
+    """The other families still raise; LoRA, ported since, builds, and at
+    init (B = 0) gives the base model's logits; int8 weights, ported
+    since, build and give the flax int8 model's logits over the JAX
+    package's quantize_params of the same weights."""
     base = dataclasses.replace(registry.get_model_config('llama-debug'),
                                dtype=torch.float32)
     sd = convert.init_params(base, torch.Generator().manual_seed(0))
@@ -215,9 +217,18 @@ def test_unported_features_raise():
     tokens = torch.arange(12)[None]
     with torch.no_grad():
         assert torch.equal(adapted(tokens), plain(tokens))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        llama.Llama(dataclasses.replace(base, weight_dtype='int8'),
-                    device='cpu')
+    from skypilot_tpu.models.quantize import quantize_params
+    jcfg, _ = _configs('llama-debug', {'weight_dtype': 'int8'})
+    jparams = quantize_params(_jax_params(
+        dataclasses.replace(jcfg, weight_dtype='bf16'), tokens.numpy()))
+    int8 = llama.Llama(dataclasses.replace(base, weight_dtype='int8'),
+                       device='cpu')
+    int8.load_state_dict(convert.state_dict_from_jax(jparams, int8.config))
+    assert int8.layers[0].attn.q_proj.weight_q.dtype == torch.int8
+    want = JaxLlama(jcfg).apply({'params': jparams}, jnp.asarray(tokens))
+    with torch.no_grad():
+        np.testing.assert_allclose(int8(tokens).numpy(), np.asarray(want),
+                                   atol=TOL_F32)
     with pytest.raises(NotImplementedError, match='not yet ported'):
         registry.get_model_config('mixtral-debug')
     with pytest.raises(ValueError, match='Unknown model'):

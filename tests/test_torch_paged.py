@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from helpers_torch import (WindowAudit, conservation_errors, jax_engine,
-                           key_sets, make_params, port_engine)
+from helpers_torch import (WindowAudit, assert_same_qos, conservation_errors,
+                           jax_engine, key_sets, make_params, port_engine)
 from skypilot_tpu.infer import Request as JaxRequest
 from skypilot_tpu.models import llama as jax_llama
 from skypilot_tpu_torch.infer import Request
@@ -232,7 +232,7 @@ def test_offline_identical_to_dense_and_jax_paged(params, jax_ref, flags):
     assert paged.radix_stats == ref.radix_stats
     assert paged._host_tier.stats['spills'] > 0
     a, b = paged.stats(), ref.stats()
-    a['qos'] = b['qos'] = None      # the scheduler and QoS are A6c
+    assert_same_qos(a['qos'], b['qos'])
     assert key_sets(a) == key_sets(b)
     assert a['kv'] == b['kv']
     assert paged.kv_health() == ref.kv_health()

@@ -332,21 +332,42 @@ def test_unported_routes_answer_501(pair, path, body):
     assert '--adapter-dir' in p['error']
 
 
-def test_unported_options_fail_at_startup(params, tmp_path):
-    """HF import, tp serving, int8 weights and QoS still fail at startup
-    naming their item; --auto-prefix, the fp8 cache and --adapter-dir
-    (with --lora-rank), ported since, start."""
+def test_unported_options_fail_at_startup(params, tmp_path, monkeypatch):
+    """tp serving still fails at startup naming its item (A9);
+    --auto-prefix, the fp8 cache and --adapter-dir (with --lora-rank),
+    ported since, start; and so do int8 weights, QoS and --hf-model
+    (tests/test_torch_hf_import.py serves a checkpoint): run() builds
+    engines like the JAX server's for the same flags, and a checkpoint
+    path that does not exist fails in both with the same error type."""
     eng = port_engine(params)
     assert port_server.InferenceServer(eng, auto_prefix=True).auto_prefix
     lora = port_engine(params, lora_rank=4, lora_max_adapters=2)
     srv = port_server.InferenceServer(lora, adapter_dir=str(tmp_path))
     assert srv.adapter_dir == str(tmp_path) and lora.adapters == {}
-    for kw, item in [({'hf_model': 'x'}, 'A8'),
-                     ({'tensor_parallel': 2}, 'A9'),
-                     ({'weight_dtype': 'int8'}, 'A8'),
-                     ({'qos': True}, 'A6')]:
-        with pytest.raises(NotImplementedError, match=item):
-            port_server.run(model='llama-debug', device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='A9'):
+        port_server.run(model='llama-debug', device='cpu',
+                        tensor_parallel=2)
+    engines = []
+    for mod in (port_server, jax_server):
+        monkeypatch.setattr(mod, 'serve',
+                            lambda engine, **_: engines.append(engine))
+    for kw in ({'weight_dtype': 'int8'},
+               {'qos': True, 'qos_tenant_weights': 'a=3,b=1'}):
+        engines.clear()
+        port_server.run(model='llama-debug', device='cpu',
+                        max_cache_len=128, **kw)
+        jax_server.run(model='llama-debug', max_cache_len=128, **kw)
+        mine, ref = engines
+        assert mine.model_config.weight_dtype == \
+            ref.model_config.weight_dtype == kw.get('weight_dtype', 'bf16')
+        assert mine.cfg.qos_tenant_weights == ref.cfg.qos_tenant_weights
+        assert mine.stats()['qos'] == ref.stats()['qos']
+    raised = []
+    for mod, extra in ((port_server, {'device': 'cpu'}), (jax_server, {})):
+        with pytest.raises(Exception) as e:
+            mod.run(hf_model=str(tmp_path / 'missing'), **extra)
+        raised.append(type(e.value))
+    assert raised[0] is raised[1]
     fp8 = port_engine(params, cache_dtype=port_server.resolve_cache_dtype(
         'fp8'))
     assert fp8.cache[0][0].dtype == torch.float8_e4m3fn
