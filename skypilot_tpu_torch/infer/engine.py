@@ -91,6 +91,14 @@ block-paged KV pool -- the PyTorch twin of ``skypilot_tpu/infer/engine.py``.
 
 Prefill attends through ``write_kv_and_attend``/``decode_attention`` (or
 their paged twins) like the JAX engine, not through the flash kernel.
+
+The engine serves the llama family (with gemma), GPT-2 and Mixtral, as
+the JAX engine does: the module comes from ``registry.build_model`` and
+the engine reads only ``head_dim_``, ``num_kv_heads``, ``num_layers``,
+``max_seq_len`` and ``vocab_size`` of its config.  Mixtral's cached
+forward routes every token exactly (all experts, gate-weighted).  The
+block-paged pool and multi-LoRA serve the llama family only and refuse
+the others with the JAX engine's TypeError.
 """
 import base64
 import collections
@@ -114,10 +122,11 @@ from skypilot_tpu_torch.infer.qos import DEFAULT_TENANT, PRIORITY_CLASSES
 from skypilot_tpu_torch.infer.radix import RadixTree
 from skypilot_tpu_torch.infer.scheduler import FifoScheduler
 from skypilot_tpu_torch.models.convert import init_params, iter_params
-from skypilot_tpu_torch.models.llama import (FP8, Llama, LlamaConfig,
-                                             as_bytes, init_cache,
-                                             init_paged_cache)
-from skypilot_tpu_torch.models.registry import get_model_config
+from skypilot_tpu_torch.models.llama import (FP8, LlamaConfig, as_bytes,
+                                             init_cache, init_paged_cache)
+from skypilot_tpu_torch.models.registry import (CausalLMConfig, build_model,
+                                                get_model_config,
+                                                is_causal_lm)
 from skypilot_tpu_torch.train.lora import flax_path, is_lora_path, nest
 
 DEFAULT_PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
@@ -320,21 +329,24 @@ class _ChunkJob:
 class InferenceEngine:
     """Single-device engine over the dense slotted cache.
 
-    params: a ``Llama`` state_dict (``models.convert.state_dict_from_jax``
-    or ``init_params``); None draws one with ``init_params`` from
-    ``generator``.  generator: a ``torch.Generator`` on the engine's
-    device, for the init (when params is None) and for sampling; None
-    seeds one with 0.  device: None means the CUDA card.
+    params: a state_dict of the config's family
+    (``models.convert.state_dict_from_jax`` or ``init_params``); None draws
+    one with ``init_params`` from ``generator``.  generator: a
+    ``torch.Generator`` on the engine's device, for the init (when params
+    is None) and for sampling; None seeds one with 0.  device: None means
+    the CUDA card.
     """
 
-    def __init__(self, model_config: LlamaConfig,
+    def __init__(self, model_config: CausalLMConfig,
                  cfg: Optional[InferConfig] = None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None,
                  device=None):
-        if not isinstance(model_config, LlamaConfig):
-            raise TypeError('the port serves the llama family so far; got '
-                            f'{type(model_config).__name__}')
+        if not is_causal_lm(model_config):
+            raise TypeError(
+                'InferenceEngine supports the Llama, Mixtral and GPT-2 '
+                'families (KV-cache decode path); got '
+                f'{type(model_config).__name__}')
         self.device = resolve_device(device)
         # The serving thread selects this card itself: the current
         # device is per thread.
@@ -392,6 +404,10 @@ class InferenceEngine:
             raise ValueError(f'ngram_max must be >= 1 '
                              f'(got {cfg.ngram_max})')
         self._paged = cfg.kv_block_size > 0
+        if self._paged and not isinstance(model_config, LlamaConfig):
+            raise TypeError(
+                'the block-paged KV cache supports the llama '
+                f'family; got {type(model_config).__name__}')
         if self._paged and cfg.max_cache_len % cfg.kv_block_size:
             raise ValueError(
                 f'max_cache_len ({cfg.max_cache_len}) must be a multiple '
@@ -413,6 +429,10 @@ class InferenceEngine:
             # Multi-LoRA: the model carries lora_max_adapters stacked
             # zero-delta adapters per target (the base model until one
             # is registered).
+            if not isinstance(model_config, LlamaConfig):
+                raise TypeError(
+                    'multi-LoRA serving supports the llama family; got '
+                    f'{type(model_config).__name__}')
             if cfg.lora_max_adapters < 1:
                 raise ValueError('lora_max_adapters must be >= 1')
             model_config = dataclasses.replace(
@@ -449,7 +469,7 @@ class InferenceEngine:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self._gen = generator
-        self.model = Llama(model_config, device=self.device).eval()
+        self.model = build_model(model_config, device=self.device).eval()
         if params is None:
             # The base weights a plain engine draws from this generator.
             params = init_params(base_config, generator)

@@ -47,14 +47,15 @@ routes over a fleet that mixes both:
 
 --auto-prefix registers a prompt's bucket-length head the second time it
 is seen; --draft-len turns on prompt-lookup speculative decoding and
---cache-dtype fp8 the e4m3 KV cache.  --hf-model serves a llama-family
-transformers checkpoint (bf16; --weight-dtype int8 quantizes it, or draws
-random int8 weights for a registered --model); --qos turns on priority
+--cache-dtype fp8 the e4m3 KV cache.  --hf-model serves a causal-LM
+transformers checkpoint (llama, qwen2, mistral, gemma, gpt2, mixtral) in
+bf16; for the llama family --weight-dtype int8 quantizes it, or draws
+random int8 weights for a registered --model; --qos turns on priority
 classes, per-tenant WFQ (--qos-tenant-weights), the deadline shed and
 chunk-boundary preemption, with a "qos" section on /stats.
 
 Not ported yet, failing at startup naming the ROADMAP.md item: tp serving
-(--tensor-parallel) and --hf-model checkpoints outside the llama family.
+(--tensor-parallel).
 
 stdlib only (ThreadingHTTPServer): each request blocks its handler
 thread while the one engine thread runs continuous batching across all
@@ -84,6 +85,7 @@ from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              resolve_cache_dtype)
 from skypilot_tpu_torch.infer.qos import PRIORITY_CLASSES
 from skypilot_tpu_torch.models import quantize
+from skypilot_tpu_torch.models.llama import LlamaConfig
 from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.train.lora import load_adapter_npz
 
@@ -1464,6 +1466,16 @@ def parse_tenant_weights(
     return out or None
 
 
+def _int8_config(model_config):
+    """The config with int8 weights; the llama family only, as the JAX
+    server's check says."""
+    if not isinstance(model_config, LlamaConfig):
+        raise ValueError(
+            '--weight-dtype int8 currently supports the llama '
+            f'family; got {type(model_config).__name__}')
+    return dataclasses.replace(model_config, weight_dtype='int8')
+
+
 def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
         num_slots: int = 8, max_cache_len: int = 2048,
         tokenizer_name: Optional[str] = None,
@@ -1495,7 +1507,7 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
         qos_tenant_weights: Optional[str] = None,
         warmup: bool = False) -> None:
     """Build the engine and an optional tokenizer, and serve.  The weights
-    are a transformers checkpoint's (``hf_model``, llama family, loaded
+    are a transformers checkpoint's (``hf_model``, a causal LM, loaded
     in bf16) or random ones from seed 0 for the registry's ``model``;
     ``weight_dtype='int8'`` quantizes the checkpoint's (on the engine's
     device) or draws random int8 ones.  The tokenizer defaults to the
@@ -1516,8 +1528,7 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
         model_config, params = hf_import.load_hf_model(
             hf_model, param_dtype=torch.bfloat16)
         if weight_dtype == 'int8':
-            model_config = dataclasses.replace(model_config,
-                                               weight_dtype='int8')
+            model_config = _int8_config(model_config)
             # On the engine's device, one weight at a time: no host f32
             # copy of the model.
             params = dict(quantize.iter_quantized(
@@ -1529,8 +1540,7 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     else:
         model_config = get_model_config(model)
         if weight_dtype == 'int8':
-            model_config = dataclasses.replace(model_config,
-                                               weight_dtype='int8')
+            model_config = _int8_config(model_config)
     cfg = InferConfig(model=model, num_slots=num_slots,
                       max_cache_len=max_cache_len, eos_id=eos_id,
                       decode_steps=decode_steps,
@@ -1582,8 +1592,8 @@ def main() -> None:
     parser.add_argument('--decode-steps', type=int, default=8)
     parser.add_argument('--hf-model', default=None,
                         help='transformers checkpoint directory of the '
-                             'llama family (llama, qwen2, mistral, '
-                             'gemma), served in bf16')
+                             'causal LM (llama, qwen2, mistral, gemma, '
+                             'gpt2, mixtral), served in bf16')
     parser.add_argument('--cache-dtype', default='bfloat16',
                         choices=['bfloat16', 'fp8', 'float8_e4m3fn'],
                         help='KV-cache storage dtype; fp8 (e4m3) halves '

@@ -1,6 +1,6 @@
-"""HuggingFace checkpoint import for the llama family -- the port's
-counterpart of ``skypilot_tpu/models/hf_import.py`` (llama, qwen2, mistral
-and gemma checkpoints; the other families are ROADMAP.md A8.2).
+"""HuggingFace checkpoint import for the causal LMs -- the port's
+counterpart of ``skypilot_tpu/models/hf_import.py`` (llama, qwen2,
+mistral, gemma, gpt2 and mixtral checkpoints; bert is ROADMAP.md A8.2).
 
 Two layers, as in the JAX package:
 
@@ -9,33 +9,44 @@ Two layers, as in the JAX package:
   already ``nn.Linear``'s layout, so weights keep their shape and stored
   dtype (or take ``param_dtype``); RMSNorm weights become the port's
   ``w - 1`` form in f32 (Gemma checkpoints already store it:
-  ``hf_norm_zero_centered``).  No transformers import.
+  ``hf_norm_zero_centered``).  GPT-2's Conv1D weights are stored
+  ``[in, out]`` and are transposed; its LayerNorms keep weight and bias.
+  Mixtral's experts (``w1``/``w3``/``w2`` = gate/up/down) are transposed
+  and stacked into the port's ``[E, H, F]``/``[E, F, H]`` tensors.  No
+  transformers import.
 - ``load_hf_model(name_or_path)``: loads a transformers checkpoint (a
   local directory, or a model id already in the local cache: nothing is
   downloaded), derives the config with ``config_from_hf`` and converts.
   ``transformers`` is imported inside it only.
 
 RoPE is the rotate-half convention on both sides: no head-dim permutation.
+HF's Mixtral routes without a capacity, so ``config_from_hf`` sets the
+drop-free ``capacity_factor = E / k``, as the JAX importer does.
 """
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from skypilot_tpu_torch.models.gpt2 import GPT2Config
 from skypilot_tpu_torch.models.llama import LlamaConfig
+from skypilot_tpu_torch.models.mixtral import MixtralConfig
+from skypilot_tpu_torch.models.registry import CausalLMConfig
 
 StateDict = Dict[str, torch.Tensor]
 
 # HF model types of the JAX package's importer that the port does not
 # have yet.
-_NOT_PORTED = ('gpt2', 'mixtral', 'bert')
+_NOT_PORTED = ('bert',)
 # HF model types the JAX server takes for --hf-model: the causal LMs.
 _CAUSAL_LM = ('llama', 'qwen2', 'mistral', 'mixtral', 'gpt2', 'gemma')
 
 # Non-weight buffers that legitimately remain unconverted (matched as
 # suffixes against checkpoint keys).
 _IGNORABLE_SUFFIXES = (
-    'rotary_emb.inv_freq',          # old llama checkpoints
+    'rotary_emb.inv_freq',          # old llama/mixtral checkpoints
+    '.attn.bias',                   # gpt2 causal-mask buffer
+    '.attn.masked_bias',            # gpt2 mask fill buffer
 )
 
 
@@ -59,17 +70,26 @@ class _SD:
         return sorted(set(self._sd) - self.used)
 
 
-def _convert_llama(cfg: LlamaConfig, sd: _SD,
-                   param_dtype: Optional[torch.dtype]) -> StateDict:
+def _reader(sd: _SD, param_dtype: Optional[torch.dtype]):
+    """sd(key) as a tensor in param_dtype (None keeps its stored dtype)."""
     def w(key):
         t = torch.as_tensor(sd(key)).detach()
         return t if param_dtype is None else t.to(param_dtype)
+    return w
+
+
+def _convert_llama(cfg, sd: _SD,
+                   param_dtype: Optional[torch.dtype]) -> StateDict:
+    """Llama and Mixtral: the shared attention and norms, then each
+    layer's MLP or sparse MoE block."""
+    w = _reader(sd, param_dtype)
+    zero_centered = getattr(cfg, 'hf_norm_zero_centered', False)
 
     def norm(key):
         # As the JAX importer: the weight in the target dtype, then the
         # '+1' reparam in f32 (the subtraction must not round in bf16).
         t = w(key).float()
-        return t if cfg.hf_norm_zero_centered else t - 1.0
+        return t if zero_centered else t - 1.0
 
     out: StateDict = {'embedding': w('embed_tokens.weight'),
                       'final_norm.scale': norm('norm.weight')}
@@ -82,19 +102,51 @@ def _convert_llama(cfg: LlamaConfig, sd: _SD,
             p + 'post_attention_layernorm.weight')
         for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj'):
             out[f'{p}attn.{name}.weight'] = w(f'{p}self_attn.{name}.weight')
-        if cfg.attention_bias:       # Qwen2-style q/k/v biases
+        if getattr(cfg, 'attention_bias', False):   # Qwen2-style biases
             for name in ('q_proj', 'k_proj', 'v_proj'):
                 out[f'{p}attn.{name}.bias'] = w(f'{p}self_attn.{name}.bias')
+        if isinstance(cfg, MixtralConfig):
+            moe = p + 'block_sparse_moe.'
+            out[p + 'moe.router.weight'] = w(moe + 'gate.weight')
+            # HF expert naming: w1 = gate, w3 = up, w2 = down.
+            for name, hf in (('w_gate', 'w1'), ('w_up', 'w3'),
+                             ('w_down', 'w2')):
+                out[f'{p}moe.{name}'] = torch.stack([
+                    w(f'{moe}experts.{e}.{hf}.weight').T
+                    for e in range(cfg.num_experts)])
+            continue
         for name in ('gate_proj', 'up_proj', 'down_proj'):
             out[f'{p}mlp.{name}.weight'] = w(f'{p}mlp.{name}.weight')
     return out
 
 
-def convert_state_dict(cfg: LlamaConfig, state_dict: Dict[str, Any],
+def _convert_gpt2(cfg: GPT2Config, sd: _SD,
+                  param_dtype: Optional[torch.dtype]) -> StateDict:
+    w = _reader(sd, param_dtype)
+    out: StateDict = {'wte': w('wte.weight'), 'wpe': w('wpe.weight')}
+
+    def norm(name):
+        out[name + '.scale'] = w(name + '.weight')
+        out[name + '.bias'] = w(name + '.bias')
+
+    norm('ln_f')
+    for i in range(cfg.num_layers):
+        p = f'h.{i}.'                # the same block prefix on both sides
+        norm(p + 'ln_1')
+        norm(p + 'ln_2')
+        for n in ('attn.c_attn', 'attn.c_proj', 'mlp.c_fc', 'mlp.c_proj'):
+            # HF GPT-2's Conv1D stores [in, out]: transposed to [out, in].
+            out[f'{p}{n}.weight'] = w(f'{p}{n}.weight').T
+            out[f'{p}{n}.bias'] = w(f'{p}{n}.bias')
+    return out
+
+
+def convert_state_dict(cfg: CausalLMConfig, state_dict: Dict[str, Any],
                        strict: bool = True,
                        param_dtype: Optional[torch.dtype] = None
                        ) -> StateDict:
-    """An HF torch state_dict -> the port's ``Llama`` state_dict.
+    """An HF torch state_dict -> the port's state_dict of the config's
+    family.
 
     strict: raise if the checkpoint holds weights with no target (q/k/v
     biases the config does not declare, extra heads): dropping them
@@ -102,16 +154,20 @@ def convert_state_dict(cfg: LlamaConfig, state_dict: Dict[str, Any],
 
     param_dtype: the dtype of the converted weights (None keeps each
     tensor's stored dtype); norm scales are f32 regardless."""
-    if not isinstance(cfg, LlamaConfig):
+    conv = {LlamaConfig: _convert_llama, GPT2Config: _convert_gpt2,
+            MixtralConfig: _convert_llama}.get(type(cfg))
+    if conv is None:
         raise ValueError(
             f'no HF converter for {type(cfg).__name__}; supported: '
-            "['LlamaConfig']")
+            "['LlamaConfig', 'GPT2Config', 'MixtralConfig']")
     sd = _SD(state_dict)
-    out = _convert_llama(cfg, sd, param_dtype)
+    out = {k: v.contiguous() for k, v in conv(cfg, sd, param_dtype).items()}
+    # GPT-2 is always weight-tied (no config field).
+    tied = isinstance(cfg, GPT2Config) or cfg.tie_embeddings
     leftover = [
         k for k in sd.unused()
         if not k.endswith(_IGNORABLE_SUFFIXES)
-        and not (cfg.tie_embeddings and k.endswith('lm_head.weight'))
+        and not (tied and k.endswith('lm_head.weight'))
     ]
     if leftover and strict:
         raise ValueError(
@@ -122,9 +178,9 @@ def convert_state_dict(cfg: LlamaConfig, state_dict: Dict[str, Any],
     return out
 
 
-def config_from_hf(hf_config, name: Optional[str] = None) -> LlamaConfig:
-    """Map a transformers config object to the port's ``LlamaConfig``,
-    with the JAX importer's refusals word for word."""
+def config_from_hf(hf_config, name: Optional[str] = None) -> CausalLMConfig:
+    """Map a transformers config object to the port's config of its
+    family, with the JAX importer's refusals word for word."""
     mt = getattr(hf_config, 'model_type', None)
     name = name or f'hf-{mt}'
     if mt in ('llama', 'qwen2', 'mistral'):
@@ -201,6 +257,31 @@ def config_from_hf(hf_config, name: Optional[str] = None) -> LlamaConfig:
             hidden_act=act,
             scale_embeddings=True,
             hf_norm_zero_centered=True)
+    if mt == 'gpt2':
+        return GPT2Config(
+            name=name, vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.n_embd, num_layers=hf_config.n_layer,
+            num_heads=hf_config.n_head, max_seq_len=hf_config.n_positions,
+            norm_eps=hf_config.layer_norm_epsilon)
+    if mt == 'mixtral':
+        return MixtralConfig(
+            name=name, vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            intermediate_size=hf_config.intermediate_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            num_experts=hf_config.num_local_experts,
+            experts_per_token=hf_config.num_experts_per_tok,
+            # No dropped tokens: HF routes without a capacity.
+            capacity_factor=float(hf_config.num_local_experts) /
+            hf_config.num_experts_per_tok,
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=getattr(hf_config, 'rope_theta', 1e6),
+            norm_eps=hf_config.rms_norm_eps,
+            router_aux_loss_weight=getattr(hf_config,
+                                           'router_aux_loss_coef', 0.02),
+            tie_embeddings=getattr(hf_config, 'tie_word_embeddings', False))
     if mt in _NOT_PORTED:
         raise NotImplementedError(
             f'HF model_type {mt!r} belongs to a family that is not yet '
@@ -210,7 +291,7 @@ def config_from_hf(hf_config, name: Optional[str] = None) -> LlamaConfig:
 
 def load_hf_model(name_or_path: str, dtype: Optional[torch.dtype] = None,
                   param_dtype: Optional[torch.dtype] = None
-                  ) -> Tuple[LlamaConfig, StateDict]:
+                  ) -> Tuple[CausalLMConfig, StateDict]:
     """Load a transformers checkpoint (a local directory or a warm cache)
     and return ``(config, state_dict)``.  The config comes first, from
     ``config.json`` alone, so a checkpoint that is no causal LM (the JAX

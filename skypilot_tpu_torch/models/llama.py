@@ -222,13 +222,15 @@ def write_kv_and_attend(kv_cache: Tuple[torch.Tensor, torch.Tensor],
     sequence at its absolute positions -- in place, where the JAX package
     donates the buffers -- then attend over the whole cache.
 
-    Positions within one call are contiguous.  Like JAX's
-    dynamic_update_slice, the start row is clamped to [0, M - T], so a
-    dead speculative step past the cache end rewrites the last rows
-    instead of indexing out of bounds."""
+    Positions within one call are contiguous.  As the JAX package's
+    vmapped dynamic_update_slice places them, a negative start row wraps
+    once (+ M) and the start is clamped to [0, M - T], so a dead
+    speculative step past the cache end rewrites the last rows instead of
+    indexing out of bounds."""
     k_cache, v_cache = kv_cache
     t, m = k.shape[2], k_cache.shape[2]
-    start = positions[:, 0].clamp(0, m - t)
+    start = positions[:, 0]
+    start = torch.where(start < 0, start + m, start).clamp(0, m - t)
     rows = start[:, None] + torch.arange(t, device=k.device)     # [B, T]
     batch = torch.arange(k.shape[0], device=k.device)[:, None]   # [B, 1]
     # Advanced indices around the head slice: value shape [B, T, Hkv, D].

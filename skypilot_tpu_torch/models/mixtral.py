@@ -1,0 +1,307 @@
+"""Mixtral-family MoE decoder: Llama attention + top-k sparse SwiGLU
+experts -- the PyTorch twin of ``skypilot_tpu/models/mixtral.py``.
+
+Attention, RMSNorm, RoPE and the KV-cache contract are the llama module's
+(``llama.Attention`` on ``config.as_llama()``), so ``llama.init_cache``
+sizes Mixtral's cache and the engine serves it unchanged.  The FFN is a
+``MoEBlock``:
+
+- the no-cache forward (training, scoring) routes with GShard capacity:
+  each expert takes at most ``capacity = max(1, int(cf * G * k / E))`` of
+  the G tokens, ranked choice-major -- every token's first choice before
+  any token's second, then by token index -- and a (token, choice) past
+  its expert's capacity loses that expert's output (the residual
+  carries the token).  The JAX module builds one-hot ``[G, E, C]``
+  dispatch and combine tensors; here the same slots are computed as
+  indices (``top_k_routing``) and the tokens move by gather and
+  index_put, which costs O(k*G*E) memory instead of O(G^2).  The router's
+  load-balance loss comes back beside the output;
+- the cached forward (the engine's, any cache dtype) routes exactly: every
+  expert runs on every token and the outputs are gate-weighted, so a
+  served stream never loses an expert to another slot's traffic.
+
+The router is an f32 dense layer on the f32 input, stored in f32;
+``top_k`` runs on its softmax probabilities (a stable sort, so ties take
+the lower expert as ``lax.top_k`` does) and the k gates are renormalized.
+Expert weights are stacked ``[E, H, F]`` / ``[E, F, H]`` tensors in
+``param_dtype``, the flax layout, multiplied with ``torch.bmm`` in the
+compute dtype.
+"""
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from skypilot_tpu_torch.models.llama import (Attention, KVCache, LlamaConfig,
+                                             RMSNorm, _remat)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixtralConfig:
+    name: str
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    num_experts: int = 8
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    max_seq_len: int = 4096
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+    router_aux_loss_weight: float = 0.02
+    tie_embeddings: bool = False
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ('q_proj', 'k_proj', 'v_proj',
+                                     'o_proj')
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim_(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def as_llama(self) -> LlamaConfig:
+        """The attention and norm hyperparameters of the shared llama
+        blocks."""
+        return LlamaConfig(
+            name=self.name, vocab_size=self.vocab_size,
+            hidden_size=self.hidden_size,
+            intermediate_size=self.intermediate_size,
+            num_layers=self.num_layers, num_heads=self.num_heads,
+            num_kv_heads=self.num_kv_heads, max_seq_len=self.max_seq_len,
+            rope_theta=self.rope_theta, norm_eps=self.norm_eps,
+            lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
+            lora_targets=self.lora_targets, dtype=self.dtype)
+
+    def _params(self, experts: int) -> int:
+        h, v, l = self.hidden_size, self.vocab_size, self.num_layers
+        d = self.head_dim_
+        attn = h * d * (self.num_heads * 2 + self.num_kv_heads * 2)
+        moe = experts * 3 * h * self.intermediate_size + \
+            h * self.num_experts
+        return l * (attn + moe + 2 * h) + v * h * 2 + h
+
+    @property
+    def num_params(self) -> int:
+        return self._params(self.num_experts)
+
+    @property
+    def active_params(self) -> int:
+        """Parameters one token touches (the compute-cost count)."""
+        return self._params(self.experts_per_token)
+
+    def flops_per_token(self, seq_len: int) -> float:
+        attn_flops = 12 * self.num_layers * self.num_heads * \
+            self.head_dim_ * seq_len
+        return 6 * self.active_params + attn_flops
+
+
+def capacity(config: MixtralConfig, num_tokens: int) -> int:
+    """Slots per expert for a group of `num_tokens` tokens."""
+    return max(1, int(config.capacity_factor * num_tokens *
+                      config.experts_per_token / config.num_experts))
+
+
+def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest, ties to the lower
+    index (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _gates(router_logits: torch.Tensor, k: int):
+    """(softmax probs [G, E], renormalized top-k gates [G, k], their
+    experts [G, k]), in f32."""
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    gate_vals, gate_idx = _top_k(probs, k)
+    return probs, gate_vals / gate_vals.sum(-1, keepdim=True), gate_idx
+
+
+class Routing(NamedTuple):
+    """Capacity routing of G tokens, per (choice, token) pair [k, G]:
+    ``expert`` its expert, ``slot`` its rank within that expert (choice-
+    major), ``kept`` whether the rank is under ``capacity``, ``gate`` its
+    renormalized router probability (f32); ``aux`` the load-balance loss.
+    The JAX module's one-hot dispatch [G, E, C] is 1 at (token, expert,
+    slot) of every kept pair, and its combine holds the pair's gate
+    there."""
+    expert: torch.Tensor
+    slot: torch.Tensor
+    kept: torch.Tensor
+    gate: torch.Tensor
+    aux: torch.Tensor
+    capacity: int
+
+
+def top_k_routing(router_logits: torch.Tensor, num_experts: int, k: int,
+                  capacity: int) -> Routing:
+    """GShard routing from router logits [G, E], as the JAX module's
+    ``top_k_routing``: the slot of each (choice, token) is its rank among
+    the pairs routed to its expert in (choice, token) order; the aux loss
+    is E * sum_e(top-1 share_e * mean prob_e) over every token (no mask)."""
+    probs, gate_vals, gate_idx = _gates(router_logits, k)
+    expert = gate_idx.T.contiguous()                            # [k, G]
+    flat = expert.reshape(-1)
+    # Rank within the expert: a running count over the flattened
+    # choice-major [k*G, E] one-hot, read at the pair's own expert.
+    ranks = torch.cumsum(F.one_hot(flat, num_experts), dim=0) - 1
+    slot = ranks.gather(1, flat[:, None]).view_as(expert)
+    density = torch.bincount(expert[0], minlength=num_experts).float() / \
+        expert.shape[1]
+    aux = torch.sum(density * probs.mean(0)) * num_experts
+    return Routing(expert, slot, slot < capacity, gate_vals.T, aux, capacity)
+
+
+class MoEBlock(nn.Module):
+    """Top-k sparse SwiGLU experts (see the module docstring).  forward
+    returns (out, aux): aux is the router's load-balance loss times
+    ``router_aux_loss_weight`` on the capacity path, None on the exact
+    one."""
+
+    def __init__(self, config: MixtralConfig, device=None, param_dtype=None):
+        super().__init__()
+        cfg = self.config = config
+        pd = param_dtype or cfg.dtype
+        e, h, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        self.router = nn.Linear(h, e, bias=False, dtype=torch.float32,
+                                device=device)
+
+        def stacked(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=pd, device=device))
+
+        self.w_gate = stacked(e, h, f)
+        self.w_up = stacked(e, h, f)
+        self.w_down = stacked(e, f, h)
+
+    def _experts(self, x: torch.Tensor) -> torch.Tensor:
+        """SwiGLU of every expert on its rows: x [E, N, H] -> [E, N, H]."""
+        dt = self.config.dtype
+        hmid = F.silu(torch.bmm(x, self.w_gate.to(dt))) * \
+            torch.bmm(x, self.w_up.to(dt))
+        return torch.bmm(hmid, self.w_down.to(dt))
+
+    def forward(self, x: torch.Tensor, exact: bool = False):
+        cfg = self.config
+        b, s, h = x.shape
+        g, e, dt = b * s, cfg.num_experts, cfg.dtype
+        xf = x.reshape(g, h)
+        logits = self.router(xf.float())
+        xc = xf.to(dt)
+        if exact:
+            _, gate_vals, gate_idx = _gates(logits, cfg.experts_per_token)
+            gates = torch.zeros_like(logits).scatter(1, gate_idx, gate_vals)
+            out = self._experts(xc.expand(e, g, h))
+            out = torch.einsum('egh,ge->gh', out, gates.to(dt))
+            return out.reshape(b, s, h), None
+        r = top_k_routing(logits, e, cfg.experts_per_token, capacity(cfg, g))
+        tok = torch.arange(g, device=x.device).expand_as(r.expert)
+        expert_in = xc.new_zeros(e, r.capacity, h)
+        expert_in[r.expert[r.kept], r.slot[r.kept]] = xc[tok[r.kept]]
+        expert_out = self._experts(expert_in)
+        picked = expert_out[r.expert, r.slot.clamp_max(r.capacity - 1)]
+        weight = torch.where(r.kept, r.gate, 0.0).to(dt)       # [k, G]
+        out = (weight[..., None].float() * picked.float()).sum(0).to(dt)
+        return out.reshape(b, s, h), r.aux * cfg.router_aux_loss_weight
+
+
+class MixtralLayer(nn.Module):
+
+    def __init__(self, config: MixtralConfig, device=None, param_dtype=None):
+        super().__init__()
+        h, eps = config.hidden_size, config.norm_eps
+        self.input_norm = RMSNorm(h, eps, device)
+        self.attn = Attention(config.as_llama(), device, param_dtype)
+        self.post_attn_norm = RMSNorm(h, eps, device)
+        self.moe = MoEBlock(config, device, param_dtype)
+
+    def forward(self, x, positions, kv_cache=None):
+        """(out, new_cache) with a cache (exact routing), else (out, aux)
+        (capacity routing): aux comes back as an output, so a
+        checkpointed call's recomputation leaves it as it was."""
+        attn_in = self.input_norm(x)
+        if kv_cache is not None:
+            attn_out, extra = self.attn(attn_in, positions, kv_cache)
+        else:
+            attn_out = self.attn(attn_in, positions)
+        h = x + attn_out
+        moe_out, aux = self.moe(self.post_attn_norm(h),
+                                exact=kv_cache is not None)
+        return h + moe_out, (extra if kv_cache is not None else aux)
+
+
+class Mixtral(nn.Module):
+    """MoE decoder LM.  forward(tokens [B, S]) -> logits [B, S, V] f32.
+
+    Parameter names mirror the flax tree (``layers.{i}`` for
+    ``layer_{i}``, ``moe.router.weight`` for the router kernel
+    transposed, ``moe.w_gate``/``w_up``/``w_down`` as stored there);
+    ``models.convert`` maps one onto the other."""
+
+    def __init__(self, config: MixtralConfig, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.config = config
+        h = config.hidden_size
+        self.embedding = nn.Parameter(torch.empty(
+            config.vocab_size, h, dtype=torch.float32, device=device))
+        self.layers = nn.ModuleList(
+            MixtralLayer(config, device, param_dtype)
+            for _ in range(config.num_layers))
+        self.final_norm = RMSNorm(h, config.norm_eps, device)
+        self.lm_head = (None if config.tie_embeddings else nn.Linear(
+            h, config.vocab_size, bias=False, dtype=torch.float32,
+            device=device))
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None, hidden_only: bool = False,
+                adapter_ids: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
+        """Scoring and training: forward(tokens) -> logits (capacity
+        routing); with return_aux, (logits, aux) where aux is the sum over
+        layers of each router's weighted load-balance loss (the JAX
+        module's sown ``router_aux_loss`` values, summed as its trainer
+        sums them).  hidden_only=True returns the final-norm hidden states
+        [B, S, H] instead of logits.
+
+        Incremental inference: forward(tokens, positions, cache) ->
+        (logits, cache), the llama module's cache contract, with exact
+        routing.  Token ids map as the llama module's do.  adapter_ids
+        must be None: multi-LoRA serves the llama family only."""
+        if adapter_ids is not None:
+            raise TypeError('multi-LoRA serving supports the llama family; '
+                            'got MixtralConfig')
+        cfg = self.config
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device
+                                     ).expand(tokens.shape)
+        vocab = cfg.vocab_size
+        tokens = torch.where(tokens < 0, tokens + vocab,
+                             tokens).clamp(0, vocab - 1)
+        x = self.embedding[tokens].to(cfg.dtype)
+        new_cache, aux = [], torch.zeros((), device=tokens.device)
+        # Every layer checkpointed under grad, as the JAX module's nn.remat.
+        remat = None if cache is not None else _remat('full')
+        for i, layer in enumerate(self.layers):
+            if cache is not None:
+                x, layer_cache = layer(x, positions, cache[i])
+                new_cache.append(layer_cache)
+                continue
+            x, layer_aux = (remat(layer, x, positions) if remat is not None
+                            else layer(x, positions))
+            aux = aux + layer_aux
+        x = self.final_norm(x)
+        if hidden_only:
+            out = x
+        elif cfg.tie_embeddings:
+            out = x.float() @ self.embedding.float().T
+        else:
+            out = self.lm_head(x.float())
+        if cache is not None:
+            return out, new_cache
+        return (out, aux) if return_aux else out

@@ -1,19 +1,25 @@
-"""Named model configs of the port: the llama family of
-``skypilot_tpu/models/registry.py`` (same names, same sizes).  The other
-families are not ported yet and raise."""
-from typing import Dict
+"""Named model configs of the port: the causal-LM families of
+``skypilot_tpu/models/registry.py`` (llama, gemma, GPT-2, Mixtral; same
+names, same sizes) and ``build_model``/``is_causal_lm``, which pick a
+config's module.  The encoder and vision families are not ported yet and
+raise."""
+from typing import Any, Dict, Union
 
-from skypilot_tpu_torch.models.llama import LlamaConfig
+from torch import nn
 
-_CONFIGS: Dict[str, LlamaConfig] = {}
+from skypilot_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from skypilot_tpu_torch.models.llama import Llama, LlamaConfig
+from skypilot_tpu_torch.models.mixtral import Mixtral, MixtralConfig
+
+CausalLMConfig = Union[LlamaConfig, GPT2Config, MixtralConfig]
+
+_CONFIGS: Dict[str, CausalLMConfig] = {}
 
 # Families of the JAX registry that the port does not have yet.
-_NOT_PORTED = ('gpt2', 'gpt2-medium', 'gpt2-large', 'gpt2-debug',
-               'mixtral-8x7b', 'mixtral-debug', 'bert-base', 'bert-debug',
-               'resnet50', 'resnet18-debug')
+_NOT_PORTED = ('bert-base', 'bert-debug', 'resnet50', 'resnet18-debug')
 
 
-def _register(cfg: LlamaConfig) -> LlamaConfig:
+def _register(cfg: CausalLMConfig) -> CausalLMConfig:
     _CONFIGS[cfg.name] = cfg
     return cfg
 
@@ -88,12 +94,52 @@ _register(
                 scale_embeddings=True, hf_norm_zero_centered=True))
 
 
-def get_model_config(name: str) -> LlamaConfig:
+# ------------------------------------------------------------------ gpt2
+_register(GPT2Config(name='gpt2', vocab_size=50257, hidden_size=768,
+                     num_layers=12, num_heads=12, max_seq_len=1024))
+_register(GPT2Config(name='gpt2-medium', vocab_size=50257,
+                     hidden_size=1024, num_layers=24, num_heads=16,
+                     max_seq_len=1024))
+_register(GPT2Config(name='gpt2-large', vocab_size=50257,
+                     hidden_size=1280, num_layers=36, num_heads=20,
+                     max_seq_len=1024))
+_register(GPT2Config(name='gpt2-debug', vocab_size=256, hidden_size=64,
+                     num_layers=2, num_heads=4, max_seq_len=128))
+
+# --------------------------------------------------------------- mixtral
+_register(
+    MixtralConfig(name='mixtral-8x7b', vocab_size=32000, hidden_size=4096,
+                  intermediate_size=14336, num_layers=32, num_heads=32,
+                  num_kv_heads=8, num_experts=8, experts_per_token=2,
+                  max_seq_len=4096))
+_register(
+    MixtralConfig(name='mixtral-debug', vocab_size=256, hidden_size=64,
+                  intermediate_size=128, num_layers=2, num_heads=4,
+                  num_kv_heads=2, num_experts=4, experts_per_token=2,
+                  max_seq_len=128, tie_embeddings=True))
+
+
+def get_model_config(name: str) -> CausalLMConfig:
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f'model {name!r} belongs to a family that is not yet ported '
-            '(ROADMAP.md A8, other families and weight paths)')
+            '(ROADMAP.md A8.2, the other families)')
     if name not in _CONFIGS:
         raise ValueError(
             f'Unknown model {name!r}. Available: {sorted(_CONFIGS)}')
     return _CONFIGS[name]
+
+
+def build_model(config: Any, device=None, param_dtype=None) -> nn.Module:
+    """Config -> the port's module on `device` (``param_dtype`` as each
+    module takes it)."""
+    for cfg_type, module in ((LlamaConfig, Llama), (GPT2Config, GPT2),
+                             (MixtralConfig, Mixtral)):
+        if isinstance(config, cfg_type):
+            return module(config, device=device, param_dtype=param_dtype)
+    raise TypeError(f'No module builder for config type {type(config)}')
+
+
+def is_causal_lm(config: Any) -> bool:
+    """True for the families the trainer and the engine take."""
+    return isinstance(config, (LlamaConfig, GPT2Config, MixtralConfig))

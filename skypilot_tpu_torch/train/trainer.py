@@ -1,13 +1,14 @@
-"""Single-device training of the llama family, the port of
-``skypilot_tpu/train/trainer.py``.
+"""Single-device training of the causal LMs (the llama family, GPT-2 and
+Mixtral), the port of ``skypilot_tpu/train/trainer.py``.
 
 The JAX trainer jits one step over a device mesh.  Here the step runs
-eagerly on one card: the no-cache Llama forward (each decoder layer
-checkpointed by ``remat_policy``, attention through the flash-attention
-kernels and their autograd Function), the next-token loss with the
-vocabulary projection chunked over the sequence, ``backward()``, clipping
-by global norm and AdamW on f32 master weights -- what ``make_train_step``
-computes, to float noise.  Names follow the JAX module so each piece has
+eagerly on one card: the model's no-cache forward (each decoder layer
+checkpointed -- by ``remat_policy`` for the llama family, always for GPT-2
+and Mixtral, as their JAX modules do -- attention through the
+flash-attention kernels and their autograd Function), the next-token loss
+with the vocabulary projection chunked over the sequence, ``backward()``,
+clipping by global norm and AdamW on f32 master weights -- what
+``make_train_step`` computes, to float noise.  Names follow the JAX module so each piece has
 an obvious counterpart.
 
 With ``model_config.lora_rank`` > 0 the step trains the ``*_lora``
@@ -20,10 +21,18 @@ the base carries no Adam moments -- what ``make_train_step(trainable=
 lora.is_lora_path)`` with the reference's ``multi_transform`` optimizer
 computes.
 
-Not ported here: a mesh and pipeline parallelism (ROADMAP.md A9) and the
-other model families with the MoE router loss (ROADMAP.md A8); each
-raises ``NotImplementedError``.  Checkpoints use the port's own format
-(``torch.save``; there is no orbax).
+Mixtral adds its routers' load-balance loss to the objective: each
+layer's ``aux * router_aux_loss_weight``, summed over layers and scaled by
+1/K under K-step gradient accumulation (the term is a per-token mean that
+ignores the mask), on the full-logit and the chunked-loss paths alike, as
+the JAX step sums the sown ``router_aux_loss`` values.  The layer returns
+its term from the checkpointed call, so backward's recomputation leaves
+it as it was.  GPT-2's tied head is ``wte``.
+
+Not ported here: a mesh and pipeline parallelism (ROADMAP.md A9) and LoRA
+on Mixtral (ROADMAP.md A8.2); each raises ``NotImplementedError``.
+Checkpoints use the port's own format (``torch.save``; there is no
+orbax).
 """
 import dataclasses
 import math
@@ -41,8 +50,10 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models.convert import init_params, iter_params
-from skypilot_tpu_torch.models.llama import Llama, LlamaConfig
-from skypilot_tpu_torch.models.registry import get_model_config
+from skypilot_tpu_torch.models.mixtral import MixtralConfig
+from skypilot_tpu_torch.models.registry import (CausalLMConfig, build_model,
+                                                get_model_config,
+                                                is_causal_lm)
 from skypilot_tpu_torch.train.lora import is_lora_path
 
 Batch = Dict[str, torch.Tensor]
@@ -84,7 +95,7 @@ class TrainState:
     (its parameters) and the optimizer with its LR schedule.  The train
     step updates it in place."""
     step: int
-    model: Llama
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: torch.optim.lr_scheduler.LambdaLR
 
@@ -156,12 +167,13 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor]
     return optimizer, schedule
 
 
-def trainable_parameters(model: Llama) -> List[torch.nn.Parameter]:
+def trainable_parameters(model: torch.nn.Module
+                         ) -> List[torch.nn.Parameter]:
     """The parameters a train step updates: with ``lora_rank`` > 0 the
     ``*_lora`` adapters only, after freezing every other parameter
     (``requires_grad_(False)``: no gradient, no optimizer state); else
     all of them."""
-    if not model.config.lora_rank:
+    if not getattr(model.config, 'lora_rank', 0):
         return list(model.parameters())
     out = []
     for name, p in model.named_parameters():
@@ -188,11 +200,12 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     return total / mask.sum().clamp_min(1)
 
 
-def output_projection(model: Llama) -> torch.Tensor:
-    """[H, V] lm-head matrix (tied families use the [V, H] embedding)."""
-    if model.lm_head is not None:
+def output_projection(model: torch.nn.Module) -> torch.Tensor:
+    """[H, V] lm-head matrix (tied families use the [V, H] embedding:
+    llama and mixtral ``embedding``, gpt2 ``wte``)."""
+    if getattr(model, 'lm_head', None) is not None:
         return model.lm_head.weight.T
-    return model.embedding.T
+    return (model.wte if hasattr(model, 'wte') else model.embedding).T
 
 
 def _chunk_loss(hidden: torch.Tensor, proj: torch.Tensor,
@@ -233,26 +246,49 @@ def chunked_cross_entropy(hidden: torch.Tensor, proj: torch.Tensor,
     return total / mask.sum().clamp_min(1.0)
 
 
-def loss_fn(model: Llama, inputs: torch.Tensor, targets: torch.Tensor,
-            mask: Optional[torch.Tensor] = None,
+def objective(model: torch.nn.Module, inputs: torch.Tensor,
+              targets: torch.Tensor, mask: Optional[torch.Tensor] = None,
+              loss_chunk: Optional[int] = 128,
+              normalizer: Optional[torch.Tensor] = None,
+              aux_scale: float = 1.0
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The train step's objective on one (micro)batch and its router term:
+    the fused chunked loss over the final hidden states, or with
+    loss_chunk None the CE of the full logits, plus for Mixtral
+    aux_scale times the routers' weighted load-balance losses summed over
+    layers.  Returns (objective, the router term as added; None for the
+    dense families)."""
+    if isinstance(model.config, MixtralConfig):
+        out, aux = model(inputs, hidden_only=bool(loss_chunk),
+                         return_aux=True)
+    else:
+        out, aux = model(inputs, hidden_only=bool(loss_chunk)), None
+    if loss_chunk:
+        loss = chunked_cross_entropy(out, output_projection(model), targets,
+                                     mask, chunk_t=loss_chunk,
+                                     normalizer=normalizer)
+    else:
+        loss = cross_entropy_loss(out, targets, mask, normalizer=normalizer)
+    if aux is None:
+        return loss, None
+    aux = aux * aux_scale
+    return loss + aux, aux
+
+
+def loss_fn(model: torch.nn.Module, inputs: torch.Tensor,
+            targets: torch.Tensor, mask: Optional[torch.Tensor] = None,
             loss_chunk: Optional[int] = 128,
             normalizer: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The train step's objective on one (micro)batch: the fused chunked
-    loss over the final hidden states, or with loss_chunk None the CE of
-    the full logits."""
-    if loss_chunk:
-        hidden = model(inputs, hidden_only=True)
-        return chunked_cross_entropy(hidden, output_projection(model),
-                                     targets, mask, chunk_t=loss_chunk,
-                                     normalizer=normalizer)
-    return cross_entropy_loss(model(inputs), targets, mask,
-                              normalizer=normalizer)
+    """The train step's objective on one (micro)batch (``objective``'s
+    first value)."""
+    return objective(model, inputs, targets, mask, loss_chunk,
+                     normalizer)[0]
 
 
 def _shift(state: TrainState, batch: Batch):
     """(inputs, targets, mask) on the model's device: tokens[:, :-1],
     tokens[:, 1:] and the mask of the targets."""
-    dev = state.model.embedding.device
+    dev = next(state.model.parameters()).device
     tokens = batch['tokens'].to(dev, non_blocking=True)
     mask = batch.get('mask')
     if mask is not None:
@@ -266,7 +302,8 @@ def make_train_step(loss_chunk: Optional[int] = 128,
                                   Dict[str, torch.Tensor]]:
     """The train step: next-token loss, gradients, clip + AdamW update of
     ``state`` in place.  Returns {'loss', 'grad_norm'} as device scalars
-    (grad_norm before clipping).
+    (grad_norm before clipping; the loss includes Mixtral's router term,
+    which is also returned alone as 'router_aux_loss').
 
     grad_accum_steps: K > 1 runs K sequential microbatches of backward()
     with each CE in masked-sum form scaled by 1/global token count, so
@@ -277,7 +314,8 @@ def make_train_step(loss_chunk: Optional[int] = 128,
         inputs, targets, mask = _shift(state, batch)
         model = state.model
         mc = model.config
-        if mc.weight_dtype == 'int8' and not mc.lora_rank:
+        if getattr(mc, 'weight_dtype', 'bf16') == 'int8' and \
+                not mc.lora_rank:
             # As the JAX step's jax.grad over an int8 leaf: int8 weights
             # are a serving path (LoRA adapters on an int8 base train).
             raise TypeError(
@@ -286,7 +324,7 @@ def make_train_step(loss_chunk: Optional[int] = 128,
                 'weights, or LoRA adapters on the int8 base')
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum_steps <= 1:
-            loss = loss_fn(model, inputs, targets, mask, loss_chunk)
+            loss, aux = objective(model, inputs, targets, mask, loss_chunk)
             loss.backward()
             loss = loss.detach()
         else:
@@ -299,17 +337,24 @@ def make_train_step(loss_chunk: Optional[int] = 128,
                 mask = torch.ones(targets.shape, device=targets.device)
             inv_total = 1.0 / mask.float().sum().clamp_min(1.0)
             loss = torch.zeros((), device=inputs.device)
+            aux = None
             for mi, mt, mm in zip(inputs.chunk(grad_accum_steps),
                                   targets.chunk(grad_accum_steps),
                                   mask.chunk(grad_accum_steps)):
-                micro = loss_fn(model, mi, mt, mm, loss_chunk,
-                                normalizer=inv_total)
+                micro, micro_aux = objective(
+                    model, mi, mt, mm, loss_chunk, normalizer=inv_total,
+                    aux_scale=1.0 / grad_accum_steps)
                 micro.backward()
                 loss = loss + micro.detach()
+                if micro_aux is not None:
+                    aux = micro_aux.detach() + (0.0 if aux is None else aux)
         state.optimizer.step()
         state.schedule.step()
         state.step += 1
-        return {'loss': loss, 'grad_norm': state.optimizer.grad_norm}
+        metrics = {'loss': loss, 'grad_norm': state.optimizer.grad_norm}
+        if aux is not None:
+            metrics['router_aux_loss'] = aux.detach()
+        return metrics
 
     return step
 
@@ -317,12 +362,14 @@ def make_train_step(loss_chunk: Optional[int] = 128,
 def make_eval_step(loss_chunk: Optional[int] = 128
                    ) -> Callable[[TrainState, Batch], torch.Tensor]:
     """Loss-only forward (no grads, no state update) for held-out
-    evaluation; the same loss path as training."""
+    evaluation; the same loss path as training, without the router term
+    (the JAX eval step scores the CE alone)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> torch.Tensor:
         inputs, targets, mask = _shift(state, batch)
-        return loss_fn(state.model, inputs, targets, mask, loss_chunk)
+        return objective(state.model, inputs, targets, mask, loss_chunk,
+                         aux_scale=0.0)[0]
 
     return eval_step
 
@@ -351,17 +398,24 @@ class Trainer:
     latest one."""
 
     def __init__(self, cfg: TrainConfig,
-                 model_config: Optional[LlamaConfig] = None, device=None):
+                 model_config: Optional[CausalLMConfig] = None,
+                 device=None):
         if cfg.mesh is not None or cfg.pipeline_microbatches is not None:
             raise NotImplementedError(
                 'mesh and pipeline_microbatches (multi-GPU training) are '
                 'not ported yet (ROADMAP.md A9, multi-GPU)')
         self.cfg = cfg
         self.model_config = model_config or get_model_config(cfg.model)
-        if not isinstance(self.model_config, LlamaConfig):
+        if not is_causal_lm(self.model_config):
+            raise ValueError(
+                f'{cfg.model!r} is not a causal-LM family; use its '
+                'task-specific training loop (see models/bert.py, '
+                'models/resnet.py).')
+        if isinstance(self.model_config, MixtralConfig) and \
+                self.model_config.lora_rank:
             raise NotImplementedError(
-                f'{cfg.model!r}: only the llama family is ported; the '
-                'others are not yet ported (ROADMAP.md A8)')
+                'LoRA on Mixtral (attention adapters over frozen experts) '
+                'is not ported yet (ROADMAP.md A8.2)')
         if cfg.grad_accum_steps > 1 and \
                 cfg.batch_size % cfg.grad_accum_steps:
             raise ValueError(
@@ -385,13 +439,16 @@ class Trainer:
         adapters, and the optimizer holds the adapters alone
         (``trainable_parameters``)."""
         mc = self.model_config
-        model = Llama(mc, device=self.device, param_dtype=torch.float32)
+        model = build_model(mc, device=self.device,
+                            param_dtype=torch.float32)
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        lora_rank = getattr(mc, 'lora_rank', 0)
         if params is None:
             # The base weights a plain trainer (and a serving engine)
             # draws from this seed; adapters are drawn after them.
-            params = init_params(dataclasses.replace(mc, lora_rank=0), gen)
-        if mc.lora_rank and not any(is_lora_path(k) for k in params):
+            params = init_params(dataclasses.replace(mc, lora_rank=0)
+                                 if lora_rank else mc, gen)
+        if lora_rank and not any(is_lora_path(k) for k in params):
             # A base state_dict: grafted under freshly drawn adapters
             # (drawn one tensor at a time, the rest discarded).
             params = {**params, **{k: v for k, v in iter_params(mc, gen)

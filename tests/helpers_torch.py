@@ -141,3 +141,34 @@ class WindowAudit:
         del self.eng._step          # back to the class's method
         self.errors.extend(conservation_errors(self.eng))
         return False
+
+
+def features_match(jax_eng, port_eng, prompts, prefix, max_new=6,
+                   tol=1e-4):
+    """Registered-prefix, prompt-logprob and (with the engines' own
+    draft_len / qos settings) speculative and QoS serving of `prompts` on
+    a JAX and a port engine over the same weights: `prefix` registered on
+    both, every other prompt starting with it, the first asking for
+    prompt logprobs.  Asserts the same tokens, finish reasons and
+    prefix hits, and logprobs and prompt logprobs within `tol`."""
+    from skypilot_tpu.infer import Request as JaxRequest
+    assert jax_eng.register_prefix(prefix) == port_eng.register_prefix(prefix)
+    seqs = [list(prefix) + p if i % 2 else p for i, p in enumerate(prompts)]
+    want = jax_eng.generate([
+        JaxRequest(tokens=s, max_new_tokens=max_new,
+                   want_prompt_logprobs=i == 0) for i, s in enumerate(seqs)])
+    got = port_eng.generate([
+        port.Request(tokens=s, max_new_tokens=max_new,
+                     want_prompt_logprobs=i == 0)
+        for i, s in enumerate(seqs)])
+    assert port_eng.prefix_stats == jax_eng.prefix_stats
+    assert port_eng.prefix_stats['hits'] > 0
+    for g, w in zip(got, want):
+        assert g.output_tokens == w.output_tokens
+        assert g.finish_reason == w.finish_reason
+        np.testing.assert_allclose(g.logprobs, w.logprobs, rtol=0, atol=tol)
+    np.testing.assert_allclose(
+        np.asarray(got[0].prompt_logprobs[1:], np.float64),
+        np.asarray(want[0].prompt_logprobs[1:], np.float64), rtol=0,
+        atol=tol)
+    return got

@@ -1,6 +1,6 @@
 """bench_torch.py, the port's twin of bench.py, and the FLOPs accounting
-it rests on: LlamaConfig.num_params and flops_per_token equal the JAX
-package's for every llama-family config, measure() runs the trainer at a
+it rests on: num_params and flops_per_token equal the JAX package's for
+every causal-LM config (llama family, GPT-2, Mixtral), measure() runs the trainer at a
 sequence past the config's max_seq_len (as the headline point runs
 llama-800m at 8192 past its 4096), and main()'s JSON line has bench.py's
 keys."""
@@ -14,9 +14,13 @@ import bench_torch
 from skypilot_tpu.models import registry as jax_registry
 from skypilot_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from skypilot_tpu_torch.models import registry
+from skypilot_tpu_torch.models.llama import LlamaConfig
 
 JAX_LLAMAS = [n for n in jax_registry.list_models()
               if type(jax_registry.get_model_config(n)) is JaxLlamaConfig]
+# Every causal LM of the JAX registry: the llama family, GPT-2, Mixtral.
+JAX_CAUSAL = [n for n in jax_registry.list_models()
+              if jax_registry.is_causal_lm(jax_registry.get_model_config(n))]
 
 # The keys of bench.py's JSON line, written out (bench.py is not run).
 BENCH_KEYS = {'metric', 'value', 'unit', 'vs_baseline', 'detail'}
@@ -28,10 +32,15 @@ BENCH_POINT_KEYS = {'batch_per_chip', 'raw_tokens_per_sec_per_chip',
 
 
 def test_the_port_has_every_llama_family_config():
-    assert sorted(registry._CONFIGS) == JAX_LLAMAS
+    """The port's llama-family configs are the JAX registry's, and its
+    registry holds the JAX registry's causal LMs, no more."""
+    llamas = [n for n, c in registry._CONFIGS.items()
+              if isinstance(c, LlamaConfig)]
+    assert sorted(llamas) == JAX_LLAMAS
+    assert sorted(registry._CONFIGS) == JAX_CAUSAL
 
 
-@pytest.mark.parametrize('name', JAX_LLAMAS)
+@pytest.mark.parametrize('name', JAX_CAUSAL)
 def test_flops_accounting_equals_the_reference(name):
     ref = jax_registry.get_model_config(name)
     cfg = registry.get_model_config(name)

@@ -590,3 +590,52 @@ def test_register_adapter_from_a_second_thread_while_windows_run(card):
     loop.join(timeout=30)
     assert all(r.finish_reason == 'length' for r in results.values())
     assert {k: r.output_tokens for k, r in results.items()} == want
+
+
+@pytest.mark.parametrize('name', ['gpt2-debug', 'mixtral-debug'])
+def test_new_families_on_the_card_match_the_cpu(card, name):
+    """gpt2-debug and mixtral-debug, widened to 256 (head_dim 64, which
+    the kernels take), in f32 with the same weights on the card and the
+    CPU: the no-cache logits (the f32 flash kernel; capacity
+    routing for Mixtral), one train objective's gradients (both backward
+    kernels; the router's gradient through the aux loss), and the
+    engine's greedy tokens (the cached path; Mixtral routes exactly)."""
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.train import trainer as tt
+    wide = {'hidden_size': 256}
+    if name == 'mixtral-debug':
+        wide['intermediate_size'] = 256
+    cfg = dataclasses.replace(get_model_config(name), dtype=torch.float32,
+                              **wide)
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    sd = {k: v * (1.0 if v.dim() < 2 else 5.0) for k, v in sd.items()}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 65)))
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        model = registry.build_model(cfg, device=dev,
+                                     param_dtype=torch.float32)
+        model.load_state_dict(sd)
+        t = toks.to(dev)
+        with torch.no_grad():
+            logits = model(t[:, :-1]).cpu()
+        loss = tt.loss_fn(model, t[:, :-1], t[:, 1:])
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        eng = InferenceEngine(cfg, InferConfig(
+            num_slots=2, max_cache_len=64, prefill_buckets=(16,),
+            max_new_tokens=8, cache_dtype=torch.float32), params=sd,
+            device=dev)
+        res = eng.generate([Request(tokens=toks[i, :9].tolist())
+                            for i in range(2)])
+        out[dev] = (logits, loss.item(), grads,
+                    [r.output_tokens for r in res])
+    (lc, fc, gc, tc), (lx, fx, gx, tx) = out['cuda'], out['cpu']
+    assert (lc - lx).abs().max().item() <= TOL * max(1.0, lx.abs().max())
+    assert abs(fc - fx) <= TOL * abs(fx)
+    for n, g in gc.items():
+        assert (g - gx[n]).abs().max().item() <= \
+            TOL * max(gx[n].abs().max().item(), 1e-3), n
+    if name == 'mixtral-debug':
+        assert gx['layers.0.moe.router.weight'].abs().sum() > 0
+    assert tc == tx

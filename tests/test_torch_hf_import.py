@@ -1,13 +1,13 @@
 """The port's HF import (skypilot_tpu_torch/models/hf_import.py) held
 against transformers and the JAX package's importer on the CPU: random
 transformers models of each llama-family type (llama, llama3.1 rope
-scaling, qwen2, mistral, gemma) built from a config and saved to
-tmp_path; the port's logits against the HF forward and against the JAX
+scaling, qwen2, mistral, gemma), and gpt2 and mixtral, built from a
+config and saved to tmp_path; the port's logits against the HF forward and against the JAX
 import at tests/test_hf_import.py's tolerance, its weights against the
 JAX import's exactly; each refusal's type and text against the JAX
 package's; and ``--hf-model`` with and without ``--weight-dtype int8``
 through the port's ``run()`` against the JAX server's on the same
-checkpoint."""
+checkpoint (qwen2, and gpt2 without int8)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -18,10 +18,11 @@ import transformers
 
 from skypilot_tpu.infer import server as jax_server
 from skypilot_tpu.models import hf_import as jhf
+from skypilot_tpu.models import registry as jax_registry
 from skypilot_tpu.models.llama import Llama as JaxLlama
 from skypilot_tpu_torch.infer import server as port_server
 from skypilot_tpu_torch.infer.engine import Request
-from skypilot_tpu_torch.models import convert, hf_import
+from skypilot_tpu_torch.models import convert, hf_import, registry
 from skypilot_tpu_torch.models.llama import Llama
 
 TOL = dict(atol=2e-3, rtol=1e-3)     # tests/test_hf_import.py's
@@ -197,15 +198,59 @@ def test_refusals_match_the_jax_package(case):
         assert mine == ref
 
 
+def _gpt2(**kw):
+    return transformers.GPT2LMHeadModel(transformers.GPT2Config(
+        **{'vocab_size': 128, 'n_embd': 64, 'n_layer': 2, 'n_head': 4,
+           'n_positions': 64, **kw}))
+
+
+def _mixtral():
+    return transformers.MixtralForCausalLM(transformers.MixtralConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=64, rms_norm_eps=1e-5))
+
+
 @pytest.mark.parametrize('family', ['gpt2', 'mixtral', 'bert'])
-def test_other_families_name_their_item(family):
-    """The families the JAX importer has and the port not yet: config_from_hf
-    and the server refuse them naming ROADMAP.md A8.2."""
-    cfg = {'gpt2': transformers.GPT2Config,
-           'mixtral': transformers.MixtralConfig,
-           'bert': transformers.BertConfig}[family]()
-    with pytest.raises(NotImplementedError, match='A8.2'):
-        hf_import.config_from_hf(cfg)
+def test_other_families_name_their_item(family, tmp_path):
+    """bert, which the JAX importer has and the port not yet, is refused
+    naming ROADMAP.md A8.2.  gpt2 and mixtral, ported since, load as the
+    llama family does: tests/test_hf_import.py's models, saved to
+    tmp_path, give the JAX import's config (mixtral's drop-free capacity
+    E/k) and weights exactly, and logits against the HF forward and the
+    JAX import's at the file's tolerance."""
+    if family == 'bert':
+        with pytest.raises(NotImplementedError, match='A8.2'):
+            hf_import.config_from_hf(transformers.BertConfig())
+        return
+    torch.manual_seed(0)
+    hf = (_gpt2 if family == 'gpt2' else _mixtral)().eval()
+    hf.save_pretrained(str(tmp_path))
+    cfg, sd = hf_import.load_hf_model(str(tmp_path), dtype=torch.float32)
+    jcfg = dataclasses.replace(jhf.config_from_hf(hf.config,
+                                                  name=str(tmp_path)),
+                               dtype=jnp.float32)
+    for f in dataclasses.fields(jcfg):
+        if f.name != 'dtype':
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    if family == 'mixtral':
+        assert cfg.capacity_factor == 2.0
+    jparams = jhf.convert_state_dict(jcfg, hf.state_dict())
+    want_sd = convert.state_dict_from_jax(jparams, cfg)
+    assert sd.keys() == want_sd.keys()
+    for k, v in sd.items():
+        assert torch.equal(v.float(), want_sd[k]), k
+    model = registry.build_model(cfg, device='cpu')
+    model.load_state_dict(sd)
+    tokens = np.random.RandomState(7).randint(0, 128, size=(2, 12))
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens)).numpy()
+        want = hf(torch.from_numpy(tokens)).logits.numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    jmodel = jax_registry.build_model(jcfg)
+    jgot = np.asarray(jmodel.apply({'params': jparams}, jnp.asarray(tokens)))
+    np.testing.assert_allclose(got, jgot, **TOL)
 
 
 def _run_both(monkeypatch, path, **kw):
@@ -262,8 +307,10 @@ def jax_server_params(engine):
 def test_run_refusals(checkpoints, tmp_path, monkeypatch):
     """An explicit tokenizer that fails still raises, as the JAX server's
     does; a checkpoint that is no causal LM gets the JAX server's
-    ValueError, and a non-llama one names A8.2, before any weight is
-    read; --tensor-parallel still names A9."""
+    ValueError before any weight is read; --weight-dtype int8 on a gpt2
+    checkpoint gets the JAX server's ValueError, and without it run()
+    serves the checkpoint with the JAX server's weights and tokens;
+    --tensor-parallel still names A9."""
     path, _ = checkpoints['llama']
     raised = []
     for mod, kw in ((port_server, {'device': 'cpu'}), (jax_server, {})):
@@ -282,9 +329,29 @@ def test_run_refusals(checkpoints, tmp_path, monkeypatch):
         texts.append(str(e.value))
     assert texts[0] == texts[1] and 'bert' in texts[0]
     gpt2 = tmp_path / 'gpt2'
-    transformers.GPT2Config(n_layer=1).save_pretrained(str(gpt2))
-    with pytest.raises(NotImplementedError, match='A8.2'):
-        port_server.run(hf_model=str(gpt2), device='cpu')
+    torch.manual_seed(0)
+    _gpt2(n_layer=1).save_pretrained(str(gpt2))
+    texts = []
+    for mod, kw in ((port_server, {'device': 'cpu'}), (jax_server, {})):
+        with pytest.raises(ValueError) as e:
+            mod.run(hf_model=str(gpt2), weight_dtype='int8',
+                    max_cache_len=64, **kw)
+        texts.append(str(e.value))
+    assert texts[0] == texts[1] and 'GPT2Config' in texts[0]
+    # GPT-2, ported since: run() serves the checkpoint as the JAX server
+    # does, the same bf16 weights and greedy tokens.
+    mine, ref = _run_both(monkeypatch, str(gpt2))
+    want = convert.state_dict_from_jax(jax_server_params(ref),
+                                       mine.model_config)
+    got = mine.model.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        assert torch.equal(v.to(want[k].dtype), want[k]), k
+    prompt = [5, 9, 17, 33, 2, 71, 8]
+    [a] = mine.generate([Request(tokens=prompt, max_new_tokens=6)])
+    [b] = ref.generate([jax_server.Request(tokens=prompt,
+                                           max_new_tokens=6)])
+    assert a.output_tokens == b.output_tokens
     with pytest.raises(NotImplementedError, match='A9'):
         port_server.run(model='llama-debug', device='cpu',
                         tensor_parallel=2)

@@ -373,6 +373,49 @@ def test_unported_options_fail_at_startup(params, tmp_path, monkeypatch):
     assert fp8.cache[0][0].dtype == torch.float8_e4m3fn
 
 
+@pytest.mark.parametrize('model', ['gpt2-debug', 'mixtral-debug'])
+def test_run_serves_the_other_causal_families(model, monkeypatch):
+    """run(model='gpt2-debug' | 'mixtral-debug') on both servers (random
+    weights: each package's own draw from seed 0, so tokens differ): the
+    engines' configs agree, and /v1/models, /generate (plain and SSE) and
+    /v1/completions answer with the JAX server's status codes, header
+    names, key sets, finish reasons and token counts."""
+    engines = []
+    for mod in (port_server, jax_server):
+        monkeypatch.setattr(mod, 'serve',
+                            lambda engine, **_: engines.append(engine))
+    port_server.run(model=model, device='cpu', num_slots=2,
+                    max_cache_len=64, decode_steps=4)
+    jax_server.run(model=model, num_slots=2, max_cache_len=64,
+                   decode_steps=4)
+    mine, ref = engines
+    assert type(mine.model_config).__name__ == \
+        type(ref.model_config).__name__
+    assert mine.model_config.num_params == ref.model_config.num_params
+    pair = (_Live(jax_server, ref), _Live(port_server, mine))
+    try:
+        (_, _, jm, _), (_, _, pm, _) = _both(pair, 'GET', '/v1/models')
+        assert pm == jm
+        for body in ({'tokens': PROMPT, 'max_new_tokens': 6},
+                     {'tokens': PROMPT, 'max_new_tokens': 6,
+                      'stream': True}):
+            (code, _, j, _), (_, _, p, _) = _both(pair, 'POST',
+                                                   '/generate', body)
+            assert code == 200
+            if isinstance(j, dict):
+                assert p['finish_reason'] == j['finish_reason'] == 'length'
+                assert len(p['output_tokens']) == len(j['output_tokens'])
+        body = {'prompt': PROMPT, 'max_tokens': 5}
+        (code, _, j, _), (_, _, p, _) = _both(pair, 'POST',
+                                               '/v1/completions', body)
+        assert code == 200
+        assert [c['finish_reason'] for c in p['choices']] == \
+            [c['finish_reason'] for c in j['choices']]
+    finally:
+        for live in pair:
+            live.close()
+
+
 # --------------------------------------------------------- mixed fleet
 
 FLEET_PROMPT = [3, 14, 15, 9, 2, 6]
