@@ -38,10 +38,14 @@ flags, then GPT-2 (gpt2 trained at examples/gpt2_managed_spot.yaml's batch
 16 x 1024 and resumed from a checkpoint bit for bit, gpt2-large served
 through server.run() over HTTP) and Mixtral (mixtral-8x7b at 16 of 32
 layers served at examples/serve_mixtral.yaml's engine flags over the fp8
-and a bf16 cache against a drop-free scorer, and trained at depth 2) --
-at full width with random weights from a seed, and checks what comes
-out.  Every phase prints one JSON line; any failed check raises, so the script exits non-zero and the
-closing line is never printed.  The last two lines are the kernels line
+and a bf16 cache against a drop-free scorer, and trained at depth 2),
+then BERT and ResNet through their task loops (bert-base fine-tuned at
+examples/bert_imdb.yaml's settings with its masked path and its HF
+import, resnet50 trained at examples/resnet.yaml's) and frozen-base LoRA
+on Mixtral at depth 2 -- at full width with random weights from a seed,
+and checks what comes out.  Every phase prints one JSON line; any failed
+check raises, so the script exits non-zero and the closing line is never
+printed.  The last two lines are the kernels line
 and {"ok": true, "device": {...}}.
 
 --kernels runs only the kernel checks and their timings.
@@ -90,13 +94,13 @@ from skypilot_tpu_torch.infer import engine as engine_mod
 from skypilot_tpu_torch.infer import server
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request)
-from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import hf_import, llama
 from skypilot_tpu_torch.models.convert import init_params, iter_params
 from skypilot_tpu_torch.models.mixtral import MixtralConfig
 from skypilot_tpu_torch.models.registry import build_model, get_model_config
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import flash_attention as fa
-from skypilot_tpu_torch.train import lora
+from skypilot_tpu_torch.train import lora, tasks
 from skypilot_tpu_torch.train import trainer as train_lib
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of a kernel
@@ -226,6 +230,15 @@ MIXTRAL_TRAIN_CASE = ('mixtral-train', 4, 32, 8, 2048, 128, torch.bfloat16,
 SLICE12_FWD = (GPT2_TRAIN_CASE[0], GPT2_LARGE_FWD_CASE[0],
                MIXTRAL_TRAIN_CASE[0])
 SLICE12_BWD = (GPT2_TRAIN_CASE[0], MIXTRAL_TRAIN_CASE[0])
+# BERT's self-attention: non-causal MHA at head_dim 64 -- bert-base
+# fine-tuned at examples/bert_imdb.yaml's batch 32 x seq 128 (one full
+# 128-row tile each way, b*hq = 384), and batch 8 at max_seq_len 512.
+# Mixtral's LoRA step runs MIXTRAL_TRAIN_CASE.
+BERT_TRAIN_CASE = ('bert-base-train', 32, 12, 12, 128, 64, torch.bfloat16,
+                   False, None)
+BERT_MAX_LEN_CASE = ('bert-base-512', 8, 12, 12, 512, 64, torch.bfloat16,
+                     False, None)
+BERT_SHAPES = (BERT_TRAIN_CASE[0], BERT_MAX_LEN_CASE[0])
 # (name, b, hq, hkv, s, d, dtype, causal, window); the first is the shape
 # the llama-1b forward gives the kernel, timed as well.  The bf16 kernel
 # works in 128-row tiles up to head_dim 128: ragged_1088 and
@@ -258,10 +271,12 @@ KERNEL_CASES = [
     GPT2_TRAIN_CASE,
     GPT2_LARGE_FWD_CASE,
     MIXTRAL_TRAIN_CASE,
+    BERT_TRAIN_CASE,
+    BERT_MAX_LEN_CASE,
 ]
 # The forward is timed at these shapes.
 TIMED_FWD = (KERNEL_CASES[0][0], TRAIN_CASE[0], GEMMA_FWD_CASE[0],
-             GEMMA_TRAIN_CASE[0], *SLICE12_FWD)
+             GEMMA_TRAIN_CASE[0], *SLICE12_FWD, *BERT_SHAPES)
 
 
 # Agreement of the forward kernel with its plain version (same inputs; the
@@ -369,7 +384,8 @@ def phase_kernel() -> dict:
 # 64-row tiles at head_dim 256.  Both kernels are timed at both training
 # shapes.
 BWD_CASES = [TRAIN_CASE] + KERNEL_CASES[2:]
-TIMED_BWD = (TRAIN_CASE[0], GEMMA_TRAIN_CASE[0], *SLICE12_BWD)
+TIMED_BWD = (TRAIN_CASE[0], GEMMA_TRAIN_CASE[0], *SLICE12_BWD,
+             *BERT_SHAPES)
 
 # Agreement of the backward kernels with their plain versions (same q, k,
 # v, dO, LSE and delta; the plain versions compute in f32): dQ, dK and dV
@@ -682,6 +698,50 @@ def counted(fn, tally: list):
     for i, n in enumerate(launch_counts()):
         tally[i] += n
     return out
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor,
+            floor: float = 1e-30) -> float:
+    """max |got - want| over max |want| (at least `floor`; on the CPU, in
+    f32)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return (got - want).abs().max().item() / max(
+        want.abs().max().item(), floor)
+
+
+def grad_errors(got: dict, want: dict) -> tuple:
+    """The worst gradient's rel_err and its name: each gradient against
+    its own max, floored at 1e-3 of the largest gradient of the model --
+    a gradient whose exact value is 0 (BERT's key bias: a softmax takes a
+    shift of a row's scores) holds rounding alone on both sides."""
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    errs = {n: rel_err(g, want[n], floor) for n, g in got.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def launches_per_step(run) -> tuple:
+    """run(wrap) with the kernels' counts set to 0 just before; `wrap`
+    wraps a batch iterator so that the counts are read as each step takes
+    its batch.  Returns (run's result, the launches of each step, the
+    total)."""
+    counts = []
+
+    def wrap(batches):
+        for batch in batches:
+            counts.append(launch_counts())
+            yield batch
+
+    reset_launch_counts()
+    out = run(wrap)
+    torch.cuda.synchronize()
+    counts.append(launch_counts())
+    return out, [[b - a for a, b in zip(c0, c1)]
+                 for c0, c1 in zip(counts, counts[1:])], counts[-1]
+
+
+def stderr_log(line: str) -> None:
+    print(line, file=sys.stderr, flush=True)
 
 
 def profile_device(fn, top: int = 8) -> dict:
@@ -2409,23 +2469,12 @@ def phase_train(card: str, model_name: str = 'llama-1b',
     expected = (2 * mc.num_layers, mc.num_layers, mc.num_layers)
     loss_step1 = (math.log(mc.vocab_size),
                   math.log(mc.vocab_size) + LOSS_STEP1_MARGIN)
-    counts = []
-
-    def counted(batches):   # launch counts as each step takes its batch
-        for batch in batches:
-            counts.append(launch_counts())
-            yield batch
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    out = trainer.train(data=counted(train_lib.synthetic_data(
-        cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0)), num_steps=6,
-        log_every=1)
-    launches = launch_counts()
-    counts.append(launches)
-    per_step = [[b - a for a, b in zip(c0, c1)]
-                for c0, c1 in zip(counts, counts[1:])]
+    out, per_step, launches = launches_per_step(
+        lambda wrap: trainer.train(data=wrap(train_lib.synthetic_data(
+            cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0)),
+            num_steps=6, log_every=1))
     check(per_step == [list(expected)] * 6,
           f'launches per step {per_step}, expected {expected}')
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2495,8 +2544,7 @@ def phase_train(card: str, model_name: str = 'llama-1b',
         del model, loss
     del sd
     loss_err = abs(res['cuda'][0] - res['cpu'][0]) / abs(res['cpu'][0])
-    grad_err = max((g - res['cpu'][1][n]).abs().max().item() /
-                   max(res['cpu'][1][n].abs().max().item(), 1e-30)
+    grad_err = max(rel_err(g, res['cpu'][1][n])
                    for n, g in res['cuda'][1].items())
     del res
     check(loss_err <= BOUND_DEPTH2_LOSS and grad_err <= BOUND_DEPTH2_GRAD,
@@ -2606,23 +2654,12 @@ def phase_lora_train(card: str, full: dict,
     torch.cuda.empty_cache()
 
     expected = (2 * mc.num_layers, mc.num_layers, mc.num_layers)
-    counts = []
-
-    def counted_data(batches):
-        for batch in batches:
-            counts.append(launch_counts())
-            yield batch
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    out = trainer.train(data=counted_data(train_lib.synthetic_data(
-        cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0,
-        device='cuda')), num_steps=6, log_every=1)
-    launches = launch_counts()
-    counts.append(launches)
-    per_step = [[b - a for a, b in zip(c0, c1)]
-                for c0, c1 in zip(counts, counts[1:])]
+    out, per_step, launches = launches_per_step(
+        lambda wrap: trainer.train(data=wrap(train_lib.synthetic_data(
+            cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0,
+            device='cuda')), num_steps=6, log_every=1))
     check(per_step == [list(expected)] * 6,
           f'launches per step {per_step}, expected {expected}')
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2690,8 +2727,7 @@ def phase_lora_train(card: str, full: dict,
           all(lora.is_lora_path(n) for n in res['cpu'][1]),
           'depth-2: gradients beyond the adapters')
     loss_err = abs(res['cuda'][0] - res['cpu'][0]) / abs(res['cpu'][0])
-    grad_err = max((g - res['cpu'][1][n]).abs().max().item() /
-                   max(res['cpu'][1][n].abs().max().item(), 1e-30)
+    grad_err = max(rel_err(g, res['cpu'][1][n])
                    for n, g in res['cuda'][1].items())
     check(loss_err <= BOUND_DEPTH2_LOSS and grad_err <= BOUND_DEPTH2_GRAD,
           f'depth-2 f32 card vs CPU: loss {loss_err}, adapter grads '
@@ -3454,7 +3490,7 @@ def phase_int8_hf(card: str) -> int:
     fp8 cache's share), tok/s and the decode window's device time beside
     the int8 engine's.  Returns the int8 no-cache forward's kernel
     launches."""
-    from skypilot_tpu_torch.models import hf_import, quantize
+    from skypilot_tpu_torch.models import quantize
     seconds, t_last = {}, [time.perf_counter()]
 
     def lap(step):
@@ -4066,6 +4102,406 @@ def phase_mixtral(env: dict) -> int:
     return tally[0]
 
 
+# BERT and ResNet through their task loops (train/tasks.py,
+# examples/bert_imdb.yaml's and examples/resnet.yaml's settings), BERT's
+# HF import, and LoRA on Mixtral.
+BERT_MODEL = 'bert-base'
+# examples/bert_imdb.yaml: batch 32, seq 128, lr 2e-5, 50 steps.
+BERT_RECIPE = dict(steps=50, batch_size=32, seq_len=128, lr=2e-5)
+BERT_REPEAT_STEPS = 6
+# Depth 2 at bert-base width in f32, card against CPU: the f32 kernels
+# non-causal at head_dim 64 and cuBLAS f32, summed in another order than
+# the CPU's plain attention.  Loss relative; logits and each gradient
+# against their own max (the depth-2 bounds of the train phase).
+BERT_DEPTH2_BATCH = (4, 128)
+# The HF import's MLM logits on the card against transformers' CPU
+# forward: tests/test_hf_import.py's tolerance.
+BERT_HF_ATOL, BERT_HF_RTOL = 2e-3, 1e-3
+# examples/resnet.yaml: resnet50, batch 256, 32x32 images, 10 classes,
+# lr 0.1, momentum 0.9, 200 steps (examples/train_resnet.py's defaults).
+RESNET_MODEL = 'resnet50'
+RESNET_RECIPE = dict(steps=200, batch_size=256, image_size=32,
+                     num_classes=10, lr=0.1, momentum=0.9)
+# The final logged accuracy must clear this (chance 0.1): the classes
+# are a fixed mean image each under N(0, 0.8^2) noise, which
+# resnet18-debug separates in 10 steps on the CPU.  Set before the first
+# chip call.
+RESNET_ACC_MIN = 0.5
+# The one-step f32 card-vs-CPU check at resnet50 width: batch 8 of 32x32.
+RESNET_CHECK_BATCH = 8
+# LoRA on Mixtral: mixtral-8x7b at the train phase's depth 2 and batch
+# 4 x 2048, rank 16 on q/k/v/o (LORA_RANK, LORA_ALPHA); its peak must stay
+# below full training's at the same depth and batch (59.04 GiB on an
+# H100 80GB HBM3 at 700 W, the mixtral-8x7b_train phase).
+MIXTRAL_LORA_PEAK_MAX_GIB = 59.04
+MIXTRAL_LORA_STEPS = 6
+
+
+def bert_depth2(mc, tally: list) -> dict:
+    """bert-base width at depth 2 in f32, the classifier head, the same
+    weights and batch on the card and the CPU: the logits, the loss and
+    every gradient without a mask (the kernels, counted into `tally`),
+    then the logits with a padding mask (the plain masked path: no
+    launch)."""
+    cfg = dataclasses.replace(mc, num_layers=2, dtype=torch.float32)
+    sd = init_params(cfg, torch.Generator().manual_seed(0), head='classify')
+    b, s = BERT_DEPTH2_BATCH
+    batch = next(tasks.synthetic_bert_batches(
+        np.random.default_rng(5), cfg.vocab_size, b, s, cfg.num_classes))
+    tokens = torch.from_numpy(batch['tokens']).long()
+    labels = torch.from_numpy(batch['labels']).long()
+    mask = torch.ones((b, s), dtype=torch.long)
+    for i in range(b):
+        mask[i, s - 17 * (i + 1):] = 0
+    res, masked_launches = {}, [0, 0, 0]
+    for dev in ('cuda', 'cpu'):
+        model = build_model(cfg, head='classify', device=dev,
+                            param_dtype=torch.float32)
+        model.load_state_dict(sd)
+
+        def fwd_bwd():
+            logits = model(tokens.to(dev))
+            loss = torch.nn.functional.cross_entropy(logits, labels.to(dev))
+            loss.backward()
+            return logits.detach(), loss.item()
+
+        logits, loss = (counted(fwd_bwd, tally) if dev == 'cuda'
+                        else fwd_bwd())
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        with torch.no_grad():
+            run = lambda: model(tokens.to(dev), None,   # noqa: E731
+                                mask.to(dev)).cpu()
+            masked = (counted(run, masked_launches) if dev == 'cuda'
+                      else run())
+        res[dev] = (logits.cpu(), loss, grads, masked)
+        del model
+    (lc, fc, gc_, mc_), (lx, fx, gx, mx) = res['cuda'], res['cpu']
+    grad_err, worst = grad_errors(gc_, gx)
+    return {'batch': [b, s],
+            'loss_rel_err': abs(fc - fx) / abs(fx),
+            'logits_rel_err': rel_err(lc, lx),
+            'grad_max_rel_err': grad_err, 'grad_worst': worst,
+            'masked_logits_rel_err': rel_err(mc_, mx),
+            'masked_vs_unmasked_max_abs': (mx - lx).abs().max().item(),
+            'masked_launches': masked_launches}
+
+
+def bert_hf_import(tally: list) -> dict:
+    """A random transformers.BertForMaskedLM at bert-base's shape, saved
+    with save_pretrained, loaded with the port's load_hf_model in f32 and
+    run on the card (the MLM head; the forward kernel 12 times, counted
+    into `tally`) against the HF model's CPU forward."""
+    import transformers
+    torch.manual_seed(0)
+    hf = transformers.BertForMaskedLM(transformers.BertConfig()).eval()
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, hf.config.vocab_size, (2, 128)))
+    with torch.no_grad():
+        want = hf(tokens).logits
+    with tempfile.TemporaryDirectory(prefix='bert_hf_') as ckpt:
+        t0 = time.perf_counter()
+        hf.save_pretrained(ckpt)
+        del hf
+        t1 = time.perf_counter()
+        cfg, sd = hf_import.load_hf_model(ckpt, dtype=torch.float32)
+        t2 = time.perf_counter()
+    model = build_model(cfg, head='mlm', device='cuda')
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        got = counted(lambda: model(tokens.to('cuda')).cpu(), tally)
+    diff = (got - want).abs()
+    within = bool((diff <= BERT_HF_ATOL + BERT_HF_RTOL * want.abs()).all())
+    del model, sd
+    return {'config': {'vocab_size': cfg.vocab_size,
+                       'hidden_size': cfg.hidden_size,
+                       'num_layers': cfg.num_layers,
+                       'num_heads': cfg.num_heads},
+            'tokens': list(tokens.shape), 'max_abs_err': diff.max().item(),
+            'max_abs_logit': want.abs().max().item(),
+            'within_tolerance': within,
+            'tolerance': [BERT_HF_ATOL, BERT_HF_RTOL],
+            'save_s': t1 - t0, 'load_hf_model_s': t2 - t1}
+
+
+def phase_bert(env: dict) -> tuple:
+    """bert-base on the card through train/tasks.py: (a) examples/
+    bert_imdb.yaml's fine-tune (50 steps at 32 x 128, lr 2e-5, f32 master
+    weights, bf16 compute, synthetic data) with 24/12/12 launches a step
+    (remat: each layer's forward again in backward), the first loss and
+    the final accuracy recorded, a steady step profiled, a repeated
+    batch's loss falling over 6 steps; depth 2 at full width in f32, card
+    against CPU (bert_depth2, the kernels non-causal at head_dim 64);
+    (b) the masked path on the card against the CPU with no launch;
+    (c) the HF import (bert_hf_import).  Returns the launches of the
+    fine-tune and the HF-import forward, and the phase's line."""
+    mc = get_model_config(BERT_MODEL)
+    r = BERT_RECIPE
+    expected = [2 * mc.num_layers, mc.num_layers, mc.num_layers]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    data = tasks.synthetic_bert_batches(
+        np.random.default_rng(0), mc.vocab_size, r['batch_size'],
+        r['seq_len'], mc.num_classes)
+    out, per_step, launches = launches_per_step(
+        lambda wrap: tasks.finetune_bert(
+            BERT_MODEL, steps=r['steps'], batch_size=r['batch_size'],
+            seq_len=r['seq_len'], lr=r['lr'], seed=0, device='cuda',
+            data=wrap(data), log=stderr_log))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(per_step == [expected] * r['steps'],
+          f'bert launches per step {per_step[:3]}..., expected {expected}')
+    history = out['history']
+    check(all(math.isfinite(x) for _, x, _ in history),
+          f'bert losses {history}')
+    state = out['state']
+    params = sum(p.numel() for p in state.model.parameters())
+    batch = next(data)
+    step_profile = profile_device(
+        lambda: float(tasks.bert_step(state, batch)[0]), top=10)
+    del state
+    out.pop('state')
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One repeated batch at the recipe's rate: 6 steps must lower its loss.
+    state = tasks.bert_setup(mc, r['lr'], seed=0, device='cuda')
+    repeat = [tasks.bert_step(state, batch)[0].item()
+              for _ in range(BERT_REPEAT_STEPS)]
+    with torch.no_grad():
+        after = torch.nn.functional.cross_entropy(
+            state.model(torch.from_numpy(batch['tokens']).long().to('cuda')),
+            torch.from_numpy(batch['labels']).long().to('cuda')).item()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(after < repeat[0],
+          f'bert repeated batch: loss {after} after {BERT_REPEAT_STEPS} '
+          f'steps, {repeat[0]} at 1')
+
+    tally = [0, 0, 0]
+    depth2 = bert_depth2(mc, tally)
+    check(tally == [4, 2, 2],
+          f'depth-2 forward and backward launched {tally}, expected '
+          '[4, 2, 2] (2 layers, remat)')
+    check(depth2['loss_rel_err'] <= BOUND_DEPTH2_LOSS
+          and depth2['logits_rel_err'] <= BOUND_DEPTH2_GRAD
+          and depth2['grad_max_rel_err'] <= BOUND_DEPTH2_GRAD
+          and depth2['masked_logits_rel_err'] <= BOUND_DEPTH2_GRAD,
+          f'bert depth-2 f32 card vs CPU: {depth2}')
+    check(depth2['masked_launches'] == [0, 0, 0]
+          and depth2['masked_vs_unmasked_max_abs'] > 0,
+          f'the masked path launched {depth2["masked_launches"]} or read '
+          'the unmasked logits')
+    hf_tally = [0, 0, 0]
+    hf = bert_hf_import(hf_tally)
+    check(hf_tally == [mc.num_layers, 0, 0] and hf['within_tolerance'],
+          f'bert HF import on the card: {hf}, launches {hf_tally}')
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({'phase': 'bert', 'model': BERT_MODEL, 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'recipe': r, 'params': params,
+          'dtype': str(mc.dtype), 'param_dtype': 'torch.float32',
+          'launches_per_step': per_step[0], 'launches': list(launches),
+          'history': history, 'first_loss': history[0][1],
+          'final_acc': history[-1][2], 'loop_s': out['seconds'],
+          'sequences_per_s': out['sequences_per_s'],
+          'step_ms': step_profile['wall_ms'], 'step_profile': step_profile,
+          'max_memory_allocated_gib': peak_gib,
+          'repeat_batch_losses': repeat, 'repeat_batch_loss_after': after,
+          'depth2_f32': depth2, 'depth2_launches': tally,
+          'depth2_bounds': [BOUND_DEPTH2_LOSS, BOUND_DEPTH2_GRAD],
+          'hf_import': hf, 'hf_forward_launches': hf_tally})
+    return launches, hf_tally[0]
+
+
+def resnet_check(mc) -> dict:
+    """One train step of resnet50's width in f32 on a small batch, the same
+    weights and batch on the card and the CPU (TF32 off: main() clears
+    cuDNN's and cuBLAS's flags, which would otherwise run f32 convolutions
+    in TF32): the loss, every gradient and the running statistics after
+    the step."""
+    cfg = dataclasses.replace(mc, dtype=torch.float32)
+    sd = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = next(tasks.synthetic_resnet_batches(
+        3, 0, RESNET_CHECK_BATCH, RESNET_RECIPE['image_size'],
+        cfg.num_classes))
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        model = build_model(cfg, device=dev, param_dtype=torch.float32)
+        model.load_state_dict(sd)
+        logits = model(torch.from_numpy(batch['images']).to(dev),
+                       train=True)
+        loss = torch.nn.functional.cross_entropy(
+            logits, torch.from_numpy(batch['labels']).long().to(dev))
+        loss.backward()
+        res[dev] = (loss.item(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    {n: b.cpu() for n, b in model.named_buffers()})
+        del model
+    (fc, gc_, bc), (fx, gx, bx) = res['cuda'], res['cpu']
+    grad_err, worst = grad_errors(gc_, gx)
+    return {'batch': RESNET_CHECK_BATCH,
+            'tf32': [torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32],
+            'loss_rel_err': abs(fc - fx) / abs(fx),
+            'grad_max_rel_err': grad_err, 'grad_worst': worst,
+            'batch_stats_max_rel_err': max(rel_err(b, bx[n])
+                                           for n, b in bc.items())}
+
+
+def phase_resnet(env: dict) -> None:
+    """resnet50 on the card through train/tasks.py at examples/
+    resnet.yaml's settings (200 steps at batch 256 of 32x32 images, 10
+    classes, lr 0.1 under the cosine decay, Nesterov momentum 0.9, bf16
+    compute, f32 master weights and statistics): the loss falls, the final
+    accuracy clears RESNET_ACC_MIN, the running statistics moved, no flash
+    kernel launched; a steady step profiled; the f32 one-step check
+    (resnet_check).  Records images/s, step ms, peak memory."""
+    mc = dataclasses.replace(get_model_config(RESNET_MODEL),
+                             num_classes=RESNET_RECIPE['num_classes'])
+    r = RESNET_RECIPE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = tasks.train_resnet(RESNET_MODEL, seed=0, device='cuda',
+                             log=stderr_log, **r)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    history, state = out['history'], out['state']
+    stats = {n: b for n, b in state.model.named_buffers()}
+    moved = {'running_mean_max_abs': max(
+        b.abs().max().item() for n, b in stats.items()
+        if n.endswith('running_mean')), 'running_var_max_abs_dev': max(
+        (b - 1).abs().max().item() for n, b in stats.items()
+        if n.endswith('running_var'))}
+    check(launches == (0, 0, 0), f'resnet launched the kernels {launches}')
+    check(all(math.isfinite(x) for _, x, _ in history)
+          and history[-1][1] < history[0][1],
+          f'resnet losses {history}')
+    check(history[-1][2] >= RESNET_ACC_MIN,
+          f'resnet final accuracy {history[-1][2]} < {RESNET_ACC_MIN}')
+    check(min(moved.values()) > 0, f'running statistics did not move: '
+          f'{moved}')
+    batch = next(tasks.synthetic_resnet_batches(
+        1, 0, r['batch_size'], r['image_size'], r['num_classes']))
+    step_profile = profile_device(
+        lambda: float(tasks.resnet_step(state, batch)[0]), top=10)
+    params = sum(p.numel() for p in state.model.parameters())
+    del state
+    out.pop('state')
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_f32 = resnet_check(mc)
+    check(check_f32['loss_rel_err'] <= BOUND_DEPTH2_LOSS
+          and check_f32['grad_max_rel_err'] <= BOUND_DEPTH2_GRAD
+          and check_f32['batch_stats_max_rel_err'] <= BOUND_DEPTH2_GRAD,
+          f'resnet f32 card vs CPU: {check_f32}')
+    emit({'phase': 'resnet', 'model': RESNET_MODEL, 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'recipe': r, 'params': params,
+          'dtype': str(mc.dtype), 'param_dtype': 'torch.float32',
+          'history': history, 'first_loss': history[0][1],
+          'final_acc': history[-1][2], 'acc_min': RESNET_ACC_MIN,
+          'loop_s': out['seconds'], 'images_per_s': out['images_per_s'],
+          'step_ms': step_profile['wall_ms'], 'step_profile': step_profile,
+          'max_memory_allocated_gib': peak_gib, 'flash_launches': launches,
+          'running_stats_moved': moved, 'f32_check': check_f32,
+          'f32_bounds': [BOUND_DEPTH2_LOSS, BOUND_DEPTH2_GRAD]})
+
+
+def phase_mixtral_lora_train(env: dict) -> tuple:
+    """Frozen-base LoRA on mixtral-8x7b at depth 2 and full width, batch
+    4 x 2048, rank 16 on q/k/v/o, through the Trainer (the train phase's
+    settings): 4/2/2 launches a step over 6 steps; on one repeated batch,
+    the first step's loss less its router aux term equal to the eval
+    step's (the router term is in the loss, in (0, 1)), then the loss
+    lower after 6 steps; every base tensor -- the routers and the experts
+    too -- bit-identical to a copy taken before the first step, every B
+    moved off 0; Adam moments for the adapters alone; the peaks of the
+    setup (the drawn f32 state_dict beside the model) and of the steps
+    below full training's.  Records step ms, tokens/s, the step's
+    profile.  Returns the launches of the 6 steps."""
+    mc = lora_config(MIXTRAL_MODEL, num_layers=MIXTRAL_TRAIN_LAYERS)
+    b, s = MIXTRAL_TRAIN_BATCH
+    cfg = train_lib.TrainConfig(model=MIXTRAL_MODEL, batch_size=b,
+                                seq_len=s, warmup_steps=2, total_steps=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_lib.Trainer(cfg, mc)
+    trainer.setup(seed=0)
+    setup_s = time.perf_counter() - t0
+    setup_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    model = trainer.state.model
+    base = {n: p.detach().cpu() for n, p in model.named_parameters()
+            if not lora.is_lora_path(n)}
+    expected = [2 * mc.num_layers, mc.num_layers, mc.num_layers]
+    torch.cuda.reset_peak_memory_stats()
+    out, per_step, launches = launches_per_step(
+        lambda wrap: trainer.train(data=wrap(train_lib.synthetic_data(
+            b, s, mc.vocab_size, seed=0)), num_steps=MIXTRAL_LORA_STEPS,
+            log_every=1))
+    check(per_step == [expected] * MIXTRAL_LORA_STEPS,
+          f'mixtral lora launches per step {per_step}, expected {expected}')
+    losses = [loss for _, loss in trainer.history]
+    check(all(math.isfinite(x) for x in losses), f'losses {losses}')
+
+    batch = next(train_lib.synthetic_data(b, s, mc.vocab_size, seed=1))
+    step_fn = train_lib.make_train_step(cfg.loss_chunk)
+    eval_fn = train_lib.make_eval_step(cfg.loss_chunk)
+    ce_before = eval_fn(trainer.state, batch).item()
+    metrics = step_fn(trainer.state, batch)
+    aux = metrics['router_aux_loss'].item()
+    first = metrics['loss'].item()
+    check(0.0 < aux < 1.0 and abs(first - aux - ce_before) <=
+          1e-4 * abs(ce_before),
+          f'router term {aux}: step loss {first}, the eval CE {ce_before}')
+    step_profile = profile_device(
+        lambda: float(step_fn(trainer.state, batch)['loss']), top=12)
+    for _ in range(MIXTRAL_LORA_STEPS - 3):
+        step_fn(trainer.state, batch)
+    ce_after = eval_fn(trainer.state, batch).item()
+    check(ce_after < ce_before,
+          f'repeated batch: CE {ce_after} after {MIXTRAL_LORA_STEPS} steps, '
+          f'{ce_before} before')
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(max(peak_gib, setup_peak_gib) < MIXTRAL_LORA_PEAK_MAX_GIB,
+          f'mixtral lora peak {peak_gib} GiB (setup {setup_peak_gib}), '
+          f'full training {MIXTRAL_LORA_PEAK_MAX_GIB}')
+    changed = [n for n, p in model.named_parameters()
+               if not lora.is_lora_path(n)
+               and not torch.equal(p.detach().cpu(), base[n])]
+    check(not changed, f'base tensors changed: {changed[:4]}')
+    moved = [bool(p.detach().any()) for n, p in model.named_parameters()
+             if n.endswith('lora_b')]
+    n_adapter = lora.num_adapter_params(model)
+    moments = sum(st['exp_avg'].numel()
+                  for st in trainer.state.optimizer.state.values())
+    check(all(moved) and moments == n_adapter == lora_param_count(mc),
+          f'{sum(moved)} of {len(moved)} B moved; Adam moments for '
+          f'{moments} parameters, adapters {n_adapter}')
+    del trainer, model, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({'phase': 'mixtral_lora_train', 'model': MIXTRAL_MODEL,
+          'device': env['device'], 'nvidia_smi': env['nvidia_smi'],
+          'num_layers': mc.num_layers, 'params': mc.num_params,
+          'lora': {'rank': LORA_RANK, 'alpha': LORA_ALPHA,
+                   'targets': list(mc.lora_targets)},
+          'adapter_params': n_adapter, 'batch': [b, s],
+          'dtype': str(mc.dtype), 'param_dtype': 'torch.float32',
+          'launches_per_step': per_step, 'losses': losses,
+          'step_ms': 1e3 * b * s / out['tokens_per_second'],
+          'tokens_per_s': out['tokens_per_second'],
+          'step_profile': step_profile, 'setup_s': setup_s,
+          'setup_max_memory_allocated_gib': setup_peak_gib,
+          'max_memory_allocated_gib': peak_gib,
+          'peak_max_gib': MIXTRAL_LORA_PEAK_MAX_GIB,
+          'router_aux_loss': aux, 'repeat_batch_ce': [ce_before, ce_after],
+          'base_byte_identical': True})
+    return launches
+
+
 # Planted faults: (fault, library, line of the sound source, the line
 # with the fault).  Each must fail its kernel's bf16 bound at the training
 # shape.  No fault touches an mbarrier phase: a wrong phase hangs instead
@@ -4262,6 +4698,13 @@ def main() -> int:
         phase_train, env['device'], MIXTRAL_MODEL, MIXTRAL_TRAIN_BATCH,
         MIXTRAL_TRAIN_LAYERS, 1,
         label='phase_' + train_phase_name(MIXTRAL_MODEL))
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_train, bert_hf_forward = timed(phase_bert, env)
+    timed(phase_resnet, env)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_lora = timed(phase_mixtral_lora_train, env)
     csrc = 'skypilot_tpu_torch/ops/csrc/'
     tpu = 'skypilot_tpu/ops/flash_attention.py:'
     print(json.dumps({'kernels': [
@@ -4270,7 +4713,9 @@ def main() -> int:
              launches=(forward_launches + train_fwd + bench_fwd + gemma_fwd
                        + gemma_train[0] + lora_train[0] + lora_forward
                        + int8_forward + gpt2_train[0] + gpt2_forward
-                       + mixtral_forward + mixtral_train[0]),
+                       + mixtral_forward + mixtral_train[0]
+                       + bert_train[0] + bert_hf_forward
+                       + mixtral_lora[0]),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
@@ -4281,40 +4726,52 @@ def main() -> int:
                                'gpt2_train': gpt2_train[0],
                                'gpt2_large_forward': gpt2_forward,
                                'mixtral_forward': mixtral_forward,
-                               'mixtral_train': mixtral_train[0]},
+                               'mixtral_train': mixtral_train[0],
+                               'bert_train': bert_train[0],
+                               'bert_hf_forward': bert_hf_forward,
+                               'mixtral_lora_train': mixtral_lora[0]},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
              headline_shape=headline['fwd'],
              head_dim_256_shapes={name: fwd[name]
                                   for name in TIMED_FWD[2:4]},
-             slice12_shapes={name: fwd[name] for name in SLICE12_FWD}),
+             slice12_shapes={name: fwd[name] for name in SLICE12_FWD},
+             bert_shapes={name: fwd[name] for name in BERT_SHAPES}),
         dict(name='flash_attention_bwd_dq', route='cuda',
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
              launches=(train_dq + bench_dq + gemma_train[1] + lora_train[1]
-                       + gpt2_train[1] + mixtral_train[1]),
+                       + gpt2_train[1] + mixtral_train[1] + bert_train[1]
+                       + mixtral_lora[1]),
              launches_by_path={'train': train_dq, 'bench': bench_dq,
                                'gemma_train': gemma_train[1],
                                'lora_train': lora_train[1],
                                'gpt2_train': gpt2_train[1],
-                               'mixtral_train': mixtral_train[1]},
+                               'mixtral_train': mixtral_train[1],
+                               'bert_train': bert_train[1],
+                               'mixtral_lora_train': mixtral_lora[1]},
              **bwd[TRAIN_CASE[0]]['dq'], headline_shape=headline['dq'],
              head_dim_256_shapes={name: bwd[name]['dq']
                                   for name in TIMED_BWD[1:2]},
-             slice12_shapes={name: bwd[name]['dq'] for name in SLICE12_BWD}),
+             slice12_shapes={name: bwd[name]['dq'] for name in SLICE12_BWD},
+             bert_shapes={name: bwd[name]['dq'] for name in BERT_SHAPES}),
         dict(name='flash_attention_bwd_dkv', route='cuda',
              source=csrc + 'flash_attention_bwd_dkv.cu',
              replaces=tpu + '227',
              launches=(train_dkv + bench_dkv + gemma_train[2]
-                       + lora_train[2] + gpt2_train[2] + mixtral_train[2]),
+                       + lora_train[2] + gpt2_train[2] + mixtral_train[2]
+                       + bert_train[2] + mixtral_lora[2]),
              launches_by_path={'train': train_dkv, 'bench': bench_dkv,
                                'gemma_train': gemma_train[2],
                                'lora_train': lora_train[2],
                                'gpt2_train': gpt2_train[2],
-                               'mixtral_train': mixtral_train[2]},
+                               'mixtral_train': mixtral_train[2],
+                               'bert_train': bert_train[2],
+                               'mixtral_lora_train': mixtral_lora[2]},
              **bwd[TRAIN_CASE[0]]['dkv'], headline_shape=headline['dkv'],
              head_dim_256_shapes={name: bwd[name]['dkv']
                                   for name in TIMED_BWD[1:2]},
              slice12_shapes={name: bwd[name]['dkv']
-                             for name in SLICE12_BWD}),
+                             for name in SLICE12_BWD},
+             bert_shapes={name: bwd[name]['dkv'] for name in BERT_SHAPES}),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

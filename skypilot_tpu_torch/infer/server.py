@@ -1521,10 +1521,19 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     params = None
     tokenizer_implied = False   # tokenizer_name defaulted from hf_model
     if hf_model:
+        import transformers
+
         from skypilot_tpu_torch.models import hf_import
         dev = resolve_device(device)
-        # load_hf_model refuses a family it does not serve from
-        # config.json alone, before the (tens-of-GB) weight load.
+        # The family from config.json alone, before the (tens-of-GB)
+        # weight load: the JAX server's check and text.
+        mt = getattr(transformers.AutoConfig.from_pretrained(hf_model),
+                     'model_type', None)
+        if mt not in hf_import.CAUSAL_LM:
+            raise ValueError(
+                f'--hf-model must be a supported causal-LM checkpoint '
+                f"(model_type 'llama', 'qwen2', 'mistral', 'mixtral', "
+                f"'gpt2' or 'gemma'); got model_type={mt!r}")
         model_config, params = hf_import.load_hf_model(
             hf_model, param_dtype=torch.bfloat16)
         if weight_dtype == 'int8':

@@ -1,6 +1,6 @@
-"""HuggingFace checkpoint import for the causal LMs -- the port's
-counterpart of ``skypilot_tpu/models/hf_import.py`` (llama, qwen2,
-mistral, gemma, gpt2 and mixtral checkpoints; bert is ROADMAP.md A8.2).
+"""HuggingFace checkpoint import -- the port's counterpart of
+``skypilot_tpu/models/hf_import.py`` (llama, qwen2, mistral, gemma, gpt2,
+mixtral and bert checkpoints).
 
 Two layers, as in the JAX package:
 
@@ -12,11 +12,16 @@ Two layers, as in the JAX package:
   ``hf_norm_zero_centered``).  GPT-2's Conv1D weights are stored
   ``[in, out]`` and are transposed; its LayerNorms keep weight and bias.
   Mixtral's experts (``w1``/``w3``/``w2`` = gate/up/down) are transposed
-  and stacked into the port's ``[E, H, F]``/``[E, F, H]`` tensors.  No
+  and stacked into the port's ``[E, H, F]``/``[E, F, H]`` tensors.
+  BERT's encoder lands under ``bert.`` with its LayerNorms' weight and
+  bias as scale and bias, and the MLM head (``transform``,
+  ``transform_norm``, ``decoder``) when the checkpoint has one.  No
   transformers import.
 - ``load_hf_model(name_or_path)``: loads a transformers checkpoint (a
   local directory, or a model id already in the local cache: nothing is
-  downloaded), derives the config with ``config_from_hf`` and converts.
+  downloaded; bert through ``AutoModelForMaskedLM``, the rest through
+  ``AutoModelForCausalLM``), derives the config with ``config_from_hf``
+  and converts.
   ``transformers`` is imported inside it only.
 
 RoPE is the rotate-half convention on both sides: no head-dim permutation.
@@ -28,18 +33,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from skypilot_tpu_torch.models.bert import BertConfig
 from skypilot_tpu_torch.models.gpt2 import GPT2Config
 from skypilot_tpu_torch.models.llama import LlamaConfig
 from skypilot_tpu_torch.models.mixtral import MixtralConfig
-from skypilot_tpu_torch.models.registry import CausalLMConfig
+from skypilot_tpu_torch.models.registry import ModelConfig
 
 StateDict = Dict[str, torch.Tensor]
 
-# HF model types of the JAX package's importer that the port does not
-# have yet.
-_NOT_PORTED = ('bert',)
 # HF model types the JAX server takes for --hf-model: the causal LMs.
-_CAUSAL_LM = ('llama', 'qwen2', 'mistral', 'mixtral', 'gpt2', 'gemma')
+CAUSAL_LM = ('llama', 'qwen2', 'mistral', 'mixtral', 'gpt2', 'gemma')
 
 # Non-weight buffers that legitimately remain unconverted (matched as
 # suffixes against checkpoint keys).
@@ -47,6 +50,8 @@ _IGNORABLE_SUFFIXES = (
     'rotary_emb.inv_freq',          # old llama/mixtral checkpoints
     '.attn.bias',                   # gpt2 causal-mask buffer
     '.attn.masked_bias',            # gpt2 mask fill buffer
+    'embeddings.position_ids',      # bert position buffer
+    'cls.predictions.decoder.bias',  # same tensor as cls.predictions.bias
 )
 
 
@@ -65,6 +70,10 @@ class _SD:
         raise KeyError(
             f'{key!r} not in checkpoint (tried bare/model./transformer. '
             f'prefixes); sample keys: {sorted(self._sd)[:5]}')
+
+    def has(self, key: str) -> bool:
+        return any(k in self._sd for k in (key, f'model.{key}',
+                                           f'transformer.{key}'))
 
     def unused(self):
         return sorted(set(self._sd) - self.used)
@@ -141,7 +150,43 @@ def _convert_gpt2(cfg: GPT2Config, sd: _SD,
     return out
 
 
-def convert_state_dict(cfg: CausalLMConfig, state_dict: Dict[str, Any],
+def _convert_bert(cfg: BertConfig, sd: _SD,
+                  param_dtype: Optional[torch.dtype]) -> StateDict:
+    """The encoder under ``bert.``, and the MLM head when the checkpoint
+    has one: HF's linears are already ``[out, in]``."""
+    w = _reader(sd, param_dtype)
+    out: StateDict = {}
+
+    def linear(dst, src):
+        out[dst + '.weight'] = w(src + '.weight')
+        out[dst + '.bias'] = w(src + '.bias')
+
+    def norm(dst, src):
+        out[dst + '.scale'] = w(src + '.weight')
+        out[dst + '.bias'] = w(src + '.bias')
+
+    for name in ('word_embeddings', 'position_embeddings',
+                 'token_type_embeddings'):
+        out['bert.' + name] = w(f'bert.embeddings.{name}.weight')
+    norm('bert.embeddings_norm', 'bert.embeddings.LayerNorm')
+    for i in range(cfg.num_layers):
+        p, q = f'bert.encoder.layer.{i}.', f'bert.layers.{i}.'
+        for name in ('query', 'key', 'value'):
+            linear(f'{q}attention.{name}', f'{p}attention.self.{name}')
+        linear(q + 'attention.output', p + 'attention.output.dense')
+        norm(q + 'attention_norm', p + 'attention.output.LayerNorm')
+        linear(q + 'intermediate', p + 'intermediate.dense')
+        linear(q + 'output', p + 'output.dense')
+        norm(q + 'output_norm', p + 'output.LayerNorm')
+    if sd.has('cls.predictions.transform.dense.weight'):   # MLM head
+        linear('transform', 'cls.predictions.transform.dense')
+        norm('transform_norm', 'cls.predictions.transform.LayerNorm')
+        out['decoder.weight'] = w('cls.predictions.decoder.weight')
+        out['decoder.bias'] = w('cls.predictions.bias')
+    return out
+
+
+def convert_state_dict(cfg: ModelConfig, state_dict: Dict[str, Any],
                        strict: bool = True,
                        param_dtype: Optional[torch.dtype] = None
                        ) -> StateDict:
@@ -155,15 +200,17 @@ def convert_state_dict(cfg: CausalLMConfig, state_dict: Dict[str, Any],
     param_dtype: the dtype of the converted weights (None keeps each
     tensor's stored dtype); norm scales are f32 regardless."""
     conv = {LlamaConfig: _convert_llama, GPT2Config: _convert_gpt2,
-            MixtralConfig: _convert_llama}.get(type(cfg))
+            MixtralConfig: _convert_llama,
+            BertConfig: _convert_bert}.get(type(cfg))
     if conv is None:
         raise ValueError(
             f'no HF converter for {type(cfg).__name__}; supported: '
-            "['LlamaConfig', 'GPT2Config', 'MixtralConfig']")
+            "['LlamaConfig', 'GPT2Config', 'MixtralConfig', 'BertConfig']")
     sd = _SD(state_dict)
     out = {k: v.contiguous() for k, v in conv(cfg, sd, param_dtype).items()}
     # GPT-2 is always weight-tied (no config field).
-    tied = isinstance(cfg, GPT2Config) or cfg.tie_embeddings
+    tied = isinstance(cfg, GPT2Config) or getattr(cfg, 'tie_embeddings',
+                                                  False)
     leftover = [
         k for k in sd.unused()
         if not k.endswith(_IGNORABLE_SUFFIXES)
@@ -178,7 +225,7 @@ def convert_state_dict(cfg: CausalLMConfig, state_dict: Dict[str, Any],
     return out
 
 
-def config_from_hf(hf_config, name: Optional[str] = None) -> CausalLMConfig:
+def config_from_hf(hf_config, name: Optional[str] = None) -> ModelConfig:
     """Map a transformers config object to the port's config of its
     family, with the JAX importer's refusals word for word."""
     mt = getattr(hf_config, 'model_type', None)
@@ -282,40 +329,42 @@ def config_from_hf(hf_config, name: Optional[str] = None) -> CausalLMConfig:
             router_aux_loss_weight=getattr(hf_config,
                                            'router_aux_loss_coef', 0.02),
             tie_embeddings=getattr(hf_config, 'tie_word_embeddings', False))
-    if mt in _NOT_PORTED:
-        raise NotImplementedError(
-            f'HF model_type {mt!r} belongs to a family that is not yet '
-            'ported (ROADMAP.md A8.2, the other families)')
+    if mt == 'bert':
+        return BertConfig(
+            name=name, vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            intermediate_size=hf_config.intermediate_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            type_vocab_size=hf_config.type_vocab_size,
+            norm_eps=hf_config.layer_norm_eps)
     raise ValueError(f'unsupported HF model_type: {mt!r}')
 
 
 def load_hf_model(name_or_path: str, dtype: Optional[torch.dtype] = None,
                   param_dtype: Optional[torch.dtype] = None
-                  ) -> Tuple[CausalLMConfig, StateDict]:
+                  ) -> Tuple[ModelConfig, StateDict]:
     """Load a transformers checkpoint (a local directory or a warm cache)
     and return ``(config, state_dict)``.  The config comes first, from
-    ``config.json`` alone, so a checkpoint that is no causal LM (the JAX
-    server's ValueError) or of a family the port does not have fails
-    before any weight is read.
+    ``config.json`` alone, so a checkpoint of a family the port does not
+    have fails before any weight is read.
 
     dtype: the config's compute dtype; param_dtype: the dtype the
     converted weights are stored in (see convert_state_dict)."""
     import transformers
     hf_cfg = transformers.AutoConfig.from_pretrained(name_or_path)
-    mt = getattr(hf_cfg, 'model_type', None)
-    if mt not in _CAUSAL_LM:
-        raise ValueError(
-            f'--hf-model must be a supported causal-LM checkpoint '
-            f"(model_type 'llama', 'qwen2', 'mistral', 'mixtral', "
-            f"'gpt2' or 'gemma'); got model_type={mt!r}")
     cfg = config_from_hf(hf_cfg, name=name_or_path)
+    auto = (transformers.AutoModelForMaskedLM
+            if isinstance(cfg, BertConfig)
+            else transformers.AutoModelForCausalLM)
     # dtype='auto' keeps the checkpoint's stored precision.  The keyword
     # was renamed torch_dtype -> dtype in transformers 4.56, and
     # from_pretrained swallows unknown keywords, so pick it by version.
     ver = tuple(int(x) for x in transformers.__version__.split('.')[:2])
     dtype_kw = 'dtype' if ver >= (4, 56) else 'torch_dtype'
-    model = transformers.AutoModelForCausalLM.from_pretrained(
-        name_or_path, low_cpu_mem_usage=True, **{dtype_kw: 'auto'})
+    model = auto.from_pretrained(name_or_path, low_cpu_mem_usage=True,
+                                 **{dtype_kw: 'auto'})
     # If the keyword was ignored anyway, the model comes back fp32 though
     # the checkpoint stores a narrower dtype.
     stored = getattr(hf_cfg, 'dtype', None) or getattr(

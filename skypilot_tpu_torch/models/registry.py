@@ -1,25 +1,26 @@
-"""Named model configs of the port: the causal-LM families of
-``skypilot_tpu/models/registry.py`` (llama, gemma, GPT-2, Mixtral; same
-names, same sizes) and ``build_model``/``is_causal_lm``, which pick a
-config's module.  The encoder and vision families are not ported yet and
-raise."""
+"""Named model configs of the port: every family of
+``skypilot_tpu/models/registry.py`` (llama, gemma, GPT-2, Mixtral, BERT,
+ResNet; same names, same sizes) and ``build_model``/``is_causal_lm``,
+which pick a config's module."""
 from typing import Any, Dict, Union
 
 from torch import nn
 
+from skypilot_tpu_torch.models.bert import (Bert, BertConfig,
+                                            BertForMaskedLM,
+                                            BertForSequenceClassification)
 from skypilot_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from skypilot_tpu_torch.models.llama import Llama, LlamaConfig
 from skypilot_tpu_torch.models.mixtral import Mixtral, MixtralConfig
+from skypilot_tpu_torch.models.resnet import ResNet, ResNetConfig
 
 CausalLMConfig = Union[LlamaConfig, GPT2Config, MixtralConfig]
+ModelConfig = Union[CausalLMConfig, BertConfig, ResNetConfig]
 
-_CONFIGS: Dict[str, CausalLMConfig] = {}
-
-# Families of the JAX registry that the port does not have yet.
-_NOT_PORTED = ('bert-base', 'bert-debug', 'resnet50', 'resnet18-debug')
+_CONFIGS: Dict[str, ModelConfig] = {}
 
 
-def _register(cfg: CausalLMConfig) -> CausalLMConfig:
+def _register(cfg: ModelConfig) -> ModelConfig:
     _CONFIGS[cfg.name] = cfg
     return cfg
 
@@ -118,23 +119,40 @@ _register(
                   num_kv_heads=2, num_experts=4, experts_per_token=2,
                   max_seq_len=128, tie_embeddings=True))
 
+# ------------------------------------------------------------------ bert
+_register(BertConfig(name='bert-base', vocab_size=30522, hidden_size=768,
+                     num_layers=12, num_heads=12, intermediate_size=3072,
+                     max_seq_len=512))
+_register(BertConfig(name='bert-debug', vocab_size=256, hidden_size=64,
+                     num_layers=2, num_heads=4, intermediate_size=128,
+                     max_seq_len=128))
 
-def get_model_config(name: str) -> CausalLMConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f'model {name!r} belongs to a family that is not yet ported '
-            '(ROADMAP.md A8.2, the other families)')
+# ---------------------------------------------------------------- resnet
+_register(ResNetConfig(name='resnet50', stage_sizes=(3, 4, 6, 3)))
+_register(ResNetConfig(name='resnet18-debug', stage_sizes=(1, 1),
+                       width=8, num_classes=10))
+
+
+def get_model_config(name: str) -> ModelConfig:
     if name not in _CONFIGS:
         raise ValueError(
             f'Unknown model {name!r}. Available: {sorted(_CONFIGS)}')
     return _CONFIGS[name]
 
 
-def build_model(config: Any, device=None, param_dtype=None) -> nn.Module:
+def build_model(config: Any, head: str = 'lm', device=None,
+                param_dtype=None) -> nn.Module:
     """Config -> the port's module on `device` (``param_dtype`` as each
-    module takes it)."""
+    module takes it).  `head` picks the task head of the encoder family
+    ('lm' | 'mlm' | 'classify'), as the JAX ``build_model`` does; the
+    other families ignore it."""
+    if isinstance(config, BertConfig):
+        module = {'classify': BertForSequenceClassification,
+                  'mlm': BertForMaskedLM}.get(head, Bert)
+        return module(config, device=device, param_dtype=param_dtype)
     for cfg_type, module in ((LlamaConfig, Llama), (GPT2Config, GPT2),
-                             (MixtralConfig, Mixtral)):
+                             (MixtralConfig, Mixtral),
+                             (ResNetConfig, ResNet)):
         if isinstance(config, cfg_type):
             return module(config, device=device, param_dtype=param_dtype)
     raise TypeError(f'No module builder for config type {type(config)}')

@@ -19,7 +19,10 @@ q/k/v adapters), and the optimizer is built over the adapter parameters,
 so clipping, ``grad_norm`` and weight decay see the adapters alone and
 the base carries no Adam moments -- what ``make_train_step(trainable=
 lora.is_lora_path)`` with the reference's ``multi_transform`` optimizer
-computes.
+computes.  On Mixtral the adapters sit on the attention projections and
+the router and the experts stay frozen with the rest of the base; the
+router's aux term stays in the loss and reaches the adapters through
+the hidden states.
 
 Mixtral adds its routers' load-balance loss to the objective: each
 layer's ``aux * router_aux_loss_weight``, summed over layers and scaled by
@@ -29,8 +32,10 @@ the JAX step sums the sown ``router_aux_loss`` values.  The layer returns
 its term from the checkpointed call, so backward's recomputation leaves
 it as it was.  GPT-2's tied head is ``wte``.
 
-Not ported here: a mesh and pipeline parallelism (ROADMAP.md A9) and LoRA
-on Mixtral (ROADMAP.md A8.2); each raises ``NotImplementedError``.
+Not ported here: a mesh and pipeline parallelism (ROADMAP.md A9); each
+raises ``NotImplementedError``.  BERT and ResNet are no causal LMs: their
+task loops are ``train.tasks``, and the trainer refuses them with the JAX
+trainer's ``ValueError``.
 Checkpoints use the port's own format (``torch.save``; there is no
 orbax).
 """
@@ -411,11 +416,6 @@ class Trainer:
                 f'{cfg.model!r} is not a causal-LM family; use its '
                 'task-specific training loop (see models/bert.py, '
                 'models/resnet.py).')
-        if isinstance(self.model_config, MixtralConfig) and \
-                self.model_config.lora_rank:
-            raise NotImplementedError(
-                'LoRA on Mixtral (attention adapters over frozen experts) '
-                'is not ported yet (ROADMAP.md A8.2)')
         if cfg.grad_accum_steps > 1 and \
                 cfg.batch_size % cfg.grad_accum_steps:
             raise ValueError(

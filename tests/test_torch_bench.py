@@ -32,12 +32,16 @@ BENCH_POINT_KEYS = {'batch_per_chip', 'raw_tokens_per_sec_per_chip',
 
 
 def test_the_port_has_every_llama_family_config():
-    """The port's llama-family configs are the JAX registry's, and its
-    registry holds the JAX registry's causal LMs, no more."""
+    """The port's llama-family configs are the JAX registry's; its causal
+    LMs are the JAX registry's causal LMs, and the whole registry holds
+    every name of the JAX registry (the encoder and vision families
+    too), no more."""
     llamas = [n for n, c in registry._CONFIGS.items()
               if isinstance(c, LlamaConfig)]
     assert sorted(llamas) == JAX_LLAMAS
-    assert sorted(registry._CONFIGS) == JAX_CAUSAL
+    assert sorted(n for n, c in registry._CONFIGS.items()
+                  if registry.is_causal_lm(c)) == JAX_CAUSAL
+    assert sorted(registry._CONFIGS) == jax_registry.list_models()
 
 
 @pytest.mark.parametrize('name', JAX_CAUSAL)

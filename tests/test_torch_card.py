@@ -639,3 +639,73 @@ def test_new_families_on_the_card_match_the_cpu(card, name):
     if name == 'mixtral-debug':
         assert gx['layers.0.moe.router.weight'].abs().sum() > 0
     assert tc == tx
+
+
+def test_bert_base_width_on_the_card_matches_the_cpu(card):
+    """bert-base's width at depth 2 in f32, the classifier head, the same
+    weights and batch on the card and the CPU: the logits, the loss and
+    every gradient without a mask (the f32 kernels non-causal at head_dim
+    64: 4/2/2 launches under remat) and the logits with a padding mask
+    (the plain masked path, no launch)."""
+    from skypilot_tpu_torch.models import convert, registry
+    cfg = dataclasses.replace(get_model_config('bert-base'), num_layers=2,
+                              dtype=torch.float32)
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0),
+                             head='classify')
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128)))
+    labels = torch.tensor([0, 1])
+    mask = torch.ones((2, 128), dtype=torch.long)
+    mask[1, 100:] = 0
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        model = registry.build_model(cfg, head='classify', device=dev,
+                                     param_dtype=torch.float32)
+        model.load_state_dict(sd)
+        before = _counts()
+        logits = model(tokens.to(dev))
+        loss = torch.nn.functional.cross_entropy(logits, labels.to(dev))
+        loss.backward()
+        launched = [b - a for a, b in zip(before, _counts())]
+        with torch.no_grad():
+            masked = model(tokens.to(dev), None, mask.to(dev)).cpu()
+        masked_launched = [b - a for a, b in zip(before, _counts())]
+        out[dev] = (logits.detach().cpu(), loss.item(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    masked, launched, masked_launched)
+    (lc, fc, gc, mc, nc, mnc), (lx, fx, gx, mx, _, _) = \
+        out['cuda'], out['cpu']
+    assert nc == [4, 2, 2] and mnc == nc
+    assert (lc - lx).abs().max().item() <= TOL * max(1.0, lx.abs().max())
+    assert (mc - mx).abs().max().item() <= TOL * max(1.0, mx.abs().max())
+    assert abs(fc - fx) <= TOL * abs(fx)
+    for n, g in gc.items():
+        assert (g - gx[n]).abs().max().item() <= \
+            TOL * max(gx[n].abs().max().item(), 1e-3), n
+
+
+def test_resnet_step_on_the_card_matches_the_cpu(card):
+    """A small f32 ResNet (resnet18-debug, 32x32) through one task-loop
+    step on the card and the CPU from the same weights and batch, TF32
+    off (cuDNN runs f32 convolutions in TF32 by default): the loss, every
+    parameter after the SGD step and the running statistics."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.train import tasks
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_model_config('resnet18-debug'),
+                              dtype=torch.float32)
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = next(tasks.synthetic_resnet_batches(0, 0, 16, 32,
+                                                cfg.num_classes))
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        state = tasks.resnet_setup(cfg, 0.1, 0.9, 10, device=dev,
+                                   params=sd)
+        loss, _ = tasks.resnet_step(state, batch)
+        out[dev] = (loss.item(), {k: v.cpu() for k, v in
+                                  state.model.state_dict().items()})
+    (fc, sc), (fx, sx) = out['cuda'], out['cpu']
+    assert abs(fc - fx) <= TOL * abs(fx)
+    for k, v in sc.items():
+        assert (v - sx[k]).abs().max().item() <= \
+            TOL * max(sx[k].abs().max().item(), 1e-3), k

@@ -212,20 +212,22 @@ def _mixtral():
         max_position_embeddings=64, rms_norm_eps=1e-5))
 
 
+def _bert():
+    return transformers.BertForMaskedLM(transformers.BertConfig(
+        vocab_size=128, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=128,
+        max_position_embeddings=64, type_vocab_size=2))
+
+
 @pytest.mark.parametrize('family', ['gpt2', 'mixtral', 'bert'])
 def test_other_families_name_their_item(family, tmp_path):
-    """bert, which the JAX importer has and the port not yet, is refused
-    naming ROADMAP.md A8.2.  gpt2 and mixtral, ported since, load as the
-    llama family does: tests/test_hf_import.py's models, saved to
-    tmp_path, give the JAX import's config (mixtral's drop-free capacity
-    E/k) and weights exactly, and logits against the HF forward and the
-    JAX import's at the file's tolerance."""
-    if family == 'bert':
-        with pytest.raises(NotImplementedError, match='A8.2'):
-            hf_import.config_from_hf(transformers.BertConfig())
-        return
+    """gpt2, mixtral and bert, ported since, load as the llama family
+    does: tests/test_hf_import.py's models, saved to tmp_path, give the
+    JAX import's config (mixtral's drop-free capacity E/k) and weights
+    exactly, and logits against the HF forward and the JAX import's at
+    the file's tolerance (bert: the MLM head's)."""
     torch.manual_seed(0)
-    hf = (_gpt2 if family == 'gpt2' else _mixtral)().eval()
+    hf = {'gpt2': _gpt2, 'mixtral': _mixtral, 'bert': _bert}[family]().eval()
     hf.save_pretrained(str(tmp_path))
     cfg, sd = hf_import.load_hf_model(str(tmp_path), dtype=torch.float32)
     jcfg = dataclasses.replace(jhf.config_from_hf(hf.config,
@@ -241,14 +243,15 @@ def test_other_families_name_their_item(family, tmp_path):
     assert sd.keys() == want_sd.keys()
     for k, v in sd.items():
         assert torch.equal(v.float(), want_sd[k]), k
-    model = registry.build_model(cfg, device='cpu')
+    head = 'mlm' if family == 'bert' else 'lm'
+    model = registry.build_model(cfg, head=head, device='cpu')
     model.load_state_dict(sd)
     tokens = np.random.RandomState(7).randint(0, 128, size=(2, 12))
     with torch.no_grad():
         got = model(torch.from_numpy(tokens)).numpy()
         want = hf(torch.from_numpy(tokens)).logits.numpy()
     np.testing.assert_allclose(got, want, **TOL)
-    jmodel = jax_registry.build_model(jcfg)
+    jmodel = jax_registry.build_model(jcfg, head=head)
     jgot = np.asarray(jmodel.apply({'params': jparams}, jnp.asarray(tokens)))
     np.testing.assert_allclose(got, jgot, **TOL)
 

@@ -13,6 +13,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / 'skypilot_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
+# The PyTorch twins of the JAX examples, imported as modules of examples/.
+EXAMPLES = ['examples.finetune_bert_torch', 'examples.train_resnet_torch']
 
 
 def _port_modules():
@@ -39,11 +41,14 @@ def test_forbidden_matcher_spares_the_port():
 def test_importing_every_module_loads_no_jax():
     """In a fresh interpreter: import every module of the port, then no
     jax/flax/optax and no skypilot_tpu(.*) may be in sys.modules."""
-    modules = _port_modules() + ['bench_torch']
+    modules = _port_modules() + ['bench_torch'] + EXAMPLES
     assert 'skypilot_tpu_torch.ops.flash_attention' in modules
     assert 'skypilot_tpu_torch.infer.engine' in modules
     assert 'skypilot_tpu_torch.train.trainer' in modules
     assert 'skypilot_tpu_torch.train.lora' in modules
+    assert {'skypilot_tpu_torch.train.tasks',
+            'skypilot_tpu_torch.models.bert',
+            'skypilot_tpu_torch.models.resnet'} <= set(modules)
     assert {'skypilot_tpu_torch.infer.server',
             'skypilot_tpu_torch.infer.scheduler',
             'skypilot_tpu_torch.infer.faults',
@@ -67,7 +72,8 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize('path', sorted(
     [str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')] +
-    ['bench_torch.py', 'chip_smoke.py', 'tests/test_torch_card.py']))
+    ['bench_torch.py', 'chip_smoke.py', 'tests/test_torch_card.py'] +
+    [m.replace('.', '/') + '.py' for m in EXAMPLES]))
 def test_sources_import_no_jax(path):
     """No import statement anywhere in the file -- including ones inside
     functions -- names a forbidden package."""
@@ -135,6 +141,14 @@ def test_entry_points_need_a_card():
         next(synthetic_data(1, 8, 16))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         bench_torch.measure('llama-debug', seq_len=64, batch_per_chip=1)
+    from skypilot_tpu_torch.train import tasks
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        tasks.finetune_bert('bert-debug', steps=1)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        tasks.train_resnet('resnet18-debug', steps=1)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        Trainer(TrainConfig(model='mixtral-debug'), dataclasses.replace(
+            get_model_config('mixtral-debug'), lora_rank=4))
     assert resolve_device('cpu') == torch.device('cpu')
 
 

@@ -201,9 +201,9 @@ def test_init_params_distributions():
 
 
 def test_unported_features_raise():
-    """The encoder and vision families still raise naming ROADMAP.md
-    A8.2; GPT-2 and Mixtral, ported since, give every config of the JAX
-    registry's at its sizes; LoRA, ported since, builds, and at
+    """Every family of the JAX registry is ported: GPT-2 and Mixtral, and
+    since the encoder and vision families too, give every config of the
+    JAX registry's at its sizes; LoRA, ported since, builds, and at
     init (B = 0) gives the base model's logits; int8 weights, ported
     since, build and give the flax int8 model's logits over the JAX
     package's quantize_params of the same weights."""
@@ -231,9 +231,14 @@ def test_unported_features_raise():
     with torch.no_grad():
         np.testing.assert_allclose(int8(tokens).numpy(), np.asarray(want),
                                    atol=TOL_F32)
-    for name in ('bert-debug', 'resnet18-debug'):
-        with pytest.raises(NotImplementedError, match='A8.2'):
-            registry.get_model_config(name)
+    for name in ('bert-base', 'bert-debug', 'resnet50', 'resnet18-debug'):
+        mine, ref = registry.get_model_config(name), jax_model_config(name)
+        assert type(mine).__name__ == type(ref).__name__
+        for f in dataclasses.fields(ref):
+            if f.name != 'dtype':
+                assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+        assert str(mine.dtype)[6:] == ref.dtype.__name__
+        assert not registry.is_causal_lm(mine)
     for name in ('gpt2', 'gpt2-medium', 'gpt2-large', 'gpt2-debug',
                  'mixtral-8x7b', 'mixtral-debug'):
         mine, ref = registry.get_model_config(name), jax_model_config(name)

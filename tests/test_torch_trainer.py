@@ -329,13 +329,31 @@ def test_unported_options_raise():
     names = {n for n, p in lora.state.model.named_parameters()
              if p.requires_grad}
     assert names and all('_lora.' in n for n in names)
-    # GPT-2 and Mixtral, ported since, train; LoRA on Mixtral is not.
+    # GPT-2 and Mixtral, ported since, train; LoRA on Mixtral, ported
+    # since, trains the attention adapters alone (the router and the
+    # experts frozen).
     for name in ('gpt2-debug', 'mixtral-debug'):
         tt.Trainer(tt.TrainConfig(model=name), device='cpu').setup()
     mixtral = registry.get_model_config('mixtral-debug')
-    with pytest.raises(NotImplementedError, match='A8.2'):
-        tt.Trainer(tt.TrainConfig(model='mixtral-debug'),
-                   dataclasses.replace(mixtral, lora_rank=4), device='cpu')
+    moe_lora = tt.Trainer(tt.TrainConfig(model='mixtral-debug'),
+                          dataclasses.replace(mixtral, lora_rank=4),
+                          device='cpu')
+    moe_lora.setup()
+    names = {n for n, p in moe_lora.state.model.named_parameters()
+             if p.requires_grad}
+    assert len(names) == 16 and all('attn.' in n and '_lora.' in n
+                                    for n in names)
+    # BERT and ResNet, ported since, are no causal LMs: the JAX trainer's
+    # ValueError, text for text (tests/test_model_zoo.py's refusal).
+    for name in ('bert-debug', 'resnet18-debug'):
+        texts = []
+        for make in (lambda: jt.Trainer(jt.TrainConfig(model=name)),
+                     lambda: tt.Trainer(tt.TrainConfig(model=name),
+                                        device='cpu')):
+            with pytest.raises(ValueError) as e:
+                make()
+            texts.append(str(e.value))
+        assert texts[0] == texts[1] and 'not a causal-LM family' in texts[0]
     with pytest.raises(ValueError, match='not divisible'):
         tt.Trainer(dataclasses.replace(cfg, batch_size=3,
                                        grad_accum_steps=2), tcfg,
