@@ -3711,14 +3711,16 @@ GPT2_NEW_TOKENS = 32
 GPT2_BOUND = 0.5
 
 
-def resume_check(model_name: str, batch: tuple) -> dict:
+def resume_check(model_name: str, batch: tuple, mesh=None) -> dict:
     """The managed-spot recipe's recovery: a Trainer checkpoints at step
     GPT2_RESUME_AT, a fresh Trainer restores from that checkpoint and
     takes the next GPT2_RESUME_AT steps; their losses and the final
-    parameters must equal an uninterrupted run's bit for bit."""
+    parameters must equal an uninterrupted run's bit for bit.  With
+    `mesh` (a MeshSpec) every Trainer runs on it: the checkpoint is
+    gathered whole, and read back by rank 0 and broadcast."""
     cfg = train_lib.TrainConfig(model=model_name, batch_size=batch[0],
                                 seq_len=batch[1], warmup_steps=2,
-                                total_steps=100)
+                                total_steps=100, mesh=mesh)
     vocab = get_model_config(model_name).vocab_size
     n = GPT2_RESUME_AT
     batches = list(itertools.islice(train_lib.synthetic_data(
@@ -3726,7 +3728,7 @@ def resume_check(model_name: str, batch: tuple) -> dict:
     straight = train_lib.Trainer(cfg)
     straight.setup(seed=0)
     straight.train(iter(batches), num_steps=2 * n, log_every=1)
-    want = {k: v.clone() for k, v in straight.state.model.state_dict().items()}
+    want = {k: v.clone() for k, v in straight._full_state()[0].items()}
     history = straight.history
     del straight
     ckpt = tempfile.mkdtemp(prefix='gpt2_resume_')
@@ -3745,7 +3747,7 @@ def resume_check(model_name: str, batch: tuple) -> dict:
               f'resumed at step {resumed.state.step}, expected {n}')
         resumed.train(iter(batches[n:]), num_steps=n, log_every=1)
         equal = all(torch.equal(p, want[k]) for k, p in
-                    resumed.state.model.state_dict().items())
+                    resumed._full_state()[0].items())
         check(resumed.history == history[n:] and equal,
               f'resumed losses {resumed.history} against {history[n:]}, '
               f'parameters equal: {equal}')
@@ -4563,6 +4565,243 @@ FAULTS_D256 = (
 )
 
 
+# The mesh phase: llama3-8b at full width (4096, GQA 32:8 x 128, vocab
+# 128,256, untied) at examples/train_llama3_8b.yaml's seq 8192, batch 1
+# per card, cut to 4 of 32 layers: 1.92e9 parameters, whose f32 master
+# weights, gradients and Adam moments (16 bytes each) take 30.7 GB of the
+# card's 80 GB, the no-mesh trainer's and the mesh trainer's in turn.
+MESH_MODEL = 'llama3-8b'
+MESH_LAYERS = 4
+MESH_BATCH = (1, 8192)
+MESH_STEPS = 4
+# Depth 2 at the same width in f32, the FSDP2-wrapped one-rank mesh
+# trainer against the no-mesh trainer: the same kernels on the same
+# values, so the bounds are the train phase's card-vs-CPU ones tightened
+# on the loss.
+MESH_CHECK_SEQ = 1024
+BOUND_MESH_LOSS = 1e-6
+# The task loops through the process-group path (a one-rank data mesh)
+# against their single-process steps: 3 steps each.
+MESH_TASK_STEPS = 3
+# The recovery of a mesh trainer (resume_check through the one-rank
+# mesh), at a small model: what it shows is the broadcast restore path.
+MESH_RESUME_MODEL = 'gpt2'
+MESH_RESUME_BATCH = (2, 256)
+
+
+def mesh_grads(trainer) -> dict:
+    """Every gradient of a trainer's model, whole, on the CPU."""
+    from torch.distributed.tensor import DTensor
+    return {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
+                else p.grad).detach().float().cpu()
+            for n, p in trainer.state.model.named_parameters()}
+
+
+def mesh_depth2(mc) -> dict:
+    """One train step at depth 2 in f32 of the mesh trainer
+    (MeshSpec(fsdp=1): FSDP2 over the one-rank NCCL group) and of the
+    no-mesh trainer, from the same weights and batch: the loss, every
+    gradient and the launches of each."""
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec
+    cfg2 = dataclasses.replace(mc, num_layers=2, dtype=torch.float32)
+    sd = {k: v.cpu() for k, v in iter_params(
+        cfg2, torch.Generator(device='cuda').manual_seed(0))}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg2.vocab_size, (1, MESH_CHECK_SEQ + 1)))
+    res = {}
+    for name, mesh in (('no_mesh', None), ('mesh', MeshSpec(fsdp=1))):
+        tr = train_lib.Trainer(train_lib.TrainConfig(
+            model=MESH_MODEL, batch_size=1, seq_len=MESH_CHECK_SEQ,
+            warmup_steps=2, total_steps=100, mesh=mesh), cfg2,
+            device='cuda')
+        tr.setup(params=sd)
+        tally = [0, 0, 0]
+        m = counted(lambda: tr._step_fn(tr.state, {'tokens': tokens}),
+                    tally)
+        res[name] = (m['loss'].item(), mesh_grads(tr), tally)
+        del tr, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    del sd
+    (lm, gm, tm), (ln, gn, tn) = res['mesh'], res['no_mesh']
+    grad_err, worst = grad_errors(gm, gn)
+    return {'num_layers': 2, 'seq': MESH_CHECK_SEQ, 'loss_mesh': lm,
+            'loss_no_mesh': ln, 'loss_rel_err': abs(lm - ln) / abs(ln),
+            'grad_max_rel_err': grad_err, 'grad_worst': worst,
+            'launches_mesh': tm, 'launches_no_mesh': tn}
+
+
+def mesh_full_width(mc, mesh) -> tuple:
+    """MESH_STEPS steps of llama3-8b (MESH_LAYERS layers) at MESH_BATCH
+    through the Trainer, with `mesh` (a MeshSpec, or None), then one more
+    profiled: the launches of each step, the losses, step ms, tokens/s,
+    the peak and the device's idle share."""
+    cfg = train_lib.TrainConfig(model=MESH_MODEL, batch_size=MESH_BATCH[0],
+                                seq_len=MESH_BATCH[1], warmup_steps=2,
+                                total_steps=100, mesh=mesh)
+    tr = train_lib.Trainer(cfg, mc, device='cuda')
+    tr.setup(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, per_step, launches = launches_per_step(
+        lambda wrap: tr.train(data=wrap(train_lib.synthetic_data(
+            cfg.batch_size, cfg.seq_len, mc.vocab_size, seed=0)),
+            num_steps=MESH_STEPS, log_every=1))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = next(train_lib.synthetic_data(cfg.batch_size, cfg.seq_len,
+                                          mc.vocab_size, seed=2))
+    step_profile = profile_device(
+        lambda: float(tr._step_fn(tr.state, batch)['loss']), top=10)
+    losses = [loss for _, loss in tr.history]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {
+        'launches_per_step': per_step, 'losses': losses,
+        'step_ms': 1e3 * cfg.batch_size * cfg.seq_len
+        / out['tokens_per_second'],
+        'tokens_per_s': out['tokens_per_second'],
+        'max_memory_allocated_gib': peak_gib,
+        'idle_share': step_profile['idle_share'],
+        'step_profile': step_profile}
+
+
+def mesh_task_loops() -> dict:
+    """BERT's and ResNet's steps through the process-group path (a
+    one-rank data mesh: gradients, loss and accuracy all-reduced, the
+    BatchNorm sums through the data group when it has more than one rank)
+    against their single-process steps, from the same weights and
+    batches: the losses of MESH_TASK_STEPS steps of each."""
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    mesh = make_mesh(MeshSpec(data=1), 'cuda')
+    bert_cfg = get_model_config(BERT_MODEL)
+    res_cfg = dataclasses.replace(get_model_config(RESNET_MODEL),
+                                  num_classes=RESNET_RECIPE['num_classes'])
+    bert_data = tasks.synthetic_bert_batches(
+        np.random.default_rng(0), bert_cfg.vocab_size,
+        BERT_RECIPE['batch_size'], BERT_RECIPE['seq_len'],
+        bert_cfg.num_classes)
+    bert_batches = [next(bert_data) for _ in range(MESH_TASK_STEPS)]
+    res_data = tasks.synthetic_resnet_batches(
+        0, 0, RESNET_RECIPE['batch_size'], RESNET_RECIPE['image_size'],
+        RESNET_RECIPE['num_classes'])
+    res_batches = [next(res_data) for _ in range(MESH_TASK_STEPS)]
+    out = {}
+    for name, m in (('single', None), ('group', mesh)):
+        state = tasks.bert_setup(bert_cfg, BERT_RECIPE['lr'], seed=0,
+                                 device='cuda', mesh=m)
+        out[f'bert_{name}'] = [tasks.bert_step(state, b)[0].item()
+                               for b in bert_batches]
+        state = tasks.resnet_setup(res_cfg, RESNET_RECIPE['lr'],
+                                   RESNET_RECIPE['momentum'],
+                                   RESNET_RECIPE['steps'], seed=0,
+                                   device='cuda', mesh=m)
+        out[f'resnet_{name}'] = [tasks.resnet_step(state, b)[0].item()
+                                 for b in res_batches]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_train(env: dict) -> tuple:
+    """Multi-GPU training through a one-rank NCCL process group (the card
+    host shows one card): (a) the depth-2 f32 check of the FSDP2-wrapped
+    mesh trainer against the no-mesh trainer; (b) llama3-8b at full width
+    and MESH_LAYERS layers, seq 8192, batch 1, no mesh then
+    MeshSpec(fsdp=1), with 2L/L/L launches a step (remat full) on both;
+    (c) BERT's and ResNet's task loops through the process-group path
+    against their single-process steps; (d) resume_check through the
+    mesh trainer.  Returns the mesh trainer's launches over its steps and
+    the phase's line."""
+    from torch import distributed as dist
+
+    from skypilot_tpu_torch.parallel.mesh import (MeshSpec,
+                                                  ensure_process_group)
+    ensure_process_group('cuda')
+    check(dist.get_backend() == 'nccl' and dist.get_world_size() == 1,
+          f'process group {dist.get_backend()} x {dist.get_world_size()}')
+    full = get_model_config(MESH_MODEL)
+    depth2 = mesh_depth2(full)
+    check(depth2['launches_mesh'] == [4, 2, 2] ==
+          depth2['launches_no_mesh'],
+          f'depth-2 launches {depth2["launches_mesh"]} (mesh), '
+          f'{depth2["launches_no_mesh"]} (no mesh), expected [4, 2, 2]')
+    check(depth2['loss_rel_err'] <= BOUND_MESH_LOSS
+          and depth2['grad_max_rel_err'] <= BOUND_DEPTH2_GRAD,
+          f'depth-2 f32 mesh vs no mesh: {depth2}')
+    mc = dataclasses.replace(full, num_layers=MESH_LAYERS)
+    expected = [2 * MESH_LAYERS, MESH_LAYERS, MESH_LAYERS]
+    runs = {}
+    for name, mesh in (('no_mesh', None), ('mesh', MeshSpec(fsdp=1))):
+        launches, runs[name] = mesh_full_width(mc, mesh)
+        check(runs[name]['launches_per_step'] == [expected] * MESH_STEPS,
+              f'{name} launches per step '
+              f'{runs[name]["launches_per_step"]}, expected {expected}')
+        losses = runs[name]['losses']
+        check(all(math.isfinite(x) for x in losses)
+              and math.log(mc.vocab_size) <= losses[0]
+              <= math.log(mc.vocab_size) + LOSS_STEP1_MARGIN,
+              f'{name} losses {losses}')
+    tasks_out = mesh_task_loops()
+    resume = resume_check(MESH_RESUME_MODEL, MESH_RESUME_BATCH,
+                          mesh=MeshSpec(fsdp=1))
+    for fam in ('bert', 'resnet'):
+        a, b = tasks_out[f'{fam}_group'], tasks_out[f'{fam}_single']
+        check(all(abs(x - y) <= BOUND_MESH_LOSS * abs(y)
+                  for x, y in zip(a, b)),
+              f'{fam} through the process group {a}, single process {b}')
+    line = {'phase': 'mesh_train', 'model': MESH_MODEL,
+            'device': env['device'], 'nvidia_smi': env['nvidia_smi'],
+            'process_group': [dist.get_backend(), dist.get_world_size()],
+            'mesh': list(MeshSpec(fsdp=1).shape),
+            'num_layers': MESH_LAYERS, 'of_layers': full.num_layers,
+            'params': mc.num_params, 'batch': list(MESH_BATCH),
+            'dtype': str(mc.dtype), 'param_dtype': 'torch.float32',
+            'reduced': f'depth {full.num_layers} -> {MESH_LAYERS}: f32 '
+                       'master weights, gradients and Adam moments of '
+                       f'{mc.num_params:.3g} parameters',
+            'depth2_f32': depth2,
+            'depth2_bounds': [BOUND_MESH_LOSS, BOUND_DEPTH2_GRAD],
+            'runs': runs,
+            'step_ms_ratio_mesh_over_no_mesh':
+                runs['mesh']['step_ms'] / runs['no_mesh']['step_ms'],
+            'task_loops': tasks_out,
+            'resume': {'model': MESH_RESUME_MODEL,
+                       'batch': list(MESH_RESUME_BATCH), **resume}}
+    emit(line)
+    return launches, line
+
+
+def phase_dryrun(env: dict) -> tuple:
+    """``dryrun_multichip(torch.cuda.device_count())``: the training legs of
+    the reference's multi-chip dryrun over this host's cards (a leg that
+    needs an even rank count is skipped, with the reason printed, on an odd
+    count -- decided from the count before any leg starts); each leg's
+    lines on stderr.  Returns the launches of the legs and the line."""
+    from skypilot_tpu_torch.entry import dryrun_multichip
+    n = torch.cuda.device_count()
+    lines = []
+
+    def log(text):
+        lines.append(text)
+        stderr_log(text)
+
+    tally = [0, 0, 0]
+    losses = counted(lambda: dryrun_multichip(n, device='cuda', log=log),
+                     tally)
+    want = {'dp', 'ep'} | ({'sp', 'pp'} if n % 2 == 0 else set())
+    check(set(losses) == want and all(math.isfinite(x)
+                                      for x in losses.values()),
+          f'dryrun legs {losses}, expected {sorted(want)}')
+    check(all(tally), f'dryrun launched {tally}')
+    line = {'phase': 'dryrun', 'device': env['device'],
+            'nvidia_smi': env['nvidia_smi'], 'ranks': n, 'losses': losses,
+            'lines': lines, 'launches': tally}
+    emit(line)
+    return tally, line
+
+
 def phase_planted_faults() -> None:
     """Build a copy of a kernel per planted fault (under
     build/planted_faults/), run it in place of the sound library at its
@@ -4705,6 +4944,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_lora = timed(phase_mixtral_lora_train, env)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train, _ = timed(phase_mesh_train, env)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun, _ = timed(phase_dryrun, env)
+    from torch import distributed as dist
+    dist.destroy_process_group()
     csrc = 'skypilot_tpu_torch/ops/csrc/'
     tpu = 'skypilot_tpu/ops/flash_attention.py:'
     print(json.dumps({'kernels': [
@@ -4715,7 +4962,7 @@ def main() -> int:
                        + int8_forward + gpt2_train[0] + gpt2_forward
                        + mixtral_forward + mixtral_train[0]
                        + bert_train[0] + bert_hf_forward
-                       + mixtral_lora[0]),
+                       + mixtral_lora[0] + mesh_train[0] + dryrun[0]),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
@@ -4729,7 +4976,9 @@ def main() -> int:
                                'mixtral_train': mixtral_train[0],
                                'bert_train': bert_train[0],
                                'bert_hf_forward': bert_hf_forward,
-                               'mixtral_lora_train': mixtral_lora[0]},
+                               'mixtral_lora_train': mixtral_lora[0],
+                               'mesh_train': mesh_train[0],
+                               'dryrun': dryrun[0]},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
              headline_shape=headline['fwd'],
              head_dim_256_shapes={name: fwd[name]
@@ -4740,14 +4989,16 @@ def main() -> int:
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
              launches=(train_dq + bench_dq + gemma_train[1] + lora_train[1]
                        + gpt2_train[1] + mixtral_train[1] + bert_train[1]
-                       + mixtral_lora[1]),
+                       + mixtral_lora[1] + mesh_train[1] + dryrun[1]),
              launches_by_path={'train': train_dq, 'bench': bench_dq,
                                'gemma_train': gemma_train[1],
                                'lora_train': lora_train[1],
                                'gpt2_train': gpt2_train[1],
                                'mixtral_train': mixtral_train[1],
                                'bert_train': bert_train[1],
-                               'mixtral_lora_train': mixtral_lora[1]},
+                               'mixtral_lora_train': mixtral_lora[1],
+                               'mesh_train': mesh_train[1],
+                               'dryrun': dryrun[1]},
              **bwd[TRAIN_CASE[0]]['dq'], headline_shape=headline['dq'],
              head_dim_256_shapes={name: bwd[name]['dq']
                                   for name in TIMED_BWD[1:2]},
@@ -4758,14 +5009,17 @@ def main() -> int:
              replaces=tpu + '227',
              launches=(train_dkv + bench_dkv + gemma_train[2]
                        + lora_train[2] + gpt2_train[2] + mixtral_train[2]
-                       + bert_train[2] + mixtral_lora[2]),
+                       + bert_train[2] + mixtral_lora[2] + mesh_train[2]
+                       + dryrun[2]),
              launches_by_path={'train': train_dkv, 'bench': bench_dkv,
                                'gemma_train': gemma_train[2],
                                'lora_train': lora_train[2],
                                'gpt2_train': gpt2_train[2],
                                'mixtral_train': mixtral_train[2],
                                'bert_train': bert_train[2],
-                               'mixtral_lora_train': mixtral_lora[2]},
+                               'mixtral_lora_train': mixtral_lora[2],
+                               'mesh_train': mesh_train[2],
+                               'dryrun': dryrun[2]},
              **bwd[TRAIN_CASE[0]]['dkv'], headline_shape=headline['dkv'],
              head_dim_256_shapes={name: bwd[name]['dkv']
                                   for name in TIMED_BWD[1:2]},

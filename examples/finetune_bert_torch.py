@@ -1,14 +1,19 @@
-"""BERT sequence-classification finetune (IMDB-style) on one NVIDIA card:
-the PyTorch twin of examples/finetune_bert.py, on skypilot_tpu_torch.
+"""BERT sequence-classification finetune (IMDB-style) on NVIDIA cards: the
+PyTorch twin of examples/finetune_bert.py, on skypilot_tpu_torch.
 
 The same flags (``--device`` in place of ``--platform``) and the same
 printed lines; the step is ``skypilot_tpu_torch.train.tasks``'s (bf16
-encoder with f32 master weights, AdamW with weight decay 0.01).  More
-than one process is not supported yet (ROADMAP.md A9).
+encoder with f32 master weights, AdamW with weight decay 0.01).  Under
+torchrun (or the podlet's multi-process env) it runs data-parallel, one
+process per card, each drawing its share of --batch-size.
 
 Examples:
   # one H100, the recipe (examples/bert_imdb.yaml) on synthetic data:
   python examples/finetune_bert_torch.py --model bert-base --steps 50
+
+  # two cards of one host:
+  torchrun --nproc-per-node 2 examples/finetune_bert_torch.py \\
+      --model bert-base --steps 50
 
   # CPU smoke:
   python examples/finetune_bert_torch.py --model bert-debug --device cpu \\

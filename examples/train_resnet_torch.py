@@ -1,11 +1,12 @@
-"""ResNet training on one NVIDIA card: the PyTorch twin of
+"""ResNet training on NVIDIA cards: the PyTorch twin of
 examples/train_resnet.py, on skypilot_tpu_torch.
 
 The same flags (``--device`` in place of ``--platform``) and the same
 printed lines; the step is ``skypilot_tpu_torch.train.tasks``'s (bf16
 convolutions with f32 master weights and flax-style BatchNorm, Nesterov
-SGD under a cosine decay).  examples/resnet.yaml runs on two nodes;
-more than one process is not supported yet (ROADMAP.md A9).
+SGD under a cosine decay).  examples/resnet.yaml runs on two nodes: under
+torchrun (or the podlet's multi-process env) it runs data-parallel, one
+process per card, with BatchNorm statistics over the global batch.
 
 Examples:
   # one H100, the recipe's model and batch:

@@ -1517,7 +1517,7 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     ROADMAP.md item."""
     if tensor_parallel and tensor_parallel > 1:
         raise NotImplementedError(_unported(
-            '--tensor-parallel (tp serving)', 'A9'))
+            '--tensor-parallel (tp serving)', 'A9.2'))
     params = None
     tokenizer_implied = False   # tokenizer_name defaulted from hf_model
     if hf_model:
@@ -1610,7 +1610,7 @@ def main() -> None:
     parser.add_argument('--tensor-parallel', type=int,
                         default=int(os.environ.get(
                             'SKYTPU_SERVE_TP_SIZE', '0') or 0),
-                        help='shard over N cards (not ported yet: A9; '
+                        help='shard over N cards (not ported yet: A9.2; '
                              'default: $SKYTPU_SERVE_TP_SIZE or 0)')
     parser.add_argument('--draft-len', type=int, default=0,
                         help='speculative decoding: prompt-lookup draft '

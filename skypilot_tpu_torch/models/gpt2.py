@@ -11,9 +11,10 @@ blocks, and the logits are the f32 ``ln_f`` output times the f32 ``wte``.
 ``c_attn`` is one ``[3*H, H]`` linear whose output splits as the flax
 kernel's ``[H, 3, heads, D]`` features do (q, k, v, then heads, then
 head dims); ``c_proj`` takes the heads' outputs flattened ``[heads*D]``.
-The no-cache forward attends through ``ops.flash_attention`` (the Hopper
-kernel on a CUDA tensor), as the JAX module's
-``sequence_parallel_attention`` does on one device; the cached forward
+The no-cache forward attends through
+``ops.ring_attention.sequence_parallel_attention`` (``ops.flash_attention``,
+the Hopper kernel on a CUDA tensor, without a 'seq' mesh), as the JAX
+module does; the cached forward
 uses the llama module's ``write_kv_and_attend``, so the engine's
 ``[B, H, M, D]`` caches (``llama.init_cache``; ``num_kv_heads`` is the
 head count) serve GPT-2 unchanged.  Positions index ``wpe`` as the JAX
@@ -22,7 +23,7 @@ the table, so a dead engine lane past ``max_seq_len`` reads the last row
 instead of faulting the card.
 """
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -30,7 +31,9 @@ from torch.nn import functional as F
 
 from skypilot_tpu_torch.models.llama import (KVCache, Linear, _remat,
                                              write_kv_and_attend)
-from skypilot_tpu_torch.ops.flash_attention import flash_attention
+from skypilot_tpu_torch.ops.ring_attention import \
+    sequence_parallel_attention
+from skypilot_tpu_torch.parallel.mesh import gathered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,13 +110,13 @@ class GPT2Attention(nn.Module):
     def forward(self, x, positions=None, kv_cache=None):
         cfg = self.config
         b, s, _ = x.shape
-        qkv = self.c_attn(x).view(b, s, 3, cfg.num_heads, cfg.head_dim_)
+        qkv = self.c_attn(x).view(b, s, 3, -1, cfg.head_dim_)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         if kv_cache is not None:
             out, new_cache = write_kv_and_attend(kv_cache, k, v, q, positions)
         else:
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True)
+            out = sequence_parallel_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
             new_cache = None
         out = self.c_proj(out.transpose(1, 2).reshape(b, s, -1))
         return out, new_cache
@@ -179,9 +182,12 @@ class GPT2(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, hidden_only: bool = False,
-                adapter_ids: Optional[torch.Tensor] = None):
+                adapter_ids: Optional[torch.Tensor] = None,
+                head: Optional[Callable] = None):
         """Scoring and training: forward(tokens) -> logits; hidden_only
-        returns the f32 ``ln_f`` output [B, S, H].  Incremental inference:
+        returns the f32 ``ln_f`` output [B, S, H]; ``head`` is the llama
+        module's (the trainer's chunked loss under a mesh).  Incremental
+        inference:
         forward(tokens, positions, cache) -> (logits, cache), the llama
         module's cache contract.  A sequence longer than ``max_seq_len``
         raises the JAX module's ValueError.  Token ids and positions map
@@ -198,7 +204,8 @@ class GPT2(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
-        x = (self.wte[_gather_index(tokens, cfg.vocab_size)].to(cfg.dtype) +
+        x = (gathered(self.wte)[_gather_index(tokens, cfg.vocab_size)
+                                ].to(cfg.dtype) +
              self.wpe[_gather_index(positions, cfg.max_seq_len)
                       ].to(cfg.dtype))
         new_cache = []
@@ -213,12 +220,18 @@ class GPT2(nn.Module):
             else:
                 x = block(x)
         x = self.ln_f(x)
+        if head is not None:
+            return head(x, self.output_projection())
         if hidden_only:
             return x
-        logits = x @ self.wte.float().T
+        logits = x @ self.output_projection().float()
         if cache is not None:
             return logits, new_cache
         return logits
+
+    def output_projection(self) -> torch.Tensor:
+        """The [H, V] head matrix: the tied ``wte`` transposed."""
+        return gathered(self.wte).T
 
 
 def _gather_index(idx: torch.Tensor, n: int) -> torch.Tensor:

@@ -11,8 +11,11 @@ and biases are stored in ``param_dtype`` (the counterpart of flax's
 ``config.dtype``, which stores them as serving uses them, and the trainer
 passes ``torch.float32`` for f32 master weights.
 
-The no-cache forward attends through ``ops.flash_attention`` (the Hopper
-kernels on a CUDA tensor) and, with grad enabled, checkpoints each
+The no-cache forward attends through
+``ops.ring_attention.sequence_parallel_attention`` -- ``ops.flash_attention``
+(the Hopper kernels on a CUDA tensor) unless the active mesh has a 'seq'
+axis, where ring attention spans the sequence shards, as the JAX module
+does -- and, with grad enabled, checkpoints each
 decoder layer by ``config.remat_policy``; the cached forward writes K/V
 in place into a per-layer ``[B, Hkv, M, D]`` cache and attends with
 ``decode_attention``, as the JAX serving path does; the block-paged
@@ -49,7 +52,10 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
-from skypilot_tpu_torch.ops.flash_attention import flash_attention
+from skypilot_tpu_torch.ops.ring_attention import \
+    sequence_parallel_attention
+from skypilot_tpu_torch.parallel.mesh import (gathered,
+                                              recompute_in_active_mesh)
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -413,10 +419,11 @@ class Attention(nn.Module):
         def proj(name, inp):
             return _proj(self, name, inp, adapter_ids)
 
-        # [B, S, H*D] -> [B, H, S, D]
-        q = proj('q_proj', x).view(b, s, cfg.num_heads, d).transpose(1, 2)
-        k = proj('k_proj', x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
-        v = proj('v_proj', x).view(b, s, cfg.num_kv_heads, d).transpose(1, 2)
+        # [B, S, H*D] -> [B, H, S, D]; under tensor parallelism the
+        # column-parallel projections give this rank heads / tensor heads.
+        q = proj('q_proj', x).view(b, s, -1, d).transpose(1, 2)
+        k = proj('k_proj', x).view(b, s, -1, d).transpose(1, 2)
+        v = proj('v_proj', x).view(b, s, -1, d).transpose(1, 2)
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling_)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling_)
         new_cache = None
@@ -428,9 +435,9 @@ class Attention(nn.Module):
             out, new_cache = write_kv_and_attend(kv_cache, k, v, q, positions,
                                                  window=cfg.sliding_window)
         else:
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True,
-                                  window=cfg.sliding_window)
+            out = sequence_parallel_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                window=cfg.sliding_window)
         out = proj('o_proj', out.transpose(1, 2).reshape(b, s, -1))
         if kv_cache is not None:
             return out, new_cache
@@ -512,7 +519,9 @@ def _remat(policy: str) -> Optional[Callable]:
                          "expected 'full', 'dots', or 'none'.")
     if not torch.is_grad_enabled():
         return None
-    kwargs = {'context_fn': _save_matmuls} if policy == 'dots' else {}
+    context_fn = recompute_in_active_mesh(
+        _save_matmuls if policy == 'dots' else None)
+    kwargs = {} if context_fn is None else {'context_fn': context_fn}
     return functools.partial(torch_checkpoint.checkpoint,
                              use_reentrant=False, **kwargs)
 
@@ -548,9 +557,19 @@ class Llama(nn.Module):
                 cache: Optional[KVCache] = None, hidden_only: bool = False,
                 paged_tables: Optional[torch.Tensor] = None,
                 paged_block_size: Optional[int] = None,
-                adapter_ids: Optional[torch.Tensor] = None):
+                adapter_ids: Optional[torch.Tensor] = None,
+                head: Optional[Callable] = None,
+                layer_stack: Optional[Callable] = None):
         """Scoring: forward(tokens) -> logits.  hidden_only=True returns the
         final-norm hidden states [B, S, H] instead.
+
+        Training under a mesh: ``head(hidden, proj)`` replaces the logits
+        with its value on the final-norm hidden states and the [H, V]
+        output projection (the trainer's chunked loss), so the head's
+        parameters are read inside the forward, where FSDP2 has them
+        gathered; ``layer_stack(x, positions)`` replaces the loop over
+        the decoder layers (the pipeline's).  A tensor-sharded embedding
+        or head is gathered over the 'tensor' group where it is used.
 
         Multi-LoRA (``lora_num_adapters`` > 0): adapter_ids [B] selects one
         stacked adapter per sequence (< 0: the base model) on every path;
@@ -577,7 +596,7 @@ class Llama(nn.Module):
         vocab = cfg.vocab_size
         tokens = torch.where(tokens < 0, tokens + vocab,
                              tokens).clamp(0, vocab - 1)
-        x = self.embedding[tokens].to(cfg.dtype)
+        x = gathered(self.embedding)[tokens].to(cfg.dtype)
         if cfg.scale_embeddings:
             # Normalizer cast to dtype BEFORE the multiply, as HF Gemma.
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype,
@@ -585,6 +604,9 @@ class Llama(nn.Module):
         new_cache = []
         remat = None if cache is not None else _remat(cfg.remat_policy)
         for i, layer in enumerate(self.layers):
+            if layer_stack is not None:
+                x = layer_stack(x, positions)
+                break
             if cache is not None:
                 x, layer_cache = layer(x, positions, cache[i],
                                        paged_tables, paged_block_size,
@@ -597,15 +619,21 @@ class Llama(nn.Module):
             else:
                 x = layer(x, positions)
         x = self.final_norm(x)
+        if head is not None:
+            return head(x, self.output_projection())
         if hidden_only:
             return x
-        if cfg.tie_embeddings:
-            logits = x.float() @ self.embedding.float().T
-        else:
-            logits = self.lm_head(x.float())
+        logits = x.float() @ self.output_projection().float()
         if cache is not None:
             return logits, new_cache
         return logits
+
+    def output_projection(self) -> torch.Tensor:
+        """The [H, V] head matrix: ``lm_head``'s, or the tied embedding
+        transposed, gathered if it is tensor-sharded."""
+        if self.lm_head is not None:
+            return gathered(self.lm_head.weight).T
+        return gathered(self.embedding).T
 
 
 def init_cache(config: LlamaConfig, batch_size: int, max_len: int,

@@ -28,14 +28,19 @@ Expert weights are stacked ``[E, H, F]`` / ``[E, F, H]`` tensors in
 compute dtype.
 """
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch import distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
 from skypilot_tpu_torch.models.llama import (Attention, KVCache, LlamaConfig,
                                              RMSNorm, _remat)
+from skypilot_tpu_torch.parallel.mesh import (Mesh, active_mesh,
+                                              all_reduce_sum, copy_to_group,
+                                              gathered, reduce_from_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,11 +144,22 @@ class Routing(NamedTuple):
 
 
 def top_k_routing(router_logits: torch.Tensor, num_experts: int, k: int,
-                  capacity: int) -> Routing:
+                  capacity: int, mesh: Optional[Mesh] = None,
+                  rows: int = 1) -> Routing:
     """GShard routing from router logits [G, E], as the JAX module's
     ``top_k_routing``: the slot of each (choice, token) is its rank among
     the pairs routed to its expert in (choice, token) order; the aux loss
-    is E * sum_e(top-1 share_e * mean prob_e) over every token (no mask)."""
+    is E * sum_e(top-1 share_e * mean prob_e) over every token (no mask).
+
+    Under a mesh (training) the G tokens are this rank's part of the
+    GLOBAL token group, which the JAX module routes whole: its `rows` rows
+    of the batch (its 'data'/'fsdp' block) and, under 'seq', one sequence
+    block of each; `capacity` is the global group's.  One all-gather of
+    the per-row counts gives each pair its global slot, and ``kept`` is
+    global slot < capacity, while ``slot`` stays the rank-local one that
+    places the kept pairs (they come first within each expert, so their
+    local slots stay below ``capacity``).  The aux loss's sums are
+    all-reduced over the group, the router's part differentiably."""
     probs, gate_vals, gate_idx = _gates(router_logits, k)
     expert = gate_idx.T.contiguous()                            # [k, G]
     flat = expert.reshape(-1)
@@ -151,10 +167,47 @@ def top_k_routing(router_logits: torch.Tensor, num_experts: int, k: int,
     # choice-major [k*G, E] one-hot, read at the pair's own expert.
     ranks = torch.cumsum(F.one_hot(flat, num_experts), dim=0) - 1
     slot = ranks.gather(1, flat[:, None]).view_as(expert)
-    density = torch.bincount(expert[0], minlength=num_experts).float() / \
-        expert.shape[1]
-    aux = torch.sum(density * probs.mean(0)) * num_experts
-    return Routing(expert, slot, slot < capacity, gate_vals.T, aux, capacity)
+    top1 = torch.bincount(expert[0], minlength=num_experts).float()
+    prob_sum = probs.sum(0)
+    tokens = float(expert.shape[1])
+    global_slot = slot
+    if mesh is not None:
+        group = mesh.group('data', 'fsdp', 'seq')
+        global_slot = _global_slots(expert, num_experts, rows, mesh, group)
+        dist.all_reduce(top1, group=group)
+        prob_sum = all_reduce_sum(prob_sum, group)
+        tokens *= mesh.size('data', 'fsdp', 'seq')
+    aux = torch.sum((top1 / tokens) * (prob_sum / tokens)) * num_experts
+    return Routing(expert, slot, global_slot < capacity, gate_vals.T, aux,
+                   capacity)
+
+
+def _global_slots(expert: torch.Tensor, num_experts: int, rows: int,
+                  mesh: Mesh, group) -> torch.Tensor:
+    """Each (choice, token) pair's slot [k, G] in the global token group
+    (see ``top_k_routing``): the pairs of its expert before it in
+    (choice, global token) order, from every rank's per-row counts."""
+    k, g = expert.shape
+    s = g // rows
+    ndp, nseq = mesh.size('data', 'fsdp'), mesh.size('seq')
+    onehot = F.one_hot(expert, num_experts).view(k, rows, s, num_experts)
+    in_row = (torch.cumsum(onehot, 2) - onehot).gather(
+        3, expert.view(k, rows, s, 1)).view(k, g)
+    counts = onehot.sum(2)                                      # [k, b, E]
+    every = [torch.empty_like(counts) for _ in range(ndp * nseq)]
+    dist.all_gather(every, counts.contiguous(), group=group)
+    # Segments (one sequence block of one row) in global token order.
+    every = torch.stack(every).view(ndp, nseq, k, rows, num_experts)
+    every = every.permute(2, 0, 3, 1, 4).reshape(k, -1, num_experts)
+    seg_prefix = torch.cumsum(every, 1) - every
+    total = every.sum(1)                                        # [k, E]
+    base = torch.cumsum(total, 0) - total
+    seg = ((mesh.coord('data', 'fsdp') * rows +
+            torch.arange(rows, device=expert.device)) * nseq +
+           mesh.coord('seq'))
+    before = seg_prefix[:, seg].gather(
+        2, expert.view(k, rows, s)).view(k, g)
+    return base.gather(1, expert) + before + in_row
 
 
 class MoEBlock(nn.Module):
@@ -178,14 +231,23 @@ class MoEBlock(nn.Module):
         self.w_up = stacked(e, h, f)
         self.w_down = stacked(e, f, h)
 
-    def _experts(self, x: torch.Tensor) -> torch.Tensor:
-        """SwiGLU of every expert on its rows: x [E, N, H] -> [E, N, H]."""
+    def _experts(self, x: torch.Tensor, weights=None) -> torch.Tensor:
+        """SwiGLU of every expert on its rows: x [E, N, H] -> [E, N, H]
+        (`weights`: this rank's (w_gate, w_up, w_down) experts)."""
         dt = self.config.dtype
-        hmid = F.silu(torch.bmm(x, self.w_gate.to(dt))) * \
-            torch.bmm(x, self.w_up.to(dt))
-        return torch.bmm(hmid, self.w_down.to(dt))
+        w_gate, w_up, w_down = weights or (self.w_gate, self.w_up,
+                                           self.w_down)
+        hmid = F.silu(torch.bmm(x, w_gate.to(dt))) * \
+            torch.bmm(x, w_up.to(dt))
+        return torch.bmm(hmid, w_down.to(dt))
 
     def forward(self, x: torch.Tensor, exact: bool = False):
+        """Under a mesh (training), the routing is the global token
+        group's (``top_k_routing`` over the mesh), and with expert weights
+        sharded over 'tensor' (expert parallelism, the rule ('expert',
+        'tensor')) each rank runs its own experts on the replicated
+        tokens and the partial outputs are summed over the tensor group;
+        the router and its aux loss stay replicated."""
         cfg = self.config
         b, s, h = x.shape
         g, e, dt = b * s, cfg.num_experts, cfg.dtype
@@ -198,14 +260,31 @@ class MoEBlock(nn.Module):
             out = self._experts(xc.expand(e, g, h))
             out = torch.einsum('egh,ge->gh', out, gates.to(dt))
             return out.reshape(b, s, h), None
-        r = top_k_routing(logits, e, cfg.experts_per_token, capacity(cfg, g))
+        mesh = active_mesh()
+        group_tokens = g if mesh is None else \
+            g * mesh.size('data', 'fsdp', 'seq')
+        r = top_k_routing(logits, e, cfg.experts_per_token,
+                          capacity(cfg, group_tokens), mesh, rows=b)
+        weights = (self.w_gate, self.w_up, self.w_down)
+        first, local, gate = 0, e, r.gate
+        if isinstance(self.w_gate, DTensor):      # experts over 'tensor'
+            group = mesh.group('tensor')
+            weights = tuple(w.to_local() for w in weights)
+            local = weights[0].shape[0]
+            first = mesh.coord('tensor') * local
+            xc, gate = copy_to_group(xc, group), copy_to_group(gate, group)
+        mine = r.kept & (r.expert >= first) & (r.expert < first + local)
+        rows = min(r.capacity, g)
         tok = torch.arange(g, device=x.device).expand_as(r.expert)
-        expert_in = xc.new_zeros(e, r.capacity, h)
-        expert_in[r.expert[r.kept], r.slot[r.kept]] = xc[tok[r.kept]]
-        expert_out = self._experts(expert_in)
-        picked = expert_out[r.expert, r.slot.clamp_max(r.capacity - 1)]
-        weight = torch.where(r.kept, r.gate, 0.0).to(dt)       # [k, G]
+        expert_in = xc.new_zeros(local, rows, h)
+        expert_in[r.expert[mine] - first, r.slot[mine]] = xc[tok[mine]]
+        expert_out = self._experts(expert_in, weights)
+        picked = expert_out[(r.expert - first).clamp(0, local - 1),
+                            r.slot.clamp_max(rows - 1)]
+        weight = torch.where(mine, gate, 0.0).to(dt)           # [k, G]
         out = (weight[..., None].float() * picked.float()).sum(0).to(dt)
+        if first or local < e:
+            out = reduce_from_group(out, mesh.group('tensor'))
         return out.reshape(b, s, h), r.aux * cfg.router_aux_loss_weight
 
 
@@ -261,7 +340,8 @@ class Mixtral(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, hidden_only: bool = False,
                 adapter_ids: Optional[torch.Tensor] = None,
-                return_aux: bool = False):
+                return_aux: bool = False,
+                head: Optional[Callable] = None):
         """Scoring and training: forward(tokens) -> logits (capacity
         routing); with return_aux, (logits, aux) where aux is the sum over
         layers of each router's weighted load-balance loss (the JAX
@@ -272,7 +352,9 @@ class Mixtral(nn.Module):
         Incremental inference: forward(tokens, positions, cache) ->
         (logits, cache), the llama module's cache contract, with exact
         routing.  Token ids map as the llama module's do.  adapter_ids
-        must be None: multi-LoRA serves the llama family only."""
+        must be None: multi-LoRA serves the llama family only.  ``head``
+        is the llama module's (the trainer's chunked loss under a
+        mesh)."""
         if adapter_ids is not None:
             raise TypeError('multi-LoRA serving supports the llama family; '
                             'got MixtralConfig')
@@ -283,7 +365,7 @@ class Mixtral(nn.Module):
         vocab = cfg.vocab_size
         tokens = torch.where(tokens < 0, tokens + vocab,
                              tokens).clamp(0, vocab - 1)
-        x = self.embedding[tokens].to(cfg.dtype)
+        x = gathered(self.embedding)[tokens].to(cfg.dtype)
         new_cache, aux = [], torch.zeros((), device=tokens.device)
         # Every layer checkpointed under grad, as the JAX module's nn.remat.
         remat = None if cache is not None else _remat('full')
@@ -296,12 +378,18 @@ class Mixtral(nn.Module):
                             else layer(x, positions))
             aux = aux + layer_aux
         x = self.final_norm(x)
-        if hidden_only:
+        if head is not None:
+            out = head(x, self.output_projection())
+        elif hidden_only:
             out = x
-        elif cfg.tie_embeddings:
-            out = x.float() @ self.embedding.float().T
         else:
-            out = self.lm_head(x.float())
+            out = x.float() @ self.output_projection().float()
         if cache is not None:
             return out, new_cache
         return (out, aux) if return_aux else out
+
+    def output_projection(self) -> torch.Tensor:
+        """The [H, V] head matrix (``Llama.output_projection``)."""
+        if self.lm_head is not None:
+            return gathered(self.lm_head.weight).T
+        return gathered(self.embedding).T

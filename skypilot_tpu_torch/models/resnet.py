@@ -36,6 +36,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from skypilot_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
+
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
@@ -90,7 +92,10 @@ class BatchNorm(nn.Module):
     """flax ``BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` over
     the channels of [B, C, H, W]: f32 out; f32 ``scale`` (init
     `scale_init`) and ``bias`` (0); ``running_mean`` (0) and
-    ``running_var`` (1) buffers, updated in place by a train forward."""
+    ``running_var`` (1) buffers, updated in place by a train forward.
+    Under a data-parallel mesh (``parallel.mesh.mesh_context``) a train
+    forward's statistics are the global batch's: the one-pass sums are
+    all-reduced over the ('data', 'fsdp') ranks, differentiably."""
 
     def __init__(self, channels: int, scale_init: float = 1.0,
                  momentum: float = 0.9, eps: float = 1e-5, device=None):
@@ -106,9 +111,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x32 = x.float()
-        if train:
+        mesh = active_mesh()
+        if train and mesh is not None and mesh.size('data', 'fsdp') > 1:
+            # The global batch's statistics, as flax's under a
+            # data-sharded jit: the one-pass sums over every rank.
+            group = mesh.group('data', 'fsdp')
+            n = x32.numel() // x32.shape[1] * mesh.size('data', 'fsdp')
+            mean = all_reduce_sum(x32.sum((0, 2, 3)), group) / n
+            var = (all_reduce_sum((x32 * x32).sum((0, 2, 3)), group) / n
+                   - mean * mean).clamp_min(0.0)
+        elif train:
             mean = x32.mean((0, 2, 3))
             var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if train:
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean

@@ -23,18 +23,25 @@ own step, copied here:
   True)``.
 
 The data generators are copies of the examples' (the same numpy streams
-from the same seed).  The JAX examples shard the batch over a
-data-parallel mesh across processes; that is ROADMAP.md A9 here, and more
-than one process raises.
+from the same seed).  As the JAX examples shard the batch over a
+data-parallel mesh across processes, the loops run data-parallel over the
+process group (started from torchrun's or the podlet's env, or already
+up): a ``MeshSpec(data=world)`` mesh, each rank drawing its
+``batch_size / world`` rows from its own stream (the examples' per-process
+seeds), the parameters replicated under ``DistributedDataParallel``, the
+gradients and the printed loss and accuracy averaged over the ranks --
+the global batch's mean, as the JAX step computes it.  ResNet's BatchNorm takes its statistics over the
+global batch (one-pass sums all-reduced across the ranks), as flax's does
+under a data-sharded jit.
 """
 import dataclasses
 import math
-import os
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+from torch import distributed as dist
 from torch.nn import functional as F
 
 from skypilot_tpu_torch.device import resolve_device
@@ -43,20 +50,20 @@ from skypilot_tpu_torch.models.bert import (BertConfig,
 from skypilot_tpu_torch.models.convert import init_params
 from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.models.resnet import ResNet, ResNetConfig
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Batch = Dict[str, Any]
 
 
-def check_single_process() -> None:
-    """Raise if the environment starts more than one process (torchrun's
-    WORLD_SIZE, or the framework's multi-host SKYTPU_NUM_PROCESSES): the
-    examples' data-parallel mesh is not ported."""
-    procs = max(int(os.environ.get('WORLD_SIZE', '1')),
-                int(os.environ.get('SKYTPU_NUM_PROCESSES', '1')))
-    if procs > 1:
-        raise NotImplementedError(
-            f'{procs} processes: data-parallel training over processes is '
-            'not ported yet (ROADMAP.md A9, multi-GPU)')
+def data_mesh(device=None) -> Optional[mesh_lib.Mesh]:
+    """The examples' ``MeshSpec(data=world)`` over the process group (the
+    env's, started here, or one already up); None for a single
+    process."""
+    mesh_lib.initialize_distributed_from_env(device)
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    return mesh_lib.make_mesh(mesh_lib.MeshSpec(data=dist.get_world_size()),
+                              resolve_device(device).type)
 
 
 # ------------------------------------------------------------------ data
@@ -145,11 +152,30 @@ def cifar_batches(data_dir: str, batch_size: int,
 
 @dataclasses.dataclass
 class TaskState:
-    """A task loop's model, optimizer and (ResNet) LR schedule; a step
-    updates them in place."""
+    """A task loop's model, optimizer and (ResNet) LR schedule, the
+    data-parallel mesh (None on one process) and the module a step calls
+    (``data_parallel``'s); a step updates them in place."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Optional[torch.optim.lr_scheduler.LambdaLR] = None
+    mesh: Optional[mesh_lib.Mesh] = None
+    forward: Optional[torch.nn.Module] = None
+
+
+def data_parallel(model: torch.nn.Module,
+                  mesh: Optional[mesh_lib.Mesh]) -> torch.nn.Module:
+    """The module a step calls: under a data mesh the model wrapped in
+    ``DistributedDataParallel`` over the 'data' group, which averages the
+    gradients over the ranks in buckets while the backward runs (the
+    buffers are not broadcast: ResNet's BatchNorm keeps them equal on
+    every rank itself); the model itself with no mesh."""
+    if mesh is None:
+        return model
+    from torch.nn.parallel import DistributedDataParallel
+    dev = mesh_lib.rank_device(mesh)
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == 'cuda' else None,
+        process_group=mesh.group('data'), broadcast_buffers=False)
 
 
 def _on(state: TaskState, x) -> torch.Tensor:
@@ -161,13 +187,22 @@ def classify_step(state: TaskState, inputs: torch.Tensor,
                   labels: torch.Tensor, **forward_kw) -> tuple:
     """One update: mean softmax cross-entropy of the model's f32 logits on
     integer labels, backward, the optimizer (and schedule) step.  Returns
-    (loss, accuracy) as device scalars, before the update."""
-    logits = state.model(inputs, **forward_kw)
-    labels = labels.long()
-    loss = F.cross_entropy(logits, labels)
-    acc = (logits.argmax(-1) == labels).float().mean()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    (loss, accuracy) as device scalars, before the update.  Under a data
+    mesh the inputs are this rank's rows; the gradients (averaged by
+    ``data_parallel``'s wrapper), the loss and the accuracy are averaged
+    over the ranks (equal rows on each: the global batch's mean)."""
+    with mesh_lib.mesh_context(state.mesh):
+        logits = (state.forward or state.model)(inputs, **forward_kw)
+        labels = labels.long()
+        loss = F.cross_entropy(logits, labels)
+        acc = (logits.argmax(-1) == labels).float().mean()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    if state.mesh is not None:
+        group, n = state.mesh.group('data'), state.mesh.size('data')
+        metrics = torch.stack([loss.detach(), acc])
+        dist.all_reduce(metrics, group=group)
+        loss, acc = metrics / n
     state.optimizer.step()
     if state.schedule is not None:
         state.schedule.step()
@@ -175,11 +210,13 @@ def classify_step(state: TaskState, inputs: torch.Tensor,
 
 
 def bert_setup(config: BertConfig, lr: float, seed: int = 0, device=None,
-               params: Optional[Dict[str, torch.Tensor]] = None
-               ) -> TaskState:
+               params: Optional[Dict[str, torch.Tensor]] = None,
+               mesh: Optional[mesh_lib.Mesh] = None) -> TaskState:
     """The example's state: the classifier with f32 master weights (random
-    from `seed`, or ``params``) and AdamW(lr, weight decay 0.01)."""
-    device = resolve_device(device)
+    from `seed`, or ``params``; the same on every rank of `mesh`) and
+    AdamW(lr, weight decay 0.01)."""
+    device = (resolve_device(device) if mesh is None
+              else mesh_lib.rank_device(mesh))
     model = BertForSequenceClassification(config, device=device,
                                           param_dtype=torch.float32)
     if params is None:
@@ -189,7 +226,8 @@ def bert_setup(config: BertConfig, lr: float, seed: int = 0, device=None,
     optimizer = torch.optim.AdamW(model.parameters(), lr=lr,
                                   betas=(0.9, 0.999), eps=1e-8,
                                   weight_decay=0.01)
-    return TaskState(model, optimizer)
+    return TaskState(model, optimizer, mesh=mesh,
+                     forward=data_parallel(model, mesh))
 
 
 def bert_step(state: TaskState, batch: Batch) -> tuple:
@@ -204,12 +242,14 @@ def cosine_decay(steps: int) -> Callable[[int], float]:
 
 def resnet_setup(config: ResNetConfig, lr: float, momentum: float,
                  steps: int, seed: int = 0, device=None,
-                 params: Optional[Dict[str, torch.Tensor]] = None
-                 ) -> TaskState:
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None) -> TaskState:
     """The example's state: the ResNet with f32 master weights (random
-    from `seed`, or ``params`` with the running statistics) and Nesterov
-    SGD under the cosine decay over `steps`."""
-    device = resolve_device(device)
+    from `seed`, or ``params`` with the running statistics; the same on
+    every rank of `mesh`) and Nesterov SGD under the cosine decay over
+    `steps`."""
+    device = (resolve_device(device) if mesh is None
+              else mesh_lib.rank_device(mesh))
     model = ResNet(config, device=device, param_dtype=torch.float32)
     if params is None:
         params = init_params(config, torch.Generator(
@@ -219,7 +259,8 @@ def resnet_setup(config: ResNetConfig, lr: float, momentum: float,
                                 momentum=momentum, nesterov=True)
     schedule = torch.optim.lr_scheduler.LambdaLR(optimizer,
                                                  cosine_decay(steps))
-    return TaskState(model, optimizer, schedule)
+    return TaskState(model, optimizer, schedule, mesh,
+                     data_parallel(model, mesh))
 
 
 def resnet_step(state: TaskState, batch: Batch) -> tuple:
@@ -228,6 +269,16 @@ def resnet_step(state: TaskState, batch: Batch) -> tuple:
 
 
 # ----------------------------------------------------------- the loops
+
+
+def _local_batch(mesh: Optional[mesh_lib.Mesh], batch_size: int):
+    """(this rank, its rows of the global batch), with the examples'
+    refusal of a batch that does not split."""
+    n = 1 if mesh is None else mesh.size('data')
+    if batch_size % n:
+        raise SystemExit(f'--batch-size {batch_size} must divide '
+                         f'across {n} processes')
+    return (0 if mesh is None else mesh.coord('data')), batch_size // n
 
 
 def _loop(state: TaskState, step: Callable, data: Iterator[Batch],
@@ -254,17 +305,20 @@ def finetune_bert(model: str = 'bert-base', dataset: str = 'synthetic',
                   device=None, data: Optional[Iterator[Batch]] = None,
                   log: Callable[[str], None] = print) -> Dict[str, Any]:
     """``examples/finetune_bert.py``'s run on one card (`device` None) or
-    the CPU: returns the logged (step, loss, accuracy) history,
-    ``first_loss``, ``final_acc``, ``seconds``, ``sequences_per_s`` and the
-    final ``state``.  `data` replaces the dataset's batches."""
-    check_single_process()
+    the CPU, data-parallel over the process group when there is one:
+    returns the logged (step, loss, accuracy) history, ``first_loss``,
+    ``final_acc``, ``seconds``, ``sequences_per_s`` and the final
+    ``state``.  `data` replaces the dataset's batches (this rank's
+    rows)."""
+    mesh = data_mesh(device)
+    rank, local_bs = _local_batch(mesh, batch_size)
     cfg = get_model_config(model)
-    state = bert_setup(cfg, lr, seed, device)
+    state = bert_setup(cfg, lr, seed, device, mesh=mesh)
     if data is None:
         data = (synthetic_bert_batches(
-            np.random.default_rng(seed * 1000), cfg.vocab_size, batch_size,
-            seq_len, cfg.num_classes) if dataset == 'synthetic'
-            else imdb_batches(batch_size, seq_len))
+            np.random.default_rng(seed * 1000 + rank), cfg.vocab_size,
+            local_bs, seq_len, cfg.num_classes) if dataset == 'synthetic'
+            else imdb_batches(local_bs, seq_len))
     out = _loop(state, bert_step, data, steps, log)
     out['sequences_per_s'] = steps * batch_size / out['seconds']
     log(f'done: {out["sequences_per_s"]:.1f} sequences/s, final acc '
@@ -280,14 +334,16 @@ def train_resnet(model: str = 'resnet50', steps: int = 200,
                  data: Optional[Iterator[Batch]] = None,
                  log: Callable[[str], None] = print) -> Dict[str, Any]:
     """``examples/train_resnet.py``'s run on one card (`device` None) or
-    the CPU: as ``finetune_bert``, with ``images_per_s``."""
-    check_single_process()
+    the CPU, data-parallel over the process group when there is one: as
+    ``finetune_bert``, with ``images_per_s``."""
+    mesh = data_mesh(device)
+    rank, local_bs = _local_batch(mesh, batch_size)
     cfg = dataclasses.replace(get_model_config(model),
                               num_classes=num_classes)
-    state = resnet_setup(cfg, lr, momentum, steps, seed, device)
+    state = resnet_setup(cfg, lr, momentum, steps, seed, device, mesh=mesh)
     if data is None:
-        data = (cifar_batches(data_dir, batch_size) if data_dir else
-                synthetic_resnet_batches(seed, 0, batch_size, image_size,
+        data = (cifar_batches(data_dir, local_bs, rank) if data_dir else
+                synthetic_resnet_batches(seed, rank, local_bs, image_size,
                                          num_classes))
     out = _loop(state, resnet_step, data, steps, log)
     out['images_per_s'] = steps * batch_size / out['seconds']

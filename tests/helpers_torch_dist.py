@@ -1,0 +1,327 @@
+"""Multi-rank workers for the port's distributed tests, on the CPU over
+gloo.  This module imports no JAX: spawned workers import it (and only
+it) by name, so a test module that imports JAX is never re-imported in a
+worker.
+
+``Workers(fn, world, tmp_path, *args)`` starts `world` processes that
+rendezvous through a ``file://`` store under `tmp_path` (never a fixed
+port: test workers run side by side), each with one torch thread; each
+calls ``fn(rank, world, *args)`` and its return value comes back pickled
+to ``join()``, while the caller works meanwhile (the JAX side).  The
+parent joins them against one deadline and kills them all when it
+passes, so a stuck collective fails the test in seconds instead of
+hanging the run.
+"""
+import dataclasses
+import faulthandler
+import os
+import pickle
+import time
+import traceback
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+from torch import distributed as dist
+from torch import multiprocessing as mp
+
+DEFAULT_TIMEOUT = 150.0
+
+
+class Workers:
+    """`world` gloo ranks running fn(rank, world, *args); ``join()`` waits
+    for them (the caller may work meanwhile: e.g. compute the JAX side)."""
+
+    def __init__(self, fn, world: int, tmp_path, *args,
+                 timeout: float = DEFAULT_TIMEOUT):
+        ctx = mp.get_context('spawn')
+        self.name, self.world = fn.__name__, world
+        self.out = os.path.join(str(tmp_path),
+                                f'dist_{fn.__name__}_{time.time_ns()}')
+        os.makedirs(self.out)
+        self.procs = [ctx.Process(target=_entry, daemon=True,
+                                  args=(fn.__name__, rank, world, self.out,
+                                        args, timeout))
+                      for rank in range(world)]
+        for p in self.procs:
+            p.start()
+        self.timeout = timeout
+        self.deadline = time.monotonic() + timeout
+
+    def join(self) -> List[Any]:
+        """The ranks' results in rank order.  Raises with the worker's
+        traceback if one failed, and TimeoutError (after killing every
+        worker) if they are not all done by the deadline."""
+        for p in self.procs:
+            p.join(max(0.0, self.deadline - time.monotonic()))
+        alive = [p for p in self.procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+        for p in alive:
+            p.join()
+        if alive:
+            raise TimeoutError(f'{self.name}: {len(alive)} of {self.world} '
+                               f'ranks still running after {self.timeout} '
+                               's; killed')
+        results = []
+        for rank in range(self.world):
+            path = os.path.join(self.out, f'rank{rank}.pkl')
+            if not os.path.exists(path):
+                raise RuntimeError(
+                    f'{self.name}: rank {rank} exited '
+                    f'({self.procs[rank].exitcode}) with no result')
+            with open(path, 'rb') as f:
+                res = pickle.load(f)
+            if 'error' in res:
+                raise RuntimeError(f'{self.name} rank {rank} failed:\n'
+                                   f'{res["error"]}')
+            results.append(res['ok'])
+        return results
+
+
+def _entry(name: str, rank: int, world: int, out: str, args,
+           timeout: float) -> None:
+    torch.set_num_threads(1)
+    # A stuck rank prints where it is stuck before the parent kills it.
+    faulthandler.dump_traceback_later(max(timeout - 5.0, 1.0), exit=False)
+    res: Dict[str, Any]
+    try:
+        dist.init_process_group(
+            'gloo', init_method='file://' + os.path.join(out, 'store'),
+            rank=rank, world_size=world)
+        res = {'ok': globals()[name](rank, world, *args)}
+    except BaseException:  # noqa: BLE001 -- shipped to the parent
+        res = {'error': traceback.format_exc()}
+    with open(os.path.join(out, f'rank{rank}.pkl.tmp'), 'wb') as f:
+        pickle.dump(res, f)
+    os.replace(os.path.join(out, f'rank{rank}.pkl.tmp'),
+               os.path.join(out, f'rank{rank}.pkl'))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _np(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+# ---------------------------------------------------------- the trainer
+
+
+@dataclasses.dataclass
+class TrainLeg:
+    """One trainer run: the mesh degrees, the model (with `overrides` on
+    its registry config, f32), TrainConfig fields, the starting
+    state_dict and the global token batches of each step.  With `ckpt`
+    set the run checkpoints there every step and `resume_at` steps are
+    trained by a first Trainer, the rest by a second that resumes (with
+    `resume_mesh`, another shape, if given)."""
+    name: str
+    mesh: Dict[str, int]
+    model: str
+    overrides: Dict[str, Any]
+    train: Dict[str, Any]
+    params: Dict[str, np.ndarray]
+    batches: List[np.ndarray]
+    ckpt: str = ''
+    resume_at: int = 0
+    resume_mesh: Dict[str, int] = None
+    # Feed each rank only its rows (ShardInfo.current(mesh) and
+    # shard_batch), as a multi-process data loader does.
+    local_rows: bool = False
+
+
+def _trainer(leg: TrainLeg, mesh: Dict[str, int]):
+    from skypilot_tpu_torch.models import registry
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec
+    from skypilot_tpu_torch.train import trainer as tt
+    cfg = dataclasses.replace(registry.get_model_config(leg.model),
+                              dtype=torch.float32, **leg.overrides)
+    extra = {'checkpoint_dir': leg.ckpt, 'checkpoint_every': 1} \
+        if leg.ckpt else {}
+    tr = tt.Trainer(tt.TrainConfig(model=leg.model, mesh=MeshSpec(**mesh),
+                                   **leg.train, **extra), cfg, device='cpu')
+    tr.setup(params={k: torch.from_numpy(v) for k, v in leg.params.items()})
+    return tr
+
+
+def _resumed(leg: TrainLeg):
+    """The second Trainer of a resume leg, and the number of files this
+    rank read with ``torch.load`` while it set up (broadcast objects are
+    unpickled through it from memory: those are not counted)."""
+    loads, real = [], torch.load
+
+    def counted(f, *args, **kwargs):
+        if isinstance(f, (str, os.PathLike)):
+            loads.append(f)
+        return real(f, *args, **kwargs)
+
+    torch.load = counted
+    try:
+        tr = _trainer(leg, leg.resume_mesh or leg.mesh)
+    finally:
+        torch.load = real
+    assert tr.state.step == leg.resume_at, tr.state.step
+    return tr, len(loads)
+
+
+def trainer_legs(rank: int, world: int, legs: List[TrainLeg]) -> List[Dict]:
+    """Each leg's per-step loss, grad_norm and (Mixtral) router_aux_loss,
+    (rank 0) its final parameters gathered whole, and (a resume leg) this
+    rank's ``torch.load`` calls while it resumed; every mesh here spans
+    the world."""
+    out = []
+    for leg in legs:
+        losses, norms, aux, loads = [], [], [], None
+        tr = _trainer(leg, leg.mesh)
+        for i, tokens in enumerate(leg.batches):
+            if leg.resume_at and i == leg.resume_at:
+                tr, loads = _resumed(leg)
+            if leg.local_rows:
+                from skypilot_tpu_torch.data.loader import (ShardInfo,
+                                                            shard_batch)
+                shard = ShardInfo.current(tr.mesh)
+                n = len(tokens) // shard.count
+                batch = shard_batch(
+                    {'tokens': tokens[shard.index * n:(shard.index + 1) * n]},
+                    tr.mesh)
+            else:
+                batch = {'tokens': torch.from_numpy(tokens)}
+            m = tr._step_fn(tr.state, batch)
+            tr.save(tr.state.step)
+            losses.append(float(m['loss']))
+            norms.append(float(m['grad_norm']))
+            if 'router_aux_loss' in m:
+                aux.append(float(m['router_aux_loss']))
+        params = _np(tr._full_state()[0])
+        out.append({'loss': losses, 'grad_norm': norms,
+                    'router_aux_loss': aux, 'loads': loads,
+                    'params': params if rank == 0 else None})
+    return out
+
+
+# ------------------------------------------------------------ the dryrun
+
+
+def dryrun(rank: int, world: int, params=None) -> Dict[str, float]:
+    """The port's dryrun_multichip(world) on the CPU; rank 0's lines go to
+    its stdout.  `params`: per-leg numpy state_dicts."""
+    from skypilot_tpu_torch.entry import dryrun_multichip
+    if params is not None:
+        params = {leg: {k: torch.from_numpy(v) for k, v in sd.items()}
+                  for leg, sd in params.items()}
+    return dryrun_multichip(world, device='cpu', params=params,
+                            log=print if rank == 0 else (lambda _: None))
+
+
+# ------------------------------------------------- sequence parallelism
+
+
+def seq_attention(rank: int, world: int, cases: List[Dict]) -> List[Dict]:
+    """Each case ({'mode', 'causal', 'q', 'k', 'v', 'dout'}: global
+    [B, H, S, D] arrays) on a MeshSpec(seq=world) mesh: this rank's
+    sequence block through ring or Ulysses attention, its output and the
+    gradients of sum(out * dout) for its q, k and v blocks."""
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(seq=world), 'cpu')
+    out = []
+    for case in cases:
+        blk = slice(rank * case['q'].shape[2] // world,
+                    (rank + 1) * case['q'].shape[2] // world)
+        q, k, v = (torch.from_numpy(case[n][:, :, blk]).requires_grad_(True)
+                   for n in ('q', 'k', 'v'))
+        with mesh_lib.mesh_context(mesh):
+            o = ra.sequence_parallel_attention(q, k, v, causal=case['causal'],
+                                               mode=case['mode'])
+            (o * torch.from_numpy(case['dout'][:, :, blk])).sum().backward()
+        out.append({'out': o.detach().numpy(), 'dq': q.grad.numpy(),
+                    'dk': k.grad.numpy(), 'dv': v.grad.numpy()})
+    try:
+        with mesh_lib.mesh_context(mesh):
+            ra.ulysses_attention(torch.zeros(1, 3, 4, 8),
+                                 torch.zeros(1, 3, 4, 8),
+                                 torch.zeros(1, 3, 4, 8))
+        out.append(None)
+    except ValueError as e:
+        out.append(str(e))
+    return out
+
+
+# ----------------------------------------------------------- pipelining
+
+
+def pipeline_stages(rank: int, world: int, w: np.ndarray, b: np.ndarray,
+                    mbs: np.ndarray) -> Dict:
+    """``pipeline`` over MeshSpec(stage=world) with stage s applying
+    tanh(x @ w[s] + b[s]): the outputs (every stage gets them) and the
+    gradients of sum(out ** 2) (each stage weighing its copy 1/S) for
+    this stage's w and b, and (stage 0) for the microbatches."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel.pipeline import pipeline
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(stage=world), 'cpu')
+    params = {'w': torch.from_numpy(w[rank]).requires_grad_(True),
+              'b': torch.from_numpy(b[rank]).requires_grad_(True)}
+    x = torch.from_numpy(mbs).requires_grad_(True)
+
+    def stage_fn(p, h, consts):
+        return torch.tanh(h @ p['w'] + p['b'])
+
+    out = pipeline(stage_fn, params, x, (), mesh)
+    # Every stage computes the loss; each weighs it 1/S, so it counts once.
+    ((out ** 2).sum() / world).backward()
+    try:
+        pipeline(stage_fn, params, x[:world - 1], (), mesh)
+        short = None
+    except ValueError as e:
+        short = str(e)
+    return {'out': out.detach().numpy(), 'dw': params['w'].grad.numpy(),
+            'db': params['b'].grad.numpy(),
+            'dx': x.grad.numpy() if rank == 0 else None, 'short': short}
+
+
+# ------------------------------------------------------------ task loops
+
+
+def task_steps(rank: int, world: int, family: str, config: Dict,
+               params: Dict[str, np.ndarray], batches: List[List[Dict]],
+               lr: float, steps: int) -> Dict:
+    """BERT's or ResNet's step over MeshSpec(data=world) from `params`,
+    each rank taking its own batches (`batches[rank]`): the averaged loss
+    and accuracy of each step, and rank 0's final state_dict (with the
+    running statistics).  Then the loop itself (``finetune_bert`` or
+    ``train_resnet``) for 2 steps on the same group: each rank's first
+    loss and a digest of its final parameters."""
+    from skypilot_tpu_torch.models.resnet import ResNetConfig
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import tasks
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(data=world), 'cpu')
+    sd = {k: torch.from_numpy(v) for k, v in params.items()}
+    if family == 'bert':
+        from skypilot_tpu_torch.models import registry
+        cfg = dataclasses.replace(registry.get_model_config(config['name']),
+                                  dtype=torch.float32)
+        state = tasks.bert_setup(cfg, lr, device='cpu', params=sd,
+                                 mesh=mesh)
+        step = tasks.bert_step
+    else:
+        cfg = ResNetConfig(name='t', dtype=torch.float32, **config)
+        state = tasks.resnet_setup(cfg, lr, 0.9, steps, device='cpu',
+                                   params=sd, mesh=mesh)
+        step = tasks.resnet_step
+    losses, accs = [], []
+    for batch in batches[rank]:
+        loss, acc = step(state, batch)
+        losses.append(loss.item())
+        accs.append(acc.item())
+    loop = (tasks.finetune_bert('bert-debug', steps=2, batch_size=8,
+                                seq_len=16, device='cpu', log=lambda _: None)
+            if family == 'bert' else
+            tasks.train_resnet('resnet18-debug', steps=2, batch_size=8,
+                               image_size=16, num_classes=4, device='cpu',
+                               log=lambda _: None))
+    digest = sum(float(p.double().sum())
+                 for p in loop['state'].model.parameters())
+    return {'loss': losses, 'acc': accs,
+            'state': _np(state.model.state_dict()) if rank == 0 else None,
+            'loop_first_loss': loop['first_loss'], 'loop_digest': digest,
+            'loop_mesh': loop['state'].mesh.shape}

@@ -709,3 +709,43 @@ def test_resnet_step_on_the_card_matches_the_cpu(card):
     for k, v in sc.items():
         assert (v - sx[k]).abs().max().item() <= \
             TOL * max(sx[k].abs().max().item(), 1e-3), k
+
+
+def test_one_rank_mesh_trainer_on_the_card_matches_the_no_mesh_trainer(card):
+    """The trainer with MeshSpec(fsdp=1) -- FSDP2 over a one-rank NCCL
+    process group, the card host's one card -- against the no-mesh
+    trainer at depth 2 in f32, from the same weights and batches: the
+    loss of each of 2 steps and every gradient of the last (the f32
+    kernels at head_dim 64, 4/2/2 launches a step under remat)."""
+    from torch.distributed.tensor import DTensor
+
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec
+    from skypilot_tpu_torch.train import trainer as tt
+    cfg = dataclasses.replace(get_model_config('llama-debug'),
+                              hidden_size=256, dtype=torch.float32)
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129)))
+               for _ in range(2)]
+    out = {}
+    for name, mesh in (('no_mesh', None), ('mesh', MeshSpec(fsdp=1))):
+        tr = tt.Trainer(tt.TrainConfig(model='llama-debug', batch_size=2,
+                                       seq_len=128, warmup_steps=1,
+                                       mesh=mesh), cfg, device='cuda')
+        tr.setup(params=sd)
+        before = _counts()
+        losses = [tr._step_fn(tr.state, {'tokens': b})['loss'].item()
+                  for b in batches]
+        launches = [a - b for a, b in zip(_counts(), before)]
+        grads = {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
+                     else p.grad).cpu()
+                 for n, p in tr.state.model.named_parameters()}
+        out[name] = (losses, grads, launches)
+    torch.distributed.destroy_process_group()
+    (lm, gm, nm), (ln, gn, nn_) = out['mesh'], out['no_mesh']
+    assert nm == nn_ == [8, 4, 4]
+    np.testing.assert_allclose(lm, ln, rtol=1e-6)
+    for n, g in gm.items():
+        assert (g - gn[n]).abs().max().item() <= \
+            TOL * max(gn[n].abs().max().item(), 1e-3), n

@@ -14,7 +14,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / 'skypilot_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
 # The PyTorch twins of the JAX examples, imported as modules of examples/.
-EXAMPLES = ['examples.finetune_bert_torch', 'examples.train_resnet_torch']
+EXAMPLES = ['examples.finetune_bert_torch', 'examples.train_resnet_torch',
+            'examples.train_llama_torch']
 
 
 def _port_modules():
@@ -57,6 +58,10 @@ def test_importing_every_module_loads_no_jax():
             'skypilot_tpu_torch.infer.qos',
             'skypilot_tpu_torch.models.quantize',
             'skypilot_tpu_torch.models.hf_import'} <= set(modules)
+    assert {'skypilot_tpu_torch.parallel.mesh',
+            'skypilot_tpu_torch.parallel.pipeline',
+            'skypilot_tpu_torch.ops.ring_attention',
+            'skypilot_tpu_torch.data.loader'} <= set(modules)
     code = (
         'import importlib, json, sys\n'
         f'for m in {modules!r}:\n'
@@ -149,6 +154,15 @@ def test_entry_points_need_a_card():
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Trainer(TrainConfig(model='mixtral-debug'), dataclasses.replace(
             get_model_config('mixtral-debug'), lora_rank=4))
+    from skypilot_tpu_torch.entry import dryrun_multichip
+    from skypilot_tpu_torch.parallel.mesh import (MeshSpec,
+                                                  ensure_process_group)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        Trainer(TrainConfig(model='llama-debug', mesh=MeshSpec()))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ensure_process_group()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        dryrun_multichip(1)
     assert resolve_device('cpu') == torch.device('cpu')
 
 

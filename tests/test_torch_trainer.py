@@ -21,6 +21,7 @@ from skypilot_tpu.models.llama import Llama as JaxLlama
 from skypilot_tpu.parallel.mesh import MeshSpec, make_mesh
 from skypilot_tpu.train import trainer as jt
 from skypilot_tpu_torch.models import convert, llama, registry
+from skypilot_tpu_torch.parallel.mesh import MeshSpec as PortMeshSpec
 from skypilot_tpu_torch.train import trainer as tt
 
 # f32 on both sides; only summation order differs.
@@ -317,11 +318,25 @@ def test_checkpoint_resume_equals_straight_run(tmp_path):
 
 
 def test_unported_options_raise():
+    """A mesh that is no MeshSpec is refused; LoRA and tensor-parallel
+    GPT-2 under a mesh name their item (A9.3); pipeline_microbatches
+    without a 'stage' axis is accepted and unused, as in the JAX trainer
+    (the mesh paths themselves: tests/test_torch_mesh.py and the
+    others of A9.1)."""
     _, tcfg = _configs()
     cfg = tt.TrainConfig(model='llama-debug')
-    for bad in (dict(mesh=object()), dict(pipeline_microbatches=2)):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md A9'):
-            tt.Trainer(dataclasses.replace(cfg, **bad), tcfg, device='cpu')
+    with pytest.raises(TypeError, match='must be a MeshSpec'):
+        tt.Trainer(dataclasses.replace(cfg, mesh=object()), tcfg,
+                   device='cpu')
+    for mc, mesh in ((dataclasses.replace(tcfg, lora_rank=4),
+                      PortMeshSpec()),
+                     (registry.get_model_config('gpt2-debug'),
+                      PortMeshSpec(tensor=2))):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md A9.3'):
+            tt.Trainer(dataclasses.replace(cfg, mesh=mesh), mc,
+                       device='cpu')
+    tt.Trainer(dataclasses.replace(cfg, pipeline_microbatches=2), tcfg,
+               device='cpu').setup()
     # LoRA, ported since, trains the adapters alone.
     lora = tt.Trainer(cfg, dataclasses.replace(tcfg, lora_rank=4),
                       device='cpu')
