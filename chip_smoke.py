@@ -110,8 +110,33 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
+# The serving phases (serve through qos) run llama-1b at SERVE_LAYERS of
+# its 22 layers: the whole run has 1,200 s, the serve_tp phase came to it,
+# and a slow host stretched every host-bound phase by up to a quarter.
+# Their checks count launches by the model's own depth and their
+# teacher-forced bounds were set at the full depth, which only loosens
+# them at less.
+SERVE_LAYERS = 4
+SERVE_PHASES = ('serve', 'server', 'paged', 'chunked', 'prompt_logprobs',
+                'fp8', 'prefix', 'spec', 'qos')
+
+
 def emit(obj) -> None:
+    if obj.get('phase') in SERVE_PHASES:
+        obj = {**obj, 'reduced': f'llama-1b depth 22 -> {SERVE_LAYERS} '
+                                 '(the run\'s 1,200 s)'}
     print(json.dumps(obj), flush=True)
+
+
+def shallower(model, num_layers: int):
+    """`model`'s first `num_layers` decoder layers under its embedding,
+    final norm and head: the same tensors, a new module."""
+    cfg = dataclasses.replace(model.config, num_layers=num_layers)
+    out = llama.Llama(cfg, device='cuda').eval()
+    out.load_state_dict({k: v for k, v in model.state_dict().items()
+                         if not k.startswith('layers.')
+                         or int(k.split('.')[1]) < num_layers})
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -239,6 +264,14 @@ BERT_TRAIN_CASE = ('bert-base-train', 32, 12, 12, 128, 64, torch.bfloat16,
 BERT_MAX_LEN_CASE = ('bert-base-512', 8, 12, 12, 512, 64, torch.bfloat16,
                      False, None)
 BERT_SHAPES = (BERT_TRAIN_CASE[0], BERT_MAX_LEN_CASE[0])
+# Tensor-parallel serving (serve_tp): llama2-7b's no-cache forward on one
+# of two ranks, 16 of its 32 heads over prompt + output (at most 281
+# tokens).  Past the old grid limit: batch 4,097 x 16 q heads = 65,552
+# (batch x heads) blocks on gridDim.x, beyond y's 65,535.
+TP_FWD_CASE = ('llama2-7b-tp2', 1, 16, 16, 281, 128, torch.bfloat16, True,
+               None)
+GRID_CASE = ('grid_4097x16', 4097, 16, 8, 128, 64, torch.bfloat16, True,
+             None)
 # (name, b, hq, hkv, s, d, dtype, causal, window); the first is the shape
 # the llama-1b forward gives the kernel, timed as well.  The bf16 kernel
 # works in 128-row tiles up to head_dim 128: ragged_1088 and
@@ -273,10 +306,13 @@ KERNEL_CASES = [
     MIXTRAL_TRAIN_CASE,
     BERT_TRAIN_CASE,
     BERT_MAX_LEN_CASE,
+    TP_FWD_CASE,
+    GRID_CASE,
 ]
 # The forward is timed at these shapes.
 TIMED_FWD = (KERNEL_CASES[0][0], TRAIN_CASE[0], GEMMA_FWD_CASE[0],
-             GEMMA_TRAIN_CASE[0], *SLICE12_FWD, *BERT_SHAPES)
+             GEMMA_TRAIN_CASE[0], *SLICE12_FWD, *BERT_SHAPES, TP_FWD_CASE[0],
+             GRID_CASE[0])
 
 
 # Agreement of the forward kernel with its plain version (same inputs; the
@@ -3415,7 +3451,7 @@ INT8_MODEL = 'llama2-7b'
 INT8_SERVE = dict(num_slots=48, max_cache_len=512, decode_steps=32,
                   prefills_per_gap=4, max_new_tokens=32)
 INT8_REQUESTS = 48
-INT8_TIMED_RUNS = 2
+INT8_TIMED_RUNS = 1
 # Steps of the profiled decode window: a quarter of decode_steps keeps
 # the profiler's event count (and its post-processing) a quarter.
 INT8_WINDOW_STEPS = 8
@@ -3863,7 +3899,7 @@ MIXTRAL_SERVE_LAYERS = 16
 MIXTRAL_SERVE = dict(num_slots=64, max_cache_len=2048, decode_steps=16,
                      max_new_tokens=32)
 MIXTRAL_REQUESTS = 64
-MIXTRAL_TIMED_RUNS = 2
+MIXTRAL_TIMED_RUNS = 1
 # Steps of the profiled decode window (a quarter of decode_steps keeps
 # the profiler's post-processing short).
 MIXTRAL_WINDOW_STEPS = 4
@@ -4802,6 +4838,428 @@ def phase_dryrun(env: dict) -> tuple:
     return tally, line
 
 
+# -------------------------------------------------------------- serve_tp
+# Tensor-parallel serving (ROADMAP A9.2) on the one card: two ranks, each
+# a process of its own, in a gloo group whose collectives run on CUDA
+# tensors (the card host shows one H100 and NCCL refuses two ranks on one
+# card).  (a) depth 2 in f32 at llama2-7b's widths: the tp=2 engine
+# against the tp=1 engine; (b) llama2-7b at full width and depth in bf16
+# at examples/serve_llama.yaml's engine flags (--decode-steps 32
+# --cache-dtype fp8), tp=2 of its 8, slots and cache cut to what two
+# ranks' fp8 caches and weights hold on one card; a paged radix engine
+# over a bf16 cache on the same weights; (c) Mixtral at depth 2 in f32 at
+# mixtral-8x7b's widths, 8 experts over 2 ranks.
+TP_MODEL = 'llama2-7b'
+TP_SERVE = dict(num_slots=16, max_cache_len=512, decode_steps=32,
+                max_new_tokens=32, prefill_buckets=(64, 128, 256, 512))
+TP_REQUESTS = 8
+TP_PAGED = dict(kv_block_size=16, auto_prefix_cache=True)
+TP_SYSTEM_PROMPT = 128          # tokens shared by the paged waves
+TP_F32_LAYERS = 2
+TP_F32_SERVE = dict(num_slots=8, max_cache_len=512, decode_steps=8,
+                    max_new_tokens=16, prefill_buckets=(64, 128, 256, 512),
+                    cache_dtype=torch.float32)
+TP_F32_REQUESTS = 8
+TP_MIXTRAL_SERVE = dict(num_slots=4, max_cache_len=256, decode_steps=8,
+                        max_new_tokens=16, prefill_buckets=(64, 128, 256),
+                        cache_dtype=torch.float32)
+TP_MIXTRAL_REQUESTS = 4
+# f32 on both sides, the tensor split sums two ranks' partial outputs in
+# another order: the serve phase's f32 "sum order only" bound.
+TP_F32_BOUND = 2e-3
+# The recorded window: 8 of the recipe's 32 steps (every step of it is a
+# host round trip through gloo; recorded, not gated).
+TP_WINDOW_STEPS = 8
+# (d) the protocol's host cost: decode windows of a one-rank mesh engine
+# against the no-mesh engine, in turns.
+TP_HOST_MODEL = 'llama-1b'
+TP_HOST_SERVE = dict(num_slots=8, max_cache_len=512, decode_steps=8,
+                     max_new_tokens=32, prefill_buckets=(64, 128, 256))
+
+
+def tp_prompts(vocab: int, n: int, seed: int, prefix=()) -> list:
+    rng = np.random.default_rng(seed)
+    return [list(prefix) + rng.integers(0, vocab, int(rng.integers(
+        20, 200))).tolist() for _ in range(n)]
+
+
+def tp_engine(cfg, infer: dict, mesh=None) -> InferenceEngine:
+    """An engine of `cfg` drawn from seed 0 on the card: every rank of a
+    mesh draws the same tensors and keeps its slice."""
+    return InferenceEngine(cfg, InferConfig(model=cfg.name, **infer),
+                           device='cuda', mesh=mesh,
+                           generator=torch.Generator(
+                               device='cuda').manual_seed(0))
+
+
+def tp_served(rank: int, eng: InferenceEngine, fn):
+    """fn() on rank 0, then the other ranks released; the other ranks run
+    rank 0's dispatches meanwhile.  Returns fn()'s result, everywhere (a
+    broadcast from rank 0)."""
+    from torch import distributed as dist
+    out = [None]
+    if rank == 0:
+        try:
+            out[0] = fn()
+        finally:
+            eng.shutdown()
+    else:
+        eng.serve_worker()
+    dist.broadcast_object_list(out, src=0, group=eng._tpc.ctl)
+    return out[0]
+
+
+def tp_results(results: list) -> list:
+    """What the lockstep scoring needs of each result (picklable)."""
+    return [types.SimpleNamespace(
+        prompt_tokens=r.prompt_tokens, output_tokens=r.output_tokens,
+        logprobs=r.logprobs, finish_reason=r.finish_reason,
+        ttft_s=r.ttft_s) for r in results]
+
+
+def tp_lockstep_gaps(eng, results, tally: list) -> dict:
+    """Every rank's no-cache forward over each request's prompt + output
+    (the flash kernel at this rank's heads; the model's collectives meet
+    because every rank scores the same tokens in the same order): the
+    teacher-forced gaps against the reported logprobs, and a control
+    scoring random tokens in place of the outputs."""
+    from skypilot_tpu_torch.parallel.mesh import mesh_context
+    with mesh_context(eng._mesh):
+        gaps = counted(lambda: teacher_forced_gaps(eng.model, results),
+                       tally)
+        rng = np.random.default_rng(5)
+        control = [types.SimpleNamespace(
+            prompt_tokens=r.prompt_tokens, logprobs=r.logprobs,
+            output_tokens=rng.integers(0, eng.model_config.vocab_size,
+                                       len(r.output_tokens)).tolist())
+                   for r in results[:4]]
+        ctl = teacher_forced_gaps(eng.model, control)
+    return {'max': gaps.max().item(), 'mean': gaps.mean().item(),
+            'control_max': ctl.max().item()}
+
+
+def tp_cache_bytes(eng) -> int:
+    return sum(k.numel() * k.element_size() + v.numel() * v.element_size()
+               for k, v in eng.cache)
+
+
+def tp_window_ms(eng) -> dict:
+    """A decode window of TP_WINDOW_STEPS steps over every slot at cache
+    position 256, run by every rank in lockstep outside the protocol
+    (after shutdown), under the profiler: this rank's wall and device
+    time."""
+    from skypilot_tpu_torch.parallel.mesh import mesh_context
+    n = eng.cfg.num_slots
+
+    def window():
+        with mesh_context(eng._mesh):
+            type(eng)._decode.raw(
+                eng, torch.zeros(n, dtype=torch.long, device='cuda'),
+                torch.full((n,), 256, dtype=torch.long, device='cuda'),
+                torch.zeros(n, device='cuda'), TP_WINDOW_STEPS)
+
+    return {'steps': TP_WINDOW_STEPS, **profile_device(window)}
+
+
+def tp_depth2(rank: int, mesh) -> dict:
+    """(a): tp=2 against tp=1 at depth 2 in f32, llama2-7b's widths."""
+    cfg = dataclasses.replace(get_model_config(TP_MODEL),
+                              num_layers=TP_F32_LAYERS, dtype=torch.float32)
+    prompts = tp_prompts(cfg.vocab_size, TP_F32_REQUESTS, 21)
+    eng = tp_engine(cfg, TP_F32_SERVE, mesh)
+    got = tp_served(rank, eng, lambda: tp_results(eng.generate(
+        [Request(tokens=p) for p in prompts])))
+    out = {'heads': int(eng.cache[0][0].shape[1])}
+    del eng
+    torch.cuda.empty_cache()
+    if rank == 0:
+        want = tp_engine(cfg, TP_F32_SERVE).generate(
+            [Request(tokens=p) for p in prompts])
+        out['tokens_identical'] = all(
+            g.output_tokens == w.output_tokens for g, w in zip(got, want))
+        out['logprob_max_abs_err'] = max(
+            abs(a - b) for g, w in zip(got, want)
+            for a, b in zip(g.logprobs, w.logprobs))
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_full(rank: int, mesh, tally: list) -> dict:
+    """(b): llama2-7b at full width and depth, tp=2, bf16 weights."""
+    from skypilot_tpu_torch.analysis import sanitizers
+    cfg = get_model_config(TP_MODEL)
+    prompts = tp_prompts(cfg.vocab_size, TP_REQUESTS, 23)
+    out = {}
+    eng = tp_engine(cfg, {**TP_SERVE, 'cache_dtype': llama.FP8}, mesh)
+    out['cache_bytes'] = tp_cache_bytes(eng)
+    out['cache_bytes_tp1'] = tp_cache_bytes(types.SimpleNamespace(
+        cache=llama.init_cache(cfg, TP_SERVE['num_slots'],
+                               TP_SERVE['max_cache_len'], llama.FP8,
+                               'meta')))
+
+    def serve():
+        res = {'shard': sanitizers.check_shard_layout(eng)}
+        k, v = eng.cache[0]
+        eng.cache[0] = (torch.empty((k.shape[0], cfg.num_kv_heads)
+                                    + tuple(k.shape[2:]), dtype=k.dtype,
+                                    device='meta'), v)
+        try:
+            sanitizers.check_shard_layout(eng)
+            res['drift_raised'] = False
+        except sanitizers.ShardLayoutError as e:
+            res['drift_raised'], res['drift'] = True, str(e)[:300]
+        finally:
+            eng.cache[0] = (k, v)
+        runs = []
+        for _ in range(2):          # a first run, then one timed
+            results, wall = timed_generate(
+                eng, [Request(tokens=p, request_id=str(i))
+                      for i, p in enumerate(prompts)])
+            runs.append((tp_results(results), wall))
+        res['tokens_repeat'] = all(
+            a.output_tokens == b.output_tokens
+            for a, b in zip(runs[0][0], runs[1][0]))
+        res['results'], res['wall_s'] = runs[1]
+        res['stats'] = eng.stats()['kv']
+        return res
+
+    res = tp_served(rank, eng, serve)
+    res['window'] = tp_window_ms(eng)
+    res['gaps_fp8'] = tp_lockstep_gaps(eng, res['results'], tally)
+    results = res.pop('results')
+    n_tok = sum(len(r.output_tokens) for r in results)
+    res['tok_per_s'] = n_tok / res['wall_s']
+    res['ttft_s_p50'] = float(np.median([r.ttft_s for r in results]))
+    res['finishes'] = sorted({r.finish_reason for r in results})
+    out.update(res)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The same weights over a bf16 paged radix pool: two waves behind a
+    # shared system prompt, the second one's prefixes from the tree.
+    eng = tp_engine(cfg, {**TP_SERVE, **TP_PAGED}, mesh)
+    system = tp_prompts(cfg.vocab_size, 1, 29)[0][:TP_SYSTEM_PROMPT]
+    system += [7] * (TP_SYSTEM_PROMPT - len(system))
+    waves = [tp_prompts(cfg.vocab_size, TP_REQUESTS // 2, 31 + w,
+                        prefix=system) for w in range(2)]
+
+    def paged():
+        log = audited_windows(eng)
+        res = {}
+        for w, wave in enumerate(waves):
+            results = eng.generate([Request(tokens=p) for p in wave])
+            res[f'wave{w}'] = tp_results(results)
+        res['radix'] = dict(eng.radix_stats)
+        res['windows_audited'], res['conservation'] = log[0], log[1:]
+        res['conservation'] += conservation_errors(eng)
+        return res
+
+    res = tp_served(rank, eng, paged)
+    res['gaps_bf16'] = tp_lockstep_gaps(
+        eng, res['wave0'] + res['wave1'], tally)
+    del res['wave0'], res['wave1']
+    out['paged'] = res
+    out['heads'] = int(eng.cache[0][0].shape[1])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_mixtral(rank: int, mesh) -> dict:
+    """(c): Mixtral at depth 2 in f32, mixtral-8x7b's widths, tp=2 (each
+    rank 4 of the 8 experts) against tp=1."""
+    cfg = dataclasses.replace(get_model_config(MIXTRAL_MODEL),
+                              num_layers=TP_F32_LAYERS, dtype=torch.float32)
+    prompts = tp_prompts(cfg.vocab_size, TP_MIXTRAL_REQUESTS, 37)
+    eng = tp_engine(cfg, TP_MIXTRAL_SERVE, mesh)
+    got = tp_served(rank, eng, lambda: tp_results(eng.generate(
+        [Request(tokens=p) for p in prompts])))
+    out = {'experts_a_rank': int(eng.model.layers[0].moe.w_gate.shape[0])}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        want = tp_engine(cfg, TP_MIXTRAL_SERVE).generate(
+            [Request(tokens=p) for p in prompts])
+        out['tokens_identical'] = all(
+            g.output_tokens == w.output_tokens for g, w in zip(got, want))
+        out['logprob_max_abs_err'] = max(
+            abs(a - b) for g, w in zip(got, want)
+            for a, b in zip(g.logprobs, w.logprobs))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_rank(rank: int, world: int, init: str, out_dir: str) -> None:
+    """One rank of the serve_tp phase: (a), (b) and (c) over a gloo group
+    on card 0; its result (or traceback) as JSON in out_dir."""
+    import traceback
+
+    from torch import distributed as dist
+
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    res = {}
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group('gloo', init_method=init, rank=rank,
+                                world_size=world)
+        mesh = make_mesh(MeshSpec(tensor=world), 'cuda')
+        tally = [0, 0, 0]
+        seconds = {}
+        for name, fn in (('depth2_f32', lambda: tp_depth2(rank, mesh)),
+                         ('full', lambda: tp_full(rank, mesh, tally)),
+                         ('mixtral_f32', lambda: tp_mixtral(rank, mesh))):
+            t0 = time.perf_counter()
+            res[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+        res['launches'], res['seconds'] = tally, seconds
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 -- shipped to the parent
+        res['error'] = traceback.format_exc()[-4000:]
+    pathlib.Path(out_dir, f'rank{rank}.json').write_text(
+        json.dumps(res, default=str))
+
+
+def tp_host_cost() -> dict:
+    """(d): decode windows of a one-rank mesh engine (every dispatch
+    broadcast and run through the protocol) against the no-mesh engine on
+    the same weights, in turns (no mesh, mesh, mesh, no mesh): the median
+    wall time of a window each."""
+    from skypilot_tpu_torch.parallel.mesh import (MeshSpec,
+                                                  ensure_process_group,
+                                                  make_mesh)
+    ensure_process_group('cuda')
+    cfg = get_model_config(TP_HOST_MODEL)
+    mesh = make_mesh(MeshSpec(tensor=1), 'cuda')
+    engines = {'no_mesh': tp_engine(cfg, TP_HOST_SERVE),
+               'mesh': tp_engine(cfg, TP_HOST_SERVE, mesh)}
+    prompts = tp_prompts(cfg.vocab_size, TP_HOST_SERVE['num_slots'], 41)
+    walls = {name: [] for name in engines}
+    tokens = {}
+    for name in ('no_mesh', 'mesh', 'mesh', 'no_mesh'):
+        eng = engines[name]
+        step = eng._step
+
+        def timed_step(_step=step, _log=walls[name]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _step()
+            _log.append(1e3 * (time.perf_counter() - t0))
+
+        eng._step = timed_step
+        res = eng.generate([Request(tokens=p) for p in prompts])
+        del eng._step
+        tokens.setdefault(name, [r.output_tokens for r in res])
+    engines['mesh'].shutdown()
+    med = {name: float(np.median(w)) for name, w in walls.items()}
+    return {'model': TP_HOST_MODEL, 'config': TP_HOST_SERVE,
+            'windows': {k: len(v) for k, v in walls.items()},
+            'window_wall_ms_median': med,
+            'ratio_mesh_over_no_mesh': med['mesh'] / med['no_mesh'],
+            'tokens_identical': tokens['mesh'] == tokens['no_mesh']}
+
+
+def phase_serve_tp(env: dict) -> tuple:
+    """Tensor-parallel serving (see the constants' comment): (a)-(c) on two
+    ranks sharing the card, spawned here; (d) the protocol's host cost on
+    this process's one-rank NCCL group.  Gates: (a) and (c) greedy tokens
+    identical to tp=1, logprobs within TP_F32_BOUND; (b) the teacher-forced
+    gap against the no-cache forward within INT8_BOUND over the fp8 cache
+    and INT8_TIGHT_BOUND over a bf16 cache, a random-token control above
+    INT8_BOUND, each rank's cache bytes exactly half of tp=1's, stats()'s
+    per-chip bytes total // 2, check_shard_layout passing and raising on
+    a planted drift, the paged second wave's radix hits and conservation
+    exact; every rank ran the forward kernel.  Returns the kernels'
+    launches (both ranks) and the line."""
+    import multiprocessing as mproc
+    out_dir = tempfile.mkdtemp(prefix='serve_tp_')
+    init = 'file://' + str(pathlib.Path(out_dir, 'store'))
+    ctx = mproc.get_context('spawn')
+    t0 = time.perf_counter()
+    host = tp_host_cost()          # before the ranks share the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    procs = [ctx.Process(target=serve_tp_rank, args=(r, 2, init, out_dir))
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(900)
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        path = pathlib.Path(out_dir, f'rank{r}.json')
+        check(path.exists(), f'serve_tp rank {r} left no result')
+        ranks.append(json.loads(path.read_text()))
+        check('error' not in ranks[r],
+              f'serve_tp rank {r} failed:\n{ranks[r].get("error")}')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    a, b, c = r0['depth2_f32'], r0['full'], r0['mixtral_f32']
+    check(a['tokens_identical'] and a['logprob_max_abs_err'] <= TP_F32_BOUND,
+          f'(a) depth-2 f32 tp=2 vs tp=1: {a}')
+    check(c['tokens_identical'] and c['logprob_max_abs_err'] <= TP_F32_BOUND,
+          f'(c) Mixtral depth-2 f32 tp=2 vs tp=1: {c}')
+    cfg = get_model_config(TP_MODEL)
+    for r, rank in enumerate(ranks):
+        f = rank['full']
+        check(f['cache_bytes'] * 2 == f['cache_bytes_tp1'],
+              f'rank {r} cache bytes {f["cache_bytes"]}, tp=1 '
+              f'{f["cache_bytes_tp1"]}')
+        check(f['heads'] == cfg.num_kv_heads // 2 and
+              rank['mixtral_f32']['experts_a_rank'] == 4,
+              f'rank {r}: {f["heads"]} kv heads, '
+              f'{rank["mixtral_f32"]["experts_a_rank"]} experts')
+        check(rank['launches'][0] > 0,
+              f'rank {r} ran the forward kernel {rank["launches"]} times')
+    kv = b['stats']['bytes']
+    check(kv['per_chip_total'] * 2 == kv['total'] and
+          kv['per_chip_resident'] * 2 == kv['resident'] and
+          b['stats']['tp'] == 2, f'(b) stats: {b["stats"]}')
+    check(b['shard']['tensor_degree'] == 2 and
+          b['shard']['param_leaves_sharded'] > 0 and b['drift_raised'],
+          f'(b) shard layout {b["shard"]}, drift raised: '
+          f'{b["drift_raised"]}')
+    check(b['tokens_repeat'] and b['finishes'] == ['length'],
+          f'(b) repeat {b["tokens_repeat"]}, finishes {b["finishes"]}')
+    check(b['gaps_fp8']['max'] <= INT8_BOUND, f'(b) fp8 gap {b["gaps_fp8"]}')
+    check(b['gaps_fp8']['control_max'] > INT8_BOUND,
+          f'(b) control {b["gaps_fp8"]}: the gate cannot fail')
+    p = b['paged']
+    check(p['gaps_bf16']['max'] <= INT8_TIGHT_BOUND,
+          f'(b) paged bf16 gap {p["gaps_bf16"]}')
+    check(p['radix']['hits'] > 0 and p['conservation'] == [] and
+          p['windows_audited'] > 0, f'(b) paged radix {p}')
+    tally = [sum(rank['launches'][i] for rank in ranks) for i in range(3)]
+    line = {'phase': 'serve_tp', 'device': env['device'],
+            'nvidia_smi': env['nvidia_smi'],
+            'transport': 'two processes on card 0, a gloo group, '
+                         'collectives on CUDA tensors',
+            'model': TP_MODEL, 'tensor_parallel': 2,
+            'config': {**TP_SERVE, 'cache_dtype': 'float8_e4m3fn'},
+            'reduced': 'examples/serve_llama.yaml: --tensor-parallel 8 -> 2 '
+                       '(one card), --num-slots 128 -> 16 and '
+                       'max_cache_len 2048 -> 512 (two ranks\' caches and '
+                       'weights on one card); (a) and (c) depth 32 -> 2 in '
+                       'f32',
+            'depth2_f32': a, 'mixtral_f32': c, 'full': b,
+            'rank1': {k: ranks[1][k] for k in ('launches', 'seconds')},
+            'rank1_window': ranks[1]['full']['window'],
+            'protocol_host_cost': host, 'bounds': {
+                'f32': TP_F32_BOUND, 'fp8': INT8_BOUND,
+                'bf16': INT8_TIGHT_BOUND},
+            'launches': tally, 'wall_s': wall,
+            'seconds': {'rank0': r0['seconds']}}
+    emit(line)
+    return tally, line
+
+
 def phase_planted_faults() -> None:
     """Build a copy of a kernel per planted fault (under
     build/planted_faults/), run it in place of the sound library at its
@@ -4895,6 +5353,9 @@ def main() -> int:
         return 0
     bench_fwd, bench_dq, bench_dkv = timed(phase_bench, env['device'])
     model, forward_launches = timed(phase_forward)
+    model = shallower(model, SERVE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
     timed(phase_serve, model, env['device'])
     timed(phase_server, model, env)
     timed(phase_paged, model, env)
@@ -4950,6 +5411,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dryrun, _ = timed(phase_dryrun, env)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_tp, _ = timed(phase_serve_tp, env)
     from torch import distributed as dist
     dist.destroy_process_group()
     csrc = 'skypilot_tpu_torch/ops/csrc/'
@@ -4962,7 +5426,8 @@ def main() -> int:
                        + int8_forward + gpt2_train[0] + gpt2_forward
                        + mixtral_forward + mixtral_train[0]
                        + bert_train[0] + bert_hf_forward
-                       + mixtral_lora[0] + mesh_train[0] + dryrun[0]),
+                       + mixtral_lora[0] + mesh_train[0] + dryrun[0]
+                       + serve_tp[0]),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
@@ -4978,13 +5443,16 @@ def main() -> int:
                                'bert_hf_forward': bert_hf_forward,
                                'mixtral_lora_train': mixtral_lora[0],
                                'mesh_train': mesh_train[0],
-                               'dryrun': dryrun[0]},
+                               'dryrun': dryrun[0],
+                               'serve_tp': serve_tp[0]},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
              headline_shape=headline['fwd'],
              head_dim_256_shapes={name: fwd[name]
                                   for name in TIMED_FWD[2:4]},
              slice12_shapes={name: fwd[name] for name in SLICE12_FWD},
-             bert_shapes={name: fwd[name] for name in BERT_SHAPES}),
+             bert_shapes={name: fwd[name] for name in BERT_SHAPES},
+             serve_tp_shape=fwd[TP_FWD_CASE[0]],
+             grid_shape=fwd[GRID_CASE[0]]),
         dict(name='flash_attention_bwd_dq', route='cuda',
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
              launches=(train_dq + bench_dq + gemma_train[1] + lora_train[1]

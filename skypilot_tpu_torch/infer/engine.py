@@ -99,6 +99,17 @@ the engine reads only ``head_dim_``, ``num_kv_heads``, ``num_layers``,
 forward routes every token exactly (all experts, gate-weighted).  The
 block-paged pool and multi-LoRA serve the llama family only and refuse
 the others with the JAX engine's TypeError.
+
+- **Tensor-parallel serving** (``mesh`` with a 'tensor' axis, one process
+  per rank; ``infer/tp.py``): every rank holds its slice of the weights
+  (``parallel.mesh.shard_tensor``, sent by rank 0) in a rank-local model
+  and the cache's ``Hkv / tp`` kv heads; rank 0 runs the engine and
+  broadcasts each device dispatch, the other ranks run ``serve_worker``;
+  a dispatch that fails on any rank stops the replica.  Host-tier
+  rows and handoff payloads stay the topology-neutral ``[L, Hkv, bs, D]``:
+  a spill or an export gathers every rank's heads, a restore or an
+  adoption scatters them by heads.  ``stats()`` and ``kv_health()``
+  report the degree and the per-chip bytes.
 """
 import base64
 import collections
@@ -114,6 +125,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.analysis import sanitizers
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer.block_pool import BlockPool, HostKVTier
 from skypilot_tpu_torch.infer import qos as qos_mod
@@ -121,12 +133,15 @@ from skypilot_tpu_torch.infer.faults import InjectedFault
 from skypilot_tpu_torch.infer.qos import DEFAULT_TENANT, PRIORITY_CLASSES
 from skypilot_tpu_torch.infer.radix import RadixTree
 from skypilot_tpu_torch.infer.scheduler import FifoScheduler
+from skypilot_tpu_torch.infer.tp import (TensorParallel, dispatch,
+                                         validate_mesh)
 from skypilot_tpu_torch.models.convert import init_params, iter_params
 from skypilot_tpu_torch.models.llama import (FP8, LlamaConfig, as_bytes,
                                              init_cache, init_paged_cache)
 from skypilot_tpu_torch.models.registry import (CausalLMConfig, build_model,
                                                 get_model_config,
-                                                is_causal_lm)
+                                                is_causal_lm, rank_config)
+from skypilot_tpu_torch.parallel.mesh import Mesh, all_gather_cat
 from skypilot_tpu_torch.train.lora import flax_path, is_lora_path, nest
 
 DEFAULT_PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
@@ -335,13 +350,23 @@ class InferenceEngine:
     ``torch.Generator`` on the engine's device, for the init (when params
     is None) and for sampling; None seeds one with 0.  device: None means
     the CUDA card.
+
+    mesh: a ``parallel.mesh.Mesh`` with a 'tensor' axis enables
+    tensor-parallel serving (see ``infer.tp``): every rank of the process
+    group builds this engine with the same configs and takes rank 0's
+    generator state; only rank 0's ``params`` are read (rank 0 sends each
+    rank its slice), and with none every rank draws the same weights and
+    keeps its slice.  All but rank 0 then call
+    ``serve_worker``; rank 0 serves and calls ``shutdown`` at the end.
+    num_kv_heads must be divisible by the tensor degree.  'data' and
+    'fsdp' ranks hold replicas.
     """
 
     def __init__(self, model_config: CausalLMConfig,
                  cfg: Optional[InferConfig] = None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None,
-                 device=None):
+                 device=None, mesh: Optional[Mesh] = None):
         if not is_causal_lm(model_config):
             raise TypeError(
                 'InferenceEngine supports the Llama, Mixtral and GPT-2 '
@@ -403,6 +428,10 @@ class InferenceEngine:
         if cfg.draft_len and cfg.ngram_max < 1:
             raise ValueError(f'ngram_max must be >= 1 '
                              f'(got {cfg.ngram_max})')
+        # Tensor degree of this replica (1 unsharded): the model's and the
+        # cache's heads per rank, and the per-chip KV bytes of stats().
+        self._tp = validate_mesh(mesh, model_config, cfg.lora_rank)
+        self._mesh = mesh
         self._paged = cfg.kv_block_size > 0
         if self._paged and not isinstance(model_config, LlamaConfig):
             raise TypeError(
@@ -469,8 +498,29 @@ class InferenceEngine:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self._gen = generator
-        self.model = build_model(model_config, device=self.device).eval()
-        if params is None:
+        # The config this rank's model and cache are built from: the
+        # rank's share of the heads, MLP and experts under a mesh.
+        self._local_config = (model_config if self._tp == 1 else
+                              rank_config(model_config, self._tp))
+        self.model = build_model(self._local_config,
+                                 device=self.device).eval()
+        self._tpc = TensorParallel(mesh) if mesh is not None else None
+        self._full_shapes: Dict[str, Tuple[int, ...]] = {}
+        if self._tpc is not None:
+            # Every rank takes rank 0's generator state, then its slice of
+            # each weight in the model's dtype, one tensor at a time:
+            # rank 0's given weights are sent by rank 0 (only its host
+            # holds the whole model), drawn ones are drawn by every rank
+            # alike.  No card holds more than its slice.
+            self._tpc.share_generator(generator)
+            dtypes = {k: v.dtype for k, v in self.model.state_dict().items()}
+            items = self._tpc.local_params(
+                params, lambda: iter_params(base_config, generator), dtypes)
+            params = {}
+            for k, shape, v in items:
+                self._full_shapes[k] = shape
+                params[k] = v.to(self.device)
+        elif params is None:
             # The base weights a plain engine draws from this generator.
             params = init_params(base_config, generator)
         if cfg.lora_rank and not any(is_lora_path(k) for k in params):
@@ -494,10 +544,10 @@ class InferenceEngine:
         if self._paged:
             self._pool = BlockPool(n_blocks, bs_, max_blocks, b)
             self.paged_stats = {'deferred': 0, 'prefix_block_hits': 0}
-            self.cache = init_paged_cache(model_config, n_blocks, bs_,
+            self.cache = init_paged_cache(self._local_config, n_blocks, bs_,
                                           cfg.cache_dtype, self.device)
         else:
-            self.cache = init_cache(model_config, b, cfg.max_cache_len,
+            self.cache = init_cache(self._local_config, b, cfg.max_cache_len,
                                     cfg.cache_dtype, self.device)
         # Automatic radix prefix caching over the pool (None when off);
         # radix_stats always exists so stats() has one shape.
@@ -613,15 +663,58 @@ class InferenceEngine:
         and so is the radix tree (its generation bump invalidates any
         match taken before); the host tier stays, and so do dense
         prefixes (rows of their own).  Caller holds no live slots."""
-        with torch.no_grad():
-            for k, v in self.cache:
-                as_bytes(k).zero_()
-                as_bytes(v).zero_()
+        self._zero_cache()
         if self._paged:
             self._pool.reset()
             self._prefixes.clear()
             if self._radix is not None:
                 self._radix.clear()
+
+    @dispatch()
+    @torch.inference_mode()
+    def _zero_cache(self) -> None:
+        for k, v in self.cache:
+            as_bytes(k).zero_()
+            as_bytes(v).zero_()
+
+    # ------------------------------------------------- tensor parallelism
+
+    def serve_worker(self) -> None:
+        """A rank other than 0 of a tensor-parallel engine: run rank 0's
+        dispatches on this rank's shard until rank 0 calls ``shutdown``."""
+        if self._tpc is None or self._tpc.rank == 0:
+            raise RuntimeError('serve_worker runs on a rank > 0 of a '
+                               'tensor-parallel engine')
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        self._tpc.serve_worker(self)
+
+    def shutdown(self) -> None:
+        """Rank 0 of a tensor-parallel engine: release the other ranks from
+        ``serve_worker`` (a no-op without a mesh or when done already)."""
+        if self._tpc is not None and self._tpc.rank == 0:
+            self._tpc.stop()
+
+    @dispatch()
+    @torch.inference_mode()
+    def _block_rows(self, blk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pool block `blk`'s rows of every layer, (k, v) [L, Hkv, bs, D]
+        in the cache's bytes, every rank's kv heads gathered in head order:
+        the topology-neutral host form of a spill and of an export."""
+        out = []
+        for part in (0, 1):
+            rows = torch.stack([as_bytes(kv[part])[blk] for kv in self.cache])
+            if self._tp > 1:
+                rows = all_gather_cat(rows, self._tpc.group, 1)
+            out.append(rows)
+        return out[0], out[1]
+
+    @dispatch()
+    def _shard_report(self) -> List[Dict[str, Any]]:
+        """Every rank's shard-layout report (``analysis.sanitizers``), in
+        rank order."""
+        from skypilot_tpu_torch.analysis.sanitizers import local_shard_report
+        return self._tpc.gather_objects(local_shard_report(self))
 
     # ------------------------------------------------------ fault plans
 
@@ -699,6 +792,7 @@ class InferenceEngine:
         lp = torch.where(valid, sel - logz, torch.full_like(sel, math.nan))
         return self._pack_scores(head, logz, lp)
 
+    @dispatch()
     @torch.inference_mode()
     def _prefill_insert(self, tokens: torch.Tensor, true_lens: torch.Tensor,
                         slots: torch.Tensor, temps: torch.Tensor,
@@ -712,7 +806,7 @@ class InferenceEngine:
         [P, 2+2k] and, with want_plp, the packed prompt scores
         [P, bucket-1, 1+2k] (else None)."""
         p, bucket = tokens.shape
-        pcache = init_cache(self.model_config, p, bucket,
+        pcache = init_cache(self._local_config, p, bucket,
                             self.cfg.cache_dtype, self.device)
         positions = torch.arange(bucket, device=self.device).expand(p, bucket)
         logits, pcache = self.model(tokens, positions, pcache,
@@ -748,6 +842,7 @@ class InferenceEngine:
         return {'paged_tables': tables,
                 'paged_block_size': self.cfg.kv_block_size}
 
+    @dispatch()
     @torch.inference_mode()
     def _paged_prefill(self, tokens: torch.Tensor, starts: torch.Tensor,
                        true_pos: torch.Tensor,
@@ -781,6 +876,7 @@ class InferenceEngine:
         return head, (self._pack_prompt(logits, tokens) if want_plp
                       else None)
 
+    @dispatch()
     @torch.inference_mode()
     def _prefix_prefill(self, tokens: torch.Tensor, start: int,
                         true_lens: torch.Tensor, rows, slots: torch.Tensor,
@@ -797,7 +893,7 @@ class InferenceEngine:
         head [P, 2+2k]."""
         p, sb = tokens.shape
         width = start + sb
-        pcache = init_cache(self.model_config, p, width,
+        pcache = init_cache(self._local_config, p, width,
                             self.cfg.cache_dtype, self.device)
         for (pk, pv), (rk, rv) in zip(pcache, rows):
             as_bytes(pk)[:, :, :start] = rk[:, :start]
@@ -812,6 +908,7 @@ class InferenceEngine:
             as_bytes(v)[slots, :, :width] = as_bytes(pv)
         return head
 
+    @dispatch()
     @torch.inference_mode()
     def _paged_restore_blocks(self, dsts: torch.Tensor, krows: torch.Tensor,
                               vrows: torch.Tensor) -> None:
@@ -819,11 +916,17 @@ class InferenceEngine:
         krows/vrows [L, G, Hkv, bs, D], one tier entry per dst (the
         host-tier restore and hot-set adoption path; fp8 rows as their
         uint8 view).  Queued ahead of the suffix prefill that reads
-        them."""
+        them.  Rows of every kv head (the host form) are cut to this
+        rank's heads."""
+        hkv = self.cache[0][0].shape[1]
+        if krows.shape[2] != hkv:
+            heads = slice(self._tpc.coord * hkv, (self._tpc.coord + 1) * hkv)
+            krows, vrows = krows[:, :, heads], vrows[:, :, heads]
         for li, (kp, vp) in enumerate(self.cache):
             as_bytes(kp)[dsts] = krows[li]
             as_bytes(vp)[dsts] = vrows[li]
 
+    @dispatch()
     @torch.inference_mode()
     def _paged_copy_blocks(self, src: int, dsts: torch.Tensor) -> None:
         """Copy pool block `src` into every block of dsts [G], per layer:
@@ -835,6 +938,7 @@ class InferenceEngine:
                 pool[dsts] = pool[src].clone().expand(
                     (dsts.shape[0],) + tuple(pool.shape[1:]))
 
+    @dispatch(keep=True)
     @torch.inference_mode()
     def _decode(self, tokens: torch.Tensor, lengths: torch.Tensor,
                 temps: torch.Tensor, steps: int,
@@ -857,6 +961,7 @@ class InferenceEngine:
             lengths = lengths + 1
         return torch.stack(heads), tokens, lengths
 
+    @dispatch()
     @torch.inference_mode()
     def _spec_verify(self, tokens: torch.Tensor, lengths: torch.Tensor,
                      temps: torch.Tensor,
@@ -884,9 +989,12 @@ class InferenceEngine:
         would wait for every window already queued, which decode
         lookahead must not do."""
         t = torch.from_numpy(np.array(a))     # the mirror may change
-        if self.device.type != 'cuda':
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        host = t
+        if self.device.type == 'cuda':
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        if self._tpc is not None:
+            t._tp_host = host.numpy()     # what a dispatch broadcasts
+        return t
 
     def _to_host(self, t: torch.Tensor):
         """Queue the device->host copy of t now; returns the handle
@@ -921,6 +1029,8 @@ class InferenceEngine:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         self._h2d_inflight.append((rows, ev))
+        if self._tpc is not None:
+            out._tp_host = rows           # what a dispatch broadcasts
         return out
 
     # ---------------------------------------------------- paged allocator
@@ -1005,8 +1115,12 @@ class InferenceEngine:
         if (self._radix.clock - node.last_used) > tier.recency_window:
             return
         blk = int(node.block)
-        tier.spill((adapter, RadixTree.path_tokens(node)),
-                   [as_bytes(kp)[blk] for kp, _ in self.cache],
+        key = (adapter, RadixTree.path_tokens(node))
+        if self._tpc is not None:
+            k_rows, v_rows = self._block_rows(blk)
+            tier.spill(key, list(k_rows), list(v_rows))
+            return
+        tier.spill(key, [as_bytes(kp)[blk] for kp, _ in self.cache],
                    [as_bytes(vp)[blk] for _, vp in self.cache])
 
     def _lane_tables(self, slot_rows: Sequence[int],
@@ -1296,7 +1410,7 @@ class InferenceEngine:
                  'evictions': rs['evictions']}
         if not self._paged:
             return {'layout': 'dense', 'block_size': 0, 'blocks_total': 0,
-                    'blocks_free': 0, 'occupancy': 0.0, 'tp': 1,
+                    'blocks_free': 0, 'occupancy': 0.0, 'tp': self._tp,
                     'radix': radix, 'host_tier': self._host_tier_section()}
         usable = self._num_blocks - 1
         free = len(self._free_blocks)
@@ -1306,7 +1420,7 @@ class InferenceEngine:
             'blocks_total': usable,
             'blocks_free': free,
             'occupancy': ((usable - free) / usable) if usable else 0.0,
-            'tp': 1,
+            'tp': self._tp,
             'radix': radix,
             'host_tier': self._host_tier_section(),
         }
@@ -1330,14 +1444,15 @@ class InferenceEngine:
                             for t, c in list(self._tenant_qos.items())},
             },
         }
+        tp = self._tp
         if not self._paged:
             total = self.cfg.num_slots * self.cfg.max_cache_len * row_bytes
             kv = {
                 'layout': 'dense',
-                'tp': 1,
+                'tp': tp,
                 'bytes': {'total': total, 'resident': total,
-                          'per_chip_total': total,
-                          'per_chip_resident': total},
+                          'per_chip_total': total // tp,
+                          'per_chip_resident': total // tp},
                 'prefix': prefix,
                 'radix': self._radix_section(),
                 'host_tier': self._host_tier_section(),
@@ -1378,13 +1493,13 @@ class InferenceEngine:
         resident = (usable - free) * block_bytes
         kv = {
             'layout': 'paged',
-            'tp': 1,
+            'tp': tp,
             'blocks': {'size': bs_, 'total': usable, 'free': free,
                        'allocated': usable - free, 'shared': shared,
                        'shared_refs_saved': saved},
             'bytes': {'per_block': block_bytes, 'total': total,
-                      'resident': resident, 'per_chip_total': total,
-                      'per_chip_resident': resident},
+                      'resident': resident, 'per_chip_total': total // tp,
+                      'per_chip_resident': resident // tp},
             'admission': {'deferred': self.paged_stats['deferred']},
             'prefix': prefix,
             'radix': self._radix_section(),
@@ -1473,11 +1588,7 @@ class InferenceEngine:
                 recs = []
                 for i in range(min(len(toks) // bs_, budget)):
                     if i < len(path):
-                        blk = int(path[i])
-                        k_rows = torch.stack([as_bytes(kp)[blk]
-                                              for kp, _ in self.cache])
-                        v_rows = torch.stack([as_bytes(vp)[blk]
-                                              for _, vp in self.cache])
+                        k_rows, v_rows = self._block_rows(int(path[i]))
                     else:
                         entry = (self._host_tier.get(
                             (ad, toks[:(i + 1) * bs_]))
@@ -1633,6 +1744,7 @@ class InferenceEngine:
                     self._prefixes.popitem(last=False)
             return n
 
+    @dispatch(keep=True)
     @torch.inference_mode()
     def _prefill_capture(self, tokens: torch.Tensor, n: int,
                          adapter_ids: Optional[torch.Tensor] = None
@@ -1641,7 +1753,7 @@ class InferenceEngine:
         first n rows per layer, (k, v) [Hkv, n, D] (fp8 as its uint8
         view); the logits are discarded."""
         bucket = tokens.shape[1]
-        pcache = init_cache(self.model_config, 1, bucket,
+        pcache = init_cache(self._local_config, 1, bucket,
                             self.cfg.cache_dtype, self.device)
         positions = torch.arange(bucket, device=self.device)[None]
         self.model(tokens, positions, pcache, adapter_ids=adapter_ids)
@@ -3306,6 +3418,10 @@ class InferenceEngine:
                     # restore probe does not wait for them.
                     with self._lock:
                         self._host_tier.finalize()
+                # Quiesce point: nothing moved this pass; the shard-layout
+                # sanitizer (off unless SKYTPU_SHARD_SANITIZER) checks
+                # every rank's cache and weights.
+                sanitizers.maybe_check_shard_layout(self)
                 time.sleep(idle_sleep)
 
     def generate_served(self, requests: List[Request],

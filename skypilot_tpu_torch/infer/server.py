@@ -71,6 +71,7 @@ import os
 import queue
 import signal
 import statistics
+import tempfile
 import threading
 import time
 import uuid
@@ -78,20 +79,23 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 
 import torch
+from torch import distributed as dist
+from torch import multiprocessing as mp
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request, RequestResult,
                                              resolve_cache_dtype)
 from skypilot_tpu_torch.infer.qos import PRIORITY_CLASSES
+from skypilot_tpu_torch.infer import tp as tp_lib
+from skypilot_tpu_torch.infer.tp import TP_GPT2, unported
 from skypilot_tpu_torch.models import quantize
+from skypilot_tpu_torch.models.gpt2 import GPT2Config
 from skypilot_tpu_torch.models.llama import LlamaConfig
 from skypilot_tpu_torch.models.registry import get_model_config
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel.mesh import tp_mesh
 from skypilot_tpu_torch.train.lora import load_adapter_npz
-
-
-def _unported(what: str, item: str) -> str:
-    return f'{what} is not ported yet (ROADMAP.md {item})'
 
 
 class DrainingError(Exception):
@@ -1514,17 +1518,33 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     checkpoint's; when that implied one is missing the server runs
     token-only.  device: None means the card.  A feature the port does
     not have yet fails here, before any weight is read, naming its
-    ROADMAP.md item."""
-    if tensor_parallel and tensor_parallel > 1:
-        raise NotImplementedError(_unported(
-            '--tensor-parallel (tp serving)', 'A9.2'))
-    params = None
-    tokenizer_implied = False   # tokenizer_name defaulted from hf_model
+    ROADMAP.md item.
+
+    tensor_parallel N > 1 serves over N ranks, one card each (or N gloo
+    ranks with device='cpu'): joined from the env when one is up (torchrun,
+    the podlet), else started here, ranks 1..N-1 in processes of their own
+    that rendezvous through a file store in a temporary directory.  Rank 0
+    alone reads the weights and the tokenizer; it sends the other ranks
+    its configs and each rank its slice of the weights, serves HTTP, and
+    releases them when it stops.  The other ranks run the engine's worker
+    loop (``_tp_worker``)."""
+    tp = tensor_parallel if tensor_parallel and tensor_parallel > 1 else 1
+    if tp > 1:
+        # Before the (tens-of-GB) weight load: a flag typo fails at once
+        # (the JAX server's check and text).
+        n_local = _visible_devices(device)
+        if tp > n_local:
+            raise ValueError(
+                f'--tensor-parallel {tp} exceeds the {n_local} visible '
+                'device(s); a mesh needs one chip per shard')
+        if lora_rank:
+            raise NotImplementedError(unported(
+                'multi-LoRA serving with --tensor-parallel', 'A9.3'))
     if hf_model:
         import transformers
 
         from skypilot_tpu_torch.models import hf_import
-        dev = resolve_device(device)
+
         # The family from config.json alone, before the (tens-of-GB)
         # weight load: the JAX server's check and text.
         mt = getattr(transformers.AutoConfig.from_pretrained(hf_model),
@@ -1534,58 +1554,164 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
                 f'--hf-model must be a supported causal-LM checkpoint '
                 f"(model_type 'llama', 'qwen2', 'mistral', 'mixtral', "
                 f"'gpt2' or 'gemma'); got model_type={mt!r}")
-        model_config, params = hf_import.load_hf_model(
-            hf_model, param_dtype=torch.bfloat16)
-        if weight_dtype == 'int8':
-            model_config = _int8_config(model_config)
-            # On the engine's device, one weight at a time: no host f32
-            # copy of the model.
-            params = dict(quantize.iter_quantized(
-                (k, params.pop(k).to(dev)) for k in list(params)))
-        model = model_config.name
-        if tokenizer_name is None:
-            tokenizer_name = hf_model
-            tokenizer_implied = True
+        if tp > 1 and mt == 'gpt2':
+            raise NotImplementedError(unported(TP_GPT2, 'A9.3'))
     else:
         model_config = get_model_config(model)
-        if weight_dtype == 'int8':
+        if tp > 1 and isinstance(model_config, GPT2Config):
+            raise NotImplementedError(unported(TP_GPT2, 'A9.3'))
+    mesh, ranks = None, []
+    if tp > 1:
+        ranks = _join_tp_group(tp, device)
+        mesh = tp_mesh(tp, resolve_device(device).type)
+        tp_lib.control_group()
+        if dist.get_rank() != 0:
+            _tp_worker(mesh, device)
+            return
+    engine, sent = None, False
+    try:
+        params = None
+        tokenizer_implied = False   # tokenizer_name defaulted from hf_model
+        if hf_model:
+            dev = resolve_device(device)
+            model_config, params = hf_import.load_hf_model(
+                hf_model, param_dtype=torch.bfloat16)
+            if weight_dtype == 'int8':
+                model_config = _int8_config(model_config)
+                # One weight at a time, on the engine's device (no host
+                # f32 copy of the model); under tensor parallelism on the
+                # host, whole (a row-parallel weight's scales span every
+                # rank's columns), so no card holds more than its slice.
+                qdev = dev if tp == 1 else torch.device('cpu')
+                params = dict(quantize.iter_quantized(
+                    (k, params.pop(k).to(qdev)) for k in list(params)))
+            model = model_config.name
+            if tokenizer_name is None:
+                tokenizer_name = hf_model
+                tokenizer_implied = True
+        elif weight_dtype == 'int8':
             model_config = _int8_config(model_config)
-    cfg = InferConfig(model=model, num_slots=num_slots,
-                      max_cache_len=max_cache_len, eos_id=eos_id,
-                      decode_steps=decode_steps,
-                      prefills_per_gap=prefills_per_gap,
-                      cache_dtype=resolve_cache_dtype(cache_dtype),
-                      draft_len=draft_len, ngram_max=ngram_max,
-                      max_prefixes=max_prefixes, lora_rank=lora_rank,
-                      lora_max_adapters=lora_max_adapters,
-                      adaptive_decode_window=adaptive_window,
-                      decode_lookahead=decode_lookahead,
-                      prefill_chunk=prefill_chunk,
-                      kv_block_size=kv_block_size, kv_blocks=kv_blocks,
-                      auto_prefix_cache=auto_prefix_cache,
-                      host_kv_bytes=host_kv_bytes,
-                      qos=qos,
-                      qos_tenant_weights=parse_tenant_weights(
-                          qos_tenant_weights))
-    tokenizer = None
-    if tokenizer_name:
-        from transformers import AutoTokenizer
-        try:
-            tokenizer = AutoTokenizer.from_pretrained(tokenizer_name)
-        except Exception as e:  # noqa: BLE001 -- the tokenizer is optional
-            if not tokenizer_implied:
-                raise            # explicitly requested: fail loudly
-            # A checkpoint directory without tokenizer files: token-only.
-            print(f'warning: no tokenizer in {tokenizer_name} ({e}); '
-                  '/generate_text disabled, /generate (token API) works')
-            tokenizer = None
-        if eos_id is None and tokenizer is not None:
-            cfg.eos_id = getattr(tokenizer, 'eos_token_id', None)
-    engine = InferenceEngine(model_config, cfg, params=params, device=device)
-    serve(engine, host=host, port=port, tokenizer=tokenizer,
-          max_projected_ttft_s=max_ttft, max_queue=max_queue,
-          adapter_dir=adapter_dir, auto_prefix=auto_prefix,
-          warmup=warmup)
+        cfg = InferConfig(model=model, num_slots=num_slots,
+                          max_cache_len=max_cache_len, eos_id=eos_id,
+                          decode_steps=decode_steps,
+                          prefills_per_gap=prefills_per_gap,
+                          cache_dtype=resolve_cache_dtype(cache_dtype),
+                          draft_len=draft_len, ngram_max=ngram_max,
+                          max_prefixes=max_prefixes, lora_rank=lora_rank,
+                          lora_max_adapters=lora_max_adapters,
+                          adaptive_decode_window=adaptive_window,
+                          decode_lookahead=decode_lookahead,
+                          prefill_chunk=prefill_chunk,
+                          kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+                          auto_prefix_cache=auto_prefix_cache,
+                          host_kv_bytes=host_kv_bytes,
+                          qos=qos,
+                          qos_tenant_weights=parse_tenant_weights(
+                              qos_tenant_weights))
+        tokenizer = None
+        if tokenizer_name:
+            from transformers import AutoTokenizer
+            try:
+                tokenizer = AutoTokenizer.from_pretrained(tokenizer_name)
+            except Exception as e:  # noqa: BLE001 -- the tokenizer is optional
+                if not tokenizer_implied:
+                    raise            # explicitly requested: fail loudly
+                # A checkpoint directory without tokenizer files:
+                # token-only.
+                print(f'warning: no tokenizer in {tokenizer_name} ({e}); '
+                      '/generate_text disabled, /generate (token API) works')
+                tokenizer = None
+            if eos_id is None and tokenizer is not None:
+                cfg.eos_id = getattr(tokenizer, 'eos_token_id', None)
+        if mesh is not None:
+            tp_lib.broadcast_object((model_config, cfg))
+            sent = True
+        engine = InferenceEngine(model_config, cfg, params=params,
+                                 device=device, mesh=mesh)
+        del params
+        serve(engine, host=host, port=port, tokenizer=tokenizer,
+              max_projected_ttft_s=max_ttft, max_queue=max_queue,
+              adapter_dir=adapter_dir, auto_prefix=auto_prefix,
+              warmup=warmup)
+    finally:
+        if engine is not None:
+            engine.shutdown()
+        elif mesh is not None and not sent:
+            tp_lib.broadcast_object(None)   # no engine: release the ranks
+        for proc in ranks:
+            proc.join(timeout=60)
+            if proc.is_alive():   # stuck where rank 0 failed: stopped here
+                proc.kill()
+                proc.join()
+        if ranks:                  # the group this call started
+            dist.destroy_process_group()
+
+
+def _visible_devices(device) -> int:
+    """The shards a tensor-parallel replica can place: the visible cards,
+    or with device='cpu' the CPU cores this process may run on (one gloo
+    rank each)."""
+    if torch.device('cuda' if device is None else device).type == 'cuda':
+        return torch.cuda.device_count()
+    return len(os.sched_getaffinity(0))
+
+
+def _join_tp_group(tp: int, device) -> list:
+    """The process group of a tensor-parallel replica: the env's (torchrun,
+    the podlet), which must hold `tp` ranks, or, with none, one started
+    here: ranks 1..tp-1 spawned to run ``_tp_rank``, all meeting at a file
+    store in a fresh temporary directory (never a fixed port).  Returns
+    the spawned processes (none when joined)."""
+    if dist.is_initialized() or mesh_lib.initialize_distributed_from_env(
+            device):
+        if dist.get_world_size() != tp:
+            raise ValueError(
+                f'--tensor-parallel {tp} needs {tp} ranks; the process '
+                f'group has {dist.get_world_size()}')
+        return []
+    init = 'file://' + os.path.join(tempfile.mkdtemp(prefix='skytpu-tp-'),
+                                    'rendezvous')
+    ctx = mp.get_context('spawn')
+    ranks = [ctx.Process(target=_tp_rank, daemon=True,
+                         args=(rank, tp, init, device))
+             for rank in range(1, tp)]
+    for proc in ranks:
+        proc.start()
+    _init_rank(0, tp, init, device)
+    return ranks
+
+
+def _init_rank(rank: int, world: int, init: str, device) -> None:
+    cuda = resolve_device(device).type == 'cuda'
+    if cuda:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group('nccl' if cuda else 'gloo', init_method=init,
+                            rank=rank, world_size=world)
+
+
+def _tp_rank(rank: int, world: int, init: str, device) -> None:
+    """A rank that ``run`` spawned for its tensor-parallel replica."""
+    if resolve_device(device).type == 'cpu':
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    _init_rank(rank, world, init, device)
+    try:
+        mesh = tp_mesh(world, resolve_device(device).type)
+        tp_lib.control_group()
+        _tp_worker(mesh, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_worker(mesh, device) -> None:
+    """A rank > 0 of ``run``'s replica: the engine from rank 0's configs
+    and its slice of rank 0's weights, then rank 0's dispatches until rank
+    0 stops (or, when rank 0 failed before its engine, nothing)."""
+    configs = tp_lib.broadcast_object()
+    if configs is None:
+        return
+    model_config, cfg = configs
+    InferenceEngine(model_config, cfg, device=device,
+                    mesh=mesh).serve_worker()
 
 
 def main() -> None:
@@ -1610,8 +1736,10 @@ def main() -> None:
     parser.add_argument('--tensor-parallel', type=int,
                         default=int(os.environ.get(
                             'SKYTPU_SERVE_TP_SIZE', '0') or 0),
-                        help='shard over N cards (not ported yet: A9.2; '
-                             'default: $SKYTPU_SERVE_TP_SIZE or 0)')
+                        help='tensor-parallel serving over N cards, one '
+                             'rank each (started here, or joined from '
+                             'torchrun); default: $SKYTPU_SERVE_TP_SIZE '
+                             'or 0')
     parser.add_argument('--draft-len', type=int, default=0,
                         help='speculative decoding: prompt-lookup draft '
                              'tokens per dispatch (0 disables)')

@@ -41,6 +41,18 @@ sibling ``<name>_lora`` adapter (``train.lora.LoRAAdapter``, f32
 parameters) whose delta is added to the projection's output in the
 compute dtype; ``lora_num_adapters`` > 0 stacks that many per target and
 every forward path takes ``adapter_ids [B]`` (multi-LoRA serving).
+
+Built from a ``RankConfig`` with ``tensor_parallel`` = N > 1 the model is
+one rank's share of a tensor-parallel split (serving, ``infer.engine``
+over a 'tensor' mesh): the config keeps the full widths and each module
+builds its own slice by
+the rules table (``parallel.mesh.split``): num_heads / N q heads and
+num_kv_heads / N kv heads (so the cache and the attention kernel follow
+the local head counts), intermediate_size / N MLP columns, hidden / N
+embedding columns and vocab / N head rows (a width N does not divide is
+whole).  The attention and MLP outputs are summed over the active mesh's
+'tensor' group, the looked-up embedding rows and the head's logits are
+gathered whole, and a tied head sums its hidden slices' partial logits.
 """
 import dataclasses
 import functools
@@ -54,8 +66,10 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.ops.ring_attention import \
     sequence_parallel_attention
-from skypilot_tpu_torch.parallel.mesh import (gathered,
-                                              recompute_in_active_mesh)
+from skypilot_tpu_torch.parallel.mesh import (all_gather_cat, gathered,
+                                              recompute_in_active_mesh,
+                                              reduce_from_group, split,
+                                              tensor_group)
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -130,6 +144,20 @@ class LlamaConfig:
         attn_flops = 12 * self.num_layers * self.num_heads * \
             self.head_dim_ * seq_len
         return 6 * self.num_params + attn_flops
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(LlamaConfig):
+    """A llama config as one rank of a tensor-parallel split of degree
+    ``tensor_parallel`` (see the module docstring): the full config's
+    fields, which stay the JAX config's, and the degree."""
+    tensor_parallel: int = 1
+
+
+def tensor_degree(config) -> int:
+    """The tensor-parallel degree a config's model is one rank of (1 for
+    a whole model)."""
+    return getattr(config, 'tensor_parallel', 1)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
@@ -405,10 +433,15 @@ class Attention(nn.Module):
         d, h = cfg.head_dim_, cfg.hidden_size
         bias = cfg.attention_bias
         pd = param_dtype or cfg.dtype
-        _add_proj(self, 'q_proj', h, cfg.num_heads * d, bias, pd, device)
-        _add_proj(self, 'k_proj', h, cfg.num_kv_heads * d, bias, pd, device)
-        _add_proj(self, 'v_proj', h, cfg.num_kv_heads * d, bias, pd, device)
-        _add_proj(self, 'o_proj', cfg.num_heads * d, h, False, pd, device)
+        tp = tensor_degree(cfg)
+        if cfg.num_kv_heads % tp:
+            raise ValueError(f'num_kv_heads {cfg.num_kv_heads} not '
+                             f'divisible by tensor degree {tp}')
+        hq, hkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
+        _add_proj(self, 'q_proj', h, hq * d, bias, pd, device)
+        _add_proj(self, 'k_proj', h, hkv * d, bias, pd, device)
+        _add_proj(self, 'v_proj', h, hkv * d, bias, pd, device)
+        _add_proj(self, 'o_proj', hq * d, h, False, pd, device)
 
     def forward(self, x, positions, kv_cache=None, paged_tables=None,
                 paged_block_size=None, adapter_ids=None):
@@ -439,6 +472,8 @@ class Attention(nn.Module):
                 q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
                 window=cfg.sliding_window)
         out = proj('o_proj', out.transpose(1, 2).reshape(b, s, -1))
+        if tensor_degree(cfg) > 1:
+            out = reduce_from_group(out, tensor_group()[0])
         if kv_cache is not None:
             return out, new_cache
         return out
@@ -453,7 +488,8 @@ class MLP(nn.Module):
             raise ValueError(
                 f'Unknown hidden_act {cfg.hidden_act!r}; '
                 "expected 'silu', 'gelu' or 'gelu_tanh'.")
-        h, i = cfg.hidden_size, cfg.intermediate_size
+        h = cfg.hidden_size
+        i = split(cfg.intermediate_size, tensor_degree(cfg))
         pd = param_dtype or cfg.dtype
         _add_proj(self, 'gate_proj', h, i, False, pd, device)
         _add_proj(self, 'up_proj', h, i, False, pd, device)
@@ -469,7 +505,10 @@ class MLP(nn.Module):
             h = F.gelu(gate) * up
         else:
             h = F.silu(gate) * up
-        return _proj(self, 'down_proj', h, adapter_ids)
+        out = _proj(self, 'down_proj', h, adapter_ids)
+        if self.down_proj.in_features < self.config.intermediate_size:
+            out = reduce_from_group(out, tensor_group()[0])
+        return out
 
 
 class DecoderLayer(nn.Module):
@@ -542,15 +581,11 @@ class Llama(nn.Module):
                              f'{config.weight_dtype!r}')
         self.config = config
         h = config.hidden_size
-        self.embedding = nn.Parameter(torch.empty(
-            config.vocab_size, h, dtype=torch.float32, device=device))
+        _embed_and_head(self, config, device)
         self.layers = nn.ModuleList(
             DecoderLayer(config, device, param_dtype)
             for _ in range(config.num_layers))
         self.final_norm = RMSNorm(h, config.norm_eps, device)
-        self.lm_head = (None if config.tie_embeddings else nn.Linear(
-            h, config.vocab_size, bias=False, dtype=torch.float32,
-            device=device))
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -596,7 +631,7 @@ class Llama(nn.Module):
         vocab = cfg.vocab_size
         tokens = torch.where(tokens < 0, tokens + vocab,
                              tokens).clamp(0, vocab - 1)
-        x = gathered(self.embedding)[tokens].to(cfg.dtype)
+        x = embed(self, tokens).to(cfg.dtype)
         if cfg.scale_embeddings:
             # Normalizer cast to dtype BEFORE the multiply, as HF Gemma.
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype,
@@ -623,7 +658,7 @@ class Llama(nn.Module):
             return head(x, self.output_projection())
         if hidden_only:
             return x
-        logits = x.float() @ self.output_projection().float()
+        logits = head_logits(self, x)
         if cache is not None:
             return logits, new_cache
         return logits
@@ -636,10 +671,55 @@ class Llama(nn.Module):
         return gathered(self.embedding).T
 
 
+def _embed_and_head(model: nn.Module, config, device) -> None:
+    """The f32 embedding table [V, H] and, untied, ``lm_head`` [V, H] of
+    a decoder LM (llama, Mixtral); a rank's slices of them under
+    ``tensor_parallel`` (hidden columns of the table, vocab rows of the
+    head, by the rules table)."""
+    h, v, tp = config.hidden_size, config.vocab_size, tensor_degree(config)
+    model.embedding = nn.Parameter(torch.empty(
+        v, split(h, tp), dtype=torch.float32, device=device))
+    model.lm_head = (None if config.tie_embeddings else nn.Linear(
+        h, split(v, tp), bias=False, dtype=torch.float32, device=device))
+
+
+def embed(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    """The f32 embedding rows of in-range `tokens`: a hidden-sharded
+    table's rows gathered whole over the 'tensor' group."""
+    table = gathered(model.embedding)
+    x = table[tokens]
+    if table.shape[1] < model.config.hidden_size:
+        x = all_gather_cat(x, tensor_group()[0], -1)
+    return x
+
+
+def head_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits [..., V] of final-norm hidden states `x`.  A rank of a
+    tensor-parallel split gathers its vocab-sharded head's logits whole,
+    or, with a tied hidden-sharded table, sums its hidden slice's partial
+    logits over the group."""
+    cfg = model.config
+    if model.lm_head is not None:
+        w = gathered(model.lm_head.weight)
+        logits = x.float() @ w.float().T
+        if w.shape[0] < cfg.vocab_size:
+            logits = all_gather_cat(logits, tensor_group()[0], -1)
+        return logits
+    table = gathered(model.embedding)
+    width = table.shape[1]
+    if width == cfg.hidden_size:
+        return x.float() @ table.float().T
+    group, rank = tensor_group()
+    part = x[..., rank * width:(rank + 1) * width].float() @ table.float().T
+    return reduce_from_group(part, group)
+
+
 def init_cache(config: LlamaConfig, batch_size: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> KVCache:
-    """Per-layer [(k, v)] KV cache, each [B, Hkv, max_len, head_dim]."""
-    shape = (batch_size, config.num_kv_heads, max_len, config.head_dim_)
+    """Per-layer [(k, v)] KV cache, each [B, Hkv, max_len, head_dim]
+    (Hkv: the rank's kv heads under ``tensor_parallel``)."""
+    hkv = config.num_kv_heads // tensor_degree(config)
+    shape = (batch_size, hkv, max_len, config.head_dim_)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(config.num_layers)]
@@ -652,8 +732,10 @@ def init_paged_cache(config: LlamaConfig, num_blocks: int, block_size: int,
     [num_blocks, Hkv, block_size, head_dim].  Block 0 is the dump block
     the engine's allocator reserves (it absorbs dead-lane and overrun
     writes); sequences map logical blocks to pool blocks through the
-    tables passed to paged_write_kv_and_attend."""
-    shape = (num_blocks, config.num_kv_heads, block_size, config.head_dim_)
+    tables passed to paged_write_kv_and_attend.  Hkv: the rank's kv heads
+    under ``tensor_parallel``."""
+    hkv = config.num_kv_heads // tensor_degree(config)
+    shape = (num_blocks, hkv, block_size, config.head_dim_)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(config.num_layers)]

@@ -37,10 +37,13 @@ from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
 from skypilot_tpu_torch.models.llama import (Attention, KVCache, LlamaConfig,
-                                             RMSNorm, _remat)
+                                             RankConfig, RMSNorm,
+                                             _embed_and_head, _remat, embed,
+                                             head_logits, tensor_degree)
 from skypilot_tpu_torch.parallel.mesh import (Mesh, active_mesh,
                                               all_reduce_sum, copy_to_group,
-                                              gathered, reduce_from_group)
+                                              gathered, reduce_from_group,
+                                              split, tensor_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +107,20 @@ class MixtralConfig:
         attn_flops = 12 * self.num_layers * self.num_heads * \
             self.head_dim_ * seq_len
         return 6 * self.active_params + attn_flops
+
+
+@dataclasses.dataclass(frozen=True)
+class MixtralRankConfig(MixtralConfig):
+    """A Mixtral config as one rank of a tensor-parallel split (as
+    ``llama.RankConfig``): the rank holds num_experts / N whole experts,
+    and its attention is a llama ``RankConfig``'s."""
+    tensor_parallel: int = 1
+
+    def as_llama(self) -> LlamaConfig:
+        base = super().as_llama()
+        return RankConfig(**{f.name: getattr(base, f.name)
+                             for f in dataclasses.fields(base)},
+                          tensor_parallel=self.tensor_parallel)
 
 
 def capacity(config: MixtralConfig, num_tokens: int) -> int:
@@ -223,6 +240,8 @@ class MoEBlock(nn.Module):
         e, h, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
         self.router = nn.Linear(h, e, bias=False, dtype=torch.float32,
                                 device=device)
+        # A rank of a tensor-parallel split holds its whole experts.
+        e = split(e, tensor_degree(cfg))
 
         def stacked(*shape):
             return nn.Parameter(torch.empty(shape, dtype=pd, device=device))
@@ -247,18 +266,28 @@ class MoEBlock(nn.Module):
         sharded over 'tensor' (expert parallelism, the rule ('expert',
         'tensor')) each rank runs its own experts on the replicated
         tokens and the partial outputs are summed over the tensor group;
-        the router and its aux loss stay replicated."""
+        the router and its aux loss stay replicated.
+
+        A rank of a tensor-parallel split (``MixtralRankConfig``, serving)
+        holds its experts as plain tensors and does the same: its experts
+        on the replicated tokens, their gates, the sum over the group."""
         cfg = self.config
         b, s, h = x.shape
         g, e, dt = b * s, cfg.num_experts, cfg.dtype
         xf = x.reshape(g, h)
         logits = self.router(xf.float())
         xc = xf.to(dt)
+        local = self.w_gate.shape[0]      # a DTensor's is the global one
         if exact:
             _, gate_vals, gate_idx = _gates(logits, cfg.experts_per_token)
             gates = torch.zeros_like(logits).scatter(1, gate_idx, gate_vals)
-            out = self._experts(xc.expand(e, g, h))
+            if local < e:
+                group, rank = tensor_group()
+                gates = gates[:, rank * local:(rank + 1) * local]
+            out = self._experts(xc.expand(local, g, h))
             out = torch.einsum('egh,ge->gh', out, gates.to(dt))
+            if local < e:
+                out = reduce_from_group(out, group)
             return out.reshape(b, s, h), None
         mesh = active_mesh()
         group_tokens = g if mesh is None else \
@@ -266,13 +295,15 @@ class MoEBlock(nn.Module):
         r = top_k_routing(logits, e, cfg.experts_per_token,
                           capacity(cfg, group_tokens), mesh, rows=b)
         weights = (self.w_gate, self.w_up, self.w_down)
-        first, local, gate = 0, e, r.gate
+        first, gate = 0, r.gate
         if isinstance(self.w_gate, DTensor):      # experts over 'tensor'
             group = mesh.group('tensor')
             weights = tuple(w.to_local() for w in weights)
             local = weights[0].shape[0]
             first = mesh.coord('tensor') * local
             xc, gate = copy_to_group(xc, group), copy_to_group(gate, group)
+        elif local < e:                          # a rank's serving experts
+            first = tensor_group()[1] * local
         mine = r.kept & (r.expert >= first) & (r.expert < first + local)
         rows = min(r.capacity, g)
         tok = torch.arange(g, device=x.device).expand_as(r.expert)
@@ -326,15 +357,11 @@ class Mixtral(nn.Module):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        self.embedding = nn.Parameter(torch.empty(
-            config.vocab_size, h, dtype=torch.float32, device=device))
+        _embed_and_head(self, config, device)
         self.layers = nn.ModuleList(
             MixtralLayer(config, device, param_dtype)
             for _ in range(config.num_layers))
         self.final_norm = RMSNorm(h, config.norm_eps, device)
-        self.lm_head = (None if config.tie_embeddings else nn.Linear(
-            h, config.vocab_size, bias=False, dtype=torch.float32,
-            device=device))
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -365,7 +392,7 @@ class Mixtral(nn.Module):
         vocab = cfg.vocab_size
         tokens = torch.where(tokens < 0, tokens + vocab,
                              tokens).clamp(0, vocab - 1)
-        x = gathered(self.embedding)[tokens].to(cfg.dtype)
+        x = embed(self, tokens).to(cfg.dtype)
         new_cache, aux = [], torch.zeros((), device=tokens.device)
         # Every layer checkpointed under grad, as the JAX module's nn.remat.
         remat = None if cache is not None else _remat('full')
@@ -383,7 +410,7 @@ class Mixtral(nn.Module):
         elif hidden_only:
             out = x
         else:
-            out = x.float() @ self.output_projection().float()
+            out = head_logits(self, x)
         if cache is not None:
             return out, new_cache
         return (out, aux) if return_aux else out

@@ -2,6 +2,7 @@
 ``skypilot_tpu/models/registry.py`` (llama, gemma, GPT-2, Mixtral, BERT,
 ResNet; same names, same sizes) and ``build_model``/``is_causal_lm``,
 which pick a config's module."""
+import dataclasses
 from typing import Any, Dict, Union
 
 from torch import nn
@@ -10,8 +11,9 @@ from skypilot_tpu_torch.models.bert import (Bert, BertConfig,
                                             BertForMaskedLM,
                                             BertForSequenceClassification)
 from skypilot_tpu_torch.models.gpt2 import GPT2, GPT2Config
-from skypilot_tpu_torch.models.llama import Llama, LlamaConfig
-from skypilot_tpu_torch.models.mixtral import Mixtral, MixtralConfig
+from skypilot_tpu_torch.models.llama import Llama, LlamaConfig, RankConfig
+from skypilot_tpu_torch.models.mixtral import (Mixtral, MixtralConfig,
+                                               MixtralRankConfig)
 from skypilot_tpu_torch.models.resnet import ResNet, ResNetConfig
 
 CausalLMConfig = Union[LlamaConfig, GPT2Config, MixtralConfig]
@@ -161,3 +163,15 @@ def build_model(config: Any, head: str = 'lm', device=None,
 def is_causal_lm(config: Any) -> bool:
     """True for the families the trainer and the engine take."""
     return isinstance(config, (LlamaConfig, GPT2Config, MixtralConfig))
+
+
+def rank_config(config: Any, tensor: int) -> Any:
+    """`config` as one rank of a tensor-parallel split of degree `tensor`
+    (``llama.RankConfig``, ``mixtral.MixtralRankConfig``): the model built
+    from it holds the rank's slice of the weights (the llama and Mixtral
+    families; serving)."""
+    cls = MixtralRankConfig if isinstance(config, MixtralConfig) \
+        else RankConfig
+    return cls(**{f.name: getattr(config, f.name)
+                  for f in dataclasses.fields(config)},
+               tensor_parallel=tensor)

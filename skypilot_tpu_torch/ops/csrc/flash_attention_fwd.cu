@@ -204,8 +204,10 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
   const uint32_t full_bar = q_bar + 8;             // stage i: + 8 * i
   const uint32_t empty_bar = full_bar + 8 * kStages;
 
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest tiles first
-  const int bh = blockIdx.y;
+  // (batch, q head) on x, whose limit is 2^31 - 1, the q tiles on y, as
+  // both backward kernels lay their grids out.
+  const int q_tile = gridDim.y - 1 - blockIdx.y;  // longest tiles first
+  const int bh = blockIdx.x;
   const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
   const int q0 = q_tile * kQRows;
   int kv_first, kv_end;
@@ -339,7 +341,7 @@ int launch_bf16(const Params& p, int b, cudaStream_t st) {
       flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (cerr != cudaSuccess) return (int)cerr;
-  const dim3 grid((p.s + kQRows - 1) / kQRows, b * p.hq);
+  const dim3 grid(b * p.hq, (p.s + kQRows - 1) / kQRows);
   flash_fwd_bf16_kernel<D><<<grid, kThreadsBf16, bytes, st>>>(tm_q, tm_k,
                                                             tm_v, p);
   return (int)cudaGetLastError();
@@ -357,8 +359,8 @@ __global__ void __launch_bounds__(kThreads)
   float* sK = simt_smem;              // [kSimtBlockN][D]
   float* sV = sK + kSimtBlockN * D;
 
-  const int q_tile = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x;
   const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
   const int q0 = q_tile * kSimtBlockM;
   const float* qg = static_cast<const float*>(p.q) + (size_t)bh * p.s * D;
@@ -450,8 +452,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int b, int hq, int hkv, int s, int d,
                         int causal, int window, float scale, int is_f32,
                         void* stream) {
+  // (batch, q head) on gridDim.x; the q tiles (16 rows at the least, the
+  // f32 path's) on gridDim.y, whose limit is 65,535; rows indexed in 32
+  // bits (the tensor maps' coordinates).
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || s < 1 ||
-      b * hq > 65535)
+      (long long)b * hq * s > 0x7fffffff ||
+      (s + kSimtBlockM - 1) / kSimtBlockM > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -467,7 +473,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f32) {
-    const dim3 grid((s + kSimtBlockM - 1) / kSimtBlockM, b * hq);
+    const dim3 grid(b * hq, (s + kSimtBlockM - 1) / kSimtBlockM);
     constexpr int kTiles = 2 * kSimtBlockN;  // sK and sV
     if (d == 64)
       return launch_simt(flash_fwd_f32_kernel<64>, grid,

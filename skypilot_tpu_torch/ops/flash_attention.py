@@ -347,8 +347,15 @@ def _check_qkv(q, k, v, causal, window) -> None:
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f'head_dim {d} not supported by the kernel '
                          f'(supported: {KERNEL_HEAD_DIMS})')
-    if b * hq > 65535:
-        raise ValueError(f'batch * q heads = {b * hq} exceeds the grid limit')
+    # Every kernel puts batch x heads on gridDim.x and its row tiles, 16
+    # rows at the least (the f32 paths), on gridDim.y (at most 65,535);
+    # rows are indexed in 32 bits (the tensor maps' coordinates).
+    if -(-s // 16) > 65535:
+        raise ValueError(f'seq {s} exceeds the grid limit '
+                         f'({65535 * 16} rows)')
+    if b * hq * s > 2 ** 31 - 1:
+        raise ValueError(f'batch x q heads x seq = {b * hq * s} exceeds '
+                         'the 32-bit row index')
     if window is not None and (not causal or window < 1):
         raise ValueError('window requires causal attention and must be >= 1')
 

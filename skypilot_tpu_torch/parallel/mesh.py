@@ -136,6 +136,24 @@ _PARAM_AXES: List[Tuple[Tuple[str, ...], Tuple[Optional[str], ...]]] = [
     (('up_proj', 'weight'), ('mlp', 'embed')),
     (('down_proj', 'weight'), ('embed', 'mlp')),
     (('router', 'weight'), (None, 'embed')),
+    # int8 projections (``llama.QuantLinear``): the int8 weight is laid out
+    # as the float one; the per-output-channel scale follows the output
+    # dim, so a column-parallel projection's is sliced and a row-parallel
+    # one's kept whole.
+    (('q_proj', 'weight_q'), ('heads', 'embed')),
+    (('k_proj', 'weight_q'), ('kv_heads', 'embed')),
+    (('v_proj', 'weight_q'), ('kv_heads', 'embed')),
+    (('o_proj', 'weight_q'), ('embed', 'heads')),
+    (('gate_proj', 'weight_q'), ('mlp', 'embed')),
+    (('up_proj', 'weight_q'), ('mlp', 'embed')),
+    (('down_proj', 'weight_q'), ('embed', 'mlp')),
+    (('q_proj', 'scale'), ('heads',)),
+    (('k_proj', 'scale'), ('kv_heads',)),
+    (('v_proj', 'scale'), ('kv_heads',)),
+    (('o_proj', 'scale'), ('embed',)),
+    (('gate_proj', 'scale'), ('mlp',)),
+    (('up_proj', 'scale'), ('mlp',)),
+    (('down_proj', 'scale'), ('embed',)),
     (('w_gate',), ('expert', 'embed', 'mlp')),
     (('w_up',), ('expert', 'embed', 'mlp')),
     (('w_down',), ('expert', 'mlp', 'embed')),
@@ -154,6 +172,67 @@ def param_logical_axes(name: str, ndim: int) -> Tuple[Optional[str], ...]:
         if parts[-len(suffix):] == suffix and len(axes) == ndim:
             return axes
     return (None,) * ndim
+
+
+def split(n: int, tensor: int) -> int:
+    """A dim of size `n` on one of `tensor` ranks: n / tensor when the
+    degree divides it, else n (replicated, as the JAX engine's
+    ``_fit_sharding`` replicates a dim the mesh does not divide)."""
+    return n // tensor if tensor > 1 and n % tensor == 0 else n
+
+
+def tensor_dim(name: str, shape: Sequence[int],
+               tensor: int) -> Optional[int]:
+    """The dim of parameter `name` (a state_dict key of the full model)
+    that tensor-parallel serving slices over `tensor` ranks: the expert
+    dim of Mixtral's experts (each rank holds whole experts, as the
+    trainer's expert parallelism does), else the dim the rules give
+    'tensor'; None when they give it none or the degree does not divide
+    it (the parameter is then replicated)."""
+    if tensor <= 1:
+        return None
+    logical = param_logical_axes(name, len(shape))
+    if 'expert' in logical:
+        dim = logical.index('expert')
+    else:
+        dims = [i for i, axes in enumerate(resolve_axes(logical))
+                if 'tensor' in axes]
+        if not dims:
+            return None
+        dim = dims[0]
+    return dim if shape[dim] % tensor == 0 else None
+
+
+def local_shape(name: str, shape: Sequence[int],
+                tensor: int) -> Tuple[int, ...]:
+    """The shape of parameter `name` on one of `tensor` ranks."""
+    dim = tensor_dim(name, shape, tensor)
+    out = list(shape)
+    if dim is not None:
+        out[dim] //= tensor
+    return tuple(out)
+
+
+def shard_tensor(name: str, t: torch.Tensor, tensor: int,
+                 rank: int) -> torch.Tensor:
+    """Rank `rank`'s slice of the full parameter `t` (``tensor_dim``), a
+    copy of its own: the full tensor can be freed."""
+    dim = tensor_dim(name, t.shape, tensor)
+    if dim is None:
+        return t
+    n = t.shape[dim] // tensor
+    return t.narrow(dim, rank * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
+def shard_state_dict(state_dict: Dict[str, torch.Tensor], tensor: int,
+                     rank: int) -> Dict[str, torch.Tensor]:
+    """A full state_dict turned into rank `rank`'s of `tensor`: each
+    parameter sliced by ``shard_tensor``, the counterpart of the JAX
+    engine's placement by logical axes (``_param_shardings`` with
+    ``_fit_sharding``)."""
+    return {k: shard_tensor(k, v, tensor, rank)
+            for k, v in state_dict.items()}
 
 
 class Mesh:
@@ -415,6 +494,25 @@ class _ReduceFromGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's `x` of `group` concatenated along `dim`, in rank order
+    (serving: no gradient)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def tensor_group():
+    """The active mesh's 'tensor' process group and this rank's coordinate
+    on it: what a rank-local model (built from a ``llama.RankConfig``)
+    sums and gathers over.  Raises outside a ``mesh_context``."""
+    mesh = active_mesh()
+    if mesh is None:
+        raise RuntimeError('a tensor-parallel model runs inside '
+                           'mesh_context(mesh)')
+    return mesh.group('tensor'), mesh.coord('tensor')
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

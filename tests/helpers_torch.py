@@ -15,6 +15,9 @@ from skypilot_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from skypilot_tpu_torch.infer import engine as port
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models.llama import LlamaConfig as PortLlamaConfig
+# The conservation law lives in the JAX-free helper, which spawned workers
+# import; the serving tests take it from here as before.
+from helpers_torch_dist import WindowAudit, conservation_errors  # noqa: F401
 
 # The geometry of tests/test_faults.py's tiny model.
 GEOMETRY = dict(name='serve-test', vocab_size=101, hidden_size=32,
@@ -77,70 +80,6 @@ def assert_same_qos(mine, ref):
              ref.pop('service_rate_tokens_per_s'))
     assert (rates[0] is None) == (rates[1] is None), rates
     assert mine == ref
-
-
-def conservation_errors(eng):
-    """The paged pool's block-conservation law, checked from outside the
-    allocator: every block's refcount equals its holders -- the table
-    entries of the slots' allocated prefixes, plus one for a radix node
-    holding it, plus one for each registered prefix entry holding it,
-    plus one for the dump block 0 -- the free list is exactly
-    the blocks with no holder, idle slots (neither active nor mid-chunked
-    prefill) hold nothing, and the host tier's byte ledger balances.
-    Returns error strings (empty = ok)."""
-    refs = eng._block_refs
-    want = np.zeros_like(refs)
-    want[0] = 1
-    errors = []
-    for slot in range(eng.cfg.num_slots):
-        n = int(eng._slot_nblocks[slot])
-        if n and eng._slots[slot] is None and slot not in eng._chunking:
-            errors.append(f'idle slot {slot} holds {n} blocks')
-        for b in eng._tables_np[slot, :n]:
-            want[int(b)] += 1
-    if eng._radix is not None:
-        for node in eng._radix.walk():
-            want[node.block] += 1
-    for entry in eng._prefixes.values():
-        for b in entry['blocks']:
-            want[int(b)] += 1
-    for b in np.nonzero(refs != want)[0]:
-        errors.append(f'block {b}: refcount {refs[b]} != holders {want[b]}')
-    free = list(eng._free_blocks)
-    if len(set(free)) != len(free) or \
-            sorted(free) != np.nonzero(want == 0)[0].tolist():
-        errors.append(f'free list {sorted(free)} != unheld blocks')
-    if eng._host_tier is not None:
-        errors.extend(eng._host_tier.audit())
-    return errors
-
-
-class WindowAudit:
-    """Checks conservation_errors after every decode window the engine
-    runs (offline or on the serving thread) while in the with-block;
-    violations are collected, not raised, so the serving loop's
-    containment cannot swallow them.  .windows counts the checks."""
-
-    def __init__(self, eng):
-        self.eng, self.errors, self.windows = eng, [], 0
-
-    def __enter__(self):
-        step = self.eng._step
-
-        def audited():
-            try:
-                step()
-            finally:
-                self.windows += 1
-                self.errors.extend(conservation_errors(self.eng))
-
-        self.eng._step = audited
-        return self
-
-    def __exit__(self, *exc):
-        del self.eng._step          # back to the class's method
-        self.errors.extend(conservation_errors(self.eng))
-        return False
 
 
 def features_match(jax_eng, port_eng, prompts, prefix, max_new=6,

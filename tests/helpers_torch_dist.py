@@ -12,6 +12,7 @@ parent joins them against one deadline and kills them all when it
 passes, so a stuck collective fails the test in seconds instead of
 hanging the run.
 """
+import copy
 import dataclasses
 import faulthandler
 import os
@@ -98,6 +99,70 @@ def _entry(name: str, rank: int, world: int, out: str, args,
                os.path.join(out, f'rank{rank}.pkl'))
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def conservation_errors(eng):
+    """The paged pool's block-conservation law, checked from outside the
+    allocator: every block's refcount equals its holders -- the table
+    entries of the slots' allocated prefixes, plus one for a radix node
+    holding it, plus one for each registered prefix entry holding it,
+    plus one for the dump block 0 -- the free list is exactly
+    the blocks with no holder, idle slots (neither active nor mid-chunked
+    prefill) hold nothing, and the host tier's byte ledger balances.
+    Returns error strings (empty = ok)."""
+    refs = eng._block_refs
+    want = np.zeros_like(refs)
+    want[0] = 1
+    errors = []
+    for slot in range(eng.cfg.num_slots):
+        n = int(eng._slot_nblocks[slot])
+        if n and eng._slots[slot] is None and slot not in eng._chunking:
+            errors.append(f'idle slot {slot} holds {n} blocks')
+        for b in eng._tables_np[slot, :n]:
+            want[int(b)] += 1
+    if eng._radix is not None:
+        for node in eng._radix.walk():
+            want[node.block] += 1
+    for entry in eng._prefixes.values():
+        for b in entry['blocks']:
+            want[int(b)] += 1
+    for b in np.nonzero(refs != want)[0]:
+        errors.append(f'block {b}: refcount {refs[b]} != holders {want[b]}')
+    free = list(eng._free_blocks)
+    if len(set(free)) != len(free) or \
+            sorted(free) != np.nonzero(want == 0)[0].tolist():
+        errors.append(f'free list {sorted(free)} != unheld blocks')
+    if eng._host_tier is not None:
+        errors.extend(eng._host_tier.audit())
+    return errors
+
+
+class WindowAudit:
+    """Checks conservation_errors after every decode window the engine
+    runs (offline or on the serving thread) while in the with-block;
+    violations are collected, not raised, so the serving loop's
+    containment cannot swallow them.  .windows counts the checks."""
+
+    def __init__(self, eng):
+        self.eng, self.errors, self.windows = eng, [], 0
+
+    def __enter__(self):
+        step = self.eng._step
+
+        def audited():
+            try:
+                step()
+            finally:
+                self.windows += 1
+                self.errors.extend(conservation_errors(self.eng))
+
+        self.eng._step = audited
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._step          # back to the class's method
+        self.errors.extend(conservation_errors(self.eng))
+        return False
 
 
 def _np(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -202,15 +267,19 @@ def trainer_legs(rank: int, world: int, legs: List[TrainLeg]) -> List[Dict]:
 # ------------------------------------------------------------ the dryrun
 
 
-def dryrun(rank: int, world: int, params=None) -> Dict[str, float]:
-    """The port's dryrun_multichip(world) on the CPU; rank 0's lines go to
-    its stdout.  `params`: per-leg numpy state_dicts."""
+def dryrun(rank: int, world: int, params=None) -> Dict[str, Any]:
+    """The port's dryrun_multichip(world) on the CPU: the training legs'
+    losses and the lines rank 0 printed.  `params`: per-leg numpy
+    state_dicts."""
     from skypilot_tpu_torch.entry import dryrun_multichip
     if params is not None:
         params = {leg: {k: torch.from_numpy(v) for k, v in sd.items()}
                   for leg, sd in params.items()}
-    return dryrun_multichip(world, device='cpu', params=params,
-                            log=print if rank == 0 else (lambda _: None))
+    lines: List[str] = []
+    losses = dryrun_multichip(world, device='cpu', params=params,
+                              log=lines.append if rank == 0
+                              else (lambda _: None))
+    return {'losses': losses, 'lines': lines}
 
 
 # ------------------------------------------------- sequence parallelism
@@ -325,3 +394,258 @@ def task_steps(rank: int, world: int, family: str, config: Dict,
             'state': _np(state.model.state_dict()) if rank == 0 else None,
             'loop_first_loss': loop['first_loss'], 'loop_digest': digest,
             'loop_mesh': loop['state'].mesh.shape}
+
+
+# ------------------------------------------------- tensor-parallel serving
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """One tensor-parallel engine over the world's ranks
+    (``MeshSpec(fsdp=world // tensor, tensor=tensor)``): `family`
+    ('llama' | 'mixtral') at `geometry` (f32), InferConfig fields `infer`,
+    the full state_dict `params` (numpy), and the `ops` rank 0 runs on it
+    in order, each (name, *args) of ``_OPS``.  With `audit` the block
+    conservation law is checked after every window (rank 0)."""
+    name: str
+    family: str
+    geometry: Dict[str, Any]
+    infer: Dict[str, Any]
+    params: Dict[str, np.ndarray]
+    ops: List[tuple]
+    tensor: int = 2
+    audit: bool = False
+
+
+def _result(r) -> Dict[str, Any]:
+    return {'tokens': list(r.output_tokens), 'finish': r.finish_reason,
+            'logprobs': list(r.logprobs or []), 'error': r.error}
+
+
+def _requests(eng_mod, reqs):
+    return [eng_mod.Request(**r) for r in reqs]
+
+
+def _op_generate(eng, reqs):
+    from skypilot_tpu_torch.infer import engine as em
+    return [_result(r) for r in eng.generate(_requests(em, reqs))]
+
+
+def _op_served(eng, reqs, gaps=None):
+    from skypilot_tpu_torch.infer import engine as em
+    return [_result(r) for r in eng.generate_served(_requests(em, reqs),
+                                                    gaps)]
+
+
+def _op_drift(eng):
+    """Plant a cache leaf holding every kv head on rank 0 and return the
+    shard check's error (None if it passed), the leaf restored after."""
+    from skypilot_tpu_torch.analysis import sanitizers
+    k, v = eng.cache[0]
+    shape = list(k.shape)
+    shape[1] = eng.model_config.num_kv_heads
+    eng.cache[0] = (torch.zeros(shape, dtype=k.dtype), v)
+    try:
+        sanitizers.check_shard_layout(eng)
+        return None
+    except sanitizers.ShardLayoutError as e:
+        return str(e)
+    finally:
+        eng.cache[0] = (k, v)
+
+
+def _op_evict(eng, need):
+    """Evict `need` radix blocks now (spilling them to the host tier)."""
+    with eng._lock:
+        freed = eng._evict_radix(need)
+        if eng._host_tier is not None:
+            eng._host_tier.finalize()
+    return freed
+
+
+def _op_qos_park(eng, batch, interactive):
+    """QoS preemption at a chunk boundary: a long batch prompt starts
+    chunking in the serving loop and an interactive request arrives
+    between two chunk rounds (queued from inside the first round); the
+    batch prompt is parked and resumes from its radix blocks."""
+    import queue as queue_mod
+    import threading
+    from skypilot_tpu_torch.infer import engine as em
+    q: 'queue_mod.Queue' = queue_mod.Queue()
+    results, done = {}, threading.Event()
+    inter = em.Request(**interactive)
+    real = eng._chunk_round
+    sent = []
+
+    def chunk_round():
+        moved = real()
+        if moved and not sent:
+            sent.append(1)
+            q.put(inter)
+        return moved
+
+    def deliver(res):
+        results[res.request_id] = res
+        if len(results) == 2:
+            done.set()
+
+    eng._chunk_round = chunk_round
+    stop = threading.Event()
+    loop = threading.Thread(target=eng.generate_stream,
+                            args=(q, deliver, stop), daemon=True)
+    try:
+        q.put(em.Request(**batch))
+        loop.start()
+        assert done.wait(timeout=60), 'qos park/resume timed out'
+    finally:
+        stop.set()
+        loop.join(timeout=30)
+        del eng._chunk_round
+    return {rid: _result(r) for rid, r in results.items()}
+
+
+def _op_shard_sanitizer(eng, on: bool):
+    """SKYTPU_SHARD_SANITIZER on (counting every shard-layout check from
+    then on in ``eng._shard_checks``, the serving loop's quiesce hook's
+    included) or off."""
+    from skypilot_tpu_torch.analysis import sanitizers
+    if not on:
+        os.environ.pop('SKYTPU_SHARD_SANITIZER', None)
+        return
+    os.environ['SKYTPU_SHARD_SANITIZER'] = '1'
+    eng._shard_checks = [0]
+    check = sanitizers.check_shard_layout
+
+    def counted(engine):
+        eng._shard_checks[0] += 1
+        return check(engine)
+
+    sanitizers.check_shard_layout = counted
+
+
+_OPS = {
+    'generate': _op_generate,
+    'served': _op_served,
+    'register_prefix': lambda eng, tokens: eng.register_prefix(tokens),
+    'export': lambda eng, *a: eng.export_hot_prefixes(*a),
+    'adopt': lambda eng, payload: eng.adopt_prefixes(payload),
+    'stats': lambda eng: eng.stats(),
+    'kv_health': lambda eng: eng.kv_health(),
+    'shard': lambda eng: __import__(
+        'skypilot_tpu_torch.analysis.sanitizers',
+        fromlist=['x']).check_shard_layout(eng),
+    'drift': _op_drift,
+    'evict': _op_evict,
+    'qos_park': _op_qos_park,
+    'shard_sanitizer': _op_shard_sanitizer,
+    'attr': lambda eng, name: copy.deepcopy(getattr(eng, name)),
+    'tier': lambda eng: eng._host_tier_section(),
+}
+
+
+def _serve_engine(run: ServeRun, world: int):
+    from skypilot_tpu_torch.infer import engine as em
+    from skypilot_tpu_torch.models.llama import LlamaConfig
+    from skypilot_tpu_torch.models.mixtral import MixtralConfig
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    cls = MixtralConfig if run.family == 'mixtral' else LlamaConfig
+    cfg = cls(**run.geometry, dtype=torch.float32)
+    mesh = make_mesh(MeshSpec(fsdp=world // run.tensor, tensor=run.tensor),
+                     'cpu')
+    # Only rank 0's weights are read: the engine sends each rank its slice.
+    params = ({k: torch.from_numpy(v) for k, v in run.params.items()}
+              if dist.get_rank() == 0 else None)
+    return em.InferenceEngine(
+        cfg, em.InferConfig(**run.infer), params=params,
+        generator=torch.Generator().manual_seed(0), device='cpu',
+        mesh=mesh)
+
+
+def tp_serving(rank: int, world: int, runs: List[ServeRun]) -> List[Dict]:
+    """Each run's engine on every rank: rank 0 runs the ops and returns
+    their values (and, with `audit`, the conservation errors); every rank
+    returns its cache's kv heads and the tokens it sampled (every
+    ``_pack_head`` call's choice, in order)."""
+    out = []
+    for run in runs:
+        eng = _serve_engine(run, world)
+        sampled: List[List[int]] = []
+        pack = eng._pack_head
+
+        def recorded(logits, temps, _pack=pack, _log=sampled):
+            chosen, head = _pack(logits, temps)
+            _log.append(chosen.tolist())
+            return chosen, head
+
+        eng._pack_head = recorded
+        res: Dict[str, Any] = {'cache_heads': int(eng.cache[0][0].shape[1]),
+                               'sampled': sampled}
+        if rank == 0:
+            values, errors = [], []
+            try:
+                ctx = WindowAudit(eng) if run.audit else None
+                if ctx is not None:
+                    ctx.__enter__()
+                try:
+                    for name, *args in run.ops:
+                        values.append(_OPS[name](eng, *args))
+                finally:
+                    if ctx is not None:
+                        ctx.__exit__(None, None, None)
+                        errors = ctx.errors
+            finally:
+                eng.shutdown()
+            res.update(values=values, conservation=errors)
+        else:
+            eng.serve_worker()
+        out.append(res)
+    return out
+
+
+def tp_protocol(rank: int, world: int, run: ServeRun, idle_s: float,
+                short_s: float) -> Dict[str, Any]:
+    """The dispatch protocol's two failure cases on one engine.
+
+    Idle: the control group is made while gloo's default timeout is
+    `short_s` (standing in for its 30 minutes), then rank 0 generates,
+    idles `idle_s` > `short_s` and generates again: rank 1 must still be
+    waiting for it.  Then a failure on rank 1 alone (its ``_zero_cache``
+    raises): rank 0's dispatch of it must raise, and so must the next
+    one, not serve from a shard that missed an op.  Rank 0 returns both
+    generations and the two errors; rank 1 the error that ended
+    ``serve_worker``."""
+    import datetime
+    from torch.distributed import distributed_c10d as c10d
+
+    from skypilot_tpu_torch.infer import engine as em
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    default = c10d.default_pg_timeout
+    c10d.default_pg_timeout = datetime.timedelta(seconds=short_s)
+    try:
+        tp_lib.control_group()
+    finally:
+        c10d.default_pg_timeout = default
+    eng = _serve_engine(run, world)
+    if rank != 0:
+        def boom(*_a, **_k):
+            raise RuntimeError('planted worker-only failure')
+
+        em.InferenceEngine._zero_cache.raw = boom
+        try:
+            eng.serve_worker()
+        except RuntimeError as e:
+            return {'worker_error': str(e)}
+        return {'worker_error': None}
+    reqs = [dict(tokens=[4, 5, 6, 7], max_new_tokens=6)]
+    out: Dict[str, Any] = {'first': _op_generate(eng, reqs)}
+    time.sleep(idle_s)
+    out['after_idle'] = _op_generate(eng, reqs)
+    for key, op in (('failed', eng._zero_cache),
+                    ('next', lambda: _op_generate(eng, reqs))):
+        try:
+            out[key] = op()
+        except RuntimeError as e:
+            out[key] = str(e)
+    eng.shutdown()
+    return out
+

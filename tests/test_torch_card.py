@@ -127,6 +127,9 @@ FWD_CASES = {
     'ragged_1088_d256_mqa': (1, 8, 1, 1088, 256, True, None),
     'non_causal_ragged_200_d256': (1, 4, 4, 200, 256, False, None),
     'window_300_d256_mqa': (1, 8, 1, 1088, 256, True, 300),
+    # batch x q heads = 65,552 blocks, past gridDim.y's 65,535 (the grid
+    # puts them on x)
+    'grid_4097x16': (4097, 16, 8, 128, 64, True, None),
 }
 
 
@@ -749,3 +752,85 @@ def test_one_rank_mesh_trainer_on_the_card_matches_the_no_mesh_trainer(card):
     for n, g in gm.items():
         assert (g - gn[n]).abs().max().item() <= \
             TOL * max(gn[n].abs().max().item(), 1e-3), n
+
+
+def test_f32_forward_past_the_old_grid_limit(card):
+    """The f32 forward at batch 4,097 x 16 q heads (the SIMT path's grid
+    puts them on x too) against its plain version."""
+    q, k, v = _inputs([(4097, 16, 32, 64), (4097, 8, 32, 64),
+                       (4097, 8, 32, 64)], torch.float32, seed=6)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, 0.125, None)
+    ref_out, ref_lse = fa.attention_fwd_reference(q, k, v, True, 0.125, None)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=TOL)
+
+
+def _tp_rank(rank: int, init: str, out_dir: str) -> None:
+    """A rank of the two-rank card test: llama2-7b's widths at depth 2 in
+    f32, tp=2 over a gloo group on card 0; rank 0 writes its tokens and
+    logprobs, and the tp=1 engine's."""
+    import pathlib
+    import traceback
+
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    res = {}
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.distributed.init_process_group('gloo', init_method=init,
+                                             rank=rank, world_size=2)
+        cfg = dataclasses.replace(get_model_config('llama2-7b'),
+                                  num_layers=2, dtype=torch.float32)
+        icfg = dict(num_slots=4, max_cache_len=256, max_new_tokens=12,
+                    prefill_buckets=(64, 128, 256),
+                    cache_dtype=torch.float32)
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (17, 90, 150, 33)]
+
+        def engine(mesh=None):
+            return InferenceEngine(cfg, InferConfig(**icfg), device='cuda',
+                                   mesh=mesh, generator=torch.Generator(
+                                       device='cuda').manual_seed(0))
+
+        eng = engine(make_mesh(MeshSpec(tensor=2), 'cuda'))
+        res['heads'] = int(eng.cache[0][0].shape[1])
+        if rank == 0:
+            got = eng.generate([Request(tokens=p) for p in prompts])
+            eng.shutdown()
+            del eng
+            want = engine().generate([Request(tokens=p) for p in prompts])
+            res['got'] = [(r.output_tokens, r.logprobs) for r in got]
+            res['want'] = [(r.output_tokens, r.logprobs) for r in want]
+        else:
+            eng.serve_worker()
+        torch.distributed.destroy_process_group()
+    except Exception:  # noqa: BLE001 -- shipped to the test
+        res['error'] = traceback.format_exc()
+    pathlib.Path(out_dir, f'rank{rank}.json').write_text(json.dumps(res))
+
+
+def test_tensor_parallel_engine_on_the_card_matches_tp1(card, tmp_path):
+    """Two ranks on the one card (a gloo group over CUDA tensors: NCCL
+    refuses two ranks on one card), llama2-7b's widths at depth 2 in f32:
+    each rank holds half the kv heads, and the tp=2 engine's greedy
+    tokens equal the tp=1 engine's, logprobs within 2e-3 (f32, another
+    summation order)."""
+    import multiprocessing as mproc
+    ctx = mproc.get_context('spawn')
+    init = 'file://' + str(tmp_path / 'store')
+    procs = [ctx.Process(target=_tp_rank, args=(r, init, str(tmp_path)))
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(600)
+        assert not proc.is_alive()
+    ranks = [json.loads((tmp_path / f'rank{r}.json').read_text())
+             for r in range(2)]
+    for rank in ranks:
+        assert 'error' not in rank, rank['error']
+        assert rank['heads'] == 16
+    for (g, glp), (w, wlp) in zip(ranks[0]['got'], ranks[0]['want']):
+        assert g == w
+        np.testing.assert_allclose(glp, wlp, rtol=0, atol=2e-3)

@@ -18,7 +18,7 @@ from skypilot_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from skypilot_tpu.models.mixtral import MixtralConfig as JaxMixtralConfig
 from skypilot_tpu.parallel import mesh as jm
 from skypilot_tpu.train import trainer as jt
-from skypilot_tpu_torch.entry import dryrun_config
+from skypilot_tpu_torch.entry import dryrun_config, serve_legs
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models.mixtral import MixtralConfig
 
@@ -63,12 +63,19 @@ def _dryrun_params():
 def runs(tmp_path_factory):
     """The port's dryrun on 4 ranks, started first; the JAX dryrun on 4
     devices meanwhile, its printed lines kept."""
-    dry = hd.Workers(hd.dryrun, 4, tmp_path_factory.mktemp('dryrun'),
-                     _dryrun_params())
+    tmp = tmp_path_factory.mktemp('dryrun')
+    dry = hd.Workers(hd.dryrun, 4, tmp, _dryrun_params())
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         __graft_entry__.dryrun_multichip(4)
-    return {'dryrun': dry.join()[0], 'jax_lines': printed.getvalue()}
+    serve1: list = []
+    serve_legs(1, torch.device('cpu'), dryrun_config(torch.device('cpu')),
+               log=serve1.append)
+    port = dry.join()[0]
+    return {'dryrun': port['losses'], 'jax_lines': printed.getvalue(),
+            'serve4': [line for line in port['lines']
+                       if line.startswith('dryrun serve-tp')],
+            'serve1': serve1}
 
 
 def test_dryrun_legs_match_the_reference(runs):
@@ -90,3 +97,24 @@ def test_dryrun_legs_match_the_reference(runs):
             leg, got[leg], m.group(0))
 
 
+def test_dryrun_serving_legs_print_the_reference_lines(runs):
+    """At 4 ranks (fsdp 2 x tensor 2, the reference's layout) the port's
+    serve-tp and serve-tp-lookahead legs pass -- half the heads in the q
+    projection and the cache, the single engine's tokens, the shard
+    check at tensor degree 2, the serving loop with lookahead and the
+    adaptive window under the sanitizer -- and print the JAX dryrun's
+    lines (tokens from the port's own draws); at 1 rank both are skipped
+    with the reason."""
+    lines = runs['serve4']
+    assert len(lines) == 2
+    assert lines[0].startswith('dryrun serve-tp ok: mesh=')
+    assert "'tensor': 2" in lines[0] and "'fsdp': 2" in lines[0]
+    assert "'tensor_degree': 2" in lines[0]
+    assert lines[1].startswith('dryrun serve-tp-lookahead ok: window=4 '
+                               'adaptive+lookahead tokens=')
+    for line in lines:
+        assert line.split(': ')[0] + ': ' in runs['jax_lines'], line
+    assert runs['serve1'] == [
+        'dryrun serve-tp skipped: 1 rank(s); tensor=2 needs an even count',
+        'dryrun serve-tp-lookahead skipped: 1 rank(s); tensor=2 needs an '
+        'even count']

@@ -9,6 +9,7 @@ package's; and ``--hf-model`` with and without ``--weight-dtype int8``
 through the port's ``run()`` against the JAX server's on the same
 checkpoint (qwen2, and gpt2 without int8)."""
 import dataclasses
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +25,7 @@ from skypilot_tpu_torch.infer import server as port_server
 from skypilot_tpu_torch.infer.engine import Request
 from skypilot_tpu_torch.models import convert, hf_import, registry
 from skypilot_tpu_torch.models.llama import Llama
+from skypilot_tpu_torch.parallel.mesh import shard_state_dict
 
 TOL = dict(atol=2e-3, rtol=1e-3)     # tests/test_hf_import.py's
 
@@ -299,6 +301,50 @@ def test_hf_model_through_run_matches_the_jax_server(checkpoints,
     assert a.output_tokens == b.output_tokens
 
 
+@pytest.mark.parametrize('weight_dtype', ['bf16', 'int8'])
+def test_hf_model_through_run_at_tp2_is_read_by_rank_0_alone(
+        checkpoints, monkeypatch, tmp_path, weight_dtype):
+    """``run(hf_model=..., tensor_parallel=2)`` on the CPU: rank 0 alone
+    reads the checkpoint (it is moved away as soon as rank 0 has read it,
+    so a rank that read it too would fail), rank 0's engine holds the
+    tp=1 engine's weights sliced (bf16, or int8 bytes and scales), and it
+    serves the tp=1 engine's greedy tokens."""
+    src, _ = checkpoints['qwen2']
+    path = str(tmp_path / 'qwen2')
+    shutil.copytree(src, path)
+    real = hf_import.load_hf_model
+    prompt = [5, 9, 17, 33, 2, 71, 8]
+    seen = []
+
+    def load_once(name, **kw):
+        out = real(name, **kw)
+        shutil.move(path, path + '.read')
+        return out
+
+    def serve(engine, **_):
+        seen.append((
+            {k: v.clone() for k, v in engine.model.state_dict().items()},
+            engine.generate([Request(tokens=prompt, max_new_tokens=6)]
+                            )[0].output_tokens))
+
+    monkeypatch.setattr(hf_import, 'load_hf_model', load_once)
+    monkeypatch.setattr(port_server, 'serve', serve)
+    kw = dict(device='cpu', num_slots=2, max_cache_len=64,
+              weight_dtype=weight_dtype)
+    port_server.run(hf_model=path, tensor_parallel=2, **kw)
+    shutil.move(path + '.read', path)
+    monkeypatch.setattr(hf_import, 'load_hf_model', real)
+    port_server.run(hf_model=path, **kw)
+    (got, tokens), (single, want_tokens) = seen
+    want = shard_state_dict(single, 2, 0)
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        assert torch.equal(v, want[k]), k
+    assert got['layers.0.attn.q_proj.bias'].shape[0] == \
+        single['layers.0.attn.q_proj.bias'].shape[0] // 2
+    assert tokens == want_tokens
+
+
 def jax_server_params(engine):
     """The JAX engine's params['params'] as numpy (bf16 leaves as f32)."""
     import jax
@@ -313,7 +359,8 @@ def test_run_refusals(checkpoints, tmp_path, monkeypatch):
     ValueError before any weight is read; --weight-dtype int8 on a gpt2
     checkpoint gets the JAX server's ValueError, and without it run()
     serves the checkpoint with the JAX server's weights and tokens;
-    --tensor-parallel still names A9."""
+    --tensor-parallel 2 on the gpt2 checkpoint names A9.3 before any
+    weight is read."""
     path, _ = checkpoints['llama']
     raised = []
     for mod, kw in ((port_server, {'device': 'cpu'}), (jax_server, {})):
@@ -355,6 +402,9 @@ def test_run_refusals(checkpoints, tmp_path, monkeypatch):
     [b] = ref.generate([jax_server.Request(tokens=prompt,
                                            max_new_tokens=6)])
     assert a.output_tokens == b.output_tokens
-    with pytest.raises(NotImplementedError, match='A9'):
-        port_server.run(model='llama-debug', device='cpu',
+    # Tensor-parallel GPT-2 is refused naming its item before the
+    # checkpoint's weights are read.
+    monkeypatch.setattr(hf_import, 'load_hf_model', None)
+    with pytest.raises(NotImplementedError, match='GPT-2.*A9.3'):
+        port_server.run(hf_model=str(gpt2), device='cpu',
                         tensor_parallel=2)

@@ -8,6 +8,7 @@ mixed fleet: the unchanged SkyTpuLoadBalancer over one JAX replica and
 one port replica returns the JAX engine's greedy tokens byte for byte,
 including a stream resumed after the port replica dies mid-stream."""
 import json
+import re
 import os
 import threading
 import time
@@ -333,7 +334,8 @@ def test_unported_routes_answer_501(pair, path, body):
 
 
 def test_unported_options_fail_at_startup(params, tmp_path, monkeypatch):
-    """tp serving still fails at startup naming its item (A9);
+    """--tensor-parallel past the visible devices fails at startup with
+    the JAX server's type and text, and GPT-2 under it names A9.3;
     --auto-prefix, the fp8 cache and --adapter-dir (with --lora-rank),
     ported since, start; and so do int8 weights, QoS and --hf-model
     (tests/test_torch_hf_import.py serves a checkpoint): run() builds
@@ -344,9 +346,21 @@ def test_unported_options_fail_at_startup(params, tmp_path, monkeypatch):
     lora = port_engine(params, lora_rank=4, lora_max_adapters=2)
     srv = port_server.InferenceServer(lora, adapter_dir=str(tmp_path))
     assert srv.adapter_dir == str(tmp_path) and lora.adapters == {}
-    with pytest.raises(NotImplementedError, match='A9'):
-        port_server.run(model='llama-debug', device='cpu',
-                        tensor_parallel=2)
+    # --tensor-parallel past the visible devices: the JAX server's type
+    # and text, before any weight is read (no engine is built).
+    texts = []
+    for mod, kw in ((port_server, {'device': 'cpu'}), (jax_server, {})):
+        monkeypatch.setattr(mod, 'InferenceEngine', None)
+        with pytest.raises(ValueError) as e:
+            mod.run(model='llama-debug', tensor_parallel=99, **kw)
+        texts.append(re.sub(r'the \d+ visible', 'the N visible',
+                            str(e.value)))
+    assert texts[0] == texts[1] == (
+        '--tensor-parallel 99 exceeds the N visible device(s); a mesh '
+        'needs one chip per shard')
+    monkeypatch.undo()
+    with pytest.raises(NotImplementedError, match='GPT-2.*A9.3'):
+        port_server.run(model='gpt2-debug', device='cpu', tensor_parallel=2)
     engines = []
     for mod in (port_server, jax_server):
         monkeypatch.setattr(mod, 'serve',
