@@ -42,8 +42,13 @@ and a bf16 cache against a drop-free scorer, and trained at depth 2),
 then BERT and ResNet through their task loops (bert-base fine-tuned at
 examples/bert_imdb.yaml's settings with its masked path and its HF
 import, resnet50 trained at examples/resnet.yaml's) and frozen-base LoRA
-on Mixtral at depth 2 -- at full width with random weights from a seed,
-and checks what comes out.  Every phase prints one JSON line; any failed
+on Mixtral at depth 2, then the mesh trainer on a one-rank NCCL group
+(llama3-8b at 4 layers, then LoRA under the mesh at
+examples/finetune_llama31.yaml's rank 16), the multi-chip dryrun, and
+tensor-parallel serving on two gloo ranks sharing the card (llama2-7b,
+Mixtral, multi-LoRA with int8 weights and the fp8 cache, gpt2-large) --
+at full width with random weights from a seed, and checks what comes
+out.  Every phase prints one JSON line; any failed
 check raises, so the script exits non-zero and the closing line is never
 printed.  The last two lines are the kernels line
 and {"ok": true, "device": {...}}.
@@ -272,6 +277,18 @@ TP_FWD_CASE = ('llama2-7b-tp2', 1, 16, 16, 281, 128, torch.bfloat16, True,
                None)
 GRID_CASE = ('grid_4097x16', 4097, 16, 8, 128, 64, torch.bfloat16, True,
              None)
+# The sixteenth slice's shapes: gpt2 trained at tensor=2
+# (examples/gpt2_managed_spot.yaml's 16 x 1024, 6 of 12 heads a rank: the
+# kernel phases only, since DTensor's collectives do not run over gloo on
+# CUDA tensors and NCCL refuses two ranks on the one card) and
+# gpt2-large's teacher-forced scorer at tp=2 (serve_tp: 10 of 20 heads
+# over prompt + output, at most 281 tokens).
+GPT2_TP_TRAIN_CASE = ('gpt2-train-tp2', 16, 6, 6, 1024, 64, torch.bfloat16,
+                      True, None)
+GPT2_LARGE_TP_FWD_CASE = ('gpt2-large-tp2', 1, 10, 10, 281, 64,
+                          torch.bfloat16, True, None)
+SLICE16_FWD = (GPT2_TP_TRAIN_CASE[0], GPT2_LARGE_TP_FWD_CASE[0])
+SLICE16_BWD = (GPT2_TP_TRAIN_CASE[0],)
 # (name, b, hq, hkv, s, d, dtype, causal, window); the first is the shape
 # the llama-1b forward gives the kernel, timed as well.  The bf16 kernel
 # works in 128-row tiles up to head_dim 128: ragged_1088 and
@@ -308,11 +325,13 @@ KERNEL_CASES = [
     BERT_MAX_LEN_CASE,
     TP_FWD_CASE,
     GRID_CASE,
+    GPT2_TP_TRAIN_CASE,
+    GPT2_LARGE_TP_FWD_CASE,
 ]
 # The forward is timed at these shapes.
 TIMED_FWD = (KERNEL_CASES[0][0], TRAIN_CASE[0], GEMMA_FWD_CASE[0],
              GEMMA_TRAIN_CASE[0], *SLICE12_FWD, *BERT_SHAPES, TP_FWD_CASE[0],
-             GRID_CASE[0])
+             GRID_CASE[0], *SLICE16_FWD)
 
 
 # Agreement of the forward kernel with its plain version (same inputs; the
@@ -421,7 +440,7 @@ def phase_kernel() -> dict:
 # shapes.
 BWD_CASES = [TRAIN_CASE] + KERNEL_CASES[2:]
 TIMED_BWD = (TRAIN_CASE[0], GEMMA_TRAIN_CASE[0], *SLICE12_BWD,
-             *BERT_SHAPES)
+             *BERT_SHAPES, *SLICE16_BWD)
 
 # Agreement of the backward kernels with their plain versions (same q, k,
 # v, dO, LSE and delta; the plain versions compute in f32): dQ, dK and dV
@@ -4626,11 +4645,13 @@ MESH_RESUME_BATCH = (2, 256)
 
 
 def mesh_grads(trainer) -> dict:
-    """Every gradient of a trainer's model, whole, on the CPU."""
+    """Every gradient of a trainer's model, whole, on the CPU (a frozen
+    parameter has none)."""
     from torch.distributed.tensor import DTensor
     return {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
                 else p.grad).detach().float().cpu()
-            for n, p in trainer.state.model.named_parameters()}
+            for n, p in trainer.state.model.named_parameters()
+            if p.grad is not None}
 
 
 def mesh_depth2(mc) -> dict:
@@ -4667,16 +4688,19 @@ def mesh_depth2(mc) -> dict:
             'launches_mesh': tm, 'launches_no_mesh': tn}
 
 
-def mesh_full_width(mc, mesh) -> tuple:
+def mesh_full_width(mc, mesh, probe=None) -> tuple:
     """MESH_STEPS steps of llama3-8b (MESH_LAYERS layers) at MESH_BATCH
     through the Trainer, with `mesh` (a MeshSpec, or None), then one more
     profiled: the launches of each step, the losses, step ms, tokens/s,
-    the peak and the device's idle share."""
+    the peak and the device's idle share.  `probe(trainer)`, called after
+    setup, returns a function of the trainer called after the steps,
+    whose dict joins the result."""
     cfg = train_lib.TrainConfig(model=MESH_MODEL, batch_size=MESH_BATCH[0],
                                 seq_len=MESH_BATCH[1], warmup_steps=2,
                                 total_steps=100, mesh=mesh)
     tr = train_lib.Trainer(cfg, mc, device='cuda')
     tr.setup(seed=0)
+    finish = probe(tr) if probe is not None else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out, per_step, launches = launches_per_step(
@@ -4689,11 +4713,12 @@ def mesh_full_width(mc, mesh) -> tuple:
     step_profile = profile_device(
         lambda: float(tr._step_fn(tr.state, batch)['loss']), top=10)
     losses = [loss for _, loss in tr.history]
-    del tr
+    extra = finish(tr) if finish is not None else {}
+    del tr, finish
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {
-        'launches_per_step': per_step, 'losses': losses,
+        **extra, 'launches_per_step': per_step, 'losses': losses,
         'step_ms': 1e3 * cfg.batch_size * cfg.seq_len
         / out['tokens_per_second'],
         'tokens_per_s': out['tokens_per_second'],
@@ -4809,6 +4834,150 @@ def phase_mesh_train(env: dict) -> tuple:
     return launches, line
 
 
+# The mesh LoRA phase: examples/finetune_llama31.yaml's body on the one
+# card -- LoRA at its LORA_RANK (16) on q/k/v/o, the base frozen -- at the
+# mesh phase's llama3-8b (full width, MESH_LAYERS of 32 layers, 1 x 8192
+# a card), under MeshSpec(fsdp=1) on the one-rank NCCL group beside the
+# no-mesh LoRA trainer.  Depth 2 in f32 with B drawn non-zero (so A has
+# a gradient): the mesh trainer against the no-mesh one, the mesh phase's
+# loss bound and the train phase's gradient bound.
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard, any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def lora_probe(trainer):
+    """mesh_full_width's probe of a LoRA trainer: the base parameters'
+    local shards copied after setup; after the steps, whether every one
+    is byte-identical and the element count of the Adam moments (each
+    adapter parameter's first moment)."""
+    base = {n: local_tensor(p.detach()).clone()
+            for n, p in trainer.state.model.named_parameters()
+            if not lora.is_lora_path(n)}
+
+    def after(tr) -> dict:
+        frozen = all(torch.equal(local_tensor(p.detach()), base[n])
+                     for n, p in tr.state.model.named_parameters()
+                     if not lora.is_lora_path(n))
+        moments = sum(local_tensor(st['exp_avg']).numel()
+                      for st in tr.state.optimizer.state.values())
+        base.clear()
+        return {'base_byte_identical': frozen,
+                'adam_moment_params': moments}
+
+    return after
+
+
+def mesh_lora_depth2(full) -> dict:
+    """One LoRA step at depth 2 in f32 of the mesh trainer
+    (MeshSpec(fsdp=1)) and of the no-mesh trainer from the same weights
+    (B at std 0.02) and batch: the loss, the adapters' gradients and the
+    launches of each."""
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec
+    cfg2 = dataclasses.replace(full, num_layers=2, dtype=torch.float32,
+                               lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    sd = {k: (torch.randn(v.shape, generator=gen, device='cuda') * 0.02
+              if k.endswith('lora_b') else v).cpu()
+          for k, v in iter_params(cfg2, gen)}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg2.vocab_size, (1, MESH_CHECK_SEQ + 1)))
+    res = {}
+    for name, mesh in (('no_mesh', None), ('mesh', MeshSpec(fsdp=1))):
+        tr = train_lib.Trainer(train_lib.TrainConfig(
+            model=MESH_MODEL, batch_size=1, seq_len=MESH_CHECK_SEQ,
+            warmup_steps=2, total_steps=100, mesh=mesh), cfg2,
+            device='cuda')
+        tr.setup(params=sd)
+        tally = [0, 0, 0]
+        m = counted(lambda: tr._step_fn(tr.state, {'tokens': tokens}),
+                    tally)
+        res[name] = (m['loss'].item(), mesh_grads(tr), tally)
+        del tr, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    del sd
+    (lm, gm, tm), (ln, gn, tn) = res['mesh'], res['no_mesh']
+    check(set(gm) == set(gn) and gn and
+          all(lora.is_lora_path(n) for n in gn),
+          'depth-2: gradients beyond the adapters')
+    grad_err, worst = grad_errors(gm, gn)
+    return {'num_layers': 2, 'seq': MESH_CHECK_SEQ, 'loss_mesh': lm,
+            'loss_no_mesh': ln, 'loss_rel_err': abs(lm - ln) / abs(ln),
+            'adapter_grad_max_rel_err': grad_err, 'grad_worst': worst,
+            'adapter_grads': len(gn), 'launches_mesh': tm,
+            'launches_no_mesh': tn}
+
+
+def phase_mesh_lora(env: dict, mesh_line: dict) -> tuple:
+    """LoRA under a mesh (ROADMAP A9.3) on the one-rank NCCL group: (a)
+    depth 2 in f32, the mesh LoRA trainer against the no-mesh one (loss
+    BOUND_MESH_LOSS relative, adapter gradients BOUND_DEPTH2_GRAD of their
+    max, 4/2/2 launches); (b) llama3-8b at full width, MESH_LAYERS
+    layers, 1 x 8192, rank 16 on q/k/v/o, no mesh then MeshSpec(fsdp=1):
+    8/4/4 launches a step, the step-1 loss the base model's (B = 0: the
+    mesh phase's trainers on the same seed-0 weights and batch, within
+    BOUND_MESH_LOSS), the base byte-identical after the steps, Adam
+    moments for exactly the adapters' parameters.  Records step ms and
+    peak memory beside the no-mesh LoRA trainer's and the mesh phase's.
+    Returns the mesh LoRA trainer's launches over its steps and the
+    line."""
+    from skypilot_tpu_torch.parallel.mesh import MeshSpec
+    full = get_model_config(MESH_MODEL)
+    depth2 = mesh_lora_depth2(full)
+    check(depth2['launches_mesh'] == [4, 2, 2] ==
+          depth2['launches_no_mesh'],
+          f'depth-2 launches {depth2["launches_mesh"]} (mesh), '
+          f'{depth2["launches_no_mesh"]} (no mesh), expected [4, 2, 2]')
+    check(depth2['loss_rel_err'] <= BOUND_MESH_LOSS
+          and depth2['adapter_grad_max_rel_err'] <= BOUND_DEPTH2_GRAD,
+          f'depth-2 f32 LoRA mesh vs no mesh: {depth2}')
+    mc = dataclasses.replace(full, num_layers=MESH_LAYERS,
+                             lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA)
+    want_params = lora_param_count(mc)
+    expected = [2 * MESH_LAYERS, MESH_LAYERS, MESH_LAYERS]
+    runs = {}
+    for name, mesh in (('no_mesh', None), ('mesh', MeshSpec(fsdp=1))):
+        launches, runs[name] = mesh_full_width(mc, mesh, lora_probe)
+        run = runs[name]
+        check(run['launches_per_step'] == [expected] * MESH_STEPS,
+              f'{name} LoRA launches per step {run["launches_per_step"]}, '
+              f'expected {expected}')
+        base_loss = mesh_line['runs'][name]['losses'][0]
+        run['base_model_step1_loss'] = base_loss
+        run['step1_rel_err'] = abs(run['losses'][0] - base_loss) / base_loss
+        check(run['step1_rel_err'] <= BOUND_MESH_LOSS,
+              f'{name} LoRA step-1 loss {run["losses"][0]}, the base '
+              f'model\'s {base_loss}')
+        check(run['base_byte_identical'] and
+              run['adam_moment_params'] == want_params,
+              f'{name}: base identical {run["base_byte_identical"]}, Adam '
+              f'moments for {run["adam_moment_params"]} parameters, '
+              f'adapters {want_params}')
+    line = {'phase': 'mesh_lora', 'model': MESH_MODEL,
+            'device': env['device'], 'nvidia_smi': env['nvidia_smi'],
+            'lora': {'rank': LORA_RANK, 'alpha': LORA_ALPHA,
+                     'targets': list(mc.lora_targets),
+                     'adapter_params': want_params},
+            'mesh': list(MeshSpec(fsdp=1).shape),
+            'num_layers': MESH_LAYERS, 'of_layers': full.num_layers,
+            'batch': list(MESH_BATCH), 'dtype': str(mc.dtype),
+            'reduced': f'depth {full.num_layers} -> {MESH_LAYERS}, as the '
+                       'mesh phase (its full-training state bounds it)',
+            'depth2_f32': depth2,
+            'depth2_bounds': [BOUND_MESH_LOSS, BOUND_DEPTH2_GRAD],
+            'runs': runs,
+            'step_ms_ratio_mesh_over_no_mesh':
+                runs['mesh']['step_ms'] / runs['no_mesh']['step_ms'],
+            'full_training_mesh': {k: mesh_line['runs']['mesh'][k] for k in
+                                   ('step_ms', 'max_memory_allocated_gib')}}
+    emit(line)
+    return launches, line
+
+
 def phase_dryrun(env: dict) -> tuple:
     """``dryrun_multichip(torch.cuda.device_count())``: the training legs of
     the reference's multi-chip dryrun over this host's cards (a leg that
@@ -4848,7 +5017,11 @@ def phase_dryrun(env: dict) -> tuple:
 # --cache-dtype fp8), tp=2 of its 8, slots and cache cut to what two
 # ranks' fp8 caches and weights hold on one card; a paged radix engine
 # over a bf16 cache on the same weights; (c) Mixtral at depth 2 in f32 at
-# mixtral-8x7b's widths, 8 experts over 2 ranks.
+# mixtral-8x7b's widths, 8 experts over 2 ranks; (e) multi-LoRA and (f)
+# gpt2-large (their constants below).  The ranks' collectives are plain
+# torch.distributed calls: DTensor's functional collectives segfault in
+# wait_tensor over gloo on CUDA tensors (my probe, PR 16), so no DTensor
+# path (tensor-parallel training) runs on two ranks here.
 TP_MODEL = 'llama2-7b'
 TP_SERVE = dict(num_slots=16, max_cache_len=512, decode_steps=32,
                 max_new_tokens=32, prefill_buckets=(64, 128, 256, 512))
@@ -5092,6 +5265,255 @@ def tp_mixtral(rank: int, mesh) -> dict:
     return out
 
 
+# The sixteenth slice's legs (ROADMAP A9.3).  (e) multi-LoRA at tp=2,
+# llama2-7b's widths: depth 2 in f32 (two adapters at B std 0.5, base and
+# adapter requests in one batch) against tp=1; then
+# examples/serve_lora.yaml's flags (--lora-rank 16 --lora-max-adapters 8)
+# with int8 weights and the fp8 cache, three adapters registered (B at
+# LORA_B_STD), at TP_LORA_LAYERS of 32 layers, every adapter stream held
+# against the no-cache forward of a rank-local single-adapter model and,
+# over a fresh fp8 cache, against its cached forward, with the
+# lora_serve phase's controls (the next adapter's model, the base).
+# (f) gpt2-large at tp=2 (10 of 20 heads a rank): depth 2 in f32 against
+# tp=1, then its 36 layers in bf16 at the gpt2 phase's flags.
+TP_LORA = dict(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA)
+TP_LORA_LAYERS = 8
+TP_LORA_SERVE = dict(TP_SERVE, cache_dtype=llama.FP8, lora_max_adapters=8,
+                     **TP_LORA)
+# The multi-LoRA gates: each adapter stream against its single-adapter
+# model's cached forward over a fresh fp8 cache (the same quantized rows)
+# within the lora_serve phase's bf16 bound, and against its no-cache
+# forward (the flash kernel) within int8_hf's INT8_BOUND, which holds the
+# fp8 cache's own rounding (0.44 nats at 8 layers on an NVIDIA H100 80GB
+# HBM3, 700 W, above the 0.25 of a bf16 cache); the controls (the next
+# adapter's model, the base model) must exceed each.
+TP_LORA_BOUND = 0.25
+TP_GPT2_SERVE = dict(num_slots=8, max_cache_len=1024, decode_steps=32,
+                     max_new_tokens=32, prefill_buckets=(64, 128, 256))
+
+
+def tp_adapter_tree(eng, seed: int, b_std: float) -> dict:
+    """A rank-16 adapter of the engine's full (unsliced) stacked shapes,
+    every leaf drawn with numpy from `seed` (rank 0 registers it; each
+    rank receives its slices)."""
+    rng = np.random.default_rng(seed)
+    return lora.nest({
+        lora.flax_path(name): rng.normal(
+            0, b_std if name.endswith('lora_b') else 0.02,
+            eng._full_shapes.get(name, tuple(p.shape))[1:]).astype(
+                np.float32)
+        for name, p in eng.model.named_parameters()
+        if lora.is_lora_path(name)})
+
+
+def tp_adapter_results(results: list, adapters: list) -> list:
+    out = tp_results(results)
+    for r, a in zip(out, adapters):
+        r.adapter = a
+    return out
+
+
+def tp_lora_depth2(rank: int, mesh) -> dict:
+    """(e), depth 2 in f32: tp=2 against tp=1 on the same weights and
+    adapters."""
+    cfg = dataclasses.replace(get_model_config(TP_MODEL),
+                              num_layers=TP_F32_LAYERS, dtype=torch.float32)
+    names = [None, 'f32_a', 'f32_b']
+    prompts = [p for p in tp_prompts(cfg.vocab_size, 3, 43)
+               for _ in names]
+    adapters = names * 3
+    infer = dict(TP_F32_SERVE, lora_max_adapters=2, **TP_LORA)
+    eng = tp_engine(cfg, infer, mesh)
+
+    def serve():
+        trees = [tp_adapter_tree(eng, 20 + i, LORA_B_STD_F32)
+                 for i in range(2)]
+        for name, tree in zip(names[1:], trees):
+            eng.register_adapter(name, tree)
+        res = eng.generate([Request(tokens=p, adapter=a)
+                            for p, a in zip(prompts, adapters)])
+        return tp_adapter_results(res, adapters), trees
+
+    got, trees = tp_served(rank, eng, serve)
+    out = {'lora_b_q_cols_a_rank': int(
+        eng.model.layers[0].attn.q_proj_lora.lora_b.shape[-1])}
+    del eng
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref = tp_engine(cfg, infer)
+        for name, tree in zip(names[1:], trees):
+            ref.register_adapter(name, tree)
+        want = ref.generate([Request(tokens=p, adapter=a)
+                             for p, a in zip(prompts, adapters)])
+        out['tokens_identical'] = all(
+            g.output_tokens == w.output_tokens for g, w in zip(got, want))
+        out['logprob_max_abs_err'] = max(
+            abs(a - b) for g, w in zip(got, want)
+            for a, b in zip(g.logprobs, w.logprobs))
+        out['adapter_streams_differing_from_base'] = sum(
+            g.output_tokens != b.output_tokens
+            for g, b in zip(got[1::3], got[0::3]))
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_single_adapter_model(eng, slot: Optional[int]) -> llama.Llama:
+    """single_adapter_model on one rank of a tensor-parallel engine: the
+    rank's slices of the base weights with stack slot `slot`'s adapter
+    slices, a rank-local model (slot None: the base)."""
+    cfg = dataclasses.replace(eng._local_config, lora_num_adapters=0)
+    if slot is None:
+        cfg = dataclasses.replace(cfg, lora_rank=0)
+    model = llama.Llama(cfg, device='cuda').eval()
+    model.load_state_dict({k: (v[slot] if lora.is_lora_path(k) else v)
+                           for k, v in eng.model.state_dict().items()
+                           if slot is not None or not lora.is_lora_path(k)})
+    return model
+
+
+def tp_adapter_gaps(eng, results: list, names: list, tally: list) -> dict:
+    """Every rank in lockstep (after shutdown): each adapter's streams
+    against its rank-local single-adapter model, the no-cache forward
+    (the flash kernel, launches into `tally`) and the cached forward over
+    a fresh fp8 cache; the controls: each stream against the next
+    adapter's model and the base model (no-cache and cached)."""
+    from skypilot_tpu_torch.parallel.mesh import mesh_context
+    out = {}
+    with mesh_context(eng._mesh):
+        base = tp_single_adapter_model(eng, None)
+        for slot, name in enumerate(names):
+            mine = [r for r in results if r.adapter == name]
+            ref = tp_single_adapter_model(eng, slot)
+            other = tp_single_adapter_model(eng, (slot + 1) % len(names))
+            out[name] = {
+                'no_cache': counted(lambda: teacher_forced_err(ref, mine),
+                                    tally),
+                'cache_fp8': teacher_forced_err(ref, mine, True,
+                                                llama.FP8),
+                'control_next_no_cache': teacher_forced_err(other, mine),
+                'control_next_cache_fp8': teacher_forced_err(
+                    other, mine, True, llama.FP8),
+                'control_base_no_cache': teacher_forced_err(base, mine),
+                'control_base_cache_fp8': teacher_forced_err(
+                    base, mine, True, llama.FP8)}
+            del ref, other
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_lora_full(rank: int, mesh, tally: list) -> dict:
+    """(e) at serve_lora.yaml's flags with int8 weights and the fp8 cache,
+    TP_LORA_LAYERS layers, three adapters; the shard check passing and
+    raising on a planted adapter drift (a q_proj lora_b stack at its full
+    width on rank 0)."""
+    from skypilot_tpu_torch.analysis import sanitizers
+    cfg = dataclasses.replace(get_model_config(TP_MODEL),
+                              num_layers=TP_LORA_LAYERS,
+                              weight_dtype='int8')
+    names = ['ad1', 'ad2', 'ad3']
+    prompts = [p for p in tp_prompts(cfg.vocab_size, TP_REQUESTS // 4, 47)
+               for _ in range(4)]
+    adapters = [None, *names] * (TP_REQUESTS // 4)
+    eng = tp_engine(cfg, TP_LORA_SERVE, mesh)
+
+    def serve():
+        res = {'shard': sanitizers.check_shard_layout(eng)}
+        attn = eng.model.layers[0].attn
+        old = attn.q_proj_lora.lora_b
+        attn.q_proj_lora.lora_b = torch.nn.Parameter(torch.empty(
+            eng._full_shapes['layers.0.attn.q_proj_lora.lora_b'],
+            device='meta'), requires_grad=False)
+        try:
+            sanitizers.check_shard_layout(eng)
+            res['drift_raised'] = False
+        except sanitizers.ShardLayoutError as e:
+            res['drift_raised'], res['drift'] = True, str(e)[:300]
+        finally:
+            attn.q_proj_lora.lora_b = old
+        for i, name in enumerate(names):
+            res[f'slot_{name}'] = eng.register_adapter(
+                name, tp_adapter_tree(eng, 10 + i, LORA_B_STD))
+        results, wall = timed_generate(
+            eng, [Request(tokens=p, adapter=a, request_id=str(i))
+                  for i, (p, a) in enumerate(zip(prompts, adapters))])
+        res['results'] = tp_adapter_results(results, adapters)
+        res['wall_s'] = wall
+        res['stats'] = eng.stats()['kv']
+        return res
+
+    res = tp_served(rank, eng, serve)
+    results = res.pop('results')
+    res['gaps'] = tp_adapter_gaps(eng, results, names, tally)
+    res['adapter_streams_differing_from_base'] = sum(
+        r.output_tokens != b.output_tokens
+        for r, b in zip(results, [results[i - i % 4]
+                                  for i in range(len(results))])
+        if r.adapter)
+    res['finishes'] = sorted({r.finish_reason for r in results})
+    res['tok_per_s'] = sum(len(r.output_tokens)
+                           for r in results) / res['wall_s']
+    res['lora_a_o_rows_a_rank'] = int(
+        eng.model.layers[0].attn.o_proj_lora.lora_a.shape[1])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_gpt2_depth2(rank: int, mesh) -> dict:
+    """(f), depth 2 in f32 at gpt2-large's widths: tp=2 against tp=1."""
+    cfg = dataclasses.replace(get_model_config(GPT2_SERVE_MODEL),
+                              num_layers=TP_F32_LAYERS, dtype=torch.float32)
+    prompts = tp_prompts(cfg.vocab_size, TP_F32_REQUESTS, 53)
+    eng = tp_engine(cfg, TP_F32_SERVE, mesh)
+    got = tp_served(rank, eng, lambda: tp_results(eng.generate(
+        [Request(tokens=p) for p in prompts])))
+    out = {'heads': int(eng.cache[0][0].shape[1])}
+    del eng
+    torch.cuda.empty_cache()
+    if rank == 0:
+        want = tp_engine(cfg, TP_F32_SERVE).generate(
+            [Request(tokens=p) for p in prompts])
+        out['tokens_identical'] = all(
+            g.output_tokens == w.output_tokens for g, w in zip(got, want))
+        out['logprob_max_abs_err'] = max(
+            abs(a - b) for g, w in zip(got, want)
+            for a, b in zip(g.logprobs, w.logprobs))
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_gpt2_full(rank: int, mesh, tally: list) -> dict:
+    """(f) gpt2-large at its 36 layers in bf16, tp=2: the streams' gap
+    against the rank-local no-cache forward, with a random-token
+    control."""
+    from skypilot_tpu_torch.analysis import sanitizers
+    cfg = get_model_config(GPT2_SERVE_MODEL)
+    prompts = tp_prompts(cfg.vocab_size, TP_REQUESTS, 59)
+    eng = tp_engine(cfg, TP_GPT2_SERVE, mesh)
+
+    def serve():
+        res = {'shard': sanitizers.check_shard_layout(eng)}
+        results, res['wall_s'] = timed_generate(
+            eng, [Request(tokens=p, request_id=str(i))
+                  for i, p in enumerate(prompts)])
+        res['results'] = tp_results(results)
+        return res
+
+    res = tp_served(rank, eng, serve)
+    res['gaps'] = tp_lockstep_gaps(eng, res['results'], tally)
+    results = res.pop('results')
+    res['tok_per_s'] = sum(len(r.output_tokens)
+                           for r in results) / res['wall_s']
+    res['finishes'] = sorted({r.finish_reason for r in results})
+    res['heads'] = int(eng.cache[0][0].shape[1])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_tp_rank(rank: int, world: int, init: str, out_dir: str) -> None:
     """One rank of the serve_tp phase: (a), (b) and (c) over a gloo group
     on card 0; its result (or traceback) as JSON in out_dir."""
@@ -5111,7 +5533,13 @@ def serve_tp_rank(rank: int, world: int, init: str, out_dir: str) -> None:
         seconds = {}
         for name, fn in (('depth2_f32', lambda: tp_depth2(rank, mesh)),
                          ('full', lambda: tp_full(rank, mesh, tally)),
-                         ('mixtral_f32', lambda: tp_mixtral(rank, mesh))):
+                         ('mixtral_f32', lambda: tp_mixtral(rank, mesh)),
+                         ('lora_f32', lambda: tp_lora_depth2(rank, mesh)),
+                         ('lora_int8_fp8',
+                          lambda: tp_lora_full(rank, mesh, tally)),
+                         ('gpt2_f32', lambda: tp_gpt2_depth2(rank, mesh)),
+                         ('gpt2_large',
+                          lambda: tp_gpt2_full(rank, mesh, tally))):
             t0 = time.perf_counter()
             res[name] = fn()
             seconds[name] = time.perf_counter() - t0
@@ -5172,8 +5600,16 @@ def phase_serve_tp(env: dict) -> tuple:
     INT8_BOUND, each rank's cache bytes exactly half of tp=1's, stats()'s
     per-chip bytes total // 2, check_shard_layout passing and raising on
     a planted drift, the paged second wave's radix hits and conservation
-    exact; every rank ran the forward kernel.  Returns the kernels'
-    launches (both ranks) and the line."""
+    exact; every rank ran the forward kernel; (e) multi-LoRA at depth 2 in
+    f32 tokens identical to tp=1 and logprobs within TP_F32_BOUND, at
+    int8 + fp8 each adapter stream within TP_LORA_BOUND of its rank-local
+    single-adapter model's cached forward over fp8 and within INT8_BOUND
+    of its no-cache forward, the controls above each, the shard check
+    passing and raising on a planted adapter drift, the adapter slices'
+    widths; (f) gpt2-large at depth 2 in f32 tokens identical to tp=1,
+    at 36 layers in bf16 the gap within GPT2_BOUND and a control above
+    it, 10 heads a rank.  Returns the kernels' launches (both ranks) and
+    the line."""
     import multiprocessing as mproc
     out_dir = tempfile.mkdtemp(prefix='serve_tp_')
     init = 'file://' + str(pathlib.Path(out_dir, 'store'))
@@ -5236,6 +5672,46 @@ def phase_serve_tp(env: dict) -> tuple:
           f'(b) paged bf16 gap {p["gaps_bf16"]}')
     check(p['radix']['hits'] > 0 and p['conservation'] == [] and
           p['windows_audited'] > 0, f'(b) paged radix {p}')
+    e, e8 = r0['lora_f32'], r0['lora_int8_fp8']
+    check(e['tokens_identical'] and e['logprob_max_abs_err'] <= TP_F32_BOUND
+          and e['adapter_streams_differing_from_base'] > 0,
+          f'(e) multi-LoRA depth-2 f32 tp=2 vs tp=1: {e}')
+    check(e8['shard']['tensor_degree'] == 2 and
+          e8['shard']['param_leaves_sharded'] > 0 and e8['drift_raised'],
+          f'(e) shard layout {e8["shard"]}, adapter drift raised: '
+          f'{e8["drift_raised"]}')
+    check([e8[f'slot_{n}'] for n in ('ad1', 'ad2', 'ad3')] == [0, 1, 2]
+          and e8['finishes'] == ['length'] and
+          e8['adapter_streams_differing_from_base'] > 0,
+          f'(e) slots, finishes, adapter streams: {e8}')
+    for name, g in e8['gaps'].items():
+        check(g['cache_fp8'] <= TP_LORA_BOUND and
+              g['no_cache'] <= INT8_BOUND,
+              f'(e) {name} teacher-forced gaps {g} (bounds {TP_LORA_BOUND} '
+              f'over fp8, {INT8_BOUND} against the no-cache forward)')
+        check(min(g['control_next_cache_fp8'],
+                  g['control_base_cache_fp8']) > TP_LORA_BOUND and
+              min(g['control_next_no_cache'],
+                  g['control_base_no_cache']) > INT8_BOUND,
+              f'(e) {name} controls {g}: the gate cannot tell adapters')
+    f2, fl = r0['gpt2_f32'], r0['gpt2_large']
+    check(f2['tokens_identical'] and
+          f2['logprob_max_abs_err'] <= TP_F32_BOUND,
+          f'(f) gpt2-large depth-2 f32 tp=2 vs tp=1: {f2}')
+    check(fl['gaps']['max'] <= GPT2_BOUND and
+          fl['gaps']['control_max'] > GPT2_BOUND and
+          fl['finishes'] == ['length'] and
+          fl['shard']['param_leaves_sharded'] > 0,
+          f'(f) gpt2-large tp=2: {fl}')
+    gpt2 = get_model_config(GPT2_SERVE_MODEL)
+    for r, rank in enumerate(ranks):
+        check(rank['gpt2_f32']['heads'] == rank['gpt2_large']['heads']
+              == gpt2.num_heads // 2 and
+              rank['lora_f32']['lora_b_q_cols_a_rank'] ==
+              rank['lora_int8_fp8']['lora_a_o_rows_a_rank'] ==
+              cfg.num_heads * cfg.head_dim_ // 2,
+              f'rank {r}: gpt2-large heads, adapter slices '
+              f'{[rank[k] for k in ("gpt2_f32", "lora_f32")]}')
     tally = [sum(rank['launches'][i] for rank in ranks) for i in range(3)]
     line = {'phase': 'serve_tp', 'device': env['device'],
             'nvidia_smi': env['nvidia_smi'],
@@ -5249,6 +5725,16 @@ def phase_serve_tp(env: dict) -> tuple:
                        'weights on one card); (a) and (c) depth 32 -> 2 in '
                        'f32',
             'depth2_f32': a, 'mixtral_f32': c, 'full': b,
+            'lora_f32': e, 'lora_int8_fp8': {
+                **e8, 'model': TP_MODEL, 'num_layers': TP_LORA_LAYERS,
+                'config': {**TP_LORA_SERVE, 'cache_dtype': 'float8_e4m3fn',
+                           'weight_dtype': 'int8'},
+                'reduced': f'depth 32 -> {TP_LORA_LAYERS} (the time: every '
+                           'collective crosses the host in gloo)',
+                'bounds': {'cache_fp8': TP_LORA_BOUND,
+                           'no_cache': INT8_BOUND}},
+            'gpt2_f32': f2, 'gpt2_large': {
+                **fl, 'config': TP_GPT2_SERVE, 'bound': GPT2_BOUND},
             'rank1': {k: ranks[1][k] for k in ('launches', 'seconds')},
             'rank1_window': ranks[1]['full']['window'],
             'protocol_host_cost': host, 'bounds': {
@@ -5407,7 +5893,10 @@ def main() -> int:
     mixtral_lora = timed(phase_mixtral_lora_train, env)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_train, _ = timed(phase_mesh_train, env)
+    mesh_train, mesh_line = timed(phase_mesh_train, env)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_lora, _ = timed(phase_mesh_lora, env, mesh_line)
     gc.collect()
     torch.cuda.empty_cache()
     dryrun, _ = timed(phase_dryrun, env)
@@ -5426,8 +5915,8 @@ def main() -> int:
                        + int8_forward + gpt2_train[0] + gpt2_forward
                        + mixtral_forward + mixtral_train[0]
                        + bert_train[0] + bert_hf_forward
-                       + mixtral_lora[0] + mesh_train[0] + dryrun[0]
-                       + serve_tp[0]),
+                       + mixtral_lora[0] + mesh_train[0] + mesh_lora[0]
+                       + dryrun[0] + serve_tp[0]),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
@@ -5443,6 +5932,7 @@ def main() -> int:
                                'bert_hf_forward': bert_hf_forward,
                                'mixtral_lora_train': mixtral_lora[0],
                                'mesh_train': mesh_train[0],
+                               'mesh_lora': mesh_lora[0],
                                'dryrun': dryrun[0],
                                'serve_tp': serve_tp[0]},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
@@ -5452,12 +5942,14 @@ def main() -> int:
              slice12_shapes={name: fwd[name] for name in SLICE12_FWD},
              bert_shapes={name: fwd[name] for name in BERT_SHAPES},
              serve_tp_shape=fwd[TP_FWD_CASE[0]],
-             grid_shape=fwd[GRID_CASE[0]]),
+             grid_shape=fwd[GRID_CASE[0]],
+             slice16_shapes={name: fwd[name] for name in SLICE16_FWD}),
         dict(name='flash_attention_bwd_dq', route='cuda',
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
              launches=(train_dq + bench_dq + gemma_train[1] + lora_train[1]
                        + gpt2_train[1] + mixtral_train[1] + bert_train[1]
-                       + mixtral_lora[1] + mesh_train[1] + dryrun[1]),
+                       + mixtral_lora[1] + mesh_train[1] + mesh_lora[1]
+                       + dryrun[1]),
              launches_by_path={'train': train_dq, 'bench': bench_dq,
                                'gemma_train': gemma_train[1],
                                'lora_train': lora_train[1],
@@ -5466,19 +5958,22 @@ def main() -> int:
                                'bert_train': bert_train[1],
                                'mixtral_lora_train': mixtral_lora[1],
                                'mesh_train': mesh_train[1],
+                               'mesh_lora': mesh_lora[1],
                                'dryrun': dryrun[1]},
              **bwd[TRAIN_CASE[0]]['dq'], headline_shape=headline['dq'],
              head_dim_256_shapes={name: bwd[name]['dq']
                                   for name in TIMED_BWD[1:2]},
              slice12_shapes={name: bwd[name]['dq'] for name in SLICE12_BWD},
-             bert_shapes={name: bwd[name]['dq'] for name in BERT_SHAPES}),
+             bert_shapes={name: bwd[name]['dq'] for name in BERT_SHAPES},
+             slice16_shapes={name: bwd[name]['dq']
+                             for name in SLICE16_BWD}),
         dict(name='flash_attention_bwd_dkv', route='cuda',
              source=csrc + 'flash_attention_bwd_dkv.cu',
              replaces=tpu + '227',
              launches=(train_dkv + bench_dkv + gemma_train[2]
                        + lora_train[2] + gpt2_train[2] + mixtral_train[2]
                        + bert_train[2] + mixtral_lora[2] + mesh_train[2]
-                       + dryrun[2]),
+                       + mesh_lora[2] + dryrun[2]),
              launches_by_path={'train': train_dkv, 'bench': bench_dkv,
                                'gemma_train': gemma_train[2],
                                'lora_train': lora_train[2],
@@ -5487,13 +5982,16 @@ def main() -> int:
                                'bert_train': bert_train[2],
                                'mixtral_lora_train': mixtral_lora[2],
                                'mesh_train': mesh_train[2],
+                               'mesh_lora': mesh_lora[2],
                                'dryrun': dryrun[2]},
              **bwd[TRAIN_CASE[0]]['dkv'], headline_shape=headline['dkv'],
              head_dim_256_shapes={name: bwd[name]['dkv']
                                   for name in TIMED_BWD[1:2]},
              slice12_shapes={name: bwd[name]['dkv']
                              for name in SLICE12_BWD},
-             bert_shapes={name: bwd[name]['dkv'] for name in BERT_SHAPES}),
+             bert_shapes={name: bwd[name]['dkv'] for name in BERT_SHAPES},
+             slice16_shapes={name: bwd[name]['dkv']
+                             for name in SLICE16_BWD}),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -11,9 +11,16 @@ check.
   parameter has its rank-local shape by the rules table
   (``parallel.mesh.local_shape``) and lies on the rank's device, and
   under ``tensor`` > 1 at least one parameter is sharded (a fully
-  replicated model is the silent memory blow-up).  Violations raise
-  ``ShardLayoutError``; an engine without a mesh is a no-op.  Off, the
-  check costs one environment read per idle pass.
+  replicated model is the silent memory blow-up).  The LoRA adapter
+  stacks of multi-LoRA serving are parameters like the others: each leaf
+  has its rank-local shape (``lora_b`` split with a column-parallel
+  projection, ``lora_a`` with a row-parallel one).  GPT-2's fused
+  ``c_attn`` must hold the rank's heads of q, k and v: each of its heads'
+  sums equals that head's in the full weight, which rank 0 saw at
+  placement (``qkv_head_sums``), so a contiguous row split, which gives
+  rank 0 every q head, fails.  Violations raise ``ShardLayoutError``; an
+  engine without a mesh is a no-op.  Off, the check costs one
+  environment read per idle pass.
 """
 import os
 from typing import Any, Dict, List
@@ -37,6 +44,12 @@ def shard_sanitizer_enabled() -> bool:
 class ShardLayoutError(RuntimeError):
     """A live cache leaf or weight drifted from the declared layout (or
     the weights replicated under tensor > 1)."""
+
+
+def qkv_head_sums(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """The f32 sums [3, heads] of each head's rows of q, k and v in a
+    fused c_attn weight or bias (rows q, k, v, each heads-major)."""
+    return t.detach().float().reshape(3, heads, -1).sum(-1).cpu()
 
 
 def local_shard_report(engine: Any) -> Dict[str, Any]:
@@ -83,12 +96,33 @@ def local_shard_report(engine: Any) -> Dict[str, Any]:
     if tp > 1 and state and sharded == 0:
         errors.append(f'weights fully replicated across a tensor={tp} '
                       'mesh: every rank holds the whole model')
+    qkv = {name: qkv_head_sums(t, mc.num_heads // tp)
+           for name, t in state.items() if name in engine._qkv_head_sums}
     return {'cache_leaves': cache_leaves,
             'paged_pool_leaves': cache_leaves if paged else 0,
             'param_leaves': len(state),
             'param_leaves_sharded': sharded,
             'tensor_degree': tp,
-            'errors': errors}
+            'errors': errors, 'qkv_head_sums': qkv}
+
+
+def _qkv_errors(engine: Any, reports: List[Dict[str, Any]]) -> List[str]:
+    """Each rank's fused q/k/v heads against the full weights' (rank 0's
+    record): rank r of tensor coordinate c must hold heads
+    [c * H / tp, (c + 1) * H / tp) of each of q, k and v."""
+    tp = engine._tp
+    per = engine.model_config.num_heads // tp
+    errors = []
+    for r, rep in enumerate(reports):
+        c = engine._tpc.coords[r]
+        for name, got in rep['qkv_head_sums'].items():
+            want = engine._qkv_head_sums[name][:, c * per:(c + 1) * per]
+            if got.shape != want.shape or not torch.allclose(
+                    got, want, rtol=1e-5, atol=1e-6):
+                errors.append(
+                    f'rank {r}: {name} rows are not heads '
+                    f'[{c * per}, {(c + 1) * per}) of q, k and v')
+    return errors
 
 
 def check_shard_layout(engine: Any) -> Dict[str, int]:
@@ -100,12 +134,13 @@ def check_shard_layout(engine: Any) -> Dict[str, int]:
         return {}
     reports = engine._shard_report()
     errors = [f'rank {r}: {e}' for r, rep in enumerate(reports)
-              for e in rep['errors']]
+              for e in rep['errors']] + _qkv_errors(engine, reports)
     if errors:
         raise ShardLayoutError(
             'shard layout drifted from the declared layout:\n  '
             + '\n  '.join(errors[:8]))
-    return {k: v for k, v in reports[0].items() if k != 'errors'}
+    return {k: v for k, v in reports[0].items()
+            if k not in ('errors', 'qkv_head_sums')}
 
 
 def maybe_check_shard_layout(engine: Any) -> None:

@@ -109,7 +109,11 @@ the others with the JAX engine's TypeError.
   rows and handoff payloads stay the topology-neutral ``[L, Hkv, bs, D]``:
   a spill or an export gathers every rank's heads, a restore or an
   adoption scatters them by heads.  ``stats()`` and ``kv_health()``
-  report the degree and the per-chip bytes.
+  report the degree and the per-chip bytes.  Multi-LoRA's adapter stacks
+  are sliced with their projections, and GPT-2's fused ``c_attn`` by
+  heads within each of q, k and v.  'data', 'fsdp', 'seq' and 'stage'
+  ranks are replicas of their tensor group (no parameter sits on those
+  axes).
 """
 import base64
 import collections
@@ -133,16 +137,18 @@ from skypilot_tpu_torch.infer.faults import InjectedFault
 from skypilot_tpu_torch.infer.qos import DEFAULT_TENANT, PRIORITY_CLASSES
 from skypilot_tpu_torch.infer.radix import RadixTree
 from skypilot_tpu_torch.infer.scheduler import FifoScheduler
-from skypilot_tpu_torch.infer.tp import (TensorParallel, dispatch,
-                                         validate_mesh)
+from skypilot_tpu_torch.infer.tp import (PerRank, TensorParallel,
+                                         dispatch, validate_mesh)
 from skypilot_tpu_torch.models.convert import init_params, iter_params
 from skypilot_tpu_torch.models.llama import (FP8, LlamaConfig, as_bytes,
                                              init_cache, init_paged_cache)
 from skypilot_tpu_torch.models.registry import (CausalLMConfig, build_model,
                                                 get_model_config,
                                                 is_causal_lm, rank_config)
-from skypilot_tpu_torch.parallel.mesh import Mesh, all_gather_cat
-from skypilot_tpu_torch.train.lora import flax_path, is_lora_path, nest
+from skypilot_tpu_torch.parallel.mesh import (Mesh, all_gather_cat,
+                                              is_fused_qkv, shard_tensor)
+from skypilot_tpu_torch.train.lora import (flax_path, is_lora_path, nest,
+                                           port_name)
 
 DEFAULT_PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 
@@ -430,7 +436,7 @@ class InferenceEngine:
                              f'(got {cfg.ngram_max})')
         # Tensor degree of this replica (1 unsharded): the model's and the
         # cache's heads per rank, and the per-chip KV bytes of stats().
-        self._tp = validate_mesh(mesh, model_config, cfg.lora_rank)
+        self._tp = validate_mesh(mesh, model_config)
         self._mesh = mesh
         self._paged = cfg.kv_block_size > 0
         if self._paged and not isinstance(model_config, LlamaConfig):
@@ -506,6 +512,10 @@ class InferenceEngine:
                                  device=self.device).eval()
         self._tpc = TensorParallel(mesh) if mesh is not None else None
         self._full_shapes: Dict[str, Tuple[int, ...]] = {}
+        # GPT-2's fused c_attn under a mesh: each weight's per-head sums
+        # of q, k and v [3, H], taken where the full weight was seen
+        # (rank 0 always): the shard check holds each rank's rows to them.
+        self._qkv_head_sums: Dict[str, torch.Tensor] = {}
         if self._tpc is not None:
             # Every rank takes rank 0's generator state, then its slice of
             # each weight in the model's dtype, one tensor at a time:
@@ -517,17 +527,27 @@ class InferenceEngine:
             items = self._tpc.local_params(
                 params, lambda: iter_params(base_config, generator), dtypes)
             params = {}
-            for k, shape, v in items:
+            for k, shape, v, full in items:
                 self._full_shapes[k] = shape
                 params[k] = v.to(self.device)
+                if full is not None and is_fused_qkv(k):
+                    self._qkv_head_sums[k] = sanitizers.qkv_head_sums(
+                        full.to(v.dtype), model_config.num_heads)
         elif params is None:
             # The base weights a plain engine draws from this generator.
             params = init_params(base_config, generator)
         if cfg.lora_rank and not any(is_lora_path(k) for k in params):
             # A base state_dict: grafted under freshly drawn zero-delta
-            # adapters (drawn one tensor at a time, the rest discarded).
-            params = {**params, **{k: v for k, v in iter_params(
-                model_config, generator) if is_lora_path(k)}}
+            # adapters (drawn one tensor at a time, the rest discarded;
+            # under a mesh every rank draws them alike and keeps its
+            # slices).
+            for k, v in iter_params(model_config, generator):
+                if not is_lora_path(k):
+                    continue
+                if self._tpc is not None:
+                    self._full_shapes[k] = tuple(v.shape)
+                    v = shard_tensor(k, v, self._tp, self._tpc.coord)
+                params[k] = v
         self.model.load_state_dict(params)
         # Multi-LoRA: registered name -> stack slot, the name's
         # registration generation (C3), and the parameters as a nested
@@ -1296,7 +1316,13 @@ class InferenceEngine:
         (the tree's references; blocks a live slot shares stay until it
         finishes) and its host-tier entries; slots admitted under the old
         weights do not insert their blocks into the tree when they
-        finish.  The JAX engine drops only the registered prefixes."""
+        finish.  The JAX engine drops only the registered prefixes.
+
+        Over a mesh rank 0 checks the tree against the full (unsliced)
+        stacked shapes, with the same errors, then one dispatch hands
+        each rank its slices (``tp.PerRank``): a column-parallel
+        projection's ``lora_b`` columns, a row-parallel one's ``lora_a``
+        rows (``parallel.mesh.shard_tensor``)."""
         if not self.cfg.lora_rank:
             raise ValueError(
                 'engine built without lora_rank; pass '
@@ -1305,7 +1331,9 @@ class InferenceEngine:
         if isinstance(adapter_tree, Mapping) and \
                 set(adapter_tree) == {'params'}:
             adapter_tree = adapter_tree['params']   # tolerate the wrapper
-        writes: List[Tuple[torch.Tensor, np.ndarray]] = []
+        # (parameter name, leaf), checked against the full (unsliced)
+        # stacked shapes.
+        writes: List[Tuple[str, np.ndarray]] = []
 
         def walk(tree, sub, path=''):
             for k, v in sub.items():
@@ -1321,21 +1349,29 @@ class InferenceEngine:
                     walk(target, v, f'{path}{k}/')
                     continue
                 arr = np.asarray(v, np.float32)
-                if arr.shape != tuple(target.shape[1:]):
+                pname = port_name(path + k)
+                want = self._full_shapes.get(pname, tuple(target.shape))[1:]
+                if arr.shape != want:
                     raise ValueError(
                         f'adapter leaf {path}{k} shape {arr.shape} '
-                        f'does not match model {tuple(target.shape[1:])} '
-                        '(rank mismatch?)')
-                writes.append((target, arr))
+                        f'does not match model {want} (rank mismatch?)')
+                writes.append((pname, arr))
 
         walk(self._param_tree, adapter_tree)
-        dev = (torch.cuda.device(self._cuda_index)
-               if self._cuda_index is not None else contextlib.nullcontext())
-        with dev:
-            # Staged on the device before the lock: the host copies wait
-            # for nothing the serving loop holds.
-            staged = [(prm, torch.from_numpy(arr).to(self.device))
-                      for prm, arr in writes]
+        if self._tpc is None:
+            with self._on_card():
+                # Staged on the device before the lock: the host copies
+                # wait for nothing the serving loop holds.
+                leaves = [(name, torch.from_numpy(arr).to(self.device))
+                          for name, arr in writes]
+        else:
+            # Each rank gets its slices (the stacked leaf's split, without
+            # the stack dim), checked here first: a stale tree never
+            # reaches a worker.
+            leaves = PerRank(
+                [(name, shard_tensor(name, torch.from_numpy(arr)[None],
+                                     self._tp, coord)[0].numpy())
+                 for name, arr in writes] for coord in self._tpc.coords)
         with self._lock:
             idx = self._adapter_names.get(name)
             if idx is None:
@@ -1345,13 +1381,26 @@ class InferenceEngine:
                         f'({self.cfg.lora_max_adapters}); re-register an '
                         'existing name to replace it')
                 idx = len(self._adapter_names)
-            with dev, torch.no_grad():
-                for prm, arr in staged:
-                    prm[idx].copy_(arr)
+            self._write_adapter(idx, leaves)
             self._adapter_names[name] = idx
             self._adapter_gen[name] = self._adapter_gen.get(name, 0) + 1
             self._drop_adapter_rows(name)
         return idx
+
+    def _on_card(self):
+        """The engine's card as the current device (nothing on the CPU)."""
+        return (torch.cuda.device(self._cuda_index)
+                if self._cuda_index is not None
+                else contextlib.nullcontext())
+
+    @dispatch()
+    def _write_adapter(self, idx: int, leaves) -> None:
+        """Write an adapter's leaves [(parameter name, array)] (this rank's
+        slices under a mesh) into stack slot `idx`, in place."""
+        with self._on_card(), torch.no_grad():
+            for name, arr in leaves:
+                self.model.get_parameter(name)[idx].copy_(
+                    torch.as_tensor(arr).to(self.device))
 
     def _drop_adapter_rows(self, name: str) -> None:
         """Forget every cached row computed under adapter `name` (caller

@@ -54,9 +54,6 @@ random int8 weights for a registered --model; --qos turns on priority
 classes, per-tenant WFQ (--qos-tenant-weights), the deadline shed and
 chunk-boundary preemption, with a "qos" section on /stats.
 
-Not ported yet, failing at startup naming the ROADMAP.md item: tp serving
-(--tensor-parallel).
-
 stdlib only (ThreadingHTTPServer): each request blocks its handler
 thread while the one engine thread runs continuous batching across all
 in-flight requests.  The tokenizer is optional: ``transformers`` is
@@ -88,9 +85,7 @@ from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              resolve_cache_dtype)
 from skypilot_tpu_torch.infer.qos import PRIORITY_CLASSES
 from skypilot_tpu_torch.infer import tp as tp_lib
-from skypilot_tpu_torch.infer.tp import TP_GPT2, unported
 from skypilot_tpu_torch.models import quantize
-from skypilot_tpu_torch.models.gpt2 import GPT2Config
 from skypilot_tpu_torch.models.llama import LlamaConfig
 from skypilot_tpu_torch.models.registry import get_model_config
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
@@ -1516,9 +1511,7 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     ``weight_dtype='int8'`` quantizes the checkpoint's (on the engine's
     device) or draws random int8 ones.  The tokenizer defaults to the
     checkpoint's; when that implied one is missing the server runs
-    token-only.  device: None means the card.  A feature the port does
-    not have yet fails here, before any weight is read, naming its
-    ROADMAP.md item.
+    token-only.  device: None means the card.
 
     tensor_parallel N > 1 serves over N ranks, one card each (or N gloo
     ranks with device='cpu'): joined from the env when one is up (torchrun,
@@ -1537,9 +1530,6 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
             raise ValueError(
                 f'--tensor-parallel {tp} exceeds the {n_local} visible '
                 'device(s); a mesh needs one chip per shard')
-        if lora_rank:
-            raise NotImplementedError(unported(
-                'multi-LoRA serving with --tensor-parallel', 'A9.3'))
     if hf_model:
         import transformers
 
@@ -1554,12 +1544,8 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
                 f'--hf-model must be a supported causal-LM checkpoint '
                 f"(model_type 'llama', 'qwen2', 'mistral', 'mixtral', "
                 f"'gpt2' or 'gemma'); got model_type={mt!r}")
-        if tp > 1 and mt == 'gpt2':
-            raise NotImplementedError(unported(TP_GPT2, 'A9.3'))
     else:
         model_config = get_model_config(model)
-        if tp > 1 and isinstance(model_config, GPT2Config):
-            raise NotImplementedError(unported(TP_GPT2, 'A9.3'))
     mesh, ranks = None, []
     if tp > 1:
         ranks = _join_tp_group(tp, device)

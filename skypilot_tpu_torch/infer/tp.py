@@ -24,8 +24,11 @@ A lockstep loop on every rank would diverge on wall-clock decisions (the
 adaptive window, QoS sheds, ``max_ttft``) and deadlock; here no rank but
 0 decides anything.  Sampling stays identical across ranks because every
 rank draws from an identically seeded generator in the same order, on
-logits that are gathered whole.  'data' and 'fsdp' ranks of the mesh run
-the same ops as replicas of their tensor group.
+logits that are gathered whole.  'data', 'fsdp', 'seq' and 'stage' ranks
+of the mesh run the same ops as replicas of their tensor group (no
+parameter sits on those axes).  A dispatch argument wrapped in
+``PerRank`` carries one value a rank: rank 0 scatters them after the
+op's broadcast, so each rank receives its own (an adapter's slices).
 
 Only rank 0 reads given weights: it sends every other rank that rank's
 slice of each tensor (``local_params``), so one host holds the model
@@ -50,7 +53,8 @@ import numpy as np
 import torch
 from torch import distributed as dist
 
-from skypilot_tpu_torch.parallel.mesh import (Mesh, local_shape, mesh_context,
+from skypilot_tpu_torch.parallel.mesh import (Mesh, is_fused_qkv,
+                                             local_shape, mesh_context,
                                              shard_tensor)
 
 _STOP = '_tp_stop'
@@ -93,6 +97,22 @@ class _Ref:
         self.key = key
 
 
+class PerRank:
+    """A dispatch argument with one value for each rank of the world, in
+    rank order: each rank's call receives its own (see ``TensorParallel``
+    ``call``)."""
+    __slots__ = ('values',)
+
+    def __init__(self, values):
+        self.values = list(values)
+
+
+class _Scattered:
+    """A ``PerRank`` argument in the broadcast message: its values follow
+    by scatter, in the order the message lists them."""
+    __slots__ = ()
+
+
 class _Host:
     """A host input: the numpy array or CPU tensor a device argument was
     copied from."""
@@ -131,6 +151,9 @@ class TensorParallel:
         self.rank = dist.get_rank()
         self.tensor = mesh.size('tensor')
         self.coord = mesh.coord('tensor')
+        # Every rank's tensor coordinate, in rank order.
+        self.coords = [mesh.coord('tensor', rank=r)
+                       for r in range(dist.get_world_size())]
         self.group = mesh.group('tensor')
         self.ctl = control_group()
         # Orders the broadcasts and the local runs on rank 0: the serving
@@ -159,11 +182,16 @@ class TensorParallel:
             freed = []
             while self._freed:
                 freed.append(self._freed.popleft())
-            msg = (fn.__name__, self._encode(args), self._encode(kwargs),
-                   handle, freed)
+            scattered: list = []
+            msg = (fn.__name__, self._encode(args, scattered),
+                   self._encode(kwargs, scattered), handle, freed)
             failed = True
             try:
                 dist.broadcast_object_list([msg], src=0, group=self.ctl)
+                for values in scattered:
+                    dist.scatter_object_list([None], values, src=0,
+                                             group=self.ctl)
+                args, kwargs = _own(args), _own(kwargs)
                 self._inside.on = True
                 try:
                     with mesh_context(self.mesh):
@@ -198,26 +226,30 @@ class TensorParallel:
     def local_params(self, params: Optional[Dict[str, torch.Tensor]],
                      draw: Callable[[], Iterable[Tuple[str, torch.Tensor]]],
                      dtypes: Dict[str, torch.dtype]
-                     ) -> Iterator[Tuple[str, Tuple[int, ...], torch.Tensor]]:
-        """(name, full shape, this rank's slice in ``dtypes[name]``) of
-        each weight: rank 0's full `params` when it has them (the other
-        ranks' are not read), else the tensors of `draw()`, drawn by
-        every rank alike (call ``share_generator`` first)."""
+                     ) -> Iterator[Tuple[str, Tuple[int, ...], torch.Tensor,
+                                         Optional[torch.Tensor]]]:
+        """(name, full shape, this rank's slice in ``dtypes[name]``, the
+        full tensor or None) of each weight: rank 0's full `params` when
+        it has them (the other ranks' are not read; rank 0 keeps GPT-2's
+        fused q/k/v whole for the shard check, the rest are freed at
+        once), else the tensors of `draw()`, drawn by every rank alike
+        (call ``share_generator`` first)."""
         if broadcast_object(params is not None if self.rank == 0 else None):
             yield from self._scatter(
                 params.items() if self.rank == 0 else None, dtypes)
             return
         for name, full in draw():
             yield name, tuple(full.shape), shard_tensor(
-                name, full, self.tensor, self.coord).to(dtypes[name])
+                name, full, self.tensor, self.coord).to(dtypes[name]), full
 
     def _scatter(self, items: Optional[Iterable[Tuple[str, torch.Tensor]]],
                  dtypes: Dict[str, torch.dtype]
-                 ) -> Iterator[Tuple[str, Tuple[int, ...], torch.Tensor]]:
+                 ) -> Iterator[Tuple[str, Tuple[int, ...], torch.Tensor,
+                                     Optional[torch.Tensor]]]:
         """Rank 0's `items` (full tensors, read one at a time), each sliced
         there for every rank's tensor coordinate and sent to its rank: no
-        other rank's host holds a whole tensor."""
-        coords = self.gather_objects(self.coord)
+        other rank's host holds a whole tensor (``local_params``' tuples;
+        GPT-2's fused q/k/v whole on rank 0 alone)."""
         rank0 = self.rank == 0
         it = iter(items) if rank0 else None
         while True:
@@ -231,17 +263,20 @@ class TensorParallel:
             if name is None:
                 return
             dtype = dtypes[name]
-            parts = None
+            parts, kept = None, None
             if rank0:
                 full = full.to(dtype)
                 parts = [_as_bytes(shard_tensor(name, full, self.tensor, c))
-                         for c in coords]
+                         for c in self.coords]
+                # Only GPT-2's fused q/k/v is wanted whole (the shard
+                # check's head sums); the rest is freed at once.
+                kept = full if is_fused_qkv(name) else None
                 del full
             local = local_shape(name, shape, self.tensor)
             buf = torch.empty(math.prod(local) * dtype.itemsize,
                               dtype=torch.uint8)
             dist.scatter(buf, parts, src=0, group=self.ctl)
-            yield name, shape, buf.view(dtype).reshape(local)
+            yield name, shape, buf.view(dtype).reshape(local), kept
 
     def share_generator(self, gen: torch.Generator) -> None:
         """Rank 0's generator state on every rank: every draw (weights,
@@ -257,7 +292,13 @@ class TensorParallel:
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.ctl)
         return bool(flag.item())
 
-    def _encode(self, x):
+    def _encode(self, x, scattered: list):
+        if isinstance(x, PerRank):
+            if len(x.values) != dist.get_world_size():
+                raise ValueError(f'PerRank holds {len(x.values)} values '
+                                 f'for {dist.get_world_size()} ranks')
+            scattered.append(x.values)
+            return _Scattered()
         if isinstance(x, torch.Tensor):
             ref = getattr(x, '_tp_ref', None)
             if ref is not None:
@@ -265,9 +306,9 @@ class TensorParallel:
             host = getattr(x, '_tp_host', None)
             return _Host(host if host is not None else x.detach().cpu())
         if isinstance(x, (list, tuple)):
-            return type(x)(self._encode(v) for v in x)
+            return type(x)(self._encode(v, scattered) for v in x)
         if isinstance(x, dict):
-            return {k: self._encode(v) for k, v in x.items()}
+            return {k: self._encode(v, scattered) for k, v in x.items()}
         return x
 
     # ------------------------------------------------------- other ranks
@@ -279,6 +320,7 @@ class TensorParallel:
             while True:
                 dist.broadcast_object_list(box, src=0, group=self.ctl)
                 name, args, kwargs, handle, freed = box[0]
+                args, kwargs = self._receive(args), self._receive(kwargs)
                 for key in freed:
                     self._held.pop(key, None)
                 if name == _STOP:
@@ -301,6 +343,19 @@ class TensorParallel:
                 if handle is not None:
                     for path, t in _tensors(out):
                         self._held[(handle, path)] = t
+
+    def _receive(self, x):
+        """`x` with each ``_Scattered`` marker replaced by this rank's value,
+        received in the message's order."""
+        if isinstance(x, _Scattered):
+            box = [None]
+            dist.scatter_object_list(box, None, src=0, group=self.ctl)
+            return box[0]
+        if isinstance(x, (list, tuple)):
+            return type(x)(self._receive(v) for v in x)
+        if isinstance(x, dict):
+            return {k: self._receive(v) for k, v in x.items()}
+        return x
 
     def _decode(self, engine, x):
         if isinstance(x, _Ref):
@@ -325,6 +380,17 @@ class TensorParallel:
         return out
 
 
+def _own(x):
+    """Rank 0's call arguments: each ``PerRank`` replaced by its value."""
+    if isinstance(x, PerRank):
+        return x.values[0]
+    if isinstance(x, (list, tuple)):
+        return type(x)(_own(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _own(v) for k, v in x.items()}
+    return x
+
+
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     """`t`'s bytes as a flat uint8 CPU tensor (gloo moves any dtype so)."""
     return t.detach().reshape(-1).cpu().view(torch.uint8)
@@ -339,30 +405,14 @@ def _tensors(out, path=()):
             yield from _tensors(v, path + (i,))
 
 
-def unported(what: str, item: str) -> str:
-    return f'{what} is not ported yet (ROADMAP.md {item})'
-
-
-TP_GPT2 = ('tensor-parallel GPT-2 serving (its fused c_attn rows '
-           'interleave q, k and v)')
-
-
-def validate_mesh(mesh: Optional[Mesh], model_config, lora_rank: int) -> int:
-    """The engine's checks of a serving mesh (the JAX engine's text for
-    the kv heads); returns the tensor degree (1 without a mesh)."""
+def validate_mesh(mesh: Optional[Mesh], model_config) -> int:
+    """The engine's check of a serving mesh (the JAX engine's text for the
+    kv heads); returns the tensor degree (1 without a mesh).  Every axis
+    but 'tensor' ('data', 'fsdp', 'seq', 'stage') holds no parameter in
+    the rules table, so its ranks are replicas of their tensor group."""
     if mesh is None:
         return 1
-    from skypilot_tpu_torch.models.gpt2 import GPT2Config
-    for axis in ('seq', 'stage'):
-        if mesh.size(axis) > 1:
-            raise NotImplementedError(unported(
-                f"serving over a mesh with '{axis}' > 1", 'A9.3'))
     tp = mesh.size('tensor')
-    if lora_rank:
-        raise NotImplementedError(unported(
-            'multi-LoRA serving over a mesh', 'A9.3'))
-    if tp > 1 and isinstance(model_config, GPT2Config):
-        raise NotImplementedError(unported(TP_GPT2, 'A9.3'))
     if model_config.num_kv_heads % tp:
         raise ValueError(f'num_kv_heads {model_config.num_kv_heads} not '
                          f'divisible by tensor degree {tp}')

@@ -21,6 +21,19 @@ head count) serve GPT-2 unchanged.  Positions index ``wpe`` as the JAX
 gather does: a negative position wraps once and the result clamps into
 the table, so a dead engine lane past ``max_seq_len`` reads the last row
 instead of faulting the card.
+
+Tensor parallelism slices ``c_attn`` by heads within each of q, k and v
+(the JAX kernel's ``heads`` shard): the trainer reorders its rows to
+``[tensor, 3, H / tensor * D]`` before a contiguous DTensor split
+(``parallel.mesh.group_qkv_by_rank``), and serving hands each rank those
+rows (``parallel.mesh.shard_tensor``), so either way a rank's ``c_attn``
+output views as ``(3, H / tensor, D)``.  Built from a ``GPT2RankConfig``
+with ``tensor_parallel`` = N > 1 the model is one rank's share
+(serving): H / N heads, 4H / N MLP columns and hidden / N ``wte``
+columns; the attention's and the MLP's ``c_proj`` sum their partial
+products over the 'tensor' group before adding their bias, the looked-up
+``wte`` rows are gathered whole and the tied head sums its hidden
+slice's partial logits.
 """
 import dataclasses
 from typing import Callable, Optional
@@ -30,10 +43,13 @@ from torch import nn
 from torch.nn import functional as F
 
 from skypilot_tpu_torch.models.llama import (KVCache, Linear, _remat,
+                                             embed_rows, tensor_degree,
+                                             tied_logits,
                                              write_kv_and_attend)
 from skypilot_tpu_torch.ops.ring_attention import \
     sequence_parallel_attention
-from skypilot_tpu_torch.parallel.mesh import gathered
+from skypilot_tpu_torch.parallel.mesh import (gathered, reduce_from_group,
+                                              split, tensor_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +90,25 @@ class GPT2Config:
         return 6 * self.num_params + attn_flops
 
 
+@dataclasses.dataclass(frozen=True)
+class GPT2RankConfig(GPT2Config):
+    """A GPT-2 config as one rank of a tensor-parallel split of degree
+    ``tensor_parallel`` (serving; see the module docstring)."""
+    tensor_parallel: int = 1
+
+
+def _row_parallel(proj: Linear, x: torch.Tensor, tp: int) -> torch.Tensor:
+    """A row-parallel projection: on a rank of a split (tp > 1) its
+    partial product summed over the 'tensor' group, then its bias added
+    once; else the projection."""
+    if tp == 1:
+        return proj(x)
+    dt = proj.compute_dtype
+    y = reduce_from_group(F.linear(x, proj.weight.to(dt)),
+                          tensor_group()[0])
+    return y + proj.bias.to(dt)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     """flax ``LayerNorm(dtype=float32)`` over the last axis, f32 out:
@@ -104,8 +139,13 @@ class GPT2Attention(nn.Module):
         super().__init__()
         cfg = self.config = config
         h, pd = cfg.hidden_size, param_dtype or cfg.dtype
-        self.c_attn = Linear(h, 3 * h, True, cfg.dtype, pd, device)
-        self.c_proj = Linear(h, h, True, cfg.dtype, pd, device)
+        self.tp = tensor_degree(cfg)
+        if cfg.num_heads % self.tp:
+            raise ValueError(f'num_kv_heads {cfg.num_heads} not divisible '
+                             f'by tensor degree {self.tp}')
+        local = h // self.tp
+        self.c_attn = Linear(h, 3 * local, True, cfg.dtype, pd, device)
+        self.c_proj = Linear(local, h, True, cfg.dtype, pd, device)
 
     def forward(self, x, positions=None, kv_cache=None):
         cfg = self.config
@@ -118,7 +158,8 @@ class GPT2Attention(nn.Module):
             out = sequence_parallel_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
             new_cache = None
-        out = self.c_proj(out.transpose(1, 2).reshape(b, s, -1))
+        out = _row_parallel(self.c_proj,
+                            out.transpose(1, 2).reshape(b, s, -1), self.tp)
         return out, new_cache
 
 
@@ -127,13 +168,16 @@ class GPT2MLP(nn.Module):
     def __init__(self, config: GPT2Config, device=None, param_dtype=None):
         super().__init__()
         cfg = config
-        h, i, pd = cfg.hidden_size, cfg.intermediate_size, \
-            param_dtype or cfg.dtype
+        h, pd = cfg.hidden_size, param_dtype or cfg.dtype
+        i = split(cfg.intermediate_size, tensor_degree(cfg))
+        # A width the degree does not divide is whole on every rank.
+        self.tp = cfg.intermediate_size // i
         self.c_fc = Linear(h, i, True, cfg.dtype, pd, device)
         self.c_proj = Linear(i, h, True, cfg.dtype, pd, device)
 
     def forward(self, x):
-        return self.c_proj(F.gelu(self.c_fc(x), approximate='tanh'))
+        return _row_parallel(
+            self.c_proj, F.gelu(self.c_fc(x), approximate='tanh'), self.tp)
 
 
 class GPT2Block(nn.Module):
@@ -172,7 +216,8 @@ class GPT2(nn.Module):
         self.config = config
         h = config.hidden_size
         self.wte = nn.Parameter(torch.empty(
-            config.vocab_size, h, dtype=torch.float32, device=device))
+            config.vocab_size, split(h, tensor_degree(config)),
+            dtype=torch.float32, device=device))
         self.wpe = nn.Parameter(torch.empty(
             config.max_seq_len, h, dtype=torch.float32, device=device))
         self.h = nn.ModuleList(GPT2Block(config, device, param_dtype)
@@ -204,8 +249,8 @@ class GPT2(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
-        x = (gathered(self.wte)[_gather_index(tokens, cfg.vocab_size)
-                                ].to(cfg.dtype) +
+        x = (embed_rows(self.wte, _gather_index(tokens, cfg.vocab_size),
+                        cfg.hidden_size).to(cfg.dtype) +
              self.wpe[_gather_index(positions, cfg.max_seq_len)
                       ].to(cfg.dtype))
         new_cache = []
@@ -224,7 +269,7 @@ class GPT2(nn.Module):
             return head(x, self.output_projection())
         if hidden_only:
             return x
-        logits = x @ self.output_projection().float()
+        logits = tied_logits(self.wte, x, cfg.hidden_size)
         if cache is not None:
             return logits, new_cache
         return logits

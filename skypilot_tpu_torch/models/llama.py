@@ -417,12 +417,14 @@ def _add_proj(owner: nn.Module, name: str, n_in: int, n_out: int,
 def _proj(owner: nn.Module, name: str, x: torch.Tensor,
           adapter_ids: Optional[torch.Tensor]) -> torch.Tensor:
     """base(x), plus the adapter's delta where `name` has one, added in
-    the compute dtype."""
+    the compute dtype.  Under the trainer's 'tensor' placement a
+    row-parallel projection and its adapter return partial sums
+    (DTensors): their sum is reduced once, here."""
     y = getattr(owner, name)(x)
     adapter = getattr(owner, f'{name}_lora', None)
     if adapter is None:
         return y
-    return y + adapter(x, adapter_ids)
+    return gathered(y + adapter(x, adapter_ids))
 
 
 class Attention(nn.Module):
@@ -684,11 +686,17 @@ def _embed_and_head(model: nn.Module, config, device) -> None:
 
 
 def embed(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
-    """The f32 embedding rows of in-range `tokens`: a hidden-sharded
-    table's rows gathered whole over the 'tensor' group."""
-    table = gathered(model.embedding)
+    """The f32 embedding rows of in-range `tokens` (``embed_rows``)."""
+    return embed_rows(model.embedding, tokens, model.config.hidden_size)
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+               hidden: int) -> torch.Tensor:
+    """`table`'s rows of in-range `tokens`: a hidden-sharded table's rows
+    gathered whole over the 'tensor' group."""
+    table = gathered(table)
     x = table[tokens]
-    if table.shape[1] < model.config.hidden_size:
+    if table.shape[1] < hidden:
         x = all_gather_cat(x, tensor_group()[0], -1)
     return x
 
@@ -705,9 +713,17 @@ def head_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
         if w.shape[0] < cfg.vocab_size:
             logits = all_gather_cat(logits, tensor_group()[0], -1)
         return logits
-    table = gathered(model.embedding)
+    return tied_logits(model.embedding, x, cfg.hidden_size)
+
+
+def tied_logits(table: torch.Tensor, x: torch.Tensor,
+                hidden: int) -> torch.Tensor:
+    """f32 logits of hidden states `x` through the tied [V, H] `table`; a
+    rank's hidden-sharded table sums its hidden slice's partial logits
+    over the 'tensor' group."""
+    table = gathered(table)
     width = table.shape[1]
-    if width == cfg.hidden_size:
+    if width == hidden:
         return x.float() @ table.float().T
     group, rank = tensor_group()
     part = x[..., rank * width:(rank + 1) * width].float() @ table.float().T

@@ -10,7 +10,7 @@ from torch import nn
 from skypilot_tpu_torch.models.bert import (Bert, BertConfig,
                                             BertForMaskedLM,
                                             BertForSequenceClassification)
-from skypilot_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from skypilot_tpu_torch.models.gpt2 import GPT2, GPT2Config, GPT2RankConfig
 from skypilot_tpu_torch.models.llama import Llama, LlamaConfig, RankConfig
 from skypilot_tpu_torch.models.mixtral import (Mixtral, MixtralConfig,
                                                MixtralRankConfig)
@@ -167,11 +167,11 @@ def is_causal_lm(config: Any) -> bool:
 
 def rank_config(config: Any, tensor: int) -> Any:
     """`config` as one rank of a tensor-parallel split of degree `tensor`
-    (``llama.RankConfig``, ``mixtral.MixtralRankConfig``): the model built
-    from it holds the rank's slice of the weights (the llama and Mixtral
-    families; serving)."""
-    cls = MixtralRankConfig if isinstance(config, MixtralConfig) \
-        else RankConfig
+    (``llama.RankConfig``, ``mixtral.MixtralRankConfig``,
+    ``gpt2.GPT2RankConfig``): the model built from it holds the rank's
+    slice of the weights (serving)."""
+    cls = (MixtralRankConfig if isinstance(config, MixtralConfig) else
+           GPT2RankConfig if isinstance(config, GPT2Config) else RankConfig)
     return cls(**{f.name: getattr(config, f.name)
                   for f in dataclasses.fields(config)},
                tensor_parallel=tensor)

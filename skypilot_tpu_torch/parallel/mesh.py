@@ -160,7 +160,41 @@ _PARAM_AXES: List[Tuple[Tuple[str, ...], Tuple[Optional[str], ...]]] = [
     (('scale',), ('norm',)),
     (('wte',), ('vocab_table', 'embed_table')),
     (('wpe',), (None, 'embed')),
+    # GPT-2: the fused c_attn's rows are q, k and v, each heads-major, so
+    # its 'heads' dim is sliced by heads within each of the three
+    # (``shard_tensor``, ``group_qkv_by_rank``), the JAX kernel's
+    # [embed, 3, heads, head_dim] sharded on 'heads'.
+    (('attn', 'c_attn', 'weight'), ('heads', 'embed')),
+    (('attn', 'c_attn', 'bias'), ('heads',)),
+    (('attn', 'c_proj', 'weight'), ('embed', 'heads')),
+    (('mlp', 'c_fc', 'weight'), ('mlp', 'embed')),
+    (('mlp', 'c_fc', 'bias'), ('mlp',)),
+    (('mlp', 'c_proj', 'weight'), ('embed', 'mlp')),
 ]
+
+
+def _adapter_axes() -> List[Tuple[Tuple[str, ...],
+                                  Tuple[Optional[str], ...]]]:
+    """The logical axes of the LoRA adapters (``*_lora``): each follows
+    its projection over 'tensor' (the JAX package replicates them, (None,
+    None); the sums differ only in order).  A column-parallel
+    projection's ``lora_b`` is split on its output columns and its
+    ``lora_a`` kept whole; a row-parallel one's ``lora_a`` is split on its
+    input rows and its ``lora_b`` kept whole.  Training's [in, r] /
+    [r, out] and multi-LoRA serving's stacked [N, in, r] / [N, r, out]."""
+    out = []
+    for target, axis in (('q_proj', 'heads'), ('k_proj', 'kv_heads'),
+                         ('v_proj', 'kv_heads'), ('gate_proj', 'mlp'),
+                         ('up_proj', 'mlp')):
+        out += [((f'{target}_lora', 'lora_b'), (None, axis)),
+                ((f'{target}_lora', 'lora_b'), (None, None, axis))]
+    for target, axis in (('o_proj', 'heads'), ('down_proj', 'mlp')):
+        out += [((f'{target}_lora', 'lora_a'), (axis, None)),
+                ((f'{target}_lora', 'lora_a'), (None, axis, None))]
+    return out
+
+
+_PARAM_AXES += _adapter_axes()
 
 
 def param_logical_axes(name: str, ndim: int) -> Tuple[Optional[str], ...]:
@@ -200,7 +234,9 @@ def tensor_dim(name: str, shape: Sequence[int],
         if not dims:
             return None
         dim = dims[0]
-    return dim if shape[dim] % tensor == 0 else None
+    # The fused q/k/v splits each of its three parts.
+    parts = 3 * tensor if is_fused_qkv(name) else tensor
+    return dim if shape[dim] % parts == 0 else None
 
 
 def local_shape(name: str, shape: Sequence[int],
@@ -213,13 +249,32 @@ def local_shape(name: str, shape: Sequence[int],
     return tuple(out)
 
 
+def is_fused_qkv(name: str) -> bool:
+    """True for GPT-2's fused q/k/v projection (weight or bias)."""
+    return name.endswith(('c_attn.weight', 'c_attn.bias'))
+
+
+def group_qkv_by_rank(t: torch.Tensor, tensor: int,
+                      inverse: bool = False) -> torch.Tensor:
+    """GPT-2's fused c_attn rows ``[3 * H * D, ...]`` (q, k, v, each
+    heads-major) reordered to ``[tensor, 3, H / tensor * D, ...]``, so a
+    contiguous split of dim 0 over `tensor` ranks gives each rank its own
+    heads of q, of k and of v; ``inverse`` undoes it."""
+    outer = (tensor, 3) if inverse else (3, tensor)
+    return t.unflatten(0, (*outer, -1)).transpose(0, 1).flatten(0, 2)
+
+
 def shard_tensor(name: str, t: torch.Tensor, tensor: int,
                  rank: int) -> torch.Tensor:
     """Rank `rank`'s slice of the full parameter `t` (``tensor_dim``), a
-    copy of its own: the full tensor can be freed."""
+    copy of its own: the full tensor can be freed.  GPT-2's fused c_attn
+    gives the rank its heads of q, k and v (``group_qkv_by_rank``)."""
     dim = tensor_dim(name, t.shape, tensor)
     if dim is None:
         return t
+    if is_fused_qkv(name):
+        return t.unflatten(0, (3, tensor, -1))[:, rank].flatten(0, 1).clone(
+            memory_format=torch.contiguous_format)
     n = t.shape[dim] // tensor
     return t.narrow(dim, rank * n, n).clone(
         memory_format=torch.contiguous_format)
@@ -257,9 +312,8 @@ class Mesh:
                                             mesh_dim_names=MESH_AXES)
         self.shape: Dict[str, int] = dict(zip(MESH_AXES, spec.shape))
         ranks = torch.arange(spec.num_devices).view(spec.shape)
-        me = dist.get_rank()
-        self._coords = dict(zip(
-            MESH_AXES, (int(c[0]) for c in torch.nonzero(ranks == me).T)))
+        self._ranks = ranks
+        self._coords = self._coords_of(dist.get_rank())
         self._groups: Dict[Tuple[str, ...], dist.ProcessGroup] = {}
         for axes in self._GROUPS:
             self._groups[axes] = self._flattened_group(ranks, axes)
@@ -277,13 +331,20 @@ class Mesh:
                 mine = group
         return mine
 
+    def _coords_of(self, rank: int) -> Dict[str, int]:
+        return dict(zip(MESH_AXES, (int(c[0]) for c in
+                                    torch.nonzero(self._ranks == rank).T)))
+
     def size(self, *axes: str) -> int:
         return math.prod(self.shape[a] for a in axes)
 
-    def coord(self, *axes: str) -> int:
+    def coord(self, *axes: str, rank: Optional[int] = None) -> int:
+        """This rank's row-major index over `axes` (another `rank`'s when
+        given)."""
+        coords = self._coords if rank is None else self._coords_of(rank)
         idx = 0
         for a in axes:
-            idx = idx * self.shape[a] + self._coords[a]
+            idx = idx * self.shape[a] + coords[a]
         return idx
 
     def group(self, *axes: str) -> dist.ProcessGroup:

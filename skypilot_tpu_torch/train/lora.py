@@ -152,20 +152,44 @@ def _numpy(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def merge_base_params(state_dict: Mapping[str, torch.Tensor],
-                      base: Mapping[str, torch.Tensor]
-                      ) -> Dict[str, torch.Tensor]:
+def merge_base_params(state_dict: Union[Mapping[str, torch.Tensor],
+                                        nn.Module],
+                      base: Mapping[str, torch.Tensor]):
     """Graft a base (non-LoRA) state_dict into a LoRA-enabled one: every
     base entry replaces its same-named counterpart (in that entry's dtype
-    and device); adapter entries keep their init."""
+    and device); adapter entries keep their init.  Returns the merged
+    state_dict.
+
+    Given the model itself (a trainer's ``state.model``), the base is
+    written into it in place and the model returned; a model placed on a
+    mesh (DTensor parameters) takes a full base state_dict that rank 0
+    alone needs to hold (``set_model_state_dict`` broadcasts it from
+    rank 0; every rank keeps its shards), so the other ranks may pass
+    {}."""
+    model = state_dict if isinstance(state_dict, nn.Module) else None
+    if model is not None:
+        state_dict = model.state_dict()
     out = dict(state_dict)
     for key, val in base.items():
         if key not in state_dict:
             raise KeyError(f'base param {key!r} missing from the LoRA '
                            'model tree')
         leaf = state_dict[key]
-        out[key] = val.to(dtype=leaf.dtype, device=leaf.device)
-    return out
+        out[key] = val.to(dtype=leaf.dtype, device='cpu' if model is not
+                          None else leaf.device)
+    if model is None:
+        return out
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(p, DTensor) for p in model.parameters()):
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, set_model_state_dict)
+        set_model_state_dict(
+            model, {k: out[k] for k in base},
+            options=StateDictOptions(full_state_dict=True, strict=False,
+                                     broadcast_from_rank0=True))
+    else:
+        model.load_state_dict({k: out[k] for k in base}, strict=False)
+    return model
 
 
 def extract_adapter_tree(params) -> Tree:

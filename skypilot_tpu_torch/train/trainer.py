@@ -43,11 +43,22 @@ caller asks for the CPU), as the JAX step runs over its mesh:
   (``parallel.mesh.param_logical_axes``); each rank takes its rows of the
   global batch (micro-step major, as the JAX step's reshape splits it).
 - 'tensor': DTensor ``parallelize_module`` -- a projection whose weight
-  the rules shard on its output dim is column-wise (q/k/v/gate/up), on
-  its input dim row-wise (o/down) -- the embedding and head sharded by
-  the same rules and gathered where they are used (the chunked loss
-  gathers the vocab-sharded head: every tensor rank computes the loss
-  whole), Mixtral's experts over 'tensor' (expert parallelism).
+  the rules shard on its output dim is column-wise (q/k/v/gate/up,
+  GPT-2's c_attn and c_fc), on its input dim row-wise (o/down, GPT-2's
+  c_proj) -- the embedding and head sharded by the same rules and
+  gathered where they are used (the chunked loss gathers the
+  vocab-sharded head: every tensor rank computes the loss whole),
+  Mixtral's experts over 'tensor' (expert parallelism).  GPT-2's fused
+  c_attn is split by heads within each of q, k and v: its rows are
+  reordered rank-major first (``parallel.mesh.group_qkv_by_rank``), and
+  back wherever a full state leaves the trainer (checkpoints), so a
+  checkpoint of one mesh resumes on another.  A LoRA adapter follows
+  its projection with no collective of its own: a column-parallel
+  projection's ``lora_b`` is split on its output columns (``lora_a``
+  replicated), a row-parallel one's ``lora_a`` on its input rows
+  (``lora_b`` replicated), and its partial products join the
+  projection's own sum over the group (the projection's output stays a
+  partial sum until the adapter's delta is added).
 - 'seq': each rank takes one sequence block of its rows and attention
   runs as ring attention (``ops.ring_attention``) across them.
 - 'stage': GPipe over the layers (``parallel.pipeline``).
@@ -69,12 +80,14 @@ rank keeps its shards), so a checkpoint of one mesh, or of none, resumes
 at another.  ``mesh=None`` keeps the single-card path, with no process
 group.
 
-Not ported under a mesh: LoRA and tensor-parallel GPT-2 (its fused
-``c_attn`` interleaves q, k and v in one output dim); each raises
-``NotImplementedError``.  BERT and ResNet are no causal LMs: their task
-loops are ``train.tasks``, and the trainer refuses them with the JAX
-trainer's ``ValueError``.  Checkpoints use the port's own format
-(``torch.save``; there is no orbax).
+LoRA under a mesh freezes the base as without one: FSDP2 shards layers
+that hold frozen and trainable parameters together (all f32) and
+reduce-scatters the adapters' gradients alone, and the optimizer holds
+the adapters alone.  ``train.lora.merge_base_params`` grafts a full base
+state dict into a model already placed on a mesh.  BERT and ResNet are
+no causal LMs: their task loops are ``train.tasks``, and the trainer
+refuses them with the JAX trainer's ``ValueError``.  Checkpoints use the
+port's own format (``torch.save``; there is no orbax).
 """
 import dataclasses
 import math
@@ -101,7 +114,7 @@ from skypilot_tpu_torch.models.registry import (CausalLMConfig, build_model,
                                                 get_model_config,
                                                 is_causal_lm)
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
-from skypilot_tpu_torch.train.lora import is_lora_path
+from skypilot_tpu_torch.train.lora import LoRAAdapter, is_lora_path
 
 Batch = Dict[str, torch.Tensor]
 _CKPT_DIR = re.compile(r'step_(\d+)$')
@@ -182,9 +195,11 @@ def global_norm(tensors: List[torch.Tensor],
         local, copies = t, world
         if isinstance(t, DTensor):
             local = t.to_local()
+            # Every placement but Replicate splits the values (a strided
+            # shard too: FSDP2 over a dim 'tensor' splits already).
             copies //= math.prod(
                 t.device_mesh.size(i) for i, p in enumerate(t.placements)
-                if p.is_shard())
+                if not p.is_replicate())
         total = total + local.float().pow(2).sum() / copies
     dist.all_reduce(total)
     return total.sqrt()
@@ -576,15 +591,6 @@ def _check_mesh(cfg: TrainConfig, mc: CausalLMConfig) -> int:
     if not isinstance(spec, mesh_lib.MeshSpec):
         raise TypeError(f'TrainConfig.mesh must be a MeshSpec; got '
                         f'{type(spec).__name__}')
-    if getattr(mc, 'lora_rank', 0):
-        raise NotImplementedError(
-            'LoRA training under a mesh is not ported yet (ROADMAP.md '
-            'A9.3); train the adapters with mesh=None')
-    if spec.tensor > 1 and isinstance(mc, GPT2Config):
-        raise NotImplementedError(
-            'tensor-parallel GPT-2 is not ported yet (ROADMAP.md A9.3): '
-            'its fused c_attn interleaves q, k and v heads in one output '
-            'dim; use data/fsdp/seq axes for GPT-2')
     dp = spec.data * spec.fsdp
     k = max(cfg.grad_accum_steps, 1)
     if cfg.batch_size % (dp * k):
@@ -652,7 +658,7 @@ def parallelize(model: torch.nn.Module, mesh: mesh_lib.Mesh) -> None:
       does), gradients averaged over them (the train step scales its
       loss by their count: gloo has no pre-scaled sum)."""
     from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor import Partial, Shard, distribute_tensor
     from torch.distributed.tensor.parallel import (ColwiseParallel,
                                                    RowwiseParallel,
                                                    parallelize_module)
@@ -669,18 +675,39 @@ def parallelize(model: torch.nn.Module, mesh: mesh_lib.Mesh) -> None:
 
     if mesh.size('tensor') > 1:
         tp = mesh['tensor']
+        prefix = 'h' if hasattr(model, 'h') else 'layers'
         plan, planned = {}, set()
+        if isinstance(model.config, GPT2Config):
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if mesh_lib.is_fused_qkv(name):
+                        p.copy_(mesh_lib.group_qkv_by_rank(
+                            p, mesh.size('tensor')))
         for lname, layer in enumerate(_decoder_layers(model)):
             for name, mod in layer.named_modules():
+                full = f'{prefix}.{lname}.{name}'
+                if isinstance(mod, LoRAAdapter):
+                    _shard_adapter(mod, tp, row=bool(
+                        dims(full + '.lora_a', 2, 'tensor')))
+                    planned.update(f'{full}.lora_a', f'{full}.lora_b')
+                    continue
                 if not isinstance(mod, torch.nn.Linear):
                     continue
-                full = f'layers.{lname}.{name}'
                 tdims = dims(full + '.weight', 2, 'tensor')
-                if tdims:
-                    plan[full] = (ColwiseParallel() if tdims == [0]
-                                  else RowwiseParallel())
-                    planned.update(f'{full}.{p}' for p, _ in
-                                   mod.named_parameters())
+                if not tdims:
+                    continue
+                owner, _, attr = name.rpartition('.')
+                if tdims == [0]:
+                    plan[full] = ColwiseParallel()
+                elif hasattr(layer.get_submodule(owner), f'{attr}_lora'):
+                    # Left a partial sum: the adapter's partial delta joins
+                    # it before the one reduction (``llama._proj``).
+                    plan[full] = RowwiseParallel(output_layouts=Partial(),
+                                                 use_local_output=False)
+                else:
+                    plan[full] = RowwiseParallel()
+                planned.update(f'{full}.{p}' for p, _ in
+                               mod.named_parameters())
         parallelize_module(model, tp, plan)
         for name, p in list(model.named_parameters()):
             tdims = dims(name, p.ndim, 'tensor')
@@ -699,6 +726,57 @@ def parallelize(model: torch.nn.Module, mesh: mesh_lib.Mesh) -> None:
     for layer in _decoder_layers(model):
         fully_shard(layer, mesh=dp, shard_placement_fn=placement)
     fully_shard(model, mesh=dp, shard_placement_fn=placement)
+
+
+def _shard_adapter(adapter: LoRAAdapter, tp, row: bool) -> None:
+    """Place a LoRA adapter on the 'tensor' sub-mesh `tp` with its
+    projection: row-parallel (`row`), ``lora_a`` split on its input rows,
+    the input taken as the rank's columns and the delta left a partial
+    sum (a DTensor the projection's own partial output is added to);
+    column-parallel, ``lora_b`` split on its output columns and the delta
+    the rank's columns.  The other leaf is replicated."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_module,
+                                          distribute_tensor)
+    split = ('lora_a', Shard(0)) if row else ('lora_b', Shard(1))
+
+    def partition(_name, mod, mesh):
+        if mod is not adapter:
+            return
+        for leaf, p in list(mod.named_parameters(recurse=False)):
+            place = split[1] if leaf == split[0] else Replicate()
+            mod.register_parameter(leaf, torch.nn.Parameter(
+                distribute_tensor(p.detach(), mesh, [place])))
+
+    def inputs(_mod, args, mesh):
+        x = DTensor.from_local(args[0], mesh,
+                               [Shard(-1) if row else Replicate()],
+                               run_check=False)
+        return (x, *args[1:])
+
+    def output(_mod, out, _mesh):
+        return out if row else out.to_local()
+
+    distribute_module(adapter, tp, partition, inputs, output)
+
+
+def _regroup_qkv(model_sd: Dict, optim_state: Dict, tensor: int,
+                 inverse: bool = False) -> None:
+    """GPT-2's fused q/k/v rows, in a full model state dict and in the
+    name-keyed optimizer state, from the checkpoint's layout to the
+    tensor-sharded model's (``parallel.mesh.group_qkv_by_rank``; back
+    with `inverse`), in place; nothing when `tensor` is 0."""
+    if not tensor:
+        return
+    for key in [k for k in model_sd if mesh_lib.is_fused_qkv(k)]:
+        model_sd[key] = mesh_lib.group_qkv_by_rank(model_sd[key], tensor,
+                                                   inverse)
+    for key, moments in optim_state.items():
+        if mesh_lib.is_fused_qkv(key):
+            for leaf, v in moments.items():
+                if torch.is_tensor(v) and v.ndim:
+                    moments[leaf] = mesh_lib.group_qkv_by_rank(v, tensor,
+                                                               inverse)
 
 
 def _index_keyed(osd: Dict, names: List[str]) -> Dict:
@@ -848,6 +926,8 @@ class Trainer:
                                   mmap=True, weights_only=True)
                 ckpt['optimizer'] = _name_keyed(ckpt['optimizer'],
                                                 self._param_names())
+                _regroup_qkv(ckpt['model'], ckpt['optimizer']['state'],
+                             self._qkv_groups())
             opts = StateDictOptions(full_state_dict=True,
                                     broadcast_from_rank0=True)
             model = self.state.model
@@ -882,8 +962,19 @@ class Trainer:
         optim_sd = get_optimizer_state_dict(model, self.state.optimizer,
                                             options=opts)
         if optim_sd:
+            _regroup_qkv(model_sd, optim_sd['state'], self._qkv_groups(),
+                         inverse=True)
             optim_sd = _index_keyed(optim_sd, self._param_names())
         return model_sd, optim_sd
+
+    def _qkv_groups(self) -> int:
+        """The tensor degree GPT-2's fused q/k/v rows are grouped by in
+        this trainer's model (``parallelize``); 0 when they are not."""
+        if self.mesh is None or not isinstance(self.model_config,
+                                               GPT2Config):
+            return 0
+        n = self.mesh.size('tensor')
+        return n if n > 1 else 0
 
     def save(self, step: int) -> None:
         """Checkpoint the state as `step` if checkpointing is on and step

@@ -19,7 +19,7 @@ import os
 import pickle
 import time
 import traceback
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -193,6 +193,9 @@ class TrainLeg:
     # Feed each rank only its rows (ShardInfo.current(mesh) and
     # shard_batch), as a multi-process data loader does.
     local_rows: bool = False
+    # Parameters whose rank-local shards each rank returns (after setup,
+    # before the first step).
+    local_names: Tuple[str, ...] = ()
 
 
 def _trainer(leg: TrainLeg, mesh: Dict[str, int]):
@@ -229,15 +232,24 @@ def _resumed(leg: TrainLeg):
     return tr, len(loads)
 
 
+def _local(t: torch.Tensor) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+    t = t.detach()
+    return (t.to_local() if isinstance(t, DTensor) else t).numpy().copy()
+
+
 def trainer_legs(rank: int, world: int, legs: List[TrainLeg]) -> List[Dict]:
     """Each leg's per-step loss, grad_norm and (Mixtral) router_aux_loss,
-    (rank 0) its final parameters gathered whole, and (a resume leg) this
-    rank's ``torch.load`` calls while it resumed; every mesh here spans
-    the world."""
+    (rank 0) its final parameters gathered whole and the element count of
+    its optimizer's moments, (a resume leg) this rank's ``torch.load``
+    calls while it resumed, and this rank's shards of the leg's
+    `local_names`; every mesh here spans the world."""
     out = []
     for leg in legs:
         losses, norms, aux, loads = [], [], [], None
         tr = _trainer(leg, leg.mesh)
+        named = dict(tr.state.model.named_parameters())
+        local = {n: _local(named[n]) for n in leg.local_names}
         for i, tokens in enumerate(leg.batches):
             if leg.resume_at and i == leg.resume_at:
                 tr, loads = _resumed(leg)
@@ -257,10 +269,39 @@ def trainer_legs(rank: int, world: int, legs: List[TrainLeg]) -> List[Dict]:
             norms.append(float(m['grad_norm']))
             if 'router_aux_loss' in m:
                 aux.append(float(m['router_aux_loss']))
-        params = _np(tr._full_state()[0])
+        model_sd, optim_sd = tr._full_state()
+        moments = sum(v.numel() for st in optim_sd.get('state', {}).values()
+                      for k, v in st.items() if k != 'step')
         out.append({'loss': losses, 'grad_norm': norms,
                     'router_aux_loss': aux, 'loads': loads,
-                    'params': params if rank == 0 else None})
+                    'params': _np(model_sd) if rank == 0 else None,
+                    'moments': moments if rank == 0 else None,
+                    'local': local})
+    return out
+
+
+def finetune_example(rank: int, world: int, runs: List[Dict]) -> List:
+    """``examples/finetune_llama31_torch.py``'s ``main()`` on this rank,
+    once for each run's (env, argv), one after another: the step each
+    run's trainer ended at."""
+    import importlib.util
+    import sys
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'examples',
+        'finetune_llama31_torch.py')
+    spec = importlib.util.spec_from_file_location('finetune_twin', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = []
+    for run in runs:
+        os.environ.update(run['env'])
+        argv, sys.argv = sys.argv, ['finetune_llama31_torch.py',
+                                    *run['argv']]
+        try:
+            trainer = mod.main()
+        finally:
+            sys.argv = argv
+        out.append(trainer.state.step)
     return out
 
 
@@ -402,11 +443,12 @@ def task_steps(rank: int, world: int, family: str, config: Dict,
 @dataclasses.dataclass
 class ServeRun:
     """One tensor-parallel engine over the world's ranks
-    (``MeshSpec(fsdp=world // tensor, tensor=tensor)``): `family`
-    ('llama' | 'mixtral') at `geometry` (f32), InferConfig fields `infer`,
-    the full state_dict `params` (numpy), and the `ops` rank 0 runs on it
-    in order, each (name, *args) of ``_OPS``.  With `audit` the block
-    conservation law is checked after every window (rank 0)."""
+    (``MeshSpec(fsdp=world // tensor, tensor=tensor)``, or the degrees of
+    `mesh`): `family` ('llama' | 'mixtral' | 'gpt2') at `geometry` (f32),
+    InferConfig fields `infer`, the full state_dict `params` (numpy), and
+    the `ops` rank 0 runs on it in order, each (name, *args) of
+    ``_OPS``.  With `audit` the block conservation law is checked after
+    every window (rank 0)."""
     name: str
     family: str
     geometry: Dict[str, Any]
@@ -415,11 +457,13 @@ class ServeRun:
     ops: List[tuple]
     tensor: int = 2
     audit: bool = False
+    mesh: Dict[str, int] = None
 
 
 def _result(r) -> Dict[str, Any]:
     return {'tokens': list(r.output_tokens), 'finish': r.finish_reason,
-            'logprobs': list(r.logprobs or []), 'error': r.error}
+            'logprobs': list(r.logprobs or []), 'error': r.error,
+            'prompt_logprobs': list(r.prompt_logprobs or [])}
 
 
 def _requests(eng_mod, reqs):
@@ -452,6 +496,54 @@ def _op_drift(eng):
         return str(e)
     finally:
         eng.cache[0] = (k, v)
+
+
+def _op_register(eng, name, src):
+    """Register adapter `name` from the .npz at path `src` (read on rank 0)
+    or from the tree `src`."""
+    from skypilot_tpu_torch.train import lora
+    return eng.register_adapter(name, lora.load_adapter_npz(src)
+                                if isinstance(src, str) else src)
+
+
+def _op_register_error(eng, name, tree):
+    """register_adapter's refusal of `tree`: (type name, text), or None."""
+    try:
+        eng.register_adapter(name, tree)
+        return None
+    except (KeyError, ValueError) as e:
+        return type(e).__name__, str(e)
+
+
+def _planted(eng, module, leaf, value):
+    """The shard check's error (None if it passed) with `module`'s `leaf`
+    replaced by `value` on rank 0, the leaf restored after."""
+    from skypilot_tpu_torch.analysis import sanitizers
+    old = getattr(module, leaf)
+    setattr(module, leaf, torch.nn.Parameter(value, requires_grad=False))
+    try:
+        sanitizers.check_shard_layout(eng)
+        return None
+    except sanitizers.ShardLayoutError as e:
+        return str(e)
+    finally:
+        setattr(module, leaf, old)
+
+
+def _op_adapter_drift(eng):
+    """Plant layer 0's q_proj lora_b stack at its full width on rank 0."""
+    shape = eng._full_shapes['layers.0.attn.q_proj_lora.lora_b']
+    return _planted(eng, eng.model.layers[0].attn.q_proj_lora, 'lora_b',
+                    torch.zeros(shape))
+
+
+def _op_qkv_drift(eng):
+    """Plant GPT-2 layer 0's c_attn rows shifted by one head on rank 0
+    (the shapes unchanged)."""
+    attn = eng.model.h[0].attn
+    w = attn.c_attn.weight.detach()
+    return _planted(eng, attn.c_attn, 'weight',
+                    w.roll(eng.model_config.head_dim_, 0).clone())
 
 
 def _op_evict(eng, need):
@@ -535,6 +627,10 @@ _OPS = {
         'skypilot_tpu_torch.analysis.sanitizers',
         fromlist=['x']).check_shard_layout(eng),
     'drift': _op_drift,
+    'register': _op_register,
+    'register_error': _op_register_error,
+    'adapter_drift': _op_adapter_drift,
+    'qkv_drift': _op_qkv_drift,
     'evict': _op_evict,
     'qos_park': _op_qos_park,
     'shard_sanitizer': _op_shard_sanitizer,
@@ -545,13 +641,15 @@ _OPS = {
 
 def _serve_engine(run: ServeRun, world: int):
     from skypilot_tpu_torch.infer import engine as em
+    from skypilot_tpu_torch.models.gpt2 import GPT2Config
     from skypilot_tpu_torch.models.llama import LlamaConfig
     from skypilot_tpu_torch.models.mixtral import MixtralConfig
     from skypilot_tpu_torch.parallel.mesh import MeshSpec, make_mesh
-    cls = MixtralConfig if run.family == 'mixtral' else LlamaConfig
+    cls = {'llama': LlamaConfig, 'mixtral': MixtralConfig,
+           'gpt2': GPT2Config}[run.family]
     cfg = cls(**run.geometry, dtype=torch.float32)
-    mesh = make_mesh(MeshSpec(fsdp=world // run.tensor, tensor=run.tensor),
-                     'cpu')
+    mesh = make_mesh(MeshSpec(**(run.mesh or dict(
+        fsdp=world // run.tensor, tensor=run.tensor))), 'cpu')
     # Only rank 0's weights are read: the engine sends each rank its slice.
     params = ({k: torch.from_numpy(v) for k, v in run.params.items()}
               if dist.get_rank() == 0 else None)

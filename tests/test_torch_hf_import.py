@@ -358,9 +358,8 @@ def test_run_refusals(checkpoints, tmp_path, monkeypatch):
     does; a checkpoint that is no causal LM gets the JAX server's
     ValueError before any weight is read; --weight-dtype int8 on a gpt2
     checkpoint gets the JAX server's ValueError, and without it run()
-    serves the checkpoint with the JAX server's weights and tokens;
-    --tensor-parallel 2 on the gpt2 checkpoint names A9.3 before any
-    weight is read."""
+    serves the checkpoint with the JAX server's weights and tokens (and
+    at --tensor-parallel 2 since: tests/test_torch_tp_serving_gpt2.py)."""
     path, _ = checkpoints['llama']
     raised = []
     for mod, kw in ((port_server, {'device': 'cpu'}), (jax_server, {})):
@@ -402,9 +401,3 @@ def test_run_refusals(checkpoints, tmp_path, monkeypatch):
     [b] = ref.generate([jax_server.Request(tokens=prompt,
                                            max_new_tokens=6)])
     assert a.output_tokens == b.output_tokens
-    # Tensor-parallel GPT-2 is refused naming its item before the
-    # checkpoint's weights are read.
-    monkeypatch.setattr(hf_import, 'load_hf_model', None)
-    with pytest.raises(NotImplementedError, match='GPT-2.*A9.3'):
-        port_server.run(hf_model=str(gpt2), device='cpu',
-                        tensor_parallel=2)

@@ -15,7 +15,7 @@ PACKAGE = ROOT / 'skypilot_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
 # The PyTorch twins of the JAX examples, imported as modules of examples/.
 EXAMPLES = ['examples.finetune_bert_torch', 'examples.train_resnet_torch',
-            'examples.train_llama_torch']
+            'examples.train_llama_torch', 'examples.finetune_llama31_torch']
 
 
 def _port_modules():

@@ -5,8 +5,8 @@ tiny f32 llama of tests/test_tp_paged.py (vocab 101, 32 wide, 4:2 heads,
 the conftest's virtual devices and against the port's single-rank
 engine.  Dense layout: offline generation (greedy and sampled), the
 per-chip accounting, the shard-layout check, a registered prefix, the
-fp8 cache, speculation and int8 weights; and the refusals that name
-ROADMAP A9.3."""
+fp8 cache, speculation and int8 weights; and the kv-heads refusal the
+JAX engine makes."""
 import dataclasses
 import types
 
@@ -286,25 +286,21 @@ def _mesh(**sizes):
 
 
 def test_unported_mesh_surfaces_name_their_item():
-    """LoRA under a mesh and GPT-2 under 'tensor' name A9.3, as their
-    training refusals do; a 'seq' or 'stage' mesh too; kv heads the
-    degree does not divide fail with the JAX engine's text."""
+    """The refusal a serving mesh keeps is the JAX engine's: kv heads the
+    tensor degree does not divide, for the llama family and for GPT-2
+    (whose heads are its kv heads).  Multi-LoRA, GPT-2 and 'seq'/'stage'
+    ranks serve since (tests/test_torch_tp_serving_lora.py and
+    tests/test_torch_tp_serving_gpt2.py)."""
     cfg = port.InferConfig(max_cache_len=64, cache_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match='A9.3'):
-        port.InferenceEngine(PORT_CFG, dataclasses.replace(cfg, lora_rank=4),
-                             device='cpu', mesh=_mesh(tensor=2))
-    with pytest.raises(NotImplementedError, match='GPT-2.*A9.3'):
-        port.InferenceEngine(get_model_config('gpt2-debug'), cfg,
-                             device='cpu', mesh=_mesh(tensor=2))
-    assert isinstance(get_model_config('gpt2-debug'), GPT2Config)
-    for axis in ('seq', 'stage'):
-        with pytest.raises(NotImplementedError, match=f"'{axis}'.*A9.3"):
-            port.InferenceEngine(PORT_CFG, cfg, device='cpu',
-                                 mesh=_mesh(**{axis: 2}))
     with pytest.raises(ValueError, match='num_kv_heads 2 not divisible by '
                                          'tensor degree 4'):
         port.InferenceEngine(PORT_CFG, cfg, device='cpu',
                              mesh=_mesh(tensor=4))
+    gpt2 = get_model_config('gpt2-debug')
+    assert isinstance(gpt2, GPT2Config)
+    with pytest.raises(ValueError, match='num_kv_heads 4 not divisible by '
+                                         'tensor degree 3'):
+        port.InferenceEngine(gpt2, cfg, device='cpu', mesh=_mesh(tensor=3))
 
 
 def test_run_serves_over_two_ranks_from_one_command(monkeypatch):

@@ -318,23 +318,25 @@ def test_checkpoint_resume_equals_straight_run(tmp_path):
 
 
 def test_unported_options_raise():
-    """A mesh that is no MeshSpec is refused; LoRA and tensor-parallel
-    GPT-2 under a mesh name their item (A9.3); pipeline_microbatches
-    without a 'stage' axis is accepted and unused, as in the JAX trainer
-    (the mesh paths themselves: tests/test_torch_mesh.py and the
-    others of A9.1)."""
+    """A mesh that is no MeshSpec is refused; a 'tensor' degree that does
+    not divide the heads is refused for GPT-2 and for LoRA as for any
+    model, before a process group starts (LoRA and tensor-parallel GPT-2
+    under a mesh train since: tests/test_torch_mesh_lora.py and
+    tests/test_torch_mesh_gpt2.py); pipeline_microbatches without a
+    'stage' axis is accepted and unused, as in the JAX trainer (the mesh
+    paths themselves: tests/test_torch_mesh.py and the others of
+    A9.1)."""
     _, tcfg = _configs()
     cfg = tt.TrainConfig(model='llama-debug')
     with pytest.raises(TypeError, match='must be a MeshSpec'):
         tt.Trainer(dataclasses.replace(cfg, mesh=object()), tcfg,
                    device='cpu')
-    for mc, mesh in ((dataclasses.replace(tcfg, lora_rank=4),
-                      PortMeshSpec()),
-                     (registry.get_model_config('gpt2-debug'),
-                      PortMeshSpec(tensor=2))):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md A9.3'):
-            tt.Trainer(dataclasses.replace(cfg, mesh=mesh), mc,
-                       device='cpu')
+    for mc in (dataclasses.replace(tcfg, lora_rank=4),
+               registry.get_model_config('gpt2-debug')):
+        with pytest.raises(ValueError, match='tensor 3 must divide the '
+                                             'heads'):
+            tt.Trainer(dataclasses.replace(cfg, mesh=PortMeshSpec(
+                tensor=3)), mc, device='cpu')
     tt.Trainer(dataclasses.replace(cfg, pipeline_microbatches=2), tcfg,
                device='cpu').setup()
     # LoRA, ported since, trains the adapters alone.
