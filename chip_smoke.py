@@ -73,13 +73,14 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import importlib.util
 import itertools
 import json
 import math
+import os
 import pathlib
 import queue
 import shutil
-import socket
 import subprocess
 import sys
 import tempfile
@@ -94,9 +95,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from skypilot_tpu_torch.analysis import sanitizers
 from skypilot_tpu_torch.entry import entry
 from skypilot_tpu_torch.infer import engine as engine_mod
 from skypilot_tpu_torch.infer import server
+from skypilot_tpu_torch.infer.chaos import (DegradedReplica, KillableReplica,
+                                            free_port)
+from skypilot_tpu_torch.infer.faults import FaultPlan, FaultSpec
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request)
 from skypilot_tpu_torch.models import hf_import, llama
@@ -115,7 +120,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
-# The serving phases (serve through qos) run llama-1b at SERVE_LAYERS of
+# The serving phases (serve through chaos) run llama-1b at SERVE_LAYERS of
 # its 22 layers: the whole run has 1,200 s, the serve_tp phase came to it,
 # and a slow host stretched every host-bound phase by up to a quarter.
 # Their checks count launches by the model's own depth and their
@@ -123,7 +128,7 @@ HBM_BYTES_PER_S = 3.35e12
 # them at less.
 SERVE_LAYERS = 4
 SERVE_PHASES = ('serve', 'server', 'paged', 'chunked', 'prompt_logprobs',
-                'fp8', 'prefix', 'spec', 'qos')
+                'fp8', 'prefix', 'spec', 'qos', 'chaos')
 
 
 def emit(obj) -> None:
@@ -1017,12 +1022,6 @@ def phase_serve(model, card: str) -> None:
           'decode_window_profile': window_profile})
 
 
-def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(('127.0.0.1', 0))
-        return sock.getsockname()[1]
-
-
 def http(port: int, method: str, path: str, body=None,
          timeout: float = 600.0) -> tuple:
     """(status, headers, JSON body or the list of SSE `data:` payloads)."""
@@ -1382,34 +1381,21 @@ def paged_engine(model, **options) -> InferenceEngine:
 
 
 def conservation_errors(eng) -> list:
-    """The pool's block-conservation law, from outside the allocator:
-    each block's refcount equals its holders (slot table entries, a
-    radix node, a registered prefix entry, 1 for the dump block 0), the
-    free list is exactly the
-    unheld blocks, idle slots (neither active nor chunking) hold none,
-    the host tier's ledger balances."""
-    want = np.zeros_like(eng._block_refs)
-    want[0] = 1
-    errors = []
-    for slot in range(eng.cfg.num_slots):
-        n = int(eng._slot_nblocks[slot])
-        if n and eng._slots[slot] is None and slot not in eng._chunking:
-            errors.append(f'idle slot {slot} holds {n} blocks')
-        np.add.at(want, eng._tables_np[slot, :n], 1)
-    if eng._radix is not None:
-        for node in eng._radix.walk():
-            want[node.block] += 1
-    for entry in eng._prefixes.values():
-        np.add.at(want, np.asarray(entry['blocks'], np.int64), 1)
-    bad = np.nonzero(eng._block_refs != want)[0]
-    errors += [f'block {b}: refs {eng._block_refs[b]} != holders {want[b]}'
-               for b in bad[:5]]
-    free = list(eng._free_blocks)
-    if len(set(free)) != len(free) or \
-            sorted(free) != np.nonzero(want == 0)[0].tolist():
-        errors.append('free list != the unheld blocks')
-    if eng._host_tier is not None:
-        errors += eng._host_tier.audit()
+    """The pool's block-conservation law, as the port's sanitizer checks
+    it (each block's refcount equals its holders -- slot table entries, a
+    radix node, a registered prefix entry, 1 for the dump block 0 -- the
+    free list is exactly the unheld blocks, the host tier's ledger
+    balances), read without the engine's lock (the window audit runs
+    inside it), plus a clause the sanitizer lacks: idle slots (neither
+    active nor chunking) hold none."""
+    errors = [f'idle slot {slot} holds {int(eng._slot_nblocks[slot])} blocks'
+              for slot in range(eng.cfg.num_slots)
+              if int(eng._slot_nblocks[slot]) and eng._slots[slot] is None
+              and slot not in eng._chunking]
+    try:
+        sanitizers.check_block_conservation(eng, lock=False)
+    except sanitizers.BlockLeakError as e:
+        errors += e.errors
     return errors
 
 
@@ -3492,6 +3478,314 @@ INT8_BOUND = 2.0
 INT8_TIGHT_BOUND = 0.5
 
 
+# The chaos phase: the replica plane under faults at llama-1b's width
+# (SERVE_LAYERS deep, f32 weights as the qos phase, so that batch
+# composition cannot move a greedy token) over a bf16 paged cache with
+# the radix cache and a host tier; 16-token blocks.
+CHAOS_SEEDS = (0, 1, 2)
+CHAOS_REQUESTS = 12
+CHAOS_INFER = dict(num_slots=4, max_cache_len=256, prefill_buckets=(16, 32,
+                                                                    64),
+                   decode_steps=4, max_new_tokens=64, kv_block_size=16,
+                   auto_prefix_cache=True, host_kv_bytes=64 << 20)
+CHAOS_CYCLES = 3                # kill + respawn cycles of (b)
+CHAOS_STALL_S = 0.02            # a replica's loop pass, so a kill lands
+CHAOS_DELAY_S = 0.25            # (c)'s injected downstream delay
+CHAOS_STREAM = dict(tokens=[11, 17, 23, 29, 31, 37, 41, 43],
+                    max_new_tokens=48)
+
+
+def chaos_script():
+    """scripts/chaos_smoke_torch.py as a module: its fault plan, requests
+    and episode (the script imports the serve plane only inside its
+    replica and batch legs, which this phase does not run)."""
+    path = pathlib.Path(__file__).resolve().parent / 'scripts' / \
+        'chaos_smoke_torch.py'
+    spec = importlib.util.spec_from_file_location('chaos_smoke_torch', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class ChaosRecorder(sanitizers._OrderGraph):
+    """The lock-order graph, recording every LockOrderError it raises
+    (raised on a serving thread, one would surface only as a failed
+    request)."""
+
+    def __init__(self):
+        super().__init__()
+        self.errors = []
+
+    def before_acquire(self, name: str) -> None:
+        try:
+            super().before_acquire(name)
+        except sanitizers.LockOrderError as e:
+            self.errors.append(str(e))
+            raise
+
+    def after_acquire(self, name: str) -> None:
+        try:
+            super().after_acquire(name)
+        except sanitizers.LockOrderError as e:
+            self.errors.append(str(e))
+            raise
+
+
+def sse_stream(port: int, body: dict, on_first=None, timeout=60) -> tuple:
+    """POST /generate as a stream: (events, seconds to the first token
+    chunk, the exception that ended the read or None)."""
+    conn = HTTPConnection('127.0.0.1', port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request('POST', '/generate',
+                 body=json.dumps({**body, 'stream': True}).encode(),
+                 headers={'Content-Type': 'application/json'})
+    events, ttft, buf, err = [], None, b'', None
+    try:
+        resp = conn.getresponse()
+        check(resp.status == 200, f'chaos: stream answered {resp.status}')
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while b'\n\n' in buf:
+                ev, buf = buf.split(b'\n\n', 1)
+                if ev.startswith(b'data: '):
+                    events.append(json.loads(ev[6:]))
+            if events and ttft is None:
+                ttft = time.perf_counter() - t0
+                if on_first is not None:
+                    on_first()
+    except OSError as e:         # a reset mid-stream
+        err = e
+    finally:
+        conn.close()
+    return events, ttft, err
+
+
+def chaos_engine(cfg, sd: dict, device, stall: bool) -> InferenceEngine:
+    eng = InferenceEngine(cfg, InferConfig(model='llama-1b', **CHAOS_INFER),
+                          params=sd, device=device,
+                          generator=torch.Generator(
+                              device=device).manual_seed(1))
+    if stall:
+        eng.arm_faults(FaultPlan(seed=0, specs=[
+            FaultSpec(site='stall', prob=1.0,
+                                 stall_s=CHAOS_STALL_S)]))
+    return eng
+
+
+def chaos_replicas(cfg, sd: dict, device, reference: list) -> dict:
+    """(b) Two KillableReplicas on the card, no LB: CHAOS_CYCLES times, a
+    stream to one of them is killed once its first chunk has arrived (the
+    client sees the connection end with no final event), the replica
+    respawns on its port and the re-issued greedy request is
+    byte-identical to the offline reference; the card's allocated bytes
+    come back to their value after the first start."""
+    reps = [KillableReplica(lambda: chaos_engine(cfg, sd, device, True),
+                            free_port()) for _ in range(2)]
+    for rep in reps:
+        rep.start()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    cycles = []
+    try:
+        for cycle in range(CHAOS_CYCLES):
+            rep = reps[cycle % 2]
+            killed = []
+
+            def kill(rep=rep, killed=killed):
+                check(rep.busy(), 'chaos (b): the stream is not in flight')
+                t0 = time.perf_counter()
+                rep.kill()
+                killed.append(time.perf_counter() - t0)
+
+            events, _, err = sse_stream(rep.port, CHAOS_STREAM,
+                                        on_first=kill)
+            check(killed and not any(e.get('done') for e in events),
+                  f'chaos (b) cycle {cycle}: the stream finished '
+                  f'({events[-1:]}, {err!r})')
+            streamed = sum(len(e.get('tokens', ())) for e in events)
+            check(0 < streamed < CHAOS_STREAM['max_new_tokens'],
+                  f'chaos (b): {streamed} tokens before the reset')
+            t0 = time.perf_counter()
+            rep.respawn()
+            respawn_s = time.perf_counter() - t0
+            events, ttft, err = sse_stream(rep.port, CHAOS_STREAM)
+            done = [e for e in events if e.get('done')]
+            check(err is None and len(done) == 1 and
+                  done[0]['output_tokens'] == reference,
+                  f'chaos (b) cycle {cycle}: the re-issued request gave '
+                  f'{done[-1:]} ({err!r}), the reference {reference}')
+            cycles.append({'replica': cycle % 2, 'kill_s': killed[0],
+                           'tokens_before_reset': streamed,
+                           'reset': repr(err) if err else 'eof',
+                           'respawn_s': respawn_s, 'reissue_ttft_s': ttft})
+        deadline = time.perf_counter() + 10
+        while True:
+            gc.collect()
+            torch.cuda.synchronize()
+            mem = torch.cuda.memory_allocated()
+            if abs(mem - mem0) <= 0.01 * mem0 or \
+                    time.perf_counter() > deadline:
+                break
+            time.sleep(0.1)
+        check(abs(mem - mem0) <= 0.01 * mem0,
+              f'chaos (b): {mem} bytes allocated after {CHAOS_CYCLES} '
+              f'kill/respawn cycles, {mem0} after the first start')
+        return {'cycles': cycles, 'allocated_first_start': mem0,
+                'allocated_after_cycles': mem}
+    finally:
+        for rep in reps:
+            rep.kill()
+
+
+def chaos_degraded(cfg, sd: dict, device, reference: list) -> dict:
+    """(c) A DegradedReplica in front of a port replica: through the
+    proxy the greedy tokens are the reference's, and the time to the
+    first token is at least the injected delay."""
+    rep = KillableReplica(lambda: chaos_engine(cfg, sd, device, False),
+                          free_port())
+    rep.start()
+    proxy = DegradedReplica(rep, FaultPlan(seed=0, specs=[
+        FaultSpec(site='net_degrade', prob=1.0,
+                             delay_s=CHAOS_DELAY_S, jitter_s=0.0)]))
+    proxy.start()
+    try:
+        runs = {}
+        for name, port in (('direct', rep.port), ('proxy', proxy.port),
+                           ('direct_again', rep.port)):
+            events, ttft, err = sse_stream(port, CHAOS_STREAM)
+            done = [e for e in events if e.get('done')]
+            check(err is None and len(done) == 1 and
+                  done[0]['output_tokens'] == reference,
+                  f'chaos (c) {name}: {done[-1:]} ({err!r})')
+            runs[name] = ttft
+        check(runs['proxy'] >= CHAOS_DELAY_S and proxy.chunks_delayed > 0,
+              f'chaos (c): TTFT {runs} through a {CHAOS_DELAY_S} s delay '
+              f'({proxy.chunks_delayed} chunks delayed)')
+        return {'ttft_s': runs, 'chunks_delayed': proxy.chunks_delayed,
+                'delay_s': CHAOS_DELAY_S}
+    finally:
+        proxy.stop()
+        rep.kill()
+
+
+def phase_chaos(model, env: dict) -> None:
+    """The replica plane under chaos, with SKYTPU_SANITIZERS=1 (the lock-
+    order and block-conservation sanitizers on, the locks instrumented):
+    (a) the fault-mixture sweep of scripts/chaos_smoke_torch.py, seeds
+    0-2 x 12 requests: one terminal result each, every episode drained
+    within its bound, the pool balanced at drain, after every window and
+    at every quiesce point, no lock-order error, and each clean finish
+    the fault-free served run's tokens; (b) kill and respawn of port
+    replicas (chaos_replicas); (c) a gray-failure proxy (chaos_degraded);
+    (d) a planted leak (a block gone from the free list with no holder)
+    makes the serving loop's quiesce point raise BlockLeakError."""
+    t_phase = time.perf_counter()
+    smoke = chaos_script()
+    cfg = dataclasses.replace(model.config, dtype=torch.float32)
+    sd = {k: v.float() for k, v in model.state_dict().items()}
+    device = model.embedding.device
+    saved_env = os.environ.get('SKYTPU_SANITIZERS')
+    os.environ['SKYTPU_SANITIZERS'] = '1'
+    graph, sanitizers._GRAPH = sanitizers._GRAPH, ChaosRecorder()
+    # Every quiesce-point check the serving loop makes: None when it
+    # passed, else the error.
+    maybe_check, quiesce = sanitizers.maybe_check_block_conservation, []
+
+    def counted_check(engine):
+        try:
+            maybe_check(engine)
+        except sanitizers.BlockLeakError as e:
+            quiesce.append(str(e))
+            raise
+        quiesce.append(None)
+
+    sanitizers.maybe_check_block_conservation = counted_check
+    try:
+        eng = chaos_engine(cfg, sd, device, False)
+        check(isinstance(eng._lock, sanitizers.InstrumentedLock),
+              'chaos: the engine lock is not instrumented')
+        served = []
+
+        def wave():
+            served.append(eng.generate_served(
+                smoke.make_requests(CHAOS_REQUESTS)))
+
+        prof = profile_device(wave)
+        check([r.output_tokens for r in served[0]] ==
+              [r.output_tokens for r in served[1]] and
+              all(r.finish_reason == 'length' for r in served[0]),
+              'chaos (a): two fault-free served runs differ')
+        reference = {r.request_id: r.output_tokens for r in served[0]}
+        audit = audited_windows(eng)
+        episodes = []
+        for seed in CHAOS_SEEDS:
+            n0, t0 = len(quiesce), time.perf_counter()
+            bad = smoke.episode(eng, seed, CHAOS_REQUESTS,
+                                reference=reference)
+            wall = time.perf_counter() - t0
+            checks = len(quiesce) - n0
+            check(not bad, f'chaos (a) seed {seed}: {bad}')
+            check(checks > 0, f'chaos (a) seed {seed}: no quiesce check')
+            episodes.append({'seed': seed, 'wall_s': wall,
+                             'quiesce_checks': checks,
+                             'fault_stats': dict(eng.fault_stats)})
+        check(len(audit) == 1 and audit[0] > 0,
+              f'chaos (a): window audit {audit[:6]}')
+        check(not any(quiesce), f'chaos (a): quiesce check {quiesce}')
+        quiesce_checks = len(quiesce)
+        # (d) the planted leak, at the quiesce point.
+        leaked = eng._free_blocks.pop()
+        try:
+            eng.generate_stream(queue.Queue(), lambda res: None,
+                                threading.Event())
+            raised = None
+        except sanitizers.BlockLeakError as e:
+            raised = str(e)
+        finally:
+            eng._free_blocks.append(leaked)
+        check(raised is not None and f'[{leaked}]' in raised,
+              f'chaos (d): the planted leak of block {leaked} gave '
+              f'{raised!r}')
+        check(sanitizers.check_block_conservation(eng) is not None,
+              'chaos (d): the pool after the planted leak is undone')
+        ref_eng = eng
+        [ref] = ref_eng.generate([Request(**CHAOS_STREAM)])
+        reference_stream = ref.output_tokens
+        del eng, ref_eng, audit
+        gc.collect()
+        replicas = chaos_replicas(cfg, sd, device, reference_stream)
+        degraded = chaos_degraded(cfg, sd, device, reference_stream)
+        recorder = sanitizers._GRAPH
+        check(not recorder.errors,
+              f'chaos: lock-order errors {recorder.errors[:3]}')
+        edges = recorder.snapshot()
+        check('infer.engine._lock' in edges,
+              f'chaos: the lock sanitizer recorded {sorted(edges)}')
+    finally:
+        sanitizers.maybe_check_block_conservation = maybe_check
+        sanitizers._GRAPH = graph
+        if saved_env is None:
+            os.environ.pop('SKYTPU_SANITIZERS', None)
+        else:
+            os.environ['SKYTPU_SANITIZERS'] = saved_env
+    emit({'phase': 'chaos', 'nvidia_smi': env['nvidia_smi'],
+          'sanitizers': 'SKYTPU_SANITIZERS=1',
+          'config': {**CHAOS_INFER, 'weights': 'float32',
+                     'cache': 'bfloat16'},
+          'reference_wave': {k: prof[k] for k in ('wall_ms', 'device_ms',
+                                                  'idle_share')},
+          'episodes': episodes,
+          'quiesce_checks': quiesce_checks,
+          'lock_edges': {k: sorted(v) for k, v in edges.items()},
+          'replicas': replicas, 'degraded': degraded,
+          'planted_leak': raised.splitlines()[-1].strip(),
+          'wall_s': time.perf_counter() - t_phase})
+
+
 def hf_checkpoint(model) -> tuple:
     """The drawn model under HF names, beside a namespace with
     llama-2-7b's config.json fields: the same weight tensors, the norms
@@ -5159,7 +5453,6 @@ def tp_depth2(rank: int, mesh) -> dict:
 
 def tp_full(rank: int, mesh, tally: list) -> dict:
     """(b): llama2-7b at full width and depth, tp=2, bf16 weights."""
-    from skypilot_tpu_torch.analysis import sanitizers
     cfg = get_model_config(TP_MODEL)
     prompts = tp_prompts(cfg.vocab_size, TP_REQUESTS, 23)
     out = {}
@@ -5407,7 +5700,6 @@ def tp_lora_full(rank: int, mesh, tally: list) -> dict:
     TP_LORA_LAYERS layers, three adapters; the shard check passing and
     raising on a planted adapter drift (a q_proj lora_b stack at its full
     width on rank 0)."""
-    from skypilot_tpu_torch.analysis import sanitizers
     cfg = dataclasses.replace(get_model_config(TP_MODEL),
                               num_layers=TP_LORA_LAYERS,
                               weight_dtype='int8')
@@ -5488,7 +5780,6 @@ def tp_gpt2_full(rank: int, mesh, tally: list) -> dict:
     """(f) gpt2-large at its 36 layers in bf16, tp=2: the streams' gap
     against the rank-local no-cache forward, with a random-token
     control."""
-    from skypilot_tpu_torch.analysis import sanitizers
     cfg = get_model_config(GPT2_SERVE_MODEL)
     prompts = tp_prompts(cfg.vocab_size, TP_REQUESTS, 59)
     eng = tp_engine(cfg, TP_GPT2_SERVE, mesh)
@@ -5851,6 +6142,7 @@ def main() -> int:
     timed(phase_prefix, model, env)
     timed(phase_spec, model, env)
     timed(phase_qos, model, env)
+    timed(phase_chaos, model, env)
     del model
     gc.collect()    # engines held in reference cycles (window audits)
     torch.cuda.empty_cache()

@@ -671,7 +671,8 @@ class InferenceEngine:
         # Adapter stack slot of each slot's request (-1: the base model),
         # set at admission and reset at finish and cancel.
         self._slot_adapters = np.full((b,), -1, np.int64)
-        self._lock = threading.Lock()
+        self._lock = sanitizers.instrument_lock(threading.Lock(),
+                                                'infer.engine._lock')
 
     def _reset_cache(self) -> None:
         """Zero the KV cache in place -- the quarantine path after an
@@ -3467,9 +3468,12 @@ class InferenceEngine:
                     # restore probe does not wait for them.
                     with self._lock:
                         self._host_tier.finalize()
-                # Quiesce point: nothing moved this pass; the shard-layout
-                # sanitizer (off unless SKYTPU_SHARD_SANITIZER) checks
-                # every rank's cache and weights.
+                # Quiesce point: nothing moved this pass, so the block
+                # pool's refcounts must balance exactly and every rank's
+                # cache and weights must hold their declared layout (each
+                # a no-op unless its sanitizer gate or SKYTPU_SANITIZERS
+                # is on).
+                sanitizers.maybe_check_block_conservation(self)
                 sanitizers.maybe_check_shard_layout(self)
                 time.sleep(idle_sleep)
 

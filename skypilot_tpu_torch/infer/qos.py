@@ -28,6 +28,7 @@ import collections
 import threading
 from typing import Any, Dict, Optional, TYPE_CHECKING
 
+from skypilot_tpu_torch.analysis import sanitizers
 from skypilot_tpu_torch.infer.scheduler import Scheduler
 
 if TYPE_CHECKING:                     # import cycle guard: engine.py
@@ -122,7 +123,8 @@ class WfqScheduler(Scheduler):
         # Work admitted through pop(), in cost units per tenant —
         # the fairness tests measure share against this.
         self.served: Dict[str, float] = {}  # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = sanitizers.instrument_lock(
+            threading.Lock(), 'infer.qos.wfq._lock')
 
     def _tenant(self, req: 'Request') -> str:
         t = getattr(req, 'tenant_id', None)

@@ -19,6 +19,8 @@ import collections
 import threading
 from typing import TYPE_CHECKING, Any, Dict, Optional
 
+from skypilot_tpu_torch.analysis import sanitizers
+
 if TYPE_CHECKING:                     # import cycle guard: engine.py
     from skypilot_tpu_torch.infer.engine import Request  # pragma: no cover
 
@@ -58,7 +60,8 @@ class FifoScheduler(Scheduler):
 
     def __init__(self) -> None:
         self._q: collections.deque = collections.deque()
-        self._lock = threading.Lock()
+        self._lock = sanitizers.instrument_lock(
+            threading.Lock(), 'infer.scheduler.fifo._lock')
 
     def push(self, req: 'Request') -> None:
         with self._lock:

@@ -79,6 +79,7 @@ import torch
 from torch import distributed as dist
 from torch import multiprocessing as mp
 
+from skypilot_tpu_torch.analysis import sanitizers
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request, RequestResult,
@@ -152,7 +153,8 @@ class InferenceServer:
         self.max_projected_ttft_s = max_projected_ttft_s
         self.max_queue = max_queue
         self.auto_prefix = auto_prefix
-        self._auto_lock = threading.Lock()
+        self._auto_lock = sanitizers.instrument_lock(
+            threading.Lock(), 'infer.server._auto_lock')
         self._auto_counts: Dict[tuple, int] = {}
         self._auto_inflight: set = set()
         self._auto_failed: set = set()
@@ -166,7 +168,8 @@ class InferenceServer:
         self._thread = threading.Thread(target=self._run, daemon=True)
         # Admission bookkeeping: requests admitted but first-token-less,
         # and the observed TTFTs of recent completions.
-        self._adm_lock = threading.Lock()
+        self._adm_lock = sanitizers.instrument_lock(
+            threading.Lock(), 'infer.server._adm_lock')
         self._awaiting_first: set = set()
         self._recent_ttfts: 'collections.deque' = collections.deque(
             maxlen=16)

@@ -26,6 +26,8 @@ import torch
 from torch import distributed as dist
 from torch import multiprocessing as mp
 
+from skypilot_tpu_torch.analysis import sanitizers
+
 DEFAULT_TIMEOUT = 150.0
 
 
@@ -102,38 +104,24 @@ def _entry(name: str, rank: int, world: int, out: str, args,
 
 
 def conservation_errors(eng):
-    """The paged pool's block-conservation law, checked from outside the
-    allocator: every block's refcount equals its holders -- the table
-    entries of the slots' allocated prefixes, plus one for a radix node
-    holding it, plus one for each registered prefix entry holding it,
-    plus one for the dump block 0 -- the free list is exactly
-    the blocks with no holder, idle slots (neither active nor mid-chunked
-    prefill) hold nothing, and the host tier's byte ledger balances.
-    Returns error strings (empty = ok)."""
-    refs = eng._block_refs
-    want = np.zeros_like(refs)
-    want[0] = 1
+    """The paged pool's block-conservation law, as the port's sanitizer
+    checks it (``analysis.sanitizers.check_block_conservation``: every
+    block's refcount equals its holders -- slot table entries, radix
+    nodes, registered prefix entries, the dump block's own ref -- the free
+    list is exactly the unheld blocks, and the host tier's byte ledger
+    balances), read without taking the engine's lock (a window audit runs
+    inside it), plus one clause the sanitizer lacks: idle slots (neither
+    active nor mid-chunked prefill) hold nothing.  Returns error strings
+    (empty = ok)."""
     errors = []
     for slot in range(eng.cfg.num_slots):
         n = int(eng._slot_nblocks[slot])
         if n and eng._slots[slot] is None and slot not in eng._chunking:
             errors.append(f'idle slot {slot} holds {n} blocks')
-        for b in eng._tables_np[slot, :n]:
-            want[int(b)] += 1
-    if eng._radix is not None:
-        for node in eng._radix.walk():
-            want[node.block] += 1
-    for entry in eng._prefixes.values():
-        for b in entry['blocks']:
-            want[int(b)] += 1
-    for b in np.nonzero(refs != want)[0]:
-        errors.append(f'block {b}: refcount {refs[b]} != holders {want[b]}')
-    free = list(eng._free_blocks)
-    if len(set(free)) != len(free) or \
-            sorted(free) != np.nonzero(want == 0)[0].tolist():
-        errors.append(f'free list {sorted(free)} != unheld blocks')
-    if eng._host_tier is not None:
-        errors.extend(eng._host_tier.audit())
+    try:
+        sanitizers.check_block_conservation(eng, lock=False)
+    except sanitizers.BlockLeakError as e:
+        errors.extend(e.errors)
     return errors
 
 

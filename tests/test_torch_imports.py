@@ -62,6 +62,9 @@ def test_importing_every_module_loads_no_jax():
             'skypilot_tpu_torch.parallel.pipeline',
             'skypilot_tpu_torch.ops.ring_attention',
             'skypilot_tpu_torch.data.loader'} <= set(modules)
+    assert {'skypilot_tpu_torch.analysis.sanitizers',
+            'skypilot_tpu_torch.infer.chaos',
+            'skypilot_tpu_torch.cli'} <= set(modules)
     code = (
         'import importlib, json, sys\n'
         f'for m in {modules!r}:\n'
@@ -73,6 +76,31 @@ def test_importing_every_module_loads_no_jax():
     loaded = set(__import__('json').loads(out.stdout.splitlines()[-1]))
     assert set(modules) <= loaded
     assert not sorted(m for m in loaded if _forbidden(m))
+
+
+def test_chaos_twin_loads_no_jax():
+    """scripts/chaos_smoke_torch.py composes the port with the serve
+    plane (imported inside its replica and batch legs): importing it, and
+    the serve plane it hands to ChaosFleet, loads no jax* module."""
+    code = (
+        'import importlib.util, json, sys\n'
+        'spec = importlib.util.spec_from_file_location(\n'
+        "    'chaos_smoke_torch', 'scripts/chaos_smoke_torch.py')\n"
+        'mod = importlib.util.module_from_spec(spec)\n'
+        'spec.loader.exec_module(mod)\n'
+        'mod.lb_factory()\n'
+        'import skypilot_tpu.serve.batch\n'
+        'import skypilot_tpu_torch.infer.chaos\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    loaded = set(__import__('json').loads(out.stdout.splitlines()[-1]))
+    assert 'skypilot_tpu_torch.infer.chaos' in loaded
+    assert 'skypilot_tpu.serve.load_balancer' in loaded
+    assert not sorted(m for m in loaded
+                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
+                                             'optax'))
 
 
 @pytest.mark.parametrize('path', sorted(

@@ -35,7 +35,7 @@ from skypilot_tpu.infer.chaos import (KillableReplica, _TrackingHTTPServer,
 from skypilot_tpu.serve.load_balancer import SkyTpuLoadBalancer
 from skypilot_tpu.serve.load_balancing_policies import LoadBalancingPolicy
 from skypilot_tpu_torch.infer import Request
-from skypilot_tpu_torch.infer import server as port_server
+from skypilot_tpu_torch.infer.chaos import KillableReplica as PortReplica
 from skypilot_tpu_torch.infer.block_pool import HostKVTier
 
 # A small pool (12 usable blocks + dump) so radix eviction -- the tier's
@@ -301,24 +301,6 @@ def test_handoff_between_a_jax_and_a_port_engine(params, jax_radix,
 
 # -------------------------------------------------------- mixed fleet
 
-class _PortReplica(KillableReplica):
-    """KillableReplica over the port's server."""
-
-    def start(self, ready_timeout: float = 120.0) -> None:
-        srv = port_server.InferenceServer(self.make_engine())
-        srv.start()
-        assert srv.ready.wait(ready_timeout)
-        httpd = _TrackingHTTPServer((self.host, self.port),
-                                    port_server._make_handler(srv))
-        httpd.daemon_threads = True
-        thread = threading.Thread(target=httpd.serve_forever,
-                                  kwargs={'poll_interval': 0.05},
-                                  daemon=True)
-        thread.start()
-        self.server, self.httpd, self._thread = srv, httpd, thread
-        self.alive = True
-
-
 def _post(port, path, payload, want=200):
     conn = HTTPConnection('127.0.0.1', port, timeout=60)
     try:
@@ -351,7 +333,7 @@ def test_mixed_fleet_drain_hands_the_hot_set_to_the_survivor(params,
     monkeypatch.setenv('SKYTPU_SERVE_LB_PROBE_INTERVAL', '0.2')
     jax_rep = KillableReplica(lambda: jax_engine(params, **RADIX),
                               free_port())
-    port_rep = _PortReplica(lambda: port_engine(params, **RADIX),
+    port_rep = PortReplica(lambda: port_engine(params, **RADIX),
                             free_port())
     jax_rep.start()
     port_rep.start()

@@ -28,6 +28,7 @@ from skypilot_tpu.serve.load_balancer import SkyTpuLoadBalancer
 from skypilot_tpu.serve.load_balancing_policies import LoadBalancingPolicy
 from skypilot_tpu.train import lora as jlora
 from skypilot_tpu_torch.infer import server as port_server
+from skypilot_tpu_torch.infer.chaos import KillableReplica as PortReplica
 from skypilot_tpu_torch.train import lora
 from test_torch_lora_serving import LORA, PROMPTS, _tree
 
@@ -143,23 +144,6 @@ def test_load_adapter_and_selection_match_the_jax_server(params, files,
             s.close()
 
 
-class _PortReplica(KillableReplica):
-    """KillableReplica over the port's server."""
-
-    def start(self, ready_timeout: float = 120.0) -> None:
-        srv = port_server.InferenceServer(self.make_engine())
-        srv.start()
-        assert srv.ready.wait(ready_timeout)
-        httpd = _TrackingHTTPServer((self.host, self.port),
-                                    port_server._make_handler(srv))
-        httpd.daemon_threads = True
-        threading.Thread(target=httpd.serve_forever,
-                         kwargs={'poll_interval': 0.05},
-                         daemon=True).start()
-        self.server, self.httpd = srv, httpd
-        self.alive = True
-
-
 def test_mixed_fleet_serves_one_adapter_identically(params, files):
     """One JAX and one port replica with the same adapter registered,
     behind the unchanged LB (round robin, so both serve): requests naming
@@ -180,7 +164,7 @@ def test_mixed_fleet_serves_one_adapter_identically(params, files):
         return eng
 
     reps = [KillableReplica(make_jax, free_port()),
-            _PortReplica(make_port, free_port())]
+            PortReplica(make_port, free_port())]
     for rep in reps:
         rep.start()
     policy = LoadBalancingPolicy.make('round_robin')

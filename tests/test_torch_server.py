@@ -31,6 +31,7 @@ from skypilot_tpu.serve.load_balancer import SkyTpuLoadBalancer
 from skypilot_tpu.serve.load_balancing_policies import LoadBalancingPolicy
 from skypilot_tpu_torch.infer import FaultPlan, FaultSpec
 from skypilot_tpu_torch.infer import server as port_server
+from skypilot_tpu_torch.infer.chaos import KillableReplica as PortReplica
 
 # f32 on both sides: logprobs differ by summation order only.
 TOL = 1e-5
@@ -435,25 +436,6 @@ FLEET_PROMPT = [3, 14, 15, 9, 2, 6]
 FLEET_MAX_NEW = 24
 
 
-class _PortReplica(KillableReplica):
-    """KillableReplica over the port's server: the same kill (listener
-    closed, in-flight sockets reset, loop stopped) as a JAX replica."""
-
-    def start(self, ready_timeout: float = 120.0) -> None:
-        srv = port_server.InferenceServer(self.make_engine())
-        srv.start()
-        assert srv.ready.wait(ready_timeout)
-        httpd = _TrackingHTTPServer((self.host, self.port),
-                                    port_server._make_handler(srv))
-        httpd.daemon_threads = True
-        thread = threading.Thread(target=httpd.serve_forever,
-                                  kwargs={'poll_interval': 0.05},
-                                  daemon=True)
-        thread.start()
-        self.server, self.httpd, self._thread = srv, httpd, thread
-        self.alive = True
-
-
 @pytest.fixture(scope='module')
 def fleet(params):
     """One JAX and one port replica behind a standalone LB (round robin,
@@ -475,7 +457,7 @@ def fleet(params):
         return eng
 
     jax_rep = KillableReplica(make_jax, free_port())
-    port_rep = _PortReplica(make_port, free_port())
+    port_rep = PortReplica(make_port, free_port())
     jax_rep.start()
     port_rep.start()
     policy = LoadBalancingPolicy.make('round_robin')
