@@ -46,7 +46,17 @@ on Mixtral at depth 2, then the mesh trainer on a one-rank NCCL group
 (llama3-8b at 4 layers, then LoRA under the mesh at
 examples/finetune_llama31.yaml's rank 16), the multi-chip dryrun, and
 tensor-parallel serving on two gloo ranks sharing the card (llama2-7b,
-Mixtral, multi-LoRA with int8 weights and the fp8 cache, gpt2-large) --
+Mixtral, multi-LoRA with int8 weights and the fp8 cache, gpt2-large),
+then the twins of the JAX package's bench scripts and examples, their
+card modes run in one subprocess as a user runs them
+(scripts/bench_decode_micro_torch.py's dispatch-cost fit at llama2-7b
+int8 + fp8 with the device time of every window, and its --paged sweep;
+scripts/bench_speculative_torch.py training llama-induct-160m through
+all three kernels and serving it at draft_len 0, 4 and 7;
+scripts/bench_features_torch.py's LB-free sections;
+scripts/bench_serve_lb_torch.py's sweep row through --endpoint against a
+replica started here at the reference replica's flags;
+examples/mnist_torch.py and examples/allreduce_bench_torch.py) --
 at full width with random weights from a seed, and checks what comes
 out.  Every phase prints one JSON line; any failed
 check raises, so the script exits non-zero and the closing line is never
@@ -294,6 +304,12 @@ GPT2_LARGE_TP_FWD_CASE = ('gpt2-large-tp2', 1, 10, 10, 281, 64,
                           torch.bfloat16, True, None)
 SLICE16_FWD = (GPT2_TP_TRAIN_CASE[0], GPT2_LARGE_TP_FWD_CASE[0])
 SLICE16_BWD = (GPT2_TP_TRAIN_CASE[0],)
+# The eighteenth slice's shape: scripts/bench_speculative_torch.py trains
+# llama-induct-160m at batch 32 x seq 512 (MHA 12:12 at head_dim 64),
+# every kernel at q/k/v [32, 12, 512, 64] bf16 causal -- as many elements
+# as gpt2's [16, 12, 1024, 64], a quarter of its visible pairs.
+SPEC_TRAIN_CASE = ('llama-induct-160m-train', 32, 12, 12, 512, 64,
+                   torch.bfloat16, True, None)
 # (name, b, hq, hkv, s, d, dtype, causal, window); the first is the shape
 # the llama-1b forward gives the kernel, timed as well.  The bf16 kernel
 # works in 128-row tiles up to head_dim 128: ragged_1088 and
@@ -332,11 +348,12 @@ KERNEL_CASES = [
     GRID_CASE,
     GPT2_TP_TRAIN_CASE,
     GPT2_LARGE_TP_FWD_CASE,
+    SPEC_TRAIN_CASE,
 ]
 # The forward is timed at these shapes.
 TIMED_FWD = (KERNEL_CASES[0][0], TRAIN_CASE[0], GEMMA_FWD_CASE[0],
              GEMMA_TRAIN_CASE[0], *SLICE12_FWD, *BERT_SHAPES, TP_FWD_CASE[0],
-             GRID_CASE[0], *SLICE16_FWD)
+             GRID_CASE[0], *SLICE16_FWD, SPEC_TRAIN_CASE[0])
 
 
 # Agreement of the forward kernel with its plain version (same inputs; the
@@ -445,7 +462,7 @@ def phase_kernel() -> dict:
 # shapes.
 BWD_CASES = [TRAIN_CASE] + KERNEL_CASES[2:]
 TIMED_BWD = (TRAIN_CASE[0], GEMMA_TRAIN_CASE[0], *SLICE12_BWD,
-             *BERT_SHAPES, *SLICE16_BWD)
+             *BERT_SHAPES, *SLICE16_BWD, SPEC_TRAIN_CASE[0])
 
 # Agreement of the backward kernels with their plain versions (same q, k,
 # v, dO, LSE and delta; the plain versions compute in f32): dQ, dK and dV
@@ -3495,16 +3512,20 @@ CHAOS_STREAM = dict(tokens=[11, 17, 23, 29, 31, 37, 41, 43],
                     max_new_tokens=48)
 
 
+def load_script(name: str):
+    """scripts/<name>.py as a module."""
+    path = pathlib.Path(__file__).resolve().parent / 'scripts' / f'{name}.py'
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def chaos_script():
     """scripts/chaos_smoke_torch.py as a module: its fault plan, requests
     and episode (the script imports the serve plane only inside its
     replica and batch legs, which this phase does not run)."""
-    path = pathlib.Path(__file__).resolve().parent / 'scripts' / \
-        'chaos_smoke_torch.py'
-    spec = importlib.util.spec_from_file_location('chaos_smoke_torch', path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_script('chaos_smoke_torch')
 
 
 class ChaosRecorder(sanitizers._OrderGraph):
@@ -6037,6 +6058,320 @@ def phase_serve_tp(env: dict) -> tuple:
     return tally, line
 
 
+# ------------------------------------------------ the bench and example twins
+#
+# The twins of the JAX package's bench scripts and examples run as a user
+# runs them: one subprocess runs every card mode in turn (TWIN_RUNNER, one
+# interpreter through runpy, so the card is reached once) while a replica
+# that the serve_lb sweep drives serves here; each phase's checks read its
+# modes' last stdout lines.  What needs the trainer's or the engine's
+# internals (the repeated batch, the depth-2 f32 tokens) runs here too.
+
+TWIN_RUNNER = '''
+import json, runpy, sys, time
+for path, argv in json.loads(sys.argv[1]):
+    sys.argv = [path] + argv
+    print('@@twin ' + json.dumps([path, argv]), flush=True)
+    t0, code = time.perf_counter(), 0
+    try:
+        runpy.run_path(path, run_name='__main__')
+    except SystemExit as e:
+        code = e.code or 0
+    print('@@end ' + json.dumps({'code': code,
+                                 'seconds': time.perf_counter() - t0}),
+          flush=True)
+    if code:
+        sys.exit(code)
+'''
+
+
+def run_twins(modes: list, timeout: float = 600) -> list:
+    """Run [(script relative to the repo root, argv), ...] in one
+    subprocess from the repo root; returns each mode's (stdout lines,
+    seconds).  Fails if a mode exits non-zero."""
+    root = pathlib.Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, '-c', TWIN_RUNNER, json.dumps(modes)],
+        capture_output=True, text=True, timeout=timeout, cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    check(proc.returncode == 0,
+          f'twins {[m[0] for m in modes]} exited {proc.returncode}: '
+          f'{proc.stdout[-1500:]} {proc.stderr[-3000:]}')
+    out, lines = [], None
+    for line in proc.stdout.splitlines():
+        if line.startswith('@@twin '):
+            lines = []
+        elif line.startswith('@@end '):
+            out.append((lines, json.loads(line[6:])['seconds']))
+        elif lines is not None:
+            lines.append(line)
+    check(len(out) == len(modes), f'twin modes ran: {len(out)}')
+    return out
+
+
+def last_json(lines: list) -> dict:
+    return json.loads([ln for ln in lines if ln.startswith('{')][-1])
+
+
+DECODE_MICRO_REPS = 1          # timed dispatches a window (the ref.: 20)
+SPEC_BENCH_STEPS = 100         # the reference: 6,000
+SPEC_BENCH_REQUESTS = 16       # the reference: 32
+SPEC_REPEAT_STEPS = 6
+FEATURES_LAYERS = 2            # of llama2-7b's 32
+SERVE_LB_QPS = 8.0
+SERVE_LB_REQUESTS_PER_QPS = 2  # max(8 x 2, 16) = 16 requests
+
+
+def twin_modes(endpoint: str) -> list:
+    """Every card mode of the twins, in the order they run."""
+    return [
+        ('scripts/bench_decode_micro_torch.py',
+         ['--reps', str(DECODE_MICRO_REPS)]),
+        ('scripts/bench_decode_micro_torch.py', ['--paged', '--hbm-gb', '80']),
+        ('scripts/bench_speculative_torch.py',
+         ['--steps', str(SPEC_BENCH_STEPS),
+          '--requests', str(SPEC_BENCH_REQUESTS)]),
+        ('scripts/bench_features_torch.py',
+         ['--no-lb', '--reps', '1', '--spec-requests', '8',
+          '--spec-new-tokens', '32', '--num-layers', str(FEATURES_LAYERS)]),
+        ('scripts/bench_serve_lb_torch.py',
+         ['--endpoint', endpoint, '--qps', str(SERVE_LB_QPS),
+          '--requests-per-qps', str(SERVE_LB_REQUESTS_PER_QPS)]),
+        ('examples/mnist_torch.py', ['--steps', '3']),
+        ('examples/allreduce_bench_torch.py',
+         ['--payload-mb', '256', '--trials', '3']),
+    ]
+
+
+def phase_twins(env: dict) -> tuple:
+    """Start the serve_lb replica (server.run() at the reference replica's
+    flags: llama2-7b, int8 weights, fp8 cache, 48 slots, cache 512), run
+    every twin mode in one subprocess, stop the replica with POST /drain,
+    then each phase's checks and line: decode_micro, spec_bench,
+    features, serve_lb, examples.  Returns spec_bench's launches."""
+    torch.cuda.empty_cache()
+    port = free_port()
+    thread = threading.Thread(target=server.run, daemon=True, kwargs=dict(
+        model='llama2-7b', host='127.0.0.1', port=port, num_slots=48,
+        max_cache_len=512, weight_dtype='int8', cache_dtype='fp8'))
+    t0 = time.perf_counter()
+    thread.start()
+    while time.perf_counter() - t0 < 600:
+        try:
+            if http(port, 'GET', '/healthz', timeout=10)[0] == 200:
+                break
+        except OSError:
+            pass
+        time.sleep(0.1)
+    up_s = time.perf_counter() - t0
+    try:
+        fit, paged, spec, features, sweep, mnist, allreduce = run_twins(
+            twin_modes(f'http://127.0.0.1:{port}'), timeout=900)
+    finally:
+        http(port, 'POST', '/drain', {})
+        thread.join(timeout=120)
+    check(not thread.is_alive(), 'the replica did not stop after /drain')
+    check_decode_micro(env, fit, paged)
+    launches = timed(check_spec_bench, env, spec)
+    check_features(env, features)
+    check_serve_lb(env, sweep, up_s)
+    check_examples(env, mnist, allreduce)
+    return launches
+
+
+def check_decode_micro(env: dict, fit_run: tuple, paged_run: tuple) -> None:
+    """scripts/bench_decode_micro_torch.py at the reference's defaults
+    (llama2-7b int8 + fp8 cache, 16 slots, cache 512, windows 1..16) at
+    DECODE_MICRO_REPS, then --paged at the H100's 80 GB with its measured
+    sweep: the fit dispatch(K) = F + K*s with s > 0, each window's device
+    time (the profiler's) at most its production wall time, the paged
+    sweep's rows at every fill."""
+    fit, paged = last_json(fit_run[0]), last_json(paged_run[0])
+    windows = fit['windows']
+    check(fit['fit_per_step_ms'] > 0, f'per-step cost {fit}')
+    check(sorted(windows, key=int) == ['1', '2', '4', '8', '16'],
+          f'windows {sorted(windows)}')
+    for k, row in windows.items():
+        check(row['device_ms'] is not None and
+              0 < row['device_ms'] <= 1e3 * row['dispatch_s'],
+              f'window {k}: device {row["device_ms"]} ms, wall '
+              f'{1e3 * row["dispatch_s"]} ms')
+    rows = paged['measured_tiny_sweep']['rows']
+    check([r['filled_len'] for r in rows] == [32, 64, 128, 256, 384, 511]
+          and all(0 < r['paged_device_ms'] <= r['paged_dispatch_ms']
+                  for r in rows), f'paged sweep {rows}')
+    emit({'phase': 'decode_micro', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'fit': fit,
+          'fit_seconds': fit_run[1],
+          'paged_capacity': paged['capacity_model'],
+          'paged_measured': paged['measured_tiny_sweep'],
+          'paged_seconds': paged_run[1],
+          'reduced': f'{DECODE_MICRO_REPS} timed dispatch a window (the '
+                     'reference: 20)'})
+
+
+def check_spec_bench(env: dict, run: tuple) -> tuple:
+    """scripts/bench_speculative_torch.py at SPEC_BENCH_STEPS steps at the
+    full llama-induct-160m width: every step launches 2 x 8 / 8 / 8
+    kernels (remat reruns the forward), the losses are finite, and each
+    engine row drafted at least what it accepted.  Here: the repeated
+    induction batch's loss falls at full width (its steps' launches
+    counted too), and at depth 2 in f32 (f32 cache) the grounded
+    requests' tokens at draft_len 4 and 7 are the windowed engine's
+    (draft_len 0).  Returns the kernels' launches of both trainings."""
+    doc = last_json(run[0])
+    bench = load_script('bench_speculative_torch')
+    mc = bench.model_config(bench.MODEL)
+    per_step = [mc.num_layers * 2, mc.num_layers, mc.num_layers]
+    check(doc['flash_launches_per_step'] == [per_step],
+          f'launches per step {doc["flash_launches_per_step"]}, '
+          f'expected {per_step}')
+    check(doc['flash_launches_fwd_dq_dkv'] ==
+          [n * SPEC_BENCH_STEPS for n in per_step],
+          f'launches {doc["flash_launches_fwd_dq_dkv"]}')
+    check(all(math.isfinite(x) for x in doc['train_loss_trajectory']),
+          f'losses {doc["train_loss_trajectory"]}')
+    rows = {k: v for k, v in doc.items()
+            if isinstance(v, dict) and 'spec' in v}
+    check(len(rows) == 4 and all(
+        r['spec']['accepted'] <= r['spec']['drafted'] for r in rows.values()),
+        f'engine rows {rows}')
+    check(rows['grounded_draft_0']['spec']['dispatches'] == 0 and
+          rows['grounded_draft_4']['spec']['dispatches'] > 0,
+          f'speculation dispatches {rows}')
+
+    # The repeated batch at full width, the script's config and batches.
+    cfg = train_lib.TrainConfig(model=bench.MODEL, batch_size=bench.BATCH,
+                                seq_len=2 * bench.SEG, warmup_steps=2,
+                                total_steps=100, loss_chunk=128)
+    trainer = train_lib.Trainer(cfg, mc)
+    trainer.setup(seed=0)
+    batch = {'tokens': torch.from_numpy(next(bench.induction_batches(
+        bench.BATCH, mc.vocab_size, seed=1))['tokens']).long()}
+    out, repeat_steps, _ = launches_per_step(
+        lambda wrap: trainer.train(data=wrap(itertools.repeat(batch)),
+                                   num_steps=SPEC_REPEAT_STEPS, log_every=1))
+    check(repeat_steps == [per_step] * SPEC_REPEAT_STEPS,
+          f'repeated batch launches per step {repeat_steps}')
+    tally = [n * SPEC_REPEAT_STEPS for n in per_step]
+    repeat = [loss for _, loss in trainer.history]
+    after = trainer.evaluate(iter([batch]), num_batches=1)['eval_loss']
+    check(after < repeat[1],
+          f'repeated batch: loss {after} after {SPEC_REPEAT_STEPS} steps, '
+          f'{repeat[1]} at 2')
+    del trainer
+    torch.cuda.empty_cache()
+
+    # Depth 2 in f32: speculation leaves the windowed engine's tokens.
+    mc2 = dataclasses.replace(mc, num_layers=2, dtype=torch.float32)
+    params = init_params(mc2, torch.Generator(device='cuda').manual_seed(0))
+    reqs = bench.grounded_requests(16, mc.vocab_size)
+    results, rows2 = {}, {}
+    for draft in (0, 4, 7):
+        bench.run_engine(params, draft, reqs, f'draft_{draft}', rows2,
+                         copy_check=True, device='cuda', mc=mc2,
+                         cache_dtype=torch.float32, results=results)
+    tokens = {k: [r.output_tokens for r in v] for k, v in results.items()}
+    check(tokens['draft_4'] == tokens['draft_0'] and
+          tokens['draft_7'] == tokens['draft_0'],
+          'depth-2 f32: speculative tokens differ from windowed decode')
+    check(rows2['draft_4']['spec']['drafted'] > 0,
+          f'depth-2 f32 drafted nothing: {rows2}')
+    del params
+    torch.cuda.empty_cache()
+    launches = [a + b for a, b in zip(doc['flash_launches_fwd_dq_dkv'],
+                                      tally)]
+    emit({'phase': 'spec_bench', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'model': bench.MODEL,
+          'params': mc.num_params, 'batch': [bench.BATCH, 2 * bench.SEG],
+          'seconds': run[1], 'result': doc,
+          'repeat_batch_losses': repeat, 'repeat_batch_loss_after': after,
+          'repeat_batch_tokens_per_s': out['tokens_per_second'],
+          'depth2_f32_rows': rows2, 'launches': launches,
+          'reduced': f'{SPEC_BENCH_STEPS} training steps, '
+                     f'{SPEC_BENCH_REQUESTS} requests a row (the '
+                     'reference: 6,000 and 32)'})
+    return tuple(launches)
+
+
+def check_features(env: dict, run: tuple) -> None:
+    """scripts/bench_features_torch.py's LB-free sections (--no-lb) at
+    llama2-7b width cut to FEATURES_LAYERS layers, int8 weights, the fp8
+    cache, one timed rep and 8 x 32-token speculative requests: every
+    section's counters -- two prefix hits, the chunked prompt's rounds,
+    the pool drained but for the registered prefix, one contained fault
+    and the rest finished, radix hits, the interactive arrival first
+    under WFQ."""
+    doc = last_json(run[0])
+    check(doc['prefix_cache']['prefix_hits'] == 2, f'{doc["prefix_cache"]}')
+    # One warm-up request and three timed (max(3, reps // 2)).
+    check(doc['chunked_prefill']['chunk_stats']['requests'] == 4,
+          f'{doc["chunked_prefill"]}')
+    kv = doc['kv_occupancy']
+    check(kv['drained']['kv']['blocks']['free'] ==
+          kv['drained']['kv']['blocks']['total'] -
+          kv['prefix_registered']['kv']['blocks']['allocated'] and
+          kv['mid_flight_4_slots_sharing']['kv']['blocks']['shared'] > 0,
+          f'kv occupancy {kv}')
+    fc = doc['fault_containment']
+    check(fc['failed_requests'] == 1 and fc['survivors_completed'] == 15,
+          f'fault containment {fc}')
+    check(doc['radix_prefix_cache']['radix_hits'] > 0,
+          f'{doc["radix_prefix_cache"]}')
+    check(doc['qos_scheduler']['interactive_waits_behind']['wfq'] == 0,
+          f'{doc["qos_scheduler"]}')
+    spec = doc['speculative']
+    check(all(r['spec']['accepted'] <= r['spec']['drafted']
+              for k, r in spec.items() if k != 'dispatch_cost'),
+          f'speculative {spec}')
+    check('lb_affinity' not in doc, 'the LB section ran on the card host')
+    emit({'phase': 'features', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'seconds': run[1],
+          'result': doc,
+          'reduced': f'llama2-7b depth 32 -> {FEATURES_LAYERS}, 1 timed rep, '
+                     '8 x 32-token speculative requests (the reference: '
+                     '32 x 188); no LB section (the serve plane is not '
+                     'installed on the card host)'})
+
+
+def check_serve_lb(env: dict, run: tuple, up_s: float) -> None:
+    """One sweep row of scripts/bench_serve_lb_torch.py through --endpoint
+    against the replica phase_twins started: 16 Poisson arrivals of
+    219-token prompts, 188 tokens each, every one completed, no error and
+    no shed."""
+    row = last_json(run[0])
+    n = max(int(SERVE_LB_QPS * SERVE_LB_REQUESTS_PER_QPS), 16)
+    check(row['completed'] == n and row['errors'] == 0 and
+          row['shed_429'] == 0 and row['output_tokens'] == n * 188,
+          f'sweep row {row}')
+    emit({'phase': 'serve_lb', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'replica_up_s': up_s,
+          'seconds': run[1], 'row': row,
+          'reduced': f'one row at qps {SERVE_LB_QPS}, {n} requests (the '
+                     'reference: qps 2.0 and 3.5, 96 and 168), the replica '
+                     'direct (the serve plane is not installed on the '
+                     'card host)'})
+
+
+def check_examples(env: dict, mnist_run: tuple, allreduce_run: tuple) -> None:
+    """examples/mnist_torch.py (3 steps at its defaults) and
+    examples/allreduce_bench_torch.py on one rank (256 MB, 3 trials):
+    the reference's lines, a finite loss, algbw > 0 (busbw is 0 on one
+    rank: it moves nothing)."""
+    mnist, ar = mnist_run[0], allreduce_run[0]
+    loss = float(mnist[0].split('loss ')[1])
+    check(mnist[0].startswith('step 3: loss ') and math.isfinite(loss) and
+          mnist[1].endswith('images/s on 1 device(s)'), f'mnist {mnist}')
+    algbw = float(ar[1].split()[1])
+    busbw = float(ar[2].split()[1])
+    check(ar[1].startswith(' algbw: ') and algbw > 0 and busbw == 0.0,
+          f'all-reduce {ar}')
+    emit({'phase': 'examples', 'device': env['device'],
+          'nvidia_smi': env['nvidia_smi'], 'mnist': mnist,
+          'mnist_seconds': mnist_run[1], 'allreduce': ar,
+          'allreduce_seconds': allreduce_run[1]})
+
+
 def phase_planted_faults() -> None:
     """Build a copy of a kernel per planted fault (under
     build/planted_faults/), run it in place of the sound library at its
@@ -6197,6 +6532,9 @@ def main() -> int:
     serve_tp, _ = timed(phase_serve_tp, env)
     from torch import distributed as dist
     dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_bench = timed(phase_twins, env)
     csrc = 'skypilot_tpu_torch/ops/csrc/'
     tpu = 'skypilot_tpu/ops/flash_attention.py:'
     print(json.dumps({'kernels': [
@@ -6208,7 +6546,7 @@ def main() -> int:
                        + mixtral_forward + mixtral_train[0]
                        + bert_train[0] + bert_hf_forward
                        + mixtral_lora[0] + mesh_train[0] + mesh_lora[0]
-                       + dryrun[0] + serve_tp[0]),
+                       + dryrun[0] + serve_tp[0] + spec_bench[0]),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
@@ -6226,7 +6564,8 @@ def main() -> int:
                                'mesh_train': mesh_train[0],
                                'mesh_lora': mesh_lora[0],
                                'dryrun': dryrun[0],
-                               'serve_tp': serve_tp[0]},
+                               'serve_tp': serve_tp[0],
+                               'spec_bench': spec_bench[0]},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
              headline_shape=headline['fwd'],
              head_dim_256_shapes={name: fwd[name]
@@ -6235,13 +6574,14 @@ def main() -> int:
              bert_shapes={name: fwd[name] for name in BERT_SHAPES},
              serve_tp_shape=fwd[TP_FWD_CASE[0]],
              grid_shape=fwd[GRID_CASE[0]],
-             slice16_shapes={name: fwd[name] for name in SLICE16_FWD}),
+             slice16_shapes={name: fwd[name] for name in SLICE16_FWD},
+             spec_bench_shape=fwd[SPEC_TRAIN_CASE[0]]),
         dict(name='flash_attention_bwd_dq', route='cuda',
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
              launches=(train_dq + bench_dq + gemma_train[1] + lora_train[1]
                        + gpt2_train[1] + mixtral_train[1] + bert_train[1]
                        + mixtral_lora[1] + mesh_train[1] + mesh_lora[1]
-                       + dryrun[1]),
+                       + dryrun[1] + spec_bench[1]),
              launches_by_path={'train': train_dq, 'bench': bench_dq,
                                'gemma_train': gemma_train[1],
                                'lora_train': lora_train[1],
@@ -6251,21 +6591,23 @@ def main() -> int:
                                'mixtral_lora_train': mixtral_lora[1],
                                'mesh_train': mesh_train[1],
                                'mesh_lora': mesh_lora[1],
-                               'dryrun': dryrun[1]},
+                               'dryrun': dryrun[1],
+                               'spec_bench': spec_bench[1]},
              **bwd[TRAIN_CASE[0]]['dq'], headline_shape=headline['dq'],
              head_dim_256_shapes={name: bwd[name]['dq']
                                   for name in TIMED_BWD[1:2]},
              slice12_shapes={name: bwd[name]['dq'] for name in SLICE12_BWD},
              bert_shapes={name: bwd[name]['dq'] for name in BERT_SHAPES},
              slice16_shapes={name: bwd[name]['dq']
-                             for name in SLICE16_BWD}),
+                             for name in SLICE16_BWD},
+             spec_bench_shape=bwd[SPEC_TRAIN_CASE[0]]['dq']),
         dict(name='flash_attention_bwd_dkv', route='cuda',
              source=csrc + 'flash_attention_bwd_dkv.cu',
              replaces=tpu + '227',
              launches=(train_dkv + bench_dkv + gemma_train[2]
                        + lora_train[2] + gpt2_train[2] + mixtral_train[2]
                        + bert_train[2] + mixtral_lora[2] + mesh_train[2]
-                       + mesh_lora[2] + dryrun[2]),
+                       + mesh_lora[2] + dryrun[2] + spec_bench[2]),
              launches_by_path={'train': train_dkv, 'bench': bench_dkv,
                                'gemma_train': gemma_train[2],
                                'lora_train': lora_train[2],
@@ -6275,7 +6617,8 @@ def main() -> int:
                                'mixtral_lora_train': mixtral_lora[2],
                                'mesh_train': mesh_train[2],
                                'mesh_lora': mesh_lora[2],
-                               'dryrun': dryrun[2]},
+                               'dryrun': dryrun[2],
+                               'spec_bench': spec_bench[2]},
              **bwd[TRAIN_CASE[0]]['dkv'], headline_shape=headline['dkv'],
              head_dim_256_shapes={name: bwd[name]['dkv']
                                   for name in TIMED_BWD[1:2]},
@@ -6283,7 +6626,8 @@ def main() -> int:
                              for name in SLICE12_BWD},
              bert_shapes={name: bwd[name]['dkv'] for name in BERT_SHAPES},
              slice16_shapes={name: bwd[name]['dkv']
-                             for name in SLICE16_BWD}),
+                             for name in SLICE16_BWD},
+             spec_bench_shape=bwd[SPEC_TRAIN_CASE[0]]['dkv']),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 test_torch_server.py): one tiny f32 Llama built on both sides from the
 same numpy weights, and engine factories for the JAX engine and the
 port's."""
+import os
+
 import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from skypilot_tpu.infer import InferConfig as JaxInferConfig
@@ -111,3 +114,51 @@ def features_match(jax_eng, port_eng, prompts, prefix, max_new=6,
         np.asarray(want[0].prompt_logprobs[1:], np.float64), rtol=0,
         atol=tol)
     return got
+
+
+def engine_factories(geometry: dict, scale: float = 0.2, seed: int = 3,
+                     cache_dtype: str = 'float32'):
+    """(jax_factory, port_factory, params): engine factories over one set
+    of numpy weights (std `scale`) of an f32 llama of `geometry`, taking a
+    bench script's engine options (InferConfig fields) as keywords, with
+    decode_steps 8 unless given.  For the bench twins' parity tests, whose
+    sections build their engines through a module-level factory."""
+    jcfg = JaxLlamaConfig(**geometry, dtype='float32')
+    pcfg = PortLlamaConfig(**geometry, dtype=torch.float32)
+    shapes = flax.linen.meta.unbox(jax.eval_shape(
+        JaxLlama(jcfg).init, jax.random.PRNGKey(0),
+        jnp.zeros((1, 8), jnp.int32)))['params']
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(lambda x: rng.normal(0, scale, x.shape).astype(
+        np.float32), shapes)
+    sd = convert.state_dict_from_jax(params, pcfg)
+
+    def jax_factory(**kw):
+        kw = {'decode_steps': 8, **kw}
+        return JaxEngine(jcfg, JaxInferConfig(
+            cache_dtype=getattr(jnp, cache_dtype), **kw),
+            params={'params': params}, rng=jax.random.PRNGKey(7))
+
+    def port_factory(**kw):
+        kw = {'decode_steps': 8, **kw}
+        return port.InferenceEngine(
+            pcfg, port.InferConfig(cache_dtype=getattr(torch, cache_dtype),
+                                   **kw),
+            params=sd, generator=torch.Generator().manual_seed(0),
+            device='cpu')
+
+    return jax_factory, port_factory, params
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """A module of tiny-model tests (import this fixture into the module
+    to apply it) under pytest-xdist takes its share of the cores in torch
+    threads: with torch's default of a thread per core, six workers
+    oversubscribe the cores many times over on ops this small (a 4 s
+    test took 168 s in the suite).  Alone, a module keeps the default."""
+    workers = int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))
+    n = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(n)

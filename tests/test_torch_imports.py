@@ -3,6 +3,7 @@ stands alone: it imports neither JAX nor anything of the JAX package,
 and its entry points need a card unless the caller asks for the CPU."""
 import ast
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
@@ -16,6 +17,18 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
 # The PyTorch twins of the JAX examples, imported as modules of examples/.
 EXAMPLES = ['examples.finetune_bert_torch', 'examples.train_resnet_torch',
             'examples.train_llama_torch', 'examples.finetune_llama31_torch']
+# The twins of the JAX package's bench scripts and examples, by path.
+TWINS = ['scripts/bench_decode_micro_torch.py',
+         'scripts/bench_speculative_torch.py',
+         'scripts/bench_features_torch.py',
+         'scripts/bench_serve_lb_torch.py',
+         'examples/mnist_torch.py', 'examples/allreduce_bench_torch.py']
+# The only functions of a twin that import the JAX package's (JAX-free)
+# serve plane: the LB and serve-up sections, which run where its
+# dependencies are installed.
+LB_SECTIONS = {'scripts/bench_features_torch.py': {'bench_lb_affinity'},
+               'scripts/bench_serve_lb_torch.py': {'serve_up', 'run_sweep',
+                                                   'run_batch_bench'}}
 
 
 def _port_modules():
@@ -212,3 +225,122 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _loaded_after(code: str, timeout: float = 240) -> set:
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout,
+                         env=dict(os.environ, OMP_NUM_THREADS='1'))
+    assert out.returncode == 0, out.stderr[-3000:]
+    return set(__import__('json').loads(out.stdout.splitlines()[-1]))
+
+
+def test_twins_import_no_jax_nor_the_jax_package():
+    """Each twin, imported by path in a fresh interpreter, loads no jax*
+    module and nothing of skypilot_tpu."""
+    code = (
+        'import importlib.util, json, sys\n'
+        f'for i, path in enumerate({TWINS!r}):\n'
+        "    spec = importlib.util.spec_from_file_location(f'twin{i}', path)\n"
+        '    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n'
+        'print(json.dumps(sorted(sys.modules)))\n')
+    loaded = _loaded_after(code)
+    assert 'skypilot_tpu_torch.infer.engine' in loaded
+    assert not sorted(m for m in loaded if _forbidden(m))
+
+
+@pytest.mark.parametrize('path', TWINS)
+def test_twins_import_the_serve_plane_only_in_lb_sections(path):
+    """No import statement of a twin names jax, flax or optax; skypilot_tpu
+    only inside its LB sections' functions."""
+    tree = ast.parse((ROOT / path).read_text())
+    allowed = LB_SECTIONS.get(path, set())
+    for fn in [None] + [n for n in ast.walk(tree)
+                        if isinstance(n, ast.FunctionDef)]:
+        body = tree.body if fn is None else fn.body
+        names = []
+        for node in (ast.walk(ast.Module(body=body, type_ignores=[]))
+                     if fn is not None else body):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names.append(node.module)
+        bad = [n for n in names if _forbidden(n)]
+        if fn is not None and fn.name in allowed:
+            bad = [n for n in bad if not n.startswith('skypilot_tpu')]
+        assert not bad, (fn and fn.name, bad)
+
+
+def test_card_capable_modes_load_no_jax_package():
+    """The modes that run on the card, driven on the CPU at tiny size in
+    one fresh interpreter: the decode-micro fit and paged sweep, the
+    speculation bench, the feature sections but LB affinity, the sweep
+    through --endpoint against a port server, MNIST and the all-reduce on
+    one rank.  Afterwards no jax* module and nothing of skypilot_tpu is
+    loaded."""
+    code = """
+import contextlib, importlib.util, io, json, sys, threading, time
+import torch
+from urllib.request import urlopen
+torch.set_num_threads(1)
+
+def load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+from skypilot_tpu_torch.infer import engine, server
+from skypilot_tpu_torch.infer.chaos import free_port
+from skypilot_tpu_torch.models.llama import LlamaConfig
+quiet = contextlib.redirect_stdout(io.StringIO())
+with quiet:
+    micro = load('micro', 'scripts/bench_decode_micro_torch.py')
+    assert micro.main(['--device', 'cpu', '--model', 'llama-debug',
+                       '--weight-dtype', 'bf16', '--cache-dtype', 'float32',
+                       '--num-slots', '2', '--max-cache-len', '256',
+                       '--prompt-len', '40', '--windows', '1', '2',
+                       '--reps', '1', '--prefill-chunk', '0']) == 0
+    assert micro.main(['--paged', '--device', 'cpu', '--fill-sweep',
+                       '32']) == 0
+    spec = load('spec', 'scripts/bench_speculative_torch.py')
+    assert spec.main(['--model', 'llama-debug', '--device', 'cpu',
+                      '--steps', '1', '--requests', '1']) == 0
+    feat = load('feat', 'scripts/bench_features_torch.py')
+    feat._model_config = lambda: LlamaConfig(
+        name='t', vocab_size=32000, hidden_size=16, intermediate_size=32,
+        num_layers=1, num_heads=2, num_kv_heads=1, max_seq_len=2048,
+        tie_embeddings=True, dtype=torch.float32, weight_dtype='int8')
+    assert feat.main(['--device', 'cpu', '--no-lb', '--reps', '1',
+                      '--prefill-chunk', '0', '--spec-requests', '2',
+                      '--spec-new-tokens', '8']) == 0
+    eng = engine.InferenceEngine(
+        LlamaConfig(name='t', vocab_size=32000, hidden_size=16,
+                    intermediate_size=32, num_layers=1, num_heads=2,
+                    num_kv_heads=1, max_seq_len=128, dtype=torch.float32),
+        engine.InferConfig(max_cache_len=64, num_slots=4,
+                           cache_dtype=torch.float32), device='cpu')
+    port = free_port()
+    t = threading.Thread(target=server.serve, args=(eng,), daemon=True,
+                         kwargs=dict(host='127.0.0.1', port=port))
+    t.start()
+    for _ in range(600):
+        try:
+            urlopen(f'http://127.0.0.1:{port}/healthz', timeout=5)
+            break
+        except OSError:
+            time.sleep(0.05)
+    lb = load('lb', 'scripts/bench_serve_lb_torch.py')
+    lb.PROMPT_LEN, lb.NEW_TOKENS = 8, 4
+    assert lb.main(['--endpoint', f'http://127.0.0.1:{port}', '--qps',
+                    '100', '--requests-per-qps', '1']) == 0
+    load('mnist', 'examples/mnist_torch.py').main(
+        ['--device', 'cpu', '--steps', '1', '--batch-size', '8',
+         '--hidden', '4'])
+    load('allreduce', 'examples/allreduce_bench_torch.py').main(
+        ['--device', 'cpu', '--payload-mb', '1', '--trials', '1'])
+print(json.dumps(sorted(sys.modules)))
+"""
+    loaded = _loaded_after(code, timeout=600)
+    assert 'skypilot_tpu_torch.infer.server' in loaded
+    assert not sorted(m for m in loaded if _forbidden(m))
