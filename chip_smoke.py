@@ -6,7 +6,9 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times all three
-at bench_torch.py's headline shape (seq 8192), drives the port's main
+at bench_torch.py's headline shape (seq 8192), holds them at head dims
+16 to 192 that fill part of their tile, in bf16 and f32, and times them
+at the shapes of the head_dims phase, drives the port's main
 paths -- bench_torch.py whole (llama-800m training at seq 8192 and 2048,
 in a subprocess), the llama-1b no-cache forward (tokens [1, 1024]),
 offline serving through the dense-cache engine, the HTTP server (16
@@ -41,7 +43,11 @@ layers served at examples/serve_mixtral.yaml's engine flags over the fp8
 and a bf16 cache against a drop-free scorer, and trained at depth 2),
 then BERT and ResNet through their task loops (bert-base fine-tuned at
 examples/bert_imdb.yaml's settings with its masked path and its HF
-import, resnet50 trained at examples/resnet.yaml's) and frozen-base LoRA
+import, resnet50 trained at examples/resnet.yaml's), HF-imported
+checkpoints at head dims 96, 80 and 32 (h2o-danube3-500m trained at
+8 x 2048, its no-cache forward against the plain attention and served;
+h2o-danube-1.8b trained at 1 x 8192 past its 4096-token window;
+all-MiniLM-L6-v2's classify loop) and frozen-base LoRA
 on Mixtral at depth 2, then the mesh trainer on a one-rank NCCL group
 (llama3-8b at 4 layers, then LoRA under the mesh at
 examples/finetune_llama31.yaml's rank 16), the multi-chip dryrun, and
@@ -63,7 +69,8 @@ check raises, so the script exits non-zero and the closing line is never
 printed.  The last two lines are the kernels line
 and {"ok": true, "device": {...}}.
 
---kernels runs only the kernel checks and their timings.
+--kernels runs only the kernel checks and their timings, the head-dim
+grid and shapes included.
 --planted-faults builds copies of the three kernels, each with one
 deliberate fault (forward: O's rescale skipped, V read from the wrong ring
 stage, the diagonal tile's mask skipped, one 16-key slice of P dropped
@@ -391,19 +398,33 @@ def device_ms(fn, reps: int = 10) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
-def time_fwd(q, k, v, causal, scale, window) -> dict:
+def sdpa_args(s: int, causal: bool, window, device) -> dict:
+    """scaled_dot_product_attention's arguments for the kernels' rule:
+    is_causal, or with a window the band as a boolean mask."""
+    if window is None:
+        return {'is_causal': causal}
+    i = torch.arange(s, device=device)
+    rel = i[:, None] - i[None, :]
+    return {'attn_mask': (rel >= 0) & (rel < window)}
+
+
+def time_fwd(q, k, v, causal, scale, window,
+             plain_ms: Optional[float] = None) -> dict:
     """The forward kernel and scaled_dot_product_attention's forward in
     turns, by CUDA events and by the profiler's device time; the plain
-    version; the bound and the kernel's rate (from the CUDA-event time)."""
+    version (`plain_ms` where the caller timed it by slices); the bound
+    and the kernel's rate (from the CUDA-event time)."""
     b, hq, s, d = q.shape
     args = (q, k, v, causal, scale, window)
 
     def kernel():
         return fa.flash_attention_fwd(*args)
 
+    rule = sdpa_args(s, causal, window, q.device)
+
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True)
+            q, k, v, enable_gqa=True, **rule)
 
     with torch.no_grad():
         (ms, library_ms), turns = in_turns((kernel, library))
@@ -416,8 +437,9 @@ def time_fwd(q, k, v, causal, scale, window) -> dict:
             'turns_kernel_library_library_kernel': turns,
             'device_ms': dev_ms, 'library_device_ms': library_dev_ms,
             'device_turns': dev,
-            'plain_ms': cuda_ms(lambda: fa.attention_fwd_reference(*args),
-                                iters=3, warmup=1),
+            'plain_ms': plain_ms if plain_ms is not None else cuda_ms(
+                lambda: fa.attention_fwd_reference(*args), iters=3,
+                warmup=1),
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'tflop_per_s': flops / (ms * 1e9),
             'share_of_bound': bound_ms / ms}
@@ -506,19 +528,21 @@ def bwd_errors(got, ref, bounds) -> dict:
     return out
 
 
-def time_bwd(args) -> dict:
+def time_bwd(args, plain_ms: Optional[dict] = None) -> dict:
     """Times at the training shape: the dQ kernel, the dK/dV kernel and
     their yardstick, scaled_dot_product_attention's backward alone (one
     call computes dQ, dK and dV), in turns (dQ, dK/dV, SDPA, SDPA, dK/dV,
     dQ) by CUDA events and by the profiler's device time; the plain
-    versions; each kernel's bound, rate and share of its bound (from the
+    versions (`plain_ms` {'dq', 'dkv'} where the caller timed them by
+    slices); each kernel's bound, rate and share of its bound (from the
     CUDA-event time); and the pair's sums."""
     q, k, v, do, lse, delta, causal, scale, window = args
     b, hq, s, d = q.shape
     shape = (b, hq, k.shape[1], s, d, q.dtype, causal, window)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(
-        qr, kr, vr, is_causal=causal, enable_gqa=True)
+        qr, kr, vr, enable_gqa=True, **sdpa_args(s, causal, window,
+                                                 q.device))
     fns = (lambda: fa.flash_attention_bwd_dq(*args),
            lambda: fa.flash_attention_bwd_dkv(*args),
            lambda: torch.autograd.grad(out, (qr, kr, vr), do,
@@ -538,8 +562,8 @@ def time_bwd(args) -> dict:
         bound_ms, bound_by = attention_bound(*shape, *bound_args)
         flops = bound_args[0] * b * hq * d * pairs
         timing[name] = {'ms': ms[i], 'device_ms': dev[i],
-                        'plain_ms': cuda_ms(lambda: plain(*args), iters=3,
-                                            warmup=1),
+                        'plain_ms': plain_ms[name] if plain_ms else cuda_ms(
+                            lambda: plain(*args), iters=3, warmup=1),
                         'bound_ms': bound_ms, 'bound_by': bound_by,
                         'library_ms': ms[2], 'library_device_ms': dev[2],
                         'tflop_per_s': flops / (ms[i] * 1e9),
@@ -599,29 +623,35 @@ def timed_call(fn) -> tuple:
     return out, cuda_ms(fn, iters=1, warmup=0)
 
 
-def headline_errors(args, out, lse, grads) -> tuple:
+def headline_errors(args, out, lse, grads, kv_heads=None) -> tuple:
     """The kernels' full-batch outputs (O, LSE; dQ, dK, dV) against the
-    plain versions on the same inputs, one batch row at a time, within
-    the KERNEL_CASES bounds (fa.attention_fwd_bound and BOUND_LSE,
+    plain versions on the same inputs, one batch row (and `kv_heads` kv
+    heads with their q heads, all by default) at a time, within the
+    KERNEL_CASES bounds (fa.attention_fwd_bound and BOUND_LSE,
     fa.attention_bwd_bound).  Returns (the worst errors of each kernel,
-    the plain versions' times in ms summed over the rows)."""
+    the plain versions' times in ms summed over the slices)."""
     q, k, v, do, full_lse, delta, causal, scale, window = args
+    hkv = k.shape[1]
+    group, kv_heads = q.shape[1] // hkv, kv_heads or hkv
+    slices = [((slice(i, i + 1), slice(h * group, (h + kv_heads) * group)),
+               (slice(i, i + 1), slice(h, h + kv_heads)))
+              for i in range(q.shape[0]) for h in range(0, hkv, kv_heads)]
     fwd, bwd = {}, {}
     plain = {'fwd': 0.0, 'dq': 0.0, 'dkv': 0.0}
-    for i in range(q.shape[0]):
-        qi, ki, vi, doi = (t[i:i + 1] for t in (q, k, v, do))
-        row = (qi, ki, vi, doi, full_lse[i:i + 1], delta[i:i + 1], causal,
-               scale, window)
+    for qs, ks in slices:
+        qi, doi, ki, vi = q[qs], do[qs], k[ks], v[ks]
+        row = (qi, ki, vi, doi, full_lse[qs], delta[qs], causal, scale,
+               window)
         ref, ms = timed_call(lambda: fa.attention_fwd_reference(
             qi, ki, vi, causal, scale, window))
         plain['fwd'] += ms
-        diff = (out[i:i + 1].float() - ref[0].float()).abs()
+        diff = (out[qs].float() - ref[0].float()).abs()
         bound = fa.attention_fwd_bound(qi, ki, vi, causal, scale, window,
                                        ref[0])
         for key, val in (('max_abs_err', diff.max().item()),
                          ('max_err_over_bound', (diff / bound).max().item()),
                          ('max_abs_err_lse',
-                          (lse[i:i + 1] - ref[1]).abs().max().item())):
+                          (lse[qs] - ref[1]).abs().max().item())):
             fwd[key] = float(np.maximum(fwd.get(key, 0.0), val))  # NaN wins
         del ref, diff, bound
         dq, ms = timed_call(lambda: fa.attention_bwd_dq_reference(*row))
@@ -629,7 +659,7 @@ def headline_errors(args, out, lse, grads) -> tuple:
         dkv, ms = timed_call(lambda: fa.attention_bwd_dkv_reference(*row))
         plain['dkv'] += ms
         ref = (dq, *dkv)
-        errs = bwd_errors([g[i:i + 1] for g in grads], ref,
+        errs = bwd_errors([grads[0][qs], grads[1][ks], grads[2][ks]], ref,
                           fa.attention_bwd_bound(*row, ref))
         for name, e in errs.items():
             for key, val in e.items():
@@ -709,6 +739,177 @@ def phase_kernel_headline() -> dict:
     check(not failures, f'kernels disagree with their plain versions at '
           f'the headline shape: {failures}')
     return timing
+
+
+# Head dims the kernels run in a wider tile (ROADMAP.md B2), each in bf16
+# and f32: causal, windowed, non-causal and GQA, S ragged against the 64-
+# and 128-row tiles.  16 (llama-debug), 32 (all-MiniLM-L6-v2,
+# gemma-debug), 80 (h2o-danube-1.8b), 96 (h2o-danube3-500m), 100
+# (open_llama_3b: a bf16 row TMA cannot read, launched padded to 104),
+# 120, and 192 (whose fourth 64-column box lies wholly past d).
+HEAD_DIM_CASES = [
+    ('d16_gqa_ragged_200', 1, 4, 2, 200, 16, torch.bfloat16, True, None),
+    ('d16_f32_window_48', 2, 8, 2, 256, 16, torch.float32, True, 48),
+    ('d32_non_causal_200', 2, 12, 12, 200, 32, torch.bfloat16, False,
+     None),
+    ('d32_f32_gqa_ragged_130', 1, 8, 2, 130, 32, torch.float32, True, None),
+    ('d80_mqa_window_300_1088', 1, 8, 1, 1088, 80, torch.bfloat16, True,
+     300),
+    ('d80_f32_non_causal_200', 1, 4, 2, 200, 80, torch.float32, False,
+     None),
+    ('d96_gqa_ragged_1088', 1, 16, 8, 1088, 96, torch.bfloat16, True, None),
+    ('d96_f32_window_48', 1, 4, 2, 200, 96, torch.float32, True, 48),
+    ('d100_non_causal_200', 1, 4, 4, 200, 100, torch.bfloat16, False, None),
+    ('d100_gqa_window_48', 2, 8, 2, 256, 100, torch.bfloat16, True, 48),
+    ('d100_f32_gqa_200', 1, 8, 2, 200, 100, torch.float32, True, None),
+    ('d120_gqa_window_48', 2, 8, 2, 256, 120, torch.bfloat16, True, 48),
+    ('d120_f32_non_causal_130', 1, 4, 4, 130, 120, torch.float32, False,
+     None),
+    ('d192_mqa_ragged_1088', 1, 8, 1, 1088, 192, torch.bfloat16, True,
+     None),
+    ('d192_non_causal_200', 1, 4, 2, 200, 192, torch.bfloat16, False, None),
+    ('d192_f32_gqa_window_48', 1, 4, 2, 200, 192, torch.float32, True, 48),
+]
+# The head_dims phase's shapes, each kernel checked and timed there:
+# h2o-danube3-500m trained at 8 x 2048 (GQA 16:8 at 96), h2o-danube-1.8b
+# at 1 x 8192 (GQA 32:8 at 80, its 4096-token window), all-MiniLM-L6-v2's
+# classify loop at 32 x 128 (MHA 12 at 32, non-causal), and
+# open_llama_3b's head dim 100 (MHA 32) at 2 x 2048.
+HEAD_DIM_SHAPES = [
+    ('danube3-500m-train', 8, 16, 8, 2048, 96, torch.bfloat16, True, None),
+    ('danube-1.8b-train', 1, 32, 8, 8192, 80, torch.bfloat16, True, 4096),
+    ('minilm-l6-train', 32, 12, 12, 128, 32, torch.bfloat16, False, None),
+    ('open-llama-3b-d100', 2, 32, 32, 2048, 100, torch.bfloat16, True,
+     None),
+]
+
+
+def head_dim_case(case) -> tuple:
+    """All three kernels at one HEAD_DIM_CASES case against their plain
+    versions: the forward's O and LSE, dQ, dK and dV within the kernel
+    phases' bounds, the backward deterministic.  Returns (the line,
+    whether it passed)."""
+    name, b, hq, hkv, s, d, dtype, causal, window = case
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    args = bwd_inputs(gen, b, hq, hkv, s, d, dtype, causal, window)
+    q, k, v, _, _, _, _, scale, _ = args
+    fwd = fwd_errors(q, k, v, causal, scale, window,
+                     fa.attention_fwd_reference(q, k, v, causal, scale,
+                                                window))
+    got = run_bwd(args)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(x, y)
+                        for x, y in zip(got, run_bwd(args)))
+    ref = plain_bwd(args)
+    bwd = bwd_errors(got, ref, fa.attention_bwd_bound(*args, ref))
+    ok = (fwd['max_err_over_bound'] <= 1.0
+          and fwd['max_abs_err_lse'] <= BOUND_LSE and deterministic
+          and all(e['max_err_over_bound'] <= 1.0 for e in bwd.values()))
+    return {'phase': 'head_dim_kernel', 'case': name,
+            'shape': [b, hq, hkv, s, d], 'dtype': str(dtype),
+            'causal': causal, 'window': window,
+            'tile_dim': fa.kernel_tile_dim(d),
+            'launch_width': fa.row_width(d, dtype), 'fwd': fwd,
+            'bound_lse': BOUND_LSE, 'deterministic': deterministic,
+            **bwd}, ok
+
+
+# A shape whose f32 scores [B, Hq, S, S] pass this many bytes has its
+# plain versions run (and timed) a batch row and two kv heads at a time:
+# the backward's holds several such tensors at once.
+HEAD_DIM_WHOLE_SCORES = 4 << 30
+
+
+def head_dim_shape(case) -> dict:
+    """All three kernels at one HEAD_DIM_SHAPES shape: launched whole,
+    held against the plain versions a batch row and two kv heads at a
+    time (headline_errors), timed in turns with
+    scaled_dot_product_attention (time_fwd, time_bwd; a window as a
+    boolean mask there), the plain versions timed whole unless their
+    scores pass HEAD_DIM_WHOLE_SCORES, the bound at the real head dim d
+    beside the share d / D of the tile it runs in; at a head dim
+    launched padded, the wrapper's zero-padding copies alone.  Returns
+    the line."""
+    name, b, hq, hkv, s, d, dtype, causal, window = case
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
+                               device='cuda').to(dtype)
+                   for h in (hq, hkv, hkv, hq))
+    scale = d ** -0.5
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, window)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, causal, scale, window)
+        grads = run_bwd(args)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (out, lse, *grads)),
+              f'non-finite kernel output at {name}')
+        errs, plain = headline_errors(args, out, lse, grads, kv_heads=2)
+        del out, grads
+        torch.cuda.empty_cache()
+        if 4 * b * hq * s * s <= HEAD_DIM_WHOLE_SCORES:
+            plain = None
+        fwd = time_fwd(q, k, v, causal, scale, window,
+                       plain and plain['fwd'])
+    bwd = time_bwd(args, plain)
+    tile = fa.kernel_tile_dim(d)
+    width = fa.row_width(d, dtype)
+    pad_ms = None
+    if width != d:
+        pad_ms = {'q_k_v': cuda_ms(lambda: fa.pad_rows(width, q, k, v)),
+                  'q_k_v_do': cuda_ms(lambda: fa.pad_rows(width, q, k, v,
+                                                          do))}
+    line = {'phase': 'head_dim_shape', 'case': name,
+            'shape': [b, hq, hkv, s, d], 'dtype': str(dtype),
+            'causal': causal, 'window': window, 'tile_dim': tile,
+            'useful_share': d / tile, 'launch_width': width,
+            'pad_copy_ms': pad_ms, 'errors_by_slices': errs,
+            'plain_timed_by_slices': plain is not None,
+            'fwd': {**fwd, 'max_abs_err': errs['fwd']['max_abs_err']},
+            'dq': {**bwd['dq'], 'max_abs_err': errs['dq']['max_abs_err']},
+            'dkv': {**bwd['dkv'],
+                    'max_abs_err': max(errs['dk']['max_abs_err'],
+                                       errs['dv']['max_abs_err'])},
+            'pair': bwd['pair']}
+    emit(line)
+    failures = [key for key, e in errs.items()
+                if not e['max_err_over_bound'] <= 1.0]
+    if not errs['fwd']['max_abs_err_lse'] <= BOUND_LSE:
+        failures.append('lse')
+    check(not failures, f'kernels disagree with their plain versions at '
+          f'{name}: {failures}')
+    return line
+
+
+def held_head_dims(cases) -> dict:
+    """The head dims a kernel was held at against its plain version in
+    this run, by dtype: `cases` (its kernel phase's), HEAD_DIM_CASES and
+    HEAD_DIM_SHAPES."""
+    out = {}
+    for case in (*cases, *HEAD_DIM_CASES, *HEAD_DIM_SHAPES):
+        out.setdefault(str(case[6]), set()).add(case[5])
+    return {dtype: sorted(dims) for dtype, dims in out.items()}
+
+
+def phase_head_dim_kernels() -> dict:
+    """Every HEAD_DIM_CASES case (head_dim_case), then every
+    HEAD_DIM_SHAPES shape (head_dim_shape).  Returns the shapes' lines
+    by name."""
+    failures = []
+    for case in HEAD_DIM_CASES:
+        line, ok = head_dim_case(case)
+        emit(line)
+        if not ok:
+            failures.append(case[0])
+        torch.cuda.empty_cache()
+    check(not failures, f'kernels disagree with their plain versions or are '
+          f'not deterministic at head dims: {failures}')
+    out = {}
+    for case in HEAD_DIM_SHAPES:
+        out[case[0]] = head_dim_shape(case)
+        torch.cuda.empty_cache()
+    return out
 
 
 # bench_torch.py's points: (detail key, batch); each runs 1 + 3 x 10 steps,
@@ -3808,9 +4009,8 @@ def phase_chaos(model, env: dict) -> None:
 
 
 def hf_checkpoint(model) -> tuple:
-    """The drawn model under HF names, beside a namespace with
-    llama-2-7b's config.json fields: the same weight tensors, the norms
-    as HF stores them (the port's scale + 1)."""
+    """The drawn model under HF names (hf_llama_state_dict), beside a
+    namespace with llama-2-7b's config.json fields."""
     cfg = model.config
     ns = types.SimpleNamespace(
         model_type='llama', vocab_size=cfg.vocab_size,
@@ -3822,11 +4022,17 @@ def hf_checkpoint(model) -> tuple:
         max_position_embeddings=cfg.max_seq_len, rms_norm_eps=1e-5,
         rope_theta=10000.0, rope_scaling=None, attention_bias=False,
         tie_word_embeddings=False, hidden_act='silu')
+    return ns, hf_llama_state_dict(model.state_dict())
+
+
+def hf_llama_state_dict(sd: dict) -> dict:
+    """A llama-family state dict of the port's under HF names: the same
+    weight tensors, the norms as HF stores them (the port's scale + 1)."""
     names = {'embedding': 'model.embed_tokens.weight',
              'final_norm.scale': 'model.norm.weight',
              'lm_head.weight': 'lm_head.weight'}
-    sd = {}
-    for key, t in model.state_dict().items():
+    out = {}
+    for key, t in sd.items():
         if key.startswith('layers.'):
             hf = ('model.' + key.replace('.attn.', '.self_attn.')
                   .replace('.input_norm.scale', '.input_layernorm.weight')
@@ -3834,8 +4040,8 @@ def hf_checkpoint(model) -> tuple:
                            '.post_attention_layernorm.weight'))
         else:
             hf = names[key]
-        sd[hf] = t + 1.0 if key.endswith('norm.scale') else t
-    return ns, sd
+        out[hf] = t + 1.0 if key.endswith('norm.scale') else t
+    return out
 
 
 def phase_int8_hf(card: str) -> int:
@@ -4872,6 +5078,267 @@ def phase_mixtral_lora_train(env: dict) -> tuple:
           'router_aux_loss': aux, 'repeat_batch_ce': [ce_before, ce_after],
           'base_byte_identical': True})
     return launches
+
+
+# The head_dims phase: public checkpoints of the HF-imported types whose
+# head dims are not 64, 128 or 256, at the widths of their config.json
+# (the fields below; the RoPE base and position limit set no shape),
+# weights drawn from a seed under HF names, since none are in the
+# repository.  h2o-danube3-500m (llama, 96) and h2o-danube-1.8b (mistral,
+# 80, a 4096-token window) through the Trainer at all their layers,
+# (batch, seq) and steps beside them; all-MiniLM-L6-v2 (bert, 32) through
+# the classify task loop at examples/bert_imdb.yaml's batch and length.
+# HEAD_DIM_TRAIN: (name, config.json fields, (batch, seq), steps, whether
+# the trained weights are then run through head_dim_forward_and_serve).
+DANUBE3_500M = dict(
+    model_type='llama', vocab_size=32000, hidden_size=1536,
+    intermediate_size=4096, num_hidden_layers=16, num_attention_heads=16,
+    num_key_value_heads=8, max_position_embeddings=8192, rms_norm_eps=1e-5,
+    rope_theta=100000.0, rope_scaling=None, attention_bias=False,
+    tie_word_embeddings=False, hidden_act='silu')
+DANUBE_1_8B = dict(
+    model_type='mistral', vocab_size=32000, hidden_size=2560,
+    intermediate_size=6912, num_hidden_layers=24, num_attention_heads=32,
+    num_key_value_heads=8, max_position_embeddings=16384,
+    rms_norm_eps=1e-5, rope_theta=10000.0, rope_scaling=None,
+    sliding_window=4096, tie_word_embeddings=False, hidden_act='silu')
+MINILM_L6 = dict(
+    model_type='bert', vocab_size=30522, hidden_size=384,
+    num_hidden_layers=6, num_attention_heads=12, intermediate_size=1536,
+    max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12)
+HEAD_DIM_TRAIN = (
+    ('h2oai/h2o-danube3-500m-base', DANUBE3_500M, (8, 2048), 3, True),
+    ('h2oai/h2o-danube-1.8b-base', DANUBE_1_8B, (1, 8192), 2, False),
+)
+MINILM_NAME = 'sentence-transformers/all-MiniLM-L6-v2'
+MINILM_RECIPE = dict(steps=10, batch_size=32, seq_len=128, lr=2e-5)
+# danube3-500m's no-cache forward and its served greedy requests, held
+# as the serve phases hold theirs: 0.25 nats (bf16, two attention paths).
+HEAD_DIM_FORWARD_TOKENS = (1, 1024)
+HEAD_DIM_REQUESTS = 4
+HEAD_DIM_NEW_TOKENS = 16
+HEAD_DIM_GAP_BOUND = 0.25
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The attention Function's forward on its plain version, on the
+    card too (no launch): what a no-cache forward is held against."""
+    kernel = fa._attention_fwd
+    fa._attention_fwd = fa.attention_fwd_reference
+    try:
+        yield
+    finally:
+        fa._attention_fwd = kernel
+
+
+def hf_bert_state_dict(sd: dict) -> dict:
+    """The encoder of a port BERT state dict under HF names (the inverse
+    of hf_import's map); the task heads are left out."""
+    layer = {'attention.query': 'attention.self.query',
+             'attention.key': 'attention.self.key',
+             'attention.value': 'attention.self.value',
+             'attention.output': 'attention.output.dense',
+             'attention_norm': 'attention.output.LayerNorm',
+             'intermediate': 'intermediate.dense', 'output': 'output.dense',
+             'output_norm': 'output.LayerNorm'}
+    out = {}
+    for key, t in sd.items():
+        parts = key.split('.')
+        if parts[0] != 'bert':
+            continue
+        leaf = {'scale': 'weight'}.get(parts[-1], parts[-1])
+        if parts[1] == 'layers':
+            module = layer['.'.join(parts[3:-1])]
+            out[f'bert.encoder.layer.{parts[2]}.{module}.{leaf}'] = t
+        elif parts[1] == 'embeddings_norm':
+            out[f'bert.embeddings.LayerNorm.{leaf}'] = t
+        else:
+            out[f'bert.embeddings.{parts[1]}.weight'] = t
+    return out
+
+
+def head_dim_train(name: str, fields: dict, batch: tuple,
+                   steps: int) -> tuple:
+    """A checkpoint's widths through hf_import.config_from_hf, its weights
+    drawn on the card (init_params' draws, f32) under HF names and back
+    through convert_state_dict, into the Trainer (f32 master weights,
+    remat full) for `steps` steps at `batch`: 2L/L/L launches a step,
+    the step-1 loss near ln V, the step time and peak memory.  Returns
+    (the config, the trained model, the launches, the line)."""
+    mc = hf_import.config_from_hf(types.SimpleNamespace(**fields), name=name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sd = hf_import.convert_state_dict(mc, hf_llama_state_dict(init_params(
+        mc, torch.Generator(device='cuda').manual_seed(0))))
+    cfg = train_lib.TrainConfig(model=name, batch_size=batch[0],
+                                seq_len=batch[1], warmup_steps=2,
+                                total_steps=100)
+    trainer = train_lib.Trainer(cfg, mc)
+    trainer.setup(params=sd)
+    del sd
+    expected = [2 * mc.num_layers, mc.num_layers, mc.num_layers]
+    out, per_step, launches = launches_per_step(
+        lambda wrap: trainer.train(data=wrap(train_lib.synthetic_data(
+            batch[0], batch[1], mc.vocab_size, seed=0)), num_steps=steps,
+            log_every=1))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [loss for _, loss in trainer.history]
+    loss_step1 = (math.log(mc.vocab_size),
+                  math.log(mc.vocab_size) + LOSS_STEP1_MARGIN)
+    check(per_step == [expected] * steps,
+          f'{name}: launches per step {per_step}, expected {expected}')
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f'{name}: losses {losses}')
+    check(loss_step1[0] <= losses[0] <= loss_step1[1],
+          f'{name}: step-1 loss {losses[0]} outside {loss_step1}')
+    line = {'model': name, 'head_dim': mc.head_dim_,
+            'heads': [mc.num_heads, mc.num_kv_heads],
+            'num_layers': mc.num_layers, 'params': mc.num_params,
+            'window': mc.sliding_window, 'batch': list(batch),
+            'launches_per_step': per_step[0], 'losses': losses,
+            'loss_step1_bounds': list(loss_step1),
+            'step_ms': 1e3 * batch[0] * batch[1] / out['tokens_per_second'],
+            'tokens_per_s': out['tokens_per_second'],
+            'max_memory_allocated_gib': peak_gib}
+    model = trainer.state.model
+    del trainer
+    return mc, model, launches, line
+
+
+def head_dim_forward_and_serve(mc, trained, tally: list) -> dict:
+    """danube3-500m's trained weights in bf16: the no-cache forward over
+    HEAD_DIM_FORWARD_TOKENS (one forward launch a layer, counted into
+    `tally`) against the same forward on the plain attention, token by
+    token (the logprob of each next input token); then
+    HEAD_DIM_REQUESTS greedy requests through the dense engine, each
+    token's logprob against the no-cache forward (its launches counted
+    too), both within HEAD_DIM_GAP_BOUND."""
+    model = build_model(mc, device='cuda').eval()
+    model.load_state_dict(trained.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, mc.vocab_size, HEAD_DIM_FORWARD_TOKENS)).cuda()
+    fwd_tally, tally_plain = [0, 0, 0], [0, 0, 0]
+    with torch.inference_mode():
+        logits = counted(lambda: model(tokens), fwd_tally)
+        with plain_attention():
+            plain = counted(lambda: model(tokens), tally_plain)
+        lp, lp_plain = (torch.log_softmax(x[0].float(), -1)
+                        for x in (logits, plain))
+    check(fwd_tally == [mc.num_layers, 0, 0] and tally_plain == [0, 0, 0],
+          f'forward launches {fwd_tally}, on the plain attention '
+          f'{tally_plain}')
+    check(bool(torch.isfinite(logits).all()), 'non-finite logits')
+    pos = torch.arange(tokens.shape[1] - 1, device='cuda')
+    gaps = (lp[pos, tokens[0, 1:]] - lp_plain[pos, tokens[0, 1:]]).abs()
+    del logits, plain, lp, lp_plain
+    engine = InferenceEngine(
+        mc, InferConfig(model=mc.name, max_new_tokens=HEAD_DIM_NEW_TOKENS),
+        params=model.state_dict(),
+        generator=torch.Generator(device='cuda').manual_seed(1))
+    del model
+    prompts = serve_prompts(mc.vocab_size)[0][:HEAD_DIM_REQUESTS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate([Request(tokens=p, temperature=0.0,
+                                   request_id=str(i))
+                           for i, p in enumerate(prompts)])
+    wall = time.perf_counter() - t0
+    for r in res:
+        check(r.finish_reason == 'length'
+              and len(r.output_tokens) == HEAD_DIM_NEW_TOKENS,
+              f'request {r.request_id}: {r.finish_reason} after '
+              f'{len(r.output_tokens)} tokens ({r.error})')
+    score_tally = [0, 0, 0]
+    tf_err = counted(lambda: teacher_forced_err(engine.model, res),
+                     score_tally)
+    check(score_tally == [mc.num_layers * len(res), 0, 0],
+          f'scorer launches {score_tally}')
+    for i in range(3):
+        tally[i] += fwd_tally[i] + score_tally[i]
+    out = {'tokens': list(HEAD_DIM_FORWARD_TOKENS),
+           'forward_launches': fwd_tally[0],
+           'forward_vs_plain_max_gap': gaps.max().item(),
+           'forward_vs_plain_mean_gap': gaps.mean().item(),
+           'requests': len(res), 'new_tokens': HEAD_DIM_NEW_TOKENS,
+           'serve_wall_s': wall, 'teacher_forced_max_abs_err': tf_err,
+           'scorer_launches': score_tally[0], 'bound': HEAD_DIM_GAP_BOUND}
+    check(out['forward_vs_plain_max_gap'] <= HEAD_DIM_GAP_BOUND
+          and tf_err <= HEAD_DIM_GAP_BOUND,
+          f'danube3-500m gaps {out}')
+    del engine
+    return out
+
+
+def head_dim_bert() -> tuple:
+    """all-MiniLM-L6-v2's widths through hf_import.config_from_hf, its
+    encoder drawn on the card under HF names and back through
+    convert_state_dict beside the drawn classify head, then
+    MINILM_RECIPE's steps of tasks.bert_step: 2L/L/L launches a step
+    (remat), finite losses.  Returns (the launches, the line)."""
+    mc = hf_import.config_from_hf(types.SimpleNamespace(**MINILM_L6),
+                                  name=MINILM_NAME)
+    drawn = init_params(mc, torch.Generator(device='cuda').manual_seed(0),
+                        head='classify')
+    encoder = hf_import.convert_state_dict(mc, hf_bert_state_dict(drawn))
+    check(encoder.keys() == {k for k in drawn if k.startswith('bert.')},
+          'the HF map lost or added encoder weights')
+    r = MINILM_RECIPE
+    state = tasks.bert_setup(mc, r['lr'], device='cuda',
+                             params={**drawn, **encoder})
+    del drawn, encoder
+    data = tasks.synthetic_bert_batches(
+        np.random.default_rng(0), mc.vocab_size, r['batch_size'],
+        r['seq_len'], mc.num_classes)
+    expected = [2 * mc.num_layers, mc.num_layers, mc.num_layers]
+
+    def loop(wrap):
+        batches = wrap(data)
+        return [tasks.bert_step(state, next(batches))[0].item()
+                for _ in range(r['steps'])]
+
+    t0 = time.perf_counter()
+    losses, per_step, launches = launches_per_step(loop)
+    loop_s = time.perf_counter() - t0
+    check(per_step == [expected] * r['steps'],
+          f'MiniLM launches per step {per_step[:3]}..., expected {expected}')
+    check(all(math.isfinite(x) for x in losses), f'MiniLM losses {losses}')
+    del state
+    return launches, {'model': MINILM_NAME, 'head_dim': mc.head_dim_,
+                      'heads': mc.num_heads, 'num_layers': mc.num_layers,
+                      'recipe': r, 'launches_per_step': per_step[0],
+                      'losses': losses, 'loop_s': loop_s,
+                      'step_ms': 1e3 * loop_s / r['steps']}
+
+
+def phase_head_dims(env: dict) -> tuple:
+    """HF-imported checkpoints at head dims 96, 80 and 32 on the card, at
+    full width: head_dim_train for each HEAD_DIM_TRAIN checkpoint (after
+    the one marked, head_dim_forward_and_serve), then head_dim_bert.
+    Returns the launches [fwd, dq, dkv] of the main paths (the training
+    steps, the no-cache forward, the scorer) and the phase's line."""
+    tally = [0, 0, 0]
+    trained, serve = [], {}
+    for name, fields, batch, steps, serves in HEAD_DIM_TRAIN:
+        mc, model, launches, line = head_dim_train(name, fields, batch,
+                                                   steps)
+        tally = [a + b for a, b in zip(tally, launches)]
+        if serves:
+            serve = head_dim_forward_and_serve(mc, model, tally)
+        trained.append(line)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    bert_launches, bert = head_dim_bert()
+    tally = [a + b for a, b in zip(tally, bert_launches)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {'phase': 'head_dims', 'device': env['device'],
+            'nvidia_smi': env['nvidia_smi'], 'train': trained,
+            'danube3_forward_and_serve': serve, 'bert': bert,
+            'launches': tally}
+    emit(line)
+    return tally, line
 
 
 # Planted faults: (fault, library, line of the sound source, the line
@@ -6459,6 +6926,7 @@ def main() -> int:
     fwd = timed(phase_kernel)
     bwd = timed(phase_kernel_bwd)
     headline = timed(phase_kernel_headline)
+    head_dim_shapes = timed(phase_head_dim_kernels)
     if '--kernels' in sys.argv[1:]:
         print(json.dumps({'kernels_only': 'all within their bounds',
                           'device': env['device']}), flush=True)
@@ -6517,6 +6985,9 @@ def main() -> int:
     timed(phase_resnet, env)
     gc.collect()
     torch.cuda.empty_cache()
+    head_dims, _ = timed(phase_head_dims, env)
+    gc.collect()
+    torch.cuda.empty_cache()
     mixtral_lora = timed(phase_mixtral_lora_train, env)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6546,7 +7017,8 @@ def main() -> int:
                        + mixtral_forward + mixtral_train[0]
                        + bert_train[0] + bert_hf_forward
                        + mixtral_lora[0] + mesh_train[0] + mesh_lora[0]
-                       + dryrun[0] + serve_tp[0] + spec_bench[0]),
+                       + dryrun[0] + serve_tp[0] + spec_bench[0]
+                       + head_dims[0]),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
@@ -6565,7 +7037,8 @@ def main() -> int:
                                'mesh_lora': mesh_lora[0],
                                'dryrun': dryrun[0],
                                'serve_tp': serve_tp[0],
-                               'spec_bench': spec_bench[0]},
+                               'spec_bench': spec_bench[0],
+                               'head_dims': head_dims[0]},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
              headline_shape=headline['fwd'],
              head_dim_256_shapes={name: fwd[name]
@@ -6575,13 +7048,16 @@ def main() -> int:
              serve_tp_shape=fwd[TP_FWD_CASE[0]],
              grid_shape=fwd[GRID_CASE[0]],
              slice16_shapes={name: fwd[name] for name in SLICE16_FWD},
-             spec_bench_shape=fwd[SPEC_TRAIN_CASE[0]]),
+             spec_bench_shape=fwd[SPEC_TRAIN_CASE[0]],
+             head_dims_held=held_head_dims(KERNEL_CASES),
+             head_dim_shapes={name: line['fwd'] for name, line
+                              in head_dim_shapes.items()}),
         dict(name='flash_attention_bwd_dq', route='cuda',
              source=csrc + 'flash_attention_bwd_dq.cu', replaces=tpu + '185',
              launches=(train_dq + bench_dq + gemma_train[1] + lora_train[1]
                        + gpt2_train[1] + mixtral_train[1] + bert_train[1]
                        + mixtral_lora[1] + mesh_train[1] + mesh_lora[1]
-                       + dryrun[1] + spec_bench[1]),
+                       + dryrun[1] + spec_bench[1] + head_dims[1]),
              launches_by_path={'train': train_dq, 'bench': bench_dq,
                                'gemma_train': gemma_train[1],
                                'lora_train': lora_train[1],
@@ -6592,7 +7068,8 @@ def main() -> int:
                                'mesh_train': mesh_train[1],
                                'mesh_lora': mesh_lora[1],
                                'dryrun': dryrun[1],
-                               'spec_bench': spec_bench[1]},
+                               'spec_bench': spec_bench[1],
+                               'head_dims': head_dims[1]},
              **bwd[TRAIN_CASE[0]]['dq'], headline_shape=headline['dq'],
              head_dim_256_shapes={name: bwd[name]['dq']
                                   for name in TIMED_BWD[1:2]},
@@ -6600,14 +7077,18 @@ def main() -> int:
              bert_shapes={name: bwd[name]['dq'] for name in BERT_SHAPES},
              slice16_shapes={name: bwd[name]['dq']
                              for name in SLICE16_BWD},
-             spec_bench_shape=bwd[SPEC_TRAIN_CASE[0]]['dq']),
+             spec_bench_shape=bwd[SPEC_TRAIN_CASE[0]]['dq'],
+             head_dims_held=held_head_dims(BWD_CASES),
+             head_dim_shapes={name: line['dq'] for name, line
+                              in head_dim_shapes.items()}),
         dict(name='flash_attention_bwd_dkv', route='cuda',
              source=csrc + 'flash_attention_bwd_dkv.cu',
              replaces=tpu + '227',
              launches=(train_dkv + bench_dkv + gemma_train[2]
                        + lora_train[2] + gpt2_train[2] + mixtral_train[2]
                        + bert_train[2] + mixtral_lora[2] + mesh_train[2]
-                       + mesh_lora[2] + dryrun[2] + spec_bench[2]),
+                       + mesh_lora[2] + dryrun[2] + spec_bench[2]
+                       + head_dims[2]),
              launches_by_path={'train': train_dkv, 'bench': bench_dkv,
                                'gemma_train': gemma_train[2],
                                'lora_train': lora_train[2],
@@ -6618,7 +7099,8 @@ def main() -> int:
                                'mesh_train': mesh_train[2],
                                'mesh_lora': mesh_lora[2],
                                'dryrun': dryrun[2],
-                               'spec_bench': spec_bench[2]},
+                               'spec_bench': spec_bench[2],
+                               'head_dims': head_dims[2]},
              **bwd[TRAIN_CASE[0]]['dkv'], headline_shape=headline['dkv'],
              head_dim_256_shapes={name: bwd[name]['dkv']
                                   for name in TIMED_BWD[1:2]},
@@ -6627,7 +7109,10 @@ def main() -> int:
              bert_shapes={name: bwd[name]['dkv'] for name in BERT_SHAPES},
              slice16_shapes={name: bwd[name]['dkv']
                              for name in SLICE16_BWD},
-             spec_bench_shape=bwd[SPEC_TRAIN_CASE[0]]['dkv']),
+             spec_bench_shape=bwd[SPEC_TRAIN_CASE[0]]['dkv'],
+             head_dims_held=held_head_dims(BWD_CASES),
+             head_dim_shapes={name: line['dkv'] for name, line
+                              in head_dim_shapes.items()}),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@ from skypilot_tpu_torch.models.llama import Llama, LlamaConfig
 from skypilot_tpu_torch.models.mixtral import Mixtral, MixtralConfig
 from skypilot_tpu_torch.models.registry import (build_model,
                                                 get_model_config,
-                                                is_causal_lm)
+                                                is_causal_lm, list_models)
 
 __all__ = ['GPT2', 'GPT2Config', 'Llama', 'LlamaConfig', 'Mixtral',
            'MixtralConfig', 'build_model', 'get_model_config',
-           'is_causal_lm']
+           'is_causal_lm', 'list_models']

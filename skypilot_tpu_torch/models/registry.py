@@ -1,9 +1,9 @@
 """Named model configs of the port: every family of
 ``skypilot_tpu/models/registry.py`` (llama, gemma, GPT-2, Mixtral, BERT,
-ResNet; same names, same sizes) and ``build_model``/``is_causal_lm``,
-which pick a config's module."""
+ResNet; same names, same sizes), ``list_models``, and
+``build_model``/``is_causal_lm``, which pick a config's module."""
 import dataclasses
-from typing import Any, Dict, Union
+from typing import Any, Dict, List, Union
 
 from torch import nn
 
@@ -68,9 +68,9 @@ _register(
                 num_kv_heads=2, max_seq_len=256, tie_embeddings=True))
 
 # ----------------------------------------------------------------- gemma
-# head_dim 256: the Hopper attention kernels take it (64, 128 and 256),
-# so gemma-7b and gemma-2b run their forward and training on the card;
-# gemma-debug's head_dim 32 is still refused there (ROADMAP.md B2).
+# head_dim 256, and gemma-debug's 32: the Hopper attention kernels take
+# every head dim up to 256, so all four run their forward and training on
+# the card.
 _register(
     LlamaConfig(name='gemma-7b', vocab_size=256000, hidden_size=3072,
                 intermediate_size=24576, num_layers=28, num_heads=16,
@@ -140,6 +140,10 @@ def get_model_config(name: str) -> ModelConfig:
         raise ValueError(
             f'Unknown model {name!r}. Available: {sorted(_CONFIGS)}')
     return _CONFIGS[name]
+
+
+def list_models() -> List[str]:
+    return sorted(_CONFIGS)
 
 
 def build_model(config: Any, head: str = 'lm', device=None,

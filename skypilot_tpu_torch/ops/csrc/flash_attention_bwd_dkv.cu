@@ -44,6 +44,10 @@
 //     per-element mask, the rest a copy compiled without it; q tiles that
 //     see none of the KV tile are never loaded; KV rows past S are never
 //     stored.
+// Any head dim d up to 256 runs in the tile of the smallest width D of
+// 64, 128 and 256 that holds it, as the forward does: the tensor maps span
+// d columns and read zeros past it, which add nothing to K Q^T or V dO^T;
+// the columns past d of P^T dO and dS^T Q are never stored.
 // head_dim 256 (Gemma): K and V of 128 rows take 128 KB there and a
 // three-stage Q/dO ring 192 KB, and dK plus dV of 64 rows x 256 are 256
 // f32 registers a thread, past the 255 a thread may hold.  A CTA takes 64
@@ -81,7 +85,7 @@ struct Params {
   const float* delta;
   void* dk;
   void* dv;
-  int hq, hkv, s, causal, window;  // window <= 0: no window
+  int hq, hkv, s, d, causal, window;  // window <= 0: no window
   float scale;
 };
 
@@ -339,11 +343,11 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
         if (++st == kStages) st = 0, phase ^= 1;
       }
 
-    const size_t kv_off = (size_t)bkv * p.s * D;
+    const size_t kv_off = (size_t)bkv * p.s * p.d;
     store_rows_bf16<D>(dk, kvrow, t4,
-                       static_cast<__nv_bfloat16*>(p.dk) + kv_off, p.s);
+                       static_cast<__nv_bfloat16*>(p.dk) + kv_off, p.s, p.d);
     store_rows_bf16<D>(dv, kvrow, t4,
-                       static_cast<__nv_bfloat16*>(p.dv) + kv_off, p.s);
+                       static_cast<__nv_bfloat16*>(p.dv) + kv_off, p.s, p.d);
   } else {
     // head_dim 256: both consumer warpgroups take the CTA's 64 kv rows.
     // Warpgroup 0 forms S^T = K Q^T and P^T and accumulates dV += P^T dO;
@@ -411,8 +415,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 
     store_rows_bf16<D>(acc, kvrow, t4,
                        static_cast<__nv_bfloat16*>(wg == 0 ? p.dv : p.dk) +
-                           (size_t)bkv * p.s * D,
-                       p.s);
+                           (size_t)bkv * p.s * p.d,
+                       p.s, p.d);
   }
 }
 
@@ -422,10 +426,13 @@ template <int D>
 int launch_bf16(const Params& p, int b, cudaStream_t st) {
   constexpr int kKvRows = Tiles<D>::kKvRows;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kQRows);
-  if (err == 0) err = encode_rows_map(&tm_do, p.dout, D, p.s, b * p.hq, kQRows);
-  if (err == 0) err = encode_rows_map(&tm_k, p.k, D, p.s, b * p.hkv, kKvRows);
-  if (err == 0) err = encode_rows_map(&tm_v, p.v, D, p.s, b * p.hkv, kKvRows);
+  int err = encode_rows_map(&tm_q, p.q, p.d, p.s, b * p.hq, kQRows);
+  if (err == 0)
+    err = encode_rows_map(&tm_do, p.dout, p.d, p.s, b * p.hq, kQRows);
+  if (err == 0)
+    err = encode_rows_map(&tm_k, p.k, p.d, p.s, b * p.hkv, kKvRows);
+  if (err == 0)
+    err = encode_rows_map(&tm_v, p.v, p.d, p.s, b * p.hkv, kKvRows);
   if (err != 0) return err;
   constexpr int bytes = Tiles<D>::kSmem;
   const cudaError_t cerr = cudaFuncSetAttribute(
@@ -443,7 +450,7 @@ int launch_bf16(const Params& p, int b, cudaStream_t st) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_f32_kernel(const Params p) {
-  constexpr int E = D / 32;  // head_dim elements per lane: d = lane + 32*i
+  constexpr int E = D / 32;  // tile columns per lane: lane + 32 * i
   // The staged Q and dO tiles and their LSE and delta rows (64 KB at
   // head_dim 256: dynamic).
   extern __shared__ float simt_smem[];
@@ -456,7 +463,8 @@ __global__ void __launch_bounds__(kThreads)
   const int bkv = blockIdx.x;
   const int b = bkv / p.hkv, group = p.hq / p.hkv;
   const int kv0 = kv_tile * kSimtBlockM;
-  const size_t kv_off = (size_t)bkv * p.s * D;
+  const int d = p.d;  // row stride; columns d .. D - 1 are zeros
+  const size_t kv_off = (size_t)bkv * p.s * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = kv0 + warp * kRowsPerWarp;
 
@@ -466,8 +474,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
     for (int i = 0; i < E; ++i) {
-      const size_t at = kv_off + (size_t)(row0 + r) * D + lane + 32 * i;
-      const bool in = row0 + r < p.s;
+      const size_t at = kv_off + (size_t)(row0 + r) * d + lane + 32 * i;
+      const bool in = row0 + r < p.s && lane + 32 * i < d;
       k[r][i] = in ? static_cast<const float*>(p.k)[at] : 0.f;
       v[r][i] = in ? static_cast<const float*>(p.v)[at] : 0.f;
       dk[r][i] = dv[r][i] = 0.f;
@@ -479,14 +487,14 @@ __global__ void __launch_bounds__(kThreads)
                &qt_end);
   for (int gi = 0; gi < group; ++gi) {
     const int bh = b * p.hq + (bkv % p.hkv) * group + gi;
-    const size_t q_off = (size_t)bh * p.s * D;
+    const size_t q_off = (size_t)bh * p.s * d;
     for (int qt = qt_first; qt < qt_end; ++qt) {
       const int q0 = qt * kSimtBlockQ;
       __syncthreads();
       stage_rows_f32<D>(sQ, static_cast<const float*>(p.q) + q_off, q0,
-                        kSimtBlockQ, p.s);
+                        kSimtBlockQ, p.s, d);
       stage_rows_f32<D>(sdO, static_cast<const float*>(p.dout) + q_off, q0,
-                        kSimtBlockQ, p.s);
+                        kSimtBlockQ, p.s, d);
       for (int r = threadIdx.x; r < kSimtBlockQ; r += kThreads) {
         const bool in = q0 + r < p.s;
         sLse[r] = in ? p.lse[(size_t)bh * p.s + q0 + r] : 0.f;
@@ -533,7 +541,8 @@ __global__ void __launch_bounds__(kThreads)
     if (row0 + r >= p.s) continue;
 #pragma unroll
     for (int i = 0; i < E; ++i) {
-      const size_t at = kv_off + (size_t)(row0 + r) * D + lane + 32 * i;
+      if (lane + 32 * i >= d) continue;
+      const size_t at = kv_off + (size_t)(row0 + r) * d + lane + 32 * i;
       static_cast<float*>(p.dk)[at] = dk[r][i];
       static_cast<float*>(p.dv)[at] = dv[r][i];
     }
@@ -544,18 +553,19 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Launches the dK/dV backward on `stream`.  q, dout: [B, Hq, S, D]; k, v,
-// dk, dv: [B, Hkv, S, D]; lse, delta: [B, Hq, S] f32.  All contiguous,
-// bf16 (is_f32 = 0) or f32 (is_f32 = 1).  window <= 0 means no window.
-// Returns the CUDA error code of the launch (0 on success); does not
-// synchronise.
+// Launches the dK/dV backward on `stream`.  q, dout: [B, Hq, S, d]; k, v,
+// dk, dv: [B, Hkv, S, d]; lse, delta: [B, Hq, S] f32.  All contiguous,
+// bf16 (is_f32 = 0; d a multiple of 8) or f32 (is_f32 = 1), 1 <= d <= 256.
+// window <= 0 means no window.  Returns the CUDA error code of the launch
+// (0 on success); does not synchronise.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int b,
                             int hq, int hkv, int s, int d, int causal,
                             int window, float scale, int is_f32,
                             void* stream) {
-  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || s < 1)
+  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || s < 1 ||
+      tile_dim(d) == 0 || (!is_f32 && d % 8 != 0))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -569,6 +579,7 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   p.hq = hq;
   p.hkv = hkv;
   p.s = s;
+  p.d = d;
   p.causal = causal;
   p.window = window;
   p.scale = scale;
@@ -577,21 +588,23 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
     const dim3 grid(b * hkv, (s + kSimtBlockM - 1) / kSimtBlockM);
     // sQ and sdO, then the LSE and delta rows.
     constexpr int kTiles = 2 * kSimtBlockQ, kRows = 2 * kSimtBlockQ;
-    if (d == 64)
-      return launch_simt(flash_bwd_dkv_f32_kernel<64>, grid,
-                         simt_smem_bytes<64>(kTiles, kRows), st, p);
-    if (d == 128)
-      return launch_simt(flash_bwd_dkv_f32_kernel<128>, grid,
-                         simt_smem_bytes<128>(kTiles, kRows), st, p);
-    if (d == 256)
-      return launch_simt(flash_bwd_dkv_f32_kernel<256>, grid,
-                         simt_smem_bytes<256>(kTiles, kRows), st, p);
-    return (int)cudaErrorInvalidValue;
+    switch (tile_dim(d)) {
+      case 64:
+        return launch_simt(flash_bwd_dkv_f32_kernel<64>, grid,
+                           simt_smem_bytes<64>(kTiles, kRows), st, p);
+      case 128:
+        return launch_simt(flash_bwd_dkv_f32_kernel<128>, grid,
+                           simt_smem_bytes<128>(kTiles, kRows), st, p);
+      default:
+        return launch_simt(flash_bwd_dkv_f32_kernel<256>, grid,
+                           simt_smem_bytes<256>(kTiles, kRows), st, p);
+    }
   }
-  if (d == 64) return launch_bf16<64>(p, b, st);
-  if (d == 128) return launch_bf16<128>(p, b, st);
-  if (d == 256) return launch_bf16<256>(p, b, st);
-  return (int)cudaErrorInvalidValue;
+  switch (tile_dim(d)) {
+    case 64: return launch_bf16<64>(p, b, st);
+    case 128: return launch_bf16<128>(p, b, st);
+    default: return launch_bf16<256>(p, b, st);
+  }
 }
 
 const char* flash_attention_bwd_dkv_error_string(int code) {

@@ -35,6 +35,10 @@
 //     diagonal, the window's lower edge) run the per-element mask; KV
 //     tiles past the diagonal (and below a window's band) are never
 //     loaded; rows past S are never stored.
+// Any head dim d up to 256 runs in the tile of the smallest width D of
+// 64, 128 and 256 that holds it, as the forward does: the tensor maps span
+// d columns and read zeros past it, which add nothing to Q K^T or dO V^T;
+// the columns past d of dS K are never stored.
 // head_dim 256 (Gemma): 128-row Q and dO alone take 128 KB there, and the
 // 128-row K/V ring 256 KB.  A CTA takes 64 q rows in one consumer
 // warpgroup and streams 64-row K/V tiles through the two-stage ring: Q
@@ -64,7 +68,7 @@ struct Params {
   const float* lse;
   const float* delta;
   void* dq;
-  int hq, hkv, s, causal, window;  // window <= 0: no window
+  int hq, hkv, s, d, causal, window;  // window <= 0: no window
   float scale;
 };
 
@@ -267,9 +271,10 @@ __global__ void __launch_bounds__(Tiles<D>::kThreads, 1)
       if (++st == kStages) st = 0, phase ^= 1;
     }
 
-    store_rows_bf16<D>(dq, qrow, t4,
-                       static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * p.s * D,
-                       p.s);
+    store_rows_bf16<D>(
+        dq, qrow, t4,
+        static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * p.s * p.d, p.s,
+        p.d);
   }
 }
 
@@ -279,10 +284,13 @@ template <int D>
 int launch_bf16(const Params& p, int b, cudaStream_t st) {
   constexpr int kQRows = Tiles<D>::kQRows, kKvRows = Tiles<D>::kKvRows;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kQRows);
-  if (err == 0) err = encode_rows_map(&tm_do, p.dout, D, p.s, b * p.hq, kQRows);
-  if (err == 0) err = encode_rows_map(&tm_k, p.k, D, p.s, b * p.hkv, kKvRows);
-  if (err == 0) err = encode_rows_map(&tm_v, p.v, D, p.s, b * p.hkv, kKvRows);
+  int err = encode_rows_map(&tm_q, p.q, p.d, p.s, b * p.hq, kQRows);
+  if (err == 0)
+    err = encode_rows_map(&tm_do, p.dout, p.d, p.s, b * p.hq, kQRows);
+  if (err == 0)
+    err = encode_rows_map(&tm_k, p.k, p.d, p.s, b * p.hkv, kKvRows);
+  if (err == 0)
+    err = encode_rows_map(&tm_v, p.v, p.d, p.s, b * p.hkv, kKvRows);
   if (err != 0) return err;
   constexpr int bytes = Tiles<D>::kSmem;
   const cudaError_t cerr = cudaFuncSetAttribute(
@@ -300,7 +308,7 @@ int launch_bf16(const Params& p, int b, cudaStream_t st) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_f32_kernel(const Params p) {
-  constexpr int E = D / 32;  // head_dim elements per lane: d = lane + 32*i
+  constexpr int E = D / 32;  // tile columns per lane: lane + 32 * i
   // The staged K and V tiles (64 KB at head_dim 256: dynamic).
   extern __shared__ float simt_smem[];
   float* sK = simt_smem;              // [kSimtBlockN][D]
@@ -310,7 +318,8 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.x;
   const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
   const int q0 = q_tile * kSimtBlockM;
-  const size_t q_off = (size_t)bh * p.s * D, kv_off = (size_t)kvh * p.s * D;
+  const int d = p.d;  // row stride; columns d .. D - 1 are zeros
+  const size_t q_off = (size_t)bh * p.s * d, kv_off = (size_t)kvh * p.s * d;
   const float* qg = static_cast<const float*>(p.q) + q_off;
   const float* dog = static_cast<const float*>(p.dout) + q_off;
   const float* kg = static_cast<const float*>(p.k) + kv_off;
@@ -328,9 +337,10 @@ __global__ void __launch_bounds__(kThreads)
     dlt[r] = in ? p.delta[(size_t)bh * p.s + row0 + r] : 0.f;
 #pragma unroll
     for (int i = 0; i < E; ++i) {
-      const size_t at = (size_t)(row0 + r) * D + lane + 32 * i;
-      q[r][i] = in ? qg[at] : 0.f;
-      dout[r][i] = in ? dog[at] : 0.f;
+      const size_t at = (size_t)(row0 + r) * d + lane + 32 * i;
+      const bool col = lane + 32 * i < d;
+      q[r][i] = in && col ? qg[at] : 0.f;
+      dout[r][i] = in && col ? dog[at] : 0.f;
       dq[r][i] = 0.f;
     }
   }
@@ -342,8 +352,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kv_first; kt < kv_end; ++kt) {
     const int kv0 = kt * kSimtBlockN;
     __syncthreads();
-    stage_rows_f32<D>(sK, kg, kv0, kSimtBlockN, p.s);
-    stage_rows_f32<D>(sV, vg, kv0, kSimtBlockN, p.s);
+    stage_rows_f32<D>(sK, kg, kv0, kSimtBlockN, p.s, d);
+    stage_rows_f32<D>(sV, vg, kv0, kSimtBlockN, p.s, d);
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -379,7 +389,8 @@ __global__ void __launch_bounds__(kThreads)
     if (row0 + r >= p.s) continue;
 #pragma unroll
     for (int i = 0; i < E; ++i)
-      dqg[(size_t)(row0 + r) * D + lane + 32 * i] = dq[r][i];
+      if (lane + 32 * i < d)
+        dqg[(size_t)(row0 + r) * d + lane + 32 * i] = dq[r][i];
   }
 }
 
@@ -387,17 +398,18 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Launches the dQ backward on `stream`.  q, dout, dq: [B, Hq, S, D]; k, v:
-// [B, Hkv, S, D]; lse, delta: [B, Hq, S] f32.  All contiguous, bf16
-// (is_f32 = 0) or f32 (is_f32 = 1).  window <= 0 means no window.
-// Returns the CUDA error code of the launch (0 on success); does not
-// synchronise.
+// Launches the dQ backward on `stream`.  q, dout, dq: [B, Hq, S, d]; k, v:
+// [B, Hkv, S, d]; lse, delta: [B, Hq, S] f32.  All contiguous, bf16
+// (is_f32 = 0; d a multiple of 8) or f32 (is_f32 = 1), 1 <= d <= 256.
+// window <= 0 means no window.  Returns the CUDA error code of the launch
+// (0 on success); does not synchronise.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int b, int hq,
                            int hkv, int s, int d, int causal, int window,
                            float scale, int is_f32, void* stream) {
-  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || s < 1)
+  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || s < 1 ||
+      tile_dim(d) == 0 || (!is_f32 && d % 8 != 0))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -410,6 +422,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   p.hq = hq;
   p.hkv = hkv;
   p.s = s;
+  p.d = d;
   p.causal = causal;
   p.window = window;
   p.scale = scale;
@@ -417,21 +430,23 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   if (is_f32) {
     const dim3 grid(b * hq, (s + kSimtBlockM - 1) / kSimtBlockM);
     constexpr int kTiles = 2 * kSimtBlockN;  // sK and sV
-    if (d == 64)
-      return launch_simt(flash_bwd_dq_f32_kernel<64>, grid,
-                         simt_smem_bytes<64>(kTiles), st, p);
-    if (d == 128)
-      return launch_simt(flash_bwd_dq_f32_kernel<128>, grid,
-                         simt_smem_bytes<128>(kTiles), st, p);
-    if (d == 256)
-      return launch_simt(flash_bwd_dq_f32_kernel<256>, grid,
-                         simt_smem_bytes<256>(kTiles), st, p);
-    return (int)cudaErrorInvalidValue;
+    switch (tile_dim(d)) {
+      case 64:
+        return launch_simt(flash_bwd_dq_f32_kernel<64>, grid,
+                           simt_smem_bytes<64>(kTiles), st, p);
+      case 128:
+        return launch_simt(flash_bwd_dq_f32_kernel<128>, grid,
+                           simt_smem_bytes<128>(kTiles), st, p);
+      default:
+        return launch_simt(flash_bwd_dq_f32_kernel<256>, grid,
+                           simt_smem_bytes<256>(kTiles), st, p);
+    }
   }
-  if (d == 64) return launch_bf16<64>(p, b, st);
-  if (d == 128) return launch_bf16<128>(p, b, st);
-  if (d == 256) return launch_bf16<256>(p, b, st);
-  return (int)cudaErrorInvalidValue;
+  switch (tile_dim(d)) {
+    case 64: return launch_bf16<64>(p, b, st);
+    case 128: return launch_bf16<128>(p, b, st);
+    default: return launch_bf16<256>(p, b, st);
+  }
 }
 
 const char* flash_attention_bwd_dq_error_string(int code) {

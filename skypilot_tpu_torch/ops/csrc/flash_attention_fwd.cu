@@ -35,6 +35,12 @@
 //     the band) are skipped; causal CTAs are issued longest first;
 //   * q head h of batch b reads kv head b*Hkv + h/(Hq/Hkv): no K/V copies;
 //     rows past S are never stored.
+// Any head dim d up to 256 runs in the tile of the smallest width D of
+// 64, 128 and 256 that holds it: the tensor maps span d columns, so the
+// 64-column boxes read zeros past d (one that starts past d is all
+// zeros), which add nothing to Q K^T; the columns past d of P V are never
+// stored.  The bf16 rows must be a multiple of 16 bytes (TMA's row
+// stride): the wrapper pads other d.
 // head_dim 256 (Gemma) keeps this design with 64-row K/V tiles in a
 // two-stage ring: the head_dim-128 tiling would need (1 + 2 * 3) 64 KB
 // tiles, twice the 227 KB an SM has, while Q (64 KB) and two stages of
@@ -61,8 +67,8 @@ struct Params {
   const void* v;
   void* o;
   float* lse;
-  int hq, hkv, s, causal, window;  // window <= 0: no window
-  float scale_log2;                // softmax scale * log2(e)
+  int hq, hkv, s, d, causal, window;  // window <= 0: no window
+  float scale_log2;                   // softmax scale * log2(e)
 };
 
 // ---------------------------------------------------------------- bf16
@@ -161,14 +167,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N / 2],
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + lsum[r];
 }
 
-// Normalise O, store it as bf16 and write the LSE (rows past s are
-// dropped).
+// Normalise O, store its d columns as bf16 (row stride d) and write the
+// LSE (rows past s are dropped).
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&o)[D / 2],
                                            const float (&m)[2], float (&l)[2],
                                            const int (&qrow)[2], int t4,
                                            __nv_bfloat16* og, float* lseg,
-                                           int s) {
+                                           int s, int d) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -177,9 +183,10 @@ __device__ __forceinline__ void store_rows(const float (&o)[D / 2],
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(og + (size_t)qrow[r] * D + dn * 8 +
-                                   t4 * 2) =
-          pack_bf16(o[4 * dn + 2 * r] * inv, o[4 * dn + 2 * r + 1] * inv);
+      if (dn * 8 < d)
+        *reinterpret_cast<uint32_t*>(og + (size_t)qrow[r] * d + dn * 8 +
+                                     t4 * 2) =
+            pack_bf16(o[4 * dn + 2 * r] * inv, o[4 * dn + 2 * r + 1] * inv);
     if (t4 == 0)
       lseg[qrow[r]] = m[r] == -INFINITY ? -INFINITY
                                         : (m[r] + log2f(l[r])) * kLn2;
@@ -321,8 +328,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     wgmma_wait<0>();
     fence_regs(o);
     store_rows<D>(o, m, l, qrow, t4,
-                  static_cast<__nv_bfloat16*>(p.o) + (size_t)bh * p.s * D,
-                  p.lse + (size_t)bh * p.s, p.s);
+                  static_cast<__nv_bfloat16*>(p.o) + (size_t)bh * p.s * p.d,
+                  p.lse + (size_t)bh * p.s, p.s, p.d);
   }
 }
 
@@ -332,9 +339,11 @@ template <int D>
 int launch_bf16(const Params& p, int b, cudaStream_t st) {
   CUtensorMap tm_q, tm_k, tm_v;
   constexpr int kKvRows = Tiles<D>::kKvRows;
-  int err = encode_rows_map(&tm_q, p.q, D, p.s, b * p.hq, kQRows);
-  if (err == 0) err = encode_rows_map(&tm_k, p.k, D, p.s, b * p.hkv, kKvRows);
-  if (err == 0) err = encode_rows_map(&tm_v, p.v, D, p.s, b * p.hkv, kKvRows);
+  int err = encode_rows_map(&tm_q, p.q, p.d, p.s, b * p.hq, kQRows);
+  if (err == 0)
+    err = encode_rows_map(&tm_k, p.k, p.d, p.s, b * p.hkv, kKvRows);
+  if (err == 0)
+    err = encode_rows_map(&tm_v, p.v, p.d, p.s, b * p.hkv, kKvRows);
   if (err != 0) return err;
   constexpr int bytes = Tiles<D>::kSmem;
   const cudaError_t cerr = cudaFuncSetAttribute(
@@ -352,7 +361,7 @@ int launch_bf16(const Params& p, int b, cudaStream_t st) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const Params p) {
-  constexpr int E = D / 32;  // head_dim elements per lane: d = lane + 32*i
+  constexpr int E = D / 32;  // tile columns per lane: lane + 32 * i
   // The staged K and V tiles (simt_smem_bytes<D>: 64 KB at head_dim 256,
   // past the 48 KB of static shared memory).
   extern __shared__ float simt_smem[];
@@ -363,10 +372,11 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.x;
   const int kvh = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
   const int q0 = q_tile * kSimtBlockM;
-  const float* qg = static_cast<const float*>(p.q) + (size_t)bh * p.s * D;
-  const float* kg = static_cast<const float*>(p.k) + (size_t)kvh * p.s * D;
-  const float* vg = static_cast<const float*>(p.v) + (size_t)kvh * p.s * D;
-  float* og = static_cast<float*>(p.o) + (size_t)bh * p.s * D;
+  const int d = p.d;  // row stride; columns d .. D - 1 are zeros
+  const float* qg = static_cast<const float*>(p.q) + (size_t)bh * p.s * d;
+  const float* kg = static_cast<const float*>(p.k) + (size_t)kvh * p.s * d;
+  const float* vg = static_cast<const float*>(p.v) + (size_t)kvh * p.s * d;
+  float* og = static_cast<float*>(p.o) + (size_t)bh * p.s * d;
   float* lseg = p.lse + (size_t)bh * p.s;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row0 = q0 + warp * kRowsPerWarp;
@@ -379,8 +389,8 @@ __global__ void __launch_bounds__(kThreads)
     l[r] = 0.f;
 #pragma unroll
     for (int i = 0; i < E; ++i) {
-      q[r][i] = row0 + r < p.s
-                    ? qg[(size_t)(row0 + r) * D + lane + 32 * i] * p.scale_log2
+      q[r][i] = row0 + r < p.s && lane + 32 * i < d
+                    ? qg[(size_t)(row0 + r) * d + lane + 32 * i] * p.scale_log2
                     : 0.f;
       acc[r][i] = 0.f;
     }
@@ -393,8 +403,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kv_first; kt < kv_end; ++kt) {
     const int kv0 = kt * kSimtBlockN;
     __syncthreads();
-    stage_rows_f32<D>(sK, kg, kv0, kSimtBlockN, p.s);
-    stage_rows_f32<D>(sV, vg, kv0, kSimtBlockN, p.s);
+    stage_rows_f32<D>(sK, kg, kv0, kSimtBlockN, p.s, d);
+    stage_rows_f32<D>(sV, vg, kv0, kSimtBlockN, p.s, d);
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -434,7 +444,8 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
     for (int i = 0; i < E; ++i)
-      og[(size_t)row * D + lane + 32 * i] = acc[r][i] * inv;
+      if (lane + 32 * i < d)
+        og[(size_t)row * d + lane + 32 * i] = acc[r][i] * inv;
     if (lane == 0)
       lseg[row] = m[r] == -INFINITY ? -INFINITY : (m[r] + log2f(l[r])) * kLn2;
   }
@@ -444,10 +455,11 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Launches the forward on `stream`.  q: [B, Hq, S, D]; k, v: [B, Hkv, S, D];
-// o like q; lse: [B, Hq, S] f32.  All contiguous, bf16 (is_f32 = 0) or
-// f32 (is_f32 = 1).  window <= 0 means no window.  Returns the CUDA error
-// code of the launch (0 on success); does not synchronise.
+// Launches the forward on `stream`.  q: [B, Hq, S, d]; k, v: [B, Hkv, S, d];
+// o like q; lse: [B, Hq, S] f32.  All contiguous, bf16 (is_f32 = 0; d a
+// multiple of 8) or f32 (is_f32 = 1), 1 <= d <= 256.  window <= 0 means no
+// window.  Returns the CUDA error code of the launch (0 on success); does
+// not synchronise.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int b, int hq, int hkv, int s, int d,
                         int causal, int window, float scale, int is_f32,
@@ -457,7 +469,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   // bits (the tensor maps' coordinates).
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || s < 1 ||
       (long long)b * hq * s > 0x7fffffff ||
-      (s + kSimtBlockM - 1) / kSimtBlockM > 65535)
+      (s + kSimtBlockM - 1) / kSimtBlockM > 65535 || tile_dim(d) == 0 ||
+      (!is_f32 && d % 8 != 0))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -468,6 +481,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.hq = hq;
   p.hkv = hkv;
   p.s = s;
+  p.d = d;
   p.causal = causal;
   p.window = window;
   p.scale_log2 = scale * kLog2e;
@@ -475,21 +489,23 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (is_f32) {
     const dim3 grid(b * hq, (s + kSimtBlockM - 1) / kSimtBlockM);
     constexpr int kTiles = 2 * kSimtBlockN;  // sK and sV
-    if (d == 64)
-      return launch_simt(flash_fwd_f32_kernel<64>, grid,
-                         simt_smem_bytes<64>(kTiles), st, p);
-    if (d == 128)
-      return launch_simt(flash_fwd_f32_kernel<128>, grid,
-                         simt_smem_bytes<128>(kTiles), st, p);
-    if (d == 256)
-      return launch_simt(flash_fwd_f32_kernel<256>, grid,
-                         simt_smem_bytes<256>(kTiles), st, p);
-    return (int)cudaErrorInvalidValue;
+    switch (tile_dim(d)) {
+      case 64:
+        return launch_simt(flash_fwd_f32_kernel<64>, grid,
+                           simt_smem_bytes<64>(kTiles), st, p);
+      case 128:
+        return launch_simt(flash_fwd_f32_kernel<128>, grid,
+                           simt_smem_bytes<128>(kTiles), st, p);
+      default:
+        return launch_simt(flash_fwd_f32_kernel<256>, grid,
+                           simt_smem_bytes<256>(kTiles), st, p);
+    }
   }
-  if (d == 64) return launch_bf16<64>(p, b, st);
-  if (d == 128) return launch_bf16<128>(p, b, st);
-  if (d == 256) return launch_bf16<256>(p, b, st);
-  return (int)cudaErrorInvalidValue;
+  switch (tile_dim(d)) {
+    case 64: return launch_bf16<64>(p, b, st);
+    case 128: return launch_bf16<128>(p, b, st);
+    default: return launch_bf16<256>(p, b, st);
+  }
 }
 
 const char* flash_attention_fwd_error_string(int code) {

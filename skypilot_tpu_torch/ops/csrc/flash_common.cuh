@@ -86,31 +86,46 @@ __device__ __forceinline__ void c_to_a(uint32_t a[4], const float lo[4],
 }
 
 // Store a thread's part of an m64nD f32 accumulator as bf16: rows row[0]
-// and row[1] of `dst` (row stride D), those at or past `s` dropped.
+// and row[1] of `dst` (row stride d, d <= D and a multiple of 8), those at
+// or past `s` dropped, and the columns at or past d (the tile's zero fill)
+// never written.
 template <int D>
 __device__ __forceinline__ void store_rows_bf16(const float (&acc)[D / 2],
                                                 const int (&row)[2], int t4,
-                                                __nv_bfloat16* dst, int s) {
+                                                __nv_bfloat16* dst, int s,
+                                                int d) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= s) continue;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row[r] * D + dn * 8 +
-                                   t4 * 2) =
-          pack_bf16(acc[4 * dn + 2 * r], acc[4 * dn + 2 * r + 1]);
+      if (dn * 8 < d)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)row[r] * d + dn * 8 +
+                                     t4 * 2) =
+            pack_bf16(acc[4 * dn + 2 * r], acc[4 * dn + 2 * r + 1]);
   }
 }
 
-// Stage `rows` rows of D floats from global `src`, starting at `row0`,
-// into shared `dst` (row stride D); rows at or past `s` are zero.
+// Stage `rows` rows of global `src` (row stride d), starting at `row0`,
+// into shared `dst` as rows of D floats; rows at or past `s` and columns
+// at or past d are zero.
 template <int D>
 __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
-                                               int row0, int rows, int s) {
+                                               int row0, int rows, int s,
+                                               int d) {
   for (int c = threadIdx.x; c < rows * D; c += kThreads) {
-    const int r = c / D;
-    dst[c] = row0 + r < s ? src[(size_t)(row0 + r) * D + c % D] : 0.f;
+    const int r = c / D, col = c % D;
+    dst[c] = row0 + r < s && col < d ? src[(size_t)(row0 + r) * d + col]
+                                     : 0.f;
   }
+}
+
+// The tile width a kernel is instantiated at for head dim d: the smallest
+// of 64, 128 and 256 that holds it (0 past 256).  Columns d .. D - 1 of a
+// tile are zeros: they add nothing to a product over the head dim, and
+// the columns they produce are never stored.
+inline int tile_dim(int d) {
+  return d < 1 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0;
 }
 
 // Dynamic shared memory of a SIMT (f32) kernel that stages `rows` rows of

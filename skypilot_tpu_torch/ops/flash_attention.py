@@ -23,10 +23,18 @@ from skypilot_tpu_torch.ops import _build
 # TPU tile sizes of the JAX kernel, kept for signature parity: the Hopper
 # kernels' tiles are fixed in their sources (bf16 up to head_dim 128: the
 # forward and dQ 128 q rows x 128 kv rows, dK/dV 128 kv rows x 64 q rows;
-# at head_dim 256: the forward 128 q x 64 kv, dQ 64 x 64, dK/dV 64 x 64).
+# above it: the forward 128 q x 64 kv, dQ 64 x 64, dK/dV 64 x 64).
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 512
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# The kernels take every head dim d from 1 to MAX_HEAD_DIM: each is built
+# at the tile widths KERNEL_TILE_DIMS and launched at the smallest that
+# holds d, whose columns past d are zeros.  Above 256 is ROADMAP.md B2.
+KERNEL_TILE_DIMS = (64, 128, 256)
+MAX_HEAD_DIM = 256
+# bf16 rows are read by TMA, whose row stride is a multiple of 16 bytes:
+# a bf16 head dim that is not a multiple of this is zero-padded to one
+# around the launch (the f32 paths read without TMA and take any d).
+BF16_ROW_MULTIPLE = 8
 _NEG_INF = -1e30
 
 # Launches of each kernel in this process (read and reset by
@@ -222,17 +230,45 @@ def _band_mask(s: int, window: Optional[int],
     return keep
 
 
+def kernel_tile_dim(d: int) -> int:
+    """The tile width the kernels run head dim d in."""
+    return next(t for t in KERNEL_TILE_DIMS if d <= t)
+
+
+def row_width(d: int, dtype: torch.dtype) -> int:
+    """The head dim a kernel is launched at for rows of d columns: d, or
+    for bf16 d rounded up to BF16_ROW_MULTIPLE (the rows TMA can read)."""
+    if dtype == torch.float32:
+        return d
+    return -(-d // BF16_ROW_MULTIPLE) * BF16_ROW_MULTIPLE
+
+
+def pad_rows(width: int, *tensors: torch.Tensor) -> tuple:
+    """Each tensor with its last dim zero-padded to `width` (a new
+    contiguous tensor; the tensor itself where it is that wide already)."""
+    return tuple(t if t.shape[-1] == width
+                 else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+                 for t in tensors)
+
+
+def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The first d columns of t, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, scale: float, window: Optional[int]
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper forward kernel: returns (O in q's dtype, LSE f32
     [B, Hq, S]).  CUDA tensors only; raises on anything the kernel does
-    not take."""
+    not take.  `scale` is the caller's (d ** -0.5 of the real head dim
+    in attention), also where the rows are launched padded."""
     global flash_fwd_launches
     if not scale > 0:   # the kernel takes the row max before scaling
         raise ValueError(f'the kernel needs a positive scale (got {scale})')
     _check_kernel_inputs(q, k, v, causal, window)
     b, hq, s, d = q.shape
+    q, k, v = pad_rows(row_width(d, q.dtype), q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     lib = _kernel_lib('flash_attention_fwd', 5)
@@ -242,7 +278,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), *_launch_args(q, k, causal, window, scale))
     _raise_on(lib, 'flash_attention_fwd', rc)
     flash_fwd_launches += 1
-    return out, lse
+    return _unpad(out, d), lse
 
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
@@ -251,9 +287,12 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            causal: bool, scale: float, window: Optional[int]
                            ) -> torch.Tensor:
     """Launch the Hopper dQ kernel: returns dQ in q's dtype.  lse and
-    delta are f32 [B, Hq, S].  CUDA tensors only."""
+    delta are f32 [B, Hq, S].  CUDA tensors only; rows padded as the
+    forward's."""
     global flash_bwd_dq_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, causal, window)
+    d = q.shape[-1]
+    q, k, v, do = pad_rows(row_width(d, q.dtype), q, k, v, do)
     dq = torch.empty_like(q)
     lib = _kernel_lib('flash_attention_bwd_dq', 7)
     with torch.cuda.device(q.device):
@@ -263,7 +302,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
             *_launch_args(q, k, causal, window, scale))
     _raise_on(lib, 'flash_attention_bwd_dq', rc)
     flash_bwd_dq_launches += 1
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
@@ -272,9 +311,12 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             causal: bool, scale: float, window: Optional[int]
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper dK/dV kernel (GQA folded inside): returns
-    (dK, dV) in k's and v's dtype.  CUDA tensors only."""
+    (dK, dV) in k's and v's dtype.  CUDA tensors only; rows padded as the
+    forward's."""
     global flash_bwd_dkv_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, causal, window)
+    d = q.shape[-1]
+    q, k, v, do = pad_rows(row_width(d, q.dtype), q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernel_lib('flash_attention_bwd_dkv', 8)
@@ -285,7 +327,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
             *_launch_args(q, k, causal, window, scale))
     _raise_on(lib, 'flash_attention_bwd_dkv', rc)
     flash_bwd_dkv_launches += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def _launch_args(q, k, causal, window, scale) -> tuple:
@@ -344,9 +386,9 @@ def _check_qkv(q, k, v, causal, window) -> None:
     if hq % k.shape[1]:
         raise ValueError(f'num q heads {hq} must be a multiple of num kv '
                          f'heads {k.shape[1]}')
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f'head_dim {d} not supported by the kernel '
-                         f'(supported: {KERNEL_HEAD_DIMS})')
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f'head_dim {d} is outside the kernels\' 1 to '
+                         f'{MAX_HEAD_DIM} (ROADMAP.md B2)')
     # Every kernel puts batch x heads on gridDim.x and its row tiles, 16
     # rows at the least (the f32 paths), on gridDim.y (at most 65,535);
     # rows are indexed in 32 bits (the tensor maps' coordinates).
@@ -443,7 +485,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_kv: int = DEFAULT_BLOCK_KV,
                     use_kernel: Optional[bool] = None,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Multi-head attention, flash-style, with the JAX dispatcher's rules.
+    """Multi-head attention, flash-style, with the JAX dispatcher's rules;
+    on CUDA tensors the kernels, at any head_dim from 1 to MAX_HEAD_DIM.
 
     Args:
       q: [batch, num_q_heads, seq, head_dim]

@@ -130,6 +130,13 @@ FWD_CASES = {
     # batch x q heads = 65,552 blocks, past gridDim.y's 65,535 (the grid
     # puts them on x)
     'grid_4097x16': (4097, 16, 8, 128, 64, True, None),
+    # head dims run in a wider tile, zeros past d: all-MiniLM's 32
+    # non-causal, danube-1.8b's 80 with a window, danube3-500m's 96 GQA,
+    # open_llama_3b's 100 (rows padded to 104 around the launch)
+    'd32_non_causal_ragged_200': (1, 12, 12, 200, 32, False, None),
+    'd80_window_300_gqa': (1, 8, 2, 1088, 80, True, 300),
+    'd96_gqa_ragged_1088': (1, 16, 8, 1088, 96, True, None),
+    'd100_ragged_200': (1, 4, 4, 200, 100, True, None),
 }
 
 
@@ -165,6 +172,11 @@ BWD_CASES = {
     'ragged_1088_d256_mqa': (1, 8, 1, 1088, 256, True, None),
     'window_300_d256_mqa': (1, 8, 1, 1088, 256, True, 300),
     'non_causal_1088_d256': (1, 8, 8, 1088, 256, False, None),
+    # head dims run in a wider tile (FWD_CASES')
+    'd32_non_causal_ragged_200': (1, 12, 12, 200, 32, False, None),
+    'd80_window_300_gqa': (1, 8, 2, 1088, 80, True, 300),
+    'd96_gqa_ragged_1088': (1, 16, 8, 1088, 96, True, None),
+    'd100_ragged_200': (1, 4, 4, 200, 100, True, None),
 }
 
 
@@ -190,6 +202,64 @@ def test_backward_kernels_within_their_bounds(card, case):
     for g, r, bound in zip(got, ref, bounds):
         assert ((g.float() - r.float()).abs() <= bound).all()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize('d', [32, 80, 96, 100])
+def test_f32_kernels_at_head_dims_in_a_wider_tile(card, d):
+    """The f32 (SIMT) forward and both backward kernels at head dims that
+    fill part of their tile, GQA 4/2, ragged S 200, a window of 48,
+    against their plain versions."""
+    q, k, v, do = _inputs([(1, 4, 200, d), (1, 2, 200, d), (1, 2, 200, d),
+                           (1, 4, 200, d)], torch.float32, seed=d)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, True, scale, 48)
+    ref_out, ref_lse = fa.attention_fwd_reference(q, k, v, True, scale, 48)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=TOL)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale, 48)
+    got = (fa.flash_attention_bwd_dq(*args),
+           *fa.flash_attention_bwd_dkv(*args))
+    want = (fa.attention_bwd_dq_reference(*args),
+            *fa.attention_bwd_dkv_reference(*args))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize('name', ['llama-debug', 'gemma-debug'])
+def test_debug_configs_train_on_the_card_as_on_the_cpu(card, name):
+    """llama-debug (head_dim 16) and gemma-debug (32), whose head dims the
+    kernels took last, in f32 through the Trainer on the card and the CPU
+    from the same weights and batches: three steps' losses and grad
+    norms, every parameter after the third, and 4/2/2 launches a step
+    on the card (2 layers, remat)."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.train import trainer as tt
+    cfg = dataclasses.replace(get_model_config(name), dtype=torch.float32)
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65)))
+               for _ in range(3)]
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        tr = tt.Trainer(tt.TrainConfig(model=name, batch_size=4, seq_len=64,
+                                       warmup_steps=1, learning_rate=1e-3),
+                        cfg, device=dev)
+        tr.setup(params=sd)
+        before = _counts()
+        metrics = [tr._step_fn(tr.state, {'tokens': b}) for b in batches]
+        launches = [a - b for a, b in zip(_counts(), before)]
+        out[dev] = ([(m['loss'].item(), m['grad_norm'].item())
+                     for m in metrics],
+                    {k: v.cpu() for k, v in
+                     tr.state.model.state_dict().items()}, launches)
+    (mc, pc, nc), (mx, px, _) = out['cuda'], out['cpu']
+    assert nc == [12, 6, 6]
+    np.testing.assert_allclose(mc, mx, rtol=TOL)
+    for n, p in pc.items():
+        assert (p - px[n]).abs().max().item() <= \
+            TOL * max(px[n].abs().max().item(), 1e-3), n
 
 
 def _post(port, body):

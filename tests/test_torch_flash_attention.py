@@ -42,6 +42,13 @@ CASES = {
     'head_dim_256': (1, 4, 2, 128, 256, True, None, 64, 64),
     'head_dim_256_mqa_window': (1, 4, 1, 128, 256, True, 48, 64, 64),
     'head_dim_256_non_causal': (1, 2, 2, 128, 256, False, None, 64, 64),
+    # Head dims the Hopper kernels run in a wider tile, zeros past d:
+    # llama-debug's 16, danube-1.8b's 80 with a window, danube3-500m's 96
+    # with GQA, open_llama_3b's 100 (a bf16 row TMA cannot read: padded).
+    'head_dim_16': (1, 4, 2, 128, 16, True, None, 64, 64),
+    'head_dim_80_window': (1, 4, 1, 128, 80, True, 48, 64, 64),
+    'head_dim_96_gqa': (1, 8, 2, 128, 96, True, None, 64, 64),
+    'head_dim_100_non_causal': (1, 2, 2, 128, 100, False, None, 64, 64),
 }
 
 
@@ -119,8 +126,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 BAD_KERNEL_INPUTS = {
     'scale_zero': (dict(scale=0.0), 'positive scale'),
     'scale_negative': (dict(scale=-0.125), 'positive scale'),
-    'head_dim_96': (dict(d=96), 'head_dim 96'),
-    # a head_dim the kernels take: only the device rule is left to fail
+    'head_dim_264': (dict(d=264), 'head_dim 264'),
+    # head_dims the kernels take: only the device rule is left to fail
+    'head_dim_96_cpu': (dict(d=96), 'CUDA'),
     'head_dim_256_cpu': (dict(d=256), 'CUDA'),
     'float16': (dict(dtype=torch.float16), 'bfloat16 or float32'),
     'gqa_3_over_2': (dict(hq=3), 'multiple'),

@@ -46,6 +46,13 @@ CASES = {
     'head_dim_256': (1, 4, 2, 128, 256, True, None, 64),
     'head_dim_256_mqa_window': (1, 4, 1, 128, 256, True, 48, 64),
     'head_dim_256_non_causal': (1, 2, 2, 128, 256, False, None, 64),
+    # Head dims the Hopper kernels run in a wider tile (see
+    # tests/test_torch_flash_attention.py): 16, 80 with a window, 96 with
+    # GQA, 100 (padded rows in bf16).
+    'head_dim_16': (1, 4, 2, 128, 16, True, None, 64),
+    'head_dim_80_window': (1, 4, 1, 128, 80, True, 48, 64),
+    'head_dim_96_gqa': (1, 8, 2, 128, 96, True, None, 64),
+    'head_dim_100_non_causal': (1, 2, 2, 128, 100, False, None, 64),
 }
 
 
@@ -236,8 +243,9 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
 # raises).  Every input is on the CPU, so each case reaches its rule only
 # because the device is checked last.
 BAD_BWD_INPUTS = {
-    'head_dim_96': (dict(d=96), 'head_dim 96'),
-    # a head_dim the kernels take: only the device rule is left to fail
+    'head_dim_264': (dict(d=264), 'head_dim 264'),
+    # head_dims the kernels take: only the device rule is left to fail
+    'head_dim_96_cpu': (dict(d=96), 'CUDA'),
     'head_dim_256_cpu': (dict(d=256), 'CUDA'),
     'window_not_causal': (dict(causal=False, window=16), 'window'),
     'do_shape': (dict(do=lambda do: do[:, :, :32]), 'do must match q'),
