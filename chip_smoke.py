@@ -9,8 +9,8 @@ each against its plain PyTorch version on the card and times all three
 at bench_torch.py's headline shape (seq 8192), holds them at head dims
 16 to 192 that fill part of their tile, in bf16 and f32, and times them
 at the shapes of the head_dims phase, drives the port's main
-paths -- bench_torch.py whole (llama-800m training at seq 8192 and 2048,
-in a subprocess), the llama-1b no-cache forward (tokens [1, 1024]),
+paths -- bench_torch.py's main() (llama-800m training at seq 8192 and
+2048, in a subprocess, one short window a point), the llama-1b no-cache forward (tokens [1, 1024]),
 offline serving through the dense-cache engine, the HTTP server (16
 concurrent requests through /generate, its SSE stream and
 /v1/completions, again with decode lookahead and the adaptive window on,
@@ -52,7 +52,8 @@ on Mixtral at depth 2, then the mesh trainer on a one-rank NCCL group
 (llama3-8b at 4 layers, then LoRA under the mesh at
 examples/finetune_llama31.yaml's rank 16), the multi-chip dryrun, and
 tensor-parallel serving on two gloo ranks sharing the card (llama2-7b,
-Mixtral, multi-LoRA with int8 weights and the fp8 cache, gpt2-large),
+Mixtral, multi-LoRA with int8 weights and the fp8 cache, gpt2-large, the
+deep legs cut to a few layers),
 then the twins of the JAX package's bench scripts and examples, their
 card modes run in one subprocess as a user runs them
 (scripts/bench_decode_micro_torch.py's dispatch-cost fit at llama2-7b
@@ -116,8 +117,10 @@ from skypilot_tpu_torch.analysis import sanitizers
 from skypilot_tpu_torch.entry import entry
 from skypilot_tpu_torch.infer import engine as engine_mod
 from skypilot_tpu_torch.infer import server
-from skypilot_tpu_torch.infer.chaos import (DegradedReplica, KillableReplica,
-                                            free_port)
+from skypilot_tpu_torch.infer.chaos import (DegradedReplica, EngineRecipe,
+                                            KillableReplica, ProcessReplica,
+                                            free_port, pid_alive,
+                                            start_fork_server)
 from skypilot_tpu_torch.infer.faults import FaultPlan, FaultSpec
 from skypilot_tpu_torch.infer.engine import (InferConfig, InferenceEngine,
                                              Request)
@@ -912,23 +915,36 @@ def phase_head_dim_kernels() -> dict:
     return out
 
 
-# bench_torch.py's points: (detail key, batch); each runs 1 + 3 x 10 steps,
-# and every step launches the forward kernel twice per layer (full remat)
-# and each backward kernel once.
+# bench_torch.py's points: (detail key, batch); each runs a warm-up step
+# and BENCH_WINDOWS windows of BENCH_WINDOW_STEPS (the script's own: 3 of
+# 10, 98.4 s of the run's 1,200 s with both points on an NVIDIA H100 80GB
+# HBM3, 700 W), and every step launches the forward kernel twice per layer
+# (full remat) and each backward kernel once.
 BENCH_POINTS = (('seq8192', 6), ('seq2048', 24))
-BENCH_STEPS = 1 + 3 * 10
+BENCH_WINDOWS = 1
+BENCH_WINDOW_STEPS = 3
+BENCH_STEPS = 1 + BENCH_WINDOWS * BENCH_WINDOW_STEPS
+# bench_torch.py's main() as a user runs it, its measure() cut to the
+# windows above.
+BENCH_RUNNER = (
+    'import functools, bench_torch\n'
+    'bench_torch.measure = functools.partial(bench_torch.measure, '
+    f'steps={BENCH_WINDOW_STEPS}, windows={BENCH_WINDOWS})\n'
+    'bench_torch.main()\n')
 
 
 def phase_bench(card: str) -> tuple:
-    """bench_torch.py whole, in a subprocess (the script as a user runs
-    it): its JSON line must carry finite losses, positive throughput, an
-    MFU under 1.05 and the launch counts of every step.  Returns the
-    kernels' launches summed over both points."""
+    """bench_torch.py's main() in a subprocess, its windows cut to
+    BENCH_WINDOWS x BENCH_WINDOW_STEPS (BENCH_RUNNER): its JSON line must
+    carry finite losses, positive throughput, an MFU under 1.05 and the
+    launch counts of every step.  Returns the kernels' launches summed
+    over both points."""
     torch.cuda.empty_cache()
-    script = pathlib.Path(__file__).resolve().parent / 'bench_torch.py'
+    root = pathlib.Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
-                          text=True, timeout=900, cwd=script.parent)
+    proc = subprocess.run([sys.executable, '-c', BENCH_RUNNER],
+                          capture_output=True, text=True, timeout=900,
+                          cwd=root)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0,
           f'bench_torch.py exited {proc.returncode}: {proc.stderr[-2000:]}')
@@ -952,7 +968,9 @@ def phase_bench(card: str) -> tuple:
     check(line['detail']['platform'] == 'gpu' and line['value'] > 0,
           f'bench line: {line}')
     emit({'phase': 'bench', 'device': card, 'wall_s': wall,
-          'result': line})
+          'result': line,
+          'reduced': f'{BENCH_WINDOWS} window of {BENCH_WINDOW_STEPS} steps '
+                     'a point (the script: 3 of 10)'})
     return tuple(launches)
 
 
@@ -1022,6 +1040,10 @@ def stderr_log(line: str) -> None:
     print(line, file=sys.stderr, flush=True)
 
 
+# The trace's device-side event categories (kernels, copies, sets).
+DEVICE_EVENTS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+
+
 def profile_device(fn, top: int = 8) -> dict:
     """One call of fn under torch.profiler: the device time of every
     kernel it ran (device-side events only), the top kernels,
@@ -1038,12 +1060,22 @@ def profile_device(fn, top: int = 8) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # Device-side kernels only: a user annotation (Optimizer.step) also
-    # shows a device-side range, which would count its kernels twice.
-    rows = [(e.key, e.device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, 'is_user_annotation', False)]
+    # Device-side kernels, copies and sets only (a user annotation, such
+    # as Optimizer.step, also shows a device-side range, which would count
+    # its kernels twice), read from the exported trace: building the
+    # profiler's Python events (key_averages) took seconds a call, 92 s
+    # of a smoke run over its 30 calls (NVIDIA H100 80GB HBM3, 700 W).
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    agg = {}
+    for e in events:
+        if str(e.get('cat', '')).lower() in DEVICE_EVENTS:
+            ms, n = agg.get(e['name'], (0.0, 0))
+            agg[e['name']] = (ms + e.get('dur', 0) / 1e3, n + 1)
+    rows = [(name, ms, n) for name, (ms, n) in agg.items()]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows) if rows else None  # not traced
     return {'wall_ms': wall_ms, 'device_ms': device_ms,
@@ -3863,6 +3895,237 @@ def chaos_replicas(cfg, sd: dict, device, reference: list) -> dict:
             rep.kill()
 
 
+# (e): a tp=2 ProcessReplica (two gloo ranks sharing card 0) at llama-1b's
+# full width, CHAOS_TP_LAYERS deep, f32 weights drawn on the card from
+# CHAOS_TP_SEED on every rank, over CHAOS_INFER's bf16 paged cache with the
+# radix cache and the host tier.  Teacher-forced through the cached forward
+# over a fresh bf16 cache (the same rounding of K and V), the serve phase's
+# f32 bound (TP_F32_BOUND) holds; the no-cache forward (the flash kernel)
+# sees the cache's rounding too, so it is held to the serve phase's bf16
+# bound.
+CHAOS_TP_LAYERS = SERVE_LAYERS
+CHAOS_TP_NO_CACHE_BOUND = 0.25  # the serve phase's bf16 teacher-forced one
+CHAOS_TP_SEED = 1
+CHAOS_TP_MODES = ('group', 'rank0', 'worker')
+CHAOS_TP_EXIT_S = 10.0          # a rank's exit / the 'dead' reading
+CHAOS_TP_MEM_TOL = 64 << 20     # or 1% of the card's free bytes
+
+
+def chaos_tp_engine(layers: int, stall_s: float,
+                    mesh=None) -> InferenceEngine:
+    """(e)'s replica engine (the recipe of both the tp=2 process replica,
+    built on each of its ranks over `mesh`, and the tp=1 in-process one)."""
+    cfg = dataclasses.replace(get_model_config('llama-1b'),
+                              num_layers=layers, dtype=torch.float32)
+    eng = InferenceEngine(cfg, InferConfig(model='llama-1b', **CHAOS_INFER),
+                          device='cuda', mesh=mesh,
+                          generator=torch.Generator(
+                              device='cuda').manual_seed(CHAOS_TP_SEED))
+    eng.arm_faults(FaultPlan(seed=0, specs=[
+        FaultSpec(site='stall', prob=1.0, stall_s=stall_s)]))
+    return eng
+
+
+def card_free_bytes() -> int:
+    """The card's free bytes (every process's allocations: the replica's
+    ranks allocate in processes of their own)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def free_close(free: int, want: int) -> bool:
+    """Free card bytes within 1% or CHAOS_TP_MEM_TOL of `want`."""
+    return abs(free - want) <= max(CHAOS_TP_MEM_TOL, 0.01 * want)
+
+
+def settled_free(want: int, timeout: float = 5.0) -> int:
+    """The card's free bytes once close to `want` (a killed process's
+    memory returns as the CUDA driver tears it down), or the last reading at
+    the timeout."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        free = card_free_bytes()
+        if free_close(free, want) or time.perf_counter() > deadline:
+            return free
+        time.sleep(0.05)
+
+
+def stream_result(events: list) -> Optional[dict]:
+    done = [e for e in events if e.get('done')]
+    return done[0] if len(done) == 1 else None
+
+
+def audited_report(rep: ProcessReplica, timeout: float = 10.0) -> dict:
+    """The replica's sanitizer report once its rank 0 has audited a
+    quiesce point (the child writes it every 0.5 s while idle)."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        report = rep.sanitizer_report()
+        if report and report['audits'] > 0:
+            return report
+        check(time.perf_counter() < deadline,
+              f'chaos (e): no sanitizer audit in {timeout} s ({report})')
+        time.sleep(0.1)
+
+
+def chaos_tp(env: dict, tally: list) -> dict:
+    """(e) A tensor-parallel replica under the three deaths it can suffer.
+    Its greedy stream of CHAOS_STREAM equals a tp=1 in-process replica's
+    tokens exactly (f32 weights, both over the bf16 cache) and, teacher-
+    forced, its logprobs are within TP_F32_BOUND of the cached forward's
+    over a fresh bf16 cache and within CHAOS_TP_NO_CACHE_BOUND of the
+    no-cache forward's (the flash forward kernel, its launches into
+    `tally`); then one cycle each of 'group', 'rank0'
+    and 'worker': killed once the stream's first chunk has arrived, no
+    process of the replica left by pid ('worker': /healthz reads 'dead'
+    first, then the respawn ends rank 0), the card's free bytes back to
+    their value before the first start, the respawn's re-issued stream
+    byte-identical and its free bytes those after the first start (within
+    1% or 64 MiB); the child's sanitizers audit and find nothing."""
+    t_leg = time.perf_counter()
+    recipe = EngineRecipe(chaos_tp_engine, CHAOS_TP_LAYERS, CHAOS_STALL_S)
+    free0 = card_free_bytes()
+    rep = ProcessReplica(recipe, free_port(), tp=2, device='cuda')
+    try:
+        t0 = time.perf_counter()
+        rep.start()
+        start_s = time.perf_counter() - t0
+        free1 = card_free_bytes()
+        events, ttft, err = sse_stream(rep.port, CHAOS_STREAM)
+        tp2 = stream_result(events)
+        check(err is None and tp2 is not None and
+              tp2['finish_reason'] == 'length',
+              f'chaos (e): the tp=2 stream gave {events[-1:]} ({err!r})')
+        # The tp=1 in-process replica on the same recipe, and the no-cache
+        # forward of its model over the tp=2 stream.
+        one = KillableReplica(recipe, free_port())
+        one.start()
+        try:
+            events, _, err = sse_stream(one.port, CHAOS_STREAM)
+            tp1 = stream_result(events)
+            check(err is None and tp1 is not None and
+                  tp1['output_tokens'] == tp2['output_tokens'],
+                  f'chaos (e): tp=2 tokens {tp2["output_tokens"]} != tp=1 '
+                  f'{tp1 and tp1["output_tokens"]}')
+            result = types.SimpleNamespace(
+                prompt_tokens=CHAOS_STREAM['tokens'],
+                output_tokens=tp2['output_tokens'], logprobs=tp2['logprobs'])
+            model = one.server.engine.model
+            gap = teacher_forced_err(model, [result], use_cache=True,
+                                     cache_dtype=torch.bfloat16)
+            no_cache_gap = counted(
+                lambda: teacher_forced_err(model, [result]), tally)
+            del model
+        finally:
+            one.kill()
+            del one
+        check(tally[0] > 0, 'chaos (e): the no-cache forward launched no '
+                            'flash forward kernel')
+        check(gap <= TP_F32_BOUND,
+              f'chaos (e): teacher-forced gap {gap} through the cached '
+              f'forward over bf16 > {TP_F32_BOUND}')
+        check(no_cache_gap <= CHAOS_TP_NO_CACHE_BOUND,
+              f'chaos (e): teacher-forced gap {no_cache_gap} against the '
+              f'no-cache forward > {CHAOS_TP_NO_CACHE_BOUND}')
+        reference = tp2['output_tokens']
+        cycles, reports = [], []
+        for mode in CHAOS_TP_MODES:
+            # Each start's report, read before the kill ends it.
+            reports.append(audited_report(rep))
+            pids = rep.pids()
+            killed = []
+
+            def kill(mode=mode, killed=killed):
+                check(rep.busy(), f'chaos (e) {mode}: no stream in flight')
+                t0 = time.perf_counter()
+                rep.kill(mode)
+                killed.append(time.perf_counter() - t0)
+
+            events, _, err = sse_stream(rep.port, CHAOS_STREAM,
+                                        on_first=kill)
+            check(bool(killed), f'chaos (e) {mode}: the kill never ran')
+            streamed = sum(len(e.get('tokens', ())) for e in events)
+            end = stream_result(events)
+            dead_s = None
+            if mode == 'worker':
+                # Rank 0 lives on and must read 'dead'; the stream it
+                # held ends with the typed error event.
+                t_kill = rep.last_kill['at']
+                while time.monotonic() - t_kill < CHAOS_TP_EXIT_S:
+                    doc = rep.health()
+                    if doc and doc['status'] == 'dead':
+                        dead_s = time.monotonic() - t_kill
+                        break
+                    time.sleep(0.02)
+                check(dead_s is not None,
+                      f'chaos (e) worker: /healthz {rep.health()} '
+                      f'{CHAOS_TP_EXIT_S} s after the kill')
+                check(end is not None and end['finish_reason'] == 'error',
+                      f'chaos (e) worker: the stream ended {events[-1:]}')
+                gone = rep.wait_gone(CHAOS_TP_EXIT_S, pids['workers'])
+                check(all(gone[w] is not None for w in pids['workers']),
+                      f'chaos (e) worker: worker still running ({gone})')
+            else:
+                check(end is None,
+                      f'chaos (e) {mode}: the stream finished ({end})')
+                gone = rep.wait_gone(CHAOS_TP_EXIT_S)
+                check(all(t is not None for t in gone.values()),
+                      f'chaos (e) {mode}: processes left {gone}')
+            stragglers = rep.reap(0.0)
+            check(mode == 'worker' or not stragglers,
+                  f'chaos (e) {mode}: {stragglers} had to be killed')
+            left = [p for p in [pids['rank0']] + pids['workers']
+                    if pid_alive(p)]
+            check(not left, f'chaos (e) {mode}: pids {left} still run')
+            free_k = settled_free(free0)
+            check(free_close(free_k, free0),
+                  f'chaos (e) {mode}: {free_k} bytes free after the kill, '
+                  f'{free0} before the first start')
+            t0 = time.perf_counter()
+            rep.respawn()
+            respawn_s = time.perf_counter() - t0
+            events, ttft, err = sse_stream(rep.port, CHAOS_STREAM)
+            again = stream_result(events)
+            check(err is None and again is not None and
+                  again['output_tokens'] == reference,
+                  f'chaos (e) {mode}: the re-issued stream gave '
+                  f'{events[-1:]} ({err!r}), the reference {reference}')
+            free_r = settled_free(free1)
+            check(free_close(free_r, free1),
+                  f'chaos (e) {mode}: {free_r} bytes free after the '
+                  f'respawn, {free1} after the first start')
+            cycles.append({
+                'mode': mode, 'kill_s': killed[0],
+                'tokens_before_kill': streamed,
+                'stream_end': ('typed_error' if end else
+                               repr(err) if err else 'eof'),
+                'pids': pids, 'exit_s_by_pid': gone,
+                'dead_s': dead_s, 'killed_by_respawn': stragglers,
+                'free_after_kill': free_k, 'respawn_s': respawn_s,
+                'reissue_ttft_s': ttft, 'free_after_respawn': free_r})
+        reports.append(audited_report(rep))
+        findings = [f for r in reports for f in r['findings']]
+        check(not findings, f'chaos (e): sanitizer findings {findings}')
+    finally:
+        rep.stop()
+    free_end = settled_free(free0)
+    return {'nvidia_smi': env['nvidia_smi'], 'tp': 2,
+            'backend': 'gloo, both ranks on card 0',
+            'layers': CHAOS_TP_LAYERS, 'start_s': start_s,
+            'cache_dtype': 'bfloat16', 'tp2_equals_tp1_tokens': True,
+            'teacher_forced_gap': gap, 'teacher_forced_bound': TP_F32_BOUND,
+            'no_cache_gap': no_cache_gap,
+            'no_cache_bound': CHAOS_TP_NO_CACHE_BOUND,
+            'flash_fwd_launches': tally[0],
+            'free_before_start': free0, 'free_after_first_start': free1,
+            'free_after_stop': free_end, 'cycles': cycles,
+            'sanitizer_audits': sum(r['audits'] for r in reports),
+            'sanitizer_findings': findings,
+            'wall_s': time.perf_counter() - t_leg}
+
+
 def chaos_degraded(cfg, sd: dict, device, reference: list) -> dict:
     """(c) A DegradedReplica in front of a port replica: through the
     proxy the greedy tokens are the reference's, and the time to the
@@ -3894,7 +4157,7 @@ def chaos_degraded(cfg, sd: dict, device, reference: list) -> dict:
         rep.kill()
 
 
-def phase_chaos(model, env: dict) -> None:
+def phase_chaos(model, env: dict) -> int:
     """The replica plane under chaos, with SKYTPU_SANITIZERS=1 (the lock-
     order and block-conservation sanitizers on, the locks instrumented):
     (a) the fault-mixture sweep of scripts/chaos_smoke_torch.py, seeds
@@ -3904,8 +4167,13 @@ def phase_chaos(model, env: dict) -> None:
     the fault-free served run's tokens; (b) kill and respawn of port
     replicas (chaos_replicas); (c) a gray-failure proxy (chaos_degraded);
     (d) a planted leak (a block gone from the free list with no holder)
-    makes the serving loop's quiesce point raise BlockLeakError."""
+    makes the serving loop's quiesce point raise BlockLeakError; (e) a
+    tp=2 ProcessReplica killed whole, at rank 0 and at a worker, and
+    respawned (chaos_tp).  Returns (e)'s flash forward launches."""
     t_phase = time.perf_counter()
+    # (e)'s replica forks its rank 0 from a server process: let its
+    # imports run beside (a)-(d).
+    start_fork_server()
     smoke = chaos_script()
     cfg = dataclasses.replace(model.config, dtype=torch.float32)
     sd = {k: v.float() for k, v in model.state_dict().items()}
@@ -3981,6 +4249,8 @@ def phase_chaos(model, env: dict) -> None:
         gc.collect()
         replicas = chaos_replicas(cfg, sd, device, reference_stream)
         degraded = chaos_degraded(cfg, sd, device, reference_stream)
+        tally = [0, 0, 0]
+        tp_replica = chaos_tp(env, tally)
         recorder = sanitizers._GRAPH
         check(not recorder.errors,
               f'chaos: lock-order errors {recorder.errors[:3]}')
@@ -4004,8 +4274,10 @@ def phase_chaos(model, env: dict) -> None:
           'quiesce_checks': quiesce_checks,
           'lock_edges': {k: sorted(v) for k, v in edges.items()},
           'replicas': replicas, 'degraded': degraded,
+          'tp_replica': tp_replica,
           'planted_leak': raised.splitlines()[-1].strip(),
           'wall_s': time.perf_counter() - t_phase})
+    return tally[0]
 
 
 def hf_checkpoint(model) -> tuple:
@@ -5794,8 +6066,8 @@ def phase_dryrun(env: dict) -> tuple:
 # a process of its own, in a gloo group whose collectives run on CUDA
 # tensors (the card host shows one H100 and NCCL refuses two ranks on one
 # card).  (a) depth 2 in f32 at llama2-7b's widths: the tp=2 engine
-# against the tp=1 engine; (b) llama2-7b at full width and depth in bf16
-# at examples/serve_llama.yaml's engine flags (--decode-steps 32
+# against the tp=1 engine; (b) llama2-7b at full width in bf16, TP_LAYERS
+# deep, at examples/serve_llama.yaml's engine flags (--decode-steps 32
 # --cache-dtype fp8), tp=2 of its 8, slots and cache cut to what two
 # ranks' fp8 caches and weights hold on one card; a paged radix engine
 # over a bf16 cache on the same weights; (c) Mixtral at depth 2 in f32 at
@@ -5805,6 +6077,11 @@ def phase_dryrun(env: dict) -> tuple:
 # wait_tensor over gloo on CUDA tensors (my probe, PR 16), so no DTensor
 # path (tensor-parallel training) runs on two ranks here.
 TP_MODEL = 'llama2-7b'
+# (b), (e) and (f) at full width run TP_LAYERS of their layers: every
+# collective crosses the host in gloo, and at llama2-7b's 32, 8 and
+# gpt2-large's 36 the three took 119 s of the phase's 155 (NVIDIA H100
+# 80GB HBM3, 700 W), which a slow host stretched past the run's 1,200 s.
+TP_LAYERS = 4
 TP_SERVE = dict(num_slots=16, max_cache_len=512, decode_steps=32,
                 max_new_tokens=32, prefill_buckets=(64, 128, 256, 512))
 TP_REQUESTS = 8
@@ -5940,8 +6217,10 @@ def tp_depth2(rank: int, mesh) -> dict:
 
 
 def tp_full(rank: int, mesh, tally: list) -> dict:
-    """(b): llama2-7b at full width and depth, tp=2, bf16 weights."""
-    cfg = get_model_config(TP_MODEL)
+    """(b): llama2-7b at full width and TP_LAYERS deep, tp=2, bf16
+    weights."""
+    cfg = dataclasses.replace(get_model_config(TP_MODEL),
+                              num_layers=TP_LAYERS)
     prompts = tp_prompts(cfg.vocab_size, TP_REQUESTS, 23)
     out = {}
     eng = tp_engine(cfg, {**TP_SERVE, 'cache_dtype': llama.FP8}, mesh)
@@ -6051,14 +6330,14 @@ def tp_mixtral(rank: int, mesh) -> dict:
 # adapter requests in one batch) against tp=1; then
 # examples/serve_lora.yaml's flags (--lora-rank 16 --lora-max-adapters 8)
 # with int8 weights and the fp8 cache, three adapters registered (B at
-# LORA_B_STD), at TP_LORA_LAYERS of 32 layers, every adapter stream held
+# LORA_B_STD), at TP_LAYERS of 32 layers, every adapter stream held
 # against the no-cache forward of a rank-local single-adapter model and,
 # over a fresh fp8 cache, against its cached forward, with the
 # lora_serve phase's controls (the next adapter's model, the base).
 # (f) gpt2-large at tp=2 (10 of 20 heads a rank): depth 2 in f32 against
-# tp=1, then its 36 layers in bf16 at the gpt2 phase's flags.
+# tp=1, then TP_LAYERS of its 36 layers in bf16 at the gpt2 phase's flags.
 TP_LORA = dict(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA)
-TP_LORA_LAYERS = 8
+TP_LORA_LAYERS = TP_LAYERS
 TP_LORA_SERVE = dict(TP_SERVE, cache_dtype=llama.FP8, lora_max_adapters=8,
                      **TP_LORA)
 # The multi-LoRA gates: each adapter stream against its single-adapter
@@ -6265,10 +6544,11 @@ def tp_gpt2_depth2(rank: int, mesh) -> dict:
 
 
 def tp_gpt2_full(rank: int, mesh, tally: list) -> dict:
-    """(f) gpt2-large at its 36 layers in bf16, tp=2: the streams' gap
-    against the rank-local no-cache forward, with a random-token
-    control."""
-    cfg = get_model_config(GPT2_SERVE_MODEL)
+    """(f) gpt2-large at TP_LAYERS of its 36 layers in bf16, tp=2: the
+    streams' gap against the rank-local no-cache forward, with a
+    random-token control."""
+    cfg = dataclasses.replace(get_model_config(GPT2_SERVE_MODEL),
+                              num_layers=TP_LAYERS)
     prompts = tp_prompts(cfg.vocab_size, TP_REQUESTS, 59)
     eng = tp_engine(cfg, TP_GPT2_SERVE, mesh)
 
@@ -6386,7 +6666,7 @@ def phase_serve_tp(env: dict) -> tuple:
     of its no-cache forward, the controls above each, the shard check
     passing and raising on a planted adapter drift, the adapter slices'
     widths; (f) gpt2-large at depth 2 in f32 tokens identical to tp=1,
-    at 36 layers in bf16 the gap within GPT2_BOUND and a control above
+    at TP_LAYERS in bf16 the gap within GPT2_BOUND and a control above
     it, 10 heads a rank.  Returns the kernels' launches (both ranks) and
     the line."""
     import multiprocessing as mproc
@@ -6502,7 +6782,8 @@ def phase_serve_tp(env: dict) -> tuple:
                        '(one card), --num-slots 128 -> 16 and '
                        'max_cache_len 2048 -> 512 (two ranks\' caches and '
                        'weights on one card); (a) and (c) depth 32 -> 2 in '
-                       'f32',
+                       f'f32; (b) depth 32 -> {TP_LAYERS} (the time: every '
+                       'collective crosses the host in gloo)',
             'depth2_f32': a, 'mixtral_f32': c, 'full': b,
             'lora_f32': e, 'lora_int8_fp8': {
                 **e8, 'model': TP_MODEL, 'num_layers': TP_LORA_LAYERS,
@@ -6513,7 +6794,9 @@ def phase_serve_tp(env: dict) -> tuple:
                 'bounds': {'cache_fp8': TP_LORA_BOUND,
                            'no_cache': INT8_BOUND}},
             'gpt2_f32': f2, 'gpt2_large': {
-                **fl, 'config': TP_GPT2_SERVE, 'bound': GPT2_BOUND},
+                **fl, 'config': TP_GPT2_SERVE, 'bound': GPT2_BOUND,
+                'num_layers': TP_LAYERS,
+                'reduced': f'depth 36 -> {TP_LAYERS}, as (b)'},
             'rank1': {k: ranks[1][k] for k in ('launches', 'seconds')},
             'rank1_window': ranks[1]['full']['window'],
             'protocol_host_cost': host, 'bounds': {
@@ -6581,6 +6864,10 @@ def last_json(lines: list) -> dict:
 
 
 DECODE_MICRO_REPS = 1          # timed dispatches a window (the ref.: 20)
+# The fit's windows (the reference: 1, 2, 4, 8 and 16; the 8- and 16-step
+# windows' traces were most of the fit's 49-51 s on an NVIDIA H100 80GB
+# HBM3, 700 W).
+DECODE_MICRO_WINDOWS = (1, 2, 4)
 SPEC_BENCH_STEPS = 100         # the reference: 6,000
 SPEC_BENCH_REQUESTS = 16       # the reference: 32
 SPEC_REPEAT_STEPS = 6
@@ -6593,7 +6880,8 @@ def twin_modes(endpoint: str) -> list:
     """Every card mode of the twins, in the order they run."""
     return [
         ('scripts/bench_decode_micro_torch.py',
-         ['--reps', str(DECODE_MICRO_REPS)]),
+         ['--reps', str(DECODE_MICRO_REPS), '--windows',
+          *map(str, DECODE_MICRO_WINDOWS)]),
         ('scripts/bench_decode_micro_torch.py', ['--paged', '--hbm-gb', '80']),
         ('scripts/bench_speculative_torch.py',
          ['--steps', str(SPEC_BENCH_STEPS),
@@ -6648,15 +6936,15 @@ def phase_twins(env: dict) -> tuple:
 
 def check_decode_micro(env: dict, fit_run: tuple, paged_run: tuple) -> None:
     """scripts/bench_decode_micro_torch.py at the reference's defaults
-    (llama2-7b int8 + fp8 cache, 16 slots, cache 512, windows 1..16) at
-    DECODE_MICRO_REPS, then --paged at the H100's 80 GB with its measured
+    (llama2-7b int8 + fp8 cache, 16 slots, cache 512) at DECODE_MICRO_REPS
+    and DECODE_MICRO_WINDOWS, then --paged at the H100's 80 GB with its measured
     sweep: the fit dispatch(K) = F + K*s with s > 0, each window's device
     time (the profiler's) at most its production wall time, the paged
     sweep's rows at every fill."""
     fit, paged = last_json(fit_run[0]), last_json(paged_run[0])
     windows = fit['windows']
     check(fit['fit_per_step_ms'] > 0, f'per-step cost {fit}')
-    check(sorted(windows, key=int) == ['1', '2', '4', '8', '16'],
+    check(sorted(windows, key=int) == list(map(str, DECODE_MICRO_WINDOWS)),
           f'windows {sorted(windows)}')
     for k, row in windows.items():
         check(row['device_ms'] is not None and
@@ -6673,8 +6961,9 @@ def check_decode_micro(env: dict, fit_run: tuple, paged_run: tuple) -> None:
           'paged_capacity': paged['capacity_model'],
           'paged_measured': paged['measured_tiny_sweep'],
           'paged_seconds': paged_run[1],
-          'reduced': f'{DECODE_MICRO_REPS} timed dispatch a window (the '
-                     'reference: 20)'})
+          'reduced': f'{DECODE_MICRO_REPS} timed dispatch a window, windows '
+                     f'{list(DECODE_MICRO_WINDOWS)} (the reference: 20, '
+                     '[1, 2, 4, 8, 16])'})
 
 
 def check_spec_bench(env: dict, run: tuple) -> tuple:
@@ -6945,7 +7234,7 @@ def main() -> int:
     timed(phase_prefix, model, env)
     timed(phase_spec, model, env)
     timed(phase_qos, model, env)
-    timed(phase_chaos, model, env)
+    chaos_fwd = timed(phase_chaos, model, env)
     del model
     gc.collect()    # engines held in reference cycles (window audits)
     torch.cuda.empty_cache()
@@ -7018,7 +7307,7 @@ def main() -> int:
                        + bert_train[0] + bert_hf_forward
                        + mixtral_lora[0] + mesh_train[0] + mesh_lora[0]
                        + dryrun[0] + serve_tp[0] + spec_bench[0]
-                       + head_dims[0]),
+                       + head_dims[0] + chaos_fwd),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
@@ -7038,7 +7327,8 @@ def main() -> int:
                                'dryrun': dryrun[0],
                                'serve_tp': serve_tp[0],
                                'spec_bench': spec_bench[0],
-                               'head_dims': head_dims[0]},
+                               'head_dims': head_dims[0],
+                               'chaos_tp': chaos_fwd},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
              headline_shape=headline['fwd'],
              head_dim_256_shapes={name: fwd[name]

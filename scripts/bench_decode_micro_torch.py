@@ -50,6 +50,7 @@ card's figures by flag (an H100: --hbm-gb 80).  Nothing is written unless
 import argparse
 import copy
 import dataclasses
+import functools
 import json
 import os
 import random as pyrandom
@@ -422,7 +423,8 @@ def _measure_tp_sweep(args, steps=4, reps=5):
     try:
         mesh = tp_mesh(2, torch.device(dev).type)
         tp_lib.control_group()
-        tp_lib.broadcast_object((cfg_m, InferConfig(**common)))
+        tp_lib.broadcast_object(functools.partial(
+            InferenceEngine, cfg_m, InferConfig(**common), device=dev))
         tp = InferenceEngine(cfg_m, InferConfig(**common),
                              params=single.model.state_dict(), device=dev,
                              generator=_generator(dev), mesh=mesh)

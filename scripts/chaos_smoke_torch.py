@@ -47,8 +47,9 @@ The replica and batch legs compose the two packages: the port's replicas
 unchanged load balancer, policy, journal and batch coordinator
 (``skypilot_tpu.serve``), which this script imports inside those legs and
 hands to ``ChaosFleet`` through its LB factory.  Nothing here loads JAX.
-Every replica of the fleet is a single-device engine (the reference's
-mixed fleet puts a tensor-parallel replica last).
+As in the reference, the fleet's last replica is tensor-parallel (tp=2)
+when the device can give two ranks (``tp_last`` in the banner): a
+``ProcessReplica`` whose two ranks are processes of their own.
 
 ``--device`` picks the engines' device (default ``cuda``; ``cpu`` for a
 run without a card).  Run from anywhere:
@@ -216,8 +217,11 @@ def episode(eng: InferenceEngine, seed: int, n: int,
 # ------------------------------------------------ multi-replica sweep
 
 
-def _replica_engine(device: str,
-                    stall_s: float = 0.04) -> InferenceEngine:
+def _replica_engine(device: str, stall_s: float = 0.04, mesh=None,
+                    params=None) -> InferenceEngine:
+    """One replica's engine; over `mesh` (a tensor-parallel replica's,
+    built on every rank of a ProcessReplica), and on the given `params`
+    (a state dict) instead of seed-0 draws."""
     mc = LlamaConfig(name='chaos-replica', vocab_size=101,
                      hidden_size=32, intermediate_size=64, num_layers=2,
                      num_heads=4, num_kv_heads=2, max_seq_len=128,
@@ -227,8 +231,8 @@ def _replica_engine(device: str,
                       cache_dtype=torch.float32, decode_steps=4,
                       kv_block_size=8, auto_prefix_cache=True,
                       host_kv_bytes=32 << 20)
-    eng = InferenceEngine(mc, cfg, device=device,
-                          generator=_generator(device))
+    eng = InferenceEngine(mc, cfg, params=params, device=device,
+                          generator=_generator(device), mesh=mesh)
     # Stretch generations across loop iterations so kills land while
     # streams are genuinely in flight (sleep only; tokens unaffected).
     eng.arm_faults(FaultPlan(seed=0, specs=[
@@ -272,6 +276,30 @@ def _finish_of(events):
     if len(done) != 1:
         raise RuntimeError(f'{len(done)} terminal events')
     return done[0]
+
+
+def _health(replica) -> dict:
+    """A replica's /healthz document, whatever its status (the same for
+    an in-process and a process replica)."""
+    conn = HTTPConnection(replica.host, replica.port, timeout=10)
+    try:
+        conn.request('GET', '/healthz')
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def _kv(replica) -> dict:
+    return _health(replica)['kv']
+
+
+def _wait_health(replica, pred, timeout_s: float) -> bool:
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        if pred(_health(replica)):
+            return True
+        time.sleep(0.05)
+    return False
 
 
 def _drain_exercise(fleet, references) -> list:
@@ -327,7 +355,7 @@ def _drain_exercise(fleet, references) -> list:
     elif _finish_of(result['events']).get('output_tokens') != \
             references[0]:
         bad.append('DRAIN: in-flight stream diverged')
-    if not busy.server.drained.wait(30):
+    if not _wait_health(busy, lambda doc: doc['drained'], 30):
         bad.append('DRAIN: replica never reported drained')
     # Warm failover: the drained replica's hot set ships to the
     # affinity-ring owner of EACH prefix, so with several survivors
@@ -343,20 +371,20 @@ def _drain_exercise(fleet, references) -> list:
         time.sleep(0.05)
     survivors = [r for r in fleet.replicas if r is not busy]
     adopters = [r for r in survivors
-                if r.server.engine.handoff_stats.get('adopted', 0) > 0]
+                if _kv(r)['host_tier'].get('adopted', 0) > 0]
     if not adopters:
         bad.append('DRAIN: no survivor adopted the hot set')
     elif hot_ref is not None:
         radix_hits = 0
         for adopter in adopters:
-            hits0 = adopter.server.engine.radix_stats['hits']
+            hits0 = _kv(adopter)['radix']['hits']
             try:
                 done = _finish_of(_stream_generate(
                     adopter.port, {'tokens': hot + [90],
                                    'max_new_tokens': 3, 'stream': True}))
                 if done['output_tokens'] != hot_ref:
                     bad.append('DRAIN: hot replay diverged on the adopter')
-                if adopter.server.engine.radix_stats['hits'] > hits0:
+                if _kv(adopter)['radix']['hits'] > hits0:
                     radix_hits += 1
             except RuntimeError as e:
                 bad.append(f'DRAIN: hot replay failed: {e}')
@@ -524,17 +552,103 @@ def lb_factory(policy_name: str = 'least_load'):
     return make_lb
 
 
+def kill_episode(fleet, seed: int, n_requests: int, references) -> list:
+    """One replica-kill episode: n_requests greedy streams through the LB
+    in lanes of two while a SeededKiller (seed) preempts replicas, then
+    the dead ones respawn.  Every stream must finish (length or eos)
+    with its reference tokens; returns the violations."""
+    from skypilot_tpu_torch.infer.chaos import SeededKiller
+
+    t0 = time.time()
+    killer = SeededKiller(fleet, FaultPlan(seed=seed, specs=[
+        FaultSpec(site='replica_kill', prob=0.02, max_fires=2),
+    ]))
+    killer.start()
+    bad, done_stats = [], {'resumed': 0}
+    lock = threading.Lock()
+
+    def worker(idx):
+        try:
+            events = _stream_generate(fleet.lb.port, _request_spec(idx))
+            done = _finish_of(events)
+            if done.get('finish_reason') not in ('length', 'eos'):
+                raise RuntimeError(
+                    f'finish_reason={done.get("finish_reason")} '
+                    f'error={done.get("error")!r}')
+            if done['output_tokens'] != references[idx]:
+                raise RuntimeError(
+                    f'tokens diverged: {done["output_tokens"]} '
+                    f'!= {references[idx]}')
+            with lock:
+                done_stats['resumed'] += bool(done.get('resumed'))
+        except Exception as e:  # noqa: BLE001
+            with lock:
+                bad.append(f'seed={seed} request {idx}: {e}')
+
+    # Two client lanes keep replicas busy so kills land mid-stream, not
+    # between requests.
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n_requests)]
+    for lane in range(0, n_requests, 2):
+        batch = threads[lane:lane + 2]
+        for th in batch:
+            th.start()
+        for th in batch:
+            th.join(90)
+            if th.is_alive():
+                bad.append(f'seed={seed}: client hung')
+    killer.stop()
+    fleet.respawn_dead()
+    stats = fleet.lb.lb_stats()
+    print(f'  seed={seed}: kills={killer.kills} '
+          f'resumed={done_stats["resumed"]} '
+          f'failovers={stats["failovers"]} '
+          f'wall={time.time() - t0:.1f}s '
+          f'{"FAIL" if bad else "ok"}')
+    # Let probes re-admit the respawned replicas.
+    settle = time.time() + 15
+    while time.time() < settle:
+        if not fleet.lb.lb_stats()['breaker_open_now']:
+            break
+        time.sleep(0.05)
+    return bad
+
+
+def tp_last_degree(n_replicas: int, device: str) -> int:
+    """The last replica's tensor degree: 2 when the fleet has peers and
+    the device can give two ranks (on the CPU two cores in this process's
+    affinity, counted as server.run() counts its shards; on the card two
+    gloo ranks sharing card 0), else 1."""
+    from skypilot_tpu_torch.infer import server
+    if n_replicas < 2:
+        return 1
+    if device == 'cpu':
+        return 2 if server._visible_devices('cpu') >= 2 else 1
+    return 2 if torch.cuda.is_available() else 1
+
+
 def multi_replica_sweep(n_replicas: int, seeds, n_requests: int,
                         policy_name: str = 'least_load',
                         device: str = 'cuda') -> int:
     import tempfile
 
-    from skypilot_tpu_torch.infer.chaos import ChaosFleet, SeededKiller
+    from skypilot_tpu_torch.infer.chaos import (ChaosFleet, EngineRecipe,
+                                                ProcessReplica, free_port)
 
     os.environ.setdefault('SKYTPU_SERVE_LB_PROBE_INTERVAL', '0.2')
-    # Every replica is a single-device engine: tp_last stays 1.
-    tp_last = 1
+    # Mixed fleet: the last replica runs tensor-parallel (tp=2) when the
+    # device can give two ranks -- the LB, breaker, failover and the
+    # sanitizers must treat a head-sharded replica exactly like its
+    # single-device peers (byte-identical streams, same wire surface).
+    # Its ranks are processes of their own, so it is a ProcessReplica.
+    tp_last = tp_last_degree(n_replicas, device)
     factories = [functools.partial(_replica_engine, device)] * n_replicas
+    if tp_last > 1:
+        # One torch thread a rank on the CPU: the ranks and the in-process
+        # replicas share the cores.
+        factories[-1] = ProcessReplica(
+            EngineRecipe(_replica_engine, device), free_port(), tp=tp_last,
+            device=device, threads=1 if device == 'cpu' else None)
     print(f'replica chaos: {n_replicas} replicas seeds={seeds} '
           f'requests/episode={n_requests} policy={policy_name} '
           f'tp_last={tp_last}')
@@ -553,61 +667,7 @@ def multi_replica_sweep(n_replicas: int, seeds, n_requests: int,
             references[i] = done['output_tokens']
 
         for seed in seeds:
-            t0 = time.time()
-            killer = SeededKiller(fleet, FaultPlan(seed=seed, specs=[
-                FaultSpec(site='replica_kill', prob=0.02, max_fires=2),
-            ]))
-            killer.start()
-            bad, done_stats = [], {'resumed': 0}
-            lock = threading.Lock()
-
-            def worker(idx, bad=bad, done_stats=done_stats, lock=lock):
-                try:
-                    events = _stream_generate(fleet.lb.port,
-                                              _request_spec(idx))
-                    done = _finish_of(events)
-                    if done.get('finish_reason') not in ('length', 'eos'):
-                        raise RuntimeError(
-                            f'finish_reason={done.get("finish_reason")} '
-                            f'error={done.get("error")!r}')
-                    if done['output_tokens'] != references[idx]:
-                        raise RuntimeError(
-                            f'tokens diverged: {done["output_tokens"]} '
-                            f'!= {references[idx]}')
-                    with lock:
-                        done_stats['resumed'] += bool(done.get('resumed'))
-                except Exception as e:  # noqa: BLE001
-                    with lock:
-                        bad.append(f'seed={seed} request {idx}: {e}')
-
-            # Two client lanes keep replicas busy so kills land
-            # mid-stream, not between requests.
-            threads = [threading.Thread(target=worker, args=(i,),
-                                        daemon=True)
-                       for i in range(n_requests)]
-            for lane in range(0, n_requests, 2):
-                batch = threads[lane:lane + 2]
-                for th in batch:
-                    th.start()
-                for th in batch:
-                    th.join(90)
-                    if th.is_alive():
-                        bad.append(f'seed={seed}: client hung')
-            killer.stop()
-            fleet.respawn_dead()
-            stats = fleet.lb.lb_stats()
-            print(f'  seed={seed}: kills={killer.kills} '
-                  f'resumed={done_stats["resumed"]} '
-                  f'failovers={stats["failovers"]} '
-                  f'wall={time.time() - t0:.1f}s '
-                  f'{"FAIL" if bad else "ok"}')
-            failures += bad
-            # Let probes re-admit the respawned replicas.
-            settle = time.time() + 15
-            while time.time() < settle:
-                if not fleet.lb.lb_stats()['breaker_open_now']:
-                    break
-                time.sleep(0.05)
+            failures += kill_episode(fleet, seed, n_requests, references)
 
         # Each leg tests ONE mechanism.  The kill episodes leave gray-
         # failure evidence behind (TTFT EWMAs spiked by mid-stream

@@ -19,8 +19,8 @@ nothing when off:
   nodes + registered-prefix entries holding it, and the free list is
   exactly the zero-refcount blocks.  With the host KV tier armed, its
   byte-ledger audit runs under the same lock.  Violations raise
-  ``BlockLeakError``.  The serving loop calls
-  ``maybe_check_block_conservation`` on idle passes.
+  ``BlockLeakError``.  The serving loop calls ``audit_quiesce`` (this
+  check and the next) on idle passes.
 - ``SKYTPU_SHARD_SANITIZER=1``: ``check_shard_layout(engine)`` runs at
   the same quiesce point and asserts, on every rank of a tensor-parallel
   engine, that the live KV cache and weights hold their declared layout:
@@ -39,7 +39,10 @@ nothing when off:
   rank 0 every q head, fails.  Violations raise ``ShardLayoutError``; an
   engine without a mesh is a no-op.
 
-``SKYTPU_SANITIZERS=1`` enables all three.  The reference's fourth, the
+``SKYTPU_SANITIZERS=1`` enables all three.  ``report()`` gives the
+quiesce audits run in the process and the first error of each kind
+raised there, for a harness that cannot catch them (a replica in a
+process of its own).  The reference's fourth, the
 compile budget, has no counterpart: the port compiles no graphs.
 """
 import os
@@ -133,10 +136,10 @@ class _OrderGraph:
     def before_acquire(self, name: str) -> None:
         """Called BEFORE touching the real lock: self-deadlock check."""
         if name in self._stack():
-            raise LockOrderError(
+            raise _recorded(LockOrderError(
                 f"thread re-acquiring non-reentrant lock '{name}' it "
                 'already holds (would deadlock); mark the helper '
-                "'# locked:' and drop the inner acquisition")
+                "'# locked:' and drop the inner acquisition"))
 
     def after_acquire(self, name: str) -> None:
         stack = self._stack()
@@ -151,10 +154,10 @@ class _OrderGraph:
                     break
         stack.append(name)
         if cycle is not None:
-            raise LockOrderError(
+            raise _recorded(LockOrderError(
                 'lock-order inversion: acquired '
                 f"'{name}' while holding '{cycle[-2]}', but the reverse "
-                f"order was also observed (cycle: {' -> '.join(cycle)})")
+                f"order was also observed (cycle: {' -> '.join(cycle)})"))
 
     def on_release(self, name: str) -> None:
         stack = self._stack()
@@ -440,3 +443,47 @@ def maybe_check_shard_layout(engine: Any) -> None:
     """Quiesce hook: the check when its sanitizer gate is on."""
     if shard_sanitizer_enabled():
         check_shard_layout(engine)
+
+
+# ----------------------------------------------------------------- report
+
+# What the sanitizers saw in this process, for a harness that cannot
+# catch their errors where they are raised (a replica in a process of its
+# own): the quiesce audits run and the first error of each kind.
+_REPORT_MU = threading.Lock()
+_REPORT: Dict[str, Any] = {'audits': 0, 'findings': {}}
+
+
+def _recorded(err: Exception) -> Exception:
+    """`err`, kept by ``report()`` when it is the first of its kind."""
+    with _REPORT_MU:
+        _REPORT['findings'].setdefault(type(err).__name__,
+                                       f'{type(err).__name__}: {err}')
+    return err
+
+
+def audit_quiesce(engine: Any) -> None:
+    """The serving loop's quiesce hook: block conservation and the shard
+    layout, each when its gate is on; the audit is counted and a
+    violation kept for ``report()``, then raised."""
+    if not (block_sanitizer_enabled() or shard_sanitizer_enabled()):
+        return
+    found = None
+    try:
+        maybe_check_block_conservation(engine)
+        maybe_check_shard_layout(engine)
+    except (BlockLeakError, ShardLayoutError) as e:
+        found = _recorded(e)
+    with _REPORT_MU:
+        _REPORT['audits'] += 1
+    if found is not None:
+        raise found
+
+
+def report() -> Dict[str, Any]:
+    """{'audits': the quiesce audits run in this process, 'findings': the
+    first LockOrderError, BlockLeakError and ShardLayoutError raised here,
+    each as 'Kind: message'}."""
+    with _REPORT_MU:
+        return {'audits': _REPORT['audits'],
+                'findings': list(_REPORT['findings'].values())}

@@ -3,21 +3,31 @@
 
 The engine-level fault sites (``faults.py``) prove per-request
 containment inside one process.  This module proves the layer above --
-the replica plane: N in-process replicas behind a load balancer, with a
-seeded killer thread that consults a ``FaultPlan``'s ``replica_kill``
-site on a fixed tick and kills live replicas mid-decode (listener
-closed, in-flight client sockets severed, serving loop stopped).  Greedy
+the replica plane: N replicas behind a load balancer, with a seeded
+killer thread that consults a ``FaultPlan``'s ``replica_kill`` site on a
+fixed tick and kills live replicas mid-decode (listener closed,
+in-flight client sockets severed, serving loop stopped).  Greedy
 decoding is schedule- and replica-independent, so an offline
 ``engine.generate`` run on an identically built engine is the byte-exact
 reference every streamed answer -- including ones resumed across a
 kill -- must match.
 
-In-process rather than subprocess on purpose: a killed replica must look
-exactly like a preempted VM from the network's point of view (connection
-refused on new connects, reset on in-flight ones), which
-``_TrackingHTTPServer.sever_all`` delivers, while a respawn only builds a
-new engine.  A killed replica drops its engine, so once its threads have
-unwound it holds no card memory.
+A single-device replica is in-process (``KillableReplica``): a killed
+replica must look exactly like a preempted VM from the network's point of
+view (connection refused on new connects, reset on in-flight ones),
+which ``_TrackingHTTPServer.sever_all`` delivers, while a respawn only
+builds a new engine.  A killed replica drops its engine, so once its
+threads have unwound it holds no card memory.
+
+A tensor-parallel replica is one process a rank, so it is a
+``ProcessReplica``: rank 0 in a child process of its own session, the
+other ranks started by rank 0 as ``server.run()`` starts them.  The
+kernel delivers the preemption there: ``kill('group')`` SIGKILLs every
+rank (the preempted VM), ``kill('rank0')`` rank 0 alone (the OOM killer),
+``kill('worker')`` one worker alone.  A worker exits when rank 0 dies
+(its pending gloo broadcast fails), and rank 0 watches the ranks it
+started: a lost one stops its serving loop (``/healthz`` answers
+``dead``).
 
 One difference from the reference: ``ChaosFleet`` builds its load
 balancer through a factory its caller passes in, never by import.  The
@@ -26,23 +36,40 @@ JAX-free planes, which the port uses by import from outside the package
 (``scripts/chaos_smoke_torch.py``, the tests), never from inside it.
 
 Used by ``scripts/chaos_smoke_torch.py``, ``chip_smoke.py``'s chaos
-phase and ``tests/test_torch_chaos.py``.
+phase and ``tests/test_torch_chaos.py``, ``tests/test_torch_chaos_tp.py``.
 """
+import faulthandler
+import functools
+import importlib
+import importlib.util
 import json
 import logging
+import os
+import shutil
+import signal
 import socket
+import sys
+import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
+from multiprocessing import forkserver
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
+from torch import multiprocessing as mp
 
 from skypilot_tpu_torch.analysis import sanitizers
+from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.infer import server as server_lib
+from skypilot_tpu_torch.infer import tp as tp_lib
 from skypilot_tpu_torch.infer.engine import InferenceEngine
 from skypilot_tpu_torch.infer.server import (InferenceServer,
                                              _BurstTolerantHTTPServer,
                                              _make_handler)
+from skypilot_tpu_torch.parallel.mesh import tp_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -199,6 +226,417 @@ class KillableReplica:
         logger.info('chaos: respawned replica :%d', self.port)
 
 
+KILL_MODES = ('group', 'rank0', 'worker')
+
+
+class EngineRecipe:
+    """A picklable engine factory: a module-level function and its
+    arguments.  ``recipe(mesh)`` returns ``fn(*args, mesh=mesh,
+    **kwargs)``; ``recipe()`` is an engine factory of ``KillableReplica``
+    (no mesh).  Another process finds the function again by its module's
+    name or, for a script run as ``__main__`` or a module loaded by path,
+    by the module's file."""
+
+    def __init__(self, fn: Callable[..., InferenceEngine], *args, **kwargs):
+        if isinstance(fn, functools.partial):
+            args, kwargs = fn.args + args, {**fn.keywords, **kwargs}
+            fn = fn.func
+        self.module = fn.__module__
+        self.file = fn.__code__.co_filename
+        self.name = fn.__qualname__
+        self.args, self.kwargs = tuple(args), dict(kwargs)
+
+    def function(self) -> Callable[..., InferenceEngine]:
+        mod = sys.modules.get(self.module)
+        if not hasattr(mod, self.name):
+            try:
+                mod = importlib.import_module(self.module)
+            except ImportError:
+                mod = None
+        if not hasattr(mod, self.name):
+            # A script, or a module loaded by path: load its file.
+            name = f'_chaos_recipe_{self.module.strip("_")}'
+            spec = importlib.util.spec_from_file_location(name, self.file)
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[name] = mod
+            spec.loader.exec_module(mod)
+        return getattr(mod, self.name)
+
+    def __call__(self, mesh=None) -> InferenceEngine:
+        return self.function()(*self.args, mesh=mesh, **self.kwargs)
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether `pid` is a running process: a zombie is not (an orphan's
+    stays one where nothing reaps it)."""
+    try:
+        with open(f'/proc/{pid}/stat') as f:
+            state = f.read().rsplit(')', 1)[1].split()[0]
+    except OSError:
+        return False
+    return state not in ('Z', 'X')
+
+
+class ProcessReplica:
+    """A tensor-parallel replica in processes of its own, killable and
+    respawnable like ``KillableReplica`` (the same interface: ``url``,
+    ``port``, ``alive``, ``kills``, ``start()``, ``busy()``, ``kill()``,
+    ``respawn()``), so ``ChaosFleet``, ``SeededKiller`` and the LB take it
+    unchanged.
+
+    Rank 0 runs in a child process, forked from a server process that has
+    imported the port, in a session of its own: it starts ranks 1..tp-1
+    with ``server._join_tp_group`` (forked from it, so they inherit its
+    session), builds its engine over ``tp_mesh(tp)`` from `recipe` (an
+    ``EngineRecipe``, or a ``functools.partial`` of a module-level
+    function that takes ``mesh=``), sends the recipe to the other ranks
+    (``server._tp_worker`` builds theirs from it) and serves the unchanged
+    routes through ``InferenceServer`` at the port pinned here.  The
+    group is gloo on the CPU and where ranks share a card (one card:
+    every rank on card 0), NCCL with a card a rank (``_init_rank``).
+
+    The child's stdout and stderr go to ``stderr.log`` in the replica's
+    temporary directory, its pids to ``pids.json``, and, with a sanitizer
+    gate on (``SKYTPU_SANITIZERS`` and the others pass to every rank),
+    rank 0's ``sanitizers.report()`` to ``sanitizers.json``: the serving
+    loop's quiesce audits (block conservation, every rank's shard layout)
+    and the first lock-order, leak or layout error.  A child that fails
+    to build or to reach readiness makes ``start()`` raise with the tail
+    of that log; nothing stands in for it.  ``stop()`` removes the
+    temporary directory unless the caller named it (`workdir`).
+    """
+
+    def __init__(self, recipe, port: int, tp: int = 2,
+                 host: str = '127.0.0.1', device=None,
+                 workdir: Optional[str] = None,
+                 threads: Optional[int] = None):
+        self.recipe = (recipe if isinstance(recipe, EngineRecipe) else
+                       EngineRecipe(recipe))
+        self.port = port
+        self.tp = tp
+        self.host = host
+        # None means the card, and raises without one (resolve_device).
+        self.device = resolve_device(device).type
+        self._own_workdir = workdir is None
+        self.workdir = workdir or tempfile.mkdtemp(prefix='chaos-tp-')
+        self.threads = threads
+        self.alive = False
+        self.kills = 0
+        self.starts = 0
+        self._proc = None
+        self._pids: Dict[str, Any] = {}
+        self._dir: Optional[str] = None
+        # The last kill: {'mode', 'at' (time.monotonic())}.
+        self.last_kill: Optional[Dict[str, Any]] = None
+
+    @property
+    def url(self) -> str:
+        return f'http://{self.host}:{self.port}'
+
+    # ------------------------------------------------------------- start
+
+    def start(self, ready_timeout: float = 180.0) -> None:
+        assert not self.alive, 'start() on a live replica'
+        self.reap(10.0)
+        self.starts += 1
+        self._dir = os.path.join(self.workdir, f'start{self.starts}')
+        os.makedirs(self._dir)
+        env = {k: os.environ.get(k) for k in _PASSED_ENV}
+        spec = {'recipe': self.recipe, 'tp': self.tp, 'device': self.device,
+                'host': self.host, 'port': self.port, 'dir': self._dir,
+                'threads': self.threads, 'env': env}
+        self._proc = _context().Process(target=_replica_main, args=(spec,),
+                                        daemon=True,
+                                        name=f'chaos-tp-{self.port}')
+        self._proc.start()
+        deadline = time.monotonic() + ready_timeout
+        while True:
+            if not self._proc.is_alive():
+                code = self._proc.exitcode
+                self._terminate()       # a worker it had started
+                raise RuntimeError(
+                    f'tensor-parallel replica :{self.port} exited '
+                    f'({code}) before it was ready:\n{self.log_tail()}')
+            pids = self._read_pids()
+            if pids is not None and self.health() is not None:
+                self._pids = pids
+                break
+            if time.monotonic() > deadline:
+                self._terminate()
+                raise TimeoutError(
+                    f'tensor-parallel replica :{self.port} not ready in '
+                    f'{ready_timeout} s:\n{self.log_tail()}')
+            time.sleep(0.05)
+        self.alive = True
+
+    def _read_pids(self) -> Optional[Dict[str, Any]]:
+        try:
+            with open(os.path.join(self._dir, 'pids.json')) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def health(self, timeout: float = 1.0) -> Optional[Dict[str, Any]]:
+        """Rank 0's /healthz document (any status), or None when it does
+        not answer."""
+        try:
+            with urllib.request.urlopen(f'{self.url}/healthz',
+                                        timeout=timeout) as resp:
+                return json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            try:
+                return json.loads(e.read())
+            except ValueError:
+                return None
+        except (OSError, ValueError):
+            return None
+
+    def log_tail(self, n: int = 4000) -> str:
+        """The end of the child's stdout and stderr (every rank's)."""
+        if self._dir is None:
+            return ''
+        try:
+            with open(os.path.join(self._dir, 'stderr.log'), 'rb') as f:
+                f.seek(0, os.SEEK_END)
+                f.seek(max(0, f.tell() - n))
+                return f.read().decode(errors='replace')
+        except OSError:
+            return ''
+
+    # ----------------------------------------------------------- reading
+
+    def busy(self) -> bool:
+        """True while a generate request is in flight (rank 0's
+        /healthz ``inflight``)."""
+        if not self.alive:
+            return False
+        doc = self.health(timeout=0.5)
+        return bool(doc and doc.get('inflight', 0) > 0)
+
+    def pids(self) -> Dict[str, Any]:
+        """{'rank0': pid, 'workers': [pid, ...]} of the current start."""
+        return {'rank0': self._pids['rank0'],
+                'workers': list(self._pids['workers'])}
+
+    def _all_pids(self) -> List[int]:
+        if not self._pids:
+            return []
+        return [self._pids['rank0']] + list(self._pids['workers'])
+
+    def live_pids(self) -> List[int]:
+        """The replica's processes still running (a zombie is not)."""
+        return [p for p in self._all_pids() if pid_alive(p)]
+
+    def wait_gone(self, timeout: float, pids: Optional[Sequence[int]] = None
+                  ) -> Dict[int, Optional[float]]:
+        """Wait up to `timeout` s for every process of the replica (or
+        those of `pids`) to end; {pid: seconds from the last kill (or
+        from now) to its end, None if it is still running}."""
+        t0 = (self.last_kill or {}).get('at', time.monotonic())
+        gone: Dict[int, Optional[float]] = {}
+        deadline = time.monotonic() + timeout
+        pending = [p for p in self._all_pids() if pids is None or p in pids]
+        while True:
+            if self._proc is not None and not self._proc.is_alive():
+                self._proc.join(0)        # reap rank 0 (our child)
+            for pid in list(pending):
+                if not pid_alive(pid):
+                    gone[pid] = time.monotonic() - t0
+                    pending.remove(pid)
+            if not pending or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        gone.update({pid: None for pid in pending})
+        return gone
+
+    def sanitizer_report(self) -> Optional[Dict[str, Any]]:
+        """The child's findings (``sanitizers.json``: audits run and
+        findings), or None when no gate is on or no audit ran yet."""
+        if self._dir is None:
+            return None
+        try:
+            with open(os.path.join(self._dir, 'sanitizers.json')) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    # -------------------------------------------------------------- kill
+
+    def kill(self, mode: str = 'group') -> None:
+        """Preempt.  'group': SIGKILL every rank (the preempted VM);
+        'rank0': rank 0 alone; 'worker': the last worker rank alone.  New
+        connects are refused and in-flight ones reset once rank 0 is
+        gone; after a worker's death rank 0 answers /healthz 'dead'."""
+        if mode not in KILL_MODES:
+            raise ValueError(f'kill mode {mode!r}; one of {KILL_MODES}')
+        if not self.alive:
+            return
+        self.alive = False
+        self.kills += 1
+        self.last_kill = {'mode': mode, 'at': time.monotonic()}
+        if mode == 'group':
+            _signal_group(self._pids['rank0'])
+        elif mode == 'rank0':
+            _signal(self._pids['rank0'])
+        else:
+            _signal(self._pids['workers'][-1])
+        logger.info('chaos: killed tensor-parallel replica :%d (%s)',
+                    self.port, mode)
+
+    def reap(self, grace: float) -> List[int]:
+        """End what is left of the last start: wait up to `grace` s for
+        its processes to end by themselves (none after a 'worker' kill:
+        rank 0 stays up by design, answering 'dead'), then SIGKILL its
+        session.  Returns the pids that had to be killed."""
+        if not self._pids:
+            return []
+        if self.alive or (self.last_kill or {}).get('mode') == 'worker':
+            grace = 0.0
+        left = [p for p, t in self.wait_gone(grace).items() if t is None]
+        if left:
+            # The workers were forked into rank 0's session.
+            _signal_group(self._pids['rank0'])
+            self.wait_gone(5.0)
+        if self._proc is not None:
+            self._proc.join(5.0)
+        self._pids, self._proc = {}, None
+        return left
+
+    def _terminate(self) -> None:
+        """End a start that never became ready: its whole session."""
+        _signal_group(self._proc.pid)
+        self._proc.join(10)
+        self._pids, self._proc = {}, None
+
+    def respawn(self, ready_timeout: float = 180.0) -> None:
+        """Fresh ranks on the SAME port (recovered VM), once what is left
+        of the killed ones has ended (``reap``)."""
+        if self.alive:
+            return
+        self.start(ready_timeout)
+        logger.info('chaos: respawned tensor-parallel replica :%d',
+                    self.port)
+
+    def stop(self) -> None:
+        """Kill every rank, then remove the temporary directory (logs
+        and reports) unless the caller named it."""
+        if self.alive:
+            self.kill('group')
+        self.reap(5.0)
+        if self._own_workdir:
+            shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+# The env the harness passes to every rank as it is when the replica
+# starts (the child is forked from a server process started earlier,
+# whose env is the harness's at that time).
+_PASSED_ENV = ('SKYTPU_SANITIZERS', 'SKYTPU_LOCK_SANITIZER',
+               'SKYTPU_BLOCK_SANITIZER', 'SKYTPU_SHARD_SANITIZER')
+# A replica forms its own group: the harness's rendezvous env is not its.
+_GROUP_ENV = ('MASTER_ADDR', 'MASTER_PORT', 'RANK', 'WORLD_SIZE',
+              'LOCAL_RANK', 'SKYTPU_COORDINATOR_ADDRESS',
+              'SKYTPU_PROCESS_ID', 'SKYTPU_NUM_PROCESSES')
+# What the server process imports once: the caller's main script (when
+# it is one, a rank 0 need not import it again) and the port.
+_SERVER_MODULES = ['__main__', 'skypilot_tpu_torch.infer.chaos']
+
+
+@functools.lru_cache(maxsize=None)
+def _context():
+    """The start method of rank 0: forked from a server process that
+    imported the port once (seconds of imports saved on every start),
+    and that never touches the card."""
+    ctx = mp.get_context('forkserver')
+    ctx.set_forkserver_preload(_SERVER_MODULES)
+    return ctx
+
+
+def start_fork_server() -> None:
+    """Start the server process that ProcessReplicas fork their rank 0
+    from, so that its imports overlap the caller's other work instead of
+    the first start (it starts at the first ``start()`` otherwise)."""
+    _context()
+    forkserver.ensure_running()
+
+
+def _signal(pid: int) -> None:
+    try:
+        os.kill(pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def _signal_group(pgid: int) -> None:
+    try:
+        os.killpg(pgid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+def _replica_main(spec: Dict[str, Any]) -> None:
+    """Rank 0 of a ``ProcessReplica`` (its child process)."""
+    os.setsid()          # a session of its own: kill('group') is killpg
+    # Daemonic for the harness (it ends rank 0 when it exits), yet rank 0
+    # starts the other ranks.
+    mp.current_process().daemon = False
+    log = os.open(os.path.join(spec['dir'], 'stderr.log'),
+                  os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(log, 1)
+    os.dup2(log, 2)
+    # SIGUSR1 prints where every thread of rank 0 is (a hang's witness).
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    for k in _GROUP_ENV:
+        os.environ.pop(k, None)
+    for k, v in spec['env'].items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    # The ranks' rendezvous file lands in the replica's directory.
+    tempfile.tempdir = spec['dir']
+    if spec['threads']:
+        torch.set_num_threads(spec['threads'])
+    tp, device, recipe = spec['tp'], spec['device'], spec['recipe']
+    ranks = server_lib._join_tp_group(tp, device, start_method='fork')
+    mesh = tp_mesh(tp, device)
+    tp_lib.control_group()
+    tp_lib.broadcast_object(recipe)
+    engine = recipe(mesh=mesh)
+    server_lib._watch_ranks(ranks, engine)
+    srv = InferenceServer(engine)
+    srv.start()
+    srv.ready.wait()
+    httpd = _BurstTolerantHTTPServer((spec['host'], spec['port']),
+                                     _make_handler(srv))
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True,
+                     name='replica-http').start()
+    _write_json(os.path.join(spec['dir'], 'pids.json'),
+                {'rank0': os.getpid(), 'workers': [p.pid for p in ranks]})
+    _report_forever(os.path.join(spec['dir'], 'sanitizers.json'))
+
+
+def _write_json(path: str, doc: Dict[str, Any]) -> None:
+    with open(path + '.tmp', 'w') as f:
+        json.dump(doc, f)
+    os.replace(path + '.tmp', path)
+
+
+def _report_forever(path: str, period_s: float = 0.5) -> None:
+    """Rank 0's main thread from readiness on: with a sanitizer gate on,
+    ``sanitizers.report()`` to `path` whenever it changes."""
+    gated = (sanitizers.block_sanitizer_enabled() or
+             sanitizers.shard_sanitizer_enabled() or
+             sanitizers.lock_sanitizer_enabled())
+    last = None
+    while True:
+        time.sleep(period_s)
+        doc = sanitizers.report()
+        if gated and doc != last:
+            _write_json(path, doc)
+            last = doc
+
+
 def free_port(host: str = '127.0.0.1') -> int:
     with socket.socket() as s:
         s.bind((host, 0))
@@ -218,13 +656,15 @@ class ChaosFleet:
 
     def __init__(self,
                  make_engine: Union[Callable[[], InferenceEngine],
-                                    Sequence[Callable[[],
-                                                      InferenceEngine]]],
+                                    Sequence[Union[
+                                        Callable[[], InferenceEngine],
+                                        'ProcessReplica']]],
                  n_replicas: int, make_lb: LBFactory,
                  host: str = '127.0.0.1',
                  journal_path: Optional[str] = None):
         # One factory for a homogeneous fleet, or one per replica for a
-        # mixed one.
+        # mixed one: an engine factory (an in-process replica) or a
+        # ProcessReplica (a tensor-parallel one, its port its own).
         if callable(make_engine):
             factories = [make_engine] * n_replicas
         else:
@@ -234,8 +674,9 @@ class ChaosFleet:
                     f'{len(factories)} engine factories for '
                     f'{n_replicas} replicas')
         self.replicas = [
-            KillableReplica(factory, free_port(host), host=host)
-            for factory in factories
+            f if isinstance(f, ProcessReplica) else
+            KillableReplica(f, free_port(host), host=host)
+            for f in factories
         ]
         self.host = host
         self.make_lb = make_lb
@@ -370,11 +811,12 @@ class ChaosFleet:
                     self.replicas[index].port, proxy.port)
         return proxy
 
-    def live_replicas(self) -> List[KillableReplica]:
+    def live_replicas(self) -> List[Union[KillableReplica,
+                                          'ProcessReplica']]:
         return [r for r in self.replicas if r.alive]
 
     def kill_one(self, prefer_busy: bool = True) -> \
-            Optional[KillableReplica]:
+            Optional[Union[KillableReplica, 'ProcessReplica']]:
         """Kill one live replica -- busy ones first (mid-decode kills
         are the case under test) -- but NEVER the last live one: with
         zero replicas every request fails by construction and the run
@@ -397,7 +839,10 @@ class ChaosFleet:
         for proxy in self.degraded.values():
             proxy.stop()
         for r in self.replicas:
-            r.kill()
+            if isinstance(r, ProcessReplica):
+                r.stop()         # its ranks too, whatever killed it
+            else:
+                r.kill()
 
 
 class SeededKiller(threading.Thread):

@@ -2703,8 +2703,16 @@ class InferenceEngine:
             return failed
         self.fault_stats['quarantined_batches'] += 1
         failed.extend(self._fail_all_inflight(msg))
-        self._reset_cache()
+        if self._tp_lost() is None:
+            # A tensor-parallel replica that lost a rank runs no dispatch
+            # (this one would raise with the failures undelivered): its
+            # loop stops at the next pass.
+            self._reset_cache()
         return failed
+
+    def _tp_lost(self) -> Optional[str]:
+        """Why this tensor-parallel engine lost a rank, else None."""
+        return None if self._tpc is None else self._tpc.lost
 
     # ---------------------------------------------------------- decode
 
@@ -3175,7 +3183,10 @@ class InferenceEngine:
                         return
                     consecutive = (consecutive + 1
                                    if time.time() - t_up < 1.0 else 1)
-                    if consecutive > self._MAX_LOOP_RESTARTS:
+                    # A tensor-parallel engine that lost a rank never
+                    # serves again: give up at once (/healthz 'dead').
+                    if (consecutive > self._MAX_LOOP_RESTARTS or
+                            self._tp_lost() is not None):
                         self._drain_queue_failing(request_queue,
                                                   result_cb, e)
                         raise
@@ -3231,6 +3242,10 @@ class InferenceEngine:
     def _serve_loop(self, request_queue, result_cb, stop_event,
                     idle_sleep) -> None:
         while not stop_event.is_set():
+            lost = self._tp_lost()
+            if lost is not None:
+                raise RuntimeError(
+                    f'tensor-parallel engine is shut down: {lost}')
             if self._faults is not None:
                 sp = self._fault('stall')
                 if sp is not None:
@@ -3473,8 +3488,7 @@ class InferenceEngine:
                 # cache and weights must hold their declared layout (each
                 # a no-op unless its sanitizer gate or SKYTPU_SANITIZERS
                 # is on).
-                sanitizers.maybe_check_block_conservation(self)
-                sanitizers.maybe_check_shard_layout(self)
+                sanitizers.audit_quiesce(self)
                 time.sleep(idle_sleep)
 
     def generate_served(self, requests: List[Request],

@@ -62,6 +62,7 @@ imported only when ``--tokenizer`` is given.
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -73,6 +74,7 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from multiprocessing import connection as mp_connection
 from typing import Dict, Optional
 
 import torch
@@ -1521,7 +1523,7 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
     the podlet), else started here, ranks 1..N-1 in processes of their own
     that rendezvous through a file store in a temporary directory.  Rank 0
     alone reads the weights and the tokenizer; it sends the other ranks
-    its configs and each rank its slice of the weights, serves HTTP, and
+    an engine factory of its configs and each rank its slice of the weights, serves HTTP, and
     releases them when it stops.  The other ranks run the engine's worker
     loop (``_tp_worker``)."""
     tp = tensor_parallel if tensor_parallel and tensor_parallel > 1 else 1
@@ -1555,7 +1557,7 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
         mesh = tp_mesh(tp, resolve_device(device).type)
         tp_lib.control_group()
         if dist.get_rank() != 0:
-            _tp_worker(mesh, device)
+            _tp_worker(mesh)
             return
     engine, sent = None, False
     try:
@@ -1613,11 +1615,13 @@ def run(model: str = 'llama-1b', host: str = '0.0.0.0', port: int = 8100,
             if eos_id is None and tokenizer is not None:
                 cfg.eos_id = getattr(tokenizer, 'eos_token_id', None)
         if mesh is not None:
-            tp_lib.broadcast_object((model_config, cfg))
+            tp_lib.broadcast_object(functools.partial(
+                InferenceEngine, model_config, cfg, device=device))
             sent = True
         engine = InferenceEngine(model_config, cfg, params=params,
                                  device=device, mesh=mesh)
         del params
+        _watch_ranks(ranks, engine)
         serve(engine, host=host, port=port, tokenizer=tokenizer,
               max_projected_ttft_s=max_ttft, max_queue=max_queue,
               adapter_dir=adapter_dir, auto_prefix=auto_prefix,
@@ -1645,12 +1649,15 @@ def _visible_devices(device) -> int:
     return len(os.sched_getaffinity(0))
 
 
-def _join_tp_group(tp: int, device) -> list:
+def _join_tp_group(tp: int, device, start_method: str = 'spawn') -> list:
     """The process group of a tensor-parallel replica: the env's (torchrun,
     the podlet), which must hold `tp` ranks, or, with none, one started
-    here: ranks 1..tp-1 spawned to run ``_tp_rank``, all meeting at a file
-    store in a fresh temporary directory (never a fixed port).  Returns
-    the spawned processes (none when joined)."""
+    here: ranks 1..tp-1 started (`start_method`) to run ``_tp_rank``, all
+    meeting at a file store in a fresh temporary directory (never a fixed
+    port).  Returns the started processes (none when joined).  'fork' is
+    for a caller that is one thread and has not touched the card yet (the
+    chaos harness's process replica): its ranks start without importing
+    the port again."""
     if dist.is_initialized() or mesh_lib.initialize_distributed_from_env(
             device):
         if dist.get_world_size() != tp:
@@ -1660,7 +1667,7 @@ def _join_tp_group(tp: int, device) -> list:
         return []
     init = 'file://' + os.path.join(tempfile.mkdtemp(prefix='skytpu-tp-'),
                                     'rendezvous')
-    ctx = mp.get_context('spawn')
+    ctx = mp.get_context(start_method)
     ranks = [ctx.Process(target=_tp_rank, daemon=True,
                          args=(rank, tp, init, device))
              for rank in range(1, tp)]
@@ -1670,12 +1677,37 @@ def _join_tp_group(tp: int, device) -> list:
     return ranks
 
 
+def _watch_ranks(ranks: list, engine: InferenceEngine) -> None:
+    """Rank 0's watch over the ranks it started: the first one to end
+    stops the engine (``TensorParallel.lose``), so its serving loop stops
+    at once and /healthz answers 'dead', though no dispatch runs while
+    it idles.  A no-op without started ranks (torchrun watches its
+    own)."""
+    if not ranks:
+        return
+
+    def watch():
+        mp_connection.wait([proc.sentinel for proc in ranks])
+        for i, proc in enumerate(ranks, 1):
+            if not proc.is_alive():
+                engine._tpc.lose(f'rank {i} (pid {proc.pid}) exited '
+                                 f'({proc.exitcode})')
+                return
+
+    threading.Thread(target=watch, daemon=True, name='tp-watch').start()
+
+
 def _init_rank(rank: int, world: int, init: str, device) -> None:
+    """Join the group on this rank's card: NCCL with a card a rank, gloo
+    when the ranks share cards (NCCL refuses two ranks on one card; the
+    chaos harness runs a tp=2 replica on a one-card host) or on the
+    CPU."""
     cuda = resolve_device(device).type == 'cuda'
+    cards = torch.cuda.device_count() if cuda else 0
     if cuda:
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group('nccl' if cuda else 'gloo', init_method=init,
-                            rank=rank, world_size=world)
+        torch.cuda.set_device(rank % cards)
+    dist.init_process_group('nccl' if cards >= world else 'gloo',
+                            init_method=init, rank=rank, world_size=world)
 
 
 def _tp_rank(rank: int, world: int, init: str, device) -> None:
@@ -1686,21 +1718,19 @@ def _tp_rank(rank: int, world: int, init: str, device) -> None:
     try:
         mesh = tp_mesh(world, resolve_device(device).type)
         tp_lib.control_group()
-        _tp_worker(mesh, device)
+        _tp_worker(mesh)
     finally:
         dist.destroy_process_group()
 
 
-def _tp_worker(mesh, device) -> None:
-    """A rank > 0 of ``run``'s replica: the engine from rank 0's configs
-    and its slice of rank 0's weights, then rank 0's dispatches until rank
-    0 stops (or, when rank 0 failed before its engine, nothing)."""
-    configs = tp_lib.broadcast_object()
-    if configs is None:
-        return
-    model_config, cfg = configs
-    InferenceEngine(model_config, cfg, device=device,
-                    mesh=mesh).serve_worker()
+def _tp_worker(mesh) -> None:
+    """A rank > 0 of a tensor-parallel replica: the engine from rank 0's
+    factory (a picklable callable taking ``mesh=``) and its slice of rank
+    0's weights, then rank 0's dispatches until rank 0 stops (or, when
+    rank 0 failed before its engine, nothing)."""
+    factory = tp_lib.broadcast_object()
+    if factory is not None:
+        factory(mesh=mesh).serve_worker()
 
 
 def main() -> None:

@@ -166,6 +166,9 @@ class TensorParallel:
         self._freed: 'collections.deque' = collections.deque()
         self._held: Dict[Tuple[int, Tuple[int, ...]], torch.Tensor] = {}
         self.stopped = False
+        # Rank 0: why a rank is gone (its death seen by ``lose`` or a
+        # failed dispatch), else None; the engine's loop stops on it.
+        self.lost: Optional[str] = None
 
     # ------------------------------------------------------------ rank 0
 
@@ -175,7 +178,8 @@ class TensorParallel:
             return fn(engine, *args, **kwargs)
         with self.lock:
             if self.stopped:
-                raise RuntimeError('tensor-parallel engine is shut down')
+                raise RuntimeError('tensor-parallel engine is shut down' +
+                                   (f': {self.lost}' if self.lost else ''))
             handle = None
             if keep:
                 handle, self._next = self._next, self._next + 1
@@ -200,11 +204,14 @@ class TensorParallel:
                 finally:
                     self._inside.on = False
                     others = self._settle(failed)
-            except BaseException:
-                self.stopped = True
+            except BaseException as e:
+                # A collective that failed (a rank died in it) or an op
+                # that failed here: no later op may run on a shard that
+                # missed this one.
+                self.lose(f'dispatch {fn.__name__} failed: {e!r}')
                 raise
             if others:
-                self.stopped = True
+                self.lose(f'dispatch {fn.__name__} failed on another rank')
                 raise RuntimeError(
                     f'tensor-parallel dispatch {fn.__name__} failed on '
                     'another rank (its traceback is on that rank\'s '
@@ -214,6 +221,15 @@ class TensorParallel:
                     t._tp_ref = (handle, path)
                     weakref.finalize(t, self._freed.append, (handle, path))
             return out
+
+    def lose(self, reason: str) -> None:
+        """Rank 0: the replica lost a rank (or an op failed on one): no
+        dispatch runs from here on and the serving loop stops (the engine
+        reads ``lost``).  Safe from any thread: a dispatch in flight fails
+        in its collective by itself."""
+        if self.lost is None:
+            self.lost = reason
+        self.stopped = True
 
     def stop(self) -> None:
         """Release every worker rank from ``serve_worker``."""

@@ -413,3 +413,33 @@ def test_window_audit_helper_reports_through_the_sanitizer(served):
     finally:
         port_eng._slot_nblocks[:] = saved
     assert errs[0] == 'idle slot 0 holds 1 blocks'
+
+
+def test_report_keeps_the_quiesce_audits_and_first_errors(monkeypatch,
+                                                          params):
+    """sanitizers.report() (what a replica in a process of its own hands
+    its harness): the quiesce audits run with a gate on and, of each
+    kind, the first error raised, as 'Kind: message'."""
+    monkeypatch.setattr(san, '_REPORT', {'audits': 0, 'findings': {}})
+    eng = port_engine(params, **POOL)
+    eng.generate([Request(tokens=PREFIX + [9], max_new_tokens=3)])
+    san.audit_quiesce(eng)                       # every gate off
+    assert san.report() == {'audits': 0, 'findings': []}
+    monkeypatch.setenv('SKYTPU_BLOCK_SANITIZER', '1')
+    san.audit_quiesce(eng)
+    assert san.report() == {'audits': 1, 'findings': []}
+    leaked = [_plant_leak(eng)]
+    try:
+        with pytest.raises(san.BlockLeakError) as first:
+            san.audit_quiesce(eng)
+        leaked.append(_plant_leak(eng))
+        with pytest.raises(san.BlockLeakError):
+            san.audit_quiesce(eng)
+    finally:
+        eng._free_blocks.extend(leaked)
+    monkeypatch.setenv('SKYTPU_LOCK_SANITIZER', '1')
+    _, errors = _script(san)
+    assert san.report() == {
+        'audits': 3,
+        'findings': [f'BlockLeakError: {first.value}',
+                     f'LockOrderError: {errors[2]}']}

@@ -358,3 +358,122 @@ def test_worker_only_failure_stops_the_replica(protocol):
     assert 'shut down' in rank0['next']
     assert 'failed on this rank' in rank1['worker_error']
 
+
+
+# run(tensor_parallel=2) in a process of its own (one torch thread, the
+# rendezvous under tmp_path), for the kill cases below.
+RUN_SOURCE = '''
+import sys
+from skypilot_tpu_torch.infer import server
+server.run(model='llama-debug', host='127.0.0.1', port=int(sys.argv[1]),
+           device='cpu', tensor_parallel=2, num_slots=2, max_cache_len=64)
+'''
+
+
+def _healthz(port):
+    import json
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f'http://127.0.0.1:{port}/healthz',
+                                    timeout=2) as resp:
+            return json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return json.loads(e.read())
+    except OSError:
+        return None
+
+
+def _children(pid):
+    import glob
+    out = []
+    for path in glob.glob(f'/proc/{pid}/task/*/children'):
+        with open(path) as f:
+            out += [int(p) for p in f.read().split()]
+    return out
+
+
+def _cmdline(pid):
+    with open(f'/proc/{pid}/cmdline', 'rb') as f:
+        return f.read().replace(b'\0', b' ').decode()
+
+
+@pytest.fixture(scope='module')
+def run_groups(tmp_path_factory):
+    """Two run(tensor_parallel=2) replicas started side by side, each
+    ready: {'proc', 'port', 'worker', 'log'} apiece.  Every process of
+    both sessions is killed at the end."""
+    import os
+    import pathlib
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from skypilot_tpu_torch.infer import chaos
+    root = pathlib.Path(__file__).resolve().parents[1]
+    tmp = tmp_path_factory.mktemp('run_tp_kill')
+    groups = []
+    for i in range(2):
+        port = chaos.free_port()
+        log = open(tmp / f'run{i}.log', 'wb')
+        env = {**os.environ, 'PYTHONPATH': str(root), 'OMP_NUM_THREADS': '1',
+               'TMPDIR': str(tmp)}
+        proc = subprocess.Popen([sys.executable, '-c', RUN_SOURCE,
+                                 str(port)], env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        groups.append({'proc': proc, 'port': port, 'log': tmp / f'run{i}.log'})
+    try:
+        deadline = time.monotonic() + 90
+        for g in groups:
+            while (_healthz(g['port']) or {}).get('status') != 'ok':
+                assert g['proc'].poll() is None, g['log'].read_text()
+                assert time.monotonic() < deadline, g['log'].read_text()
+                time.sleep(0.1)
+            [g['worker']] = [p for p in _children(g['proc'].pid)
+                             if 'spawn_main' in _cmdline(p)]
+        yield groups
+    finally:
+        for g in groups:
+            try:
+                os.killpg(g['proc'].pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            g['proc'].wait()
+
+
+def test_run_rank0_kill_ends_its_worker(run_groups):
+    """SIGKILL rank 0 of a run()-started tp=2 group: its worker, blocked
+    on the control group, exits within 10 s (gloo reports the closed
+    connection), so no orphan holds the replica's memory."""
+    import os
+    import signal
+    import time
+
+    from skypilot_tpu_torch.infer import chaos
+    g = run_groups[0]
+    os.kill(g['proc'].pid, signal.SIGKILL)
+    t0 = time.monotonic()
+    while chaos.pid_alive(g['worker']) and time.monotonic() - t0 < 10:
+        time.sleep(0.02)
+    assert not chaos.pid_alive(g['worker']), g['log'].read_text()
+
+
+def test_run_worker_kill_reads_dead(run_groups):
+    """SIGKILL the worker of an idle run()-started tp=2 group: rank 0,
+    watching the ranks it started, stops its engine, so /healthz answers
+    'dead' within 10 s though no dispatch ran."""
+    import os
+    import signal
+    import time
+    g = run_groups[1]
+    os.kill(g['worker'], signal.SIGKILL)
+    t0 = time.monotonic()
+    doc = None
+    while time.monotonic() - t0 < 10:
+        doc = _healthz(g['port'])
+        if doc and doc['status'] == 'dead':
+            break
+        time.sleep(0.05)
+    assert doc and doc['status'] == 'dead', g['log'].read_text()
