@@ -26,7 +26,10 @@ an fp8 handoff), registered prefixes (/cache_prefix over HTTP,
 force-admit, a pinned radix prefix), prompt-lookup speculative decoding
 (dense and paged, lookup and oracle drafts), QoS (weighted-fair
 queueing across two tenants, chunk-boundary preemption of batch prompts
-by interactive arrivals, the typed deadline sheds), training of
+by interactive arrivals, the typed deadline sheds), the replica plane
+under chaos (the sanitizers on, replicas killed and respawned, a tp=2
+process replica), the dispatch paths under CUDA's sync debug mode (every
+sync at a site the static host-sync pass lists), training of
 llama-1b at batch 8 x 2048 through the Trainer, LoRA (frozen-base
 rank-16 adapter training of llama-1b through the Trainer, then
 multi-LoRA serving of the trained adapter and two random ones beside the
@@ -86,12 +89,14 @@ kernels to.
 Needs a CUDA card (exits non-zero without one) and imports nothing of
 JAX or of the JAX package.
 """
+import ast
 import base64
 import contextlib
 import ctypes
 import dataclasses
 import gc
 import importlib.util
+import inspect
 import itertools
 import json
 import math
@@ -102,9 +107,12 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import textwrap
 import threading
 import time
+import traceback
 import types
+import warnings
 from http.client import HTTPConnection
 from typing import Optional
 
@@ -113,7 +121,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from skypilot_tpu_torch.analysis import sanitizers
+from skypilot_tpu_torch.analysis import jit_boundary, sanitizers
 from skypilot_tpu_torch.entry import entry
 from skypilot_tpu_torch.infer import engine as engine_mod
 from skypilot_tpu_torch.infer import server
@@ -148,7 +156,7 @@ HBM_BYTES_PER_S = 3.35e12
 # them at less.
 SERVE_LAYERS = 4
 SERVE_PHASES = ('serve', 'server', 'paged', 'chunked', 'prompt_logprobs',
-                'fp8', 'prefix', 'spec', 'qos', 'chaos')
+                'fp8', 'prefix', 'spec', 'qos', 'chaos', 'host_sync')
 
 
 def emit(obj) -> None:
@@ -4280,6 +4288,312 @@ def phase_chaos(model, env: dict) -> int:
     return tally[0]
 
 
+# The host_sync phase: CUDA's sync debug mode over the dispatch paths of a
+# warmed engine in the chaos phase's configuration (SERVE_LAYERS deep, f32
+# weights, a bf16 paged cache with the radix cache and the host tier),
+# with decode lookahead on and 32-token prefill chunks so that a chunk
+# round runs; every sync it sees is held to the static host-sync pass
+# (skypilot_tpu_torch/analysis/jit_boundary.py).
+HOST_SYNC_INFER = dict(CHAOS_INFER, prefill_chunk=32, decode_lookahead=True)
+HOST_SYNC_WINDOWS = 8
+HOST_SYNC_TOKENS = 1024         # the no-cache forward's prompt
+REPO = pathlib.Path(__file__).resolve().parent
+
+
+class SyncRecorder:
+    """Every host sync in the `stage` it is recorded under, with its
+    innermost skypilot_tpu_torch frame: what CUDA's sync debug mode warns
+    of (torch.cuda.set_sync_debug_mode('warn'), restored to 0 on exit),
+    and, since the mode cannot see them, every torch.cuda.Event and
+    Stream synchronize() and torch.cuda.synchronize() (counted by
+    wrapping them)."""
+
+    def __init__(self):
+        self.syncs = []             # (stage, kind, site, stack tail)
+        self.stage = None
+        self.thread = threading.get_ident()
+
+    @staticmethod
+    def site(stack) -> tuple:
+        """(repo-relative path, line) of the innermost frame in the port's
+        package, else of the innermost frame."""
+        for frame in reversed(stack):
+            try:
+                rel = pathlib.Path(frame.filename).resolve().relative_to(
+                    REPO).as_posix()
+            except ValueError:
+                continue
+            if rel.startswith('skypilot_tpu_torch/'):
+                return rel, frame.lineno
+        return stack[-1].filename, stack[-1].lineno
+
+    def _note(self, kind: str) -> None:
+        # Only the driven path's: the mode is process-wide, and setting
+        # it warns once itself.
+        if threading.get_ident() != self.thread or self.stage is None:
+            return
+        stack = traceback.extract_stack()[:-2]
+        self.syncs.append((self.stage, kind, self.site(stack),
+                           traceback.format_list(stack[-6:])))
+
+    @contextlib.contextmanager
+    def recording(self):
+        waits = [(torch.cuda.Event, 'synchronize'),
+                 (torch.cuda.Stream, 'synchronize'),
+                 (torch.cuda, 'synchronize')]
+        saved = [getattr(owner, name) for owner, name in waits]
+        recorder = self
+
+        def counting(fn, kind):
+            def wrapped(*args, **kwargs):
+                recorder._note(kind)
+                return fn(*args, **kwargs)
+            return wrapped
+
+        def show(message, category, filename, lineno, file=None,
+                 line=None):
+            if 'called a synchronizing CUDA operation' in str(message):
+                recorder._note('debug_mode')
+        with warnings.catch_warnings():
+            warnings.simplefilter('always')
+            warnings.showwarning = show
+            for (owner, name), fn in zip(waits, saved):
+                setattr(owner, name, counting(
+                    fn, f'{getattr(owner, "__name__", "cuda")}.{name}'))
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                for (owner, name), fn in zip(waits, saved):
+                    setattr(owner, name, fn)
+
+    @contextlib.contextmanager
+    def under(self, stage: str):
+        self.stage = stage
+        try:
+            yield
+        finally:
+            self.stage = None
+
+
+def static_sync_sites() -> dict:
+    """{(path, line): 'JIT001' | 'jit-ok'} of every host-sync site the
+    static pass finds on the dispatch paths."""
+    out = {}
+    for rel in jit_boundary.HOT_ROOTS:
+        text = (REPO / rel).read_text()
+        for line, kind in jit_boundary.sync_sites(rel, text).items():
+            out[(rel, line)] = kind
+    return out
+
+
+def planted_consume_window(eng):
+    """`eng`'s _consume_window with an .item() of a device tensor planted
+    as its first statement, compiled against engine.py at the line of the
+    method's docstring (no sync site there), bound to `eng` alone."""
+    fn = InferenceEngine._consume_window
+    lines, first = inspect.getsourcelines(fn)
+    tree = ast.parse(textwrap.dedent(''.join(lines)))
+    ast.increment_lineno(tree, first - 1)
+    body = tree.body[0].body
+    plant = ast.parse('torch.ones((), device=self.device).item()').body[0]
+    ast.increment_lineno(plant, body[0].lineno - 1)
+    body.insert(1, plant)
+    scope = dict(vars(engine_mod))
+    exec(compile(tree, engine_mod.__file__, 'exec'), scope)
+    return types.MethodType(scope[fn.__name__], eng), body[0].lineno
+
+
+def host_sync_requests(vocab: int, seed: int) -> tuple:
+    """Three prompts that prefill in one batch (buckets 32 and 64) and one
+    past the largest bucket that chunks in while they decode; a seed of
+    its own each run, so that no radix match turns the prefill into a
+    suffix prefill."""
+    rng = np.random.default_rng(seed)
+    batch = [Request(tokens=rng.integers(0, vocab, n).tolist(),
+                     max_new_tokens=48) for n in (24, 40, 60)]
+    long = Request(tokens=rng.integers(0, vocab, 150).tolist(),
+                   max_new_tokens=48)
+    return batch, long
+
+
+def drive_host_sync(eng, rec: SyncRecorder, windows: int,
+                    seed: int) -> dict:
+    """The serving loop's dispatch path, step by step under the engine
+    lock: one paged prefill batch, every chunk round of a long prompt
+    (decode windows wait, as lookahead is off while a prompt chunks),
+    then `windows` decode windows with lookahead.  Returns what ran."""
+    vocab = eng.model_config.vocab_size
+    batch, long = host_sync_requests(vocab, seed)
+    t0 = time.time()
+    eng._serving = True
+    eng._arrivals_hint = 0
+    rounds = 0
+    with eng._lock:
+        items = [(r, slot, t0, *eng._validate_request(r))
+                 for slot, r in enumerate(batch)]
+        with rec.under('prefill'):
+            eng._start_batch(items)
+        with rec.under('chunk_reserve'):
+            eng._start_batch([(long, len(batch), t0,
+                               *eng._validate_request(long))])
+        check(bool(eng._chunking), 'host_sync: the long prompt did not chunk')
+        while eng._chunking:
+            with rec.under(f'chunk_round{rounds}'):
+                check(eng._chunk_round(), 'host_sync: a chunk round waited')
+            rounds += 1
+        for w in range(windows):
+            with rec.under(f'window{w}'):
+                eng._step()
+            check(not eng._harvest(), 'host_sync: a request finished early')
+    return {'chunk_rounds': rounds, 'windows': windows}
+
+
+def settle(eng) -> None:
+    """Leave the serving state: every request run to its end offline."""
+    eng._serving = False
+    eng.generate([])
+    torch.cuda.synchronize()
+
+
+def phase_host_sync(model, env: dict) -> int:
+    """The runtime twin of the static host-sync pass (JIT001): (1) every
+    sync CUDA's sync debug mode sees over a paged prefill batch, the chunk
+    rounds of a long prompt and HOST_SYNC_WINDOWS decode windows with
+    lookahead -- mapped to its innermost skypilot_tpu_torch frame -- is a
+    site the pass reports or reads as '# jit-ok:'; (2) the flash forward
+    wrapper and its launch at the llama-1b no-cache shape sync nothing, and
+    its output holds to the plain version within fa.attention_fwd_bound,
+    and the no-cache forward of one prompt launches it once a layer; (3)
+    syncs a window, by site, and the event waits the mode cannot see
+    (counted by wrapping torch.cuda.Event.synchronize) are recorded; (4)
+    an .item() planted in _consume_window for one window is caught by
+    (1)'s check.  Returns the no-cache forward's flash launches."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(model.config, dtype=torch.float32)
+    sd = {k: v.float() for k, v in model.state_dict().items()}
+    device = model.embedding.device
+    eng = InferenceEngine(cfg, InferConfig(model='llama-1b',
+                                           **HOST_SYNC_INFER),
+                          params=sd, device=device,
+                          generator=torch.Generator(
+                              device=device).manual_seed(1))
+    del sd
+    # Warm-up: the same path once, unrecorded (cuBLAS handles, pinned
+    # host blocks, the allocator's pools).
+    drive_host_sync(eng, SyncRecorder(), HOST_SYNC_WINDOWS, seed=4)
+    settle(eng)
+    rec = SyncRecorder()
+    with rec.recording():
+        ran = drive_host_sync(eng, rec, HOST_SYNC_WINDOWS, seed=3)
+        planted, planted_line = planted_consume_window(eng)
+        eng._consume_window = planted
+        try:
+            with eng._lock, rec.under('planted'):
+                eng._step()
+        finally:
+            del eng._consume_window
+    settle(eng)
+    del eng
+    gc.collect()
+    static = static_sync_sites()
+    engine_rel = 'skypilot_tpu_torch/infer/engine.py'
+    path_syncs = [s for s in rec.syncs if s[0] != 'planted']
+    unannotated = [s for s in path_syncs if s[2] not in static]
+    for stage, kind, site, stack in unannotated:
+        print(f'host_sync: unannotated {kind} sync at {site[0]}:{site[1]} '
+              f'({stage})\n' + ''.join(stack), file=sys.stderr)
+    check(not unannotated, 'host_sync (1): syncs at sites the static pass '
+          f'does not list: {sorted({s[2] for s in unannotated})}')
+    caught = [s for s in rec.syncs if s[0] == 'planted'
+              and s[2] == (engine_rel, planted_line)]
+    check(caught and caught[0][2] not in static,
+          f'host_sync (4): the planted .item() at {engine_rel}:'
+          f'{planted_line} was not caught ({[s[:3] for s in rec.syncs if s[0] == "planted"]})')
+
+    # (2) The flash forward at the llama-1b no-cache shape, bf16.
+    hq, hkv = model.config.num_heads, model.config.num_kv_heads
+    d = model.config.hidden_size // hq
+    gen = torch.Generator(device=device).manual_seed(5)
+    q = torch.randn((1, hq, HOST_SYNC_TOKENS, d), generator=gen,
+                    device=device, dtype=torch.bfloat16)
+    k, v = (torch.randn((1, hkv, HOST_SYNC_TOKENS, d), generator=gen,
+                        device=device, dtype=torch.bfloat16)
+            for _ in range(2))
+    scale = d ** -0.5
+    fa.flash_attention_fwd(q, k, v, True, scale, None)    # built, warm
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, model.config.vocab_size, (1, HOST_SYNC_TOKENS))).to(device)
+    with torch.inference_mode():
+        model(tokens)
+    torch.cuda.synchronize()
+    kernel = SyncRecorder()
+    with kernel.recording():
+        with kernel.under('wrapper'):
+            out, lse = fa.flash_attention_fwd(q, k, v, True, scale, None)
+        reset_launch_counts()
+        with kernel.under('forward'), torch.inference_mode():
+            logits = model(tokens)
+        launches = launch_counts()
+    torch.cuda.synchronize()
+    wrapper_syncs = [s for s in kernel.syncs if s[0] == 'wrapper']
+    check(not wrapper_syncs, 'host_sync (2): the flash forward wrapper '
+          f'synced at {[s[2] for s in wrapper_syncs]}')
+    ref = fa.attention_fwd_reference(q, k, v, True, scale, None)
+    err = (out.float() - ref[0].float()).abs()
+    over = (err / fa.attention_fwd_bound(q, k, v, True, scale, None,
+                                         ref[0])).max().item()
+    check(over <= 1.0 and (lse - ref[1]).abs().max().item() <= BOUND_LSE,
+          f'host_sync (2): the flash forward against its plain version: '
+          f'{over} of its bound')
+    check(launches == (model.config.num_layers, 0, 0),
+          f'host_sync (2): the no-cache forward launched {launches}')
+    check(bool(torch.isfinite(logits).all()), 'host_sync: non-finite logits')
+    forward_unannotated = [s for s in kernel.syncs if s[0] == 'forward'
+                           and s[2] not in static]
+    check(not forward_unannotated, 'host_sync (1): the no-cache forward '
+          f'synced at {[s[2] for s in forward_unannotated]}')
+
+    def by_site(syncs):
+        out = {}
+        for _, kind, site, _ in syncs:
+            key = f'{site[0]}:{site[1]} {kind}'
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    windows = [[s for s in path_syncs if s[0] == f'window{w}']
+               for w in range(HOST_SYNC_WINDOWS)]
+    emit({'phase': 'host_sync', 'nvidia_smi': env['nvidia_smi'],
+          'config': {**HOST_SYNC_INFER, 'weights': 'float32',
+                     'cache': 'bfloat16'},
+          'ran': ran,
+          'debug_mode_syncs_per_window': [
+              sum(s[1] == 'debug_mode' for s in w) for w in windows],
+          'event_waits_per_window': [
+              sum(s[1] != 'debug_mode' for s in w) for w in windows],
+          'event_waits_note': 'Event/Stream.synchronize and '
+                              'torch.cuda.synchronize are invisible to the '
+                              'sync debug mode: counted by wrapping them',
+          'window_sites': by_site([s for w in windows for s in w]),
+          'prefill_sites': by_site([s for s in path_syncs
+                                    if s[0] in ('prefill',
+                                                'chunk_reserve')]),
+          'chunk_round_sites': by_site([s for s in path_syncs
+                                        if s[0].startswith('chunk_round')]),
+          'static_sites': {f'{p}:{n}': kind
+                           for (p, n), kind in sorted(static.items())},
+          'planted': {'site': f'{engine_rel}:{planted_line}',
+                      'caught': True},
+          'flash_fwd': {'shape': [1, hq, HOST_SYNC_TOKENS, d],
+                        'wrapper_syncs': 0, 'max_err_over_bound': over,
+                        'forward_launches': launches[0],
+                        'forward_sites': by_site([s for s in kernel.syncs
+                                                  if s[0] == 'forward'])},
+          'wall_s': time.perf_counter() - t_phase})
+    return launches[0]
+
+
 def hf_checkpoint(model) -> tuple:
     """The drawn model under HF names (hf_llama_state_dict), beside a
     namespace with llama-2-7b's config.json fields."""
@@ -7235,6 +7549,7 @@ def main() -> int:
     timed(phase_spec, model, env)
     timed(phase_qos, model, env)
     chaos_fwd = timed(phase_chaos, model, env)
+    host_sync_fwd = timed(phase_host_sync, model, env)
     del model
     gc.collect()    # engines held in reference cycles (window audits)
     torch.cuda.empty_cache()
@@ -7307,7 +7622,7 @@ def main() -> int:
                        + bert_train[0] + bert_hf_forward
                        + mixtral_lora[0] + mesh_train[0] + mesh_lora[0]
                        + dryrun[0] + serve_tp[0] + spec_bench[0]
-                       + head_dims[0] + chaos_fwd),
+                       + head_dims[0] + chaos_fwd + host_sync_fwd),
              launches_by_path={'forward': forward_launches,
                                'train': train_fwd, 'bench': bench_fwd,
                                'gemma_forward': gemma_fwd,
@@ -7328,7 +7643,8 @@ def main() -> int:
                                'serve_tp': serve_tp[0],
                                'spec_bench': spec_bench[0],
                                'head_dims': head_dims[0],
-                               'chaos_tp': chaos_fwd},
+                               'chaos_tp': chaos_fwd,
+                               'host_sync': host_sync_fwd},
              **fwd[KERNEL_CASES[0][0]], train_shape=fwd[TRAIN_CASE[0]],
              headline_shape=headline['fwd'],
              head_dim_256_shapes={name: fwd[name]

@@ -149,10 +149,10 @@ def episode(eng: InferenceEngine, seed: int, n: int,
         except Exception as e:  # supervisor gave up: legal iff every
             loop_exc.append(e)  # request was still accounted for
     t = threading.Thread(target=run, daemon=True)
-    t0 = time.time()
+    t0 = time.time()  # det-ok: episode wall bound (harness)
     t.start()
     try:
-        while len(results) < n and time.time() - t0 < EPISODE_WALL_S:
+        while len(results) < n and time.time() - t0 < EPISODE_WALL_S:  # det-ok: episode wall bound (harness)
             if loop_exc and len(results) >= n:
                 break
             time.sleep(0.02)
@@ -206,7 +206,7 @@ def episode(eng: InferenceEngine, seed: int, n: int,
             sanitizers.check_shard_layout(eng)
         except sanitizers.ShardLayoutError as e:
             bad.append(f'SHARD DRIFT: {e}')
-    print(f'  seed={seed}: {reasons} wall={time.time() - t0:.1f}s '
+    print(f'  seed={seed}: {reasons} wall={time.time() - t0:.1f}s '  # det-ok: wall time printed
           f'fired={plan.stats()["fired"]} '
           f'counters={eng.fault_stats} '
           f'{"terminal-giveup " if loop_exc else ""}'
@@ -294,8 +294,8 @@ def _kv(replica) -> dict:
 
 
 def _wait_health(replica, pred, timeout_s: float) -> bool:
-    deadline = time.time() + timeout_s
-    while time.time() < deadline:
+    deadline = time.time() + timeout_s  # det-ok: harness wait
+    while time.time() < deadline:  # det-ok: harness wait
         if pred(_health(replica)):
             return True
         time.sleep(0.05)
@@ -317,9 +317,9 @@ def _drain_exercise(fleet, references) -> list:
 
     t = threading.Thread(target=client, daemon=True)
     t.start()
-    deadline = time.time() + 30
+    deadline = time.time() + 30  # det-ok: harness wait
     busy = None
-    while time.time() < deadline and busy is None:
+    while time.time() < deadline and busy is None:  # det-ok: harness wait
         busy = next((r for r in fleet.replicas if r.busy()), None)
         time.sleep(0.01)
     if busy is None:
@@ -365,9 +365,9 @@ def _drain_exercise(fleet, references) -> list:
     # the hot prompt on every adopter: byte-identity must hold on all
     # of them, and the prefix's owner must answer it off the adopted
     # blocks (radix hit) on at least one.
-    wait_until = time.time() + 30
-    while time.time() < wait_until and \
-            fleet.lb.lb_stats().get('hot_handoffs', 0) < 1:
+    wait_until = time.time() + 30  # det-ok: harness wait
+    while (time.time() < wait_until and  # det-ok: harness wait
+           fleet.lb.lb_stats().get('hot_handoffs', 0) < 1):
         time.sleep(0.05)
     survivors = [r for r in fleet.replicas if r is not busy]
     adopters = [r for r in survivors
@@ -402,9 +402,9 @@ def _stream_with_retry(port: int, payload: dict, wall_s: float = 90.0):
     errors and severed streams retry (greedy decode is deterministic,
     so a from-scratch reissue yields identical tokens).  Returns
     (terminal_event, attempts)."""
-    deadline = time.time() + wall_s
+    deadline = time.time() + wall_s  # det-ok: leg wall bound (harness)
     attempts, last = 0, None
-    while time.time() < deadline:
+    while time.time() < deadline:  # det-ok: leg wall bound (harness)
         attempts += 1
         try:
             events = _stream_generate(port, payload, timeout=30)
@@ -506,9 +506,9 @@ def _probation_exercise(fleet, references, window_s: float = 45.0) -> list:
              for k in range(3)]
     for th in lanes:
         th.start()
-    deadline = time.time() + window_s
+    deadline = time.time() + window_s  # det-ok: detection window (harness)
     probation = []
-    while time.time() < deadline and not bad:
+    while time.time() < deadline and not bad:  # det-ok: detection window (harness)
         probation = fleet.lb.lb_stats()['probation_replicas']
         # Wait for the DEGRADED replica specifically: another replica
         # entering probation (e.g. TTFT inflated by queuing behind the
@@ -516,7 +516,7 @@ def _probation_exercise(fleet, references, window_s: float = 45.0) -> list:
         if proxy.url in probation:
             break
         time.sleep(0.2)
-    detect_wall = window_s - max(0.0, deadline - time.time())
+    detect_wall = window_s - max(0.0, deadline - time.time())  # det-ok: detection wall (recorded)
     stop.set()
     for th in lanes:
         th.join(60)
@@ -559,7 +559,7 @@ def kill_episode(fleet, seed: int, n_requests: int, references) -> list:
     with its reference tokens; returns the violations."""
     from skypilot_tpu_torch.infer.chaos import SeededKiller
 
-    t0 = time.time()
+    t0 = time.time()  # det-ok: wall time printed
     killer = SeededKiller(fleet, FaultPlan(seed=seed, specs=[
         FaultSpec(site='replica_kill', prob=0.02, max_fires=2),
     ]))
@@ -603,11 +603,11 @@ def kill_episode(fleet, seed: int, n_requests: int, references) -> list:
     print(f'  seed={seed}: kills={killer.kills} '
           f'resumed={done_stats["resumed"]} '
           f'failovers={stats["failovers"]} '
-          f'wall={time.time() - t0:.1f}s '
+          f'wall={time.time() - t0:.1f}s '  # det-ok: wall time printed
           f'{"FAIL" if bad else "ok"}')
     # Let probes re-admit the respawned replicas.
-    settle = time.time() + 15
-    while time.time() < settle:
+    settle = time.time() + 15  # det-ok: harness wait
+    while time.time() < settle:  # det-ok: harness wait
         if not fleet.lb.lb_stats()['breaker_open_now']:
             break
         time.sleep(0.05)
@@ -700,8 +700,8 @@ def multi_replica_sweep(n_replicas: int, seeds, n_requests: int,
 
 
 def _wait_for(pred, timeout_s: float, what: str):
-    deadline = time.time() + timeout_s
-    while time.time() < deadline:
+    deadline = time.time() + timeout_s  # det-ok: harness wait
+    while time.time() < deadline:  # det-ok: harness wait
         if pred():
             return None
         time.sleep(0.05)

@@ -53,13 +53,13 @@ class BlockPool:
         # free list, and per-slot block tables (+ allocated counts).
         # Shared prefix blocks carry refcount > 1; freeing a slot decrefs
         # every table entry.
-        self._block_refs = np.zeros((num_blocks,), np.int32)
-        self._tables_np = np.zeros((num_slots, max_blocks), np.int32)
-        self._slot_nblocks = np.zeros((num_slots,), np.int32)
-        self._free_blocks: List[int] = []
+        self._block_refs = np.zeros((num_blocks,), np.int32)  # guarded-by: engine _lock
+        self._tables_np = np.zeros((num_slots, max_blocks), np.int32)  # guarded-by: engine _lock
+        self._slot_nblocks = np.zeros((num_slots,), np.int32)  # guarded-by: engine _lock
+        self._free_blocks: List[int] = []  # guarded-by: engine _lock
         self.reset()
 
-    def reset(self) -> None:
+    def reset(self) -> None:  # locked: engine
         """Empty allocator: every block free except the reserved dump
         block 0 (the quarantine path resets this bookkeeping
         wholesale)."""
@@ -69,7 +69,7 @@ class BlockPool:
         self._tables_np[:] = 0
         self._slot_nblocks[:] = 0
 
-    def _alloc_blocks(self, k: int) -> List[int]:
+    def _alloc_blocks(self, k: int) -> List[int]:  # locked: engine
         if k > len(self._free_blocks):
             # Admission control reserves worst-case demand up front, so
             # a running slot can never get here; reaching it means the
@@ -83,30 +83,30 @@ class BlockPool:
             self._block_refs[b] = 1
         return out
 
-    def _deref_block(self, b: int) -> None:
+    def _deref_block(self, b: int) -> None:  # locked: engine
         if b == 0:
             return
         self._block_refs[b] -= 1
         if self._block_refs[b] == 0:
             self._free_blocks.append(b)
 
-    def _addref_block(self, b: int) -> None:
+    def _addref_block(self, b: int) -> None:  # locked: engine
         """Refcount bump for a holder OTHER than a slot table (the radix
         tree adopting a finishing slot's prompt blocks)."""
         self._block_refs[b] += 1
 
-    def _ensure_blocks(self, slot: int, upto: int) -> None:
+    def _ensure_blocks(self, slot: int, upto: int) -> None:  # locked: engine
         """Grow the slot's table with fresh private blocks so rows
         [0, upto) are resident (no-op when already covered)."""
         need = min(-(-upto // self.block_size), self._max_blocks)
         cur = int(self._slot_nblocks[slot])
         if need <= cur:
             return
-        ids = self._alloc_blocks(need - cur)
+        ids = self._alloc_blocks(need - cur)  # owns-blocks: table
         self._tables_np[slot, cur:need] = ids
         self._slot_nblocks[slot] = need
 
-    def _append_shared_blocks(self, slot: int, ids: Sequence[int]) -> None:
+    def _append_shared_blocks(self, slot: int, ids: Sequence[int]) -> None:  # locked: engine
         """Append a prefix's full blocks to the slot's table by REFERENCE
         (refcount bump) -- the copy-free prefix hit."""
         cur = int(self._slot_nblocks[slot])
@@ -115,7 +115,7 @@ class BlockPool:
             self._block_refs[b] += 1
         self._slot_nblocks[slot] = cur + len(ids)
 
-    def _free_slot_blocks(self, slot: int) -> None:
+    def _free_slot_blocks(self, slot: int) -> None:  # locked: engine
         n = int(self._slot_nblocks[slot])
         for b in self._tables_np[slot, :n]:
             self._deref_block(int(b))
@@ -145,13 +145,13 @@ class HostKVTier:
         self.recency_window = int(recency_window)
         # key -> (k_rows, v_rows), each [L, Hkv, block_size, D] host
         # tensors in cache dtype; insertion order == LRU order.
-        self._entries: 'collections.OrderedDict[TierKey, Rows]' = (
+        self._entries: 'collections.OrderedDict[TierKey, Rows]' = (  # guarded-by: engine _lock
             collections.OrderedDict())
         # (key, k_rows, v_rows, event) copies in flight.
-        self._pending: List[Tuple[TierKey, torch.Tensor, torch.Tensor,
+        self._pending: List[Tuple[TierKey, torch.Tensor, torch.Tensor,  # guarded-by: engine _lock
                                   Any]] = []
-        self._bytes = 0
-        self.stats = {'spills': 0, 'restores': 0, 'lookups': 0,
+        self._bytes = 0  # guarded-by: engine _lock
+        self.stats = {'spills': 0, 'restores': 0, 'lookups': 0,  # guarded-by: engine _lock
                       'hits': 0, 'evictions': 0, 'dropped': 0}
 
     # ------------------------------------------------------------- state
@@ -168,12 +168,12 @@ class HostKVTier:
     def in_flight(self) -> int:
         return len(self._pending)
 
-    def clear(self) -> None:
+    def clear(self) -> None:  # locked: engine
         self._entries.clear()
         self._pending.clear()
         self._bytes = 0
 
-    def drop_adapter(self, adapter: Optional[str]) -> int:
+    def drop_adapter(self, adapter: Optional[str]) -> int:  # locked: engine
         """Drop every entry (in flight ones landed first) whose key names
         `adapter`: rows computed under weights that were replaced.
         Returns the number dropped."""
@@ -198,7 +198,7 @@ class HostKVTier:
             buf[i].copy_(x, non_blocking=True)
         return buf
 
-    def spill(self, key: TierKey, k_slices: Sequence[torch.Tensor],
+    def spill(self, key: TierKey, k_slices: Sequence[torch.Tensor],  # locked: engine
               v_slices: Sequence[torch.Tensor]) -> None:
         """Queue one block's per-layer row views for the host copy NOW,
         on the current stream, before the caller recycles the block id:
@@ -212,7 +212,7 @@ class HostKVTier:
         self._pending.append((key, k_rows, v_rows, ev))
         self.stats['spills'] += 1
 
-    def finalize(self) -> None:
+    def finalize(self) -> None:  # locked: engine
         """Land in-flight spills into the LRU map and trim to budget.
         Waits only for the copies already queued."""
         if not self._pending:
@@ -237,7 +237,7 @@ class HostKVTier:
 
     # ----------------------------------------------------------- restore
 
-    def contains(self, key: TierKey) -> bool:
+    def contains(self, key: TierKey) -> bool:  # locked: engine
         """Restore probe (counts toward the restore-hit rate)."""
         self.finalize()
         self.stats['lookups'] += 1
@@ -246,7 +246,7 @@ class HostKVTier:
             return True
         return False
 
-    def take(self, key: TierKey) -> Optional[Rows]:
+    def take(self, key: TierKey) -> Optional[Rows]:  # locked: engine
         """Pop an entry for restore (the rows move back into pool
         blocks, so keeping the host copy would double-count the
         budget)."""
@@ -256,7 +256,7 @@ class HostKVTier:
             self._bytes -= _nbytes(entry)
         return entry
 
-    def get(self, key: TierKey) -> Optional[Rows]:
+    def get(self, key: TierKey) -> Optional[Rows]:  # locked: engine
         """Non-destructive read (hot-set export): LRU-touches."""
         self.finalize()
         entry = self._entries.get(key)
@@ -264,13 +264,13 @@ class HostKVTier:
             self._entries.move_to_end(key)
         return entry
 
-    def keys_recent_first(self) -> List[TierKey]:
+    def keys_recent_first(self) -> List[TierKey]:  # locked: engine
         self.finalize()
         return list(reversed(self._entries))
 
     # ------------------------------------------------------------- audit
 
-    def audit(self) -> List[str]:
+    def audit(self) -> List[str]:  # locked: engine
         """Conservation-style self-check: the byte ledger must equal the
         entries it claims to cover, and the budget bound must hold.
         Returns error strings (empty = ok)."""

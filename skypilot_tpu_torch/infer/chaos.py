@@ -93,7 +93,7 @@ class _TrackingHTTPServer(_BurstTolerantHTTPServer):
     def __init__(self, *args, **kwargs):
         self._clients_lock = sanitizers.instrument_lock(
             threading.Lock(), 'infer.chaos._clients_lock')
-        self._clients: set = set()
+        self._clients: set = set()  # guarded-by: _clients_lock
         super().__init__(*args, **kwargs)
 
     def get_request(self):
@@ -349,7 +349,7 @@ class ProcessReplica:
                                         daemon=True,
                                         name=f'chaos-tp-{self.port}')
         self._proc.start()
-        deadline = time.monotonic() + ready_timeout
+        deadline = time.monotonic() + ready_timeout  # det-ok: startup wait (harness)
         while True:
             if not self._proc.is_alive():
                 code = self._proc.exitcode
@@ -361,7 +361,7 @@ class ProcessReplica:
             if pids is not None and self.health() is not None:
                 self._pids = pids
                 break
-            if time.monotonic() > deadline:
+            if time.monotonic() > deadline:  # det-ok: startup wait (harness)
                 self._terminate()
                 raise TimeoutError(
                     f'tensor-parallel replica :{self.port} not ready in '
@@ -432,18 +432,18 @@ class ProcessReplica:
         """Wait up to `timeout` s for every process of the replica (or
         those of `pids`) to end; {pid: seconds from the last kill (or
         from now) to its end, None if it is still running}."""
-        t0 = (self.last_kill or {}).get('at', time.monotonic())
+        t0 = (self.last_kill or {}).get('at', time.monotonic())  # det-ok: kill-to-gone wall time (recorded)
         gone: Dict[int, Optional[float]] = {}
-        deadline = time.monotonic() + timeout
+        deadline = time.monotonic() + timeout  # det-ok: harness wait
         pending = [p for p in self._all_pids() if pids is None or p in pids]
         while True:
             if self._proc is not None and not self._proc.is_alive():
                 self._proc.join(0)        # reap rank 0 (our child)
             for pid in list(pending):
                 if not pid_alive(pid):
-                    gone[pid] = time.monotonic() - t0
+                    gone[pid] = time.monotonic() - t0  # det-ok: kill-to-gone wall time (recorded)
                     pending.remove(pid)
-            if not pending or time.monotonic() > deadline:
+            if not pending or time.monotonic() > deadline:  # det-ok: harness wait
                 break
             time.sleep(0.01)
         gone.update({pid: None for pid in pending})
@@ -473,7 +473,7 @@ class ProcessReplica:
             return
         self.alive = False
         self.kills += 1
-        self.last_kill = {'mode': mode, 'at': time.monotonic()}
+        self.last_kill = {'mode': mode, 'at': time.monotonic()}  # det-ok: kill stamp for the gone time
         if mode == 'group':
             _signal_group(self._pids['rank0'])
         elif mode == 'rank0':
@@ -721,8 +721,8 @@ class ChaosFleet:
         self._wait_lb_up()
 
     def _wait_lb_up(self, timeout: float = 10.0) -> None:
-        deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline:
+        deadline = time.monotonic() + timeout  # det-ok: harness wait
+        while time.monotonic() < deadline:  # det-ok: harness wait
             try:
                 with socket.create_connection(
                         ('127.0.0.1', self.lb.port), timeout=0.2):
@@ -769,8 +769,8 @@ class ChaosFleet:
         self._wait_lb_up(timeout)
         self.lb_restarts += 1
         if wait_adopted:
-            deadline = time.monotonic() + timeout
-            while time.monotonic() < deadline:
+            deadline = time.monotonic() + timeout  # det-ok: harness wait
+            while time.monotonic() < deadline:  # det-ok: harness wait
                 try:
                     with urllib.request.urlopen(
                             f'{self.lb_url}/lb/stats', timeout=2) as resp:
@@ -912,7 +912,7 @@ class DegradedReplica:
         self.port = free_port(host)
         # Jitter draws come from the proxy's own seeded stream (NOT the
         # plan's per-spec streams, which must stay consult-aligned).
-        self._rng = np.random.default_rng(seed)
+        self._rng = np.random.default_rng(seed)  # guarded-by: _rng_lock
         self._rng_lock = sanitizers.instrument_lock(
             threading.Lock(), 'infer.chaos.degraded._rng_lock')
         self._halt = threading.Event()

@@ -555,15 +555,15 @@ class InferenceEngine:
         # (the JAX engine walks its param tree; only the stacked adapter
         # leaves are targets).  The Parameter objects are written in
         # place and never swapped: dispatches hold them.
-        self._adapter_names: Dict[str, int] = {}
-        self._adapter_gen: Dict[str, int] = {}
+        self._adapter_names: Dict[str, int] = {}  # guarded-by: _lock
+        self._adapter_gen: Dict[str, int] = {}  # guarded-by: _lock
         self._param_tree = nest({flax_path(name): prm for name, prm
                                  in self.model.named_parameters()})
         b = cfg.num_slots
         self._pool: Optional[BlockPool] = None
         if self._paged:
             self._pool = BlockPool(n_blocks, bs_, max_blocks, b)
-            self.paged_stats = {'deferred': 0, 'prefix_block_hits': 0}
+            self.paged_stats = {'deferred': 0, 'prefix_block_hits': 0}  # guarded-by: _lock
             self.cache = init_paged_cache(self._local_config, n_blocks, bs_,
                                           cfg.cache_dtype, self.device)
         else:
@@ -573,7 +573,7 @@ class InferenceEngine:
         # radix_stats always exists so stats() has one shape.
         self._radix = (RadixTree(cfg.kv_block_size)
                        if self._paged and cfg.auto_prefix_cache else None)
-        self.radix_stats = {'hits': 0, 'tokens_reused': 0, 'lookups': 0,
+        self.radix_stats = {'hits': 0, 'tokens_reused': 0, 'lookups': 0,  # guarded-by: _lock
                             'inserts': 0, 'evictions': 0}
         # Host-RAM KV tier, fed by radix eviction.  It survives
         # _reset_cache: its copies are keyed by token content, not pool
@@ -585,12 +585,12 @@ class InferenceEngine:
                            and cfg.host_kv_bytes > 0 else None)
         # Pinned host rows of restores still being copied to the card,
         # each with the event after its copy: kept alive until it passed.
-        self._h2d_inflight: List[Tuple[torch.Tensor, Any]] = []
+        self._h2d_inflight: List[Tuple[torch.Tensor, Any]] = []  # guarded-by: _lock
         # Drain-time hot-set handoff counters, under kv.host_tier.
-        self.handoff_stats = {'exported': 0, 'adopted': 0}
+        self.handoff_stats = {'exported': 0, 'adopted': 0}  # guarded-by: _lock
         # Requests dequeued but not admissible yet (paged admission):
         # admitted first once blocks free up.
-        self._deferred: List[Request] = []
+        self._deferred: List[Request] = []  # guarded-by: _lock
         # Failure/recovery counters (stats()['faults'], /stats):
         #   internal_errors      requests failed with error_class='internal'
         #   deadline_evictions   requests evicted past Request.deadline_s
@@ -598,7 +598,7 @@ class InferenceEngine:
         #   quarantined_batches  unattributed decode failures that failed
         #                        the whole active batch (+ cache zeroed)
         #   nonfinite_lanes      lanes killed by the non-finite logit guard
-        self.fault_stats = {'internal_errors': 0, 'deadline_evictions': 0,
+        self.fault_stats = {'internal_errors': 0, 'deadline_evictions': 0,  # guarded-by: _lock
                             'loop_restarts': 0, 'quarantined_batches': 0,
                             'nonfinite_lanes': 0}
         # An armed faults.FaultPlan (tests only); None = one attribute
@@ -606,27 +606,27 @@ class InferenceEngine:
         self._faults = None
         # Requests failed inside the dispatch path (non-finite guard),
         # delivered by _harvest like every other finish.
-        self._pending_failures: List[Tuple[Request, RequestResult]] = []
+        self._pending_failures: List[Tuple[Request, RequestResult]] = []  # guarded-by: _lock
         # Speculation: verify dispatches, drafts offered, drafts
         # accepted.  The acceptance EMA gates verify against windowed
         # decode (_spec_step): it starts optimistic, and while the
         # expected bonus is under half a token per active slot the
         # engine decodes windowed, re-probing every 50th step.
-        self.spec_stats = {'dispatches': 0, 'drafted': 0, 'accepted': 0}
-        self._accept_ema = 0.5
-        self._spec_skips = 0
+        self.spec_stats = {'dispatches': 0, 'drafted': 0, 'accepted': 0}  # guarded-by: _lock
+        self._accept_ema = 0.5  # guarded-by: _lock
+        self._spec_skips = 0  # guarded-by: _lock
         # Registered prefixes, LRU-ordered: (adapter, tokens) -> dense,
         # per-layer (k, v) rows [Hkv, n, D] in cache dtype (fp8 as its
         # uint8 view); paged,
         # {'blocks': pool block ids (one ref each), 'len': n}.  The
         # adapter is None for the base model.
-        self._prefixes: collections.OrderedDict = collections.OrderedDict()
-        self.prefix_stats = {'hits': 0, 'tokens_reused': 0}
+        self._prefixes: collections.OrderedDict = collections.OrderedDict()  # guarded-by: _lock
+        self.prefix_stats = {'hits': 0, 'tokens_reused': 0}  # guarded-by: _lock
         # Chunked prefill: slot -> _ChunkJob for prompts whose KV rows are
         # written one prefill_chunk per serving gap (_chunk_round).  A
         # chunking slot is reserved (not free) but has no _Slot yet.
-        self._chunking: Dict[int, _ChunkJob] = {}
-        self.chunk_stats = {'rounds': 0, 'chunks': 0, 'requests': 0}
+        self._chunking: Dict[int, _ChunkJob] = {}  # guarded-by: _lock
+        self.chunk_stats = {'rounds': 0, 'chunks': 0, 'requests': 0}  # guarded-by: _lock
         # Admission order: strict FIFO, or with cfg.qos priority classes
         # and per-tenant WFQ (infer/qos.py).  The scheduler has its own
         # lock (stats() reads it from other threads).
@@ -637,44 +637,44 @@ class InferenceEngine:
             if cfg.qos else FifoScheduler())
         # preemptions: batch chunk jobs parked for interactive work;
         # sheds: typed deadline rejections at dequeue.
-        self.qos_stats = {'preemptions': 0, 'sheds': 0}
-        self._tenant_qos: Dict[str, Dict[str, int]] = {}
+        self.qos_stats = {'preemptions': 0, 'sheds': 0}  # guarded-by: _lock
+        self._tenant_qos: Dict[str, Dict[str, int]] = {}  # guarded-by: _lock
         # Observed service rate (tokens/s a request, EWMA), fed by every
         # clean finish in _finish_slot; the projection shed reads it.
         self._svc_estimator = qos_mod.ServiceEstimator()
-        self._slots: List[Optional[_Slot]] = [None] * b
+        self._slots: List[Optional[_Slot]] = [None] * b  # guarded-by: _lock
         # Request ids cancelled while still queued: dropped at dequeue.
         # id -> mark time; marks expire (_CANCEL_MARK_TTL_S) so a cancel
         # that raced a finish cannot poison a later request reusing the
         # id.
-        self._cancelled: Dict[str, float] = {}
+        self._cancelled: Dict[str, float] = {}  # guarded-by: _lock
         # Backlog snapshot for the window policy (_select_window): the
         # serving loop sets it before each step; 0 outside the loop, so
         # offline generate() runs full windows.
-        self._arrivals_hint = 0
+        self._arrivals_hint = 0  # guarded-by: _lock
         # Decode lookahead: a dispatched, unconsumed window (host-copy
         # handle, device-side (tokens, lengths) chain, slot snapshot,
         # prefill epoch).  The epoch bumps on every prefill so a chain
         # is never extended across a slot recycle.
-        self._ahead = None
+        self._ahead = None  # guarded-by: _lock
         self._serving = False
-        self._prefill_epoch = 0
+        self._prefill_epoch = 0  # guarded-by: _lock
         # Consecutive dequeue passes that yielded only cancelled requests:
         # right-shifts the arrivals hint (a queue of tombstones must not
         # force short windows).
         self._cancel_only_streak = 0
         # Host mirrors of per-slot decode state, sent to the device per
         # window as small tensors.
-        self._lengths = np.zeros((b,), np.int64)
-        self._last_tokens = np.zeros((b,), np.int64)
-        self._temps = np.zeros((b,), np.float32)
+        self._lengths = np.zeros((b,), np.int64)  # guarded-by: _lock
+        self._last_tokens = np.zeros((b,), np.int64)  # guarded-by: _lock
+        self._temps = np.zeros((b,), np.float32)  # guarded-by: _lock
         # Adapter stack slot of each slot's request (-1: the base model),
         # set at admission and reset at finish and cancel.
-        self._slot_adapters = np.full((b,), -1, np.int64)
+        self._slot_adapters = np.full((b,), -1, np.int64)  # guarded-by: _lock
         self._lock = sanitizers.instrument_lock(threading.Lock(),
                                                 'infer.engine._lock')
 
-    def _reset_cache(self) -> None:
+    def _reset_cache(self) -> None:  # locked: _lock
         """Zero the KV cache in place -- the quarantine path after an
         unattributed dispatch failure.  In place because the tensors are
         the ones the next dispatch writes; rows a later prefill has not
@@ -1014,7 +1014,7 @@ class InferenceEngine:
         if self.device.type == 'cuda':
             t = t.pin_memory().to(self.device, non_blocking=True)
         if self._tpc is not None:
-            t._tp_host = host.numpy()     # what a dispatch broadcasts
+            t._tp_host = host.numpy()     # what a dispatch broadcasts  # jit-ok: host is a CPU tensor (torch.from_numpy of the mirror)
         return t
 
     def _to_host(self, t: torch.Tensor):
@@ -1034,8 +1034,8 @@ class InferenceEngine:
     def _host_array(handle) -> np.ndarray:
         buf, ev = handle
         if ev is not None:
-            ev.synchronize()
-        return buf.numpy()
+            ev.synchronize()  # jit-ok: the readback's one wait, on the event behind its pinned copy
+        return buf.numpy()  # jit-ok: the pinned host buffer, waited on above
 
     def _rows_to_device(self, rows: torch.Tensor) -> torch.Tensor:
         """Host rows (pinned when the engine is on a card) to the device
@@ -1044,7 +1044,7 @@ class InferenceEngine:
         host allocator must not hand its memory out under the copy."""
         if self.device.type != 'cuda':
             return rows
-        self._h2d_inflight = [(t, ev) for t, ev in self._h2d_inflight
+        self._h2d_inflight = [(t, ev) for t, ev in self._h2d_inflight  # lock-ok: under _lock on rank 0 (_adopt_host_rows); a worker rank has one thread
                               if not ev.query()]
         out = rows.to(self.device, non_blocking=True)
         ev = torch.cuda.Event()
@@ -1094,25 +1094,25 @@ class InferenceEngine:
             nb *= 2
         return min(nb, self._max_blocks)
 
-    def _alloc_blocks(self, k: int) -> List[int]:
+    def _alloc_blocks(self, k: int) -> List[int]:  # locked: _lock
         return self._pool._alloc_blocks(k)
 
-    def _deref_block(self, b: int) -> None:
+    def _deref_block(self, b: int) -> None:  # locked: _lock
         self._pool._deref_block(b)
 
-    def _addref_block(self, b: int) -> None:
+    def _addref_block(self, b: int) -> None:  # locked: _lock
         self._pool._addref_block(b)
 
-    def _ensure_blocks(self, slot: int, upto: int) -> None:
+    def _ensure_blocks(self, slot: int, upto: int) -> None:  # locked: _lock
         self._pool._ensure_blocks(slot, upto)
 
-    def _append_shared_blocks(self, slot: int, ids: Sequence[int]) -> None:
+    def _append_shared_blocks(self, slot: int, ids: Sequence[int]) -> None:  # locked: _lock
         self._pool._append_shared_blocks(slot, ids)
 
-    def _free_slot_blocks(self, slot: int) -> None:
+    def _free_slot_blocks(self, slot: int) -> None:  # locked: _lock
         self._pool._free_slot_blocks(slot)
 
-    def _evict_radix(self, need: int) -> int:
+    def _evict_radix(self, need: int) -> int:  # locked: _lock
         """Evict unpinned radix LEAVES whose only reference is the tree's
         own (so the deref frees a block), LRU-first, until `need` blocks
         are freed or nothing evictable remains.  With the host tier, each
@@ -1125,7 +1125,7 @@ class InferenceEngine:
         self.radix_stats['evictions'] += freed
         return freed
 
-    def _spill_blocks(self, adapter: Optional[str], node) -> None:
+    def _spill_blocks(self, adapter: Optional[str], node) -> None:  # locked: _lock
         """Radix-eviction spill hook: queue the copy of the victim
         block's rows into the host tier BEFORE the deref recycles the
         block id (the rows are views of the pool; the copy is queued on
@@ -1170,7 +1170,7 @@ class InferenceEngine:
 
     # ------------------------------------------------------ host KV tier
 
-    def _restore_from_tier(self, req: Request, blocks: List[int],
+    def _restore_from_tier(self, req: Request, blocks: List[int],  # locked: _lock
                            n: int) -> List[int]:
         """Extend a radix match with blocks restored from the host tier:
         probe successive block-aligned prefixes past the device match,
@@ -1210,7 +1210,7 @@ class InferenceEngine:
         tier.stats['restores'] += len(ids)
         return list(blocks) + ids
 
-    def _adopt_host_rows(self, adapter: Optional[str],
+    def _adopt_host_rows(self, adapter: Optional[str],  # locked: _lock
                          tokens: Sequence[int],
                          base_blocks: Sequence[int], rows) -> List[int]:
         """Allocate pool blocks for host rows (tier restore or hot-set
@@ -1218,7 +1218,7 @@ class InferenceEngine:
         them in the radix tree as the continuation of ``base_blocks``.
         ``rows``: (k, v) host tensor pairs, each [L, Hkv, bs, D] in cache
         dtype (fp8 as its uint8 view)."""
-        ids = self._alloc_blocks(len(rows))
+        ids = self._alloc_blocks(len(rows))  # owns-blocks: radix
         try:
             pin = self.device.type == 'cuda'
             stacked = []
@@ -1579,7 +1579,7 @@ class InferenceEngine:
     # must not grow engine memory without limit.
     _MAX_TENANT_ROWS = 256
 
-    def _tenant_row(self, tenant: Optional[str]) -> Dict[str, int]:
+    def _tenant_row(self, tenant: Optional[str]) -> Dict[str, int]:  # locked: _lock
         t = tenant or DEFAULT_TENANT
         row = self._tenant_qos.get(t)
         if row is None:
@@ -1835,7 +1835,7 @@ class InferenceEngine:
                     f'prefix ({need} blocks; {len(self._free_blocks)} '
                     'free after honoring running slots) -- raise '
                     'kv_blocks')
-            blocks = self._capture_into_blocks(arr, n, bucket, need, aid)
+            blocks = self._capture_into_blocks(arr, n, bucket, need, aid)  # owns-blocks: entry
             self._prefixes[key] = {'blocks': blocks, 'len': n}
             self._prefixes.move_to_end(key)
             while len(self._prefixes) > self.cfg.max_prefixes:
@@ -1870,7 +1870,7 @@ class InferenceEngine:
                     'kv_blocks')
             # Rows [m, n) scatter past the table's allocated entries,
             # into the dump block.
-            blocks = self._capture_into_blocks(arr, n, bucket, need, aid)
+            blocks = self._capture_into_blocks(arr, n, bucket, need, aid)  # owns-blocks: radix
             # own=True: the tree takes over the allocation refs; runs
             # already cached are dereffed (freed).
             self.radix_stats['inserts'] += self._radix.insert(
@@ -1886,7 +1886,7 @@ class InferenceEngine:
         Returns the blocks, each holding the caller's reference; on a
         failure they are returned to the pool."""
         bs_ = self.cfg.kv_block_size
-        blocks = self._alloc_blocks(need)
+        blocks = self._alloc_blocks(need)  # owns-blocks: return
         table = np.zeros((1, bucket // bs_), np.int64)
         table[0, :need] = blocks
         try:
@@ -2056,7 +2056,7 @@ class InferenceEngine:
                 return b
         return None
 
-    def _activate(self, chunk, head: torch.Tensor,
+    def _activate(self, chunk, head: torch.Tensor,  # locked: _lock
                   prompt: Optional[torch.Tensor] = None,
                   agens: Optional[Sequence[int]] = None) -> None:
         """Fill the slots of one prefill dispatch's real lanes from its
@@ -2092,7 +2092,7 @@ class InferenceEngine:
             self._temps[slot] = req.temperature
             self._slot_adapters[slot] = self._adapter_id(req.adapter)
 
-    def _start_radix_group_paged(self, group, sb: int, gen: int) -> None:
+    def _start_radix_group_paged(self, group, sb: int, gen: int) -> None:  # locked: _lock
         """Start radix-matched requests sharing a suffix bucket: each
         slot's table gets its matched blocks by REFERENCE (matches are
         block-aligned, so no block is ever copied), then the suffixes
@@ -2143,7 +2143,7 @@ class InferenceEngine:
                 self._to_device(temps), **self._akw(aids))
             self._activate([it for it, _, _ in chunk], head)
 
-    def _start_radix(self, items) -> list:
+    def _start_radix(self, items) -> list:  # locked: _lock
         """The radix branch of _start_batch: match each prompt against
         the tree (capped at n-1 tokens: one token must forward),
         extend the match from the host tier, and start the matched
@@ -2177,7 +2177,7 @@ class InferenceEngine:
             self._start_radix_group_paged(rgroup, sb, gen)
         return rest
 
-    def _start_prefixed_group(self, group, start: int, sb: int,
+    def _start_prefixed_group(self, group, start: int, sb: int,  # locked: _lock
                               key) -> None:
         """Start requests that matched one registered prefix with the
         same start and suffix bucket, prefill_lanes to a dispatch, pad
@@ -2213,7 +2213,7 @@ class InferenceEngine:
             self.prefix_stats['hits'] += p
             self.prefix_stats['tokens_reused'] += start * p
 
-    def _start_prefixed_group_paged(self, group, start: int, sb: int,
+    def _start_prefixed_group_paged(self, group, start: int, sb: int,  # locked: _lock
                                     key) -> None:
         """Paged prefix reuse: each matched slot's table takes the
         prefix's full blocks by reference, a partial tail block is made
@@ -2239,7 +2239,7 @@ class InferenceEngine:
                 if tail:
                     # A private block for the tail: the allocation's
                     # reference is the table entry's.
-                    [dst] = self._alloc_blocks(1)
+                    [dst] = self._alloc_blocks(1)  # owns-blocks: table
                     cur = int(self._slot_nblocks[slot])
                     self._tables_np[slot, cur] = dst
                     self._slot_nblocks[slot] = cur + 1
@@ -2296,7 +2296,7 @@ class InferenceEngine:
             self._start_prefixed_group(group, start, sb, key)
         return rest
 
-    def _start_batch(self, items) -> None:
+    def _start_batch(self, items) -> None:  # locked: _lock
         """Prefill validated requests, grouped by bucket, prefill_lanes
         rows per dispatch.  items: (req, slot, submit_time, prompt_len,
         bucket, max_new) tuples.  Dispatch width is always
@@ -2387,7 +2387,7 @@ class InferenceEngine:
                         want_plp, **self._akw(aids))
                 self._activate(chunk, head, prompt)
 
-    def _chunk_round(self) -> bool:
+    def _chunk_round(self) -> bool:  # locked: _lock
         """Advance every in-progress chunked prefill by one chunk in a
         single full-width dispatch; activate the slots whose final chunk
         landed.  Returns True when a dispatch happened (the serving
@@ -2477,7 +2477,7 @@ class InferenceEngine:
                            head[lanes], agens=[job.agen for _, job in finals])
         return True
 
-    def _radix_adopt(self, slot: int, tokens: Sequence[int], rows: int,
+    def _radix_adopt(self, slot: int, tokens: Sequence[int], rows: int,  # locked: _lock
                      adapter: Optional[str]) -> None:
         """Insert the slot's full PROMPT blocks (rows [0, rows) of
         `tokens`, whole blocks only) into the radix tree by reference.
@@ -2507,7 +2507,7 @@ class InferenceEngine:
                 except Exception:  # noqa: BLE001
                     pass
 
-    def _finish_slot(self, i: int, reason: str,
+    def _finish_slot(self, i: int, reason: str,  # locked: _lock
                      error: Optional[str] = None,
                      error_class: Optional[str] = None,
                      ) -> Tuple[Request, RequestResult]:
@@ -2561,7 +2561,7 @@ class InferenceEngine:
 
     # ----------------------------------------------------- containment
 
-    def _fail_slot(self, i: int,
+    def _fail_slot(self, i: int,  # locked: _lock
                    error: str) -> Tuple[Request, RequestResult]:
         """Fail one active slot's request with error_class='internal':
         the slot is freed, the partial output returned."""
@@ -2569,7 +2569,7 @@ class InferenceEngine:
         return self._finish_slot(i, 'error', error=error,
                                  error_class='internal')
 
-    def _fail_chunk_job(self, slot: int, reason: str,
+    def _fail_chunk_job(self, slot: int, reason: str,  # locked: _lock
                         error: Optional[str] = None
                         ) -> Tuple[Request, RequestResult]:
         """End a part-prefilled chunk job (reason 'error' or 'deadline'):
@@ -2615,7 +2615,7 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- qos
 
-    def _park_chunk_job(self, slot: int) -> Request:
+    def _park_chunk_job(self, slot: int) -> Request:  # locked: _lock
         """Preempt a part-prefilled prompt at its chunk boundary (caller
         holds the lock): the reserved slot frees now for higher-priority
         work, and the rows already written stay as refcounted radix
@@ -2678,7 +2678,7 @@ class InferenceEngine:
             len(req.tokens) + self._max_new(req))
         return proj is not None and elapsed + proj > req.deadline_s
 
-    def _contain_failure(self, exc: BaseException, phase: str
+    def _contain_failure(self, exc: BaseException, phase: str  # locked: _lock
                          ) -> List[Tuple[Request, RequestResult]]:
         """Step-level containment of a decode-phase failure (under the
         engine lock).  An InjectedFault names the slot(s) it injured and
@@ -2732,7 +2732,7 @@ class InferenceEngine:
             return min(2, steps)
         return steps
 
-    def _decode_step(self, steps: Optional[int] = None) -> None:
+    def _decode_step(self, steps: Optional[int] = None) -> None:  # locked: _lock
         """One decode window for every active slot: consume a pending
         lookahead window if one exists, else dispatch from the host
         mirrors; maybe queue the NEXT window from the device-side chain
@@ -2775,7 +2775,7 @@ class InferenceEngine:
             steps, **paged, **self._akw(self._slot_adapters))
         return self._to_host(packed), (last, lens)
 
-    def _maybe_dispatch_ahead(self, chain, snap,
+    def _maybe_dispatch_ahead(self, chain, snap,  # locked: _lock
                               in_flight_steps: int = 0) -> None:
         """Decode lookahead: queue the next full window now, fed by the
         previous window's device-side last tokens and lengths, so it
@@ -2825,7 +2825,7 @@ class InferenceEngine:
         self._ahead = (self._to_host(packed), (last, lens), snap,
                        self._prefill_epoch)
 
-    def _consume_window(self, handle, snap=None) -> None:
+    def _consume_window(self, handle, snap=None) -> None:  # locked: _lock
         """Append up to K tokens per slot, stopping at EOS, max_new or the
         cache end; tokens past a slot's stop are speculative overrun and
         are discarded.  With `snap` (a lookahead window), only the slots
@@ -2874,7 +2874,7 @@ class InferenceEngine:
             self._pending_failures.append(self._fail_slot(
                 i, 'non-finite logits in decode window (lane killed)'))
 
-    def _spec_step(self) -> None:
+    def _spec_step(self) -> None:  # locked: _lock
         """One speculative dispatch: draft by prompt lookup, verify
         [B, 1+D] in one forward, accept the agreed prefix plus the
         model's own next token (so a dispatch yields at least one token,
@@ -3010,7 +3010,7 @@ class InferenceEngine:
         with self._lock:
             self._cancelled.pop(request_id, None)
 
-    def _prune_cancel_marks(self) -> None:
+    def _prune_cancel_marks(self) -> None:  # locked: _lock
         now = time.time()
         stale = [rid for rid, ts in self._cancelled.items()
                  if now - ts > self._CANCEL_MARK_TTL_S]
@@ -3026,7 +3026,7 @@ class InferenceEngine:
         else:
             self._decode_step()
 
-    def _harvest(self) -> List[Tuple[Request, RequestResult]]:
+    def _harvest(self) -> List[Tuple[Request, RequestResult]]:  # locked: _lock
         done = []
         if self._pending_failures:
             done.extend(self._pending_failures)
@@ -3563,12 +3563,12 @@ class InferenceEngine:
         self.generate([Request(tokens=list(tokens), max_new_tokens=2)])
         if (self.cfg.adaptive_decode_window and self.cfg.decode_steps > 2
                 and self.cfg.num_slots >= 2):
-            self._arrivals_hint = 1
+            self._arrivals_hint = 1  # lock-ok: warmup, pre-serving
             try:
                 self.generate([Request(tokens=list(tokens),
                                        max_new_tokens=2)])
             finally:
-                self._arrivals_hint = 0
+                self._arrivals_hint = 0  # lock-ok: warmup, pre-serving
         if self.cfg.prefill_chunk:
             n = min(max(self.cfg.prefill_buckets) + 1,
                     self.cfg.max_cache_len - 1)
@@ -3587,7 +3587,7 @@ class InferenceEngine:
         stats = dict(self.spec_stats)
         rep = ([7, 8] * (prompt_len // 2 + 1))[:max(prompt_len, 4)]
         self.generate([Request(tokens=rep, max_new_tokens=4)])
-        self._accept_ema = ema
+        self._accept_ema = ema  # lock-ok: warmup must not bias policy
         self.spec_stats.update(stats)
 
     def benchmark_serving(self, num_requests: int = 64,

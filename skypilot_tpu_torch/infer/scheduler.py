@@ -59,7 +59,7 @@ class FifoScheduler(Scheduler):
     """Strict arrival order, one lane, no classes."""
 
     def __init__(self) -> None:
-        self._q: collections.deque = collections.deque()
+        self._q: collections.deque = collections.deque()  # guarded-by: _lock
         self._lock = sanitizers.instrument_lock(
             threading.Lock(), 'infer.scheduler.fifo._lock')
 

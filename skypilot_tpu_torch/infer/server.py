@@ -157,9 +157,9 @@ class InferenceServer:
         self.auto_prefix = auto_prefix
         self._auto_lock = sanitizers.instrument_lock(
             threading.Lock(), 'infer.server._auto_lock')
-        self._auto_counts: Dict[tuple, int] = {}
-        self._auto_inflight: set = set()
-        self._auto_failed: set = set()
+        self._auto_counts: Dict[tuple, int] = {}  # guarded-by: _auto_lock
+        self._auto_inflight: set = set()  # guarded-by: _auto_lock
+        self._auto_failed: set = set()  # guarded-by: _auto_lock
         self.warmup = warmup
         self.ready = threading.Event()
         self._queue: 'queue.Queue[Request]' = queue.Queue()
@@ -172,10 +172,10 @@ class InferenceServer:
         # and the observed TTFTs of recent completions.
         self._adm_lock = sanitizers.instrument_lock(
             threading.Lock(), 'infer.server._adm_lock')
-        self._awaiting_first: set = set()
-        self._recent_ttfts: 'collections.deque' = collections.deque(
+        self._awaiting_first: set = set()  # guarded-by: _adm_lock
+        self._recent_ttfts: 'collections.deque' = collections.deque(  # guarded-by: _adm_lock
             maxlen=16)
-        self.shed_count = 0
+        self.shed_count = 0  # guarded-by: _adm_lock
         # Graceful drain (POST /drain, SIGTERM): once draining, new
         # generate requests are refused with 503 + Retry-After while
         # the ones already in flight run to completion; `drained` fires
@@ -184,8 +184,8 @@ class InferenceServer:
         # begin_generate/end_generate -- the unit a drain must finish.
         self.draining = threading.Event()
         self.drained = threading.Event()
-        self._gen_inflight = 0
-        self.drain_refused = 0          # 503s answered while draining
+        self._gen_inflight = 0  # guarded-by: _adm_lock
+        self.drain_refused = 0  # 503s answered while draining  # guarded-by: _adm_lock
         self._on_drained = None         # callback once drain completes
 
     def start(self) -> None:
@@ -624,6 +624,8 @@ def _make_handler(server: InferenceServer):
                         }
                         if value.logprobs is not None:
                             final['logprobs'] = value.logprobs
+                        if value.prompt_logprobs is not None:
+                            final['prompt_logprobs'] = value.prompt_logprobs
                         if value.error:
                             final['error'] = value.error
                         if value.error_class:

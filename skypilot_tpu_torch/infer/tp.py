@@ -160,15 +160,15 @@ class TensorParallel:
         # thread, register_prefix and the HTTP handlers all dispatch.
         self.lock = threading.RLock()
         self._inside = threading.local()
-        self._next = 0
+        self._next = 0  # guarded-by: lock
         # Rank 0: handles whose tensors were collected since the last
         # message; every rank: the tensors held under live handles.
         self._freed: 'collections.deque' = collections.deque()
         self._held: Dict[Tuple[int, Tuple[int, ...]], torch.Tensor] = {}
-        self.stopped = False
+        self.stopped = False  # guarded-by: lock
         # Rank 0: why a rank is gone (its death seen by ``lose`` or a
         # failed dispatch), else None; the engine's loop stops on it.
-        self.lost: Optional[str] = None
+        self.lost: Optional[str] = None  # guarded-by: lock
 
     # ------------------------------------------------------------ rank 0
 
@@ -228,8 +228,8 @@ class TensorParallel:
         reads ``lost``).  Safe from any thread: a dispatch in flight fails
         in its collective by itself."""
         if self.lost is None:
-            self.lost = reason
-        self.stopped = True
+            self.lost = reason  # lock-ok: a one-way flag any thread may raise
+        self.stopped = True  # lock-ok: a one-way flag any thread may raise
 
     def stop(self) -> None:
         """Release every worker rank from ``serve_worker``."""
@@ -306,7 +306,7 @@ class TensorParallel:
         any rank (a max over the control group)."""
         flag = torch.tensor([int(failed)], dtype=torch.int32)
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.ctl)
-        return bool(flag.item())
+        return bool(flag.item())  # jit-ok: the failure flag, a CPU tensor of the gloo control group
 
     def _encode(self, x, scattered: list):
         if isinstance(x, PerRank):
@@ -320,7 +320,7 @@ class TensorParallel:
             if ref is not None:
                 return _Ref(ref)
             host = getattr(x, '_tp_host', None)
-            return _Host(host if host is not None else x.detach().cpu())
+            return _Host(host if host is not None else x.detach().cpu())  # jit-ok: inputs made by _to_device/_rows_to_device carry their host copy
         if isinstance(x, (list, tuple)):
             return type(x)(self._encode(v, scattered) for v in x)
         if isinstance(x, dict):
@@ -340,7 +340,7 @@ class TensorParallel:
                 for key in freed:
                     self._held.pop(key, None)
                 if name == _STOP:
-                    self.stopped = True
+                    self.stopped = True  # lock-ok: a worker rank has one thread
                     return
                 fn = getattr(type(engine), name).raw
                 failed = True
@@ -351,7 +351,7 @@ class TensorParallel:
                 except Exception:  # noqa: BLE001 -- reported to every rank
                     traceback.print_exc()
                 if self._settle(failed):
-                    self.stopped = True
+                    self.stopped = True  # lock-ok: a worker rank has one thread
                     raise RuntimeError(
                         f'tensor-parallel dispatch {name} failed on '
                         f'{"this" if failed else "another"} rank; the '

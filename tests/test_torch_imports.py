@@ -17,12 +17,14 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
 # The PyTorch twins of the JAX examples, imported as modules of examples/.
 EXAMPLES = ['examples.finetune_bert_torch', 'examples.train_resnet_torch',
             'examples.train_llama_torch', 'examples.finetune_llama31_torch']
-# The twins of the JAX package's bench scripts and examples, by path.
+# The twins of the JAX package's bench scripts, examples and skycheck
+# driver, by path.
 TWINS = ['scripts/bench_decode_micro_torch.py',
          'scripts/bench_speculative_torch.py',
          'scripts/bench_features_torch.py',
          'scripts/bench_serve_lb_torch.py',
-         'examples/mnist_torch.py', 'examples/allreduce_bench_torch.py']
+         'examples/mnist_torch.py', 'examples/allreduce_bench_torch.py',
+         'scripts/skycheck_torch.py']
 # The only functions of a twin that import the JAX package's (JAX-free)
 # serve plane: the LB and serve-up sections, which run where its
 # dependencies are installed.
@@ -78,6 +80,10 @@ def test_importing_every_module_loads_no_jax():
     assert {'skypilot_tpu_torch.analysis.sanitizers',
             'skypilot_tpu_torch.infer.chaos',
             'skypilot_tpu_torch.cli'} <= set(modules)
+    assert {f'skypilot_tpu_torch.analysis.{m}' for m in (
+        'findings', 'walker', 'lock_discipline', 'jit_boundary',
+        'layering', 'determinism', 'dataflow', 'block_lifecycle',
+        'wire_contract', 'shard_contract')} <= set(modules)
     code = (
         'import importlib, json, sys\n'
         f'for m in {modules!r}:\n'
@@ -118,7 +124,8 @@ def test_chaos_twin_loads_no_jax():
 
 @pytest.mark.parametrize('path', sorted(
     [str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')] +
-    ['bench_torch.py', 'chip_smoke.py', 'tests/test_torch_card.py'] +
+    ['bench_torch.py', 'chip_smoke.py', 'tests/test_torch_card.py',
+     'scripts/skycheck_torch.py'] +
     [m.replace('.', '/') + '.py' for m in EXAMPLES]))
 def test_sources_import_no_jax(path):
     """No import statement anywhere in the file -- including ones inside

@@ -153,6 +153,21 @@ def test_generate_plain_and_sse(pair):
     _close(done_j['logprobs'], done_p['logprobs'])
 
 
+def test_sse_done_event_carries_prompt_logprobs(pair):
+    """ROADMAP C12: a streamed /generate that asks for prompt_logprobs gets
+    them in its done event from a port replica as from a JAX one (the
+    port dropped them until the wire pass's schema twin caught it)."""
+    body = {'tokens': PROMPT, 'max_new_tokens': 4,
+            'prompt_logprobs': True, 'stream': True}
+    (code, _, je, _), (_, _, pe, _) = _both(pair, 'POST', '/generate', body)
+    assert code == 200
+    done_j, done_p = je[-1], pe[-1]
+    assert len(done_p['prompt_logprobs']) == len(PROMPT)
+    assert done_p['prompt_logprobs'][0] is None
+    assert done_j['prompt_logprobs'][0] is None
+    _close(done_j['prompt_logprobs'][1:], done_p['prompt_logprobs'][1:])
+
+
 def _stop_across_windows(pair):
     """A stop string of the greedy text that begins in one decode window
     and ends in the next: the first window after the prefill token holds
